@@ -1,0 +1,86 @@
+"""Typed runtime configuration fed by ``BYTEPS_*`` environment variables.
+
+A lean copy of ``byteps_tpu/common/config.py`` holding only what the
+serving slice reads: the log level, the metrics switch and the
+``serve_*`` knobs of the continuous-batching tier, under the same
+variable names and defaults.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return int(v)
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v.strip().lower() in ("1", "true", "on", "yes", "y")
+
+
+@dataclasses.dataclass
+class Config:
+    """Process-wide runtime configuration of the port."""
+
+    log_level: str = "INFO"
+    # BYTEPS_METRICS_ON=0 swaps every metric handle for a shared no-op
+    metrics_on: bool = True
+
+    # --- inference serving tier --------------------------------------------
+    # KV block size (tokens per paged-cache block); should divide the
+    # model's max_seq so the gathered views carry no zero tail.
+    serve_block_size: int = 16
+    # Physical KV blocks in the preallocated pool. 0 = auto: enough for
+    # max_batch full-length requests plus the reserved scratch block.
+    # Smaller pools oversubscribe and trigger preemption with
+    # recompute-on-resume.
+    serve_pool_blocks: int = 0
+    # Decode-batch slots: rows of one packed decode step.
+    serve_max_batch: int = 8
+    # Prefill chunk length in tokens: a long prompt is fed this many
+    # tokens per scheduler iteration so it cannot starve the decode lane.
+    serve_prefill_chunk: int = 32
+    # int8-quantized KV pool with per-(position, head) f32 scales.
+    serve_quant_cache: bool = False
+    # Radix prefix cache over the paged pool: requests sharing a prompt
+    # prefix map the same physical pages (copy-on-write at the
+    # divergence block). Outputs are identical either way; 0 turns it off.
+    serve_prefix_cache: bool = True
+
+    @classmethod
+    def from_env(cls) -> "Config":
+        return cls(
+            log_level=os.environ.get("BYTEPS_LOG_LEVEL", "INFO").upper(),
+            metrics_on=_env_bool("BYTEPS_METRICS_ON", True),
+            serve_block_size=_env_int("BYTEPS_SERVE_BLOCK_SIZE", 16),
+            serve_pool_blocks=_env_int("BYTEPS_SERVE_POOL_BLOCKS", 0),
+            serve_max_batch=_env_int("BYTEPS_SERVE_MAX_BATCH", 8),
+            serve_prefill_chunk=_env_int("BYTEPS_SERVE_PREFILL_CHUNK", 32),
+            serve_quant_cache=_env_bool("BYTEPS_SERVE_QUANT_CACHE"),
+            serve_prefix_cache=_env_bool("BYTEPS_SERVE_PREFIX_CACHE", True),
+        )
+
+
+_config: Optional[Config] = None
+
+
+def get_config() -> Config:
+    global _config
+    if _config is None:
+        _config = Config.from_env()
+    return _config
+
+
+def reset_config() -> None:
+    """Drop the cached config so the next read re-parses the environment."""
+    global _config
+    _config = None

@@ -1,0 +1,383 @@
+"""GPT-style decoder-only transformer, the flagship model, in PyTorch.
+
+Counterpart of ``byteps_tpu/models/gpt.py`` for one card (tp = 1, no
+sequence parallelism). The parameters keep the reference's leaf names
+and layouts — ``x @ W`` with W stored ``(d_in, d_out)``, f32 master
+weights cast to the activation dtype per op — so a reference tree
+converts leaf for leaf (``models/convert.py``). They live in a
+:class:`GPT` ``nn.Module`` that also answers ``params["wq"]``,
+``"w3" in p`` and ``p.get("ln1_b")``, so the functional code below reads
+like the reference and runs on the module or on a plain dict alike.
+
+The serving slice holds frozen weights (``requires_grad=False``).
+Attention goes through :func:`byteps_tpu_torch.ops.flash_attention
+.flash_attention`: the forward kernel on CUDA, the plain version on CPU.
+The readout keeps f32 logits from activation-dtype operands.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from byteps_tpu_torch.ops.backend import resolve_device
+from byteps_tpu_torch.ops.flash_attention import flash_attention
+from byteps_tpu_torch.parallel.tp import (
+    col_parallel_matmul,
+    row_parallel_matmul,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304
+    max_seq: int = 1024
+    d_model: int = 768
+    n_heads: int = 12
+    n_layers: int = 12
+    d_ff: int = 3072
+    dtype: torch.dtype = torch.float32
+    # "learned" = GPT-2 wpe table; "rope" = rotary embeddings on q/k
+    pos_embedding: str = "learned"
+    rope_base: float = 10000.0
+    # grouped-query attention: k/v carry n_kv_heads heads (None = MHA)
+    n_kv_heads: Any = None
+    # "gelu" = GPT-2 2-matrix MLP; "swiglu" = (silu(x·w1) ∘ (x·w3)) · w2
+    mlp: str = "gelu"
+    # "layernorm" (GPT-2) or "rmsnorm" (llama: no centering, no bias)
+    norm: str = "layernorm"
+    norm_eps: float = 1e-5
+    # False = llama-style bias-free projections: no b* leaves
+    use_bias: bool = True
+    # True = weight-tied readout (h @ wte.T); False = separate lm_head
+    tied_readout: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        kv = self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
+        if self.n_heads % kv != 0:
+            raise ValueError(
+                f"n_heads ({self.n_heads}) must be a multiple of "
+                f"n_kv_heads ({kv})")
+        return kv
+
+    @classmethod
+    def tiny(cls) -> "GPTConfig":
+        """Unit-test size."""
+        return cls(vocab_size=256, max_seq=64, d_model=64, n_heads=4,
+                   n_layers=2, d_ff=128)
+
+    @classmethod
+    def gpt2_medium(cls) -> "GPTConfig":
+        return cls(vocab_size=50304, max_seq=1024, d_model=1024,
+                   n_heads=16, n_layers=24, d_ff=4096, dtype=torch.bfloat16)
+
+    @classmethod
+    def llama(cls, **kw) -> "GPTConfig":
+        """The llama-family option set (RoPE + GQA + SwiGLU + RMSNorm +
+        untied readout); size fields via ``**kw``."""
+        defaults = dict(pos_embedding="rope", mlp="swiglu", norm="rmsnorm",
+                        tied_readout=False, use_bias=False)
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+class _Leaves(nn.Module):
+    """A module whose parameters are addressed by the reference's leaf
+    names: ``p["wq"]``, ``"w3" in p``, ``p.get("ln1_b")``."""
+
+    def _add_leaves(self, leaves: Dict[str, torch.Tensor]) -> None:
+        for name, t in leaves.items():
+            self.register_parameter(
+                name, nn.Parameter(t, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        if name in self._parameters or name in self._modules:
+            return getattr(self, name)
+        raise KeyError(name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def get(self, name: str, default=None):
+        return self[name] if name in self else default
+
+
+class Block(_Leaves):
+    """One transformer block's leaves (``block_init``'s names)."""
+
+    def __init__(self, leaves: Dict[str, torch.Tensor]):
+        super().__init__()
+        self._add_leaves(leaves)
+
+
+class GPT(_Leaves):
+    """The parameters of one GPT: top-level leaves (``wte``, ``lnf_g``,
+    optional ``wpe``/``lnf_b``/``lm_head``) plus ``blocks``, an
+    ``nn.ModuleList`` of :class:`Block`. ``forward(tokens)`` is
+    :func:`gpt_forward`."""
+
+    def __init__(self, cfg: GPTConfig, leaves: Dict[str, torch.Tensor],
+                 blocks: List[Dict[str, torch.Tensor]]):
+        super().__init__()
+        self.cfg = cfg
+        self._add_leaves(leaves)
+        self.blocks = nn.ModuleList(Block(b) for b in blocks)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return gpt_forward(self, tokens, self.cfg)
+
+
+def block_init(generator: torch.Generator, d: int, ff: int, hd: int,
+               n_layers: int, kv_hd: Optional[int] = None,
+               mlp: str = "gelu", use_bias: bool = True,
+               norm: str = "layernorm",
+               device: Optional[torch.device] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One block's leaves, drawn from ``generator`` on ``device``:
+    N(0, 0.02²) weights (wo/w2 scaled by 1/sqrt(2·n_layers)), unit norm
+    gains, zero biases. ``kv_hd`` narrows k/v (GQA), ``mlp="swiglu"``
+    adds ``w3``; absent options leave their leaves out entirely."""
+    if mlp not in ("gelu", "swiglu"):
+        raise ValueError(f"unknown mlp {mlp!r} — expected 'gelu' or "
+                         "'swiglu'")
+    dev = resolve_device(device)
+    std = 0.02
+    if kv_hd is None:
+        kv_hd = hd
+
+    def dense(*shape):
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=torch.float32) * std
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.float32, device=dev)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.float32, device=dev)
+
+    p = {
+        "ln1_g": ones(d),
+        "wq": dense(d, hd),
+        "wk": dense(d, kv_hd),
+        "wv": dense(d, kv_hd),
+        "wo": dense(hd, d) / (2 * n_layers) ** 0.5,
+        "ln2_g": ones(d),
+        "w1": dense(d, ff),
+        "w2": dense(ff, d) / (2 * n_layers) ** 0.5,
+    }
+    if mlp == "swiglu":
+        p["w3"] = dense(d, ff)
+    if norm == "layernorm":
+        p["ln1_b"] = zeros(d)
+        p["ln2_b"] = zeros(d)
+    if use_bias:
+        p.update(bq=zeros(hd), bk=zeros(kv_hd), bv=zeros(kv_hd),
+                 bo=zeros(d), b1=zeros(ff), b2=zeros(d))
+        if mlp == "swiglu":
+            p["b3"] = zeros(ff)
+    return p
+
+
+def gpt_init(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
+             device=None) -> GPT:
+    """Random parameters for ``cfg`` on ``device`` (the card unless told
+    otherwise), drawn from ``generator`` (default: seed 0 on that
+    device). The draws differ from ``jax.random``'s; tests carry the
+    reference's own weights over with ``params_from_numpy``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
+    kv_hd = cfg.kv_heads * cfg.head_dim
+    std = 0.02
+
+    def dense(*shape):
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=torch.float32) * std
+
+    leaves = {"wte": dense(cfg.vocab_size, d),
+              "lnf_g": torch.ones(d, dtype=torch.float32, device=dev)}
+    blocks = [block_init(generator, d, ff, hd, cfg.n_layers, kv_hd=kv_hd,
+                         mlp=cfg.mlp, use_bias=cfg.use_bias, norm=cfg.norm,
+                         device=dev)
+              for _ in range(cfg.n_layers)]
+    if cfg.pos_embedding == "learned":
+        leaves["wpe"] = dense(cfg.max_seq, d)
+    if cfg.norm == "layernorm":
+        leaves["lnf_b"] = torch.zeros(d, dtype=torch.float32, device=dev)
+    if not cfg.tied_readout:
+        leaves["lm_head"] = dense(d, cfg.vocab_size)
+    return GPT(cfg, leaves, blocks)
+
+
+def resolve_rope(cfg: GPTConfig) -> float:
+    """Validate the position scheme; the rope base to thread to the
+    blocks (0.0 = learned wpe, no rotation)."""
+    if cfg.pos_embedding not in ("learned", "rope"):
+        raise ValueError(f"unknown pos_embedding {cfg.pos_embedding!r} — "
+                         "expected 'learned' or 'rope'")
+    if cfg.pos_embedding == "rope":
+        if not cfg.rope_base > 0.0:
+            raise ValueError(f"rope_base must be > 0; got {cfg.rope_base}")
+        return cfg.rope_base
+    return 0.0
+
+
+def rope_rotate(x: torch.Tensor, pos: torch.Tensor,
+                base: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding (half-split convention) of
+    ``x (B, S, H, D)`` at global positions ``pos``: ``(S,)`` shared by
+    the batch or ``(B, S)`` per row (the serve tier's packed decode)."""
+    D = x.shape[-1]
+    half = D // 2
+    inv_freq = 1.0 / (base ** (torch.arange(half, dtype=torch.float32,
+                                            device=x.device) / half))
+    ang = pos.to(torch.float32)[..., None] * inv_freq    # (.., S, half)
+    if pos.ndim == 2:
+        cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    else:
+        cos, sin = torch.cos(ang)[None, :, None, :], torch.sin(ang)[None, :, None, :]
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * g + b).to(x.dtype)
+
+
+def _rmsnorm(x: torch.Tensor, g: torch.Tensor, b=None,
+             eps: float = 1e-5) -> torch.Tensor:
+    """Llama-style RMS norm; ``b`` must be absent (no norm-bias leaf)."""
+    if b is not None:
+        raise ValueError("rmsnorm trees carry no norm-bias leaf")
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * g).to(x.dtype)
+
+
+_NORMS = {"layernorm": _layernorm, "rmsnorm": _rmsnorm}
+
+
+def resolve_norm(cfg: GPTConfig):
+    """Validate cfg.norm; the (norm_fn, eps) pair for blocks/readout."""
+    if cfg.norm not in _NORMS:
+        raise ValueError(f"unknown norm {cfg.norm!r} — expected one of "
+                         f"{sorted(_NORMS)}")
+    if not cfg.norm_eps > 0.0:
+        raise ValueError(f"norm_eps must be > 0; got {cfg.norm_eps}")
+    return _NORMS[cfg.norm], cfg.norm_eps
+
+
+def _bias(p, name: str, x: torch.Tensor, use_bias: bool):
+    """The projection bias in the activation dtype, or None."""
+    return p[name].to(x.dtype) if use_bias else None
+
+
+def _attention(x, p, head_dim: int, rope_base: float = 0.0,
+               use_bias: bool = True):
+    B, S = x.shape[:2]
+    q = col_parallel_matmul(x, p["wq"].to(x.dtype), _bias(p, "bq", x, use_bias))
+    k = col_parallel_matmul(x, p["wk"].to(x.dtype), _bias(p, "bk", x, use_bias))
+    v = col_parallel_matmul(x, p["wv"].to(x.dtype), _bias(p, "bv", x, use_bias))
+    h_loc = q.shape[-1] // head_dim
+    kv_loc = k.shape[-1] // head_dim
+    if kv_loc == 0 or h_loc % kv_loc != 0:
+        raise ValueError(f"invalid head split: {h_loc} query heads vs "
+                         f"{kv_loc} kv heads")
+    q = q.reshape(B, S, h_loc, head_dim)
+    k = k.reshape(B, S, kv_loc, head_dim)
+    v = v.reshape(B, S, kv_loc, head_dim)
+    if rope_base > 0.0:
+        pos = torch.arange(S, device=x.device)
+        q = rope_rotate(q, pos, rope_base)
+        k = rope_rotate(k, pos, rope_base)
+    # GQA: k/v stay narrow; the kernel maps query heads to kv heads
+    o = flash_attention(q, k, v, causal=True)
+    o = o.reshape(B, S, h_loc * head_dim)
+    return row_parallel_matmul(o, p["wo"].to(x.dtype), None,
+                               _bias(p, "bo", x, use_bias))
+
+
+def _mlp(x, p, use_bias: bool = True):
+    h = col_parallel_matmul(x, p["w1"].to(x.dtype),
+                            _bias(p, "b1", x, use_bias))
+    if "w3" in p:
+        g = col_parallel_matmul(x, p["w3"].to(x.dtype),
+                                _bias(p, "b3", x, use_bias))
+        h = F.silu(h) * g
+    else:
+        h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
+    return row_parallel_matmul(h, p["w2"].to(x.dtype), None,
+                               _bias(p, "b2", x, use_bias))
+
+
+def transformer_block(x, p, head_dim: int, rope_base: float = 0.0,
+                      norm_fn=_layernorm, norm_eps: float = 1e-5,
+                      use_bias: bool = True):
+    """Pre-norm causal block: attention + MLP, each a residual branch."""
+    x = x + _attention(norm_fn(x, p["ln1_g"], p.get("ln1_b"), norm_eps), p,
+                       head_dim, rope_base=rope_base, use_bias=use_bias)
+    return x + _mlp(norm_fn(x, p["ln2_g"], p.get("ln2_b"), norm_eps), p,
+                    use_bias=use_bias)
+
+
+def _embed(params, tokens: torch.Tensor, cfg: GPTConfig,
+           pos0: int = 0) -> torch.Tensor:
+    """Token (+ learned position) embeddings in the activation dtype for
+    tokens at global positions ``pos0 ..``."""
+    x = params["wte"][tokens]
+    if cfg.pos_embedding == "learned":
+        pos = torch.arange(pos0, pos0 + tokens.shape[1], device=x.device)
+        x = x + params["wpe"][pos]
+    return x.to(cfg.dtype)
+
+
+def head_dot(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """Readout matmul with f32 logits: ``head`` rounds to the activation
+    dtype (as every block matmul's weight does), then both operands widen
+    to f32 so the product accumulates and returns in f32 — the
+    reference's ``preferred_element_type=f32`` dot, where a bf16
+    ``matmul`` would round its output to bf16."""
+    return h.float() @ head.to(h.dtype).float()
+
+
+def _readout(params, h: torch.Tensor, norm_fn=_layernorm,
+             norm_eps: float = 1e-5) -> torch.Tensor:
+    """Final norm → f32 logits (tied ``wte.T`` unless ``lm_head``)."""
+    h = norm_fn(h, params["lnf_g"], params.get("lnf_b"), norm_eps)
+    head = params["lm_head"] if "lm_head" in params else params["wte"].T
+    return head_dot(h, head)
+
+
+def gpt_hidden(params, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """Embeddings → transformer blocks, before the final norm."""
+    rope_base = resolve_rope(cfg)
+    norm_fn, norm_eps = resolve_norm(cfg)
+    x = _embed(params, tokens, cfg)
+    for p in params["blocks"]:
+        x = transformer_block(x, p, cfg.head_dim, rope_base=rope_base,
+                              norm_fn=norm_fn,
+                              norm_eps=norm_eps, use_bias=cfg.use_bias)
+    return x
+
+
+@torch.no_grad()
+def gpt_forward(params, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """tokens (B, S) → f32 logits (B, S, vocab)."""
+    x = gpt_hidden(params, tokens, cfg)
+    return _readout(params, x, *resolve_norm(cfg))

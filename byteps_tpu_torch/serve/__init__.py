@@ -1,0 +1,25 @@
+"""byteps_tpu_torch.serve — the continuous-batching inference tier.
+
+* ``paged_cache`` — a block-paged KV pool with per-request block
+  tables, refcounted pages and a radix prefix index (copy-on-write at
+  the divergence block, LRU eviction of idle pages).
+* ``scheduler`` — iteration-level scheduling: continuous admission,
+  chunked prefill, one packed decode batch, preemption with
+  recompute-on-resume.
+
+Greedy outputs equal single-request ``make_generate_fn`` runs token for
+token; batching and paging move speed, never content.
+"""
+
+from byteps_tpu_torch.serve.paged_cache import (  # noqa: F401
+    PagedKVCache,
+    PoolExhausted,
+    PoolState,
+    make_paged_decode_fn,
+    make_paged_prefill_fn,
+)
+from byteps_tpu_torch.serve.scheduler import (  # noqa: F401
+    NoProgressError,
+    Request,
+    Scheduler,
+)

@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Where the time goes on the port's serving path, on one CUDA card.
+
+    python3 scripts/torch_profile_serve.py [--out bench_results/torch_profile_serve.json]
+
+Runs GPT-2 medium (bf16, random weights from a seed) through
+``make_generate_fn`` (B=4, T0=128, 16 new tokens) and ``Scheduler.serve``
+(8 requests of 40..700 prompt tokens, 16 new tokens each) under
+``torch.profiler``, after one unprofiled warm-up run of each. For each
+it reports the host wall time, the summed device time of every kernel,
+their ratio (the device's busy share; the rest is the card waiting on
+the host), the number of kernel launches, and the kernels that took the
+most device time. Needs a CUDA card; prints one JSON line per run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repo
+
+
+def _kernel_stats(prof, top: int = 12) -> dict:
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in rows)
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    return {"device_us": total_us,
+            "launches": sum(e.count for e in rows),
+            "top": [{"kernel": e.key[:90], "count": e.count,
+                     "device_us": e.self_device_time_total}
+                    for e in rows[:top]]}
+
+
+def _profiled(fn) -> dict:
+    fn()                                   # warm-up: builds, allocator
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    stats = _kernel_stats(prof)
+    stats["wall_s"] = wall_s
+    stats["device_busy_share"] = stats["device_us"] * 1e-6 / wall_s
+    return stats
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="bench_results/torch_profile_serve.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile_serve: no CUDA device")
+    from byteps_tpu_torch.models import GPTConfig, gpt_init, make_generate_fn
+    from byteps_tpu_torch.serve import Request, Scheduler
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    cfg = GPTConfig.gpt2_medium()
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    gen = make_generate_fn(cfg, 16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in np.linspace(40, 700, 8).astype(int)]
+
+    def serve():
+        Scheduler(params, cfg).serve(
+            [Request(rid=i, prompt=p, max_new=16)
+             for i, p in enumerate(prompts)])
+
+    out = {"card": card,
+           "generate": _profiled(lambda: gen(params, prompt)),
+           "serve": _profiled(serve)}
+    for name in ("generate", "serve"):
+        print(json.dumps({"run": name, "card": card, **out[name]}),
+              flush=True)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

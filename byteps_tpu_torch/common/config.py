@@ -1,9 +1,11 @@
 """Typed runtime configuration fed by ``BYTEPS_*`` environment variables.
 
 A lean copy of ``byteps_tpu/common/config.py`` holding only what the
-serving slice reads: the log level, the metrics switch and the
-``serve_*`` knobs of the continuous-batching tier, under the same
-variable names and defaults.
+ported slices read: the log level, the metrics switch, the ``serve_*``
+knobs of the continuous-batching tier, and the gradient-aggregation
+knobs of the data-parallel training step (partition size, reduce dtype,
+the onebit codec's scaling default), under the same variable names and
+defaults.
 """
 
 from __future__ import annotations
@@ -11,6 +13,10 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Optional
+
+# the reference's BYTEPS_PARTITION_BYTES default (byteps/common/global.cc)
+DEFAULT_PARTITION_BYTES = 4096000
+REDUCE_DTYPES = ("float32", "bfloat16")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -56,6 +62,23 @@ class Config:
     # divergence block). Outputs are identical either way; 0 turns it off.
     serve_prefix_cache: bool = True
 
+    # --- gradient aggregation (data-parallel training) ---------------------
+    # Bytes per aggregation chunk: the flat gradient is cut into chunks of
+    # this many bytes, each aggregated (and compressed) on its own.
+    partition_bytes: int = DEFAULT_PARTITION_BYTES
+    # dtype of uncompressed chunk sums (one of REDUCE_DTYPES); bfloat16
+    # halves the bytes summed at bf16 precision. Compression always
+    # aggregates f32.
+    reduce_dtype: str = "float32"
+    # onebit codec: scale = mean(|x|) (True) or 1 when the compressor is
+    # built without an explicit ``scaling``
+    compressor_onebit_scaling: bool = True
+
+    def __post_init__(self):
+        if self.reduce_dtype not in REDUCE_DTYPES:
+            raise ValueError(f"BYTEPS_REDUCE_DTYPE={self.reduce_dtype!r}: "
+                             f"expected one of {REDUCE_DTYPES}")
+
     @classmethod
     def from_env(cls) -> "Config":
         return cls(
@@ -67,6 +90,11 @@ class Config:
             serve_prefill_chunk=_env_int("BYTEPS_SERVE_PREFILL_CHUNK", 32),
             serve_quant_cache=_env_bool("BYTEPS_SERVE_QUANT_CACHE"),
             serve_prefix_cache=_env_bool("BYTEPS_SERVE_PREFIX_CACHE", True),
+            partition_bytes=_env_int("BYTEPS_PARTITION_BYTES",
+                                     DEFAULT_PARTITION_BYTES),
+            reduce_dtype=os.environ.get("BYTEPS_REDUCE_DTYPE") or "float32",
+            compressor_onebit_scaling=_env_bool(
+                "BYTEPS_COMPRESSOR_ONEBIT_SCALING", True),
         )
 
 

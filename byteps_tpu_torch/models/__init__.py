@@ -1,10 +1,20 @@
-"""Model families of the port: the GPT family and its generation."""
+"""Model families of the port: the GPT family, its generation and its
+data-parallel training step."""
 
-from byteps_tpu_torch.models.convert import params_from_numpy  # noqa: F401
+from byteps_tpu_torch.models.convert import (  # noqa: F401
+    flat_leaves,
+    params_from_numpy,
+    params_to_numpy,
+)
 from byteps_tpu_torch.models.generate import make_generate_fn  # noqa: F401
 from byteps_tpu_torch.models.gpt import (  # noqa: F401
     GPT,
     GPTConfig,
     gpt_forward,
     gpt_init,
+    gpt_loss,
+)
+from byteps_tpu_torch.models.train import (  # noqa: F401
+    make_gpt_train_step,
+    synthetic_batch,
 )

@@ -9,10 +9,13 @@ converts leaf for leaf (``models/convert.py``). They live in a
 ``"w3" in p`` and ``p.get("ln1_b")``, so the functional code below reads
 like the reference and runs on the module or on a plain dict alike.
 
-The serving slice holds frozen weights (``requires_grad=False``).
+Leaves are built frozen (``requires_grad=False``), as serving holds
+them; the training step (``models/train.py``) turns them trainable.
 Attention goes through :func:`byteps_tpu_torch.ops.flash_attention
-.flash_attention`: the forward kernel on CUDA, the plain version on CPU.
-The readout keeps f32 logits from activation-dtype operands.
+.flash_attention`: the forward and backward kernels on CUDA, the plain
+versions on CPU. The readout keeps f32 logits from activation-dtype
+operands (:class:`HeadDot`); :func:`gpt_loss` reaches it through the
+fused readout + cross-entropy of ``ops/chunked_ce.py`` by default.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from byteps_tpu_torch.ops.backend import resolve_device
+from byteps_tpu_torch.ops.chunked_ce import chunked_ce_nll, f32_dot
 from byteps_tpu_torch.ops.flash_attention import flash_attention
+from byteps_tpu_torch.parallel.remat import maybe_remat
 from byteps_tpu_torch.parallel.tp import (
     col_parallel_matmul,
     row_parallel_matmul,
@@ -347,13 +352,34 @@ def _embed(params, tokens: torch.Tensor, cfg: GPTConfig,
     return x.to(cfg.dtype)
 
 
+class HeadDot(torch.autograd.Function):
+    """Readout matmul with f32 logits, the reference's custom-VJP
+    ``head_dot``: ``head`` rounds to the activation dtype (as every block
+    matmul's weight does) and the product accumulates and returns in f32
+    (the reference's ``preferred_element_type=f32`` dot, where a bf16
+    ``matmul`` would round its output to bf16). Backward: the cotangent
+    rounds to the activation dtype, ``dh`` comes out in it and the head
+    gradient in f32, so the update of the f32 master weight loses
+    nothing."""
+
+    @staticmethod
+    def forward(ctx, h, head):
+        ctx.save_for_backward(h, head)
+        return f32_dot(h, head.to(h.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        h, head = ctx.saved_tensors
+        gc = g.to(h.dtype)
+        dh = f32_dot(gc, head.to(h.dtype).T).to(h.dtype)
+        d, V = head.shape
+        dhead = f32_dot(h.reshape(-1, d).T, gc.reshape(-1, V))
+        return dh, dhead.to(head.dtype)
+
+
 def head_dot(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """Readout matmul with f32 logits: ``head`` rounds to the activation
-    dtype (as every block matmul's weight does), then both operands widen
-    to f32 so the product accumulates and returns in f32 — the
-    reference's ``preferred_element_type=f32`` dot, where a bf16
-    ``matmul`` would round its output to bf16."""
-    return h.float() @ head.to(h.dtype).float()
+    """``h (..., d) @ head (d, V)`` → f32 logits (:class:`HeadDot`)."""
+    return HeadDot.apply(h, head)
 
 
 def _readout(params, h: torch.Tensor, norm_fn=_layernorm,
@@ -364,15 +390,42 @@ def _readout(params, h: torch.Tensor, norm_fn=_layernorm,
     return head_dot(h, head)
 
 
-def gpt_hidden(params, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
-    """Embeddings → transformer blocks, before the final norm."""
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0]
+
+
+def _readout_nll(params, h: torch.Tensor, targets: torch.Tensor,
+                 norm_fn=_layernorm, norm_eps: float = 1e-5,
+                 chunked: bool = True) -> torch.Tensor:
+    """Final norm → per-token next-token NLL: the fused readout + CE
+    (``ops/chunked_ce.py``) when ``chunked``, else the dense ``head_dot``
+    + ``log_softmax`` chain it is held against."""
+    h = norm_fn(h, params["lnf_g"], params.get("lnf_b"), norm_eps)
+    head = (params["lm_head"] if "lm_head" in params
+            else params["wte"].T).float()
+    if chunked:
+        return chunked_ce_nll(h, head, targets)
+    return _nll(head_dot(h, head), targets)
+
+
+def gpt_hidden(params, tokens: torch.Tensor, cfg: GPTConfig,
+               remat: bool = False) -> torch.Tensor:
+    """Embeddings → transformer blocks, before the final norm.
+    ``remat=True`` recomputes each block's activations in the backward
+    pass (``parallel/remat.py``)."""
     rope_base = resolve_rope(cfg)
     norm_fn, norm_eps = resolve_norm(cfg)
     x = _embed(params, tokens, cfg)
+
+    def apply_block(x, p):
+        return transformer_block(x, p, cfg.head_dim, rope_base=rope_base,
+                                 norm_fn=norm_fn, norm_eps=norm_eps,
+                                 use_bias=cfg.use_bias)
+
+    apply_block = maybe_remat(apply_block, remat)
     for p in params["blocks"]:
-        x = transformer_block(x, p, cfg.head_dim, rope_base=rope_base,
-                              norm_fn=norm_fn,
-                              norm_eps=norm_eps, use_bias=cfg.use_bias)
+        x = apply_block(x, p)
     return x
 
 
@@ -381,3 +434,15 @@ def gpt_forward(params, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
     """tokens (B, S) → f32 logits (B, S, vocab)."""
     x = gpt_hidden(params, tokens, cfg)
     return _readout(params, x, *resolve_norm(cfg))
+
+
+def gpt_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
+             cfg: GPTConfig, remat: bool = False,
+             chunked_ce: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy of one rank's batch (the reference's
+    ``gpt_loss`` with no mesh axes): differentiable, f32.
+    ``chunked_ce=True`` (default) fuses readout + CE so the f32
+    (B, S, V) logits never exist whole; False is the dense chain."""
+    x = gpt_hidden(params, tokens, cfg, remat=remat)
+    return _readout_nll(params, x, targets, *resolve_norm(cfg),
+                        chunked=chunked_ce).mean()

@@ -21,7 +21,9 @@ from typing import Dict, Optional, Union
 
 import torch
 
-launches: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0}
+launches: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
+                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                             "onebit_pack": 0, "onebit_unpack_sum": 0}
 
 
 def reset_launches() -> None:

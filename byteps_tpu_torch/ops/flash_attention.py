@@ -1,26 +1,31 @@
-"""Flash attention for the port: the plain PyTorch versions and the
-dispatchers that send CUDA tensors to the hand-written forward kernel
-(``csrc/flash_fwd.cu``).
+"""Flash attention for the port: the plain PyTorch versions, the
+autograd Function around them, and the dispatchers that send CUDA tensors
+to the hand-written kernels (``csrc/flash_fwd.cu`` forward,
+``csrc/flash_bwd.cu`` dq and dk/dv).
 
-Counterpart of ``byteps_tpu/ops/flash_attention.py`` (forward only: the
-backward kernels come with the training slice). Layout is the
+Counterpart of ``byteps_tpu/ops/flash_attention.py``. Layout is the
 reference's ``(B, S, H, D)``; k/v may carry fewer heads (GQA, ``H`` a
 multiple of ``Hkv``). Causal masking compares global positions
 ``q_offset + i >= k_offset + j``; a row with no live key gives ``o = 0,
-lse = -1e30``. Accumulation is f32 whatever the input dtype; o comes
-out in the input dtype, lse in f32.
+lse = -1e30`` and zero gradient. Accumulation is f32 whatever the input
+dtype; o comes out in the input dtype, lse in f32.
 
-Dispatch is by device: a CUDA tensor goes to the kernel, a CPU tensor
-to :func:`attention_lse_torch`. A per-batch ``(B,)`` offset vector (the
-serve tier's packed decode) always takes the plain version, as in the
-reference, whose kernel masks with scalar offsets only.
+:func:`flash_attention_lse` goes through :class:`FlashCore`, the
+counterpart of the reference's ``_flash_core`` custom VJP: it saves
+``q, k, v, o, lse`` and differentiates through both outputs (the lse
+cotangent folds into dS, as ring attention needs). Dispatch is by
+device: a CUDA tensor goes to the kernels, a CPU tensor to
+:func:`attention_lse_torch` and :func:`flash_bwd_torch`. A per-batch
+``(B,)`` offset vector (the serve tier's packed decode) always takes the
+plain version, as in the reference, whose kernel masks with scalar
+offsets only.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -128,8 +133,55 @@ def attention_lse_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype), lse.transpose(1, 2)             # (B, Sq, H)
 
 
+def flash_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                    dlse: Optional[torch.Tensor], q_offset: int,
+                    k_offset: int, causal: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward of :func:`flash_attention_lse`: the recompute
+    formulas of the reference's ``_dq_kernel``/``_dkv_kernel``.
+
+    ``p = exp(s - lse)`` on live pairs (0 elsewhere, so a row with no
+    live key gives no gradient), ``dp = dO·Vᵀ``, ``Δ = rowsum(dO∘O)`` in
+    f32, ``dS = p∘(dp − Δ + dlse)`` (``dlse`` None means 0). dS rounds to
+    the input dtype before the dq/dk products and p to dO's dtype before
+    the dv product, as the reference's kernels round them for their MXU
+    dots; products accumulate in f32. GQA sums dk/dv over each kv head's
+    group. Returns ``(dq, dk, dv)`` in the input dtypes."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / (D ** 0.5)
+
+    def by_group(x: torch.Tensor) -> torch.Tensor:
+        # (B, Sq, H) → (B, Hkv, G, Sq)
+        return x.float().reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)
+
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    dof = do.float().reshape(B, Sq, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    p = torch.exp(s - by_group(lse)[..., None])
+    if causal:
+        rows = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        cols = k_offset + torch.arange(Sk, device=q.device)[None, :]
+        p = torch.where(rows >= cols, p, 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    delta = by_group((do.float() * o.float()).sum(-1))
+    ds = dp - delta[..., None]
+    if dlse is not None:
+        ds = ds + by_group(dlse)[..., None]
+    ds = (p * ds).to(q.dtype).float()
+    pr = p.to(do.dtype).float()
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pr, dof)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 # --------------------------------------------------------------------------
-# the CUDA kernel
+# the CUDA kernels
 # --------------------------------------------------------------------------
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -138,7 +190,7 @@ def _lib() -> ctypes.CDLL:
     lib.bps_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                                   i, i, ctypes.c_float, p]
     lib.bps_flash_fwd.restype = i
-    lib.bps_flash_fwd_workspace.argtypes = [i] * 8
+    lib.bps_flash_fwd_workspace.argtypes = [i] * 10
     lib.bps_flash_fwd_workspace.restype = ctypes.c_longlong
     return lib
 
@@ -147,9 +199,10 @@ def _fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_offset: int, k_offset: int, causal: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on shapes :func:`check_shapes` passed.
-    Keys are cut into fixed splits across blocks; when a row's live keys
-    span more than one, the kernel needs an f32 workspace for the
-    partial states, allocated here."""
+    bf16 grids large enough to fill the card run on the tensor cores;
+    otherwise keys are cut into fixed splits across blocks, and when a
+    row's live keys span more than one, the kernel needs an f32 workspace
+    for the partial states, allocated here (the library says how much)."""
     check_kernel_input(q, "q")
     for t, name in ((k, "k"), (v, "v")):
         check_kernel_input(t, name, (q.dtype,), q.device)
@@ -158,8 +211,10 @@ def _fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     lib = _lib()
-    sizes = (B, Sq, Sk, H, D, int(q_offset), int(k_offset), int(causal))
-    ws_bytes = lib.bps_flash_fwd_workspace(*sizes)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    ws_bytes = lib.bps_flash_fwd_workspace(
+        int(q.dtype == torch.bfloat16), int(aligned), B, Sq, Sk, H, D,
+        int(q_offset), int(k_offset), int(causal))
     ws = (torch.empty(ws_bytes // 4, dtype=torch.float32, device=q.device)
           if ws_bytes else None)
     with torch.cuda.device(q.device):
@@ -177,6 +232,123 @@ def _fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bps_flash_bwd_dq.argtypes = [p] * 8 + [i] * 10 + [ctypes.c_float, p]
+    lib.bps_flash_bwd_dq.restype = i
+    lib.bps_flash_bwd_dkv.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, p]
+    lib.bps_flash_bwd_dkv.restype = i
+    return lib
+
+
+def _bwd_sizes(q, k, q_offset, k_offset, causal) -> tuple:
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    return (int(q.dtype == torch.bfloat16), B, Sq, Sk, H, Hkv, D,
+            int(q_offset), int(k_offset), int(causal), 1.0 / (D ** 0.5))
+
+
+def _bwd_inputs(q, k, v, do, lse, delta, dlse) -> tuple:
+    """The checks of both backward wrappers; their input pointers."""
+    check_kernel_input(q, "q")
+    for t, name in ((k, "k"), (v, "v"), (do, "do")):
+        check_kernel_input(t, name, (q.dtype,), q.device)
+    for t, name in ((lse, "lse"), (delta, "delta"), (dlse, "dlse")):
+        if t is not None:
+            check_kernel_input(t, name, (torch.float32,), q.device)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if dlse is None else dlse.data_ptr())
+
+
+def _dq_cuda(q, k, v, do, lse, delta, dlse, q_offset, k_offset,
+             causal) -> torch.Tensor:
+    """Launch the dq kernel: ``dq`` like q. ``delta`` = rowsum(dO∘O),
+    (B, Sq, H) f32; ``dlse`` None means zero."""
+    ins = _bwd_inputs(q, k, v, do, lse, delta, dlse)
+    dq = torch.empty_like(q)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        rc = lib.bps_flash_bwd_dq(
+            *ins, dq.data_ptr(), *_bwd_sizes(q, k, q_offset, k_offset, causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash_bwd dq kernel launch failed: "
+                           f"{_build.error_string(lib, rc)}")
+    launches["flash_bwd_dq"] += 1
+    return dq
+
+
+def _dkv_cuda(q, k, v, do, lse, delta, dlse, q_offset, k_offset,
+              causal) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dk/dv kernel: ``(dk, dv)`` like k and v, GQA-narrow."""
+    ins = _bwd_inputs(q, k, v, do, lse, delta, dlse)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        rc = lib.bps_flash_bwd_dkv(
+            *ins, dk.data_ptr(), dv.data_ptr(),
+            *_bwd_sizes(q, k, q_offset, k_offset, causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash_bwd dkv kernel launch failed: "
+                           f"{_build.error_string(lib, rc)}")
+    launches["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              dlse: Optional[torch.Tensor], q_offset: int, k_offset: int,
+              causal: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward on the card, on shapes :func:`check_shapes` passed:
+    Δ = rowsum(dO∘O) as one f32 torch reduction outside the kernels (as
+    the reference computes it in XLA outside Pallas), then the dq kernel
+    and the dk/dv kernel."""
+    check_kernel_input(o, "o", (q.dtype,), q.device)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, dlse, q_offset, k_offset, causal)
+    dq = _dq_cuda(*args)
+    return (dq, *_dkv_cuda(*args))
+
+
+class FlashCore(torch.autograd.Function):
+    """``(o, lse)`` of causal attention with a hand-written backward: the
+    counterpart of the reference's ``_flash_core`` custom VJP. Saves
+    ``q, k, v, o, lse``; CUDA tensors run the forward kernel and the two
+    backward kernels, CPU tensors the plain versions. A missing lse (or
+    o) cotangent counts as zero."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset: int, k_offset: int, causal: bool):
+        if q.is_cuda:
+            o, lse = _fwd_cuda(q, k, v, q_offset, k_offset, causal)
+        else:
+            o, lse = attention_lse_torch(q, k, v, q_offset, k_offset,
+                                         causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.meta = (q_offset, k_offset, causal)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        q_offset, k_offset, causal = ctx.meta
+        do = (torch.zeros_like(o) if do is None
+              else do.to(o.dtype).contiguous())
+        if dlse is not None:
+            dlse = dlse.float().contiguous()
+        bwd = _bwd_cuda if q.is_cuda else flash_bwd_torch
+        dq, dk, dv = bwd(q, k, v, o, lse, do, dlse, q_offset, k_offset,
+                         causal)
+        return dq, dk, dv, None, None, None
+
+
 # --------------------------------------------------------------------------
 # dispatchers
 # --------------------------------------------------------------------------
@@ -186,17 +358,16 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention with logsumexp and scalar global offsets. q/k/v:
     (B, S, H, D) with k/v narrow under GQA. Returns ``(o (B, Sq, H, D),
-    lse (B, Sq, H) f32)``. CUDA tensors run the forward kernel, CPU
-    tensors :func:`attention_lse_torch`."""
+    lse (B, Sq, H) f32)``, differentiable through both (:class:`FlashCore`):
+    CUDA tensors run the kernels, CPU tensors the plain versions."""
     check_shapes(q, k, v)
     if isinstance(q_offset, torch.Tensor):
         if q_offset.ndim != 0:
             raise ValueError("flash_attention_lse takes a scalar q_offset; "
                              "attention_lse() routes per-row offsets")
         q_offset = int(q_offset)
-    if q.is_cuda:
-        return _fwd_cuda(q, k, v, q_offset, k_offset, causal)
-    return attention_lse_torch(q, k, v, q_offset, k_offset, causal=causal)
+    return FlashCore.apply(q, k, v, int(q_offset), int(k_offset),
+                           bool(causal))
 
 
 def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -214,8 +385,9 @@ def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """Softmax attention, (B, S, H, D), offsets 0: the forward kernel on
-    CUDA tensors where :func:`supported`, the plain version otherwise."""
+    """Softmax attention, (B, S, H, D), offsets 0, differentiable: the
+    kernels on CUDA tensors where :func:`supported`, the plain version
+    otherwise."""
     if supported(q.shape[-1]):
         return flash_attention_lse(q, k, v, 0, 0, causal=causal)[0]
     if k.shape[2] != q.shape[2]:

@@ -12,6 +12,15 @@ Phases, each printing one JSON line:
    tolerance, and kernel / plain / ``scaled_dot_product_attention``
    times from CUDA events with the L2 cache flushed before each launch;
 3. flash_decode — the decode kernel the same way, dense and int8 caches;
+   flash_bwd — the dq and dk/dv kernels against ``flash_bwd_torch`` at
+   the training shape (B=8, S=1024, 16 heads of 64, causal) in bf16 and
+   f32, GQA 16/4, a ragged S=1000, and an offset chunk with dead rows and
+   a nonzero lse cotangent: each element against a tolerance of its own
+   size plus a floor of a thousandth of max |grad|, the relative L2
+   error, and kernel / plain / SDPA-backward times; onebit — pack words
+   bit-equal to
+   the plain version at the 1,024,000-element chunk, a ragged length and
+   an input seeded with -0.0, 0 and NaN, unpack-sum equal at K=1 and K=8;
 4. generate — ``make_generate_fn`` at the full width of GPT-2 medium in
    bf16 (random weights from a seed): B=4, T0=128, 64 new tokens;
 5. serve — ``Scheduler.serve`` at the same width, bf16: 8 requests with
@@ -21,14 +30,27 @@ Phases, each printing one JSON line:
    ``Scheduler.serve`` emit exactly the tokens of solo
    ``make_generate_fn`` runs;
 7. tiny — a tiny model run on the CPU (plain versions) and on the card
-   (kernels) emits the same tokens.
+   (kernels) emits the same tokens;
+   train_bf16 — one bf16 training step of a small model at head dim 64,
+   on the CPU (plain versions) and on the card (the tensor-core forward
+   and backward kernels): losses and each leaf's gradient agree;
+8. train — ``make_gpt_train_step`` at the full width and depth of GPT-2
+   medium, bf16 over f32 master weights, AdamW(1e-3), one seeded batch of
+   B=8 × S=1024: a raw leg and a onebit + error-feedback leg, each one
+   warm-up and 5 timed steps; the loss stays finite and falls; step ms,
+   tokens/s and peak memory;
+9. train_tiny — a tiny f32 model trains 3 raw steps on the CPU (plain
+   versions) and on the card (kernels) to losses within 1e-4.
 
-Each of phases 4-6 runs with the launch counters set to 0 just before it
-and read just after: generate must launch both kernels, serve the
-forward kernel (its decode is the packed plain step; it reaches the
-decode kernel only through a one-token prefill chunk), exact both. A
-``launches`` line gives the counts per path, then a ``{"kernels": [...]}``
-line whose ``launches`` sums generate and serve, and, last,
+Each of phases 4-6 and each train leg runs with the launch counters set
+to 0 just before it and read just after: generate must launch the
+forward and decode kernels, serve the forward kernel (its decode is the
+packed plain step; it reaches the decode kernel only through a one-token
+prefill chunk), exact both; train_bf16 and both train legs the forward
+and both backward kernels, and the onebit leg the pack and unpack-sum kernels
+once per gradient chunk and step. A ``launches`` line gives the counts
+per path, then a ``{"kernels": [...]}`` line whose ``launches`` sums the
+main paths (generate, serve, both train legs), and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so it does without a CUDA card or without the package beside it.
@@ -39,6 +61,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -53,6 +76,18 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs plain: bf16 outputs round to 2^-8 relative and the two sum in
 # different orders; f32 differs by the roundoff of <= 1024-term sums
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# backward, on top of TOL per element: an absolute floor of a thousandth
+# of the largest |grad| (causal dq/dk/dv peak at the first rows and keys,
+# 25-55x their rms at the training shape), and the relative L2 error of
+# the whole output; bf16 differs where p or ds round the other way
+# (NVIDIA H100: <= 2e-4), f32 is bit-equal
+BWD_ATOL = 1e-3
+BWD_REL_L2 = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+# one bf16 step, CPU against card: the GEMMs round to bf16 in different
+# orders on the two devices (NVIDIA H100: losses 3e-5 apart, gradients
+# <= 1e-2 in relative L2)
+TRAIN_BF16_LOSS_TOL = 1e-3
+TRAIN_BF16_REL_L2 = 5e-2
 
 
 def emit(obj) -> None:
@@ -137,9 +172,12 @@ def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed):
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
-    mask = (q_off + torch.arange(Sq, device="cuda")[:, None]
-            >= torch.arange(Sk, device="cuda")[None, :])
-    lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    if q_off == 0 and Sq == Sk:     # plain causal: SDPA's flash backend
+        lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True))
+    else:
+        mask = (q_off + torch.arange(Sq, device="cuda")[:, None]
+                >= torch.arange(Sk, device="cuda")[None, :])
+        lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask))
     # the work this run's data needs: live (row, key) pairs, live keys
     pairs = sum(min(Sk, max(0, q_off + i + 1)) for i in range(Sq))
     kend = min(Sk, q_off + Sq)
@@ -205,8 +243,166 @@ def decode_case(timer, name, B, S, H, Hkv, D, pos, dtype, quant, seed):
     return res
 
 
+def grad_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
+    """How far a kernel's gradient lies from its plain version, held two
+    ways: each element to |got - want| <= BWD_ATOL * max|want| + tol *
+    |want| (the floor is a thousandth of the largest entry, far below the
+    typical one, so a kernel wrong on a share of rows or keys fails), and
+    the whole to ||got - want|| / ||want|| <= BWD_REL_L2."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    top = float(w.abs().max())
+    floor = BWD_ATOL * top
+    # the worst element's use of its allowance (<= 1 passes)
+    worst = float((d / (floor + tol * w.abs())).max()) if top else 0.0
+    rel_l2 = float(d.norm() / w.norm()) if top else float(d.norm())
+    return {"max_abs_err": float(d.max()), "max_abs": top,
+            "rms": float(w.pow(2).mean().sqrt()), "rel_l2": rel_l2,
+            "worst_share": worst,
+            "ok": worst <= 1.0 and rel_l2 <= BWD_REL_L2[want.dtype]}
+
+
+def bwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, k_off, dtype, seed,
+             with_dlse=False):
+    """dq and dk/dv from the kernels against ``flash_bwd_torch``, each
+    held by :func:`grad_err`; rows with no live key must get dq = 0
+    exactly."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from byteps_tpu_torch.ops.flash_attention import (
+        _dkv_cuda, _dq_cuda, attention_lse_torch, flash_bwd_torch)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
+    do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+    dlse = (torch.randn(B, Sq, H, generator=g, device="cuda")
+            if with_dlse else None)
+    o, lse = attention_lse_torch(q, k, v, q_off, k_off)
+    lse = lse.contiguous()
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, dlse, q_off, k_off, True)
+    dq = _dq_cuda(*args)
+    dk, dv = _dkv_cuda(*args)
+    want = flash_bwd_torch(q, k, v, o, lse, do, dlse, q_off, k_off)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    stats = {nm: grad_err(got, ref, tol)
+             for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    if not all(s["ok"] for s in stats.values()):
+        raise AssertionError(f"flash_bwd {name} {dtype}: beyond tolerance "
+                             f"(rtol {tol}, floor {BWD_ATOL} x max, rel L2 "
+                             f"{BWD_REL_L2[dtype]}): {stats}")
+    errs = {nm: s["max_abs_err"] for nm, s in stats.items()}
+    n_dead = min(Sq, max(0, k_off - q_off))
+    if n_dead and not bool((dq[:, :n_dead] == 0).all()):
+        raise AssertionError(f"flash_bwd {name}: a row with no live key got "
+                             "a nonzero dq")
+    ms_dq = timer(lambda: _dq_cuda(*args))
+    ms_dkv = timer(lambda: _dkv_cuda(*args))
+    plain_ms = timer(lambda: flash_bwd_torch(q, k, v, o, lse, do, dlse,
+                                             q_off, k_off), iters=5)
+    # the library yardstick: SDPA's backward for (dq, dk, dv) together,
+    # from (B, H, S, D) leaves made outside the timing (k/v widened for
+    # GQA), no lse cotangent
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous() \
+        .requires_grad_()
+    vt = v.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous() \
+        .requires_grad_()
+    if q_off == k_off and Sq == Sk:
+        ot = sdpa(qt, kt, vt, is_causal=True)
+    else:
+        mask = (q_off + torch.arange(Sq, device="cuda")[:, None]
+                >= k_off + torch.arange(Sk, device="cuda")[None, :])
+        ot = sdpa(qt, kt, vt, attn_mask=mask)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = timer(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                               retain_graph=True))
+    # the work this run's data needs: live (row, key) pairs, live keys
+    pairs = sum(min(Sk, max(0, q_off + i - k_off + 1)) for i in range(Sq))
+    kend = min(Sk, max(0, q_off + Sq - k_off))
+    isz = q.element_size()
+    row_f32 = B * Sq * H * 4 * (3 if with_dlse else 2)   # lse, Δ, dlse
+    qo_bytes = B * Sq * H * D * isz
+    kv_bytes = B * kend * Hkv * D * isz
+    b_dq, by_dq = bound_ms(3 * qo_bytes + 2 * kv_bytes + row_f32,
+                           6 * D * pairs * B * H, dtype)
+    b_dkv, by_dkv = bound_ms(2 * qo_bytes + 4 * kv_bytes + row_f32,
+                             8 * D * pairs * B * H, dtype)
+    res = {"case": name, "dtype": str(dtype).split(".")[-1],
+           "shape": [B, Sq, Sk, H, Hkv, D], "q_off": q_off, "k_off": k_off,
+           "dlse": with_dlse, "dead_rows": n_dead,
+           "err": {nm: {k: v for k, v in s.items() if k != "ok"}
+                   for nm, s in stats.items()},
+           "tolerance": {"rtol": tol, "floor_of_max": BWD_ATOL,
+                         "rel_l2": BWD_REL_L2[dtype]},
+           "dq": {"ms": ms_dq, "bound_ms": b_dq, "bound_by": by_dq,
+                  "max_abs_err": errs["dq"]},
+           "dkv": {"ms": ms_dkv, "bound_ms": b_dkv, "bound_by": by_dkv,
+                   "max_abs_err": max(errs["dk"], errs["dv"])},
+           "plain_ms": plain_ms, "library_ms": lib_ms}
+    emit({"phase": "flash_bwd", **res})
+    return res
+
+
+def onebit_case(timer, name, n, seed, special=False):
+    """Pack words bit-equal to the plain version; unpack-sum equal at
+    K = 1 and K = 8 (the fold order is fixed, so equality is exact)."""
+    from byteps_tpu_torch.ops.onebit_kernels import (
+        _pack_torch, _unpack_sum_torch, onebit_pack, onebit_unpack_sum,
+        packed_words)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=g, device="cuda")
+    if special:
+        x[0::7] = -0.0
+        x[1::7] = 0.0
+        x[2::7] = float("nan")
+    words = onebit_pack(x)
+    plain = _pack_torch(x)
+    one = torch.ones(1, device="cuda")
+    # the words' error in value space: +-1 per element as each decodes
+    pack_err = float((_unpack_sum_torch(words[None], one, n)
+                      - _unpack_sum_torch(plain[None], one, n)).abs().max())
+    if not torch.equal(words, plain):
+        raise AssertionError(f"onebit pack {name}: words differ from the "
+                             f"plain version (max decoded err {pack_err})")
+    L = packed_words(n)
+    res = {"case": name, "n": n, "words": L, "special": special,
+           "pack_bit_equal": True, "pack_max_abs_err": pack_err}
+    if special:
+        emit({"phase": "onebit", **res})
+        return res
+    res["pack_ms"] = timer(lambda: onebit_pack(x))
+    res["pack_plain_ms"] = timer(lambda: _pack_torch(x))
+    res["pack_bound_ms"], res["pack_bound_by"] = bound_ms(
+        4 * n + 4 * L, 32 * L, torch.float32)
+    for K in (1, 8):
+        ws = torch.stack([onebit_pack(torch.randn(n, generator=g,
+                                                  device="cuda"))
+                          for _ in range(K)])
+        sc = torch.rand(K, generator=g, device="cuda")
+        out = onebit_unpack_sum(ws, sc, n)
+        ref = _unpack_sum_torch(ws, sc, n)
+        err = float((out - ref).abs().max())
+        if not torch.equal(out, ref):
+            raise AssertionError(f"onebit unpack_sum {name} K={K}: differs "
+                                 f"from the plain version (max err {err})")
+        res[f"unpack_k{K}_equal"] = True
+        res[f"unpack_k{K}_max_abs_err"] = err
+        res[f"unpack_k{K}_ms"] = timer(lambda: onebit_unpack_sum(ws, sc, n))
+        res[f"unpack_k{K}_plain_ms"] = timer(
+            lambda: _unpack_sum_torch(ws, sc, n))
+        res[f"unpack_k{K}_bound_ms"], res[f"unpack_k{K}_bound_by"] = \
+            bound_ms(4 * K * L + 4 * K + 4 * n, 2 * K * n, torch.float32)
+    emit({"phase": "onebit", **res})
+    return res
+
+
 # --------------------------------------------------------------------------
-# phases 4-6: the main path
+# phases 4-9: the main path
 # --------------------------------------------------------------------------
 def phase_generate(params, cfg, B=4, T0=128, max_new=64):
     from byteps_tpu_torch.models import make_generate_fn
@@ -311,9 +507,129 @@ def phase_tiny():
     emit({"phase": "tiny", "cpu_equals_card": True})
 
 
+# filled by phase_train: the gradient chunks of one step
+TRAIN_CHUNKS = {}
+
+
+def phase_train(leg, compression_params, B=8, S=1024, steps=5):
+    """One leg of the training step at GPT-2 medium width: one warm-up
+    step, then ``steps`` timed ones on a fixed seeded batch."""
+    from byteps_tpu_torch.models import (GPTConfig, make_gpt_train_step,
+                                         synthetic_batch)
+
+    cfg = GPTConfig.gpt2_medium()
+    step, params, opt = make_gpt_train_step(
+        cfg, compression_params=compression_params,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    tok, tgt = synthetic_batch(torch.Generator(device="cuda").manual_seed(1),
+                               cfg, B, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(steps + 1):
+        t0 = time.perf_counter()
+        loss = float(step(tok, tgt))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train {leg}: losses {losses} not finite or "
+                             "not falling")
+    step_s = sum(times[1:]) / steps
+    from byteps_tpu_torch.common.config import get_config
+
+    n_params = sum(p.numel() for p in opt.params)
+    per = get_config().partition_bytes // 4
+    chunks = TRAIN_CHUNKS[leg] = -(-n_params // per)
+    emit({"phase": "train", "leg": leg, "batch": B, "seq": S,
+          "params": n_params, "chunks_per_step": chunks,
+          "compression": compression_params, "losses": losses,
+          "warmup_s": times[0], "step_ms": step_s * 1e3,
+          "step_ms_each": [t * 1e3 for t in times[1:]],
+          "tokens_per_s": B * S / step_s,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del step, params, opt
+
+
+def phase_train_tiny(steps=3):
+    """A tiny f32 model trains on the CPU (plain versions) and on the card
+    (kernels) from the same weights and batch to the same losses."""
+    from byteps_tpu_torch.models import (GPTConfig, gpt_init,
+                                         make_gpt_train_step)
+
+    tiny = GPTConfig.tiny()
+    p_cpu = gpt_init(tiny, torch.Generator().manual_seed(3), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, tiny.vocab_size, (4, 33))
+    tok, tgt = toks[:, :-1], toks[:, 1:]
+    cpu = make_gpt_train_step(tiny, init_params=p_cpu, device="cpu")[0]
+    gpu = make_gpt_train_step(tiny, init_params=p_gpu)[0]
+    lc = [float(cpu(tok, tgt)) for _ in range(steps)]
+    lg = [float(gpu(tok, tgt)) for _ in range(steps)]
+    diff = max(abs(a - b) for a, b in zip(lc, lg))
+    if not diff <= 1e-4:
+        raise AssertionError(f"tiny train: CPU losses {lc} vs card {lg}")
+    emit({"phase": "train_tiny", "cpu_losses": lc, "card_losses": lg,
+          "max_diff": diff, "tolerance": 1e-4})
+
+
+def named_grads(params) -> dict:
+    """Each leaf's gradient under its path in the reference's tree."""
+    out = {k: p.grad for k, p in params._parameters.items()}
+    for i, b in enumerate(params.blocks):
+        out.update({f"blocks.{i}.{k}": p.grad
+                    for k, p in b._parameters.items()})
+    return out
+
+
+def phase_train_bf16():
+    """One bf16 step at head dim 64 on the CPU (plain versions) and on
+    the card, from the same weights and batch. B=8, S=256 and 4 heads
+    give 128 query tiles, so the card runs the tensor-core forward and
+    both tensor-core backward kernels, as the training step at full width
+    does. The losses agree to TRAIN_BF16_LOSS_TOL; each leaf's gradient
+    to TRAIN_BF16_REL_L2 in relative L2, but for ``bk``, whose exact
+    gradient is 0 (softmax ignores a per-row shift), so its value is
+    roundoff."""
+    from byteps_tpu_torch.models import (GPTConfig, gpt_init,
+                                         make_gpt_train_step)
+
+    cfg = GPTConfig(vocab_size=2048, max_seq=256, d_model=256, n_heads=4,
+                    n_layers=2, d_ff=1024, dtype=torch.bfloat16)
+    p_cpu = gpt_init(cfg, torch.Generator().manual_seed(4), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (8, 257))
+    tok, tgt = toks[:, :-1], toks[:, 1:]
+    lc = float(make_gpt_train_step(cfg, init_params=p_cpu,
+                                   device="cpu")[0](tok, tgt))
+    lg = float(make_gpt_train_step(cfg, init_params=p_gpu)[0](tok, tgt))
+    gc_, gg = named_grads(p_cpu), named_grads(p_gpu)
+    rel = {k: float((gg[k].cpu().float() - g.float()).norm()
+                    / g.float().norm())
+           for k, g in gc_.items() if not k.endswith(".bk")}
+    norms = {k: [float(g.float().norm()), float(gg[k].float().norm())]
+             for k, g in gc_.items()}
+    worst = max(rel, key=rel.get)
+    res = {"phase": "train_bf16", "cpu_loss": lc, "card_loss": lg,
+           "loss_diff": abs(lc - lg), "loss_tol": TRAIN_BF16_LOSS_TOL,
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst,
+           "grad_rel_l2_tol": TRAIN_BF16_REL_L2, "grad_rel_l2": rel,
+           "grad_norms_cpu_card": norms}
+    emit(res)
+    if not (abs(lc - lg) <= TRAIN_BF16_LOSS_TOL
+            and rel[worst] <= TRAIN_BF16_REL_L2):
+        raise AssertionError(f"bf16 step: CPU loss {lc} vs card {lg}, "
+                             f"gradient of {worst} {rel[worst]} apart")
+
+
 # the kernels each run of the main path must launch
+TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": ("flash_fwd",),
-         "exact": ("flash_fwd", "flash_decode")}
+         "exact": ("flash_fwd", "flash_decode"), "train_bf16": TRAIN,
+         "train_raw": TRAIN,
+         "train_onebit": TRAIN + ("onebit_pack", "onebit_unpack_sum")}
+MAIN_PATHS = ("generate", "serve", "train_raw", "train_onebit")
 
 
 def counted(name, fn, *args) -> dict:
@@ -326,6 +642,8 @@ def counted(name, fn, *args) -> dict:
     fn(*args)
     counts = dict(launches)
     missing = [k for k in PATHS[name] if counts[k] <= 0]
+    gc.collect()
+    torch.cuda.empty_cache()
     if missing:
         raise AssertionError(f"{name} never launched {missing}: {counts}")
     return counts
@@ -376,6 +694,30 @@ def main() -> int:
                                quant, 22))
         dec.append(decode_case(timer, "gqa", 8, 1024, 16, 4, 64, 700, bf,
                                quant, 23))
+    # the training shape: B=8, S=1024, 16 heads of 64
+    fwd.append(fwd_case(timer, "train", 8, 1024, 1024, 16, 16, 64, 0, bf,
+                        15))
+    bwd, failed = [], []
+    for case in (("train", 8, 1024, 1024, 16, 16, 64, 0, 0, bf, 30),
+                 ("train", 8, 1024, 1024, 16, 16, 64, 0, 0, f32, 31),
+                 ("gqa", 8, 1024, 1024, 16, 4, 64, 0, 0, bf, 32),
+                 ("ragged", 8, 1000, 1000, 16, 16, 64, 0, 0, bf, 33),
+                 ("offset_dead_rows", 2, 256, 512, 16, 16, 64, 128, 256, bf,
+                  34, True),
+                 ("offset_dead_rows", 2, 256, 512, 16, 16, 64, 128, 256, f32,
+                  35, True)):
+        try:                       # run every case, then fail on any
+            bwd.append(bwd_case(timer, *case))
+        except AssertionError as e:
+            print(e, file=sys.stderr, flush=True)
+            failed.append(case[0])
+    if failed:
+        raise AssertionError(f"flash_bwd cases {failed} failed")
+    chunk = 4096000 // 4           # one default partition of f32
+    bits = [onebit_case(timer, "chunk", chunk, 40),
+            onebit_case(timer, "ragged", 1_000_003, 41),
+            onebit_case(timer, "signed_zero_nan", 1_000_003, 42,
+                        special=True)]
     del timer
 
     cfg = GPTConfig.gpt2_medium()
@@ -386,24 +728,71 @@ def main() -> int:
         "exact": counted("exact", phase_exact, params,
                          dataclasses.replace(cfg, dtype=torch.float32)),
     }
+    del params
+    by_path["train_bf16"] = counted("train_bf16", phase_train_bf16)
+    by_path["train_raw"] = counted("train_raw", phase_train, "raw", None)
+    by_path["train_onebit"] = counted(
+        "train_onebit", phase_train, "onebit_ef",
+        {"compressor": "onebit", "ef": "vanilla"})
+    steps = 6                      # one warm-up and five timed
+    chunks = TRAIN_CHUNKS["onebit_ef"]
+    for name in ("onebit_pack", "onebit_unpack_sum"):
+        if by_path["train_onebit"][name] != steps * chunks:
+            raise AssertionError(
+                f"train_onebit launched {name} "
+                f"{by_path['train_onebit'][name]} times, not one per chunk "
+                f"and step ({steps} x {chunks})")
+    for leg in ("train_raw", "train_onebit"):
+        for name in TRAIN:
+            if by_path[leg][name] != steps * cfg.n_layers:
+                raise AssertionError(f"{leg} launched {name} "
+                                     f"{by_path[leg][name]} times, not one "
+                                     f"per layer and step")
     emit({"phase": "launches", **by_path})
     phase_tiny()
+    phase_train_tiny()
 
-    # the shapes the main path launches most: serve's prefill chunks, and
-    # generate's decode steps
+    # the shapes the main path launches most: serve's prefill chunks,
+    # generate's decode steps, the training step's attention backward and
+    # the gradient chunks
     main_fwd = next(r for r in fwd if r["case"] == "chunk")
     main_dec = dec[0]
+    main_bwd = bwd[0]
+    main_bits = bits[0]
     common = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
+    rows = [("flash_fwd", "flash_fwd", "byteps_tpu/ops/flash_attention.py:207",
+             main_fwd),
+            ("flash_decode", "flash_decode",
+             "byteps_tpu/ops/flash_decode.py:77", main_dec),
+            ("flash_bwd_dq", "flash_bwd",
+             "byteps_tpu/ops/flash_attention.py:340",
+             {**main_bwd, **main_bwd["dq"]}),
+            ("flash_bwd_dkv", "flash_bwd",
+             "byteps_tpu/ops/flash_attention.py:399",
+             {**main_bwd, **main_bwd["dkv"]}),
+            ("onebit_pack", "onebit", "byteps_tpu/ops/onebit_kernels.py:81",
+             {"case": "chunk", "max_abs_err": main_bits["pack_max_abs_err"],
+              "ms": main_bits["pack_ms"],
+              "plain_ms": main_bits["pack_plain_ms"],
+              "bound_ms": main_bits["pack_bound_ms"],
+              "bound_by": main_bits["pack_bound_by"], "library_ms": None}),
+            ("onebit_unpack_sum", "onebit",
+             "byteps_tpu/ops/onebit_kernels.py:124",
+             {"case": "chunk K=1",
+              "max_abs_err": main_bits["unpack_k1_max_abs_err"],
+              "ms": main_bits["unpack_k1_ms"],
+              "plain_ms": main_bits["unpack_k1_plain_ms"],
+              "bound_ms": main_bits["unpack_k1_bound_ms"],
+              "bound_by": main_bits["unpack_k1_bound_by"],
+              "library_ms": None})]
     kernels = [
         {"name": name, "route": "cuda",
-         "source": f"byteps_tpu_torch/ops/csrc/{name}.cu", "replaces": rep,
-         "launches": by_path["generate"][name] + by_path["serve"][name],
+         "source": f"byteps_tpu_torch/ops/csrc/{src}.cu", "replaces": rep,
+         "launches": sum(by_path[p][name] for p in MAIN_PATHS),
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          "case": main["case"], **{k: main[k] for k in common}}
-        for name, rep, main in (
-            ("flash_fwd", "byteps_tpu/ops/flash_attention.py:207", main_fwd),
-            ("flash_decode", "byteps_tpu/ops/flash_decode.py:77", main_dec))]
+        for name, src, rep, main in rows]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -32,7 +32,7 @@ leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "byteps_tpu"
                 or m.startswith("byteps_tpu."))
 from byteps_tpu_torch.models import (GPTConfig, gpt_init, make_generate_fn,
-                                     params_from_numpy)
+                                     make_gpt_train_step, params_from_numpy)
 from byteps_tpu_torch.models.generate import init_cache
 from byteps_tpu_torch.serve import PagedKVCache, Scheduler
 cfg = GPTConfig.tiny()
@@ -48,6 +48,7 @@ calls = {
     "PagedKVCache": lambda: PagedKVCache(cfg, block_size=4, pool_blocks=8,
                                          max_batch=1),
     "Scheduler": lambda: Scheduler(cpu, cfg),
+    "make_gpt_train_step": lambda: make_gpt_train_step(cfg),
 }
 raised = {}
 for name, fn in calls.items():
@@ -74,8 +75,12 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
 
 
 def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):
+    from byteps_tpu_torch.models import GPTConfig, make_gpt_train_step
     from byteps_tpu_torch.ops.flash_attention import flash_attention_lse
     from byteps_tpu_torch.ops.flash_decode import flash_decode
+    from byteps_tpu_torch.ops.onebit_kernels import (onebit_pack,
+                                                     onebit_unpack,
+                                                     onebit_unpack_sum)
 
     def refuse(name):
         raise AssertionError(f"CPU call tried to load kernel {name}")
@@ -87,6 +92,24 @@ def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):
     assert o.shape == q.shape and lse.shape == (1, 8, 2)
     k = torch.as_tensor(rng.standard_normal((1, 8, 2, 16), np.float32))
     assert flash_decode(q[:, :1], k, k, 5).shape == (1, 1, 2, 16)
+    # the backward Function
+    qg = q.clone().requires_grad_()
+    o, lse = flash_attention_lse(qg, k, k, 0, 0)
+    (o.sum() + lse.sum()).backward()
+    assert qg.grad.shape == q.shape
+    # the onebit ops
+    x = torch.as_tensor(rng.standard_normal(1000, np.float32))
+    words = onebit_pack(x)
+    assert onebit_unpack(words, torch.ones(1), 1000).shape == (1000,)
+    assert onebit_unpack_sum(torch.stack([words, words]), torch.ones(2),
+                             1000).shape == (1000,)
+    # and the whole training step, onebit with error feedback
+    step, _, _ = make_gpt_train_step(
+        GPTConfig.tiny(), compression_params={"compressor": "onebit",
+                                              "ef": "vanilla"},
+        generator=torch.Generator().manual_seed(0), device="cpu")
+    tok = torch.as_tensor(rng.integers(0, 256, (2, 9)))
+    assert torch.isfinite(step(tok[:, :-1], tok[:, 1:]))
 
 
 def test_nvcc_command_and_library_name():

@@ -13,19 +13,27 @@ each rank compresses one segment per owner, the segments are exchanged
 in worker order), the owner decompresses and sums them in f32 (the
 codec's fused ``decompress_sum``), recompresses the sum when
 ``two_way``, and every owner's result is gathered (``all_gather``) and
-decompressed. Presummable codecs (identity) sum their payloads
-positionally in an explicit worker-order left fold instead. With one
-rank and a deterministic codec the whole body is one codec round trip,
-error feedback included (``Compressor.roundtrip``), exactly as the
-reference's n == 1 fast path.
+decompressed. Presummable codecs (identity, fp16, randomk) sum their
+payloads positionally in an explicit worker-order left fold instead.
+With one rank and a deterministic codec the whole body is one codec
+round trip, error feedback included (``Compressor.roundtrip``), exactly
+as the reference's n == 1 fast path. Stochastic codecs run the general
+body at one rank too, as the reference's do; there the exchange and the
+gather are identities and need no process group.
+
+Keys (``compression.base.fold_in``): the caller's ``rng`` (a chunk's
+key) gives segment j the key ``fold_in(rng, j)``, the same on every
+rank, and the owner rank r recompresses with ``fold_in(rng, r)``.
 
 The ring tier (``BYTEPS_ICI_TIER=ring``) waits for the ring collective
-kernels. Stochastic codecs are not ported yet.
+kernels.
 
 ``ici.<kind>_dispatch``, ``ici.wire_bytes`` and ``ici.logical_bytes``
 count the host-dispatched wrappers (``allreduce_flat``,
-``compressed_allreduce_flat``), under the reference's names; the bodies
-the optimizer calls chunk by chunk are not counted, as in the reference.
+``reduce_scatter_flat``, ``all_gather_flat``, ``broadcast_flat``,
+``compressed_allreduce_flat``, ``compressed_reduce_scatter_flat``),
+under the reference's names; the bodies the optimizer calls chunk by
+chunk are not counted, as in the reference.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 from byteps_tpu_torch.common.metrics import get_registry
-from byteps_tpu_torch.compression.base import Compressor, Payload
+from byteps_tpu_torch.compression.base import Compressor, Payload, fold_in
 
 
 def world() -> Tuple[int, int]:
@@ -72,6 +80,55 @@ def allreduce_flat(x: torch.Tensor, average: bool = True) -> torch.Tensor:
     return out / n if average else out
 
 
+def reduce_scatter_flat(x: torch.Tensor) -> torch.Tensor:
+    """Sum-reduce this rank's flat (L,) tensor over the ranks and keep
+    owner segment ``rank``: the ``(ceil(L/n),)`` slice of the (zero-
+    padded) sum. Each link carries (n−1)/n · L elements, half of an
+    all-reduce."""
+    n, _ = world()
+    _count_dispatch("reduce_scatter")
+    raw = (n - 1) * (-(-x.shape[0] // n)) * x.element_size()
+    _account_wire(raw, raw)
+    segs, seg = _segment(x, n)
+    if n == 1:
+        return segs[0].clone()
+    out = x.new_empty(seg)
+    dist.reduce_scatter_tensor(out, segs.reshape(-1))
+    return out
+
+
+def all_gather_flat(seg: torch.Tensor,
+                    length: Optional[int] = None) -> torch.Tensor:
+    """Every rank's (seg,) owner segment, concatenated in rank order and
+    cut to ``length``: the tail half of :func:`reduce_scatter_flat`.
+    Exact: gathering moves bits."""
+    n, _ = world()
+    _count_dispatch("all_gather")
+    raw = (n - 1) * seg.shape[0] * seg.element_size()
+    _account_wire(raw, raw)
+    if n == 1:
+        out = seg.clone()
+    else:
+        out = seg.new_empty(n * seg.shape[0])
+        dist.all_gather_into_tensor(out, seg.contiguous())
+    return out if length is None else out[:length]
+
+
+def broadcast_flat(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Rank ``root``'s flat tensor on every rank, as the reference (and
+    BytePS's ``broadcast_parameters``) computes it: zeros on the other
+    ranks, then a sum."""
+    n, rank = world()
+    _count_dispatch("broadcast")
+    # accounted as the sum it is computed with
+    raw = 2 * (n - 1) * (-(-x.shape[0] // n)) * x.element_size()
+    _account_wire(raw, raw)
+    out = x.clone() if rank == root else torch.zeros_like(x)
+    if n > 1:
+        dist.all_reduce(out)
+    return out
+
+
 def _segment(g: torch.Tensor, n: int) -> Tuple[torch.Tensor, int]:
     """Pad a flat (L,) vector and view as (n, seg) owner-major segments."""
     L = g.shape[0]
@@ -89,15 +146,26 @@ def _row(payload: Payload, j: int) -> Payload:
     return {k: v[j] for k, v in payload.items()}
 
 
-def _exchange(payload: Payload) -> Payload:
+def _as_wire(a: torch.Tensor) -> torch.Tensor:
+    """A payload leaf as the collectives carry it: fp8 bytes as uint8
+    (gloo has no fp8 type; the bits move unchanged)."""
+    a = a.contiguous()
+    if a.is_floating_point() and a.element_size() == 1:
+        return a.view(torch.uint8)
+    return a
+
+
+def _exchange(payload: Payload, n: int) -> Payload:
     """Deliver row j of every rank's stacked payload to owner j, stacked
-    in worker order (``all_to_all`` semantics)."""
+    in worker order (``all_to_all`` semantics); the identity at n == 1."""
+    if n == 1:
+        return payload
     out = {}
     for k, a in payload.items():
-        a = a.contiguous()
+        a = _as_wire(a)
         recv = torch.empty_like(a)
         dist.all_to_all_single(recv, a)
-        out[k] = recv
+        out[k] = recv.view(payload[k].dtype)
     return out
 
 
@@ -105,10 +173,13 @@ def _gather(out_payload: Payload, n: int) -> Payload:
     """Owner-ordered stack of every owner's result payload (the "pull")."""
     out = {}
     for k, a in out_payload.items():
-        a = a.contiguous()
-        parts = [torch.empty_like(a) for _ in range(n)]
-        dist.all_gather(parts, a)
-        out[k] = torch.stack(parts)
+        if n == 1:
+            out[k] = a[None]
+            continue
+        w = _as_wire(a)
+        parts = [torch.empty_like(w) for _ in range(n)]
+        dist.all_gather(parts, w)
+        out[k] = torch.stack(parts).view(a.dtype)
     return out
 
 
@@ -125,20 +196,50 @@ def _payload_sum(recv: Payload, n: int) -> Payload:
     return {k: fold(a) for k, a in recv.items()}
 
 
-def _compress_push(g: torch.Tensor, compressor: Compressor, n: int):
-    """COMPRESS → "PUSH": segment, compress each owner's segment, and
-    exchange so owner j receives every rank's segment j. Returns
-    ``(payload, recv, seg)``."""
+def _compress_push(g: torch.Tensor, rng: int, compressor: Compressor,
+                   n: int):
+    """COMPRESS → "PUSH": segment, compress segment j with key
+    ``fold_in(rng, j)``, and exchange so owner j receives every rank's
+    segment j. Returns ``(payload, seg_keys, recv, seg)``."""
     segs, seg = _segment(g, n)
-    payload = _stack([compressor.compress(segs[j]) for j in range(n)])
-    return payload, _exchange(payload), seg
-
-
-def _decompress_rows(compressor: Compressor, stacked: Payload, n: int,
-                     seg: int) -> torch.Tensor:
-    return torch.cat([compressor.decompress(_row(stacked, j), seg,
-                                            torch.float32)
+    seg_keys = [fold_in(rng, j) for j in range(n)]
+    payload = _stack([compressor.compress(segs[j], seg_keys[j])
                       for j in range(n)])
+    return payload, seg_keys, _exchange(payload, n), seg
+
+
+def _decompress_rows(compressor: Compressor, stacked: Payload,
+                     keys, seg: int) -> torch.Tensor:
+    return torch.cat([compressor.decompress(_row(stacked, j), seg,
+                                            torch.float32, key)
+                      for j, key in enumerate(keys)])
+
+
+def _size_rank(n: Optional[int]) -> Tuple[int, int]:
+    """(n, this rank's index among them): the world's by default."""
+    size, rank = world()
+    if n is None:
+        n = size
+    return n, (rank if n > 1 else 0)
+
+
+def _require_rng(compressor: Compressor, rng: Optional[int]) -> int:
+    if rng is None:
+        if compressor.stochastic:
+            raise ValueError(
+                f"{compressor.name} requires an rng key advancing every step")
+        rng = 0
+    return rng
+
+
+def _owner_sum(recv: Payload, compressor: Compressor, n: int,
+               seg: int) -> Payload:
+    """The owner's aggregate of the received segments: the positional
+    payload sum of a presummable codec (still compressed), else the f32
+    sum of the decompressed segments as ``{"dense": ...}``."""
+    if compressor.presummable:
+        return _payload_sum(recv, n)
+    return {"dense": compressor.decompress_sum(recv, seg, torch.float32)}
 
 
 def compressed_allreduce_local(
@@ -148,45 +249,96 @@ def compressed_allreduce_local(
     average: bool = True,
     two_way: bool = True,
     ef_residual: Optional[torch.Tensor] = None,
+    rng: Optional[int] = None,
 ):
     """This rank's body of the compressed all-reduce of a flat (L,) chunk.
 
-    With ``ef_residual`` the compressed input is ``g + ef_residual`` and
-    the result is ``(out, new_residual)``, ``new_residual = input −
-    D(C(input))`` from the own payload."""
-    if compressor.stochastic:
-        raise NotImplementedError(
-            f"{compressor.name}: stochastic codecs are not ported yet")
-    if n is None:
-        n = world()[0]
+    ``rng`` is the chunk's key, the same on every rank; stochastic codecs
+    require it. With ``ef_residual`` the compressed input is ``g +
+    ef_residual`` and the result is ``(out, new_residual)``,
+    ``new_residual = input − D(C(input))`` from the own payload."""
+    rng = _require_rng(compressor, rng)
+    n, rank = _size_rank(n)
     L = g.shape[0]
     g = g.float()
-    if n == 1:
+    if n == 1 and not compressor.stochastic:
         # single-worker fast path: no exchange exists, so the whole body
         # is one codec round trip, error feedback included; exact for
         # deterministic codecs, whose D∘C is idempotent
-        dense, resid = compressor.roundtrip(g, e=ef_residual)
+        dense, resid = compressor.roundtrip(g, fold_in(rng, 0),
+                                            e=ef_residual)
         return dense if ef_residual is None else (dense, resid)
     if ef_residual is not None:
         g = g + ef_residual
-    payload, recv, seg = _compress_push(g, compressor, n)
-    if compressor.presummable:
-        out_payload = _payload_sum(recv, n)
-    else:
-        # owner: decompress each rank's segment and sum in f32 (the
-        # codec's fused decompress_sum), then recompress for the pull
-        s = compressor.decompress_sum(recv, seg, torch.float32)
-        out_payload = compressor.compress(s) if two_way else {"dense": s}
+    payload, seg_keys, recv, seg = _compress_push(g, rng, compressor, n)
+    out_payload = _owner_sum(recv, compressor, n, seg)
+    if two_way and not compressor.presummable:
+        # recompress the owner's sum for the pull, with the owner's key
+        out_payload = compressor.compress(out_payload["dense"],
+                                          fold_in(rng, rank))
     gathered = _gather(out_payload, n)
     if compressor.presummable or two_way:
-        out = _decompress_rows(compressor, gathered, n, seg)
+        out = _decompress_rows(compressor, gathered, seg_keys, seg)
     else:
         out = gathered["dense"].reshape(-1)
     out = out[:L]
     out = out / n if average else out
     if ef_residual is None:
         return out
-    return out, g - _decompress_rows(compressor, payload, n, seg)[:L]
+    return out, g - _decompress_rows(compressor, payload, seg_keys, seg)[:L]
+
+
+def compressed_reduce_scatter_local(
+    g: torch.Tensor,
+    compressor: Compressor,
+    n: Optional[int] = None,
+    average: bool = True,
+    ef_residual: Optional[torch.Tensor] = None,
+    rng: Optional[int] = None,
+):
+    """The first half of the compressed all-reduce: COMPRESS → "PUSH" →
+    the owner's f32 sum, without the pull. Returns this rank's owned
+    ``(ceil(L/n),)`` segment of the aggregate, or ``(segment,
+    new_residual)`` with ``ef_residual`` (error feedback as in
+    :func:`compressed_allreduce_local`)."""
+    rng = _require_rng(compressor, rng)
+    n, rank = _size_rank(n)
+    L = g.shape[0]
+    g = g.float()
+    if n == 1 and not compressor.stochastic:
+        # the owner "sum" over one worker is D(C(g[+e])), one round trip;
+        # the segment is the whole vector and nothing is recompressed
+        dense, resid = compressor.roundtrip(g, fold_in(rng, 0),
+                                            e=ef_residual)
+        return dense if ef_residual is None else (dense, resid)
+    if ef_residual is not None:
+        g = g + ef_residual
+    payload, seg_keys, recv, seg = _compress_push(g, rng, compressor, n)
+    agg = _owner_sum(recv, compressor, n, seg)
+    # a presummable sum is still a payload, of this owner's segment key
+    s = (compressor.decompress(agg, seg, torch.float32, fold_in(rng, rank))
+         if compressor.presummable else agg["dense"])
+    s = s / n if average else s
+    if ef_residual is None:
+        return s
+    return s, g - _decompress_rows(compressor, payload, seg_keys, seg)[:L]
+
+
+def _account_compressed(compressor: Compressor, L: int, n: int,
+                        two_way: bool, pull: bool) -> None:
+    """Wire bytes of one compressed dispatch on this rank: (n−1) segment
+    payloads pushed, and for an all-reduce (n−1) pulled, compressed when
+    ``two_way`` or presummable, raw f32 otherwise."""
+    if n <= 1:
+        return
+    seg = -(-L // n)
+    pb = compressor.compressed_bytes(seg)
+    wire, logical = (n - 1) * pb, (n - 1) * seg * 4
+    if pull:
+        wire += (n - 1) * (
+            pb if (compressor.presummable or two_way) else seg * 4)
+        logical *= 2
+    _account_wire(wire, logical)
 
 
 def compressed_allreduce_flat(
@@ -195,6 +347,7 @@ def compressed_allreduce_flat(
     average: bool = True,
     two_way: bool = True,
     ef_residual: Optional[torch.Tensor] = None,
+    rng: Optional[int] = None,
 ):
     """Host-dispatched compressed all-reduce of this rank's flat (L,)
     tensor: :func:`compressed_allreduce_local` plus the dispatch and
@@ -202,13 +355,23 @@ def compressed_allreduce_flat(
     ``ef_residual``."""
     n, _ = world()
     _count_dispatch("compressed_allreduce")
-    if n > 1:
-        seg = -(-x.shape[0] // n)
-        pb = compressor.compressed_bytes(seg)
-        wire = (n - 1) * pb + (n - 1) * (
-            pb if (compressor.presummable or two_way) else seg * 4)
-        _account_wire(wire, 2 * (n - 1) * seg * 4)
+    _account_compressed(compressor, x.shape[0], n, two_way, pull=True)
     return compressed_allreduce_local(x, compressor, n, average=average,
                                       two_way=two_way,
-                                      ef_residual=ef_residual)
+                                      ef_residual=ef_residual, rng=rng)
 
+
+def compressed_reduce_scatter_flat(
+    x: torch.Tensor,
+    compressor: Compressor,
+    average: bool = False,
+    rng: Optional[int] = None,
+) -> torch.Tensor:
+    """Host-dispatched compressed reduce-scatter: this rank's owned
+    ``(ceil(L/n),)`` segment of Σ_w D(C(x_w)) (a sum by default, as a
+    reduce is), with the dispatch and wire-byte counters."""
+    n, _ = world()
+    _count_dispatch("compressed_reduce_scatter")
+    _account_compressed(compressor, x.shape[0], n, False, pull=False)
+    return compressed_reduce_scatter_local(x, compressor, n, average=average,
+                                           rng=rng)

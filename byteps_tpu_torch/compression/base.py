@@ -12,9 +12,16 @@ Contract, as in the reference:
   a stacked payload (leading axis K): the aggregation tier's inner loop.
 * ``compressed_bytes(n, itemsize)`` — wire size, for accounting.
 
-``rng`` is accepted for the reference's signature; the ported codecs are
-deterministic and ignore it. Stochastic codecs (randomk, dithering) are
-not ported yet.
+Keys. The reference threads threefry keys; here a key is a Python int
+below 2^64, :func:`fold_in` derives one from another as
+``jax.random.fold_in`` does (the step's key from the seed and the step
+count, a chunk's from the step's, a segment's from the chunk's), and a
+stochastic codec draws from ``torch.Generator(device).manual_seed(key)``
+(:func:`generator`). The draws differ from the reference's; each
+stochastic codec keeps its draw step apart from a deterministic apply
+step, so a test can feed it the reference's draws. Stochastic codecs
+(``stochastic = True``) raise without a key, as the reference's do;
+deterministic ones ignore it.
 """
 
 from __future__ import annotations
@@ -24,6 +31,23 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 Payload = Dict[str, torch.Tensor]
+
+_MASK64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new key from ``key`` and the integer ``data``: splitmix64 of
+    ``key ^ (data · φ)`` (φ the 64-bit golden ratio), mod 2^64."""
+    z = (int(key) ^ (int(data) * _GOLDEN)) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def generator(key: int, device: torch.device) -> torch.Generator:
+    """The generator a stochastic codec draws from for ``key``."""
+    return torch.Generator(device).manual_seed(int(key))
 
 
 class Compressor:

@@ -5,7 +5,8 @@ sp, pp or ZeRO).
 One step runs, in order: the forward, the backward (attention through
 the hand-written flash kernels on the card), the flattening of the
 gradients in the reference's leaf order, the chunked aggregation of
-``optimizer.DistributedOptimizer`` (raw, or onebit with error feedback),
+``optimizer.DistributedOptimizer`` (raw, or compressed by any codec of
+``compression``, with error feedback and momentum as asked),
 the write-back into ``.grad``, and a ``torch.optim.AdamW`` step. Each
 rank is one process with its own batch; with more than one rank the step
 aggregates over the default ``torch.distributed`` group, which the caller
@@ -59,7 +60,8 @@ def make_gpt_train_step(
     :class:`DistributedOptimizer` around ``make_optimizer(leaves)``
     (default :func:`adamw`), its EF/momentum buffers this rank's state.
     ``compression_params`` as the reference's, e.g. ``{"compressor":
-    "onebit", "ef": "vanilla"}``; ``remat`` recomputes each block in the
+    "onebit", "ef": "vanilla"}`` or ``{"compressor": "topk", "k": 0.01,
+    "ef": "vanilla", "selection": "block"}``; ``remat`` recomputes each block in the
     backward; ``chunked_ce=False`` takes the dense readout + CE."""
     dev = resolve_device(device)
     params = (init_params if init_params is not None

@@ -23,7 +23,10 @@ import torch
 
 launches: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
                              "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                             "onebit_pack": 0, "onebit_unpack_sum": 0}
+                             "onebit_pack": 0, "onebit_unpack_sum": 0,
+                             "onebit_unpack_sum_grid": 0,
+                             "topk_select": 0, "topk_reconstruct_sum": 0,
+                             "topk_roundtrip": 0}
 
 
 def reset_launches() -> None:

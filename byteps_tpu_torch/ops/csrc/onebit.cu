@@ -1,7 +1,8 @@
 // Onebit sign codec for Hopper (sm_90a): pack and the fused unpack-sum.
 //
-// Replaces byteps_tpu/ops/onebit_kernels.py:_pack_kernel (via _pack_pallas)
-// and :_make_unpack_sum_kernel (via _unpack_sum_pallas, K <= 32 workers).
+// Replaces byteps_tpu/ops/onebit_kernels.py:_pack_kernel (via _pack_pallas),
+// :_make_unpack_sum_kernel (via _unpack_sum_pallas, K <= 32 workers) and
+// :_make_unpack_sum_grid_kernel (the same call, K > 32).
 // Wire layout (the reference's, kept bit for bit): n f32 values, padded
 // with zeros to 32 * L, are viewed as (32, L); bit k of word j is
 // x[k * L + j] >= 0. So padding packs as 1, -0.0 as 1 and NaN as 0.
@@ -19,6 +20,11 @@
 // row (coalesced); each word is read again by the 32 threads of its bit
 // rows, from cache.
 //
+// unpack_sum_grid (K > 32): the same thread layout, the reference grid
+// kernel's order of adds. The K rows, padded to a multiple of 8 with
+// zero-scale rows (which add -0.0), fold in blocks of 8 rows, each block
+// from 0.0f; the output is block 0, then out + block b in block order.
+//
 // What bounds them: bytes. A 1,024,000-element chunk (the default
 // 4,096,000-byte partition) moves 4 MB of f32 and 128 KB of words each
 // way, about 1.3 us at 3.35 TB/s; at that size a launch costs about as
@@ -29,6 +35,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kGridRows = 8;      // the reference grid kernel's row block
 
 __global__ void __launch_bounds__(kThreads)
 pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
@@ -64,6 +71,29 @@ unpack_sum_kernel(const uint32_t* __restrict__ words,
   out[e] = acc;
 }
 
+__global__ void __launch_bounds__(kThreads)
+unpack_sum_grid_kernel(const uint32_t* __restrict__ words,
+                       const float* __restrict__ scales,
+                       float* __restrict__ out, int K, int L, long long n) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  const int k = (int)(e / L);
+  const int j = (int)(e - (long long)k * L);
+  float acc = 0.f;
+  for (int b = 0; b < K; b += kGridRows) {
+    float part = 0.f;
+#pragma unroll
+    for (int r = b; r < b + kGridRows; ++r) {
+      const float s = r < K ? scales[r] : 0.f;
+      const uint32_t bit =
+          r < K ? (words[(long long)r * L + j] >> k) & 1u : 0u;
+      part = __fadd_rn(part, bit ? s : -s);
+    }
+    acc = b == 0 ? part : __fadd_rn(acc, part);
+  }
+  out[e] = acc;
+}
+
 }  // namespace
 
 // x: n f32 on the card; words: L = packed_words(n) 32-bit words. Returns a
@@ -85,6 +115,19 @@ extern "C" int bps_onebit_unpack_sum(const void* words, const void* scales,
   if (n == 0) return 0;
   unpack_sum_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<const float*>(scales),
+      static_cast<float*>(out), K, L, n);
+  return (int)cudaGetLastError();
+}
+
+// The same contract for K > 32 payloads, in the grid kernel's order.
+extern "C" int bps_onebit_unpack_sum_grid(const void* words,
+                                          const void* scales, void* out,
+                                          int K, int L, long long n,
+                                          void* stream) {
+  if (n == 0) return 0;
+  unpack_sum_grid_kernel<<<(unsigned)((n + kThreads - 1) / kThreads),
+                           kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const float*>(scales),
       static_cast<float*>(out), K, L, n);
   return (int)cudaGetLastError();

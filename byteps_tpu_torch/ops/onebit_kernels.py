@@ -10,12 +10,13 @@ and bit k of word j is ``x[k·L + j] >= 0``. Padding therefore packs as 1,
 (``words.numpy().view(np.uint32)`` equals the reference's words):
 ``torch.uint32`` has thin op coverage.
 
-``onebit_unpack_sum`` folds the K payloads in order r = 0..K-1 from 0.0,
-as the reference's ``_rows_unpack_acc`` does, so kernel and plain
-version agree bit for bit. The reference's grid variant for K > 32
-workers (``_make_unpack_sum_grid_kernel``) is not ported yet: the
-kernel here takes any K, but is held against the reference only up to
-the 32 of the unrolled variant.
+``onebit_unpack_sum`` adds the K payloads in the reference's order, so
+kernel, plain version and reference agree bit for bit. Up to 32 payloads
+(``_make_unpack_sum_kernel``) it folds them in order r = 0..K-1 from
+0.0, as ``_rows_unpack_acc`` does. Above 32 (``_make_unpack_sum_grid_kernel``)
+it pads K to a multiple of 8 with zero-scale rows, folds each block of
+8 rows from 0.0, and adds the block partials into the output in block
+order; those launches count as ``onebit_unpack_sum_grid``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ from byteps_tpu_torch.ops.backend import check_kernel_input, launches
 
 _LANES = 128
 _BITS = 32
+# the reference's unrolled unpack-sum takes up to this many payloads;
+# above it, its grid kernel folds them in blocks of _GRID_ROWS
+_UNROLL_K_MAX = 32
+_GRID_ROWS = 8
 
 
 def packed_words(n: int) -> int:
@@ -57,15 +62,33 @@ def _pack_torch(x: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def _unpack_sum_torch(words: torch.Tensor, scales: torch.Tensor,
-                      n: int) -> torch.Tensor:
-    K, L = words.shape
+def _rows_unpack_acc(words: torch.Tensor,
+                     scales: torch.Tensor) -> torch.Tensor:
+    """Σ_r signs(words[r])·scales[r] folded in order r = 0.. from 0.0,
+    as (32, L)."""
     shifts = torch.arange(_BITS, device=words.device,
                           dtype=torch.int32)[:, None]
-    acc = torch.zeros((_BITS, L), dtype=torch.float32, device=words.device)
-    for r in range(K):
+    acc = torch.zeros((_BITS, words.shape[1]), dtype=torch.float32,
+                      device=words.device)
+    for r in range(words.shape[0]):
         bits = (words[r][None, :] >> shifts) & 1           # (32, L)
         acc = acc + (bits.to(torch.float32) * 2.0 - 1.0) * scales[r]
+    return acc
+
+
+def _unpack_sum_torch(words: torch.Tensor, scales: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    K = words.shape[0]
+    if K <= _UNROLL_K_MAX:
+        return _rows_unpack_acc(words, scales).reshape(-1)[:n]
+    kp = -(-K // _GRID_ROWS) * _GRID_ROWS
+    words = torch.nn.functional.pad(words, (0, 0, 0, kp - K))
+    scales = torch.nn.functional.pad(scales, (0, kp - K))
+    acc = None
+    for b in range(0, kp, _GRID_ROWS):
+        part = _rows_unpack_acc(words[b:b + _GRID_ROWS],
+                                scales[b:b + _GRID_ROWS])
+        acc = part if acc is None else acc + part
     return acc.reshape(-1)[:n]
 
 
@@ -78,8 +101,9 @@ def _lib() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bps_onebit_pack.argtypes = [p, p, ll, i, p]
     lib.bps_onebit_pack.restype = i
-    lib.bps_onebit_unpack_sum.argtypes = [p, p, p, i, i, ll, p]
-    lib.bps_onebit_unpack_sum.restype = i
+    for fn in (lib.bps_onebit_unpack_sum, lib.bps_onebit_unpack_sum_grid):
+        fn.argtypes = [p, p, p, i, i, ll, p]
+        fn.restype = i
     return lib
 
 
@@ -110,14 +134,15 @@ def _unpack_sum_cuda(words: torch.Tensor, scales: torch.Tensor,
     K, L = words.shape
     out = torch.empty(n, dtype=torch.float32, device=words.device)
     lib = _lib()
+    grid = K > _UNROLL_K_MAX
+    fn = lib.bps_onebit_unpack_sum_grid if grid else lib.bps_onebit_unpack_sum
     with torch.cuda.device(words.device):
-        rc = lib.bps_onebit_unpack_sum(words.data_ptr(), scales.data_ptr(),
-                                       out.data_ptr(), K, L, n,
-                                       _stream(words))
+        rc = fn(words.data_ptr(), scales.data_ptr(), out.data_ptr(), K, L, n,
+                _stream(words))
     if rc != 0:
         raise RuntimeError("onebit unpack_sum kernel launch failed: "
                            f"{_build.error_string(lib, rc)}")
-    launches["onebit_unpack_sum"] += 1
+    launches["onebit_unpack_sum_grid" if grid else "onebit_unpack_sum"] += 1
     return out
 
 

@@ -12,10 +12,12 @@ state are flat f32 tensors of this rank (each rank is one reference
 worker), held by the optimizer wrapper around a ``torch.optim``
 optimizer.
 
-Where the reference's chunk ids also seed stochastic codecs, the port's
-codecs are deterministic and need no rng; the reference's batched-chunk
-mode (``BYTEPS_COMPRESS_BATCH_CHUNKS`` > 1) is not ported: chunks run
-one after another, its default.
+Keys for the stochastic codecs (``compression.base.fold_in``), as the
+reference derives them: the step's key is ``fold_in(fold_in(seed,
+spec.seed), count)``, chunk i's ``fold_in(step_key, i)``; deterministic
+codecs ignore them. The reference's batched-chunk mode
+(``BYTEPS_COMPRESS_BATCH_CHUNKS`` > 1) is not ported: chunks run one
+after another, its default.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from byteps_tpu_torch.comm.ici import compressed_allreduce_local, world
 from byteps_tpu_torch.common.config import get_config
 from byteps_tpu_torch.compression import (
     CompressionSpec,
+    fold_in,
     from_params,
     momentum_step,
 )
@@ -64,21 +67,29 @@ def _chunk_bounds(total: int, chunk_elems: int) -> List[Tuple[int, int]]:
 
 
 def _aggregate_flat(flat: torch.Tensor, n: int, average: bool,
-                    spec: CompressionSpec, ef_flat: Optional[torch.Tensor],
-                    chunk_elems: int, two_way: bool):
+                    spec: CompressionSpec, rng: Optional[int],
+                    ef_flat: Optional[torch.Tensor], chunk_elems: int,
+                    two_way: bool):
     """Chunk a flat gradient vector and aggregate each chunk over the
-    ranks, in order. Returns ``(agg_flat, new_ef_flat_or_None,
-    num_chunks)``."""
+    ranks, in order, chunk i with the key ``fold_in(rng, i)``. Returns
+    ``(agg_flat, new_ef_flat_or_None, num_chunks)``."""
     bounds = _chunk_bounds(flat.shape[0], chunk_elems)
+    if spec.enabled and rng is None:
+        if spec.compressor.stochastic:
+            raise ValueError(
+                f"{spec.compressor.name} requires an rng that advances "
+                "every step; pass rng= (DistributedOptimizer does this "
+                "from its step count)")
+        rng = 0
     out_chunks = []
     new_e_chunks = [] if ef_flat is not None else None
-    for off, ln in bounds:
+    for ci, (off, ln) in enumerate(bounds):
         g = flat[off:off + ln]
         if spec.enabled:
             e = ef_flat[off:off + ln] if ef_flat is not None else None
             res = compressed_allreduce_local(
                 g, spec.compressor, n, average=average, two_way=two_way,
-                ef_residual=e)
+                ef_residual=e, rng=fold_in(rng, ci))
             if e is not None:
                 out, ne = res
                 new_e_chunks.append(ne)
@@ -105,13 +116,15 @@ def _aggregate_flat(flat: torch.Tensor, n: int, average: bool,
 def push_pull_inside(grads: Sequence[torch.Tensor], n: Optional[int] = None,
                      average: bool = True,
                      spec: Optional[CompressionSpec] = None,
+                     rng: Optional[int] = None,
                      ef_residual: Optional[torch.Tensor] = None,
                      partition_bytes: Optional[int] = None,
                      two_way: bool = True):
     """Aggregate this rank's gradient leaves (in the reference's leaf
-    order) across the ranks. Returns the aggregated leaves, or
-    ``(leaves, new_ef_residual)`` when ``ef_residual`` (a flat f32
-    vector of the total element count) is given."""
+    order) across the ranks, ``rng`` the step's key (stochastic codecs
+    require it). Returns the aggregated leaves, or ``(leaves,
+    new_ef_residual)`` when ``ef_residual`` (a flat f32 vector of the
+    total element count) is given."""
     cfg = get_config()
     if n is None:
         n = world()[0]
@@ -129,7 +142,7 @@ def push_pull_inside(grads: Sequence[torch.Tensor], n: Optional[int] = None,
     acc_dtype = (torch.float32 if spec.enabled
                  else REDUCE_DTYPES[cfg.reduce_dtype])
     flat, sizes = _flatten_concat(grads, acc_dtype)
-    agg, new_e = _push_pull_flat(flat, n, average, spec, ef_residual,
+    agg, new_e = _push_pull_flat(flat, n, average, spec, rng, ef_residual,
                                  partition_bytes, two_way)
     out = _unconcat_unflatten(agg, grads, sizes)
     if ef_residual is not None:
@@ -138,15 +151,16 @@ def push_pull_inside(grads: Sequence[torch.Tensor], n: Optional[int] = None,
 
 
 def _push_pull_flat(flat: torch.Tensor, n: int, average: bool,
-                    spec: CompressionSpec, ef_residual: Optional[torch.Tensor],
+                    spec: CompressionSpec, rng: Optional[int],
+                    ef_residual: Optional[torch.Tensor],
                     partition_bytes: Optional[int], two_way: bool):
     """:func:`push_pull_inside` past the flatten: aggregate one flat
     vector (of the reduce dtype) in ``partition_bytes`` chunks. Returns
     ``(agg_flat, new_ef_flat_or_None)``."""
     partition_bytes = partition_bytes or get_config().partition_bytes
     chunk_elems = max(1, partition_bytes // flat.element_size())
-    agg, new_e, _ = _aggregate_flat(flat, n, average, spec, ef_residual,
-                                    chunk_elems, two_way)
+    agg, new_e, _ = _aggregate_flat(flat, n, average, spec, rng,
+                                    ef_residual, chunk_elems, two_way)
     return agg, new_e
 
 
@@ -159,7 +173,8 @@ class DistributedOptimizer:
     ``params`` must be listed in the reference's leaf order
     (``models.convert.flat_leaves``): chunks, and so the onebit scale of
     each, span leaf boundaries in that order. ``ef`` and ``momentum`` are
-    this rank's flat f32 worker state (None when off).
+    this rank's flat f32 worker state (None when off). ``seed`` with the
+    codec's ``seed`` and the step ``count`` gives the step's key.
 
     Reference: ``byteps_tpu.jax.DistributedOptimizer`` (non-ZeRO,
     non-hierarchical ``update_fn``), itself the functional form of
@@ -169,12 +184,14 @@ class DistributedOptimizer:
                  params: Sequence[torch.Tensor],
                  compression_params: Optional[Dict[str, Any]] = None,
                  average: bool = True,
-                 partition_bytes: Optional[int] = None):
+                 partition_bytes: Optional[int] = None,
+                 seed: int = 0):
         self.optimizer = optimizer
         self.params = list(params)
         self.spec = from_params(compression_params)
         self.average = average
         self.partition_bytes = partition_bytes
+        self.seed = seed
         self.count = 0
         total = sum(p.numel() for p in self.params)
         dev = self.params[0].device
@@ -194,25 +211,26 @@ class DistributedOptimizer:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         spec = self.spec
+        rng = fold_in(fold_in(self.seed, spec.seed), self.count)
         if self.momentum is not None:
             # Nesterov momentum before compression, on the flat vector
             # that is then aggregated as it stands
             flat, sizes = _flatten_concat(grads)
             flat, self.momentum = momentum_step(flat, self.momentum, spec.mu)
             agg, new_e = _push_pull_flat(
-                flat, world()[0], self.average, spec, self.ef,
+                flat, world()[0], self.average, spec, rng, self.ef,
                 self.partition_bytes, spec.two_way)
             if self.ef is not None:
                 self.ef = new_e
             agg = _unconcat_unflatten(agg, grads, sizes)
         elif self.ef is not None:
             agg, self.ef = push_pull_inside(
-                grads, None, self.average, spec, ef_residual=self.ef,
+                grads, None, self.average, spec, rng, ef_residual=self.ef,
                 partition_bytes=self.partition_bytes,
                 two_way=spec.two_way)
         else:
             agg = push_pull_inside(
-                grads, None, self.average, spec,
+                grads, None, self.average, spec, rng,
                 partition_bytes=self.partition_bytes,
                 two_way=spec.two_way)
         for p, g in zip(self.params, agg):

@@ -20,7 +20,14 @@ Phases, each printing one JSON line:
    error, and kernel / plain / SDPA-backward times; onebit — pack words
    bit-equal to
    the plain version at the 1,024,000-element chunk, a ragged length and
-   an input seeded with -0.0, 0 and NaN, unpack-sum equal at K=1 and K=8;
+   an input seeded with -0.0, 0 and NaN, unpack-sum equal at K=1 and K=8
+   and, in the grid order the reference takes above 32 payloads, at K=40
+   and K=256; topk — select, reconstruct-sum and the fused round trip
+   bit-equal to their plain versions at the training step's shapes (the
+   (80, 100) round trip of a full chunk with and without the EF residual,
+   select and reconstruct at (100, 10240) and the ragged tail's
+   (101, 5617) with n = 567,296, reconstruct at K = 8) and on ties,
+   zeros and NaN;
 4. generate — ``make_generate_fn`` at the full width of GPT-2 medium in
    bf16 (random weights from a seed): B=4, T0=128, 64 new tokens;
 5. serve — ``Scheduler.serve`` at the same width, bf16: 8 requests with
@@ -36,9 +43,10 @@ Phases, each printing one JSON line:
    and backward kernels): losses and each leaf's gradient agree;
 8. train — ``make_gpt_train_step`` at the full width and depth of GPT-2
    medium, bf16 over f32 master weights, AdamW(1e-3), one seeded batch of
-   B=8 × S=1024: a raw leg and a onebit + error-feedback leg, each one
-   warm-up and 5 timed steps; the loss stays finite and falls; step ms,
-   tokens/s and peak memory;
+   B=8 × S=1024: a raw leg, a onebit + error-feedback leg and a top-k
+   block + error-feedback leg (k = 0.01, the reference's ``topk-block``
+   configuration), each one warm-up and 5 timed steps; the loss stays
+   finite and falls; step ms, tokens/s and peak memory;
 9. train_tiny — a tiny f32 model trains 3 raw steps on the CPU (plain
    versions) and on the card (kernels) to losses within 1e-4.
 
@@ -46,11 +54,15 @@ Each of phases 4-6 and each train leg runs with the launch counters set
 to 0 just before it and read just after: generate must launch the
 forward and decode kernels, serve the forward kernel (its decode is the
 packed plain step; it reaches the decode kernel only through a one-token
-prefill chunk), exact both; train_bf16 and both train legs the forward
-and both backward kernels, and the onebit leg the pack and unpack-sum kernels
-once per gradient chunk and step. A ``launches`` line gives the counts
-per path, then a ``{"kernels": [...]}`` line whose ``launches`` sums the
-main paths (generate, serve, both train legs), and, last,
+prefill chunk), exact both; train_bf16 and the train legs the forward
+and both backward kernels once per layer and step, the onebit leg the
+pack and unpack-sum kernels once per gradient chunk and step, and the
+top-k leg the round trip once per full chunk and step (346) and select
+and reconstruct-sum once per step (the ragged tail chunk). The grid
+unpack-sum runs only in the onebit phase: one card aggregates K = 1.
+A ``launches`` line gives the counts per path, then a
+``{"kernels": [...]}`` line whose ``launches`` sums the main paths
+(generate, serve, the three train legs), and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so it does without a CUDA card or without the package beside it.
@@ -397,8 +409,148 @@ def onebit_case(timer, name, n, seed, special=False):
             lambda: _unpack_sum_torch(ws, sc, n))
         res[f"unpack_k{K}_bound_ms"], res[f"unpack_k{K}_bound_by"] = \
             bound_ms(4 * K * L + 4 * K + 4 * n, 2 * K * n, torch.float32)
+    # above 32 payloads: the reference's grid order (8-row blocks)
+    for K in (40, 256):
+        ws = torch.randint(-2 ** 31, 2 ** 31 - 1, (K, L), generator=g,
+                           device="cuda", dtype=torch.int32)
+        sc = torch.rand(K, generator=g, device="cuda")
+        out = onebit_unpack_sum(ws, sc, n)
+        ref = _unpack_sum_torch(ws, sc, n)
+        if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"onebit unpack_sum {name} K={K}: differs "
+                                 "from the plain version (grid order)")
+        res[f"unpack_k{K}_equal"] = True
+        res[f"unpack_k{K}_max_abs_err"] = float((out - ref).abs().max())
+        res[f"unpack_k{K}_ms"] = timer(lambda: onebit_unpack_sum(ws, sc, n))
+        res[f"unpack_k{K}_plain_ms"] = timer(
+            lambda: _unpack_sum_torch(ws, sc, n), iters=5)
+        res[f"unpack_k{K}_bound_ms"], res[f"unpack_k{K}_bound_by"] = \
+            bound_ms(4 * K * L + 4 * K + 4 * n, 2 * K * n, torch.float32)
     emit({"phase": "onebit", **res})
     return res
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit: -0.0 against 0.0 and NaN against NaN count."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+def topk_select_case(timer, name, block, rows, n, seed, ties=False):
+    """block_select against its plain version; returns the winners too."""
+    from byteps_tpu_torch.ops.topk_kernels import _select_torch, block_select
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(block, rows, generator=g, device="cuda")
+    if ties:
+        tie_rows(x)
+    lo, va = block_select(x, n)
+    plo, pva = _select_torch(x, n)
+    torch.cuda.synchronize()
+    if not (torch.equal(lo, plo) and bits_equal(va, pva)):
+        raise AssertionError(f"topk select {name}: differs from the plain "
+                             "version")
+    res = {"case": name, "shape": [block, rows], "n": n, "ties": ties,
+           "bit_equal": True, "max_abs_err": float((va - pva).abs().max())}
+    if not ties:
+        res["ms"] = timer(lambda: block_select(x, n))
+        res["plain_ms"] = timer(lambda: _select_torch(x, n))
+        # two calls: abs, then max over the rows
+        res["library_ms"] = timer(lambda: torch.max(x.abs(), 0))
+        res["bound_ms"], res["bound_by"] = bound_ms(4 * n + 8 * rows, 2 * n,
+                                                    torch.float32)
+    emit({"phase": "topk_select", **res})
+    return res, lo, va
+
+
+def tie_rows(x: torch.Tensor) -> None:
+    """Ties, zeros and NaN on the leading axis of (groups, g, 128) or
+    (block, rows) views: rows 2 and 5 tie at |3| (2 must win), some
+    columns all zero (index 0 wins), one holds a NaN (no winner), -0.0
+    beside 0.0."""
+    x[..., 2, :] = -3.0
+    x[..., 5, :] = 3.0
+    x[..., 0:64] = 0.0
+    x[..., 3, 10] = -0.0
+    x[..., 7, 70] = float("nan")
+
+
+def topk_reconstruct_case(timer, name, lo, va, block):
+    from byteps_tpu_torch.ops.topk_kernels import (_reconstruct_sum_torch,
+                                                   block_reconstruct_sum)
+
+    K, rows = lo.shape
+    out = block_reconstruct_sum(lo, va, block)
+    ref = _reconstruct_sum_torch(lo, va, block)
+    torch.cuda.synchronize()
+    if not bits_equal(out, ref):
+        raise AssertionError(f"topk reconstruct {name} K={K}: differs from "
+                             "the plain version")
+    idx = lo.long().clamp(max=block - 1)    # no-winner lanes: in range
+    res = {"case": name, "K": K, "shape": [block, rows], "bit_equal": True,
+           "max_abs_err": float((out - ref).abs().max()),
+           "ms": timer(lambda: block_reconstruct_sum(lo, va, block)),
+           "plain_ms": timer(lambda: _reconstruct_sum_torch(lo, va, block)),
+           # two calls: zeros, then scatter_add_
+           "library_ms": timer(
+               lambda: torch.zeros(block, rows, device="cuda").scatter_add_(
+                   0, idx, va))}
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        8 * K * rows + 4 * block * rows, 2 * K * block * rows, torch.float32)
+    emit({"phase": "topk_reconstruct", **res})
+    return res
+
+
+def topk_roundtrip_case(timer, name, J, g_, with_e, seed, ties=False):
+    from byteps_tpu_torch.ops.topk_kernels import (_roundtrip_torch,
+                                                   block_roundtrip)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    N = J * g_ * 128
+    x = torch.randn(N, generator=g, device="cuda")
+    e = 0.1 * torch.randn(N, generator=g, device="cuda") if with_e else None
+    if ties:
+        tie_rows(x.view(J, g_, 128))
+    d, r = block_roundtrip(x, J, g_, e)
+    pd, pr = _roundtrip_torch(x, J, g_, e)
+    torch.cuda.synchronize()
+    if not (bits_equal(d, pd) and bits_equal(r, pr)):
+        raise AssertionError(f"topk roundtrip {name}: differs from the "
+                             "plain version")
+    res = {"case": name, "J": J, "g": g_, "with_e": with_e, "ties": ties,
+           "bit_equal": True,
+           "max_abs_err": float(max((d - pd).nan_to_num().abs().max(),
+                                    (r - pr).nan_to_num().abs().max()))}
+    if not ties:
+        res["ms"] = timer(lambda: block_roundtrip(x, J, g_, e))
+        res["plain_ms"] = timer(lambda: _roundtrip_torch(x, J, g_, e))
+        res["library_ms"] = None      # no one library call does this
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            4 * N * (2 if with_e else 1) + 8 * N, N * (3 if with_e else 2),
+            torch.float32)
+    emit({"phase": "topk_roundtrip", **res})
+    return res
+
+
+def topk_cases(timer) -> dict:
+    """Each top-k kernel against its plain version at the training step's
+    shapes; the main-path cases by kernel name."""
+    chunk, tail = 1_024_000, 354_871_296 % 1_024_000      # GPT-2 medium
+    _, lo, va = topk_select_case(timer, "chunk", 100, 10240, chunk, 50)
+    tsel, tlo, tva = topk_select_case(timer, "tail", 101, 5617, tail, 51)
+    topk_select_case(timer, "ties", 100, 10240, chunk, 52, ties=True)
+    topk_reconstruct_case(timer, "chunk", lo[None], va[None], 100)
+    trec = topk_reconstruct_case(timer, "tail", tlo[None], tva[None], 101)
+    g = torch.Generator(device="cuda").manual_seed(55)
+    lo8 = torch.randint(0, 101, (8, 10240), generator=g, device="cuda",
+                        dtype=torch.int32)
+    va8 = torch.randn(8, 10240, generator=g, device="cuda")
+    topk_reconstruct_case(timer, "K8", lo8, va8, 100)
+    rt = topk_roundtrip_case(timer, "chunk_ef", 80, 100, True, 56)
+    topk_roundtrip_case(timer, "chunk", 80, 100, False, 57)
+    topk_roundtrip_case(timer, "ties", 80, 100, True, 58, ties=True)
+    return {"topk_select": tsel, "topk_reconstruct_sum": trec,
+            "topk_roundtrip": rt}
 
 
 # --------------------------------------------------------------------------
@@ -507,8 +659,9 @@ def phase_tiny():
     emit({"phase": "tiny", "cpu_equals_card": True})
 
 
-# filled by phase_train: the gradient chunks of one step
+# filled by phase_train: the gradient chunks and elements of one step
 TRAIN_CHUNKS = {}
+TRAIN_PARAMS = {}
 
 
 def phase_train(leg, compression_params, B=8, S=1024, steps=5):
@@ -541,6 +694,7 @@ def phase_train(leg, compression_params, B=8, S=1024, steps=5):
     n_params = sum(p.numel() for p in opt.params)
     per = get_config().partition_bytes // 4
     chunks = TRAIN_CHUNKS[leg] = -(-n_params // per)
+    TRAIN_PARAMS[leg] = n_params
     emit({"phase": "train", "leg": leg, "batch": B, "seq": S,
           "params": n_params, "chunks_per_step": chunks,
           "compression": compression_params, "losses": losses,
@@ -625,11 +779,15 @@ def phase_train_bf16():
 
 # the kernels each run of the main path must launch
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
 PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": ("flash_fwd",),
          "exact": ("flash_fwd", "flash_decode"), "train_bf16": TRAIN,
          "train_raw": TRAIN,
-         "train_onebit": TRAIN + ("onebit_pack", "onebit_unpack_sum")}
-MAIN_PATHS = ("generate", "serve", "train_raw", "train_onebit")
+         "train_onebit": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
+         "train_topk": TRAIN + TOPK}
+MAIN_PATHS = ("generate", "serve", "train_raw", "train_onebit", "train_topk")
+TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
+                 "selection": "block"}
 
 
 def counted(name, fn, *args) -> dict:
@@ -718,6 +876,7 @@ def main() -> int:
             onebit_case(timer, "ragged", 1_000_003, 41),
             onebit_case(timer, "signed_zero_nan", 1_000_003, 42,
                         special=True)]
+    topk = topk_cases(timer)
     del timer
 
     cfg = GPTConfig.gpt2_medium()
@@ -734,6 +893,8 @@ def main() -> int:
     by_path["train_onebit"] = counted(
         "train_onebit", phase_train, "onebit_ef",
         {"compressor": "onebit", "ef": "vanilla"})
+    by_path["train_topk"] = counted("train_topk", phase_train,
+                                    "topk_block_ef", TOPK_BLOCK_EF)
     steps = 6                      # one warm-up and five timed
     chunks = TRAIN_CHUNKS["onebit_ef"]
     for name in ("onebit_pack", "onebit_unpack_sum"):
@@ -742,7 +903,26 @@ def main() -> int:
                 f"train_onebit launched {name} "
                 f"{by_path['train_onebit'][name]} times, not one per chunk "
                 f"and step ({steps} x {chunks})")
-    for leg in ("train_raw", "train_onebit"):
+    # top-k: the fused round trip on each full chunk (tiled layout), select
+    # and reconstruct-sum on the ragged tail (strided layout)
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.compression.topk import tiled_shape
+
+    per = get_config().partition_bytes // 4
+    full, tail = divmod(TRAIN_PARAMS["topk_block_ef"], per)
+    k = TOPK_BLOCK_EF["k"]
+    if tiled_shape(k, per) is None or (tail and tiled_shape(k, tail)):
+        raise AssertionError("top-k chunks no longer take the expected "
+                             "layouts")
+    want = {"topk_roundtrip": steps * full,
+            "topk_select": steps * (tail > 0),
+            "topk_reconstruct_sum": steps * (tail > 0)}
+    for name, n in want.items():
+        if by_path["train_topk"][name] != n:
+            raise AssertionError(f"train_topk launched {name} "
+                                 f"{by_path['train_topk'][name]} times, not "
+                                 f"{n} ({steps} steps, {full} full chunks)")
+    for leg in ("train_raw", "train_onebit", "train_topk"):
         for name in TRAIN:
             if by_path[leg][name] != steps * cfg.n_layers:
                 raise AssertionError(f"{leg} launched {name} "
@@ -785,7 +965,23 @@ def main() -> int:
               "plain_ms": main_bits["unpack_k1_plain_ms"],
               "bound_ms": main_bits["unpack_k1_bound_ms"],
               "bound_by": main_bits["unpack_k1_bound_by"],
-              "library_ms": None})]
+              "library_ms": None}),
+            ("onebit_unpack_sum_grid", "onebit",
+             "byteps_tpu/ops/onebit_kernels.py:134",
+             {"case": "chunk K=40 (onebit phase only: one card has K=1)",
+              "max_abs_err": main_bits["unpack_k40_max_abs_err"],
+              "ms": main_bits["unpack_k40_ms"],
+              "plain_ms": main_bits["unpack_k40_plain_ms"],
+              "bound_ms": main_bits["unpack_k40_bound_ms"],
+              "bound_by": main_bits["unpack_k40_bound_by"],
+              "library_ms": None}),
+            ("topk_select", "topk", "byteps_tpu/ops/topk_kernels.py:76",
+             topk["topk_select"]),
+            ("topk_reconstruct_sum", "topk",
+             "byteps_tpu/ops/topk_kernels.py:110",
+             topk["topk_reconstruct_sum"]),
+            ("topk_roundtrip", "topk", "byteps_tpu/ops/topk_kernels.py:139",
+             topk["topk_roundtrip"])]
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"byteps_tpu_torch/ops/csrc/{src}.cu", "replaces": rep,

@@ -5,8 +5,9 @@
 
 Builds ``make_gpt_train_step`` at the full width and depth of GPT-2
 medium (bf16 activations over f32 master weights, AdamW(1e-3), random
-weights from a seed) on one seeded batch of B=8 x S=1024, for two legs:
-raw aggregation and onebit with error feedback. Each leg runs one
+weights from a seed) on one seeded batch of B=8 x S=1024, for three
+legs: raw aggregation, onebit with error feedback, and top-k (block,
+k = 0.01) with error feedback. Each leg runs one
 warm-up step, ``--steps`` timed steps without the profiler, then
 ``--steps`` steps under ``torch.profiler``. For each leg it reports the
 wall time per step without and with the profiler (whose host-side
@@ -39,7 +40,11 @@ OWN = {"flash_fwd": r"\b(fwd|fwd_mma|merge)_kernel\b",
        "flash_bwd_dq": r"\bdq(_mma)?_kernel\b",
        "flash_bwd_dkv": r"\bdkv(_mma)?_kernel\b",
        "onebit_pack": r"\bpack_kernel\b",
-       "onebit_unpack_sum": r"\bunpack_sum_kernel\b"}
+       "onebit_unpack_sum": r"\bunpack_sum_kernel\b",
+       "onebit_unpack_sum_grid": r"\bunpack_sum_grid_kernel\b",
+       "topk_select": r"\bselect_kernel\b",
+       "topk_reconstruct_sum": r"\breconstruct_sum_kernel\b",
+       "topk_roundtrip": r"\broundtrip_kernel\b"}
 GEMM = ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "sm80_")
 
 
@@ -117,7 +122,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"card": card}
     for leg, comp in (("raw", None),
-                      ("onebit_ef", {"compressor": "onebit", "ef": "vanilla"})):
+                      ("onebit_ef", {"compressor": "onebit", "ef": "vanilla"}),
+                      ("topk_block_ef", {"compressor": "topk", "k": 0.01,
+                                         "ef": "vanilla",
+                                         "selection": "block"})):
         out[leg] = _profiled_leg(comp, args.steps, 8, 1024)
         print(json.dumps({"leg": leg, "card": card, **out[leg]}), flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -103,13 +103,23 @@ def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):
     assert onebit_unpack(words, torch.ones(1), 1000).shape == (1000,)
     assert onebit_unpack_sum(torch.stack([words, words]), torch.ones(2),
                              1000).shape == (1000,)
-    # and the whole training step, onebit with error feedback
-    step, _, _ = make_gpt_train_step(
-        GPTConfig.tiny(), compression_params={"compressor": "onebit",
-                                              "ef": "vanilla"},
-        generator=torch.Generator().manual_seed(0), device="cpu")
+    # the top-k ops
+    from byteps_tpu_torch.ops.topk_kernels import (block_reconstruct_sum,
+                                                   block_roundtrip,
+                                                   block_select)
+    lo, va = block_select(x[:990].reshape(10, 99), 985)
+    assert block_reconstruct_sum(lo[None], va[None], 10).shape == (10, 99)
+    d, r = block_roundtrip(x[:512], 2, 2, e=x[:512])
+    assert torch.equal(d + r, x[:512] + x[:512])
+    # and the whole training step, onebit or top-k with error feedback
     tok = torch.as_tensor(rng.integers(0, 256, (2, 9)))
-    assert torch.isfinite(step(tok[:, :-1], tok[:, 1:]))
+    for comp in ({"compressor": "onebit", "ef": "vanilla"},
+                 {"compressor": "topk", "k": 0.01, "ef": "vanilla",
+                  "selection": "block"}):
+        step, _, _ = make_gpt_train_step(
+            GPTConfig.tiny(), compression_params=comp,
+            generator=torch.Generator().manual_seed(0), device="cpu")
+        assert torch.isfinite(step(tok[:, :-1], tok[:, 1:]))
 
 
 def test_nvcc_command_and_library_name():

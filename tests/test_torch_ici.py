@@ -2,7 +2,10 @@
 
 * One rank: the compressed all-reduce's n == 1 fast path (one codec
   round trip, error feedback included) against the reference's on a
-  1-device mesh, for identity and onebit; and ``push_pull_inside`` with
+  1-device mesh, for identity, onebit, top-k (block on the tiled and
+  strided layouts, exact), fp16 and fp8, and the compressed
+  reduce-scatter's for onebit and top-k; the general body that
+  stochastic codecs take at one rank; and ``push_pull_inside`` with
   a small partition (chunks that cut through leaves, one onebit scale
   per chunk) against the reference's inside ``shard_map`` on that mesh.
 * Two ranks: two processes on the ``gloo`` backend (a ``FileStore`` in
@@ -10,14 +13,20 @@
   reference on a 2-device CPU mesh: the raw all-reduce; onebit with
   error feedback, the pull compressed (two-way) or not (the result on
   each rank and each rank's new residual), with the wire-byte counters;
-  identity with error feedback (payloads summed positionally); and
+  identity with error feedback (payloads summed positionally); top-k
+  block (tiled and ragged strided) and fp8 with error feedback, with
+  their wire bytes; randomk's positional sum (the same support on both
+  ranks, from one key); the compressed reduce-scatter for onebit and
+  top-k; the raw reduce-scatter, all-gather and broadcast; and
   ``push_pull_inside`` over chunks, raw (f32 and, under
   ``BYTEPS_REDUCE_DTYPE=bfloat16``, bf16 sums) and onebit + EF.
 
 Tolerances: raw sums are exact (two f32 terms add the same way
 everywhere). onebit results carry mean(|x|) scales, which the two
 frameworks reduce in different orders: 1e-6 relative (the scales' own
-agreement), the words themselves bit-equal."""
+agreement), the words themselves bit-equal. top-k, fp16 and fp8 select,
+round and scale exactly alike; their owner sums add two terms, so they
+are held to the same 1e-6."""
 
 import json
 import os
@@ -35,11 +44,18 @@ from jax.sharding import PartitionSpec as P
 from byteps_tpu.comm import ici as rici
 from byteps_tpu.common.metrics import get_registry as r_registry
 from byteps_tpu.compression import Compressor as RCompressor
+from byteps_tpu.compression import Fp8Compressor as RFp8
+from byteps_tpu.compression import Fp16Compressor as RFp16
 from byteps_tpu.compression import OnebitCompressor as ROnebit
+from byteps_tpu.compression import TopkCompressor as RTopk
 from byteps_tpu.compression import from_params as r_from_params
 from byteps_tpu.jax.optimizer import push_pull_inside as r_push_pull
 from byteps_tpu_torch.comm import ici as tici
-from byteps_tpu_torch.compression import Compressor, OnebitCompressor
+from byteps_tpu_torch.compression import (Compressor, DitheringCompressor,
+                                          Fp8Compressor, Fp16Compressor,
+                                          OnebitCompressor,
+                                          RandomkCompressor, TopkCompressor,
+                                          fold_in)
 from byteps_tpu_torch.compression import from_params
 from byteps_tpu_torch.optimizer import push_pull_inside
 
@@ -47,12 +63,20 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 RTOL = 1e-6
 L = 5000
+LT = 51_200                     # 25,600-element segments: tiled (2, 100)
 PARTITION_BYTES = 4096          # 1024 f32 elements a chunk
 SHAPES = [(37, 11), (1024,), (3, 700), (5,)]
 ONEBIT_EF = {"compressor": "onebit", "ef": "vanilla"}
 CODECS = {"identity": (RCompressor, Compressor),
           "onebit": (lambda: ROnebit(scaling=True),
-                     lambda: OnebitCompressor(scaling=True))}
+                     lambda: OnebitCompressor(scaling=True)),
+          "topk-block": (lambda: RTopk(k=0.01, selection="block"),
+                         lambda: TopkCompressor(k=0.01, selection="block")),
+          "topk-exact": (lambda: RTopk(k=0.01), lambda: TopkCompressor(k=0.01)),
+          "fp16": (RFp16, Fp16Compressor),
+          "fp8": (RFp8, Fp8Compressor)}
+# the n == 1 cases' lengths: L strided for top-k block; 25,600 tiled (2, 100)
+N1_CASES = [(c, L) for c in sorted(CODECS)] + [("topk-block", 25_600)]
 
 
 def _rand(shape, seed, scale=1.0):
@@ -68,10 +92,10 @@ def _close(got, want):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL)
 
 
-@pytest.mark.parametrize("codec", sorted(CODECS))
-def test_n1_fast_path_matches_reference(codec):
+@pytest.mark.parametrize("codec,n", N1_CASES)
+def test_n1_fast_path_matches_reference(codec, n):
     rmk, tmk = CODECS[codec]
-    g, e = _rand(L, 1), _rand(L, 2, 0.1)
+    g, e = _rand(n, 1), _rand(n, 2, 0.1)
     want, want_e = rici.compressed_allreduce_flat(
         jnp.asarray(g[None]), rmk(), _mesh(1), average=True,
         rng=jax.random.PRNGKey(9), ef_residual=jnp.asarray(e[None]))
@@ -83,6 +107,47 @@ def test_n1_fast_path_matches_reference(codec):
     plain = tici.compressed_allreduce_local(torch.as_tensor(g), tmk(), 1)
     _close(plain.numpy(), np.asarray(rici.compressed_allreduce_flat(
         jnp.asarray(g[None]), rmk(), _mesh(1))).reshape(-1))
+
+
+@pytest.mark.parametrize("codec", ["onebit", "topk-block"])
+def test_n1_reduce_scatter_matches_reference(codec):
+    rmk, tmk = CODECS[codec]
+    g = _rand(L, 5)
+    want = rici.compressed_reduce_scatter_flat(jnp.asarray(g[None]), rmk(),
+                                               _mesh(1))
+    got = tici.compressed_reduce_scatter_flat(torch.as_tensor(g), tmk())
+    _close(got.numpy(), np.asarray(want))
+    out, ne = tici.compressed_reduce_scatter_local(
+        torch.as_tensor(g), tmk(), 1, average=True,
+        ef_residual=torch.zeros(L))
+    _close(out.numpy(), np.asarray(want))
+    _close(ne.numpy(), g - np.asarray(want))
+
+
+def test_n1_stochastic_codecs_take_the_general_body():
+    """At one rank a stochastic codec runs the general body, as the
+    reference's does: segment 0 with the key fold_in(rng, 0) and, for a
+    codec that is not presummable, the owner's recompression of its sum
+    with the same key (two rounds of dithering)."""
+    g, rng = torch.as_tensor(_rand(L, 6)), 77
+    rk = RandomkCompressor(k=0.02)
+    key = fold_in(rng, 0)
+    out, ne = tici.compressed_allreduce_local(g, rk, 1, ef_residual=0 * g,
+                                              rng=rng)
+    want = rk.decompress(rk.compress(g, key), L, rng=key)
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    np.testing.assert_array_equal(ne.numpy(), (g - want).numpy())
+    assert np.count_nonzero(out.numpy()) == 100
+    dt = DitheringCompressor(s=15)
+    out = tici.compressed_allreduce_local(g, dt, 1, rng=rng)
+    once = dt.decompress(dt.compress(g, key), L)
+    twice = dt.decompress(dt.compress(once, key), L)
+    np.testing.assert_array_equal(out.numpy(), twice.numpy())
+    rs = tici.compressed_reduce_scatter_local(g, dt, 1, rng=rng)
+    np.testing.assert_array_equal(rs.numpy(), once.numpy())
+    for codec in (rk, dt):
+        with pytest.raises(ValueError, match="rng key"):
+            tici.compressed_allreduce_local(g, codec, 1)
 
 
 def _ref_push_pull(mesh, grads, ef, spec_params):
@@ -146,8 +211,9 @@ import torch.distributed as dist
 from byteps_tpu_torch.comm import ici
 from byteps_tpu_torch.common.config import reset_config
 from byteps_tpu_torch.common.metrics import get_registry
-from byteps_tpu_torch.compression import (Compressor, OnebitCompressor,
-                                          from_params)
+from byteps_tpu_torch.compression import (
+    Compressor, Fp8Compressor, OnebitCompressor, RandomkCompressor,
+    TopkCompressor, from_params)
 from byteps_tpu_torch.optimizer import push_pull_inside
 
 rank, world, store_path, io = int(sys.argv[1]), int(sys.argv[2]), \
@@ -170,6 +236,26 @@ o, ne = ici.compressed_allreduce_flat(x, OnebitCompressor(scaling=True),
 out["oneway"], out["oneway_e"] = o.numpy(), ne.numpy()
 o, ne = ici.compressed_allreduce_flat(x, Compressor(), ef_residual=e)
 out["identity"], out["identity_e"] = o.numpy(), ne.numpy()
+xt, et = torch.as_tensor(d["xt"][rank]), torch.as_tensor(d["et"][rank])
+for name, codec, a, b in (
+        ("topk_tiled", TopkCompressor(k=0.01, selection="block"), xt, et),
+        ("topk_ragged", TopkCompressor(k=0.013, selection="block"), x, e),
+        ("fp8", Fp8Compressor(), x, e)):
+    before = get_registry().snapshot("ici.")["counters"]
+    o, ne = ici.compressed_allreduce_flat(a, codec, ef_residual=b)
+    after = get_registry().snapshot("ici.")["counters"]
+    out[name], out[name + "_e"] = o.numpy(), ne.numpy()
+    out[name + "_wire"] = np.array([after[k] - before.get(k, 0) for k in
+                                    ("ici.wire_bytes", "ici.logical_bytes")])
+out["randomk"] = ici.compressed_allreduce_flat(
+    x, RandomkCompressor(k=0.02), rng=1234).numpy()
+for name, codec in (("rs_onebit", OnebitCompressor(scaling=True)),
+                    ("rs_topk", TopkCompressor(k=0.013, selection="block"))):
+    out[name] = ici.compressed_reduce_scatter_flat(x, codec).numpy()
+seg = ici.reduce_scatter_flat(x)
+out["reduce_scatter"] = seg.numpy()
+out["all_gather"] = ici.all_gather_flat(seg, length=x.shape[0]).numpy()
+out["broadcast"] = ici.broadcast_flat(x, root=1).numpy()
 grads = [torch.as_tensor(d[f"g{i}"][rank]) for i in range(int(d["ng"]))]
 for i, a in enumerate(push_pull_inside(grads,
                                        partition_bytes=int(d["pb"]))):
@@ -193,6 +279,11 @@ print(json.dumps({"rank": rank, "ok": True}))
 """
 
 
+def _tiled_inputs():
+    """The two ranks' (LT,) gradients and EF residuals for tiled top-k."""
+    return {"xt": _rand((2, LT), 8), "et": _rand((2, LT), 9, 0.1)}
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     io = tmp_path_factory.mktemp("gloo")
@@ -201,6 +292,7 @@ def two_ranks(tmp_path_factory):
     total = sum(int(np.prod(s)) for s in SHAPES)
     ef = _rand((2, total), 50, 0.1)
     np.savez(io / "in.npz", x=x, e=e, ef=ef, ng=len(grads),
+             **_tiled_inputs(),
              pb=PARTITION_BYTES, **{f"g{i}": g for i, g in enumerate(grads)})
     env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
     procs = [subprocess.Popen(
@@ -302,3 +394,77 @@ def test_two_ranks_push_pull_inside_chunked(two_ranks):
             # raw: the mean of the two ranks' leaves
             _close(o[f"raw_pp{i}"], g.mean(0))
         _close(o["pp_e"], want_e[r])
+
+
+TWO_RANK_CODECS = {
+    "topk_tiled": (lambda: RTopk(k=0.01, selection="block"), "xt", "et"),
+    "topk_ragged": (lambda: RTopk(k=0.013, selection="block"), "x", "e"),
+    "fp8": (RFp8, "x", "e"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TWO_RANK_CODECS))
+def test_two_ranks_topk_fp8_ef(two_ranks, case):
+    x, e, _, _, outs = two_ranks
+    mk, xn, en = TWO_RANK_CODECS[case]
+    xs = {"x": x, "e": e, **_tiled_inputs()}
+    reg = r_registry()
+    before = dict(reg.snapshot("ici.")["counters"])
+    want, want_e = rici.compressed_allreduce_flat(
+        jnp.asarray(xs[xn]), mk(), _mesh(2), average=True,
+        rng=jax.random.PRNGKey(0), ef_residual=jnp.asarray(xs[en]))
+    after = reg.snapshot("ici.")["counters"]
+    want, want_e = np.asarray(want).reshape(-1), np.asarray(want_e)
+    for r, o in enumerate(outs):
+        _close(o[case], want)
+        _close(o[f"{case}_e"], want_e[r])
+    np.testing.assert_array_equal(outs[0][case], outs[1][case])
+    np.testing.assert_array_equal(outs[0][f"{case}_wire"], [
+        after[k] - before.get(k, 0)
+        for k in ("ici.wire_bytes", "ici.logical_bytes")])
+
+
+def test_two_ranks_randomk_positional_sum(two_ranks):
+    """Both ranks draw segment j's support from fold_in(rng, j), so the
+    payloads sum positionally: the result is the mean of the two ranks'
+    scaled values on that support, 0 elsewhere, on both ranks."""
+    x, _, _, _, outs = two_ranks
+    seg, k = L // 2, 50
+    want = np.zeros(L, np.float32)
+    for j in range(2):
+        idx = RandomkCompressor._indices(fold_in(1234, j), seg, k,
+                                         torch.device("cpu")).numpy()
+        vals = [(torch.as_tensor(x[r, j * seg:(j + 1) * seg][idx])
+                 * (seg / k)).numpy() for r in range(2)]
+        want[j * seg + idx] = (vals[0] + vals[1]) / 2
+    for o in outs:
+        np.testing.assert_array_equal(o["randomk"], want)
+    assert np.count_nonzero(want) == 2 * k
+
+
+@pytest.mark.parametrize("codec", ["onebit", "topk"])
+def test_two_ranks_compressed_reduce_scatter(two_ranks, codec):
+    x, _, _, _, outs = two_ranks
+    mk = (lambda: ROnebit(scaling=True)) if codec == "onebit" else (
+        lambda: RTopk(k=0.013, selection="block"))
+    want = np.asarray(rici.compressed_reduce_scatter_flat(
+        jnp.asarray(x), mk(), _mesh(2)))
+    seg = L // 2
+    for r, o in enumerate(outs):
+        _close(o[f"rs_{codec}"], want[r * seg:(r + 1) * seg])
+
+
+def test_two_ranks_raw_collectives(two_ranks):
+    x, _, _, _, outs = two_ranks
+    rs = np.asarray(rici.reduce_scatter_flat(jnp.asarray(x), _mesh(2)))
+    ag = np.asarray(rici.all_gather_flat(jnp.asarray(rs), _mesh(2),
+                                         length=L))
+    bc = np.asarray(rici.broadcast_flat(jnp.asarray(x), _mesh(2), root=1))
+    seg = L // 2
+    for r, o in enumerate(outs):
+        np.testing.assert_array_equal(o["reduce_scatter"],
+                                      rs[r * seg:(r + 1) * seg])
+        np.testing.assert_array_equal(o["all_gather"], ag)
+        np.testing.assert_array_equal(o["broadcast"], bc)
+    np.testing.assert_array_equal(outs[0]["all_gather"], x.sum(0))
+    np.testing.assert_array_equal(outs[0]["broadcast"], x[1])

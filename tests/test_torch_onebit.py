@@ -3,7 +3,9 @@
 the reference's backends — jnp and its Pallas kernels in interpret
 mode — at ragged lengths and on -0.0 / 0 / NaN; unpack-sum equal at
 K = 1, 3 and 8 (both fold the K rows in order from 0.0, so equality is
-exact); and the compressor's compress / decompress / decompress_sum /
+exact) and at K = 40 and 64 against the reference's grid kernel (rows
+in blocks of 8, block partials added in order: bit-equal, where a fold
+of all K rows in one sequence is not); and the compressor's compress / decompress / decompress_sum /
 roundtrip with error feedback. The scale is mean(|x|), whose reduction
 order differs between the frameworks: scales and everything scaled by
 them are held at 1e-6 relative.
@@ -76,6 +78,26 @@ def test_unpack_sum_equal(backend, K):
                                           backend=backend)))
 
 
+@pytest.mark.parametrize("K", [40, 64])
+def test_unpack_sum_grid_order_equal(K):
+    n = 5003
+    rng = np.random.default_rng(K)
+    words = np.stack([np.asarray(rob.onebit_pack(
+        jnp.asarray(rng.standard_normal(n).astype(np.float32)),
+        backend="jnp")) for _ in range(K)])
+    scales = rng.random(K).astype(np.float32)
+    want = np.asarray(rob.onebit_unpack_sum(jnp.asarray(words),
+                                            jnp.asarray(scales), n,
+                                            backend="pallas"))
+    tw, ts = torch.as_tensor(words.view(np.int32)), torch.as_tensor(scales)
+    np.testing.assert_array_equal(tob.onebit_unpack_sum(tw, ts, n).numpy(),
+                                  want)
+    # the order is the point: one fold over all K rows differs in the
+    # last bit on a share of the elements
+    one_fold = tob._rows_unpack_acc(tw, ts).reshape(-1)[:n].numpy()
+    assert (one_fold != want).mean() > 0.1
+
+
 @pytest.mark.parametrize("scaling", [True, False])
 def test_compressor_matches_reference(scaling):
     n = 3001
@@ -138,7 +160,7 @@ def test_scaling_env_default_and_registry(monkeypatch):
     assert not from_params(None).enabled
     assert type(get_compressor("identity")) is Compressor
     with pytest.raises(KeyError, match="unknown compressor"):
-        get_compressor("topk")
+        get_compressor("powersgd")
 
 
 def test_guards():

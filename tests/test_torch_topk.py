@@ -1,0 +1,255 @@
+"""The port's block top-k against the reference, exactly.
+
+* The three kernels' plain versions against the reference's Pallas
+  kernels in interpret mode (``backend="pallas"``, at shapes its gate
+  admits): ``block_select`` winner rows and values, including the
+  first-max tie-break, an all-zero lane, -0.0 and a NaN lane (no winner,
+  as the Pallas arithmetic gives; the reference's jnp twin would pick the
+  NaN); ``block_reconstruct_sum`` at K = 1, 3 and 8; ``block_roundtrip``
+  dense and residual, with and without the error-feedback residual, at
+  the default partition's (80, 100) and with ties and a NaN group.
+* ``resolve_k`` / ``block_shape`` / ``tiled_shape`` over a grid of
+  (k, n) covering the tiled, strided-aligned and ragged layouts.
+* ``TopkCompressor`` compress / decompress / roundtrip / decompress_sum
+  on each layout and on ``exact`` selection, against the reference's;
+  the ragged strided chunk goes through ``block_select`` with its length
+  here (the CUDA kernel on the card) and through the reference's jnp
+  argmax branch there.
+
+Everything is exact: the winner rule is a max and a min over exact
+comparisons, a winner's value is copied, and sums add the same terms in
+the same order. The CUDA kernels are held to these plain versions, bit
+for bit, on the card by ``chip_smoke.py``."""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from byteps_tpu_torch.compression import TopkCompressor, from_params
+from byteps_tpu_torch.compression import topk as ttopk
+from byteps_tpu_torch.ops import topk_kernels as tk
+
+rk = importlib.import_module("byteps_tpu.ops.topk_kernels")
+rtopk = importlib.import_module("byteps_tpu.compression.topk")
+
+torch.set_num_threads(1)
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _eq(got: torch.Tensor, want) -> None:
+    """Bit-equal, -0.0 and NaN included."""
+    g = got.numpy()
+    w = np.asarray(want)
+    assert g.shape == w.shape and g.dtype == w.dtype, (g.shape, w.shape)
+    np.testing.assert_array_equal(g.view(np.uint32 if g.itemsize == 4
+                                         else np.uint8),
+                                  w.view(np.uint32 if w.itemsize == 4
+                                         else np.uint8))
+
+
+def _select_both(x):
+    lo, va = rk.block_select(jnp.asarray(x), backend="pallas")
+    tlo, tva = tk.block_select(torch.as_tensor(x))
+    _eq(tlo, lo)
+    _eq(tva, va)
+    return tlo, tva
+
+
+@pytest.mark.parametrize("block,rows", [(8, 256), (100, 1280), (320, 1280)])
+def test_select_matches_pallas(block, rows):
+    assert tk.kernels_supported(block, rows) == rk.kernels_supported(
+        block, rows) is True
+    x = _rand((block, rows), block + rows)
+    lo, _ = _select_both(x)
+    np.testing.assert_array_equal(lo.numpy(), np.abs(x).argmax(0))
+
+
+def test_select_ties_zeros_and_nan_match_pallas():
+    block, rows = 8, 256
+    x = np.zeros((block, rows), np.float32)
+    x[2, :] = -3.0                 # ties with row 5: the first wins
+    x[5, :] = 3.0
+    x[6, :128] = 3.0               # a three-way tie on half the lanes
+    x[:, 200:] = 0.0               # all-zero lanes: row 0
+    x[4, 210] = -0.0               # -0.0 ties with 0.0
+    x[0, 220] = -0.0               # a -0.0 winner is reported as 0.0
+    x[3, 230] = np.nan             # a NaN lane: no winner
+    x[6, 231] = np.nan
+    x[1, 231] = 7.0
+    lo, va = _select_both(x)
+    want = np.full(rows, 2)
+    want[200:] = 0
+    want[[230, 231]] = block
+    np.testing.assert_array_equal(lo.numpy(), want)
+    np.testing.assert_array_equal(va.numpy()[:200], -3.0)
+    assert not np.signbit(va.numpy()[220]) and va[230] == 0 == va[231]
+    # the reference's jnp twin is argmax: it names the NaN's row instead
+    jlo, _ = rk.block_select(jnp.asarray(x), backend="jnp")
+    assert int(jlo[230]) == 3
+
+
+def test_select_valid_length():
+    """Slots at flat index >= n never win, as the reference's -1 padding
+    (its ragged branch, compared through the codec below)."""
+    block, rows, n = 7, 50, 7 * 50 - 13
+    x = _rand((block, rows), 5)
+    x.reshape(-1)[n:] = 100.0      # would win every padded lane
+    lo, va = tk.block_select(torch.as_tensor(x), n)
+    xa = np.abs(x).reshape(-1).copy()
+    xa[n:] = -1.0
+    want = xa.reshape(block, rows).argmax(0)
+    np.testing.assert_array_equal(lo.numpy(), want)
+    np.testing.assert_array_equal(va.numpy(), x[want, np.arange(rows)])
+    with pytest.raises(ValueError, match="without a slot"):
+        tk.block_select(torch.as_tensor(x), rows - 1)
+
+
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_reconstruct_sum_matches_pallas(K):
+    block, rows = 100, 1280
+    rng = np.random.default_rng(K)
+    locals_ = rng.integers(0, block + 1, (K, rows)).astype(np.int32)
+    vals = rng.standard_normal((K, rows)).astype(np.float32)
+    vals[0, :7] = -0.0
+    want = rk.block_reconstruct_sum(jnp.asarray(locals_), jnp.asarray(vals),
+                                    block, backend="pallas")
+    got = tk.block_reconstruct_sum(torch.as_tensor(locals_),
+                                   torch.as_tensor(vals), block)
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("J,g,with_e", [(2, 64, False), (2, 64, True),
+                                        (80, 100, True)])
+def test_roundtrip_matches_pallas(J, g, with_e):
+    n = J * g * 128
+    x = _rand(n, J * g)
+    e = 0.1 * _rand(n, J * g + 1) if with_e else None
+    d, r = rk.block_roundtrip(jnp.asarray(x), J, g,
+                              e=None if e is None else jnp.asarray(e),
+                              backend="pallas")
+    td, tr = tk.block_roundtrip(torch.as_tensor(x), J, g,
+                                e=None if e is None else torch.as_tensor(e))
+    _eq(td, d)
+    _eq(tr, r)
+    assert np.count_nonzero(td.numpy()) == J * 128
+
+
+def test_roundtrip_ties_and_nan_match_pallas():
+    J, g = 2, 64
+    x = np.zeros(J * g * 128, np.float32)
+    x3 = x.reshape(J, g, 128)
+    x3[:, 5, :] = 2.0              # ties with group index 9: 5 wins
+    x3[:, 9, :] = -2.0
+    x3[0, :, 7] = 0.0              # an all-zero group: index 0
+    x3[0, 3, 7] = -0.0
+    x3[1, 11, 9] = np.nan          # a NaN group: no winner
+    d, r = rk.block_roundtrip(jnp.asarray(x), J, g, backend="pallas")
+    td, tr = tk.block_roundtrip(torch.as_tensor(x), J, g)
+    _eq(td, d)
+    _eq(tr, r)
+    want = np.zeros((J, g, 128), np.float32)
+    want[:, 5, :] = 2.0
+    want[0, :, 7] = 0.0            # winner index 0, value 0
+    want[1, :, 9] = 0.0            # no winner
+    np.testing.assert_array_equal(td.numpy().reshape(J, g, 128), want)
+    assert np.isnan(tr.numpy().reshape(J, g, 128)[1, 11, 9])
+
+
+# --- the codec ----------------------------------------------------------------
+KN = [(0.01, 1_024_000), (0.01, 567_296), (0.01, 12_800), (0.01, 10_752),
+      (256, 25_600), (256, 10_752), (100, 5000), (0.5, 1000), (3, 7),
+      (1.0, 64), (128, 128), (0.25, 1024), (1000, 100)]
+
+
+@pytest.mark.parametrize("k,n", KN)
+def test_layout_helpers_match_reference(k, n):
+    assert ttopk.resolve_k(k, n) == rtopk.resolve_k(k, n)
+    assert ttopk.block_shape(k, n) == rtopk.block_shape(k, n)
+    assert ttopk.tiled_shape(k, n) == rtopk.tiled_shape(k, n)
+
+
+def test_layouts_of_the_training_chunks():
+    # the default 4,096,000-byte partition and GPT-2 medium's tail chunk
+    assert ttopk.tiled_shape(0.01, 1_024_000) == (80, 100)
+    assert ttopk.tiled_shape(0.01, 567_296) is None
+    assert ttopk.block_shape(0.01, 567_296) == (5617, 101)
+    assert not tk.kernels_supported(101, 5617)
+
+
+CODEC_CASES = [
+    ("block", 0.01, 25_600),       # tiled (2, 100)
+    ("block", 0.01, 10_752),       # strided, ragged (pad 55)
+    ("block", 100, 5000),          # strided, aligned (50 x 100)
+    ("exact", 0.01, 10_752),
+    ("approx", 37, 4000),
+]
+
+
+@pytest.mark.parametrize("selection,k,n", CODEC_CASES)
+def test_codec_matches_reference(selection, k, n):
+    ref = rtopk.TopkCompressor(k=k, selection=selection)
+    port = TopkCompressor(k=k, selection=selection)
+    x = _rand(n, n)
+    e = 0.1 * _rand(n, n + 1)
+    rp, tp = ref.compress(jnp.asarray(x)), port.compress(torch.as_tensor(x))
+    if selection == "approx":
+        # approx_max_k off the TPU is the exact top k, as a set
+        np.testing.assert_array_equal(np.sort(tp["indices"].numpy()),
+                                      np.sort(np.asarray(rp["indices"])))
+        return
+    for key in ("indices", "values"):
+        _eq(tp[key], rp[key])
+    _eq(port.decompress(tp, n), ref.decompress(rp, n))
+    rd, rr = ref.roundtrip(jnp.asarray(x), e=jnp.asarray(e))
+    td, tr = port.roundtrip(torch.as_tensor(x), e=torch.as_tensor(e))
+    _eq(td, rd)
+    _eq(tr, rr)
+    # decompress_sum over K = 3 workers' payloads
+    xs = [_rand(n, 50 + w) for w in range(3)]
+    rps = [ref.compress(jnp.asarray(a)) for a in xs]
+    tps = [port.compress(torch.as_tensor(a)) for a in xs]
+    rs = ref.decompress_sum({k_: jnp.stack([p[k_] for p in rps])
+                             for k_ in rps[0]}, n)
+    ts = port.decompress_sum({k_: torch.stack([p[k_] for p in tps])
+                              for k_ in tps[0]}, n)
+    if selection == "exact":       # the reference's vmap sum: roundoff
+        np.testing.assert_allclose(ts.numpy(), np.asarray(rs), rtol=1e-6,
+                                   atol=1e-7)
+    else:
+        _eq(ts, rs)
+    assert port.compressed_bytes(n) == ref.compressed_bytes(n)
+
+
+def test_ragged_chunk_with_ties_matches_reference():
+    """The ragged tail through block_select(n): first-max on ties and on
+    all-zero lanes, as the reference's argmax branch."""
+    n = 10_752
+    x = np.zeros(n, np.float32)
+    x[::3] = 1.5
+    x[1::7] = -1.5
+    ref, port = (rtopk.TopkCompressor(k=0.01, selection="block"),
+                 TopkCompressor(k=0.01, selection="block"))
+    rp, tp = ref.compress(jnp.asarray(x)), port.compress(torch.as_tensor(x))
+    for key in ("indices", "values"):
+        _eq(tp[key], rp[key])
+
+
+def test_spec_and_validation():
+    spec = from_params({"compressor": "topk", "k": 0.01, "ef": "vanilla",
+                        "selection": "block"})
+    assert isinstance(spec.compressor, TopkCompressor)
+    assert spec.compressor.selection == "block" and spec.ef
+    assert not spec.compressor.presummable
+    with pytest.raises(ValueError, match="unknown selection"):
+        TopkCompressor(selection="heap")
+    with pytest.raises(ValueError, match="128"):
+        tk.block_roundtrip(torch.zeros(100), 1, 1)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tk._check_size(2 ** 31, "x")

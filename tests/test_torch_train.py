@@ -8,9 +8,10 @@ reference's own weights (``params_from_numpy``) and one numpy batch, on
   order, on sums of at most a few hundred terms;
 * three steps of the reference's ``make_gpt_train_step`` (dp = 1 mesh,
   ``optax.adamw(1e-3)``) against the port's ``make_gpt_train_step``,
-  raw and onebit with error feedback (with and without Nesterov
-  momentum), with a small partition so the
-  gradient spans several chunks whose boundaries cut through leaves.
+  raw, onebit with error feedback (with and without Nesterov
+  momentum) and top-k block with error feedback, with a small partition
+  so the gradient spans several chunks whose boundaries cut through
+  leaves.
   raw: losses and parameters within 1e-5. onebit: losses within 1e-4
   and the EF residual after step 1 within 1e-5 outside the key biases.
   The exact gradient of ``bk`` is 0 (a bias on every key shifts a
@@ -52,6 +53,8 @@ ONEBIT_OFF_SHARE = 1e-3
 # 4096-byte partitions: 1024 f32 elements, so the tiny model's 87,552
 # gradient elements cross 86 chunks, most boundaries inside a leaf
 PARTITION_BYTES = 4096
+# top-k: 12,800 f32 elements a chunk, so ratio 0.01 tiles as (1, 100)
+TOPK_PARTITION_BYTES = 51_200
 JCFG, TCFG = JConfig.tiny(), GPTConfig.tiny()
 B, S = 4, 32
 
@@ -107,11 +110,12 @@ def test_loss_and_grad_match_reference(init, chunked, remat):
         np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL)
 
 
-def _ref_run(tree, tok, tgt, compression, steps):
+def _ref_run(tree, tok, tgt, compression, steps,
+             partition_bytes=PARTITION_BYTES):
     mesh = make_mesh(MeshAxes(dp=1), devices=jax.devices()[:1])
     step, params, opt_state, bsh = j_train_step(
         JCFG, mesh, optax.adamw(1e-3), compression_params=compression,
-        partition_bytes=PARTITION_BYTES,
+        partition_bytes=partition_bytes,
         init_params=jax.tree.map(jnp.array, tree))
     tok, tgt = jax.device_put(tok, bsh), jax.device_put(tgt, bsh)
     losses, efs = [], []
@@ -123,10 +127,11 @@ def _ref_run(tree, tok, tgt, compression, steps):
     return losses, _ref_leaves(params), efs
 
 
-def _port_run(tree, tok, tgt, compression, steps):
+def _port_run(tree, tok, tgt, compression, steps,
+              partition_bytes=PARTITION_BYTES):
     step, params, opt = make_gpt_train_step(
         TCFG, compression_params=compression,
-        partition_bytes=PARTITION_BYTES, init_params=_port_params(tree),
+        partition_bytes=partition_bytes, init_params=_port_params(tree),
         device="cpu")
     losses, efs = [], []
     for _ in range(steps):
@@ -168,6 +173,38 @@ def test_onebit_ef_trajectory_matches_reference(init, momentum):
         np.concatenate([w.ravel() for w in jp])
     off = np.abs(got - want) > TOL + TOL * np.abs(want)
     assert off.mean() < ONEBIT_OFF_SHARE, (off.mean(), off.sum())
+
+
+def test_topk_block_ef_trajectory_matches_reference(init):
+    """topk-block + EF, the reference's own GPT-2 medium codec (ratio
+    0.01), with 51,200-byte partitions: six full 12,800-element chunks on
+    the tiled (1, 100) layout (the fused round trip) and a ragged
+    10,752-element tail on the strided (101, 107) layout (select with
+    its length, then reconstruct-sum). The support is chosen by exact
+    comparisons of gradients that agree to ~1e-7, so both frameworks keep
+    the same winners and the trajectory holds at the raw step's 1e-5."""
+    from byteps_tpu_torch.compression.topk import block_shape, tiled_shape
+
+    tree, tok, tgt = init
+    comp = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
+            "selection": "block"}
+    total = sum(int(np.asarray(v).size) for v in jax.tree.leaves(tree))
+    chunk = TOPK_PARTITION_BYTES // 4
+    tail = total % chunk
+    assert total // chunk == 6 and tiled_shape(0.01, chunk) == (1, 100)
+    assert tiled_shape(0.01, tail) is None
+    rows, block = block_shape(0.01, tail)
+    assert rows * block > tail                      # ragged
+    jl, jp, je = _ref_run(tree, tok, tgt, comp, 3, TOPK_PARTITION_BYTES)
+    tl, tp, te = _port_run(tree, tok, tgt, comp, 3, TOPK_PARTITION_BYTES)
+    np.testing.assert_allclose(tl, jl, rtol=TOL, atol=TOL)
+    assert tl[-1] < tl[0]
+    for t, j in zip(te, je):
+        np.testing.assert_allclose(t, j, rtol=TOL, atol=TOL)
+    # one winner per group kept: the residual is nonzero almost everywhere
+    assert np.count_nonzero(te[0]) > 0.9 * total
+    for g, w in zip(tp, jp):
+        np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL)
 
 
 def test_chunked_ce_row_blocks_match_reference():

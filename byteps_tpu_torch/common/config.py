@@ -2,7 +2,8 @@
 
 A lean copy of ``byteps_tpu/common/config.py`` holding only what the
 ported slices read: the log level, the metrics switch, the ``serve_*``
-knobs of the continuous-batching tier, and the gradient-aggregation
+knobs of the continuous-batching tier (adapter pool, tenant quotas and
+fair queuing included), and the gradient-aggregation
 knobs of the data-parallel training step (partition size, reduce dtype,
 the onebit codec's scaling default), under the same variable names and
 defaults.
@@ -61,6 +62,20 @@ class Config:
     # prefix map the same physical pages (copy-on-write at the
     # divergence block). Outputs are identical either way; 0 turns it off.
     serve_prefix_cache: bool = True
+    # Device-resident LoRA adapter-pool slots (slot 0 is the reserved
+    # all-zero base-model slot, so N slots serve N-1 live adapters; idle
+    # ones stay cached in place, LRU). 0 = no pool: the scheduler serves
+    # the bare base model and rejects adapter-tagged requests.
+    serve_adapter_slots: int = 0
+    # Rank every pooled adapter is zero-padded to, so mixed-rank tenants
+    # share one packed decode step; a higher rank is refused at register.
+    serve_adapter_rank_bucket: int = 8
+    # Per-tenant KV-pool quota in blocks (0 = off): growth past it
+    # preempts the tenant's own youngest run, never a sibling's.
+    serve_tenant_quota_blocks: int = 0
+    # Deficit-weighted fair queuing across tenants at admission;
+    # single-tenant traffic is plain FIFO either way.
+    serve_fair_queue: bool = True
 
     # --- gradient aggregation (data-parallel training) ---------------------
     # Bytes per aggregation chunk: the flat gradient is cut into chunks of
@@ -90,6 +105,12 @@ class Config:
             serve_prefill_chunk=_env_int("BYTEPS_SERVE_PREFILL_CHUNK", 32),
             serve_quant_cache=_env_bool("BYTEPS_SERVE_QUANT_CACHE"),
             serve_prefix_cache=_env_bool("BYTEPS_SERVE_PREFIX_CACHE", True),
+            serve_adapter_slots=_env_int("BYTEPS_SERVE_ADAPTER_SLOTS", 0),
+            serve_adapter_rank_bucket=_env_int(
+                "BYTEPS_SERVE_ADAPTER_RANK_BUCKET", 8),
+            serve_tenant_quota_blocks=_env_int(
+                "BYTEPS_SERVE_TENANT_QUOTA_BLOCKS", 0),
+            serve_fair_queue=_env_bool("BYTEPS_SERVE_FAIR_QUEUE", True),
             partition_bytes=_env_int("BYTEPS_PARTITION_BYTES",
                                      DEFAULT_PARTITION_BYTES),
             reduce_dtype=os.environ.get("BYTEPS_REDUCE_DTYPE") or "float32",

@@ -1,7 +1,9 @@
-"""Model families of the port: the GPT family, its generation and its
-data-parallel training step."""
+"""Model families of the port: the GPT family, its generation, its LoRA
+adapters and its data-parallel training step."""
 
 from byteps_tpu_torch.models.convert import (  # noqa: F401
+    adapters_from_numpy,
+    adapters_to_numpy,
     flat_leaves,
     params_from_numpy,
     params_to_numpy,

@@ -4,7 +4,9 @@
 over as numpy (``jax.tree.map(np.asarray, tree)``), it becomes the
 port's :class:`~byteps_tpu_torch.models.gpt.GPT` with the same leaf
 names, shapes and values, so both packages compute the same function;
-:func:`params_to_numpy` goes back. :func:`flat_leaves` lists the leaves
+:func:`params_to_numpy` goes back; :func:`adapters_from_numpy` and
+:func:`adapters_to_numpy` do the same for a LoRA adapter tree
+(``{"blocks": [{target: {"a", "b"}}]}``). :func:`flat_leaves` lists the leaves
 in the order ``jax.tree.flatten`` gives that tree, the order gradients
 are flattened and chunked in. This module takes numpy only and never
 imports the reference.
@@ -73,3 +75,22 @@ def params_to_numpy(params: GPT) -> Dict[str, Any]:
     tree["blocks"] = [{k: conv(b[k]) for k in _leaf_names(b)}
                       for b in params.blocks]
     return tree
+
+
+def adapters_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The reference's adapter tree ``{"blocks": [{target: {"a": (d_in,
+    r), "b": (r, d_out)}}]}`` of numpy arrays → the same tree of tensors
+    on ``device`` (the card unless told otherwise), dtypes kept."""
+    dev = resolve_device(device)
+    return {"blocks": [
+        {t: {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+             for k, v in ab.items()} for t, ab in blk.items()}
+        for blk in tree["blocks"]]}
+
+
+def adapters_to_numpy(adapters: Dict[str, Any]) -> Dict[str, Any]:
+    """An adapter tree of tensors → the reference's tree of numpy arrays."""
+    return {"blocks": [
+        {t: {k: v.detach().cpu().numpy().copy() for k, v in ab.items()}
+         for t, ab in blk.items()}
+        for blk in adapters["blocks"]]}

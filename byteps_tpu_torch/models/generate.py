@@ -30,6 +30,7 @@ from byteps_tpu_torch.models.gpt import (
     resolve_norm,
     resolve_rope,
     rope_rotate,
+    with_lora,
 )
 from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.ops.flash_attention import attention_lse, supported
@@ -130,6 +131,10 @@ def _attn_cached_half(x, p, cache_k, cache_v, pos0: int, head_dim: int,
     q = col_parallel_matmul(h, p["wq"].to(x.dtype), _bias(p, "bq", x, use_bias))
     k = col_parallel_matmul(h, p["wk"].to(x.dtype), _bias(p, "bk", x, use_bias))
     v = col_parallel_matmul(h, p["wv"].to(x.dtype), _bias(p, "bv", x, use_bias))
+    # a grafted tree decodes as gpt_forward computes it: base + delta
+    q = with_lora(q, h, p, "wq")
+    k = with_lora(k, h, p, "wk")
+    v = with_lora(v, h, p, "wv")
     h_loc = q.shape[-1] // head_dim
     kv_loc = k.shape[-1] // head_dim    # GQA: the cache holds kv heads only
     q = q.reshape(B, T, h_loc, head_dim)
@@ -154,6 +159,7 @@ def _attn_cached_half(x, p, cache_k, cache_v, pos0: int, head_dim: int,
     o = o.reshape(B, T, h_loc * head_dim)
     attn_out = row_parallel_matmul(o, p["wo"].to(x.dtype), None,
                                    _bias(p, "bo", x, use_bias))
+    attn_out = with_lora(attn_out, o, p, "wo")
     return x + attn_out, cache_k, cache_v
 
 

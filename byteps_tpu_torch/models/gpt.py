@@ -13,7 +13,8 @@ Leaves are built frozen (``requires_grad=False``), as serving holds
 them; the training step (``models/train.py``) turns them trainable.
 Attention goes through :func:`byteps_tpu_torch.ops.flash_attention
 .flash_attention`: the forward and backward kernels on CUDA, the plain
-versions on CPU. The readout keeps f32 logits from activation-dtype
+versions on CPU. A grafted block (``models/lora.py``) adds its LoRA
+delta beside each targeted matmul (:func:`with_lora`). The readout keeps f32 logits from activation-dtype
 operands (:class:`HeadDot`); :func:`gpt_loss` reaches it through the
 fused readout + cross-entropy of ``ops/chunked_ce.py`` by default.
 """
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from byteps_tpu_torch.models.lora import lora_delta
 from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.ops.chunked_ce import chunked_ce_nll, f32_dot
 from byteps_tpu_torch.ops.flash_attention import flash_attention
@@ -293,12 +295,31 @@ def _bias(p, name: str, x: torch.Tensor, use_bias: bool):
     return p[name].to(x.dtype) if use_bias else None
 
 
+def with_lora(y, x, p, name: str, seg=None):
+    """``y`` (the frozen ``x @ w`` of target ``name``) plus its LoRA
+    addends: the grafted block's own (``p["lora"]``, through
+    :func:`~byteps_tpu_torch.models.lora.lora_delta`) and, in the serve
+    tier's packed decode, each row's pooled adapter (``seg(name, x)``,
+    None for a target the pool does not carry)."""
+    d = lora_delta(x, p, name)
+    if d is not None:
+        y = y + d
+    if seg is not None:
+        d = seg(name, x)
+        if d is not None:
+            y = y + d
+    return y
+
+
 def _attention(x, p, head_dim: int, rope_base: float = 0.0,
                use_bias: bool = True):
     B, S = x.shape[:2]
     q = col_parallel_matmul(x, p["wq"].to(x.dtype), _bias(p, "bq", x, use_bias))
     k = col_parallel_matmul(x, p["wk"].to(x.dtype), _bias(p, "bk", x, use_bias))
     v = col_parallel_matmul(x, p["wv"].to(x.dtype), _bias(p, "bv", x, use_bias))
+    q = with_lora(q, x, p, "wq")
+    k = with_lora(k, x, p, "wk")
+    v = with_lora(v, x, p, "wv")
     h_loc = q.shape[-1] // head_dim
     kv_loc = k.shape[-1] // head_dim
     if kv_loc == 0 or h_loc % kv_loc != 0:
@@ -314,21 +335,27 @@ def _attention(x, p, head_dim: int, rope_base: float = 0.0,
     # GQA: k/v stay narrow; the kernel maps query heads to kv heads
     o = flash_attention(q, k, v, causal=True)
     o = o.reshape(B, S, h_loc * head_dim)
-    return row_parallel_matmul(o, p["wo"].to(x.dtype), None,
-                               _bias(p, "bo", x, use_bias))
+    out = row_parallel_matmul(o, p["wo"].to(x.dtype), None,
+                              _bias(p, "bo", x, use_bias))
+    return with_lora(out, o, p, "wo")
 
 
-def _mlp(x, p, use_bias: bool = True):
+def _mlp(x, p, use_bias: bool = True, seg=None):
+    """The MLP branch; LoRA addends at the reference's points (value and
+    gate paths, row projection), ``seg`` as in :func:`with_lora`."""
     h = col_parallel_matmul(x, p["w1"].to(x.dtype),
                             _bias(p, "b1", x, use_bias))
+    h = with_lora(h, x, p, "w1", seg)
     if "w3" in p:
         g = col_parallel_matmul(x, p["w3"].to(x.dtype),
                                 _bias(p, "b3", x, use_bias))
+        g = with_lora(g, x, p, "w3", seg)
         h = F.silu(h) * g
     else:
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
-    return row_parallel_matmul(h, p["w2"].to(x.dtype), None,
-                               _bias(p, "b2", x, use_bias))
+    out = row_parallel_matmul(h, p["w2"].to(x.dtype), None,
+                              _bias(p, "b2", x, use_bias))
+    return with_lora(out, h, p, "w2", seg)
 
 
 def transformer_block(x, p, head_dim: int, rope_base: float = 0.0,

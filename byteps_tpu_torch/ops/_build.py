@@ -28,7 +28,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("flash_fwd", "flash_decode", "flash_bwd", "onebit", "topk")
+KERNELS = ("flash_fwd", "flash_decode", "flash_bwd", "onebit", "topk",
+           "segmented_lora")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

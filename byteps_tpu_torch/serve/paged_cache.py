@@ -16,6 +16,15 @@ masks with the same global-offset rule, and quantized pools reuse
 ``_quantize_block`` — so a served request's greedy tokens equal a solo
 ``make_generate_fn`` run's.
 
+The prefix index is keyed by adapter: :meth:`PagedKVCache.match_prefix`
+and :meth:`~PagedKVCache.commit_prefix` take a ``namespace`` (the
+request's adapter id, None for the base model) and keep one radix root
+per namespace, so a hit only ever adopts K/V computed under the same
+weights. The reference keys the index on tokens alone, so a tenant whose
+adapter targets ``wk``/``wv`` can adopt pages another adapter computed
+(ROADMAP C); the port departs from it there to keep its exactness
+contract.
+
 Where the reference donated the pool to its jitted steps
 (``paged_cache.py:852-857``, ``:903-905``), the port updates the pool
 tensors in place: the decode and prefill steps scatter their new rows
@@ -30,7 +39,9 @@ Three layers:
 * :func:`make_paged_decode_fn` — one packed decode step: R requests at
   their own positions, per-row rope and masks, scatter the new token's
   K/V into the pool, gather per-request views, attend (plain PyTorch:
-  per-row offsets are the reference's jnp path too).
+  per-row offsets are the reference's jnp path too); with an adapter
+  pool's slabs, each row adds its own adapter's delta through the
+  segmented LoRA kernel.
 * :func:`make_paged_prefill_fn` — one prefill chunk of one request:
   gather its blocks into a dense :class:`KVCache` view, run the stock
   ``gpt_apply_cached`` (the forward kernel on CUDA), scatter the newly
@@ -40,7 +51,7 @@ Three layers:
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -59,9 +70,11 @@ from byteps_tpu_torch.models.gpt import (
     resolve_norm,
     resolve_rope,
     rope_rotate,
+    with_lora,
 )
 from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.ops.flash_attention import attention_lse
+from byteps_tpu_torch.ops.segmented_lora import segmented_lora_delta
 from byteps_tpu_torch.parallel.tp import (
     col_parallel_matmul,
     row_parallel_matmul,
@@ -162,7 +175,8 @@ class PagedKVCache:
         # prefix-index node; a shared block frees only at refcount 0
         self._ref: List[int] = [0] * pool_blocks
         self._in_use = 0                  # distinct blocks with ref > 0
-        self._root = _PrefixNode(b"", np.zeros(0, np.int32), -1, None)
+        # one radix root per namespace (adapter id; None = base model)
+        self._roots: Dict[Any, _PrefixNode] = {}
         self._node_of_block: Dict[int, _PrefixNode] = {}
         self._lru_tick = 0
         # bumped on every commit_prefix insert: the scheduler's
@@ -353,16 +367,20 @@ class PagedKVCache:
         self._lru_tick += 1
         return self._lru_tick
 
-    def match_prefix(self, tokens, full_blocks_only: bool = False):
-        """Longest committed prefix of ``tokens``: ``(blocks, n_tokens)``,
-        a chain of full-block hits plus optionally one divergence block
-        matched on a partial leading run (unless ``full_blocks_only``)."""
+    def match_prefix(self, tokens, full_blocks_only: bool = False,
+                     namespace=None):
+        """Longest prefix of ``tokens`` committed under ``namespace``:
+        ``(blocks, n_tokens)``, a chain of full-block hits plus optionally
+        one divergence block matched on a partial leading run (unless
+        ``full_blocks_only``)."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         bs = self.block_size
-        node = self._root
         blocks: List[int] = []
         matched = 0
         tick = self._touch()
+        node = self._roots.get(namespace)
+        if node is None:
+            return blocks, matched
         while matched + bs <= tokens.size:
             child = node.children.get(tokens[matched:matched + bs].tobytes())
             if child is None:
@@ -385,14 +403,18 @@ class PagedKVCache:
                 matched += best_n
         return blocks, matched
 
-    def commit_prefix(self, rid, tokens, n_tokens: int) -> int:
+    def commit_prefix(self, rid, tokens, n_tokens: int,
+                      namespace=None) -> int:
         """Publish ``rid``'s fully written leading blocks (covering
-        ``tokens[:n_tokens]``) into the index; each new node holds one
-        ref. Returns the number of nodes inserted."""
+        ``tokens[:n_tokens]``) into ``namespace``'s index; each new node
+        holds one ref. Returns the number of nodes inserted."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         bs = self.block_size
         table = self._tables[rid]
-        node = self._root
+        node = self._roots.get(namespace)
+        if node is None:
+            node = self._roots[namespace] = _PrefixNode(
+                b"", np.zeros(0, np.int32), -1, None)
         inserted = 0
         tick = self._touch()
         for bi in range(n_tokens // bs):
@@ -444,8 +466,9 @@ class PagedKVCache:
     def drop_prefix_cache(self) -> int:
         """Release every cached prefix page; live tables keep theirs."""
         n = len(self._node_of_block)
-        for child in list(self._root.children.values()):
-            self._evict_node(child)
+        for root in self._roots.values():
+            for child in list(root.children.values()):
+                self._evict_node(child)
         self._g_prefix.set(0)
         self._g_in_use.set(self.blocks_in_use)
         return n
@@ -516,7 +539,8 @@ def _gather_view(pool_l: torch.Tensor, scale_l: Optional[torch.Tensor],
 def make_paged_decode_fn(cfg: GPTConfig, block_size: int):
     """Build the packed decode step.
 
-    ``step(params, pool, toks, pos, tables) -> logits (R, vocab) f32``:
+    ``step(params, pool, toks, pos, tables, slabs=None, slots=None) ->
+    logits (R, vocab) f32``:
     R requests each feed one token at their own position ``pos[r]``
     (keys [0, pos) live); ``toks``/``pos`` (R,) and ``tables`` (R, W)
     are int tensors on the pool's device. The new K/V rows are written
@@ -524,13 +548,23 @@ def make_paged_decode_fn(cfg: GPTConfig, block_size: int):
     table row and their logits are ignored. Table rows may alias shared
     prefix pages: the scheduler CoWs the write-target block first, so the
     scatter only lands in a private block (or scratch). Dense-MLP
-    families only."""
+    families only.
+
+    Multi-tenant arm: ``slabs`` is an ``AdapterPool``'s ``{target: {"a":
+    (n_slots, L, d_in, rb), "b": (n_slots, L, rb, d_out)}}`` and
+    ``slots`` an ``(R,)`` int32 tensor of per-row pool slots; each row
+    adds its own adapter's delta beside every targeted frozen matmul
+    (``segmented_lora_delta`` on the layer's strided slab slice, at the
+    reference's points). Slot 0 is the pool's zero adapter: base-model
+    and padded rows add exactly 0.0. The reference keys its compiled
+    steps on the pool's geometry (``lora_sig``); this step compiles
+    nothing, so it needs no such key."""
     resolve_rope(cfg)
     norm_fn, norm_eps = resolve_norm(cfg)
     rope_base = cfg.rope_base if cfg.pos_embedding == "rope" else 0.0
     head_dim, use_bias = cfg.head_dim, cfg.use_bias
 
-    def _block(x, p, pool: PoolState, li, blk, off, pos, tables):
+    def _block(x, p, pool: PoolState, li, blk, off, pos, tables, seg):
         R = x.shape[0]
         h = norm_fn(x, p["ln1_g"], p.get("ln1_b"), norm_eps)
         q = col_parallel_matmul(h, p["wq"].to(x.dtype),
@@ -539,6 +573,9 @@ def make_paged_decode_fn(cfg: GPTConfig, block_size: int):
                                 _bias(p, "bk", x, use_bias))
         v = col_parallel_matmul(h, p["wv"].to(x.dtype),
                                 _bias(p, "bv", x, use_bias))
+        q = with_lora(q, h, p, "wq", seg)
+        k = with_lora(k, h, p, "wk", seg)
+        v = with_lora(v, h, p, "wv", seg)
         h_loc = q.shape[-1] // head_dim
         kv_loc = k.shape[-1] // head_dim
         q = q.reshape(R, 1, h_loc, head_dim)
@@ -566,17 +603,30 @@ def make_paged_decode_fn(cfg: GPTConfig, block_size: int):
                           else pool.v_scale[li], tables, length, x.dtype)
         o, _ = attention_lse(q, kk, vv, pos, 0, causal=True)
         o = o.reshape(R, 1, h_loc * head_dim)
-        x = x + row_parallel_matmul(o, p["wo"].to(x.dtype), None,
-                                    _bias(p, "bo", x, use_bias))
+        attn_out = row_parallel_matmul(o, p["wo"].to(x.dtype), None,
+                                       _bias(p, "bo", x, use_bias))
+        x = x + with_lora(attn_out, o, p, "wo", seg)
         if "moe" in p:
             raise NotImplementedError(
                 "the paged decode step serves dense-MLP GPT families "
                 "only — MoE blocks are not ported yet")
         h2 = norm_fn(x, p["ln2_g"], p.get("ln2_b"), norm_eps)
-        return x + _mlp(h2, p, use_bias=use_bias)
+        return x + _mlp(h2, p, use_bias=use_bias, seg=seg)
+
+    def _seg_for(slabs, slots, li):
+        """Layer ``li``'s per-row delta of the pooled adapters: the
+        kernel reads the ``[:, li]`` slab slice through its slot stride."""
+        def seg(name, xin):
+            sl = slabs.get(name)
+            if sl is None:
+                return None
+            return segmented_lora_delta(xin, sl["a"][:, li], sl["b"][:, li],
+                                        slots)
+        return seg
 
     @torch.no_grad()
-    def step(params, pool: PoolState, toks, pos, tables) -> torch.Tensor:
+    def step(params, pool: PoolState, toks, pos, tables, slabs=None,
+             slots=None) -> torch.Tensor:
         x = params["wte"][toks[:, None]]
         if cfg.pos_embedding != "rope":
             x = x + params["wpe"][pos[:, None]]
@@ -584,7 +634,8 @@ def make_paged_decode_fn(cfg: GPTConfig, block_size: int):
         blk = tables.gather(1, (pos // block_size)[:, None])[:, 0]
         off = pos % block_size
         for li, p in enumerate(params["blocks"]):
-            x = _block(x, p, pool, li, blk, off, pos, tables)
+            seg = None if slabs is None else _seg_for(slabs, slots, li)
+            x = _block(x, p, pool, li, blk, off, pos, tables, seg)
         return _readout(params, x, norm_fn, norm_eps)[:, 0]
 
     return step

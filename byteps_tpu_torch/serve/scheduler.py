@@ -7,12 +7,15 @@ replica (role ``"both"``). One :class:`Scheduler` owns a
 device and drives a three-phase iteration (``step()``):
 
 1. **Admission** — requests whose arrival time has passed join the
-   running set, in FIFO order, as soon as a slot and enough free KV
-   blocks exist; preempted requests re-queue at the front. With the
-   prefix cache on (``BYTEPS_SERVE_PREFIX_CACHE``, default) admission
-   first consults the pool's radix index: a hit maps the request's
-   leading table entries to shared read-only pages, CoWs the divergence
-   block, and starts chunked prefill there.
+   running set as soon as a slot and enough free KV blocks exist: FIFO
+   within each tenant, deficit-weighted fair queuing (DWFQ) across
+   tenants (``BYTEPS_SERVE_FAIR_QUEUE``, default on; untenanted or
+   single-tenant traffic is plain FIFO either way); preempted requests
+   re-queue at the front. With the prefix cache on
+   (``BYTEPS_SERVE_PREFIX_CACHE``, default) admission first consults the
+   pool's radix index under the request's adapter: a hit maps the
+   request's leading table entries to shared read-only pages, CoWs the
+   divergence block, and starts chunked prefill there.
 2. **Prefill** — one prompt chunk (``serve_prefill_chunk`` tokens) per
    iteration for the oldest prefilling request, so a long prompt
    interleaves with everyone else's decode steps. The final chunk's
@@ -25,15 +28,28 @@ device and drives a three-phase iteration (``step()``):
 request is evicted: its blocks free, its committed tokens are kept, and
 it re-queues with ``prompt + emitted`` as the recompute prefill input.
 
+**Multi-tenant LoRA** — with an
+:class:`~byteps_tpu_torch.serve.adapter_pool.AdapterPool` attached, one
+replica serves many fine-tuned variants of its base model: an
+adapter-tagged request pins its adapter's pool slot at admission
+(all-or-nothing with its KV blocks), its prefill chunks run on the
+tenant's grafted tree, and the packed decode step adds each row's own
+delta by slot (``ops/segmented_lora.py``; base-model and padded rows
+ride the zero slot 0). Per-tenant KV quotas
+(``BYTEPS_SERVE_TENANT_QUOTA_BLOCKS``) make a tenant that outgrows its
+quota preempt its own youngest request, never a sibling's; the
+``serve.tenant<T>.*`` metrics carry the per-tenant view.
+
 **Exactness contract** — greedy (``temperature == 0``) requests emit
 token for token what a solo ``make_generate_fn`` run emits, whatever
 the batch composition, admission order, chunking or preemption.
 Sampled requests draw from a per-row generator seeded from
 (seed, position), independent of batch packing.
 
-Not ported yet (later slices): the speculative lane, the adapter pool
-and segmented LoRA, tenants/quotas/fair queuing, disaggregation and
-migration, fault plans, and the multi-replica ``Router``.
+Not ported yet (later slices): the speculative lane, disaggregation and
+migration, fault plans (and with them the tenant-scoped
+``tenant<T>:slow|hang`` rules), the multi-replica ``Router``, MoE
+blocks and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -105,6 +121,12 @@ class Request:
     seed: int = 0
     eos_id: Optional[int] = None
     arrival_s: float = 0.0
+    # ``tenant`` keys fair queuing, KV quotas and the per-tenant metrics
+    # (None = untenanted, exempt from quotas); ``adapter`` names a LoRA
+    # adapter registered in the replica's AdapterPool (None = the bare
+    # base model)
+    tenant: Any = None
+    adapter: Any = None
 
 
 class _Run:
@@ -112,7 +134,8 @@ class _Run:
 
     __slots__ = ("req", "full_input", "emitted", "pending", "cache_len",
                  "prefill_done", "state", "t_submit", "t_origin", "t_admit",
-                 "t_first", "t_last", "preemptions", "tok_s", "idx_seq")
+                 "t_first", "t_last", "preemptions", "tok_s", "idx_seq",
+                 "tenant", "slot")
 
     def __init__(self, req: Request, t_submit: float):
         self.req = req
@@ -132,6 +155,10 @@ class _Run:
         self.tok_s: List[float] = []
         # prefix-index version this run last matched against
         self.idx_seq = -1
+        self.tenant = req.tenant
+        # adapter-pool slot pinned while admitted (None = base model or
+        # not admitted)
+        self.slot: Optional[int] = None
 
 
 class NoProgressError(RuntimeError):
@@ -142,7 +169,10 @@ class NoProgressError(RuntimeError):
 class Scheduler:
     """One serving replica: continuous admission, chunked prefill,
     packed decode, preemption. ``params`` live on ``device`` (the card
-    unless told otherwise), where the pool is allocated too."""
+    unless told otherwise), where the pool is allocated too; so does the
+    optional ``adapter_pool``. ``tenant_quota_blocks`` and
+    ``fair_queue`` default from the config; ``tenant_weights`` scale a
+    tenant's DWFQ share (default 1)."""
 
     def __init__(self, params, cfg: GPTConfig, *,
                  max_batch: Optional[int] = None,
@@ -151,6 +181,10 @@ class Scheduler:
                  prefill_chunk: Optional[int] = None,
                  quant_cache: Optional[bool] = None,
                  prefix_cache: Optional[bool] = None,
+                 adapter_pool=None,
+                 tenant_quota_blocks: Optional[int] = None,
+                 fair_queue: Optional[bool] = None,
+                 tenant_weights: Optional[Dict[Any, float]] = None,
                  device=None,
                  clock=time.monotonic):
         c = get_config()
@@ -158,8 +192,30 @@ class Scheduler:
         if params["wte"].device != self.device:
             raise ValueError(f"params live on {params['wte'].device}, the "
                              f"scheduler on {self.device}")
+        if adapter_pool is not None and adapter_pool.device != self.device:
+            raise ValueError(f"the adapter pool lives on "
+                             f"{adapter_pool.device}, the scheduler on "
+                             f"{self.device}")
         self.params = params
         self.cfg = cfg
+        self.adapter_pool = adapter_pool
+        self._quota = tenant_quota_blocks if tenant_quota_blocks \
+            is not None else c.serve_tenant_quota_blocks
+        if self._quota < 0:
+            raise ValueError(
+                f"tenant_quota_blocks must be >= 0; got {self._quota}")
+        self._fair = fair_queue if fair_queue is not None \
+            else c.serve_fair_queue
+        self._weights: Dict[Any, float] = dict(tenant_weights or {})
+        for t, w in self._weights.items():
+            if w <= 0:
+                raise ValueError(
+                    f"tenant weight must be > 0; got {w} for {t!r}")
+        # DWFQ deficit credits of the tenants with waiting work; the max
+        # renormalizes to 0 after every admission, so an idle tenant
+        # banks no credit while away
+        self._credits: Dict[Any, float] = {}
+        self._tm: Dict[Any, Dict[str, Any]] = {}
         self.max_batch = max_batch if max_batch is not None \
             else c.serve_max_batch
         self.prefill_chunk = prefill_chunk if prefill_chunk is not None \
@@ -238,8 +294,26 @@ class Scheduler:
                 f"request needs {self.cache.blocks_for(total)} KV blocks "
                 f"but the pool holds {self.cache.pool_blocks - 1} — it "
                 "could never be scheduled")
+        if (self._quota and req.tenant is not None
+                and self.cache.blocks_for(total) > self._quota):
+            raise ValueError(
+                f"request needs {self.cache.blocks_for(total)} KV blocks "
+                f"but tenant {req.tenant!r}'s quota is {self._quota} — "
+                "it could never run under the quota")
+        if req.adapter is not None:
+            if self.adapter_pool is None:
+                raise ValueError(
+                    f"request names adapter {req.adapter!r} but this "
+                    "replica has no adapter pool")
+            if not self.adapter_pool.registered(req.adapter):
+                raise ValueError(
+                    f"adapter {req.adapter!r} is not registered in the pool")
         if req.rid in self._runs:
             raise ValueError(f"duplicate request id {req.rid!r}")
+        if req.adapter is not None:
+            # warm a FREE slot now (never evicts), so admission's
+            # acquire is a residency hit
+            self.adapter_pool.prefetch(req.adapter)
         run = _Run(req, self._clock())
         self._runs[req.rid] = run
         self._waiting.append(run)
@@ -262,6 +336,97 @@ class Scheduler:
         return torch.as_tensor(np.asarray(rows, np.int64),
                                device=self.device)
 
+    def _params_for(self, run: _Run):
+        """The tree a single-request forward (a prefill chunk) runs on:
+        the tenant's grafted tree (built from the pool's padded slabs,
+        cached per adapter) when the request names an adapter, else the
+        base."""
+        if run.req.adapter is None:
+            return self.params
+        return self.adapter_pool.graft(self.params, run.req.adapter)
+
+    # -- multi-tenant policy -------------------------------------------------
+    def _tenant_m(self, tenant) -> Dict[str, Any]:
+        """Lazy per-tenant metrics (``serve.tenant<T>.*``): untenanted
+        traffic keeps the plain metric surface."""
+        m = self._tm.get(tenant)
+        if m is None:
+            _reg = get_registry()
+            p = f"serve.tenant{tenant}"
+            m = self._tm[tenant] = {
+                "admitted": _reg.counter(f"{p}.admitted"),
+                "tokens": _reg.counter(f"{p}.tokens"),
+                "quota_hits": _reg.counter(f"{p}.quota_hits"),
+                "ttft_ms": _reg.histogram(f"{p}.ttft_ms"),
+            }
+        return m
+
+    def _tenant_usage(self, tenant) -> int:
+        """KV blocks the tenant's admitted requests hold (table lengths:
+        a shared prefix page charges every sharer)."""
+        return sum(self.cache.table_len(r.req.rid)
+                   for r in self._running if r.tenant == tenant)
+
+    def _quota_blocked(self, run: _Run) -> bool:
+        """Would admitting ``run`` push its tenant past the KV quota?
+        Untenanted requests are exempt."""
+        if not self._quota or run.tenant is None:
+            return False
+        return (self._tenant_usage(run.tenant)
+                + self.cache.blocks_for(len(run.full_input) + 1)
+                > self._quota)
+
+    def _next_admission(self, now: float) -> Optional[_Run]:
+        """The admission pick. Candidates are each tenant's OLDEST waiting
+        request that has arrived and is not quota-blocked (a blocked
+        tenant is skipped without head-blocking its siblings). With fair
+        queuing off, or one tenant, the earliest queue position wins:
+        plain FIFO. With it on, the tenant with the most credit wins
+        (ties to the earliest position)."""
+        seen = set()
+        cands = []                       # (queue position, run)
+        for pos, run in enumerate(self._waiting):
+            t = run.tenant
+            if t in seen:
+                continue
+            seen.add(t)                  # younger same-tenant work waits
+            if run.req.arrival_s > now:
+                continue
+            if self._quota_blocked(run):
+                self._tenant_m(t)["quota_hits"].inc()
+                continue
+            cands.append((pos, run))
+        if not cands:
+            return None
+        if not self._fair:
+            return cands[0][1]
+        for _, run in cands:
+            self._credits.setdefault(run.tenant, 0.0)
+        return max(cands, key=lambda pr: (self._credits[pr[1].tenant],
+                                          -pr[0]))[1]
+
+    def _charge_admission(self, run: _Run, reserve: int) -> None:
+        """DWFQ accounting of one admission: the tenant pays its block
+        reservation over its weight, then credits of the tenants with
+        waiting work (and the payer) shift so their max is 0."""
+        if not self._fair:
+            return
+        t = run.tenant
+        w = float(self._weights.get(t, 1.0))
+        self._credits[t] = (self._credits.get(t, 0.0)
+                            - self.cache.blocks_for(reserve) / w)
+        active = {r.tenant for r in self._waiting}
+        active.add(t)
+        mx = max(self._credits.get(a, 0.0) for a in active)
+        self._credits = {a: self._credits.get(a, 0.0) - mx for a in active}
+
+    def _release_adapter(self, run: _Run) -> None:
+        """Unpin the run's adapter slot (idempotent); the adapter stays
+        resident, cached-idle."""
+        if run.slot is not None:
+            self.adapter_pool.release(run.req.adapter, run.req.rid)
+            run.slot = None
+
     # -- internals ----------------------------------------------------------
     def _commit_token(self, run: _Run, tok: int, now: float) -> None:
         """Append one generated token, stamp latencies, finish when
@@ -269,9 +434,14 @@ class Scheduler:
         run.emitted.append(tok)
         run.pending = tok
         run.tok_s.append(now)
+        if run.tenant is not None:
+            self._tenant_m(run.tenant)["tokens"].inc()
         if run.t_first is None:
             run.t_first = now
             self._m["ttft_ms"].observe((now - run.t_origin) * 1e3)
+            if run.tenant is not None:
+                self._tenant_m(run.tenant)["ttft_ms"].observe(
+                    (now - run.t_origin) * 1e3)
         else:
             self._m["token_ms"].observe((now - run.t_last) * 1e3)
         run.t_last = now
@@ -281,6 +451,7 @@ class Scheduler:
 
     def _finish(self, run: _Run, now: float) -> None:
         self.cache.release(run.req.rid)
+        self._release_adapter(run)
         self._running.remove(run)
         del self._runs[run.req.rid]
         run.state = "done"
@@ -303,6 +474,7 @@ class Scheduler:
         re-queue it at the front to recompute prompt + emitted."""
         self._m["recompute_tokens"].inc(run.cache_len)
         self.cache.release(run.req.rid)
+        self._release_adapter(run)
         run.state = "queued"
         run.preemptions += 1
         run.pending = None
@@ -320,7 +492,24 @@ class Scheduler:
                            write_lo: int, write_hi: int) -> bool:
         """Grow ``run``'s table to ``n_tokens`` and CoW any shared page
         in the write span, preempting the youngest admitted request as
-        often as needed. False when ``run`` itself became the victim."""
+        often as needed. False when ``run`` itself became the victim.
+        Growth past the tenant's KV quota first preempts the tenant's
+        own youngest run (possibly ``run``), never a sibling's."""
+        if self._quota and run.tenant is not None:
+            while True:
+                need = (self.cache.blocks_for(n_tokens)
+                        - self.cache.table_len(run.req.rid))
+                if (need <= 0 or self._tenant_usage(run.tenant) + need
+                        <= self._quota):
+                    break
+                self._tenant_m(run.tenant)["quota_hits"].inc()
+                victim = next(
+                    (cand for cand in reversed(self._running)
+                     if cand.tenant == run.tenant and cand is not run
+                     and cand.state in ("prefill", "decode")), run)
+                self._preempt(victim)
+                if victim is run:
+                    return False
         while True:
             try:
                 self.cache.ensure(run.req.rid, n_tokens)
@@ -343,11 +532,12 @@ class Scheduler:
 
     # -- the iteration ------------------------------------------------------
     def _admit(self, now: float) -> bool:
-        """Phase 1: FIFO admission, head-blocked on KV blocks."""
+        """Phase 1: admission in :meth:`_next_admission`'s order,
+        head-blocked on KV blocks (and adapter slots)."""
         progress = False
         while self._waiting and len(self._running) < self._admit_cap:
-            run = self._waiting[0]
-            if run.req.arrival_s > now:
+            run = self._next_admission(now)
+            if run is None:
                 break
             L = len(run.full_input)
             reserve = L + 1                # prompt rows + the decode slot
@@ -357,7 +547,7 @@ class Scheduler:
                 # capped at L-1 tokens so the final prefill chunk always
                 # runs (its last logits give the first token)
                 hit_blocks, hit_tokens = self.cache.match_prefix(
-                    run.full_input[:L - 1])
+                    run.full_input[:L - 1], namespace=run.req.adapter)
                 run.idx_seq = self.cache.index_version
             partial = 1 if hit_tokens % self.cache.block_size else 0
             need = self.cache.blocks_for(reserve) - len(hit_blocks) + partial
@@ -374,7 +564,7 @@ class Scheduler:
             if need > (self.cache.free_blocks
                        + self.cache.reclaimable_blocks(exclude=hit_blocks)):
                 break
-            self._waiting.popleft()
+            self._waiting.remove(run)
             self.cache.register(run.req.rid)
             try:
                 if hit_blocks:
@@ -384,6 +574,11 @@ class Scheduler:
                     # the match ends mid-block: CoW the divergence block
                     self.cache.ensure_writable(run.req.rid, hit_tokens,
                                                hit_tokens + 1)
+                if run.req.adapter is not None:
+                    # pin the adapter's slot for the run's lifetime,
+                    # all-or-nothing with the KV blocks
+                    run.slot = self.adapter_pool.acquire(run.req.adapter,
+                                                         run.req.rid)
             except PoolExhausted:
                 # roll back losslessly and retry next iteration
                 self.cache.release(run.req.rid)
@@ -401,7 +596,10 @@ class Scheduler:
             run.state = "prefill"
             run.t_admit = now
             self._running.append(run)
+            self._charge_admission(run, reserve)
             self._m["admitted"].inc()
+            if run.tenant is not None:
+                self._tenant_m(run.tenant)["admitted"].inc()
             self._m["queue_depth"].set(len(self._waiting))
             progress = True
         return progress
@@ -419,7 +617,8 @@ class Scheduler:
             bs = self.cache.block_size
             run.idx_seq = self.cache.index_version
             hit_blocks, jump = self.cache.match_prefix(
-                run.full_input[:L - 1], full_blocks_only=True)
+                run.full_input[:L - 1], full_blocks_only=True,
+                namespace=run.req.adapter)
             if jump > run.prefill_done:
                 bp = run.prefill_done // bs
                 self.cache.readopt_prefix(run.req.rid,
@@ -435,7 +634,7 @@ class Scheduler:
         self.cache.ensure_writable(run.req.rid, run.prefill_done,
                                    run.prefill_done + C)
         logits = self._prefill(
-            self.params, self.cache.state,
+            self._params_for(run), self.cache.state,
             torch.as_tensor(toks[None], device=self.device),
             run.prefill_done,
             self._table(self.cache.table_row(run.req.rid,
@@ -447,7 +646,8 @@ class Scheduler:
         if self._prefix_on:
             # publish the newly full leading blocks for later sharers
             self.cache.commit_prefix(run.req.rid, run.full_input,
-                                     run.prefill_done)
+                                     run.prefill_done,
+                                     namespace=run.req.adapter)
         if final:
             picked = self._pick(logits[:, -1], [run.req.seed],
                                 [run.cache_len], [run.req.temperature])
@@ -482,9 +682,19 @@ class Scheduler:
             tables[i] = self.cache.table_row(run.req.rid, W)
             seeds[i] = run.req.seed
             temps[i] = run.req.temperature
+        pooled = ()
+        if self.adapter_pool is not None:
+            # each row adds its adapter's delta by pool slot; padded and
+            # base-model rows ride the zero slot 0
+            slots = np.zeros(R, np.int32)
+            for i, run in enumerate(packed):
+                if run.slot is not None:
+                    slots[i] = run.slot
+            pooled = (self.adapter_pool.slabs,
+                      torch.as_tensor(slots, device=self.device))
         logits = self._decode(self.params, self.cache.state,
                               self._table(toks), self._table(pos),
-                              self._table(tables))
+                              self._table(tables), *pooled)
         picked = self._pick(logits, seeds, pos + 1, temps)
         now = self._clock()
         for i, run in enumerate(packed):

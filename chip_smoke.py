@@ -27,7 +27,13 @@ Phases, each printing one JSON line:
    (80, 100) round trip of a full chunk with and without the EF residual,
    select and reconstruct at (100, 10240) and the ragged tail's
    (101, 5617) with n = 567,296, reconstruct at K = 8) and on ties,
-   zeros and NaN;
+   zeros and NaN; segmented_lora — the per-row LoRA delta against its
+   plain version on a layer's strided slice of pool-shaped slabs: the
+   packed decode shape (R=16, S=1, 1024 -> 8 -> 1024, 33 slots, mixed
+   slots with 0 and repeats) in bf16 and f32, a 64-row prefill chunk,
+   w2's 4096 -> 8 -> 1024, rank 64, slot-0 rows exactly 0, and a row
+   alone, in R=16 and on a one-slot view bit-equal (batch invariance);
+   library yardstick: index_select + two bmm;
 4. generate — ``make_generate_fn`` at the full width of GPT-2 medium in
    bf16 (random weights from a seed): B=4, T0=128, 64 new tokens;
 5. serve — ``Scheduler.serve`` at the same width, bf16: 8 requests with
@@ -36,6 +42,15 @@ Phases, each printing one JSON line:
 6. exact — in f32 at full width, three requests through
    ``Scheduler.serve`` emit exactly the tokens of solo
    ``make_generate_fn`` runs;
+   multitenant — the reference bench's LoRA race at GPT-2 medium width
+   in bf16: 32 adapters (wq/wv, ranks 2/4/8, rank bucket 8, b =
+   0.02·N(0,1)) in a 33-slot ``AdapterPool``, one tenant each, 32
+   requests (prompts 16/64/128, 16 new tokens), max_batch 16, prefill
+   chunk 64; the multiplexed pass (one Scheduler) and the dedicated pass
+   (one Scheduler per tenant on its grafted tree), walls, tokens/s,
+   and how many tenants' tokens agree; no KV block or slot leaks;
+   multitenant_exact — f32 at full width, 4 adapter tenants (one scaled
+   1.5) and a base tenant pooled: each equals its solo grafted run;
 7. tiny — a tiny model run on the CPU (plain versions) and on the card
    (kernels) emits the same tokens;
    train_bf16 — one bf16 training step of a small model at head dim 64,
@@ -51,7 +66,11 @@ Phases, each printing one JSON line:
    versions) and on the card (kernels) to losses within 1e-4.
 
 Each of phases 4-6 and each train leg runs with the launch counters set
-to 0 just before it and read just after: generate must launch the
+to 0 just before it and read just after: the multitenant paths must
+launch the forward and segmented LoRA kernels, the race exactly 2 x 24
+times for each packed decode step and each prefill chunk of an
+adapter-tagged request (counted by wrapping the schedulers' callables);
+generate must launch the
 forward and decode kernels, serve the forward kernel (its decode is the
 packed plain step; it reaches the decode kernel only through a one-token
 prefill chunk), exact both; train_bf16 and the train legs the forward
@@ -62,7 +81,7 @@ and reconstruct-sum once per step (the ragged tail chunk). The grid
 unpack-sum runs only in the onebit phase: one card aggregates K = 1.
 A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
-(generate, serve, the three train legs), and, last,
+(generate, serve, multitenant, the three train legs), and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so it does without a CUDA card or without the package beside it.
@@ -100,6 +119,9 @@ BWD_REL_L2 = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 # <= 1e-2 in relative L2)
 TRAIN_BF16_LOSS_TOL = 1e-3
 TRAIN_BF16_REL_L2 = 5e-2
+# segmented LoRA, f32 kernel vs plain: the same f32 products summed in
+# other orders, relative to max |plain|; bf16 is held to one bf16 ulp
+LORA_F32_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -553,6 +575,136 @@ def topk_cases(timer) -> dict:
             "topk_roundtrip": rt}
 
 
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |v| (2^(e - 8) for |v| in [2^(e-1), 2^e))."""
+    _, e = torch.frexp(v.float())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def lora_case(timer, name, R, S, d_in, rb, d_out, dtype, seed, n_slots=33,
+              slots=None):
+    """The segmented LoRA kernel against its plain version on a layer's
+    slice of pool-shaped slabs ((n_slots, 24, d_in, rb), strided, as the
+    packed decode step hands them over), slot 0 all zero. f32: within
+    LORA_F32_TOL of max |plain|; bf16: within one bf16 ulp of the plain
+    version's f32 result, plus that f32 allowance (where the rank terms
+    cancel to near 0, the two f32 sums differ by more than the result's
+    own bf16 ulp). Rows on slot 0 must be exactly 0."""
+    from byteps_tpu_torch.ops.segmented_lora import (delta_torch,
+                                                     segmented_lora_delta)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.randn(n_slots, 24, d_in, rb, generator=g, device="cuda")
+    B = 0.02 * torch.randn(n_slots, 24, rb, d_out, generator=g,
+                           device="cuda")
+    A[0] = 0.0
+    B[0] = 0.0
+    a, b = A[:, 7], B[:, 7]
+    if slots is None:           # mixed: slot 0, repeats, spread over the pool
+        slots = torch.randint(0, n_slots, (R,), generator=g, device="cuda")
+        slots[0] = 0
+        slots[R // 2:] = slots[:R - R // 2].flip(0)
+    slots = slots.to(device="cuda", dtype=torch.int32)
+    x = torch.randn(R, S, d_in, generator=g, device="cuda").to(dtype)
+    out = segmented_lora_delta(x, a, b, slots)
+    plain = delta_torch(x, a, b, slots)
+    plain32 = delta_torch(x.float(), a, b, slots)
+    torch.cuda.synchronize()
+    err = float((out.float() - plain.float()).abs().max())
+    f32_tol = LORA_F32_TOL * float(plain32.abs().max())
+    if dtype == torch.float32:
+        tol = f32_tol
+        ok = err <= tol
+    else:
+        ok = bool(((out.float() - plain32).abs()
+                   <= bf16_ulp(plain32) + f32_tol).all())
+        tol = f"1 bf16 ulp of the plain f32 result + {f32_tol:.3g}"
+    zero = slots == 0
+    if not ok or not bool((out[zero] == 0).all()):
+        raise AssertionError(f"segmented_lora {name} {dtype}: err {err} "
+                             f"(tolerance {tol}), slot-0 rows exactly 0: "
+                             f"{bool((out[zero] == 0).all())}")
+    ms = timer(lambda: segmented_lora_delta(x, a, b, slots))
+    plain_ms = timer(lambda: delta_torch(x, a, b, slots))
+    # the library yardstick: gather the rows' slabs, two bmm (f32), cast
+    idx = slots.long()
+    lib_ms = timer(lambda: torch.bmm(
+        torch.bmm(x.float(), a.index_select(0, idx)),
+        b.index_select(0, idx)).to(dtype))
+    live = int(torch.unique(slots[~zero]).numel())
+    n_bytes = (x.numel() * x.element_size() + 4 * R
+               + live * 4 * (d_in * rb + rb * d_out)
+               + R * S * d_out * x.element_size())
+    # f32 FMAs of the rows off slot 0 (slot 0 needs none)
+    n_ops = 2 * int((~zero).sum()) * S * (d_in * rb + rb * d_out)
+    bms, by = bound_ms(n_bytes, n_ops, torch.float32)
+    res = {"case": name, "dtype": str(dtype).split(".")[-1],
+           "shape": [R, S, d_in, rb, d_out], "n_slots": n_slots,
+           "live_slots": live, "slot0_rows": int(zero.sum()),
+           "max_abs_err": err, "max_abs": float(plain32.abs().max()),
+           "tolerance": tol, "slot0_exact": True, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+           "bound_by": by}
+    emit({"phase": "segmented_lora", **res})
+    return res
+
+
+def lora_invariance_case():
+    """A row computed alone (R = 1), inside R = 16 and on a one-slot view
+    (as ``lora_delta`` calls the kernel) is bit for bit the same, for a
+    decode row and a 64-row prefill chunk and its 1- and 7-row parts."""
+    from byteps_tpu_torch.ops.segmented_lora import segmented_lora_delta
+
+    g = torch.Generator(device="cuda").manual_seed(67)
+    A = torch.randn(33, 24, 1024, 8, generator=g, device="cuda")
+    B = 0.02 * torch.randn(33, 24, 8, 1024, generator=g, device="cuda")
+    a, b = A[:, 3], B[:, 3]
+    slots = torch.randint(1, 33, (16,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    zero1 = torch.zeros(1, dtype=torch.int32, device="cuda")
+    checked = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in (1, 64):
+            x = torch.randn(16, S, 1024, generator=g, device="cuda").to(dtype)
+            full = segmented_lora_delta(x, a, b, slots)
+            for r in (0, 9, 15):
+                s = int(slots[r])
+                alone = segmented_lora_delta(x[r:r + 1], a, b, slots[r:r + 1])
+                one = segmented_lora_delta(x[r:r + 1], a[s][None].contiguous(),
+                                           b[s][None].contiguous(), zero1)
+                parts = [(0, S)] if S == 1 else [(0, 1), (5, 12), (57, 64)]
+                for lo, hi in parts:
+                    part = segmented_lora_delta(x[r:r + 1, lo:hi], a, b,
+                                                slots[r:r + 1])
+                    if not torch.equal(part[0], full[r, lo:hi]):
+                        raise AssertionError(f"segmented_lora: rows {lo}:{hi} "
+                                             "differ from the full chunk")
+                if not (torch.equal(alone, full[r:r + 1])
+                        and torch.equal(one, full[r:r + 1])):
+                    raise AssertionError("segmented_lora: a row alone or on "
+                                         "a one-slot view differs from R=16")
+                checked += 1
+    emit({"phase": "segmented_lora", "case": "batch_invariance",
+          "rows_checked": checked, "bit_equal": True})
+
+
+def lora_cases(timer) -> dict:
+    """Every case of the segmented LoRA kernel; the decode case (the
+    packed decode step's shape) for the kernels line."""
+    bf, f32 = torch.bfloat16, torch.float32
+    main = lora_case(timer, "decode", 16, 1, 1024, 8, 1024, bf, 60)
+    lora_case(timer, "decode", 16, 1, 1024, 8, 1024, f32, 61)
+    lora_case(timer, "prefill_chunk", 1, 64, 1024, 8, 1024, bf, 62,
+              slots=torch.tensor([5]))
+    lora_case(timer, "w2", 16, 1, 4096, 8, 1024, bf, 63)
+    lora_case(timer, "rank64", 16, 1, 1024, 64, 1024, bf, 64)
+    lora_case(timer, "rank64", 16, 1, 1024, 64, 1024, f32, 65)
+    lora_case(timer, "slot0", 16, 1, 1024, 8, 1024, bf, 66,
+              slots=torch.tensor([0] * 12 + [3, 0, 7, 0]))
+    lora_invariance_case()
+    return main
+
+
 # --------------------------------------------------------------------------
 # phases 4-9: the main path
 # --------------------------------------------------------------------------
@@ -640,6 +792,170 @@ def phase_exact(params, cfg32):
     del sched
     emit({"phase": "exact", "f32_serve_equals_solo": True,
           "requests": [len(r.prompt) for r in reqs]})
+
+
+# filled by phase_multitenant: the forward calls (packed decode steps and
+# prefill chunks of adapter-tagged requests) whose every layer must launch
+# the segmented LoRA kernel once per pooled target
+MT_CALLS = {}
+MT_TARGETS = ("wq", "wv")
+
+
+def mt_adapters(cfg, n, ranks, seed, b_std=0.02):
+    """n adapters as in the reference bench's race (``bench.py:1326-1376``):
+    targets wq/wv, a ~ N(0, 1/rank), b = b_std·N(0, 1) (0.02 there) so
+    every adapter changes the outputs, from seeded card generators."""
+    from byteps_tpu_torch.models.lora import lora_init
+
+    out = []
+    for j in range(n):
+        g = torch.Generator(device="cuda").manual_seed(seed + j)
+        ad = lora_init(cfg, ranks[j % len(ranks)], MT_TARGETS, generator=g)
+        for blk in ad["blocks"]:
+            for ab in blk.values():
+                ab["b"] = b_std * torch.randn(ab["b"].shape, generator=g,
+                                              device="cuda")
+        out.append(ad)
+    return out
+
+
+def counting(calls: list, fn, only_grafted: bool):
+    """Wrap a scheduler's decode or prefill callable to count its calls
+    (``only_grafted``: only those on a grafted tree)."""
+    def wrapped(params, *args, **kw):
+        if not only_grafted or "lora" in params["blocks"][0]:
+            calls.append(1)
+        return fn(params, *args, **kw)
+    return wrapped
+
+
+def phase_multitenant(params, cfg, n=32, max_new=16):
+    """The reference bench's multi-tenant race at GPT-2 medium width,
+    bf16: 32 adapters (ranks 2/4/8, one tenant each) in a 33-slot pool
+    (rank bucket 8), 32 requests with prompts of 16/64/128 tokens and
+    ``max_new`` new tokens each, max_batch 16, prefill chunk 64. The
+    multiplexed pass serves them all from one Scheduler; the dedicated
+    pass runs one Scheduler per tenant on its grafted tree. Hard limits:
+    no leaked KV block or adapter slot, refcounts clean. Tokens of the
+    two passes are compared and reported, not required equal (bf16)."""
+    from byteps_tpu_torch.common.metrics import get_registry, reset_registry
+    from byteps_tpu_torch.serve import AdapterPool, Request, Scheduler
+
+    reset_registry()
+    pool = AdapterPool(cfg, n_slots=n + 1, rank_bucket=8,
+                       targets=MT_TARGETS)
+    for j, ad in enumerate(mt_adapters(cfg, n, (2, 4, 8), 1000)):
+        pool.register(f"a{j}", ad)
+    rng = np.random.default_rng(5)
+    lens = [(16, 64, 128)[j % 3] for j in range(n)]
+    prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+               for L in lens]
+    kw = dict(max_batch=16, prefill_chunk=64)
+    calls = []
+
+    def instrument(sched):
+        # a pooled decode step adds the deltas whatever its rows; a
+        # prefill chunk only on an adapter's grafted tree
+        sched._decode = counting(calls, sched._decode,
+                                 sched.adapter_pool is None)
+        sched._prefill = counting(calls, sched._prefill, True)
+        return sched
+
+    sched = instrument(Scheduler(params, cfg, adapter_pool=pool, **kw))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mux = sched.serve([Request(rid=j, prompt=p, max_new=max_new,
+                               tenant=f"t{j}", adapter=f"a{j}")
+                       for j, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    mux_s = time.perf_counter() - t0
+    if sched.cache.leaked_blocks() or pool.leaked_slots():
+        raise AssertionError(f"multiplexed pass leaked "
+                             f"{sched.cache.leaked_blocks()} KV blocks, "
+                             f"{pool.leaked_slots()} adapter slots")
+    pool.check_refcounts()
+    snap = get_registry().snapshot("serve.")
+    mux_steps = len(calls)
+    del sched
+    t0 = time.perf_counter()
+    ded = {}
+    for j, p in enumerate(prompts):
+        one = instrument(Scheduler(pool.graft(params, f"a{j}"), cfg, **kw))
+        ded.update(one.serve([Request(rid=j, prompt=p, max_new=max_new)]))
+        if one.cache.leaked_blocks():
+            raise AssertionError(f"dedicated pass {j} leaked KV blocks")
+        del one
+    torch.cuda.synchronize()
+    ded_s = time.perf_counter() - t0
+    equal, first_diff = 0, None
+    for j, p in enumerate(prompts):
+        a, b = mux[j]["tokens"], ded[j]["tokens"]
+        if len(a) != len(p) + max_new or not (a[:len(p)] == p).all():
+            raise AssertionError(f"tenant {j}: bad multiplexed output")
+        if np.array_equal(a, b):
+            equal += 1
+        else:
+            pos = int(np.flatnonzero(a != b)[0]) - len(p)
+            first_diff = pos if first_diff is None else min(first_diff, pos)
+    MT_CALLS["multitenant"] = len(calls)
+    new = n * max_new
+    emit({"phase": "multitenant", "adapters": n, "n_slots": n + 1,
+          "rank_bucket": 8, "ranks": [2, 4, 8], "targets": list(MT_TARGETS),
+          "prompt_lens": sorted(set(lens)), "max_new": max_new, **kw,
+          "multiplexed_s": mux_s, "multiplexed_new_tokens_per_s": new / mux_s,
+          "dedicated_s": ded_s, "dedicated_new_tokens_per_s": new / ded_s,
+          "speedup": ded_s / mux_s,
+          "multiplexed_forward_calls": mux_steps,
+          "dedicated_forward_calls": len(calls) - mux_steps,
+          "tenants_equal": equal, "first_diff_position": first_diff,
+          "adapter_loads": snap["counters"].get("serve.adapter_loads", 0),
+          "ttft_ms": snap["histograms"]["serve.ttft_ms"],
+          "leaked_blocks": 0, "leaked_slots": 0})
+
+
+def phase_multitenant_exact(params, cfg32):
+    """f32 at GPT-2 medium width: 4 tenants (ranks 2/4/8, one with scale
+    1.5, b = 0.1·N(0, 1)) and a base-model tenant through one pooled
+    Scheduler; each
+    tenant's tokens must equal a solo ``make_generate_fn`` run on its
+    grafted tree (the base tenant's on the base)."""
+    from byteps_tpu_torch.models import make_generate_fn
+    from byteps_tpu_torch.serve import AdapterPool, Request, Scheduler
+
+    pool = AdapterPool(cfg32, n_slots=5, rank_bucket=8, targets=MT_TARGETS)
+    for j, (ad, scale) in enumerate(zip(
+            mt_adapters(cfg32, 4, (2, 4, 8, 8), 2000, b_std=0.1),
+            (1.0, 1.0, 1.0, 1.5))):
+        pool.register(f"a{j}", ad, scale=scale)
+    rng = np.random.default_rng(6)
+    aids = ["a0", "a1", "a2", "a3", None]
+    reqs = [Request(rid=f"m{j}", prompt=rng.integers(
+                0, cfg32.vocab_size, n).astype(np.int32), max_new=16,
+                tenant=f"t{j}", adapter=aid)
+            for j, (aid, n) in enumerate(zip(aids, (50, 200, 333, 97, 120)))]
+    sched = Scheduler(params, cfg32, adapter_pool=pool, max_batch=4,
+                      prefill_chunk=64)
+    res = sched.serve(reqs)
+    gen = make_generate_fn(cfg32, 16)
+    changed = 0
+    for r in reqs:
+        tree = params if r.adapter is None else pool.graft(params, r.adapter)
+        solo = gen(tree, r.prompt[None]).cpu().numpy()[0]
+        if not np.array_equal(res[r.rid]["tokens"], solo):
+            raise AssertionError(
+                f"f32 pooled tokens of {r.rid} (adapter {r.adapter}) differ "
+                f"from its solo run:\n{res[r.rid]['tokens'][-16:]}\n"
+                f"{solo[-16:]}")
+        if r.adapter is not None:
+            base = gen(params, r.prompt[None]).cpu().numpy()[0]
+            changed += not np.array_equal(solo, base)
+    if sched.cache.leaked_blocks() or pool.leaked_slots():
+        raise AssertionError("multitenant_exact leaked blocks or slots")
+    pool.check_refcounts()
+    del sched
+    emit({"phase": "multitenant_exact", "f32_pooled_equals_solo": True,
+          "tenants": len(reqs), "adapters_changing_tokens": changed,
+          "prompt_lens": [len(r.prompt) for r in reqs]})
 
 
 def phase_tiny():
@@ -781,11 +1097,15 @@ def phase_train_bf16():
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
 PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": ("flash_fwd",),
-         "exact": ("flash_fwd", "flash_decode"), "train_bf16": TRAIN,
+         "exact": ("flash_fwd", "flash_decode"),
+         "multitenant": ("flash_fwd", "segmented_lora"),
+         "multitenant_exact": ("flash_fwd", "segmented_lora"),
+         "train_bf16": TRAIN,
          "train_raw": TRAIN,
          "train_onebit": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
          "train_topk": TRAIN + TOPK}
-MAIN_PATHS = ("generate", "serve", "train_raw", "train_onebit", "train_topk")
+MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
+              "train_onebit", "train_topk")
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
@@ -877,6 +1197,7 @@ def main() -> int:
             onebit_case(timer, "signed_zero_nan", 1_000_003, 42,
                         special=True)]
     topk = topk_cases(timer)
+    lora = lora_cases(timer)
     del timer
 
     cfg = GPTConfig.gpt2_medium()
@@ -886,8 +1207,21 @@ def main() -> int:
         "serve": counted("serve", phase_serve, params, cfg),
         "exact": counted("exact", phase_exact, params,
                          dataclasses.replace(cfg, dtype=torch.float32)),
+        "multitenant": counted("multitenant", phase_multitenant, params, cfg),
+        "multitenant_exact": counted(
+            "multitenant_exact", phase_multitenant_exact, params,
+            dataclasses.replace(cfg, dtype=torch.float32)),
     }
     del params
+    # 2 pooled targets x 24 layers, once for each packed decode step and
+    # each prefill chunk of an adapter-tagged request, both passes
+    want = len(MT_TARGETS) * cfg.n_layers * MT_CALLS["multitenant"]
+    if by_path["multitenant"]["segmented_lora"] != want:
+        raise AssertionError(
+            f"multitenant launched segmented_lora "
+            f"{by_path['multitenant']['segmented_lora']} times, not {want} "
+            f"({len(MT_TARGETS)} targets x {cfg.n_layers} layers x "
+            f"{MT_CALLS['multitenant']} forward calls)")
     by_path["train_bf16"] = counted("train_bf16", phase_train_bf16)
     by_path["train_raw"] = counted("train_raw", phase_train, "raw", None)
     by_path["train_onebit"] = counted(
@@ -981,7 +1315,9 @@ def main() -> int:
              "byteps_tpu/ops/topk_kernels.py:110",
              topk["topk_reconstruct_sum"]),
             ("topk_roundtrip", "topk", "byteps_tpu/ops/topk_kernels.py:139",
-             topk["topk_roundtrip"])]
+             topk["topk_roundtrip"]),
+            ("segmented_lora", "segmented_lora",
+             "byteps_tpu/ops/segmented_lora.py:87", lora)]
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"byteps_tpu_torch/ops/csrc/{src}.cu", "replaces": rep,

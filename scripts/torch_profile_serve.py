@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's serving path, on one CUDA card.
 
-    python3 scripts/torch_profile_serve.py [--out bench_results/torch_profile_serve.json]
+    python3 scripts/torch_profile_serve.py [--multitenant] [--out bench_results/torch_profile_serve.json]
 
 Runs GPT-2 medium (bf16, random weights from a seed) through
 ``make_generate_fn`` (B=4, T0=128, 16 new tokens) and ``Scheduler.serve``
@@ -10,7 +10,13 @@ Runs GPT-2 medium (bf16, random weights from a seed) through
 it reports the host wall time, the summed device time of every kernel,
 their ratio (the device's busy share; the rest is the card waiting on
 the host), the number of kernel launches, and the kernels that took the
-most device time. Needs a CUDA card; prints one JSON line per run.
+most device time. ``--multitenant`` profiles instead one multiplexed
+pass of ``chip_smoke.py``'s LoRA race (32 adapters on wq/wv, ranks
+2/4/8 in a 33-slot pool, 32 tenants' requests of 16/64/128 prompt
+tokens and 16 new tokens, max_batch 16, prefill chunk 64) and adds the
+device time by group (the port's kernels by name, GEMMs, the rest) and
+the number of packed decode steps and prefill chunks. Needs a CUDA
+card; prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -28,14 +34,23 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repo
 
+from torch_profile_train import _group  # noqa: E402  (this script's dir)
+
 
 def _kernel_stats(prof, top: int = 12) -> dict:
     rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     total_us = sum(e.self_device_time_total for e in rows)
+    groups: dict = {}
+    for e in rows:
+        g = _group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total * 1e-3
     rows.sort(key=lambda e: -e.self_device_time_total)
     return {"device_us": total_us,
             "launches": sum(e.count for e in rows),
+            "device_ms_by_group": dict(sorted(groups.items(),
+                                              key=lambda kv: -kv[1])),
             "top": [{"kernel": e.key[:90], "count": e.count,
                      "device_us": e.self_device_time_total}
                     for e in rows[:top]]}
@@ -56,8 +71,49 @@ def _profiled(fn) -> dict:
     return stats
 
 
+def _multitenant(params, cfg) -> dict:
+    """One multiplexed pass of the smoke's LoRA race, profiled."""
+    from byteps_tpu_torch.models.lora import lora_init
+    from byteps_tpu_torch.serve import AdapterPool, Request, Scheduler
+
+    n, targets = 32, ("wq", "wv")
+    pool = AdapterPool(cfg, n_slots=n + 1, rank_bucket=8, targets=targets)
+    for j in range(n):
+        g = torch.Generator(device="cuda").manual_seed(1000 + j)
+        ad = lora_init(cfg, (2, 4, 8)[j % 3], targets, generator=g)
+        for blk in ad["blocks"]:
+            for ab in blk.values():
+                ab["b"] = 0.02 * torch.randn(ab["b"].shape, generator=g,
+                                             device="cuda")
+        pool.register(f"a{j}", ad)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (16, 64, 128)[j % 3])
+               .astype(np.int32) for j in range(n)]
+    calls = {"decode_steps": 0, "prefill_chunks": 0}
+
+    def serve():
+        sched = Scheduler(params, cfg, adapter_pool=pool, max_batch=16,
+                          prefill_chunk=64)
+        for attr, key in (("_decode", "decode_steps"),
+                          ("_prefill", "prefill_chunks")):
+            def counted(*a, _fn=getattr(sched, attr), _key=key, **kw):
+                calls[_key] += 1
+                return _fn(*a, **kw)
+            setattr(sched, attr, counted)
+        sched.serve([Request(rid=j, prompt=p, max_new=16, tenant=f"t{j}",
+                             adapter=f"a{j}") for j, p in enumerate(prompts)])
+
+    stats = _profiled(serve)
+    # the warm-up and the profiled pass counted alike
+    stats.update({k: v // 2 for k, v in calls.items()})
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--multitenant", action="store_true",
+                    help="profile one multiplexed pass of the LoRA race "
+                    "instead of generate and serve")
     ap.add_argument("--out", default="bench_results/torch_profile_serve.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -71,6 +127,14 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     cfg = GPTConfig.gpt2_medium()
     params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    if args.multitenant:
+        out = {"card": card, "multitenant": _multitenant(params, cfg)}
+        print(json.dumps({"run": "multitenant", **out["multitenant"],
+                          "card": card}), flush=True)
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+        return 0
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
     gen = make_generate_fn(cfg, 16)

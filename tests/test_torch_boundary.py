@@ -34,7 +34,9 @@ leaked = sorted(m for m in sys.modules
 from byteps_tpu_torch.models import (GPTConfig, gpt_init, make_generate_fn,
                                      make_gpt_train_step, params_from_numpy)
 from byteps_tpu_torch.models.generate import init_cache
-from byteps_tpu_torch.serve import PagedKVCache, Scheduler
+from byteps_tpu_torch.serve import AdapterPool, PagedKVCache, Scheduler
+from byteps_tpu_torch.models import adapters_from_numpy
+from byteps_tpu_torch.models.lora import lora_init
 cfg = GPTConfig.tiny()
 cpu = gpt_init(cfg, device="cpu")
 tree = {k: v.numpy() for k, v in cpu.named_parameters() if "." not in k}
@@ -49,6 +51,11 @@ calls = {
                                          max_batch=1),
     "Scheduler": lambda: Scheduler(cpu, cfg),
     "make_gpt_train_step": lambda: make_gpt_train_step(cfg),
+    "AdapterPool": lambda: AdapterPool(cfg, n_slots=2, rank_bucket=2),
+    "lora_init": lambda: lora_init(cfg, 2),
+    "adapters_from_numpy": lambda: adapters_from_numpy(
+        {"blocks": [{"wq": {"a": np.zeros((64, 2), np.float32),
+                            "b": np.zeros((2, 64), np.float32)}}]}),
 }
 raised = {}
 for name, fn in calls.items():
@@ -68,6 +75,8 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "byteps_tpu_torch.serve.scheduler" in res["modules"]
+    assert "byteps_tpu_torch.serve.adapter_pool" in res["modules"]
+    assert "byteps_tpu_torch.ops.segmented_lora" in res["modules"]
     assert "byteps_tpu_torch.ops._build" in res["modules"]
     assert res["leaked"] == [], res["leaked"]
     for name, msg in res["raised"].items():

@@ -7,8 +7,10 @@ on a ported path becomes a kernel written by hand for Hopper
 sits its plain PyTorch version, which CPU tensors take. Entry points
 run on the card unless the caller passes ``device="cpu"``.
 
-Ported so far: the serving path — ``serve.Scheduler`` over the paged KV
-cache, ``models.generate.make_generate_fn``, the GPT family's forward
-(``models.gpt``), and the flash-attention forward and flash-decode
+Ported so far: serving (``serve.Scheduler`` over the paged KV cache,
+multi-tenant LoRA through ``serve.AdapterPool``,
+``models.generate.make_generate_fn``) and data-parallel training
+(``models.make_gpt_train_step``, every codec of ``compression``, the
+staged and ring wire tiers of ``comm.ici``), on thirteen hand-written
 kernels. ``python3 chip_smoke.py`` drives it on the card.
 """

@@ -1,5 +1,5 @@
 """The ICI collective tier over ``torch.distributed`` (counterpart of
-``byteps_tpu/comm/ici.py``, staged tier).
+``byteps_tpu/comm/ici.py``, staged and ring tiers).
 
 The reference runs SPMD inside ``shard_map``: each function sees one
 device's block and names a mesh axis. Here each rank is one process,
@@ -25,8 +25,19 @@ Keys (``compression.base.fold_in``): the caller's ``rng`` (a chunk's
 key) gives segment j the key ``fold_in(rng, j)``, the same on every
 rank, and the owner rank r recompresses with ``fold_in(rng, r)``.
 
-The ring tier (``BYTEPS_ICI_TIER=ring``) waits for the ring collective
-kernels.
+Wire tiers (``BYTEPS_ICI_TIER``, per-call ``tier=``; ``None`` reads the
+config): ``staged`` moves each payload leaf with one ``all_to_all_single``
+("push") and one ``all_gather`` ("pull"); ``ring`` moves the same leaves
+through ``n−1`` ring hops (``ops/ring_collective_kernels.py``: the
+hand-written peer-copy kernels on the card, point-to-point rounds on the
+CPU). Both move bits only, and the aggregation arithmetic (the codec's
+``decompress_sum``, the worker-order fold, the ``two_way`` recompression)
+is shared, so deterministic codecs give the same bits under both tiers.
+Stochastic presummable codecs (randomk) instead take ``ring_presum``
+under the ring, the serial reduce-scatter chain in payload space, and
+skip the push exchange (the reference's XLA drops it as dead code): the
+same support, values at summation-order roundoff. At n == 1 the tiers
+are one code path and no ring kernel launches.
 
 ``ici.<kind>_dispatch``, ``ici.wire_bytes`` and ``ici.logical_bytes``
 count the host-dispatched wrappers (``allreduce_flat``,
@@ -43,8 +54,14 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from byteps_tpu_torch.common.config import ICI_TIERS, get_config
 from byteps_tpu_torch.common.metrics import get_registry
 from byteps_tpu_torch.compression.base import Compressor, Payload, fold_in
+from byteps_tpu_torch.ops.ring_collective_kernels import (
+    ring_allgather,
+    ring_collect,
+    ring_presum,
+)
 
 
 def world() -> Tuple[int, int]:
@@ -53,6 +70,14 @@ def world() -> Tuple[int, int]:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
+
+
+def _resolve_tier(tier: Optional[str]) -> str:
+    t = tier or get_config().ici_tier
+    if t not in ICI_TIERS:
+        raise ValueError(f"unknown ICI tier {t!r} (BYTEPS_ICI_TIER / tier=): "
+                         f"expected one of {ICI_TIERS}")
+    return t
 
 
 def _count_dispatch(kind: str) -> None:
@@ -155,11 +180,13 @@ def _as_wire(a: torch.Tensor) -> torch.Tensor:
     return a
 
 
-def _exchange(payload: Payload, n: int) -> Payload:
+def _exchange(payload: Payload, n: int, tier: str) -> Payload:
     """Deliver row j of every rank's stacked payload to owner j, stacked
     in worker order (``all_to_all`` semantics); the identity at n == 1."""
     if n == 1:
         return payload
+    if tier == "ring":
+        return {k: ring_collect(a, n) for k, a in payload.items()}
     out = {}
     for k, a in payload.items():
         a = _as_wire(a)
@@ -169,12 +196,15 @@ def _exchange(payload: Payload, n: int) -> Payload:
     return out
 
 
-def _gather(out_payload: Payload, n: int) -> Payload:
+def _gather(out_payload: Payload, n: int, tier: str) -> Payload:
     """Owner-ordered stack of every owner's result payload (the "pull")."""
     out = {}
     for k, a in out_payload.items():
         if n == 1:
             out[k] = a[None]
+            continue
+        if tier == "ring":
+            out[k] = ring_allgather(a, n)
             continue
         w = _as_wire(a)
         parts = [torch.empty_like(w) for _ in range(n)]
@@ -196,16 +226,26 @@ def _payload_sum(recv: Payload, n: int) -> Payload:
     return {k: fold(a) for k, a in recv.items()}
 
 
+def _presum_route(compressor: Compressor, n: int, tier: str) -> bool:
+    """Whether the owner's sum takes the ring's fused presum chain (a
+    stochastic presummable codec on the ring, over more than one rank)."""
+    return (tier == "ring" and n > 1 and compressor.presummable
+            and compressor.stochastic)
+
+
 def _compress_push(g: torch.Tensor, rng: int, compressor: Compressor,
-                   n: int):
+                   n: int, tier: str):
     """COMPRESS → "PUSH": segment, compress segment j with key
     ``fold_in(rng, j)``, and exchange so owner j receives every rank's
-    segment j. Returns ``(payload, seg_keys, recv, seg)``."""
+    segment j. Returns ``(payload, seg_keys, recv, seg)``; ``recv`` is
+    None on the presum route, which needs no exchange."""
     segs, seg = _segment(g, n)
     seg_keys = [fold_in(rng, j) for j in range(n)]
     payload = _stack([compressor.compress(segs[j], seg_keys[j])
                       for j in range(n)])
-    return payload, seg_keys, _exchange(payload, n), seg
+    recv = (None if _presum_route(compressor, n, tier)
+            else _exchange(payload, n, tier))
+    return payload, seg_keys, recv, seg
 
 
 def _decompress_rows(compressor: Compressor, stacked: Payload,
@@ -232,11 +272,15 @@ def _require_rng(compressor: Compressor, rng: Optional[int]) -> int:
     return rng
 
 
-def _owner_sum(recv: Payload, compressor: Compressor, n: int,
-               seg: int) -> Payload:
+def _owner_sum(payload: Payload, recv: Optional[Payload],
+               compressor: Compressor, n: int, seg: int,
+               tier: str) -> Payload:
     """The owner's aggregate of the received segments: the positional
-    payload sum of a presummable codec (still compressed), else the f32
+    payload sum of a presummable codec (still compressed; on the presum
+    route the ring chain over this rank's own ``payload``), else the f32
     sum of the decompressed segments as ``{"dense": ...}``."""
+    if _presum_route(compressor, n, tier):
+        return {k: ring_presum(a, n) for k, a in payload.items()}
     if compressor.presummable:
         return _payload_sum(recv, n)
     return {"dense": compressor.decompress_sum(recv, seg, torch.float32)}
@@ -250,13 +294,16 @@ def compressed_allreduce_local(
     two_way: bool = True,
     ef_residual: Optional[torch.Tensor] = None,
     rng: Optional[int] = None,
+    tier: Optional[str] = None,
 ):
     """This rank's body of the compressed all-reduce of a flat (L,) chunk.
 
     ``rng`` is the chunk's key, the same on every rank; stochastic codecs
     require it. With ``ef_residual`` the compressed input is ``g +
     ef_residual`` and the result is ``(out, new_residual)``,
-    ``new_residual = input − D(C(input))`` from the own payload."""
+    ``new_residual = input − D(C(input))`` from the own payload. ``tier``
+    picks the wire transport (None reads ``BYTEPS_ICI_TIER``)."""
+    tier = _resolve_tier(tier)
     rng = _require_rng(compressor, rng)
     n, rank = _size_rank(n)
     L = g.shape[0]
@@ -270,13 +317,14 @@ def compressed_allreduce_local(
         return dense if ef_residual is None else (dense, resid)
     if ef_residual is not None:
         g = g + ef_residual
-    payload, seg_keys, recv, seg = _compress_push(g, rng, compressor, n)
-    out_payload = _owner_sum(recv, compressor, n, seg)
+    payload, seg_keys, recv, seg = _compress_push(g, rng, compressor, n,
+                                                  tier)
+    out_payload = _owner_sum(payload, recv, compressor, n, seg, tier)
     if two_way and not compressor.presummable:
         # recompress the owner's sum for the pull, with the owner's key
         out_payload = compressor.compress(out_payload["dense"],
                                           fold_in(rng, rank))
-    gathered = _gather(out_payload, n)
+    gathered = _gather(out_payload, n, tier)
     if compressor.presummable or two_way:
         out = _decompress_rows(compressor, gathered, seg_keys, seg)
     else:
@@ -295,12 +343,14 @@ def compressed_reduce_scatter_local(
     average: bool = True,
     ef_residual: Optional[torch.Tensor] = None,
     rng: Optional[int] = None,
+    tier: Optional[str] = None,
 ):
     """The first half of the compressed all-reduce: COMPRESS → "PUSH" →
     the owner's f32 sum, without the pull. Returns this rank's owned
     ``(ceil(L/n),)`` segment of the aggregate, or ``(segment,
-    new_residual)`` with ``ef_residual`` (error feedback as in
-    :func:`compressed_allreduce_local`)."""
+    new_residual)`` with ``ef_residual`` (error feedback and ``tier`` as
+    in :func:`compressed_allreduce_local`)."""
+    tier = _resolve_tier(tier)
     rng = _require_rng(compressor, rng)
     n, rank = _size_rank(n)
     L = g.shape[0]
@@ -313,8 +363,9 @@ def compressed_reduce_scatter_local(
         return dense if ef_residual is None else (dense, resid)
     if ef_residual is not None:
         g = g + ef_residual
-    payload, seg_keys, recv, seg = _compress_push(g, rng, compressor, n)
-    agg = _owner_sum(recv, compressor, n, seg)
+    payload, seg_keys, recv, seg = _compress_push(g, rng, compressor, n,
+                                                  tier)
+    agg = _owner_sum(payload, recv, compressor, n, seg, tier)
     # a presummable sum is still a payload, of this owner's segment key
     s = (compressor.decompress(agg, seg, torch.float32, fold_in(rng, rank))
          if compressor.presummable else agg["dense"])
@@ -348,17 +399,20 @@ def compressed_allreduce_flat(
     two_way: bool = True,
     ef_residual: Optional[torch.Tensor] = None,
     rng: Optional[int] = None,
+    tier: Optional[str] = None,
 ):
     """Host-dispatched compressed all-reduce of this rank's flat (L,)
     tensor: :func:`compressed_allreduce_local` plus the dispatch and
-    wire-byte counters. Returns ``out``, or ``(out, new_residual)`` with
-    ``ef_residual``."""
+    wire-byte counters (the same under both tiers). Returns ``out``, or
+    ``(out, new_residual)`` with ``ef_residual``."""
+    tier = _resolve_tier(tier)
     n, _ = world()
     _count_dispatch("compressed_allreduce")
     _account_compressed(compressor, x.shape[0], n, two_way, pull=True)
     return compressed_allreduce_local(x, compressor, n, average=average,
                                       two_way=two_way,
-                                      ef_residual=ef_residual, rng=rng)
+                                      ef_residual=ef_residual, rng=rng,
+                                      tier=tier)
 
 
 def compressed_reduce_scatter_flat(
@@ -366,12 +420,14 @@ def compressed_reduce_scatter_flat(
     compressor: Compressor,
     average: bool = False,
     rng: Optional[int] = None,
+    tier: Optional[str] = None,
 ) -> torch.Tensor:
     """Host-dispatched compressed reduce-scatter: this rank's owned
     ``(ceil(L/n),)`` segment of Σ_w D(C(x_w)) (a sum by default, as a
     reduce is), with the dispatch and wire-byte counters."""
+    tier = _resolve_tier(tier)
     n, _ = world()
     _count_dispatch("compressed_reduce_scatter")
     _account_compressed(compressor, x.shape[0], n, False, pull=False)
     return compressed_reduce_scatter_local(x, compressor, n, average=average,
-                                           rng=rng)
+                                           rng=rng, tier=tier)

@@ -5,8 +5,8 @@ ported slices read: the log level, the metrics switch, the ``serve_*``
 knobs of the continuous-batching tier (adapter pool, tenant quotas and
 fair queuing included), and the gradient-aggregation
 knobs of the data-parallel training step (partition size, reduce dtype,
-the onebit codec's scaling default), under the same variable names and
-defaults.
+the onebit codec's scaling default, the ICI wire tier), under the same
+variable names and defaults.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from typing import Optional
 # the reference's BYTEPS_PARTITION_BYTES default (byteps/common/global.cc)
 DEFAULT_PARTITION_BYTES = 4096000
 REDUCE_DTYPES = ("float32", "bfloat16")
+# wire tiers of the compressed collectives (comm/ici.py)
+ICI_TIERS = ("staged", "ring")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -88,6 +90,12 @@ class Config:
     # onebit codec: scale = mean(|x|) (True) or 1 when the compressor is
     # built without an explicit ``scaling``
     compressor_onebit_scaling: bool = True
+    # Wire transport of the compressed collectives (comm/ici.py): "staged"
+    # = one all_to_all and one all_gather per payload leaf; "ring" = n-1
+    # ring hops through the hand-written peer-copy kernels on the card
+    # (ops/ring_collective_kernels.py), bit-equal to staged for
+    # deterministic codecs. Checked where it is used (ici._resolve_tier).
+    ici_tier: str = "staged"
 
     def __post_init__(self):
         if self.reduce_dtype not in REDUCE_DTYPES:
@@ -116,6 +124,7 @@ class Config:
             reduce_dtype=os.environ.get("BYTEPS_REDUCE_DTYPE") or "float32",
             compressor_onebit_scaling=_env_bool(
                 "BYTEPS_COMPRESSOR_ONEBIT_SCALING", True),
+            ici_tier=os.environ.get("BYTEPS_ICI_TIER") or "staged",
         )
 
 

@@ -26,7 +26,8 @@ launches: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
                              "onebit_pack": 0, "onebit_unpack_sum": 0,
                              "onebit_unpack_sum_grid": 0,
                              "topk_select": 0, "topk_reconstruct_sum": 0,
-                             "topk_roundtrip": 0, "segmented_lora": 0}
+                             "topk_roundtrip": 0, "segmented_lora": 0,
+                             "ring_rotate": 0, "ring_presum": 0}
 
 
 def reset_launches() -> None:

@@ -27,7 +27,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from byteps_tpu_torch.comm.ici import compressed_allreduce_local, world
+from byteps_tpu_torch.comm.ici import (
+    _resolve_tier,
+    compressed_allreduce_local,
+    world,
+)
 from byteps_tpu_torch.common.config import get_config
 from byteps_tpu_torch.compression import (
     CompressionSpec,
@@ -71,9 +75,11 @@ def _aggregate_flat(flat: torch.Tensor, n: int, average: bool,
                     ef_flat: Optional[torch.Tensor], chunk_elems: int,
                     two_way: bool):
     """Chunk a flat gradient vector and aggregate each chunk over the
-    ranks, in order, chunk i with the key ``fold_in(rng, i)``. Returns
+    ranks, in order, chunk i with the key ``fold_in(rng, i)``, on the wire
+    tier of ``BYTEPS_ICI_TIER`` (read once a step). Returns
     ``(agg_flat, new_ef_flat_or_None, num_chunks)``."""
     bounds = _chunk_bounds(flat.shape[0], chunk_elems)
+    tier = _resolve_tier(None)
     if spec.enabled and rng is None:
         if spec.compressor.stochastic:
             raise ValueError(
@@ -89,7 +95,7 @@ def _aggregate_flat(flat: torch.Tensor, n: int, average: bool,
             e = ef_flat[off:off + ln] if ef_flat is not None else None
             res = compressed_allreduce_local(
                 g, spec.compressor, n, average=average, two_way=two_way,
-                ef_residual=e, rng=fold_in(rng, ci))
+                ef_residual=e, rng=fold_in(rng, ci), tier=tier)
             if e is not None:
                 out, ne = res
                 new_e_chunks.append(ne)

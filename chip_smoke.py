@@ -63,7 +63,37 @@ Phases, each printing one JSON line:
    configuration), each one warm-up and 5 timed steps; the loss stays
    finite and falls; step ms, tokens/s and peak memory;
 9. train_tiny — a tiny f32 model trains 3 raw steps on the CPU (plain
-   versions) and on the card (kernels) to losses within 1e-4.
+   versions) and on the card (kernels) to losses within 1e-4;
+10. ring — the ring kernels with 2, 3 and 4 rank processes (``spawn``)
+    on the card, in one gloo group over a ``FileStore``, mapping each
+    other's workspaces through CUDA IPC; the card's compute mode. At the
+    training step's payload rows (onebit words of a full 1,024,000 and
+    of the 567,296 tail chunk's segment, the f32 scale, randomk's
+    k = 0.01 values), an odd 1,003-byte uint8 row, a 300,001-byte row
+    that makes the ranks grow their workspaces, and an int32 row, the
+    rotate kernel (collect and gather) and presum are bit-equal to their
+    plain versions over gloo on CPU copies; 2,000 back-to-back calls
+    cycling the three over changing contents come out right; at chunk
+    level ``compressed_allreduce_local`` on the ring equals the staged
+    tier bit for bit for onebit + EF and top-k block + EF, and randomk
+    keeps the same support, values within 1e-5. Each case also runs with
+    n in-process peers (one workspace and stream a rank in this process,
+    all n kernels at once), bit-equal to what the ranks sent. Per call:
+    ms, CUDA events around a call of the n in-process peers, its launches
+    issued while a sleep kernel holds the card (the kernels' own time);
+    ms_time_sliced, around one rank process's launch
+    after the ranks meet on the host, the slowest rank's median (the
+    protocol's cost with the ranks time-slicing the card); library_ms,
+    gloo's ``all_to_all_single``, ``all_gather`` or ``reduce_scatter``
+    on the same CUDA rows, timed as ms_time_sliced; the byte bound;
+11. train_ring — two rank processes on the card run
+    ``make_gpt_train_step`` at GPT-2 medium's full width and depth,
+    B=4 × S=1024 each (the single-card legs' global batch), one warm-up
+    and 2 steps a leg: staged onebit + EF, ``BYTEPS_ICI_TIER=ring``
+    onebit + EF, ring randomk (k = 0.01) + EF. The ring onebit leg's
+    losses and each rank's parameter digest equal the staged leg's;
+    every leg ends with the ranks' parameters equal and finite losses;
+    step ms, tokens/s (time-sliced) and each rank's peak memory.
 
 Each of phases 4-6 and each train leg runs with the launch counters set
 to 0 just before it and read just after: the multitenant paths must
@@ -79,9 +109,19 @@ pack and unpack-sum kernels once per gradient chunk and step, and the
 top-k leg the round trip once per full chunk and step (346) and select
 and reconstruct-sum once per step (the ragged tail chunk). The grid
 unpack-sum runs only in the onebit phase: one card aggregates K = 1.
+train_ring's ranks report their counts, equal on both ranks and exact
+per leg: the flash kernels once per layer and step; onebit pack n + 1 and
+unpack-sum 1 + 2n times per chunk and step at n = 2 ranks (n segments
+packed and the owner's sum repacked; the owner's K = n unpack-sum, then
+n gathered and n own rows decoded); the ring onebit leg the rotate
+kernel 4 times per chunk and step (collect and gather of the signs and
+the scale), the randomk leg presum once and rotate once (the gather)
+and no collect.
 A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
-(generate, serve, multitenant, the three train legs), and, last,
+(generate, serve, multitenant, the three train legs, train_ring's
+three legs on one rank; the ring rows' times are the ring phase's
+n = 2 cases), and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so it does without a CUDA card or without the package beside it.
@@ -1093,6 +1133,616 @@ def phase_train_bf16():
                              f"gradient of {worst} {rel[worst]} apart")
 
 
+# --------------------------------------------------------------------------
+# phases 10-11: the ring tier, ranks as processes that share the card
+# --------------------------------------------------------------------------
+# GPT-2 medium's gradient in default partitions: 346 full chunks of
+# 1,024,000 f32 and a tail of 567,296; randomk keeps k = 0.01 of a segment
+GPT2M_PARAMS = 354_871_296
+CHUNK = 4096000 // 4
+TAIL = GPT2M_PARAMS % CHUNK
+RANDOMK_K = 0.01
+RING_NS = (2, 3, 4)
+RING_CALLS = 2000            # back-to-back calls of the race check
+# randomk, ring against staged: the chain and the worker-order fold add
+# the same n terms in other orders. Values are scaled by seg/k (about
+# 100), so a sum that nearly cancels keeps its terms' absolute roundoff:
+# held to 1e-5 of the chunk's largest value
+RING_TOL = 1e-5
+
+
+def spawn_ranks(body, n, *args, timeout=900):
+    """Run ``body(rank, n, *args)`` in ``n`` fresh processes (``spawn``:
+    the parent already holds a CUDA context) that share a gloo group over
+    a FileStore on card 0; return each rank's result, raising if any rank
+    failed. Every process is gone on return."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ring_")
+    procs = [ctx.Process(target=rank_entry,
+                         args=(body.__name__, r, n, f"{tmp}/store", q)
+                         + args)
+             for r in range(n)]
+    done = False
+    try:
+        for p in procs:
+            p.start()
+        res = {}
+        deadline = time.monotonic() + timeout
+        while len(res) < n:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise AssertionError(f"{body.__name__}: ranks "
+                                     f"{sorted(set(range(n)) - set(res))} "
+                                     f"gave no result in {timeout} s")
+            try:
+                r = q.get(timeout=min(left, 5.0))
+            except Exception:          # queue.Empty: is every rank alive?
+                dead = [i for i, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and i not in res]
+                if dead:
+                    raise AssertionError(
+                        f"{body.__name__}: rank(s) {dead} died "
+                        f"(exit {[procs[i].exitcode for i in dead]})")
+                continue
+            res[r["rank"]] = r
+        failed = {k: v["failed"] for k, v in res.items() if "failed" in v}
+        if failed:
+            raise AssertionError(f"{body.__name__} failed:\n"
+                                 + "\n".join(f"rank {k}: {v}"
+                                             for k, v in failed.items()))
+        done = True
+        return [res[r] for r in range(n)]
+    finally:
+        for p in procs:
+            if p.pid is None:              # never started
+                continue
+            p.join(timeout=60 if done else 0)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rank_entry(body_name, rank, n, store, q, *args):
+    """A rank process: join the gloo group on card 0, run the body named
+    ``body_name``, and report its result or its failure (with any ring
+    wait that ran past its bound) on the queue."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.ops import ring_collective_kernels as rk
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                                rank=rank, world_size=n,
+                                timeout=datetime.timedelta(seconds=300))
+        res = globals()[body_name](rank, n, *args)
+        rk.close_workspaces()
+        dist.destroy_process_group()
+        q.put({"rank": rank, **res})
+    except Exception:               # reported to the parent, which fails
+        q.put({"rank": rank, "failed": traceback.format_exc()
+               + "".join(f"\n{e}" for e in rk.ring_errors())})
+
+
+def ring_cases(n: int) -> list:
+    """(name, op, dtype, row shape) of the ring phase at n ranks: the
+    training step's payload rows (onebit words of a full and of the tail
+    chunk's segment, the f32 scale, randomk's values), an odd uint8 row,
+    a row past the workspace's first 64 KB slots (the ranks grow it
+    together; every later call runs on the grown one) and an int32
+    row."""
+    from byteps_tpu_torch.compression.topk import resolve_k
+    from byteps_tpu_torch.ops.onebit_kernels import packed_words
+
+    seg, tseg = -(-CHUNK // n), -(-TAIL // n)
+    k = resolve_k(RANDOMK_K, seg)
+    cases = []
+    for name, dt, row in (("signs_full", torch.int32, (packed_words(seg),)),
+                          ("signs_tail", torch.int32, (packed_words(tseg),)),
+                          ("scale", torch.float32, (1,)),
+                          ("randomk_values", torch.float32, (k,)),
+                          ("odd_uint8", torch.uint8, (1003,)),
+                          ("grow_uint8", torch.uint8, (300_001,)),
+                          ("int32", torch.int32, (4, 250))):
+        for op in ("collect", "gather"):
+            cases.append((name, op, dt, row))
+    cases.append(("randomk_values", "presum", torch.float32, (k,)))
+    return cases
+
+
+def ring_input(i, op, dt, row, n, rank):
+    """Case ``i``'s input on ``rank``, from a seed of its own."""
+    g = torch.Generator(device="cuda").manual_seed(1000 * rank + i)
+    shape = row if op == "gather" else (n,) + row
+    if dt == torch.float32:
+        return torch.randn(shape, generator=g, device="cuda")
+    hi = 256 if dt == torch.uint8 else 2 ** 31 - 1
+    return torch.randint(0 if dt == torch.uint8 else -hi, hi, shape,
+                         generator=g, device="cuda", dtype=dt)
+
+
+def ring_bytes(op, n, row_bytes):
+    """(bytes read, bytes written) of one call: each input once, each
+    output once."""
+    return {"collect": (n * row_bytes, n * row_bytes),
+            "gather": (row_bytes, n * row_bytes),
+            "presum": (n * row_bytes, row_bytes)}[op]
+
+
+def ring_kernel_ms(x, op, n, rank, iters=20):
+    """The median of CUDA events around the bare kernel launch, after the
+    ranks drain their streams and meet on the host (the ranks time-slice
+    the card)."""
+    import statistics
+
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.ops import ring_collective_kernels as rk
+
+    ws = rk.workspace(x.device)
+    gather = op == "gather"
+    if op == "presum":
+        out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    else:
+        out = torch.empty((n,) + tuple(x.shape[0 if gather else 1:]),
+                          dtype=x.dtype, device=x.device)
+    nbytes = out.numel() * x.element_size() // (1 if op == "presum" else n)
+    evs = []
+    for _ in range(iters):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        epoch = ws.prepare(nbytes)
+        torch.cuda.current_stream().synchronize()
+        dist.barrier()
+        ev[0].record()
+        if op == "presum":
+            rk.launch_presum(ws, x, out, n, rank, epoch)
+        else:
+            rk.launch_rotate(ws, x, out, n, rank, gather, epoch)
+        ev[1].record()
+        evs.append(ev)
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
+def ring_library_ms(x, op, n, iters=20):
+    """{"library_ms": the median of CUDA events around the one PyTorch call
+    of the same function on the same CUDA rows, gloo's
+    ``all_to_all_single`` (collect), ``all_gather`` (gather) or
+    ``reduce_scatter`` (presum), after the ranks meet on the host as for
+    the kernel's time}; where gloo refuses the tensors, null and the
+    reason."""
+    import statistics
+
+    import torch.distributed as dist
+
+    if op == "collect":
+        out = torch.empty_like(x)
+        call = lambda: dist.all_to_all_single(out, x)           # noqa: E731
+    elif op == "gather":
+        outs = [torch.empty_like(x) for _ in range(n)]
+        call = lambda: dist.all_gather(outs, x)                 # noqa: E731
+    else:
+        out, ins = torch.empty_like(x[0]), list(x.unbind(0))
+        call = lambda: dist.reduce_scatter(out, ins)            # noqa: E731
+    evs = []
+    try:
+        for _ in range(iters):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            torch.cuda.current_stream().synchronize()
+            dist.barrier()
+            ev[0].record()
+            call()
+            ev[1].record()
+            evs.append(ev)
+    except RuntimeError as e:        # gloo's refusal, the same on each rank
+        return {"library_ms": None, "library_refused": str(e)[:200]}
+    torch.cuda.synchronize()
+    return {"library_ms": statistics.median(a.elapsed_time(b)
+                                            for a, b in evs)}
+
+
+def ring_rank(rank, n):
+    """One rank of the ring phase: every case's kernel output against
+    the plain version over gloo on CPU copies, timed; the race check;
+    the chunk-level tiers on the card."""
+    import statistics
+
+    from byteps_tpu_torch.comm.ici import compressed_allreduce_local
+    from byteps_tpu_torch.compression import (OnebitCompressor,
+                                              RandomkCompressor,
+                                              TopkCompressor)
+    from byteps_tpu_torch.ops import launches
+    from byteps_tpu_torch.ops import ring_collective_kernels as rk
+
+    fns = {"collect": rk.ring_collect, "gather": rk.ring_allgather,
+           "presum": rk.ring_presum}
+    res = {"cases": []}
+    for i, (name, op, dt, row) in enumerate(ring_cases(n)):
+        x = ring_input(i, op, dt, row, n, rank)
+        before = launches["ring_presum" if op == "presum" else "ring_rotate"]
+        got = fns[op](x)
+        torch.cuda.synchronize()
+        if launches["ring_presum" if op == "presum" else "ring_rotate"] \
+                != before + 1:
+            raise AssertionError(f"ring {op} {name} did not launch")
+        xc = x.cpu()
+        plain = fns[op](xc)
+        equal = got.dtype == plain.dtype and torch.equal(
+            got.cpu().view(torch.uint8), plain.view(torch.uint8))
+        if not equal:
+            raise AssertionError(f"ring {op} {name} at n={n}: the kernel "
+                                 "differs from the plain version")
+        ms, lib_ms = ring_kernel_ms(x, op, n, rank), ring_library_ms(x, op, n)
+        torch.cuda.synchronize()
+        plain_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fns[op](xc)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        row_bytes = int(np.prod(row)) * x.element_size()
+        res["cases"].append({
+            "case": name, "op": op, "dtype": str(dt).split(".")[1],
+            "row": list(row), "row_bytes": row_bytes, "bit_equal": True,
+            "ms": ms, "plain_ms": statistics.median(plain_ms), **lib_ms})
+    # the race check: back-to-back calls cycling collect, gather and
+    # presum over changing contents, against what each rank knows the
+    # others sent (rank w's row i is base + 7 i + 1000 w)
+    base = torch.arange(n * 64, device="cuda", dtype=torch.int32).reshape(
+        n, 64)
+    wrong = torch.zeros((), dtype=torch.int64, device="cuda")
+    ranks = torch.arange(n, device="cuda", dtype=torch.int32)[:, None]
+    for i in range(RING_CALLS):
+        mine = base + 7 * i + 1000 * rank
+        every = base[rank] + 7 * i + 1000 * ranks        # (n, 64)
+        op = ("collect", "gather", "presum")[i % 3]
+        if op == "collect":
+            wrong += (rk.ring_collect(mine) != every).sum()
+        elif op == "gather":
+            got = rk.ring_allgather(mine[0])
+            wrong += (got != base[0] + 7 * i + 1000 * ranks).sum()
+        else:                          # integer f32 sums are exact
+            got = rk.ring_presum(mine.float())
+            wrong += (got != every.float().sum(0)).sum()
+    if int(wrong):
+        raise AssertionError(f"ring race check at n={n}: {int(wrong)} "
+                             f"elements wrong over {RING_CALLS} calls")
+    res["race_calls"], res["race_wrong"] = RING_CALLS, 0
+    res["slot_bytes"] = rk.workspace(base.device).cap
+    # chunk level on the card: ring == staged bit for bit (deterministic
+    # codecs, with error feedback); randomk the same support, values at
+    # summation-order roundoff
+    g = torch.Generator(device="cuda").manual_seed(50 + rank)
+    x = torch.randn(CHUNK, generator=g, device="cuda")
+    e = 0.1 * torch.randn(CHUNK, generator=g, device="cuda")
+    for name, codec in (("onebit_ef", OnebitCompressor(scaling=True)),
+                        ("topk_block_ef",
+                         TopkCompressor(k=0.01, selection="block"))):
+        a, ae = compressed_allreduce_local(x, codec, n, ef_residual=e,
+                                           rng=7, tier="staged")
+        b, be = compressed_allreduce_local(x, codec, n, ef_residual=e,
+                                           rng=7, tier="ring")
+        if not (torch.equal(a, b) and torch.equal(ae, be)):
+            raise AssertionError(f"chunk {name} at n={n}: ring differs "
+                                 "from staged")
+        res[f"chunk_{name}_ring_equals_staged"] = True
+    codec = RandomkCompressor(k=RANDOMK_K)
+    a = compressed_allreduce_local(x, codec, n, rng=7, tier="staged")
+    b = compressed_allreduce_local(x, codec, n, rng=7, tier="ring")
+    if not torch.equal(a != 0, b != 0):
+        raise AssertionError(f"chunk randomk at n={n}: ring and staged "
+                             "keep different supports")
+    diff, top = float((a - b).abs().max()), float(a.abs().max())
+    if not diff <= RING_TOL * top:
+        raise AssertionError(f"chunk randomk at n={n}: ring and staged "
+                             f"values {diff} apart (largest {top})")
+    res["chunk_randomk_same_support"] = True
+    res["chunk_randomk_max_abs_diff"] = diff
+    res["chunk_randomk_max_abs"] = top
+    return res
+
+
+class LocalRing:
+    """n ranks' workspaces in this one process: the peer table holds plain
+    device pointers and each rank launches on a stream of its own, so all
+    n kernels run at once (no time-slicing, no rendezvous): the kernels'
+    own time for a call, hops and flag round trips included."""
+
+    def __init__(self, n, row_bytes):
+        import ctypes
+
+        from byteps_tpu_torch.ops import ring_collective_kernels as rk
+
+        self.rk, self.n, self.epoch = rk, n, 0
+        lib = rk._lib()
+        self.slots_off = rk._round_up(2 * n * lib.bps_ring_max_blocks() * 4,
+                                      256)
+        self.cap = rk._round_up(max(row_bytes, 1), 256)
+        self.bufs = [torch.zeros(self.slots_off + 2 * n * self.cap,
+                                 dtype=torch.uint8, device="cuda")
+                     for _ in range(n)]
+        self.peers = torch.tensor([b.data_ptr() for b in self.bufs],
+                                  dtype=torch.int64, device="cuda")
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        rk._check(lib.bps_ring_host_alloc(8 * 5, ctypes.byref(host),
+                                          ctypes.byref(dev)), "error words")
+        self._err_host, self.err_dev = host.value, dev.value
+        self.streams = [torch.cuda.Stream() for _ in range(n)]
+
+    def __call__(self, op, xs, outs):
+        """One call of every rank, on its own stream, after the current
+        stream's work; the current stream then waits for all."""
+        self.epoch += 1
+        cur = torch.cuda.current_stream()
+        for r, st in enumerate(self.streams):
+            st.wait_stream(cur)
+            with torch.cuda.stream(st):
+                if op == "presum":
+                    self.rk.launch_presum(self, xs[r], outs[r], self.n, r,
+                                          self.epoch)
+                else:
+                    self.rk.launch_rotate(self, xs[r], outs[r], self.n, r,
+                                          op == "gather", self.epoch)
+        for st in self.streams:
+            cur.wait_stream(st)
+
+    def close(self):
+        torch.cuda.synchronize()
+        self.rk._check(self.rk._lib().bps_ring_host_free(self._err_host),
+                       "free")
+
+
+def ring_local_case(i, op, dt, row, n, iters=50):
+    """Case ``i`` at ``n`` in-process peers (``LocalRing``) on every rank's
+    input of the ring phase: every rank's output bit-equal to what the
+    ranks sent (presum: the chain's adds in its order), and the median of
+    CUDA events around a call of all n. A ~1 ms sleep kernel ahead of the
+    start event holds the card while the host issues the n launches, so
+    the events see the kernels, not the host."""
+    import statistics
+
+    xs = [ring_input(i, op, dt, row, n, r) for r in range(n)]
+    if op == "presum":
+        want = []
+        for d in range(n):
+            acc = xs[(d + 1) % n][d].clone()
+            for t in range(2, n + 1):
+                acc = acc + xs[(d + t) % n][d]
+            want.append(acc)
+        outs = [torch.empty_like(w) for w in want]
+    elif op == "gather":
+        want = [torch.stack(xs)] * n
+        outs = [torch.empty_like(w) for w in want]
+    else:
+        want = [torch.stack([x[r] for x in xs]) for r in range(n)]
+        outs = [torch.empty_like(w) for w in want]
+    nbytes = outs[0].numel() * outs[0].element_size() \
+        // (1 if op == "presum" else n)
+    ring = LocalRing(n, nbytes)
+    try:
+        evs = []
+        for it in range(iters + 1):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            torch.cuda._sleep(2_000_000)          # cycles
+            ev[0].record()
+            ring(op, xs, outs)
+            ev[1].record()
+            if it == 0:                 # check the first call and the last
+                check = [o.clone() for o in outs]
+            else:
+                evs.append(ev)
+        torch.cuda.synchronize()
+        for got in (check, outs):
+            if not all(torch.equal(g.reshape(-1).view(torch.uint8),
+                                   w.reshape(-1).view(torch.uint8))
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"ring {op} case {i} at {n} in-process "
+                                     "peers: wrong output")
+        return statistics.median(a.elapsed_time(b) for a, b in evs)
+    finally:
+        ring.close()
+
+
+def phase_ring() -> dict:
+    """The ring kernels at 2, 3 and 4 ranks on the card. Returns the n = 2
+    rows of the kernel table."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    main = {}
+    for n in RING_NS:
+        t0 = time.perf_counter()
+        per_rank = spawn_ranks(ring_rank, n)
+        cases = []
+        for i, (c, spec) in enumerate(zip(per_rank[0]["cases"],
+                                          ring_cases(n))):
+            rd, wr = ring_bytes(c["op"], n, c["row_bytes"])
+            lib = [r["cases"][i]["library_ms"] for r in per_rank]
+            bound, by = bound_ms(rd + wr, 0, torch.float32)
+            cases.append({
+                **c, "ms": ring_local_case(i, *spec[1:], n),
+                # the slowest rank's median
+                "ms_time_sliced": max(r["cases"][i]["ms"] for r in per_rank),
+                "plain_ms": max(r["cases"][i]["plain_ms"] for r in per_rank),
+                "library_ms": None if None in lib else max(lib),
+                "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0})
+        r0 = {k: v for k, v in per_rank[0].items()
+              if k not in ("cases", "rank")}
+        emit({"phase": "ring", "ranks": n, "compute_mode": mode,
+              "timing": "ms: CUDA events around a call of n in-process "
+                        "peers running at once; ms_time_sliced and "
+                        "library_ms (gloo on the same CUDA rows): around "
+                        "one rank process's call after the ranks meet, "
+                        "median per rank, the slowest rank, the ranks "
+                        "time-slicing the card",
+              "wall_s": time.perf_counter() - t0, "cases": cases, **r0})
+        if n == 2:
+            for kernel, case, op in (("ring_rotate", "signs_full", "collect"),
+                                     ("ring_presum", "randomk_values",
+                                      "presum")):
+                c = next(c for c in cases
+                         if c["case"] == case and c["op"] == op)
+                main[kernel] = {**c, "case": f"{case} {op}, 2 ranks: ms "
+                                             "in-process peers, "
+                                             "ms_time_sliced and library_ms "
+                                             "two processes on one card"}
+    return main
+
+
+TRAIN_RING_LEGS = (("staged_onebit_ef", "staged",
+                    {"compressor": "onebit", "ef": "vanilla"}),
+                   ("ring_onebit_ef", "ring",
+                    {"compressor": "onebit", "ef": "vanilla"}),
+                   ("ring_randomk_ef", "ring",
+                    {"compressor": "randomk", "k": RANDOMK_K,
+                     "ef": "vanilla"}))
+
+
+def train_ring_rank(rank, n, B, S, steps):
+    """One rank of train_ring: each leg builds the training step from the
+    same seeded weights, trains on this rank's seeded batch, and reports
+    losses, step times, a digest of its parameters, peak memory and the
+    launch counts."""
+    import hashlib
+    import os
+
+    from byteps_tpu_torch.common.config import reset_config
+    from byteps_tpu_torch.models import (GPTConfig, make_gpt_train_step,
+                                         synthetic_batch)
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    cfg = GPTConfig.gpt2_medium()
+    res = {}
+    for leg, tier, comp in TRAIN_RING_LEGS:
+        os.environ["BYTEPS_ICI_TIER"] = tier
+        reset_config()
+        reset_launches()
+        step, params, opt = make_gpt_train_step(
+            cfg, compression_params=comp,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        tok, tgt = synthetic_batch(
+            torch.Generator(device="cuda").manual_seed(1 + rank), cfg, B, S)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(steps + 1):
+            t0 = time.perf_counter()
+            losses.append(float(step(tok, tgt)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        flat = torch.cat([p.detach().reshape(-1) for p in opt.params])
+        res[leg] = {
+            "losses": losses, "step_ms_each": [t * 1e3 for t in times[1:]],
+            "warmup_s": times[0],
+            "params_sha1": hashlib.sha1(flat.cpu().numpy().data).hexdigest(),
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9,
+            "launches": dict(launches)}
+        del step, params, opt, flat
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_ring(B=4, S=1024, steps=2) -> dict:
+    """Two ranks on the card train GPT-2 medium at full width, B=4 × S=1024
+    each (the single-card legs' global batch of 8), bf16 over f32 master
+    weights, AdamW(1e-3), one warm-up and ``steps`` timed steps a leg:
+    staged onebit + EF, ring onebit + EF and ring randomk + EF. The ring
+    onebit leg equals the staged one bit for bit (losses and each rank's
+    parameter digest); every leg ends with both ranks' parameters equal
+    and every loss finite; the launch counts are exact. Returns rank 0's
+    counts summed over the legs (both ranks' are checked equal)."""
+    from byteps_tpu_torch.models import GPTConfig
+
+    n = 2
+    t0 = time.perf_counter()
+    per_rank = spawn_ranks(train_ring_rank, n, B, S, steps)
+    wall = time.perf_counter() - t0
+    cfg = GPTConfig.gpt2_medium()
+    calls = steps + 1
+    chunks = -(-GPT2M_PARAMS // CHUNK)
+    for leg, _, _ in TRAIN_RING_LEGS:
+        legs = [r[leg] for r in per_rank]
+        if len({lg["params_sha1"] for lg in legs}) != 1:
+            raise AssertionError(f"train_ring {leg}: the ranks' parameters "
+                                 "differ")
+        if not all(np.isfinite(lg["losses"]).all() for lg in legs):
+            raise AssertionError(f"train_ring {leg}: a loss is not finite")
+        if legs[0]["launches"] != legs[1]["launches"]:
+            raise AssertionError(f"train_ring {leg}: the ranks launched "
+                                 "different counts")
+    for r in per_rank:
+        if (r["ring_onebit_ef"]["losses"] != r["staged_onebit_ef"]["losses"]
+                or r["ring_onebit_ef"]["params_sha1"]
+                != r["staged_onebit_ef"]["params_sha1"]):
+            raise AssertionError(
+                f"train_ring: rank {r['rank']}'s ring onebit + EF leg "
+                f"differs from staged: losses {r['ring_onebit_ef']['losses']}"
+                f" vs {r['staged_onebit_ef']['losses']}")
+    # exact counts, per rank. The onebit general body at n ranks, per
+    # chunk: pack n segments, recompress the owner's sum (n + 1 packs);
+    # unpack-sum the owner's n received segments once, decompress the n
+    # gathered rows and, for the EF residual, the n own rows (1 + 2n
+    # unpack-sum launches, K = n and K = 1)
+    per_layer = calls * cfg.n_layers
+    onebit = {"onebit_pack": calls * chunks * (n + 1),
+              "onebit_unpack_sum": calls * chunks * (1 + 2 * n)}
+    want = {
+        "staged_onebit_ef": {**onebit, "ring_rotate": 0, "ring_presum": 0},
+        # collect and gather on both leaves (signs, scale)
+        "ring_onebit_ef": {**onebit, "ring_rotate": calls * chunks * 4,
+                           "ring_presum": 0},
+        # presum on the values, gather of the summed values; no collect
+        "ring_randomk_ef": {"onebit_pack": 0, "onebit_unpack_sum": 0,
+                            "ring_rotate": calls * chunks,
+                            "ring_presum": calls * chunks}}
+    for leg, w in want.items():
+        got = per_rank[0][leg]["launches"]
+        w = {**w, **{k: per_layer for k in TRAIN}}
+        bad = {k: (got[k], v) for k, v in w.items() if got[k] != v}
+        if bad:
+            raise AssertionError(f"train_ring {leg}: launches (got, want) "
+                                 f"{bad}")
+    tokens = n * B * S
+    legs_out = {}
+    for leg, tier, comp in TRAIN_RING_LEGS:
+        step_ms = max(sum(r[leg]["step_ms_each"]) / steps for r in per_rank)
+        legs_out[leg] = {
+            "tier": tier, "compression": comp,
+            "losses": per_rank[0][leg]["losses"],
+            "params_sha1": [r[leg]["params_sha1"] for r in per_rank],
+            "step_ms": step_ms,
+            "step_ms_each": [r[leg]["step_ms_each"] for r in per_rank],
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "warmup_s": max(r[leg]["warmup_s"] for r in per_rank),
+            "max_memory_allocated_gb": [r[leg]["max_memory_allocated_gb"]
+                                        for r in per_rank],
+            "launches": per_rank[0][leg]["launches"]}
+    emit({"phase": "train_ring", "ranks": n,
+          "timing": "two ranks time-slice one card", "batch_per_rank": B,
+          "seq": S, "steps": steps, "chunks_per_step": chunks,
+          "ring_equals_staged": True, "wall_s": wall, "legs": legs_out})
+    total = {}
+    for leg, _, _ in TRAIN_RING_LEGS:
+        for k, v in per_rank[0][leg]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 # the kernels each run of the main path must launch
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
@@ -1103,28 +1753,40 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": ("flash_fwd",),
          "train_bf16": TRAIN,
          "train_raw": TRAIN,
          "train_onebit": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
-         "train_topk": TRAIN + TOPK}
+         "train_topk": TRAIN + TOPK,
+         "train_ring": TRAIN + ("onebit_pack", "onebit_unpack_sum",
+                                "ring_rotate", "ring_presum")}
 MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
-              "train_onebit", "train_topk")
+              "train_onebit", "train_topk", "train_ring")
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
 
-def counted(name, fn, *args) -> dict:
-    """Run one path of the main path with every launch count at 0 just
-    before it; return the counts read just after, failing if a kernel
-    the path must launch never ran."""
-    from byteps_tpu_torch.ops import launches, reset_launches
-
-    reset_launches()
-    fn(*args)
-    counts = dict(launches)
+def check_path(name, counts) -> dict:
+    """Fail if a kernel the path must launch never ran; free its memory."""
     missing = [k for k in PATHS[name] if counts[k] <= 0]
     gc.collect()
     torch.cuda.empty_cache()
     if missing:
         raise AssertionError(f"{name} never launched {missing}: {counts}")
     return counts
+
+
+def counted(name, fn, *args) -> dict:
+    """Run one path of the main path with every launch count at 0 just
+    before it; return the counts read just after."""
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    reset_launches()
+    fn(*args)
+    return check_path(name, dict(launches))
+
+
+def counted_ranks(name, fn, *args) -> dict:
+    """Run one path of the main path that runs in rank processes: each
+    starts with every count at 0, and ``fn`` returns the counts they
+    report."""
+    return check_path(name, fn(*args))
 
 
 def main() -> int:
@@ -1262,6 +1924,13 @@ def main() -> int:
                 raise AssertionError(f"{leg} launched {name} "
                                      f"{by_path[leg][name]} times, not one "
                                      f"per layer and step")
+    if TRAIN_PARAMS["onebit_ef"] != GPT2M_PARAMS:
+        raise AssertionError(f"GPT-2 medium has {TRAIN_PARAMS['onebit_ef']} "
+                             f"parameters, the ring phases assume "
+                             f"{GPT2M_PARAMS}")
+    ring = phase_ring()
+    # its exact counts are checked leg by leg inside
+    by_path["train_ring"] = counted_ranks("train_ring", phase_train_ring)
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()
@@ -1317,13 +1986,20 @@ def main() -> int:
             ("topk_roundtrip", "topk", "byteps_tpu/ops/topk_kernels.py:139",
              topk["topk_roundtrip"]),
             ("segmented_lora", "segmented_lora",
-             "byteps_tpu/ops/segmented_lora.py:87", lora)]
+             "byteps_tpu/ops/segmented_lora.py:87", lora),
+            ("ring_rotate", "ring",
+             "byteps_tpu/ops/ring_collective_kernels.py:138",
+             ring["ring_rotate"]),
+            ("ring_presum", "ring",
+             "byteps_tpu/ops/ring_collective_kernels.py:189",
+             ring["ring_presum"])]
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"byteps_tpu_torch/ops/csrc/{src}.cu", "replaces": rep,
          "launches": sum(by_path[p][name] for p in MAIN_PATHS),
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
-         "case": main["case"], **{k: main[k] for k in common}}
+         "case": main["case"], **{k: main[k] for k in common},
+         **{k: main[k] for k in ("ms_time_sliced",) if k in main}}
         for name, src, rep, main in rows]
     print(card, flush=True)
     emit({"kernels": kernels})

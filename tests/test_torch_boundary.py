@@ -78,9 +78,25 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
     assert "byteps_tpu_torch.serve.adapter_pool" in res["modules"]
     assert "byteps_tpu_torch.ops.segmented_lora" in res["modules"]
     assert "byteps_tpu_torch.ops._build" in res["modules"]
+    assert "byteps_tpu_torch.ops.ring_collective_kernels" in res["modules"]
     assert res["leaked"] == [], res["leaked"]
     for name, msg in res["raised"].items():
         assert msg is not None and "device='cpu'" in msg, (name, msg)
+
+
+def test_ring_modules_import_alone_without_jax():
+    """The ring transport and the ICI tier that calls it, imported on
+    their own, load neither jax nor byteps_tpu."""
+    probe = ("import sys\n"
+             "import byteps_tpu_torch.ops.ring_collective_kernels\n"
+             "import byteps_tpu_torch.comm.ici\n"
+             "print([m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'byteps_tpu')])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):

@@ -247,3 +247,62 @@ def test_entry_point_contract():
     assert loss.ndim == 0 and torch.isfinite(loss)
     with pytest.raises(ValueError, match="init_params live on"):
         make_gpt_train_step(TCFG, init_params=params, device="meta")
+
+
+_RING_RANK = r"""
+import json, os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from byteps_tpu_torch.common.config import reset_config
+from byteps_tpu_torch.models import (GPTConfig, flat_leaves, gpt_init,
+                                     make_gpt_train_step)
+
+rank, world, store_path, io = int(sys.argv[1]), int(sys.argv[2]), \
+    sys.argv[3], sys.argv[4]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                        rank=rank, world_size=world)
+PARTITION_BYTES = {pb}
+cfg = GPTConfig.tiny()
+toks = np.random.default_rng(20 + rank).integers(0, cfg.vocab_size, (4, 33))
+out = {}
+for tier in ("staged", "ring"):
+    os.environ["BYTEPS_ICI_TIER"] = tier
+    reset_config()
+    step, params, opt = make_gpt_train_step(
+        cfg, compression_params={"compressor": "onebit", "ef": "vanilla"},
+        partition_bytes=PARTITION_BYTES,
+        init_params=gpt_init(cfg, torch.Generator().manual_seed(0),
+                             device="cpu"), device="cpu")
+    out[tier + "_loss"] = np.array([float(step(toks[:, :-1], toks[:, 1:]))
+                                    for _ in range(3)])
+    out[tier + "_params"] = np.concatenate(
+        [t.detach().numpy().ravel() for t in flat_leaves(params)])
+    out[tier + "_ef"] = opt.ef.numpy()
+np.savez(f"{io}/out{rank}.npz", **out)
+dist.barrier()
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "ok": True}))
+"""
+
+
+def test_two_ranks_ring_onebit_ef_trajectory_equals_staged(tmp_path):
+    """Two gloo ranks train the tiny GPT 3 steps with onebit + EF on each
+    tier, from the same weights and each rank's own batch, 4096-byte
+    partitions (86 chunks a step): the ring's losses, parameters and EF
+    residuals equal the staged tier's bit for bit, and both ranks hold the
+    same parameters."""
+    from test_torch_ring import run_group
+
+    outs = run_group(tmp_path, 2,
+                     _RING_RANK.replace("{pb}", str(PARTITION_BYTES)))
+    for o in outs:
+        for k in ("loss", "params", "ef"):
+            np.testing.assert_array_equal(o[f"ring_{k}"], o[f"staged_{k}"])
+        assert np.isfinite(o["ring_loss"]).all()
+        assert o["ring_loss"][-1] < o["ring_loss"][0]
+    np.testing.assert_array_equal(outs[0]["ring_params"],
+                                  outs[1]["ring_params"])
+    np.testing.assert_array_equal(outs[0]["ring_loss"], outs[1]["ring_loss"])
+    assert not np.array_equal(outs[0]["ring_ef"], outs[1]["ring_ef"])

@@ -202,16 +202,18 @@ __device__ __forceinline__ void fold_rows(const float* __restrict__ qrows,
 }
 
 // --------------------------------------------------------------------------
-// Tensor-core pieces of the bf16 paths (flash_fwd.cu, flash_bwd.cu):
-// mma.sync m16n8k16 (bf16 operands, f32 accumulation) fed by ldmatrix
-// from shared tiles of 64 rows and row stride D + 8, so the eight rows one
-// ldmatrix reads start in different banks.
+// mma.sync pieces of the bf16 dq kernel (flash_bwd.cu; the forward and
+// dk/dv run wgmma, hopper.cuh): mma.sync m16n8k16 (bf16 operands, f32
+// accumulation) fed by ldmatrix from shared tiles of 64 rows and row
+// stride D + 8, so the eight rows one ldmatrix reads start in different
+// banks.
 //
 // Accumulator layout of a 16x8 product, lane l = 4g + t: c[0], c[1] are
 // row g, columns 2t and 2t + 1; c[2], c[3] the same columns of row g + 8.
 // The accumulators of two adjacent 8-column products, rounded to bf16 and
-// packed in pairs, are the A operand of one 16-deep step, which is how p
-// and ds go from one product to the next without leaving registers.
+// packed in pairs (pack_bf16, also the wgmma kernels' A fragments), are
+// the A operand of one 16-deep step, which is how ds goes from one
+// product to the next without leaving registers.
 // --------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr int kMmaTile = 64;  // rows of a shared bf16 tile

@@ -24,7 +24,7 @@
 // the dv product; outputs are written in the input dtype.
 //
 // Two paths, one pair of entry points. bf16 at D = 64 or 128 runs on the
-// tensor cores (dq_mma_kernel, dkv_mma_kernel, below); f32 and every
+// tensor cores (dq_mma_kernel, dkv_wgmma_kernel, below); f32 and every
 // other head dim run on the CUDA cores in f32 FMAs (dq_kernel,
 // dkv_kernel), whose sums follow the plain version's order.
 //
@@ -39,17 +39,27 @@
 // has one writer, and every sum runs in a fixed order, so the kernels are
 // deterministic. The FMA path puts R rows (keys) on a warp and one key
 // (row) of a 32-wide tile on each lane, so the R dot products share each
-// load; the tensor-core path puts 16 on a warp against 64-wide tiles.
+// load; dq's tensor-core path puts 16 rows on a warp against 64-wide
+// tiles, dk/dv's 64 keys on a warpgroup.
 //
 // What bounds it. At GPT-2 medium's training shape (B*H = 128, S = 1024,
 // D = 64, causal) the work is 6*D (dq) and 8*D (dkv) FLOPs per live
 // (row, key) pair, about 25 and 34 GFLOP a layer, against a few tens of
 // MB of inputs and outputs: operations bound, at 989 TFLOP/s bf16 on the
-// tensor cores and 67 TFLOP/s f32 on the CUDA cores of an H100 SXM. The
-// tensor-core path stages each tile without overlapping the next load
-// (no cp.async or TMA pipeline) and runs two blocks an SM at these
-// register counts; wgmma tiles and a pipelined staging are later work.
+// tensor cores and 67 TFLOP/s f32 on the CUDA cores of an H100 SXM. Only
+// wgmma reaches the tensor cores' full rate on Hopper, and only if the
+// tiles arrive while the previous ones are multiplied: the dk/dv kernel
+// streams its query tiles by TMA through a ring of stages that a producer
+// warp keeps full, and runs its four products a tile as wgmma. What it
+// still pays: the exponentials of p (one MUFU op a live pair, at a
+// sixteenth of the tensor cores' rate for D = 64), and each consumer
+// warpgroup waits on its own products, overlapping only with the other
+// warpgroup's. dq still runs on mma.sync fed by synchronous staging.
+#include <algorithm>
+#include <climits>
+
 #include "attn_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -403,16 +413,16 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // Tensor-core path: bf16 inputs, D = 64 or 128.
 //
-// The same two kernels with the products on the tensor cores (the mma
-// pieces of attn_common.cuh). A block owns 64 query rows (dq) or 64 keys
-// (dk/dv), 16 a warp, and walks 64-wide shared tiles of the other side.
-// s and dp come out in the accumulator layout, where a thread holds two
-// of the warp's 16 rows; p and ds are formed there, rounded to bf16 (the
-// rounding above), and fed to the next product as its A operand. Sums
-// over keys (dq) and rows (dk, dv) run in the tensor cores' order, so the
-// two paths agree to rounding, not bit for bit.
+// The same two kernels with the products on the tensor cores. dq
+// (mma.sync, the pieces of attn_common.cuh): a block owns 64 query rows,
+// 16 a warp, and walks 64-wide shared tiles of keys; s and dp come out in
+// the accumulator layout, where a thread holds two of the warp's 16
+// rows; ds is formed there, rounded to bf16 (the rounding above), and fed
+// to dq += ds.k as its A operand. dk/dv: wgmma fed by a TMA ring, below.
+// Sums over keys (dq) and rows (dk, dv) run in the tensor cores' order,
+// so the two paths agree to rounding, not bit for bit.
 // ---------------------------------------------------------------------------
-constexpr int kMmaRows = 64;  // rows (dq) or keys (dkv) of a block, 16 a warp
+constexpr int kMmaRows = 64;  // dq's query rows a block, 16 a warp
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
@@ -549,145 +559,6 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               const float* __restrict__ dlse, bf16* __restrict__ dk,
-               bf16* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
-               int q_off, int k_off, int causal, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ uint4 smem_mma[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_mma);  // [64][LD] the block's keys
-  bf16* vs = ks + kMmaRows * LD;                 // [64][LD]
-  bf16* qs = vs + kMmaRows * LD;                 // [64][LD] query tile
-  bf16* dos = qs + kMmaTile * LD;                // [64][LD]
-  float* lse_s = reinterpret_cast<float*>(dos + kMmaTile * LD);  // [64]
-  float* delta_s = lse_s + kMmaTile;                             // [64]
-  float* dlse_s = delta_s + kMmaTile;                            // [64]
-
-  const int bhk = blockIdx.x;
-  const int b = bhk / Hkv, hk = bhk % Hkv;
-  const int G = H / Hkv;
-  const int kb0 = blockIdx.y * kMmaRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t q_pos = (int64_t)H * D, kv_pos = (int64_t)Hkv * D;
-  {
-    const int64_t at = ((int64_t)b * Sk + kb0) * kv_pos + (int64_t)hk * D;
-    bf16* const dst[2] = {ks, vs};
-    const bf16* const src[2] = {k + at, v + at};
-    stage_bf16<D, kThreads, 2>(dst, src, kv_pos, min(kMmaRows, Sk - kb0),
-                               threadIdx.x);
-  }
-  const int key0 = kb0 + warp * 16;  // the warp's first key
-  // the first query row that sees a key of the block, and of the warp
-  const int i_blk = causal ? max(0, k_off + kb0 - q_off) : 0;
-  const int i_warp = causal ? max(0, k_off + key0 - q_off) : 0;
-  const int qt0 = (i_blk / kMmaTile) * kMmaTile;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
-
-  for (int hg = 0; hg < G; ++hg) {
-    const int h = hk * G + hg;
-    for (int q0 = qt0; q0 < Sq; q0 += kMmaTile) {
-      __syncthreads();  // the previous tile is consumed (and ks/vs written)
-      {
-        const int64_t at = ((int64_t)b * Sq + q0) * q_pos + (int64_t)h * D;
-        bf16* const dst[2] = {qs, dos};
-        const bf16* const src[2] = {q + at, dout + at};
-        stage_bf16<D, kThreads, 2>(dst, src, q_pos, min(kMmaTile, Sq - q0),
-                                   threadIdx.x);
-      }
-      for (int i = threadIdx.x; i < kMmaTile; i += kThreads) {
-        const int qi = q0 + i;
-        const int64_t row = ((int64_t)b * Sq + qi) * H + h;
-        lse_s[i] = qi < Sq ? lse[row] : 0.f;
-        delta_s[i] = qi < Sq ? delta[row] : 0.f;
-        dlse_s[i] = qi < Sq && dlse != nullptr ? dlse[row] : 0.f;
-      }
-      __syncthreads();
-      // warp-uniform: no row of the tile sees a key of the warp
-      if (key0 >= Sk || q0 + kMmaTile <= i_warp) continue;
-      // s^T and dp^T: the warp's 16 keys against the tile's 64 rows
-      float s[kMmaTile / 8][4], dp[kMmaTile / 8][4];
-#pragma unroll
-      for (int n = 0; n < kMmaTile / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        uint32_t ak[4], av[4];
-        load_a(ak, ks, LD, warp * 16, kk, lane);
-        load_a(av, vs, LD, warp * 16, kk, lane);
-#pragma unroll
-        for (int n = 0; n < kMmaTile; n += 16) {
-          uint32_t bq[4], bo[4];
-          load_b_nk(bq, qs, LD, n, kk, lane);
-          load_b_nk(bo, dos, LD, n, kk, lane);
-          mma_bf16(s[n / 8], ak, bq[0], bq[1]);
-          mma_bf16(s[n / 8 + 1], ak, bq[2], bq[3]);
-          mma_bf16(dp[n / 8], av, bo[0], bo[1]);
-          mma_bf16(dp[n / 8 + 1], av, bo[2], bo[3]);
-        }
-      }
-      // p^T and ds^T (rows: keys g, g + 8 of the warp; columns: query
-      // rows 2t, 2t + 1 of each 8-row tile), as A operands
-      uint32_t ap[kMmaTile / 16][4], ads[kMmaTile / 16][4];
-#pragma unroll
-      for (int n = 0; n < kMmaTile / 8; ++n) {
-        float pp[4], d[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = key0 + g + 8 * (i >> 1);
-          const int ri = n * 8 + 2 * t + (i & 1), qi = q0 + ri;
-          const bool live = qi < Sq && key < Sk &&
-                            (!causal || q_off + qi >= k_off + key);
-          const float p = live ? expf(s[n][i] * scale - lse_s[ri]) : 0.f;
-          pp[i] = p;
-          d[i] = p * ((dp[n][i] - delta_s[ri]) + dlse_s[ri]);
-        }
-        ap[n >> 1][(n & 1) * 2] = pack_bf16(pp[0], pp[1]);
-        ap[n >> 1][(n & 1) * 2 + 1] = pack_bf16(pp[2], pp[3]);
-        ads[n >> 1][(n & 1) * 2] = pack_bf16(d[0], d[1]);
-        ads[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
-      }
-      // dv += p^T.do, dk += ds^T.q over the tile's rows
-#pragma unroll
-      for (int j = 0; j < kMmaTile / 16; ++j)
-#pragma unroll
-        for (int n = 0; n < D; n += 16) {
-          uint32_t bo[4], bq[4];
-          load_b_kn(bo, dos, LD, n, j * 16, lane);
-          load_b_kn(bq, qs, LD, n, j * 16, lane);
-          mma_bf16(dv_acc[n / 8], ap[j], bo[0], bo[1]);
-          mma_bf16(dv_acc[n / 8 + 1], ap[j], bo[2], bo[3]);
-          mma_bf16(dk_acc[n / 8], ads[j], bq[0], bq[1]);
-          mma_bf16(dk_acc[n / 8 + 1], ads[j], bq[2], bq[3]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + g + 8 * i;
-    if (key >= Sk) continue;
-    const int64_t at = (((int64_t)b * Sk + key) * Hkv + hk) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8) =
-          __floats2bfloat162_rn(dk_acc[n][2 * i] * scale,
-                                dk_acc[n][2 * i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8) =
-          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
-    }
-  }
-}
-
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *dlse;
   void *dq, *dk, *dv;
@@ -750,27 +621,320 @@ int launch_dq_mma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// The dk/dv kernel on the tensor cores (bf16, D = 64 or 128).
+//
+// A block owns 128 keys of one (b, kv head): a producer warpgroup and two
+// consumer warpgroups of 64 keys each. The producer copies the block's k
+// and v rows to shared memory once (TMA), then streams the query tiles
+// (64 rows of q and do) through a ring of stages in the order of the FMA
+// kernel: the G query heads of the group, each from the first tile whose
+// rows see the block's first key. A stage also carries its rows' lse,
+// delta and dlse: (B, Sq, H) keeps one head's values H floats apart,
+// which no bulk copy gathers (TMA wants 16-byte strides), so the
+// producer warp's lanes load them into the stage before they arrive on
+// its "full" barrier; the consumers read them from shared memory. A
+// consumer warpgroup forms s^T = k.q^T and dp^T = v.do^T with wgmma from
+// shared memory, then p^T and ds^T in the accumulator layout (base-2
+// exponent, the causal and ragged masks evaluated only on tiles that
+// need them), rounds them to bf16 and feeds them as the register A
+// operands of dv += p^T.do and dk += ds^T.q, with do and q read MN-major
+// from the same stage. dk and dv stay in registers across the group and
+// are written once: one writer per element, no atomics, sums in a fixed
+// order.
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWide = 1 << 30;   // a column bound no tile reaches
+
+template <int D> struct DkvTiles {
+  static constexpr int kSlabs = D / 64;
+  // consumer warpgroups of 64 keys, then one producer warp. ptxas
+  // budgets registers for a block rounded up to whole warpgroups, so two
+  // consumers leave 168 a thread, which the D = 128 sums (128 a thread)
+  // and tiles overflow; there one consumer has 255.
+  static constexpr int kConsumers = D == 64 ? 2 : 1;
+  static constexpr int kBlockKeys = kConsumers * hop::kTileRows;
+  static constexpr int kThreads = kConsumers * 128 + 32;
+  // query rows a stage
+  static constexpr int kRows = 64;
+  static constexpr uint32_t kRowBytes = kRows * 128;   // one slab
+  static constexpr int kStages = 4;
+  // k of the block: [warpgroup][slab][64 keys][128 B]; v the same after it
+  static constexpr uint32_t kKBytes = kConsumers * kSlabs * hop::kSlabBytes;
+  // a stage: q [slab][kRows][128 B], do the same, then lse, delta and
+  // dlse [3][kRows] f32
+  static constexpr uint32_t kTileBytes = kSlabs * kRowBytes;
+  static constexpr uint32_t kRowsOff = 2 * kTileBytes;
+  static constexpr uint32_t kStageBytes =
+      (kRowsOff + 3 * kRows * 4 + hop::kAtom - 1) / hop::kAtom * hop::kAtom;
+  static constexpr uint32_t kStageOff = 2 * kKBytes;
+  static constexpr uint32_t kBars = kStageOff + kStages * kStageBytes;
+  static constexpr size_t kSmem = kBars + 8 * (1 + 2 * kStages) + hop::kAtom;
+};
+
+// p^T and ds^T of one tile in the accumulator layout (rows: the
+// thread's keys; columns: query rows 8n + 2 t4 and + 1), rounded to bf16
+// as the A operands of dv += p^T.do and dk += ds^T.q: rows 16j.. of the
+// tile in [j]. p = 2^(s * scale_log2 - lse * log2(e)), one FFMA and one
+// MUFU op a pair. MASKED tiles zero the pairs outside [lo[r], hi) of the
+// thread's columns (key row r).
+template <int R, bool MASKED>
+__device__ __forceinline__ void dsp_tile(const float (&sc)[R / 2],
+                                         const float (&dp)[R / 2],
+                                         const float* rows, int t4,
+                                         const int (&lo)[2], int hi,
+                                         float scale_log2,
+                                         uint32_t (&ap)[R / 16][4],
+                                         uint32_t (&ads)[R / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < R / 8; ++n) {
+    const int c = n * 8 + 2 * t4;
+    const float2 ls = *reinterpret_cast<const float2*>(rows + c);
+    const float2 dl = *reinterpret_cast<const float2*>(rows + R + c);
+    const float2 dz = *reinterpret_cast<const float2*>(rows + 2 * R + c);
+    const float lse2[2] = {ls.x * kLog2e, ls.y * kLog2e};
+    float pp[4], d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = n * 8 + (e & 1);
+      float p = hop::ex2(fmaf(sc[4 * n + e], scale_log2, -lse2[e & 1]));
+      if (MASKED && (col < lo[e >> 1] || col >= hi)) p = 0.f;
+      pp[e] = p;
+      d[e] = p * ((dp[4 * n + e] - ((e & 1) ? dl.y : dl.x)) +
+                  ((e & 1) ? dz.y : dz.x));
+    }
+    ap[n >> 1][(n & 1) * 2] = pack_bf16(pp[0], pp[1]);
+    ap[n >> 1][(n & 1) * 2 + 1] = pack_bf16(pp[2], pp[3]);
+    ads[n >> 1][(n & 1) * 2] = pack_bf16(d[0], d[1]);
+    ads[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+  }
+}
+
 template <int D>
-int launch_dkv_mma(const Args& a) {
-  constexpr size_t smem = mma_smem_bytes<D>();
+__global__ void __launch_bounds__(DkvTiles<D>::kThreads, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ dlse, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
+                 int q_off, int k_off, int causal, float scale,
+                 float scale_log2, int group) {
+  using T = DkvTiles<D>;
+  constexpr int kRowTile = T::kRows;
+  constexpr uint32_t kRowTileBytes = T::kRowBytes;
+  extern __shared__ uint8_t smem_tc[];
+  const uint32_t base =
+      (hop::saddr(smem_tc) + hop::kAtom - 1) & ~(hop::kAtom - 1);
+  uint8_t* const sm = smem_tc + (base - hop::saddr(smem_tc));  // generic
+  const uint32_t k_s = base, v_s = base + T::kKBytes;
+  const uint32_t st_s = base + T::kStageOff;
+  const uint32_t kv_full = base + T::kBars;
+  auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (1 + T::kStages + s); };
+
+  // Blocks go out in groups of `group` kv heads (about one wave): a
+  // group's heads run together, so their q and do stay in L2, and inside
+  // it the key tiles with the most live rows (the first) go first.
+  const int n_kt = (Sk + T::kBlockKeys - 1) / T::kBlockKeys;
+  const int n_bh = (int)(gridDim.x / n_kt);
+  const int g0 = blockIdx.x / (group * n_kt) * group;
+  const int in_g = min(group, n_bh - g0);
+  const int j = blockIdx.x % (group * n_kt);
+  const int bhk = g0 + j % in_g;
+  const int b = bhk / Hkv, hk = bhk % Hkv;
+  const int G = H / Hkv;
+  const int kb0 = j / in_g * T::kBlockKeys;
+  // the first query row that sees a key of the block; each head's tiles
+  // start at the tile that holds it
+  const int i_blk = causal ? max(0, k_off + kb0 - q_off) : 0;
+  const int qt0 = i_blk / kRowTile * kRowTile;
+  const int n_rt = qt0 < Sq ? (Sq - qt0 + kRowTile - 1) / kRowTile : 0;
+  const int n_tiles = G * n_rt;
+  const int wg = threadIdx.x / 128;   // kConsumers: the producer warp
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hop::bar_init(kv_full, 1);
+    for (int s = 0; s < T::kStages; ++s) {
+      hop::bar_init(full(s), 32);                  // the producer's lanes
+      hop::bar_init(empty(s), T::kConsumers * 4);   // one arrival a warp
+    }
+    hop::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == T::kConsumers) {   // producer: one warp
+    if (lane == 0) {
+      hop::bar_arrive_tx(kv_full, 2 * T::kKBytes);
+      for (int w = 0; w < T::kConsumers; ++w)
+        for (int sl = 0; sl < T::kSlabs; ++sl) {
+          const uint32_t at = (w * T::kSlabs + sl) * hop::kSlabBytes;
+          hop::tma_load(k_s + at, &tk, kv_full, 64 * sl, hk,
+                        kb0 + hop::kTileRows * w, b);
+          hop::tma_load(v_s + at, &tv, kv_full, 64 * sl, hk,
+                        kb0 + hop::kTileRows * w, b);
+        }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % T::kStages;
+      const int h = hk * G + t / n_rt, q0 = qt0 + (t % n_rt) * kRowTile;
+      if (t >= T::kStages)   // the stage's previous tile is consumed
+        hop::bar_wait(empty(s), ((t / T::kStages) & 1) ^ 1);
+      const uint32_t st = T::kStageOff + s * T::kStageBytes;
+      float* rows = reinterpret_cast<float*>(sm + st + T::kRowsOff);
+      for (int i = lane; i < kRowTile; i += 32) {
+        const int qi = q0 + i;
+        float a = 0.f, d = 0.f, e = 0.f;
+        if (qi < Sq) {
+          const int64_t r = ((int64_t)b * Sq + qi) * H + h;
+          a = lse[r];
+          d = delta[r];
+          e = dlse != nullptr ? dlse[r] : 0.f;
+        }
+        rows[i] = a;
+        rows[kRowTile + i] = d;
+        rows[2 * kRowTile + i] = e;
+      }
+      if (lane == 0) {
+        hop::bar_arrive_tx(full(s), 2 * T::kTileBytes);
+        for (int sl = 0; sl < T::kSlabs; ++sl) {
+          hop::tma_load(base + st + sl * kRowTileBytes, &tq, full(s),
+                        64 * sl, h, q0, b);
+          hop::tma_load(base + st + T::kTileBytes + sl * kRowTileBytes,
+                        &tdo, full(s), 64 * sl, h, q0, b);
+        }
+      } else {
+        hop::bar_arrive(full(s));
+      }
+    }
+  } else {
+    const int cw = wg;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kw = kb0 + cw * hop::kTileRows;   // the warpgroup's first key
+    const int key[2] = {kw + warp * 16 + g, kw + warp * 16 + g + 8};
+    // rows before i_wg see no key of the warpgroup; rows from i_all on
+    // see all 64 (causal)
+    const int i_wg = causal ? k_off + kw - q_off : INT_MIN;
+    const int i_all = k_off + kw + hop::kTileRows - 1 - q_off;
+    const uint32_t kw_s = k_s + cw * T::kSlabs * hop::kSlabBytes;
+    const uint32_t vw_s = v_s + cw * T::kSlabs * hop::kSlabBytes;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    hop::bar_wait(kv_full, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % T::kStages, q0 = qt0 + (t % n_rt) * kRowTile;
+      hop::bar_wait(full(s), (t / T::kStages) & 1);
+      if (kw < Sk && q0 + kRowTile > i_wg) {   // warpgroup-uniform
+        const uint32_t qs = st_s + s * T::kStageBytes;
+        const uint32_t dos = qs + T::kTileBytes;
+        const float* rows = reinterpret_cast<const float*>(
+            sm + T::kStageOff + s * T::kStageBytes + T::kRowsOff);
+        float sc[kRowTile / 2], dp[kRowTile / 2];
+#pragma unroll
+        for (int i = 0; i < kRowTile / 2; ++i) sc[i] = dp[i] = 0.f;
+        hop::pin(sc);
+        hop::pin(dp);
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          hop::mma_ss<kRowTile>(sc, hop::desc_k(kw_s, kk, hop::kSlabBytes),
+                                hop::desc_k(qs, kk, kRowTileBytes), kk > 0);
+          hop::mma_ss<kRowTile>(dp, hop::desc_k(vw_s, kk, hop::kSlabBytes),
+                                hop::desc_k(dos, kk, kRowTileBytes), kk > 0);
+        }
+        hop::wg_commit();
+        hop::wg_wait<0>();
+        hop::pin(sc);
+        hop::pin(dp);
+        // masks only where some (row, key) pair of the tile is dead: past
+        // Sq or Sk, or before the causal diagonal
+        const bool masked = q0 + kRowTile > Sq || kw + hop::kTileRows > Sk ||
+                            (causal && q0 < i_all);
+        // the thread's columns c = 8n + 2 t4 (+1) are live for key row r
+        // from lo[r] on and below hi
+        const int hi = Sq - q0 - 2 * t4;
+        const int lo[2] = {
+            key[0] >= Sk ? INT_MAX
+                         : (causal ? k_off + key[0] - q_off - q0 : -kWide) -
+                               2 * t4,
+            key[1] >= Sk ? INT_MAX
+                         : (causal ? k_off + key[1] - q_off - q0 : -kWide) -
+                               2 * t4};
+        uint32_t ap[kRowTile / 16][4], ads[kRowTile / 16][4];
+        if (masked)
+          dsp_tile<kRowTile, true>(sc, dp, rows, t4, lo, hi, scale_log2, ap,
+                                   ads);
+        else
+          dsp_tile<kRowTile, false>(sc, dp, rows, t4, lo, hi, scale_log2, ap,
+                                    ads);
+        hop::pin(dv_acc);
+        hop::pin(dk_acc);
+        hop::wg_fence();
+#pragma unroll
+        for (int j = 0; j < kRowTile / 16; ++j) {
+          hop::mma_rs<D>(dv_acc, ap[j], hop::desc_mn(dos, j, kRowTileBytes),
+                         1);
+          hop::mma_rs<D>(dk_acc, ads[j], hop::desc_mn(qs, j, kRowTileBytes),
+                         1);
+        }
+        hop::wg_commit();
+        hop::wg_wait<0>();
+        hop::pin(dv_acc);
+        hop::pin(dk_acc);
+      }
+      __syncwarp();
+      if (lane == 0) hop::bar_arrive(empty(s));
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (key[i] >= Sk) continue;
+      const int64_t at = (((int64_t)b * Sk + key[i]) * Hkv + hk) * D + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8) =
+            __floats2bfloat162_rn(dk_acc[4 * n + 2 * i] * scale,
+                                  dk_acc[4 * n + 2 * i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8) =
+            __floats2bfloat162_rn(dv_acc[4 * n + 2 * i],
+                                  dv_acc[4 * n + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_wgmma(const Args& a) {
+  using T = DkvTiles<D>;
+  CUtensorMap tq, tdo, tk, tv;
+  int rc = hop::make_map(&tq, a.q, D, a.H, a.Sq, a.B, T::kRows);
+  if (rc == 0) rc = hop::make_map(&tdo, a.dout, D, a.H, a.Sq, a.B, T::kRows);
+  if (rc == 0)
+    rc = hop::make_map(&tk, a.k, D, a.Hkv, a.Sk, a.B, hop::kTileRows);
+  if (rc == 0)
+    rc = hop::make_map(&tv, a.v, D, a.Hkv, a.Sk, a.B, hop::kTileRows);
+  if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      dkv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.B * a.Hkv, (a.Sk + kMmaRows - 1) / kMmaRows);
-  dkv_mma_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const float*>(a.dlse), static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.Hkv, a.q_off, a.k_off,
-      a.causal, a.scale);
+  const int n_kt = (a.Sk + T::kBlockKeys - 1) / T::kBlockKeys;
+  dkv_wgmma_kernel<D><<<(unsigned)a.B * a.Hkv * n_kt, T::kThreads, T::kSmem,
+                        a.stream>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const float*>(a.dlse),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H,
+      a.Hkv, a.q_off, a.k_off, a.causal, a.scale, a.scale * kLog2e,
+      std::max(1, hop::sm_count() / n_kt));
   return (int)cudaGetLastError();
 }
 
 // The tensor-core path takes bf16 at D = 64 or 128 with the q, k, v and
-// do rows 16-byte aligned (its 16-byte staging loads); everything else
-// takes the FMA path.
+// do rows 16-byte aligned (dq's 16-byte staging loads, the tensor maps'
+// base addresses); everything else takes the FMA path.
 bool mma_path(int dtype, const Args& a) {
   const void* const ptrs[4] = {a.q, a.k, a.v, a.dout};
   return dtype == 1 && mma_rows_ok(ptrs, 4, a.D);
@@ -787,8 +951,9 @@ template <bool DQ>
 int dispatch(int dtype, const Args& a) {
   if (a.B == 0 || a.H == 0 || a.Sq == 0 || a.Sk == 0) return 0;
   if (mma_path(dtype, a)) {
-    if (a.D == 64) return DQ ? launch_dq_mma<64>(a) : launch_dkv_mma<64>(a);
-    return DQ ? launch_dq_mma<128>(a) : launch_dkv_mma<128>(a);
+    if (a.D == 64)
+      return DQ ? launch_dq_mma<64>(a) : launch_dkv_wgmma<64>(a);
+    return DQ ? launch_dq_mma<128>(a) : launch_dkv_wgmma<128>(a);
   }
   return dtype == 1 ? dispatch_dim<DQ, __nv_bfloat16>(a)
                     : dispatch_dim<DQ, float>(a);

@@ -39,11 +39,23 @@
 // a warp share each key load, so a tile costs one pass of independent
 // FMA chains instead of four dependent ones. At GPT-2 medium's training
 // shape (B*H = 128, S = 1024) the split path wrote a 277 MB workspace
-// for the merge; the tensor-core path needs none. wgmma tiles are later
-// work.
+// for the merge; the tensor-core path needs none. There bytes and work
+// balance: 67 MB of q, k, v and o (0.020 ms a layer at 3.35 TB/s) and
+// 17 GFLOP (4 * D a live pair, 0.017 ms at 989 TFLOP/s bf16). Only
+// wgmma reaches that rate on Hopper, and only fed by tiles that arrive
+// while the previous ones are multiplied: the path streams k and v by
+// TMA through a ring that a producer warp keeps full, so no copy waits
+// on the math or the math on a copy, and the blocks persist, so one
+// item's start and end overlap the next one's copies. What it still
+// pays: one exponential a live pair, and at D = 64 the MUFU unit's 16 a
+// clock an SM take as long as the pair's 256 FLOPs on the tensor cores;
+// and a warpgroup's softmax waits on its own products, overlapping only
+// the other warpgroup's.
 #include <algorithm>
+#include <cmath>
 
 #include "attn_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -215,16 +227,29 @@ merge_kernel(const float* __restrict__ ws, T* __restrict__ o,
 // ---------------------------------------------------------------------------
 // Tensor-core path: bf16 at D = 64 or 128 when the query tiles alone fill
 // the card (B * H * ceil(Sq / 64) >= kMmaMinBlocks): training and long
-// prefills. One block per (b*h, 64-row query tile), 16 rows a warp,
-// walking 64-key tiles in order with no splits. s comes out of the mma
-// (attn_common.cuh) in the accumulator layout, where a quad of lanes
-// holds one row's 64 keys; the online softmax runs there, and p, rounded
-// to bf16 as the reference's kernel rounds it for its MXU, is the A
-// operand of o += p.v. l sums the unrounded p. Short chunks (the serving
-// tier's) keep the split path above, which spreads one chunk's keys over
-// blocks; f32 always takes it.
+// prefills. No splits; p is rounded to bf16 for the PV product, as the
+// reference's kernel rounds it for its MXU, and l sums the unrounded p.
+// Short chunks (the serving tier's) keep the split path above, which
+// spreads one chunk's keys over blocks; f32 always takes it.
+//
+// A block is persistent: at most one an SM, each taking a fixed list of
+// items (one head's 128 query rows; Items, below). It has two consumer
+// warpgroups of 64 rows and one producer warp, whose one thread issues
+// every copy. The producer copies an item's query rows to one of two
+// shared buffers and streams the k and v tiles of its live keys (128 keys
+// a tile at D = 64, 64 at D = 128) through a ring of four stages by TMA,
+// each stage and buffer with a "full" mbarrier (the copies' bytes landed)
+// and an "empty" one (every consumer warp is done with it); it runs ahead
+// across items, so the next item's rows and first tiles land while this
+// one's last tiles and outputs are worked on. A consumer warpgroup runs
+// s = q.k^T and o += p.v as wgmma from shared memory (p the register A
+// operand, v read MN-major) and the online softmax between them in the
+// accumulator layout: base 2, one FFMA and one MUFU op a key, the mask
+// evaluated only on the tiles that cross its causal diagonal or the
+// ragged edge of Sk. The two warpgroups' products and softmaxes overlap
+// each other; within one they run in turn.
 // ---------------------------------------------------------------------------
-constexpr int kMmaRows = 64;         // query rows of a block, 16 a warp
+constexpr int kMmaRows = 64;         // the dispatch rule's query tile
 constexpr int kMmaMinBlocks = 128;   // about one block per SM (132)
 
 bool use_mma(int dtype, int aligned, int B, int Sq, int H, int D) {
@@ -232,165 +257,332 @@ bool use_mma(int dtype, int aligned, int B, int Sq, int H, int D) {
          (int64_t)B * H * ((Sq + kMmaRows - 1) / kMmaRows) >= kMmaMinBlocks;
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D> struct FwdTiles {
+  static constexpr int kSlabs = D / 64;
+  // two consumer warpgroups of 64 query rows, then one producer warp
+  static constexpr int kConsumers = 2;
+  static constexpr int kBlockRows = kConsumers * hop::kTileRows;
+  static constexpr int kThreads = kConsumers * 128 + 32;
+  static constexpr int kKeyTile = D == 64 ? 128 : 64;   // keys a stage
+  // a query buffer: [warpgroup][slab][64 rows][128 B]; two of them, so
+  // the next item's rows land while this one's are in use
+  static constexpr uint32_t kQBytes = kConsumers * kSlabs * hop::kSlabBytes;
+  // one k (or v) tile: [slab][kKeyTile keys][128 B]; a stage holds k, v
+  static constexpr uint32_t kKVSlab = kKeyTile * 128;
+  static constexpr uint32_t kKVBytes = kSlabs * kKVSlab;
+  static constexpr uint32_t kStageBytes = 2 * kKVBytes;
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kKVOff = 2 * kQBytes;
+  static constexpr uint32_t kBars = kKVOff + kStages * kStageBytes;
+  // the barriers (q full and empty per buffer, then full and empty per
+  // stage) and the slack that lets the tiles start on 1024 bytes
+  static constexpr size_t kSmem = kBars + 8 * (4 + 2 * kStages) + hop::kAtom;
+  static_assert(kSmem <= 227 * 1024, "one block an SM");
+};
+
+// s = q.k^T of the warpgroup's 64 rows against a key tile, issued and
+// committed (not waited for)
+template <int D, int KT = FwdTiles<D>::kKeyTile>
+__device__ __forceinline__ void issue_s(float (&sc)[KT / 2], uint32_t qw,
+                                        uint32_t ks) {
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) sc[i] = 0.f;
+  hop::pin(sc);
+  hop::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hop::mma_ss<KT>(sc, hop::desc_k(qw, kk, hop::kSlabBytes),
+                    hop::desc_k(ks, kk, FwdTiles<D>::kKVSlab), kk > 0);
+  hop::wg_commit();
+}
+
+// o += p.v over a key tile, p the A fragments of its keys, issued and
+// committed (not waited for)
+template <int D, int KT = FwdTiles<D>::kKeyTile>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&ap)[KT / 16][4],
+                                         uint32_t vs) {
+  hop::pin(acc);
+  hop::wg_fence();
+#pragma unroll
+  for (int j = 0; j < KT / 16; ++j)
+    hop::mma_rs<D>(acc, ap[j], hop::desc_mn(vs, j, FwdTiles<D>::kKVSlab), 1);
+  hop::wg_commit();
+}
+
+// The online softmax of one tile in place: s (raw q.k) becomes
+// p = 2^((s - m_new) * scale_log2), one FFMA and one MUFU op a key; m
+// (the raw row maximum, -inf before any live key) and l move to the
+// tile's state, and alpha gets each row's rescale factor for o. MASKED
+// tiles (some key lies at or past a row's end, lim[r] keys into the
+// thread's columns) set those keys to -inf first; a row with no live key
+// yet keeps p = 0 and l = 0.
+template <int KT, bool MASKED>
+__device__ __forceinline__ void softmax_tile(float (&sc)[KT / 2],
+                                             const int (&lim)[2],
+                                             float scale_log2, float (&m)[2],
+                                             float (&l)[2],
+                                             float (&alpha)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    if (MASKED && (i >> 2) * 8 + (i & 1) >= lim[r]) sc[i] = -INFINITY;
+    mx[r] = fmaxf(mx[r], sc[i]);
+  }
+  float base[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    const float use = MASKED && mx[r] == -INFINITY ? 0.f : mx[r];
+    alpha[r] = hop::ex2((m[r] - use) * scale_log2);
+    base[r] = use * scale_log2;
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    sc[i] = hop::ex2(fmaf(sc[i], scale_log2, -base[r]));
+    sum[r] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
+    sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
+    l[r] = l[r] * alpha[r] + sum[r];
+  }
+}
+
+// The softmax of the tile from key k0 on, masked only where some key
+// lies at or past a row's end (the rows' ends end_r; every row of the
+// warpgroup keeps the keys below all_end)
+template <int KT>
+__device__ __forceinline__ void softmax_at(int k0, int all_end,
+                                           const int (&end_r)[2], int t4,
+                                           float (&sc)[KT / 2],
+                                           float scale_log2, float (&m)[2],
+                                           float (&l)[2], float (&alpha)[2]) {
+  const int lim[2] = {end_r[0] - k0 - 2 * t4, end_r[1] - k0 - 2 * t4};
+  if (k0 + KT > all_end)
+    softmax_tile<KT, true>(sc, lim, scale_log2, m, l, alpha);
+  else
+    softmax_tile<KT, false>(sc, lim, scale_log2, m, l, alpha);
+}
+
+// p (f32, accumulator layout) rounded to bf16 as the A fragments of
+// o += p.v: keys 16j.. of the tile in ap[j]
+template <int KT>
+__device__ __forceinline__ void pack_p(const float (&sc)[KT / 2],
+                                       uint32_t (&ap)[KT / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < KT / 8; ++n) {
+    ap[n >> 1][(n & 1) * 2] = pack_bf16(sc[4 * n], sc[4 * n + 1]);
+    ap[n >> 1][(n & 1) * 2 + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+  }
+}
+
+// The work of one block: items of (head, 128-row query tile), in rounds.
+// Round r gives the block head r * group + hs and, of that head's n_qt
+// query tiles, the slot-th counted from the last in even rounds and from
+// the first in odd ones, so two rounds weigh the same for every block
+// under the causal mask, and the group's heads run together (their k and
+// v stay in L2).
+struct Items {
+  int n_qt, n_bh, group, hs, slot;
+  __device__ Items(int Sq, int n_bh_, int group_, int rows)
+      : n_qt((Sq + rows - 1) / rows), n_bh(n_bh_), group(group_),
+        hs(blockIdx.x % group_), slot(blockIdx.x / group_) {}
+  __device__ int rounds() const { return (n_bh + group - 1) / group; }
+  __device__ int head(int r) const { return r * group + hs; }
+  __device__ int q_tile(int r) const {
+    return r & 1 ? slot : n_qt - 1 - slot;
+  }
+};
+
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o,
-               float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
-               int q_off, int k_off, int causal, float scale) {
-  constexpr int LD = D + 8, NT = kWarps * 32;
-  extern __shared__ uint4 smem_mma[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_mma);  // [64][LD] query rows
-  bf16* ks = qs + kMmaRows * LD;                 // [64][LD] key tile
-  bf16* vs = ks + kMmaTile * LD;                 // [64][LD]
+__global__ void __launch_bounds__(FwdTiles<D>::kThreads, 1)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                 float* __restrict__ lse, int B, int Sq, int Sk, int H,
+                 int Hkv, int q_off, int k_off, int causal, float scale_log2,
+                 int group) {
+  using T = FwdTiles<D>;
+  constexpr int kKeyTile = T::kKeyTile, kConsumers = T::kConsumers;
+  extern __shared__ uint8_t smem_tc[];
+  const uint32_t base =
+      (hop::saddr(smem_tc) + hop::kAtom - 1) & ~(hop::kAtom - 1);
+  const uint32_t kv_s = base + T::kKVOff, bars = base + T::kBars;
+  auto q_buf = [&](int it) { return base + (it & 1) * T::kQBytes; };
+  auto q_full = [&](int it) { return bars + 8 * (it & 1); };
+  auto q_empty = [&](int it) { return bars + 8 * (2 + (it & 1)); };
+  auto full = [&](int t) { return bars + 8 * (4 + t % T::kStages); };
+  auto empty = [&](int t) {
+    return bars + 8 * (4 + T::kStages + t % T::kStages);
+  };
+  // the phase parity of the n-th use of a ring slot of `slots`
+  auto parity = [](int n, int slots) { return (uint32_t)(n / slots) & 1; };
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.y * kMmaRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t q_pos = (int64_t)H * D, kv_pos = (int64_t)Hkv * D;
-  const bf16* kb = k + (int64_t)b * Sk * kv_pos + (int64_t)hk * D;
-  const bf16* vb = v + (int64_t)b * Sk * kv_pos + (int64_t)hk * D;
-  {
-    bf16* const dst[1] = {qs};
-    const bf16* const src[1] = {q + ((int64_t)b * Sq + q0) * q_pos +
-                                (int64_t)h * D};
-    stage_bf16<D, NT, 1>(dst, src, q_pos, min(kMmaRows, Sq - q0),
-                         threadIdx.x);
+  const Items items(Sq, B * H, group, T::kBlockRows);
+  // one past the last key any row of query tile qt sees
+  auto tile_end = [&](int qt) {
+    return live_end(min((qt + 1) * T::kBlockRows, Sq) - 1, Sk, q_off, k_off,
+                    causal);
+  };
+  const int wg = threadIdx.x / 128;   // kConsumers: the producer warp
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hop::bar_init(q_full(i), 1);
+      hop::bar_init(q_empty(i), kConsumers * 4);   // one arrival a warp
+    }
+    for (int s = 0; s < T::kStages; ++s) {
+      hop::bar_init(full(s), 1);
+      hop::bar_init(empty(s), kConsumers * 4);
+    }
+    hop::bar_init_fence();
   }
+  __syncthreads();
 
-  // the thread's rows: w0 + g and w0 + g + 8
-  const int w0 = q0 + warp * 16;
-  int end_r[2];
-  float m[2], l[2];
+  if (wg == kConsumers) {
+    // producer: one thread issues the copies, running ahead of the
+    // consumers by the ring (and by a query buffer across items)
+    if (threadIdx.x == kConsumers * 128) {
+      int it = 0, t = 0;
+      for (int r = 0; r < items.rounds(); ++r) {
+        const int bh = items.head(r);
+        if (bh >= items.n_bh) continue;
+        const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
+        const int qt = items.q_tile(r), q0 = qt * T::kBlockRows;
+        if (it >= 2) hop::bar_wait(q_empty(it), parity(it, 2) ^ 1);
+        hop::bar_arrive_tx(q_full(it), T::kQBytes);
+        for (int w = 0; w < kConsumers; ++w)
+          for (int sl = 0; sl < T::kSlabs; ++sl)
+            hop::tma_load(q_buf(it) + (w * T::kSlabs + sl) * hop::kSlabBytes,
+                          &tq, q_full(it), 64 * sl, h,
+                          q0 + hop::kTileRows * w, b);
+        const int n_tiles = (tile_end(qt) + kKeyTile - 1) / kKeyTile;
+        for (int kt = 0; kt < n_tiles; ++kt, ++t) {
+          if (t >= T::kStages)   // the slot's previous tile is consumed
+            hop::bar_wait(empty(t), parity(t, T::kStages) ^ 1);
+          const uint32_t ks = kv_s + (t % T::kStages) * T::kStageBytes;
+          hop::bar_arrive_tx(full(t), T::kStageBytes);
+          for (int sl = 0; sl < T::kSlabs; ++sl) {
+            hop::tma_load(ks + sl * T::kKVSlab, &tk, full(t), 64 * sl, hk,
+                          kt * kKeyTile, b);
+            hop::tma_load(ks + T::kKVBytes + sl * T::kKVSlab, &tv, full(t),
+                          64 * sl, hk, kt * kKeyTile, b);
+          }
+        }
+        ++it;
+      }
+    }
+  } else {
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const float scale = scale_log2 / kLog2e;
+    auto k_tile = [&](int t) {
+      return kv_s + (t % T::kStages) * T::kStageBytes;
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) hop::bar_arrive(bar);
+    };
+    float acc[D / 2], sc[kKeyTile / 2];
+    uint32_t ap[kKeyTile / 16][4];
+    int it = 0, t = 0;
+    for (int r = 0; r < items.rounds(); ++r) {
+      const int bh = items.head(r);
+      if (bh >= items.n_bh) continue;
+      const int b = bh / H, h = bh % H;
+      const int qt = items.q_tile(r);
+      const int n_tiles = (tile_end(qt) + kKeyTile - 1) / kKeyTile;
+      const int r0 = qt * T::kBlockRows + wg * hop::kTileRows;
+      // the thread's rows, and one past each one's last live key
+      const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+      const int end_r[2] = {live_end(row[0], Sk, q_off, k_off, causal),
+                            live_end(row[1], Sk, q_off, k_off, causal)};
+      // keys below all_end are live for every row of the warpgroup; its
+      // tiles from n_live on hold no live key of any of its rows
+      const int all_end =
+          r0 < Sq ? live_end(r0, Sk, q_off, k_off, causal) : 0;
+      const int any_end =
+          r0 < Sq ? live_end(min(r0 + hop::kTileRows, Sq) - 1, Sk, q_off,
+                             k_off, causal)
+                  : 0;
+      const int n_live = (any_end + kKeyTile - 1) / kKeyTile;
+      const uint32_t qw = q_buf(it) + wg * T::kSlabs * hop::kSlabBytes;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = w0 + g + 8 * i;
-    end_r[i] = qi < Sq ? live_end(qi, Sk, q_off, k_off, causal) : 0;
-    m[i] = kNeg;
-    l[i] = 0.f;
-  }
-  const int warp_end =
-      w0 < Sq ? live_end(min(w0 + 15, Sq - 1), Sk, q_off, k_off, causal) : 0;
-  const int kend = live_end(min(q0 + kMmaRows, Sq) - 1, Sk, q_off, k_off,
-                            causal);
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      hop::bar_wait(q_full(it), parity(it, 2));
 
-  for (int k0 = 0; k0 < kend; k0 += kMmaTile) {
-    __syncthreads();  // the previous tile is consumed (and qs is written)
-    {
-      bf16* const dst[2] = {ks, vs};
-      const bf16* const src[2] = {kb + k0 * kv_pos, vb + k0 * kv_pos};
-      stage_bf16<D, NT, 2>(dst, src, kv_pos, min(kMmaTile, Sk - k0),
-                           threadIdx.x);
-    }
-    __syncthreads();
-    if (k0 >= warp_end) continue;  // warp-uniform: no live key for its rows
-    float s[kMmaTile / 8][4];
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int tk = t + kt;
+        hop::bar_wait(full(tk), parity(tk, T::kStages));
+        if (kt < n_live) {   // warpgroup-uniform
+          issue_s<D>(sc, qw, k_tile(tk));
+          hop::wg_wait<0>();
+          hop::pin(sc);
+          softmax_at<kKeyTile>(kt * kKeyTile, all_end, end_r, t4, sc,
+                               scale_log2, m, l, alpha);
+          pack_p<kKeyTile>(sc, ap);
 #pragma unroll
-    for (int n = 0; n < kMmaTile / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t aq[4];
-      load_a(aq, qs, LD, warp * 16, kk, lane);
-#pragma unroll
-      for (int n = 0; n < kMmaTile; n += 16) {
-        uint32_t bk[4];
-        load_b_nk(bk, ks, LD, n, kk, lane);
-        mma_bf16(s[n / 8], aq, bk[0], bk[1]);
-        mma_bf16(s[n / 8 + 1], aq, bk[2], bk[3]);
+          for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+          issue_pv<D>(acc, ap, k_tile(tk) + T::kKVBytes);
+          hop::wg_wait<0>();
+          hop::pin(acc);
+        }
+        release(empty(tk));
       }
-    }
-    // mask and scale; the row maxima over the quad that holds each row
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int n = 0; n < kMmaTile / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + 2 * t + (i & 1);
-        s[n][i] = key < end_r[i >> 1] ? s[n][i] * scale : kNeg;
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      mx[r] = fmaxf(m[r], mx[r]);
-    }
-    float sum[2] = {0.f, 0.f};
-    uint32_t ap[kMmaTile / 16][4];
-#pragma unroll
-    for (int n = 0; n < kMmaTile / 8; ++n) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = s[n][i] > 0.5f * kNeg ? expf(s[n][i] - mx[i >> 1]) : 0.f;
-        sum[i >> 1] += p[i];
-      }
-      ap[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
-      ap[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
-      sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
-      alpha[r] = expf(m[r] - mx[r]);
-      l[r] = l[r] * alpha[r] + sum[r];
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
-#pragma unroll
-    for (int j = 0; j < kMmaTile / 16; ++j)
-#pragma unroll
-      for (int n = 0; n < D; n += 16) {
-        uint32_t bv[4];
-        load_b_kn(bv, vs, LD, n, j * 16, lane);
-        mma_bf16(acc[n / 8], ap[j], bv[0], bv[1]);
-        mma_bf16(acc[n / 8 + 1], ap[j], bv[2], bv[3]);
-      }
-  }
+      release(q_empty(it));
+      t += n_tiles;
+      ++it;
 
+      // o = acc / l, lse = m * scale + ln(l) (natural-log units); a row
+      // with no live key gets o = 0, lse = -1e30
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = w0 + g + 8 * i;
-    if (qi >= Sq) continue;
-    const int64_t row = ((int64_t)b * Sq + qi) * H + h;
-    const float l_safe = l[i] > 0.f ? l[i] : 1.f;
-    bf16* out = o + row * D + 2 * t;
+      for (int i = 0; i < 2; ++i) {
+        const int qi = row[i];
+        if (qi >= Sq) continue;
+        const int64_t rr = ((int64_t)b * Sq + qi) * H + h;
+        const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+        bf16* out = o + rr * D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) = __floats2bfloat162_rn(
-          acc[n][2 * i] / l_safe, acc[n][2 * i + 1] / l_safe);
-    if (t == 0) lse[row] = l[i] > 0.f ? m[i] + logf(l_safe) : kNeg;
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * i] * inv,
+                                    acc[4 * n + 2 * i + 1] * inv);
+        if (t4 == 0) lse[rr] = l[i] > 0.f ? m[i] * scale + logf(l[i]) : kNeg;
+      }
+    }
   }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int Sq, int Sk, int H, int Hkv, int q_off,
-               int k_off, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(bf16) * 3 * kMmaTile * (D + 8);
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int B, int Sq, int Sk, int H, int Hkv, int q_off,
+                 int k_off, int causal, float scale, cudaStream_t stream) {
+  using T = FwdTiles<D>;
+  CUtensorMap tq, tk, tv;
+  int rc = hop::make_map(&tq, q, D, H, Sq, B, hop::kTileRows);
+  if (rc == 0) rc = hop::make_map(&tk, k, D, Hkv, Sk, B, T::kKeyTile);
+  if (rc == 0) rc = hop::make_map(&tv, v, D, Hkv, Sk, B, T::kKeyTile);
+  if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Sq + kMmaRows - 1) / kMmaRows);
-  fwd_mma_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), Sq, Sk, H, Hkv, q_off, k_off, causal, scale);
+  // one block an SM at most: `group` heads at a time, one block for each
+  // of their query tiles
+  const int n_qt = (Sq + T::kBlockRows - 1) / T::kBlockRows;
+  const int group = std::max(1, std::min(B * H, hop::sm_count() / n_qt));
+  fwd_wgmma_kernel<D><<<(unsigned)group * n_qt, T::kThreads, T::kSmem,
+                        stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), B, Sq, Sk,
+      H, Hkv, q_off, k_off, causal, scale * kLog2e, group);
   return (int)cudaGetLastError();
 }
 
@@ -467,10 +659,10 @@ extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
   const void* const rows[3] = {q, k, v};
   if (use_mma(dtype, mma_rows_ok(rows, 3, D), B, Sq, H, D)) {
     if (D == 64)
-      return launch_mma<64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, q_off, k_off,
-                            causal, scale, s);
-    return launch_mma<128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, q_off, k_off,
-                           causal, scale, s);
+      return launch_wgmma<64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, q_off,
+                              k_off, causal, scale, s);
+    return launch_wgmma<128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, q_off, k_off,
+                             causal, scale, s);
   }
   if (dtype == 1)
     return dispatch_dim<__nv_bfloat16>(q, k, v, o, lse, ws, B, Sq, Sk, H, Hkv,

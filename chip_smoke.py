@@ -6,18 +6,25 @@
 Phases, each printing one JSON line:
 
 1. card — name and power limit (``nvidia-smi``), then the kernel build
-   (one ``nvcc`` per source, all started together) and its time;
+   (one ``nvcc`` per source, all started together) and its time, the
+   ptxas register and spill report, and the attention libraries' SASS
+   counts (HGMMA, HMMA, UTMALDG, LDGSTS, SYNCS);
 2. flash_fwd — the forward kernel against its plain PyTorch version at
-   the slice's prefill shapes, bf16 and f32: error against a stated
-   tolerance, and kernel / plain / ``scaled_dot_product_attention``
-   times from CUDA events with the L2 cache flushed before each launch;
+   the slice's prefill shapes, bf16 and f32, the training shape, head
+   dim 128 (B=4, S=1024, 8 heads) and a non-causal ragged S=1000: error
+   against a stated tolerance, and kernel / plain /
+   ``scaled_dot_product_attention`` times from CUDA events with the L2
+   cache flushed before each launch;
 3. flash_decode — the decode kernel the same way, dense and int8 caches;
    flash_bwd — the dq and dk/dv kernels against ``flash_bwd_torch`` at
    the training shape (B=8, S=1024, 16 heads of 64, causal) in bf16 and
-   f32, GQA 16/4, a ragged S=1000, and an offset chunk with dead rows and
-   a nonzero lse cotangent: each element against a tolerance of its own
+   f32, GQA 16/4, a ragged S=1000, an offset chunk with dead rows and
+   a nonzero lse cotangent, head dim 128 and a non-causal ragged S=1000:
+   each element against a tolerance of its own
    size plus a floor of a thousandth of max |grad|, the relative L2
-   error, and kernel / plain / SDPA-backward times; onebit — pack words
+   error, and kernel / plain / SDPA-backward times; flash_determinism —
+   two launches of the bf16 forward, dq and dk/dv on the same inputs
+   bit-equal, at the training shape and head dim 128; onebit — pack words
    bit-equal to
    the plain version at the 1,024,000-element chunk, a ragged length and
    an input seeded with -0.0, 0 and NaN, unpack-sum equal at K=1 and K=8
@@ -121,7 +128,8 @@ A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
 (generate, serve, multitenant, the three train legs, train_ring's
 three legs on one rank; the ring rows' times are the ring phase's
-n = 2 cases), and, last,
+n = 2 cases; the flash_fwd row, timed at serve's chunk, also gives the
+training shape's ms, bound and SDPA ms as ``train_*``), and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so it does without a CUDA card or without the package beside it.
@@ -220,7 +228,8 @@ def max_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple:
 # --------------------------------------------------------------------------
 # phases 2-3: each kernel against its plain version
 # --------------------------------------------------------------------------
-def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed):
+def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed,
+             causal=True):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from byteps_tpu_torch.ops.flash_attention import (
@@ -230,8 +239,8 @@ def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed):
     q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
     k = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
     v = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
-    o, lse = flash_attention_lse(q, k, v, q_off, 0)
-    o_ref, lse_ref = attention_lse_torch(q, k, v, q_off, 0)
+    o, lse = flash_attention_lse(q, k, v, q_off, 0, causal=causal)
+    o_ref, lse_ref = attention_lse_torch(q, k, v, q_off, 0, causal=causal)
     torch.cuda.synchronize()
     tol = TOL[dtype]
     err_o, ok_o = max_err(o, o_ref, tol)
@@ -239,22 +248,26 @@ def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed):
     if not (ok_o and ok_l):
         raise AssertionError(f"flash_fwd {name}: o err {err_o}, lse err "
                              f"{err_l} beyond tolerance {tol}")
-    ms = timer(lambda: flash_attention_lse(q, k, v, q_off, 0))
-    plain_ms = timer(lambda: attention_lse_torch(q, k, v, q_off, 0))
+    ms = timer(lambda: flash_attention_lse(q, k, v, q_off, 0, causal=causal))
+    plain_ms = timer(lambda: attention_lse_torch(q, k, v, q_off, 0,
+                                                 causal=causal))
     # the library yardstick: same function (o only) from (B, H, S, D)
     # copies made outside the timing, k/v widened to H heads for GQA
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
-    if q_off == 0 and Sq == Sk:     # plain causal: SDPA's flash backend
+    if not causal:
+        lib_ms = timer(lambda: sdpa(qt, kt, vt))
+    elif q_off == 0 and Sq == Sk:   # plain causal: SDPA's flash backend
         lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True))
     else:
         mask = (q_off + torch.arange(Sq, device="cuda")[:, None]
                 >= torch.arange(Sk, device="cuda")[None, :])
         lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask))
     # the work this run's data needs: live (row, key) pairs, live keys
-    pairs = sum(min(Sk, max(0, q_off + i + 1)) for i in range(Sq))
-    kend = min(Sk, q_off + Sq)
+    pairs = (Sq * Sk if not causal else
+             sum(min(Sk, max(0, q_off + i + 1)) for i in range(Sq)))
+    kend = Sk if not causal else min(Sk, q_off + Sq)
     isz = q.element_size()
     n_bytes = (2 * B * Sq * H * D * isz + 2 * B * kend * Hkv * D * isz
                + B * Sq * H * 4)
@@ -262,7 +275,8 @@ def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed):
     bms, by = bound_ms(n_bytes, n_ops, dtype)
     res = {"case": name, "dtype": str(dtype).split(".")[-1],
            "shape": [B, Sq, Sk, H, Hkv, D], "q_off": q_off,
-           "max_abs_err": max(err_o, err_l), "tolerance": tol,
+           "causal": causal, "max_abs_err": max(err_o, err_l),
+           "tolerance": tol,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bms, "bound_by": by}
     emit({"phase": "flash_fwd", **res})
@@ -337,7 +351,7 @@ def grad_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
 
 
 def bwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, k_off, dtype, seed,
-             with_dlse=False):
+             with_dlse=False, causal=True):
     """dq and dk/dv from the kernels against ``flash_bwd_torch``, each
     held by :func:`grad_err`; rows with no live key must get dq = 0
     exactly."""
@@ -353,13 +367,13 @@ def bwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, k_off, dtype, seed,
     do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
     dlse = (torch.randn(B, Sq, H, generator=g, device="cuda")
             if with_dlse else None)
-    o, lse = attention_lse_torch(q, k, v, q_off, k_off)
+    o, lse = attention_lse_torch(q, k, v, q_off, k_off, causal=causal)
     lse = lse.contiguous()
     delta = (do.float() * o.float()).sum(-1)
-    args = (q, k, v, do, lse, delta, dlse, q_off, k_off, True)
+    args = (q, k, v, do, lse, delta, dlse, q_off, k_off, causal)
     dq = _dq_cuda(*args)
     dk, dv = _dkv_cuda(*args)
-    want = flash_bwd_torch(q, k, v, o, lse, do, dlse, q_off, k_off)
+    want = flash_bwd_torch(q, k, v, o, lse, do, dlse, q_off, k_off, causal)
     torch.cuda.synchronize()
     tol = TOL[dtype]
     stats = {nm: grad_err(got, ref, tol)
@@ -369,14 +383,14 @@ def bwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, k_off, dtype, seed,
                              f"(rtol {tol}, floor {BWD_ATOL} x max, rel L2 "
                              f"{BWD_REL_L2[dtype]}): {stats}")
     errs = {nm: s["max_abs_err"] for nm, s in stats.items()}
-    n_dead = min(Sq, max(0, k_off - q_off))
+    n_dead = min(Sq, max(0, k_off - q_off)) if causal else 0
     if n_dead and not bool((dq[:, :n_dead] == 0).all()):
         raise AssertionError(f"flash_bwd {name}: a row with no live key got "
                              "a nonzero dq")
     ms_dq = timer(lambda: _dq_cuda(*args))
     ms_dkv = timer(lambda: _dkv_cuda(*args))
     plain_ms = timer(lambda: flash_bwd_torch(q, k, v, o, lse, do, dlse,
-                                             q_off, k_off), iters=5)
+                                             q_off, k_off, causal), iters=5)
     # the library yardstick: SDPA's backward for (dq, dk, dv) together,
     # from (B, H, S, D) leaves made outside the timing (k/v widened for
     # GQA), no lse cotangent
@@ -385,7 +399,9 @@ def bwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, k_off, dtype, seed,
         .requires_grad_()
     vt = v.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous() \
         .requires_grad_()
-    if q_off == k_off and Sq == Sk:
+    if not causal:
+        ot = sdpa(qt, kt, vt)
+    elif q_off == k_off and Sq == Sk:
         ot = sdpa(qt, kt, vt, is_causal=True)
     else:
         mask = (q_off + torch.arange(Sq, device="cuda")[:, None]
@@ -395,8 +411,9 @@ def bwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, k_off, dtype, seed,
     lib_ms = timer(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
                                                retain_graph=True))
     # the work this run's data needs: live (row, key) pairs, live keys
-    pairs = sum(min(Sk, max(0, q_off + i - k_off + 1)) for i in range(Sq))
-    kend = min(Sk, max(0, q_off + Sq - k_off))
+    pairs = (Sq * Sk if not causal else
+             sum(min(Sk, max(0, q_off + i - k_off + 1)) for i in range(Sq)))
+    kend = Sk if not causal else min(Sk, max(0, q_off + Sq - k_off))
     isz = q.element_size()
     row_f32 = B * Sq * H * 4 * (3 if with_dlse else 2)   # lse, Δ, dlse
     qo_bytes = B * Sq * H * D * isz
@@ -407,7 +424,7 @@ def bwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, k_off, dtype, seed,
                              8 * D * pairs * B * H, dtype)
     res = {"case": name, "dtype": str(dtype).split(".")[-1],
            "shape": [B, Sq, Sk, H, Hkv, D], "q_off": q_off, "k_off": k_off,
-           "dlse": with_dlse, "dead_rows": n_dead,
+           "causal": causal, "dlse": with_dlse, "dead_rows": n_dead,
            "err": {nm: {k: v for k, v in s.items() if k != "ok"}
                    for nm, s in stats.items()},
            "tolerance": {"rtol": tol, "floor_of_max": BWD_ATOL,
@@ -419,6 +436,52 @@ def bwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, k_off, dtype, seed,
            "plain_ms": plain_ms, "library_ms": lib_ms}
     emit({"phase": "flash_bwd", **res})
     return res
+
+
+def twice_case(name, B, S, H, Hkv, D, seed, causal=True):
+    """Two launches of the tensor-core forward and of the dq and dk/dv
+    kernels on the same bf16 inputs give the same bits: every sum runs in
+    a fixed order and each output element has one writer."""
+    from byteps_tpu_torch.ops.flash_attention import (_dkv_cuda, _dq_cuda,
+                                                      _fwd_cuda)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn(B, S, H, D, generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    runs = []
+    for _ in range(2):
+        o, lse = _fwd_cuda(q, k, v, 0, 0, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, None, 0, 0, causal)
+        runs.append((o, lse, _dq_cuda(*args), *_dkv_cuda(*args)))
+    torch.cuda.synchronize()
+    same = {nm: torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            for nm, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs)}
+    res = {"case": name, "shape": [B, S, S, H, Hkv, D], "causal": causal,
+           "bit_equal": same}
+    emit({"phase": "flash_determinism", **res})
+    if not all(same.values()):
+        raise AssertionError(f"flash {name}: two launches differ: {same}")
+    return res
+
+
+def sass_counts(lib) -> dict:
+    """How many instructions of each kind of interest a built library's
+    SASS holds (``cuobjdump -sass``, beside nvcc): HGMMA (wgmma), HMMA
+    (mma.sync), UTMALDG (TMA loads), LDGSTS (cp.async), SYNCS (mbarrier
+    operations)."""
+    import re
+    from pathlib import Path
+
+    from byteps_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", text))
+            for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "SYNCS")}
 
 
 def onebit_case(timer, name, n, seed, special=False):
@@ -1807,7 +1870,9 @@ def main() -> int:
                  .splitlines() if "registers" in ln or "spill" in ln]
              for n, p in libs.items()}
     emit({"phase": "card", "card": card, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas})
+          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
+          "sass": {n: sass_counts(libs[n]) for n in ("flash_fwd",
+                                                     "flash_bwd")}})
 
     timer = Timer()
     bf, f32 = torch.bfloat16, torch.float32
@@ -1837,6 +1902,11 @@ def main() -> int:
     # the training shape: B=8, S=1024, 16 heads of 64
     fwd.append(fwd_case(timer, "train", 8, 1024, 1024, 16, 16, 64, 0, bf,
                         15))
+    # the tensor-core path at head dim 128, and without the causal mask on
+    # a ragged length
+    fwd.append(fwd_case(timer, "d128", 4, 1024, 1024, 8, 8, 128, 0, bf, 16))
+    fwd.append(fwd_case(timer, "noncausal_ragged", 2, 1000, 1000, 16, 16,
+                        64, 0, bf, 17, causal=False))
     bwd, failed = [], []
     for case in (("train", 8, 1024, 1024, 16, 16, 64, 0, 0, bf, 30),
                  ("train", 8, 1024, 1024, 16, 16, 64, 0, 0, f32, 31),
@@ -1845,7 +1915,10 @@ def main() -> int:
                  ("offset_dead_rows", 2, 256, 512, 16, 16, 64, 128, 256, bf,
                   34, True),
                  ("offset_dead_rows", 2, 256, 512, 16, 16, 64, 128, 256, f32,
-                  35, True)):
+                  35, True),
+                 ("d128", 4, 1024, 1024, 8, 8, 128, 0, 0, bf, 36),
+                 ("noncausal_ragged", 2, 1000, 1000, 16, 16, 64, 0, 0, bf, 37,
+                  False, False)):
         try:                       # run every case, then fail on any
             bwd.append(bwd_case(timer, *case))
         except AssertionError as e:
@@ -1853,6 +1926,8 @@ def main() -> int:
             failed.append(case[0])
     if failed:
         raise AssertionError(f"flash_bwd cases {failed} failed")
+    twice_case("train", 8, 1024, 16, 16, 64, 38)
+    twice_case("d128", 4, 1024, 8, 8, 128, 39)
     chunk = 4096000 // 4           # one default partition of f32
     bits = [onebit_case(timer, "chunk", chunk, 40),
             onebit_case(timer, "ragged", 1_000_003, 41),
@@ -1939,13 +2014,15 @@ def main() -> int:
     # generate's decode steps, the training step's attention backward and
     # the gradient chunks
     main_fwd = next(r for r in fwd if r["case"] == "chunk")
+    train_fwd = next(r for r in fwd if r["case"] == "train")
     main_dec = dec[0]
     main_bwd = bwd[0]
     main_bits = bits[0]
     common = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
     rows = [("flash_fwd", "flash_fwd", "byteps_tpu/ops/flash_attention.py:207",
-             main_fwd),
+             {**main_fwd, **{f"train_{k}": train_fwd[k]
+                             for k in ("ms", "bound_ms", "library_ms")}}),
             ("flash_decode", "flash_decode",
              "byteps_tpu/ops/flash_decode.py:77", main_dec),
             ("flash_bwd_dq", "flash_bwd",
@@ -1999,7 +2076,9 @@ def main() -> int:
          "launches": sum(by_path[p][name] for p in MAIN_PATHS),
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          "case": main["case"], **{k: main[k] for k in common},
-         **{k: main[k] for k in ("ms_time_sliced",) if k in main}}
+         **{k: main[k] for k in ("ms_time_sliced", "train_ms",
+                                 "train_bound_ms", "train_library_ms")
+            if k in main}}
         for name, src, rep, main in rows]
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -34,6 +34,15 @@ CASES = {
     "gqa": (2, 16, 24, 4, 2, 16, 8, 0),
     "gqa4": (1, 24, 40, 8, 2, 32, 16, 0),
 }
+# the tensor-core kernels' head dims, across a 64-row tile: 80 rows of a
+# whole sequence and an 80-row chunk at position 80, GQA 4:1 (the card
+# holds those kernels against these plain versions)
+TC_CASES = {
+    f"{kind}_d{D}": (1, 80, Sk, 4, 1, D, qo, 0)
+    for D in (64, 128)
+    for kind, Sk, qo in (("seq80", 80, 0), ("chunk80", 160, 80))
+}
+CASES.update(TC_CASES)
 
 
 def _inputs(B, Sq, Sk, H, Hkv, D, seed):
@@ -85,6 +94,17 @@ def test_attention_lse_matches_pallas_forward_kernel(case, monkeypatch):
     arrs = _inputs(B, Sq, Sk, H, Hkv, D, seed=7)
     want = _ref(jfa.flash_attention_lse, arrs, qo, ko)
     got = _port(tfa.flash_attention_lse, arrs, qo, ko)
+    _close(got, want, F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_head_dims_match_pallas_forward_kernel(case, causal, monkeypatch):
+    monkeypatch.setenv("BYTEPS_KERNEL_BACKEND", "pallas")
+    B, Sq, Sk, H, Hkv, D, qo, ko = CASES[case]
+    arrs = _inputs(B, Sq, Sk, H, Hkv, D, seed=D + Sk)
+    want = _ref(jfa.flash_attention_lse, arrs, qo, ko, causal=causal)
+    got = _port(tfa.flash_attention_lse, arrs, qo, ko, causal=causal)
     _close(got, want, F32_TOL)
 
 

@@ -37,6 +37,14 @@ CASES = {
     "offsets": (1, 16, 32, 2, 2, 16, 8, 0),
     "dead_rows": (2, 16, 16, 2, 2, 16, 0, 8),     # rows 0..7 see no key
 }
+# the tensor-core kernels' head dims, across a 64-row tile: 80 rows of a
+# whole sequence and an 80-row chunk at position 80, GQA 4:1 (the card
+# holds those kernels against these plain versions)
+TC_CASES = {
+    f"{kind}_d{D}": (1, 80, Sk, 4, 1, D, qo, 0)
+    for D in (64, 128)
+    for kind, Sk, qo in (("seq80", 80, 0), ("chunk80", 160, 80))
+}
 
 
 def _inputs(B, Sq, Sk, H, Hkv, D, seed):
@@ -49,27 +57,29 @@ def _inputs(B, Sq, Sk, H, Hkv, D, seed):
             rng.standard_normal((B, Sq, H)).astype(f))       # dlse
 
 
-def _ref_grads(fn, arrs, qo, ko, dtype=jnp.float32):
+def _ref_grads(fn, arrs, qo, ko, dtype=jnp.float32, causal=True):
     q, k, v, do = (jnp.asarray(a, dtype) for a in arrs[:4])
     dl = jnp.asarray(arrs[4])
-    (o, lse), vjp = jax.vjp(lambda q, k, v: fn(q, k, v, qo, ko), q, k, v)
+    (o, lse), vjp = jax.vjp(
+        lambda q, k, v: fn(q, k, v, qo, ko, causal=causal), q, k, v)
     return [np.asarray(g, np.float32) for g in vjp((do, dl))]
 
 
-def _port_plain(arrs, qo, ko, dtype=torch.float32):
+def _port_plain(arrs, qo, ko, dtype=torch.float32, causal=True):
     q, k, v, do = (torch.as_tensor(a).to(dtype) for a in arrs[:4])
     dl = torch.as_tensor(arrs[4])
-    o, lse = tfa.attention_lse_torch(q, k, v, qo, ko)
+    o, lse = tfa.attention_lse_torch(q, k, v, qo, ko, causal=causal)
     return [g.float().numpy()
-            for g in tfa.flash_bwd_torch(q, k, v, o, lse, do, dl, qo, ko)]
+            for g in tfa.flash_bwd_torch(q, k, v, o, lse, do, dl, qo, ko,
+                                         causal)]
 
 
-def _port_autograd(arrs, qo, ko, dtype=torch.float32):
+def _port_autograd(arrs, qo, ko, dtype=torch.float32, causal=True):
     q, k, v = (torch.as_tensor(a).to(dtype).requires_grad_()
                for a in arrs[:3])
     do = torch.as_tensor(arrs[3]).to(dtype)
     dl = torch.as_tensor(arrs[4])
-    o, lse = tfa.flash_attention_lse(q, k, v, qo, ko)
+    o, lse = tfa.flash_attention_lse(q, k, v, qo, ko, causal=causal)
     assert type(o.grad_fn).__name__ == "FlashCoreBackward"
     return [g.float().numpy()
             for g in torch.autograd.grad((o, lse), (q, k, v), (do, dl))]
@@ -91,6 +101,29 @@ def test_backward_matches_pallas_kernels(case, monkeypatch):
     if case == "dead_rows":
         dq = _port_plain(arrs, qo, ko)[0]
         assert np.all(dq[:, :8] == 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_head_dims_match_pallas_kernels(case, causal, monkeypatch):
+    monkeypatch.setenv("BYTEPS_KERNEL_BACKEND", "pallas")
+    B, Sq, Sk, H, Hkv, D, qo, ko = TC_CASES[case]
+    arrs = _inputs(B, Sq, Sk, H, Hkv, D, seed=D + Sk)
+    want = _ref_grads(jfa.flash_attention_lse, arrs, qo, ko, causal=causal)
+    _close(_port_plain(arrs, qo, ko, causal=causal), want, F32_TOL)
+    _close(_port_autograd(arrs, qo, ko, causal=causal), want, F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_tc_head_dims_bf16_match_pallas_kernels(case, monkeypatch):
+    monkeypatch.setenv("BYTEPS_KERNEL_BACKEND", "pallas")
+    B, Sq, Sk, H, Hkv, D, qo, ko = TC_CASES[case]
+    arrs = _inputs(B, Sq, Sk, H, Hkv, D, seed=D + Sk + 1)
+    arrs = [np.asarray(torch.as_tensor(a).bfloat16().float())
+            for a in arrs[:4]] + [arrs[4]]
+    want = _ref_grads(jfa.flash_attention_lse, arrs, qo, ko,
+                      dtype=jnp.bfloat16)
+    _close(_port_plain(arrs, qo, ko, dtype=torch.bfloat16), want, BF16_TOL)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

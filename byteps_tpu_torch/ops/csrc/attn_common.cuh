@@ -202,108 +202,20 @@ __device__ __forceinline__ void fold_rows(const float* __restrict__ qrows,
 }
 
 // --------------------------------------------------------------------------
-// mma.sync pieces of the bf16 dq kernel (flash_bwd.cu; the forward and
-// dk/dv run wgmma, hopper.cuh): mma.sync m16n8k16 (bf16 operands, f32
-// accumulation) fed by ldmatrix from shared tiles of 64 rows and row
-// stride D + 8, so the eight rows one ldmatrix reads start in different
-// banks.
+// Pieces of the bf16 tensor-core paths (the wgmma kernels, hopper.cuh).
 //
-// Accumulator layout of a 16x8 product, lane l = 4g + t: c[0], c[1] are
-// row g, columns 2t and 2t + 1; c[2], c[3] the same columns of row g + 8.
-// The accumulators of two adjacent 8-column products, rounded to bf16 and
-// packed in pairs (pack_bf16, also the wgmma kernels' A fragments), are
-// the A operand of one 16-deep step, which is how ds goes from one
-// product to the next without leaving registers.
+// Accumulator layout of a 16x8 block of a product, lane l = 4g + t:
+// c[0], c[1] are row g, columns 2t and 2t + 1; c[2], c[3] the same
+// columns of row g + 8. The accumulators of two adjacent 8-column blocks,
+// rounded to bf16 and packed in pairs (pack_bf16), are the register A
+// operand of one 16-deep step, which is how p and ds go from one product
+// to the next without leaving registers.
 // --------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
-constexpr int kMmaTile = 64;  // rows of a shared bf16 tile
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A operand of one 16-deep step: rows [m0, m0 + 16), columns [k0, k0 + 16)
-// of a row-major tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* t,
-                                       int ld, int m0, int k0, int lane) {
-  const int j = lane >> 3, r = lane & 7;
-  ldsm_x4(a, t + (m0 + r + 8 * (j & 1)) * ld + k0 + 8 * (j >> 1));
-}
-
-// B operands of two 8-column steps, product columns [n0, n0 + 16) and
-// depth [k0, k0 + 16), from a tile stored one product column per row
-// (t[n][k]): {b0, b1} of columns n0.. in b[0..1], of n0 + 8.. in b[2..3]
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* t,
-                                          int ld, int n0, int k0, int lane) {
-  const int j = lane >> 3, r = lane & 7;
-  ldsm_x4(b, t + (n0 + r + 8 * (j >> 1)) * ld + k0 + 8 * (j & 1));
-}
-
-// the same from a tile stored one depth step per row (t[k][n])
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* t,
-                                          int ld, int n0, int k0, int lane) {
-  const int j = lane >> 3, r = lane & 7;
-  ldsm_x4_t(b, t + (k0 + r + 8 * (j & 1)) * ld + n0 + 8 * (j >> 1));
-}
-
-// Stage rows [0, n) of P (rows x D) bf16 slabs, row r of slab p at
-// src[p] + r * stride, into shared tiles of kMmaTile rows and row stride
-// D + 8; rows [n, kMmaTile) become zeros. NT threads take part; each
-// issues all its 16-byte loads before its first store. The rows must be
-// 16-byte aligned.
-template <int D, int NT, int P>
-__device__ __forceinline__ void stage_bf16(bf16* const (&dst)[P],
-                                           const bf16* const (&src)[P],
-                                           int64_t stride, int n, int tid) {
-  constexpr int C = D / 8, LD = D + 8, N = kMmaTile * C / NT;
-  uint4 buf[P][N];
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const int c = tid + u * NT, r = c / C, col = (c % C) * 8;
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-      buf[p][u] = r < n ? *reinterpret_cast<const uint4*>(src[p] + r * stride +
-                                                          col)
-                        : make_uint4(0, 0, 0, 0);
-  }
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const int c = tid + u * NT, r = c / C, col = (c % C) * 8;
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-      *reinterpret_cast<uint4*>(dst[p] + r * LD + col) = buf[p][u];
-  }
 }
 
 // whether the tensor-core paths can read these rows: 16-byte aligned

@@ -24,7 +24,7 @@
 // the dv product; outputs are written in the input dtype.
 //
 // Two paths, one pair of entry points. bf16 at D = 64 or 128 runs on the
-// tensor cores (dq_mma_kernel, dkv_wgmma_kernel, below); f32 and every
+// tensor cores (dq_wgmma_kernel, dkv_wgmma_kernel, below); f32 and every
 // other head dim run on the CUDA cores in f32 FMAs (dq_kernel,
 // dkv_kernel), whose sums follow the plain version's order.
 //
@@ -39,8 +39,8 @@
 // has one writer, and every sum runs in a fixed order, so the kernels are
 // deterministic. The FMA path puts R rows (keys) on a warp and one key
 // (row) of a 32-wide tile on each lane, so the R dot products share each
-// load; dq's tensor-core path puts 16 rows on a warp against 64-wide
-// tiles, dk/dv's 64 keys on a warpgroup.
+// load; the tensor-core paths put 64 rows (dq) or 64 keys (dk/dv) on a
+// warpgroup.
 //
 // What bounds it. At GPT-2 medium's training shape (B*H = 128, S = 1024,
 // D = 64, causal) the work is 6*D (dq) and 8*D (dkv) FLOPs per live
@@ -48,15 +48,17 @@
 // MB of inputs and outputs: operations bound, at 989 TFLOP/s bf16 on the
 // tensor cores and 67 TFLOP/s f32 on the CUDA cores of an H100 SXM. Only
 // wgmma reaches the tensor cores' full rate on Hopper, and only if the
-// tiles arrive while the previous ones are multiplied: the dk/dv kernel
-// streams its query tiles by TMA through a ring of stages that a producer
-// warp keeps full, and runs its four products a tile as wgmma. What it
-// still pays: the exponentials of p (one MUFU op a live pair, at a
-// sixteenth of the tensor cores' rate for D = 64), and each consumer
-// warpgroup waits on its own products, overlapping only with the other
-// warpgroup's. dq still runs on mma.sync fed by synchronous staging.
+// tiles arrive while the previous ones are multiplied: both kernels
+// stream their tiles by TMA (dq the keys, dk/dv the query rows) through
+// a ring of stages that a producer warp keeps full, and run their
+// products as wgmma (dq three a tile, dk/dv four). What they still pay:
+// the exponentials of p (one MUFU op a live pair, at a sixteenth of the
+// tensor cores' rate for D = 64), and each consumer warpgroup waits on
+// its own products, overlapping only with the other warpgroup's (at
+// D = 128, where one consumer warpgroup runs, with nothing).
 #include <algorithm>
 #include <climits>
+#include <cmath>
 
 #include "attn_common.cuh"
 #include "hopper.cuh"
@@ -413,149 +415,287 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // Tensor-core path: bf16 inputs, D = 64 or 128.
 //
-// The same two kernels with the products on the tensor cores. dq
-// (mma.sync, the pieces of attn_common.cuh): a block owns 64 query rows,
-// 16 a warp, and walks 64-wide shared tiles of keys; s and dp come out in
-// the accumulator layout, where a thread holds two of the warp's 16
-// rows; ds is formed there, rounded to bf16 (the rounding above), and fed
-// to dq += ds.k as its A operand. dk/dv: wgmma fed by a TMA ring, below.
-// Sums over keys (dq) and rows (dk, dv) run in the tensor cores' order,
-// so the two paths agree to rounding, not bit for bit.
+// The same two kernels with the products on the tensor cores as wgmma,
+// fed by TMA through a ring of shared stages (hopper.cuh). dq is query-
+// stationary and key-streaming, the forward's shape: persistent blocks
+// walk (head, query tile) items and stream the keys past them. dk/dv is
+// key-stationary and streams the query rows. ds is formed in the
+// accumulator layout, rounded to bf16 (the rounding above) and fed to
+// the next product as its register A operand. Sums over keys (dq) and
+// rows (dk, dv) run in the tensor cores' order, so the two paths agree
+// to rounding, not bit for bit.
 // ---------------------------------------------------------------------------
-constexpr int kMmaRows = 64;  // dq's query rows a block, 16 a warp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWide = 1 << 30;   // a column bound no tile reaches
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * 4 * kMmaTile * (D + 8) + sizeof(float) * 3 * kMmaTile;
+// The dq kernel on the tensor cores (bf16, D = 64 or 128).
+//
+// A block is persistent, one an SM, taking hopper.cuh's Items: a head's
+// query tile of 64 rows per consumer warpgroup, heads in groups of about
+// one wave (their k and v stay in L2), query tiles snaked across rounds
+// so every block carries the same causal work. One producer thread
+// copies an item's q and do rows into one of two buffers and streams the
+// k and v tiles of the item's live keys through a ring of four stages by
+// TMA, each buffer and stage with a "full" mbarrier (its bytes landed)
+// and an "empty" one (every consumer warp is done with it); it runs
+// ahead across items. A consumer warpgroup loads its rows' lse, delta
+// and dlse once an item, then a tile at a time forms s = q.k^T and dp =
+// do.v^T as wgmma from shared memory, p = 2^(s * scale_log2 - lse *
+// log2(e)) (one FFMA and one MUFU op a pair) and ds = p * ((dp - delta) +
+// dlse) in the accumulator layout, rounds ds to bf16 and runs dq += ds.k
+// with ds the register A operand and k read MN-major from the same
+// stage. The mask is evaluated only on tiles that cross a row's causal
+// end or the ragged edge of Sk. A row with no live key (lse = -1e30),
+// and a row past Sq (zeros from TMA, never stored), takes lse = +inf,
+// so its p is 2^-inf = 0 on every tile, masked or not. dq * scale is
+// written once in bf16: one writer per element, no atomics, the keys
+// summed in order.
+template <int D> struct DqTiles {
+  static constexpr int kSlabs = D / 64;
+  // consumer warpgroups of 64 query rows, then one producer warp. A
+  // thread holds s and dp (32 each), ds (16) and dq (D / 2); at D = 128
+  // two consumers' 168-register budget would not hold that, one has 255
+  static constexpr int kConsumers = D == 64 ? 2 : 1;
+  static constexpr int kBlockRows = kConsumers * hop::kTileRows;
+  static constexpr int kThreads = kConsumers * 128 + 32;
+  static constexpr int kKeyTile = 64;   // keys a stage
+  // an item's q rows: [warpgroup][slab][64 rows][128 B]; do the same
+  // after them; two such buffers, so the next item's rows land while
+  // this one's are in use
+  static constexpr uint32_t kQBytes = kConsumers * kSlabs * hop::kSlabBytes;
+  static constexpr uint32_t kItemBytes = 2 * kQBytes;
+  // one k (or v) tile: [slab][kKeyTile keys][128 B]; a stage holds k, v
+  static constexpr uint32_t kKVSlab = kKeyTile * 128;
+  static constexpr uint32_t kKVBytes = kSlabs * kKVSlab;
+  static constexpr uint32_t kStageBytes = 2 * kKVBytes;
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kKVOff = 2 * kItemBytes;
+  static constexpr uint32_t kBars = kKVOff + kStages * kStageBytes;
+  // the barriers (q full and empty per buffer, then full and empty per
+  // stage) and the slack that lets the tiles start on 1024 bytes
+  static constexpr size_t kSmem = kBars + 8 * (4 + 2 * kStages) + hop::kAtom;
+  static_assert(kSmem <= 227 * 1024, "one block an SM");
+};
+
+// ds of one key tile in the accumulator layout (rows: the thread's two
+// query rows r; columns: keys 8n + 2 t4 and + 1), rounded to bf16 as the
+// A fragments of dq += ds.k: keys 16j.. of the tile in ads[j]. lse2 is
+// the rows' lse in base 2 (+inf for a row whose p is 0 throughout), dl
+// and dz their delta and dlse. MASKED tiles zero the keys at or past
+// lim[r] of the thread's columns.
+template <int KT, bool MASKED>
+__device__ __forceinline__ void ds_tile(const float (&sc)[KT / 2],
+                                        const float (&dp)[KT / 2],
+                                        const int (&lim)[2],
+                                        const float (&lse2)[2],
+                                        const float (&dl)[2],
+                                        const float (&dz)[2],
+                                        float scale_log2,
+                                        uint32_t (&ads)[KT / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < KT / 8; ++n) {
+    float d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float p = hop::ex2(fmaf(sc[4 * n + e], scale_log2, -lse2[r]));
+      if (MASKED && n * 8 + (e & 1) >= lim[r]) p = 0.f;
+      d[e] = p * ((dp[4 * n + e] - dl[r]) + dz[r]);
+    }
+    ads[n >> 1][(n & 1) * 2] = pack_bf16(d[0], d[1]);
+    ads[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              const float* __restrict__ dlse, bf16* __restrict__ dq, int Sq,
-              int Sk, int H, int Hkv, int q_off, int k_off, int causal,
-              float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ uint4 smem_mma[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_mma);  // [64][LD] query rows
-  bf16* dos = qs + kMmaRows * LD;                // [64][LD]
-  bf16* ks = dos + kMmaRows * LD;                // [64][LD] key tile
-  bf16* vs = ks + kMmaTile * LD;                 // [64][LD]
+__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                const float* __restrict__ dlse, bf16* __restrict__ dq,
+                int B, int Sq, int Sk, int H, int Hkv, int q_off, int k_off,
+                int causal, float scale, float scale_log2, int group) {
+  using T = DqTiles<D>;
+  constexpr int KT = T::kKeyTile, kConsumers = T::kConsumers;
+  extern __shared__ uint8_t smem_tc[];
+  const uint32_t base =
+      (hop::saddr(smem_tc) + hop::kAtom - 1) & ~(hop::kAtom - 1);
+  const uint32_t kv_s = base + T::kKVOff, bars = base + T::kBars;
+  auto q_buf = [&](int it) { return base + (it & 1) * T::kItemBytes; };
+  auto q_full = [&](int it) { return bars + 8 * (it & 1); };
+  auto q_empty = [&](int it) { return bars + 8 * (2 + (it & 1)); };
+  auto full = [&](int t) { return bars + 8 * (4 + t % T::kStages); };
+  auto empty = [&](int t) {
+    return bars + 8 * (4 + T::kStages + t % T::kStages);
+  };
+  auto k_tile = [&](int t) {
+    return kv_s + (t % T::kStages) * T::kStageBytes;
+  };
+  // the phase parity of the n-th use of a ring slot of `slots`
+  auto parity = [](int n, int slots) { return (uint32_t)(n / slots) & 1; };
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.y * kMmaRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t q_pos = (int64_t)H * D, kv_pos = (int64_t)Hkv * D;
-  const int64_t q_at = ((int64_t)b * Sq + q0) * q_pos + (int64_t)h * D;
-  const bf16* kb = k + (int64_t)b * Sk * kv_pos + (int64_t)hk * D;
-  const bf16* vb = v + (int64_t)b * Sk * kv_pos + (int64_t)hk * D;
-  {
-    bf16* const dst[2] = {qs, dos};
-    const bf16* const src[2] = {q + q_at, dout + q_at};
-    stage_bf16<D, kThreads, 2>(dst, src, q_pos, min(kMmaRows, Sq - q0),
-                               threadIdx.x);
-  }
-
-  // the thread's rows: w0 + g and w0 + g + 8
-  const int w0 = q0 + warp * 16;
-  float lse_r[2], delta_r[2], dlse_r[2];
-  int end_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = w0 + g + 8 * i;
-    lse_r[i] = delta_r[i] = dlse_r[i] = 0.f;
-    end_r[i] = 0;
-    if (qi < Sq) {
-      const int64_t row = ((int64_t)b * Sq + qi) * H + h;
-      lse_r[i] = lse[row];
-      delta_r[i] = delta[row];
-      dlse_r[i] = dlse != nullptr ? dlse[row] : 0.f;
-      end_r[i] = live_end(qi, Sk, q_off, k_off, causal);
+  const hop::Items items(Sq, B * H, group, T::kBlockRows);
+  // one past the last key any row of query tile qt sees
+  auto tile_end = [&](int qt) {
+    return live_end(min((qt + 1) * T::kBlockRows, Sq) - 1, Sk, q_off, k_off,
+                    causal);
+  };
+  const int wg = threadIdx.x / 128;   // kConsumers: the producer warp
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hop::bar_init(q_full(i), 1);
+      hop::bar_init(q_empty(i), kConsumers * 4);   // one arrival a warp
     }
-  }
-  const int warp_end =
-      w0 < Sq ? live_end(min(w0 + 15, Sq - 1), Sk, q_off, k_off, causal) : 0;
-  const int kend = live_end(min(q0 + kMmaRows, Sq) - 1, Sk, q_off, k_off,
-                            causal);
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-
-  for (int k0 = 0; k0 < kend; k0 += kMmaTile) {
-    __syncthreads();  // the previous tile is consumed (and qs/dos written)
-    {
-      bf16* const dst[2] = {ks, vs};
-      const bf16* const src[2] = {kb + k0 * kv_pos, vb + k0 * kv_pos};
-      stage_bf16<D, kThreads, 2>(dst, src, kv_pos, min(kMmaTile, Sk - k0),
-                                 threadIdx.x);
+    for (int s = 0; s < T::kStages; ++s) {
+      hop::bar_init(full(s), 1);
+      hop::bar_init(empty(s), kConsumers * 4);
     }
-    __syncthreads();
-    if (k0 >= warp_end) continue;  // warp-uniform: no live key for its rows
-    float s[kMmaTile / 8][4], dp[kMmaTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kMmaTile / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t aq[4], ado[4];
-      load_a(aq, qs, LD, warp * 16, kk, lane);
-      load_a(ado, dos, LD, warp * 16, kk, lane);
-#pragma unroll
-      for (int n = 0; n < kMmaTile; n += 16) {
-        uint32_t bk[4], bv[4];
-        load_b_nk(bk, ks, LD, n, kk, lane);
-        load_b_nk(bv, vs, LD, n, kk, lane);
-        mma_bf16(s[n / 8], aq, bk[0], bk[1]);
-        mma_bf16(s[n / 8 + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[n / 8], ado, bv[0], bv[1]);
-        mma_bf16(dp[n / 8 + 1], ado, bv[2], bv[3]);
+    hop::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one thread issues the copies, running ahead of the
+    // consumers by the ring (and by a row buffer across items)
+    if (threadIdx.x == kConsumers * 128) {
+      int it = 0, t = 0;
+      for (int r = 0; r < items.rounds(); ++r) {
+        const int bh = items.head(r);
+        if (bh >= items.n_bh) continue;
+        const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
+        const int qt = items.q_tile(r), q0 = qt * T::kBlockRows;
+        if (it >= 2) hop::bar_wait(q_empty(it), parity(it, 2) ^ 1);
+        hop::bar_arrive_tx(q_full(it), T::kItemBytes);
+        for (int w = 0; w < kConsumers; ++w)
+          for (int sl = 0; sl < T::kSlabs; ++sl) {
+            const uint32_t at =
+                q_buf(it) + (w * T::kSlabs + sl) * hop::kSlabBytes;
+            hop::tma_load(at, &tq, q_full(it), 64 * sl, h,
+                          q0 + hop::kTileRows * w, b);
+            hop::tma_load(at + T::kQBytes, &tdo, q_full(it), 64 * sl, h,
+                          q0 + hop::kTileRows * w, b);
+          }
+        const int n_tiles = (tile_end(qt) + KT - 1) / KT;
+        for (int kt = 0; kt < n_tiles; ++kt, ++t) {
+          if (t >= T::kStages)   // the slot's previous tile is consumed
+            hop::bar_wait(empty(t), parity(t, T::kStages) ^ 1);
+          hop::bar_arrive_tx(full(t), T::kStageBytes);
+          for (int sl = 0; sl < T::kSlabs; ++sl) {
+            hop::tma_load(k_tile(t) + sl * T::kKVSlab, &tk, full(t), 64 * sl,
+                          hk, kt * KT, b);
+            hop::tma_load(k_tile(t) + T::kKVBytes + sl * T::kKVSlab, &tv,
+                          full(t), 64 * sl, hk, kt * KT, b);
+          }
+        }
+        ++it;
       }
     }
-    // ds on the accumulator layout (c0, c1: row g; c2, c3: row g + 8;
-    // columns 2t, 2t + 1 of each 8-key tile), as A operands of dq += ds.k
-    uint32_t ads[kMmaTile / 16][4];
+  } else {
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) hop::bar_arrive(bar);
+    };
+    float acc[D / 2], sc[KT / 2], dp[KT / 2];
+    uint32_t ads[KT / 16][4];
+    int it = 0, t = 0;
+    for (int r = 0; r < items.rounds(); ++r) {
+      const int bh = items.head(r);
+      if (bh >= items.n_bh) continue;
+      const int b = bh / H, h = bh % H;
+      const int qt = items.q_tile(r);
+      const int n_tiles = (tile_end(qt) + KT - 1) / KT;
+      const int r0 = qt * T::kBlockRows + wg * hop::kTileRows;
+      // the thread's rows, one past each one's last live key, and their
+      // lse (base 2), delta and dlse, read once for the item
+      const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+      int end_r[2];
+      float lse2[2], dl[2], dz[2];
 #pragma unroll
-    for (int n = 0; n < kMmaTile / 8; ++n) {
-      float d[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        const int key = k0 + n * 8 + 2 * t + (i & 1);
-        const float p =
-            key < end_r[r] ? expf(s[n][i] * scale - lse_r[r]) : 0.f;
-        d[i] = p * ((dp[n][i] - delta_r[r]) + dlse_r[r]);
+      for (int i = 0; i < 2; ++i) {
+        end_r[i] = row[i] < Sq ? live_end(row[i], Sk, q_off, k_off, causal)
+                               : 0;
+        lse2[i] = INFINITY;
+        dl[i] = dz[i] = 0.f;
+        if (end_r[i] > 0) {
+          const int64_t rr = ((int64_t)b * Sq + row[i]) * H + h;
+          lse2[i] = lse[rr] * kLog2e;
+          dl[i] = delta[rr];
+          dz[i] = dlse != nullptr ? dlse[rr] : 0.f;
+        }
       }
-      ads[n >> 1][(n & 1) * 2] = pack_bf16(d[0], d[1]);
-      ads[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
-    }
+      // keys below all_end are live for every row of the warpgroup; its
+      // tiles from n_live on hold no live key of any of its rows
+      const int all_end =
+          r0 < Sq ? live_end(r0, Sk, q_off, k_off, causal) : 0;
+      const int any_end =
+          r0 < Sq ? live_end(min(r0 + hop::kTileRows, Sq) - 1, Sk, q_off,
+                             k_off, causal)
+                  : 0;
+      const int n_live = (any_end + KT - 1) / KT;
+      const uint32_t qw = q_buf(it) + wg * T::kSlabs * hop::kSlabBytes;
+      const uint32_t dow = qw + T::kQBytes;
 #pragma unroll
-    for (int j = 0; j < kMmaTile / 16; ++j)
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      hop::bar_wait(q_full(it), parity(it, 2));
+
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int ti = t + kt;
+        hop::bar_wait(full(ti), parity(ti, T::kStages));
+        if (kt < n_live) {   // warpgroup-uniform
+          const uint32_t ks = k_tile(ti), vs = ks + T::kKVBytes;
 #pragma unroll
-      for (int n = 0; n < D; n += 16) {
-        uint32_t bk[4];
-        load_b_kn(bk, ks, LD, n, j * 16, lane);
-        mma_bf16(acc[n / 8], ads[j], bk[0], bk[1]);
-        mma_bf16(acc[n / 8 + 1], ads[j], bk[2], bk[3]);
+          for (int i = 0; i < KT / 2; ++i) sc[i] = dp[i] = 0.f;
+          hop::pin(sc);
+          hop::pin(dp);
+          hop::wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            hop::mma_ss<KT>(sc, hop::desc_k(qw, kk, hop::kSlabBytes),
+                            hop::desc_k(ks, kk, T::kKVSlab), kk > 0);
+            hop::mma_ss<KT>(dp, hop::desc_k(dow, kk, hop::kSlabBytes),
+                            hop::desc_k(vs, kk, T::kKVSlab), kk > 0);
+          }
+          hop::wg_commit();
+          hop::wg_wait<0>();
+          hop::pin(sc);
+          hop::pin(dp);
+          const int k0 = kt * KT;
+          const int lim[2] = {end_r[0] - k0 - 2 * t4, end_r[1] - k0 - 2 * t4};
+          if (k0 + KT > all_end)
+            ds_tile<KT, true>(sc, dp, lim, lse2, dl, dz, scale_log2, ads);
+          else
+            ds_tile<KT, false>(sc, dp, lim, lse2, dl, dz, scale_log2, ads);
+          hop::pin(acc);
+          hop::wg_fence();
+#pragma unroll
+          for (int j = 0; j < KT / 16; ++j)
+            hop::mma_rs<D>(acc, ads[j], hop::desc_mn(ks, j, T::kKVSlab), 1);
+          hop::wg_commit();
+          hop::wg_wait<0>();
+          hop::pin(acc);
+        }
+        release(empty(ti));
       }
-  }
+      release(q_empty(it));
+      t += n_tiles;
+      ++it;
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = w0 + g + 8 * i;
-    if (qi >= Sq) continue;
-    bf16* out = dq + (((int64_t)b * Sq + qi) * H + h) * D + 2 * t;
+      for (int i = 0; i < 2; ++i) {
+        if (row[i] >= Sq) continue;
+        bf16* out = dq + (((int64_t)b * Sq + row[i]) * H + h) * D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) = __floats2bfloat162_rn(
-          acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * i] * scale,
+                                    acc[4 * n + 2 * i + 1] * scale);
+      }
+    }
   }
 }
 
@@ -604,23 +744,6 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dq_mma(const Args& a) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.B * a.H, (a.Sq + kMmaRows - 1) / kMmaRows);
-  dq_mma_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const float*>(a.dlse), static_cast<bf16*>(a.dq), a.Sq,
-      a.Sk, a.H, a.Hkv, a.q_off, a.k_off, a.causal, a.scale);
-  return (int)cudaGetLastError();
-}
-
 // The dk/dv kernel on the tensor cores (bf16, D = 64 or 128).
 //
 // A block owns 128 keys of one (b, kv head): a producer warpgroup and two
@@ -641,9 +764,6 @@ int launch_dq_mma(const Args& a) {
 // from the same stage. dk and dv stay in registers across the group and
 // are written once: one writer per element, no atomics, sums in a fixed
 // order.
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kWide = 1 << 30;   // a column bound no tile reaches
-
 template <int D> struct DkvTiles {
   static constexpr int kSlabs = D / 64;
   // consumer warpgroups of 64 keys, then one producer warp. ptxas
@@ -932,9 +1052,37 @@ int launch_dkv_wgmma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dq_wgmma(const Args& a) {
+  using T = DqTiles<D>;
+  CUtensorMap tq, tdo, tk, tv;
+  int rc = hop::make_map(&tq, a.q, D, a.H, a.Sq, a.B, hop::kTileRows);
+  if (rc == 0)
+    rc = hop::make_map(&tdo, a.dout, D, a.H, a.Sq, a.B, hop::kTileRows);
+  if (rc == 0) rc = hop::make_map(&tk, a.k, D, a.Hkv, a.Sk, a.B, T::kKeyTile);
+  if (rc == 0) rc = hop::make_map(&tv, a.v, D, a.Hkv, a.Sk, a.B, T::kKeyTile);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  // one block an SM at most: `group` heads at a time, one block for each
+  // of their query tiles
+  const int n_qt = (a.Sq + T::kBlockRows - 1) / T::kBlockRows;
+  const int group =
+      std::max(1, std::min(a.B * a.H, hop::sm_count() / n_qt));
+  dq_wgmma_kernel<D><<<(unsigned)group * n_qt, T::kThreads, T::kSmem,
+                       a.stream>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const float*>(a.dlse),
+      static_cast<bf16*>(a.dq), a.B, a.Sq, a.Sk, a.H, a.Hkv, a.q_off,
+      a.k_off, a.causal, a.scale, a.scale * kLog2e, group);
+  return (int)cudaGetLastError();
+}
+
 // The tensor-core path takes bf16 at D = 64 or 128 with the q, k, v and
-// do rows 16-byte aligned (dq's 16-byte staging loads, the tensor maps'
-// base addresses); everything else takes the FMA path.
+// do rows 16-byte aligned (the tensor maps' base addresses); everything
+// else takes the FMA path.
 bool mma_path(int dtype, const Args& a) {
   const void* const ptrs[4] = {a.q, a.k, a.v, a.dout};
   return dtype == 1 && mma_rows_ok(ptrs, 4, a.D);
@@ -952,8 +1100,8 @@ int dispatch(int dtype, const Args& a) {
   if (a.B == 0 || a.H == 0 || a.Sq == 0 || a.Sk == 0) return 0;
   if (mma_path(dtype, a)) {
     if (a.D == 64)
-      return DQ ? launch_dq_mma<64>(a) : launch_dkv_wgmma<64>(a);
-    return DQ ? launch_dq_mma<128>(a) : launch_dkv_wgmma<128>(a);
+      return DQ ? launch_dq_wgmma<64>(a) : launch_dkv_wgmma<64>(a);
+    return DQ ? launch_dq_wgmma<128>(a) : launch_dkv_wgmma<128>(a);
   }
   return dtype == 1 ? dispatch_dim<DQ, __nv_bfloat16>(a)
                     : dispatch_dim<DQ, float>(a);

@@ -233,7 +233,7 @@ merge_kernel(const float* __restrict__ ws, T* __restrict__ o,
 // spreads one chunk's keys over blocks; f32 always takes it.
 //
 // A block is persistent: at most one an SM, each taking a fixed list of
-// items (one head's 128 query rows; Items, below). It has two consumer
+// items (one head's 128 query rows; hopper.cuh's Items). It has two consumer
 // warpgroups of 64 rows and one producer warp, whose one thread issues
 // every copy. The producer copies an item's query rows to one of two
 // shared buffers and streams the k and v tiles of its live keys (128 keys
@@ -384,24 +384,6 @@ __device__ __forceinline__ void pack_p(const float (&sc)[KT / 2],
   }
 }
 
-// The work of one block: items of (head, 128-row query tile), in rounds.
-// Round r gives the block head r * group + hs and, of that head's n_qt
-// query tiles, the slot-th counted from the last in even rounds and from
-// the first in odd ones, so two rounds weigh the same for every block
-// under the causal mask, and the group's heads run together (their k and
-// v stay in L2).
-struct Items {
-  int n_qt, n_bh, group, hs, slot;
-  __device__ Items(int Sq, int n_bh_, int group_, int rows)
-      : n_qt((Sq + rows - 1) / rows), n_bh(n_bh_), group(group_),
-        hs(blockIdx.x % group_), slot(blockIdx.x / group_) {}
-  __device__ int rounds() const { return (n_bh + group - 1) / group; }
-  __device__ int head(int r) const { return r * group + hs; }
-  __device__ int q_tile(int r) const {
-    return r & 1 ? slot : n_qt - 1 - slot;
-  }
-};
-
 template <int D>
 __global__ void __launch_bounds__(FwdTiles<D>::kThreads, 1)
 fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -426,7 +408,7 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // the phase parity of the n-th use of a ring slot of `slots`
   auto parity = [](int n, int slots) { return (uint32_t)(n / slots) & 1; };
 
-  const Items items(Sq, B * H, group, T::kBlockRows);
+  const hop::Items items(Sq, B * H, group, T::kBlockRows);
   // one past the last key any row of query tile qt sees
   auto tile_end = [&](int qt) {
     return live_end(min((qt + 1) * T::kBlockRows, Sq) - 1, Sk, q_off, k_off,

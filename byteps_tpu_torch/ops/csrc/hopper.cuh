@@ -1,7 +1,8 @@
 // Hopper pieces of the bf16 tensor-core attention kernels (flash_fwd.cu's
-// forward, flash_bwd.cu's dk/dv): TMA tensor maps and tile copies,
-// mbarriers, and warpgroup matrix multiplies (wgmma) that read shared
-// tiles in the 128-byte swizzled layout TMA writes.
+// forward, flash_bwd.cu's dq and dk/dv): TMA tensor maps and tile copies,
+// mbarriers, the persistent blocks' schedule, and warpgroup matrix
+// multiplies (wgmma) that read shared tiles in the 128-byte swizzled
+// layout TMA writes.
 //
 // Shared tiles. A tile is a stack of 128-byte rows: 64 bf16 columns of
 // one head of the (B, S, heads, D) tensors, one row a position. TMA
@@ -164,6 +165,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(pos), "r"(b)
       : "memory");
 }
+
+// The work of a persistent block: items of (head, query tile of `rows`
+// rows), in rounds. Round r gives the block head r * group + hs and, of
+// that head's n_qt query tiles, the slot-th counted from the last in even
+// rounds and from the first in odd ones, so two rounds weigh the same for
+// every block under the causal mask, and the group's heads run together
+// (their k and v stay in L2). The grid is group * n_qt blocks.
+struct Items {
+  int n_qt, n_bh, group, hs, slot;
+  __device__ Items(int Sq, int n_bh_, int group_, int rows)
+      : n_qt((Sq + rows - 1) / rows), n_bh(n_bh_), group(group_),
+        hs(blockIdx.x % group_), slot(blockIdx.x / group_) {}
+  __device__ int rounds() const { return (n_bh + group - 1) / group; }
+  __device__ int head(int r) const { return r * group + hs; }
+  __device__ int q_tile(int r) const {
+    return r & 1 ? slot : n_qt - 1 - slot;
+  }
+};
 
 // 2^x on the MUFU unit; flushes denormal results to zero, and 2^-inf = 0
 __device__ __forceinline__ float ex2(float x) {

@@ -8,13 +8,19 @@ position ``pos`` the result equals ``attention_lse(q, K, V, pos, 0)``
 restricted to the live prefix ``0..pos``, where K/V is the cache read
 in the model dtype (int8 entries: ``f32(q) * scale`` rounded to the
 model dtype). Accumulation is f32; the output is in q's dtype.
+
+On the card the live prefix is cut into splits of whole 32-key tiles
+(:func:`decode_plan`), one block per (kv head, sequence, split); the
+splits of a (sequence, kv head) pair form one thread-block cluster and
+merge their partial states in split order through distributed shared
+memory, in the same launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,7 +31,10 @@ from byteps_tpu_torch.ops.flash_attention import (
     check_shapes,
 )
 
-__all__ = ["flash_decode", "decode_torch"]
+__all__ = ["flash_decode", "decode_torch", "decode_plan"]
+
+TILE_KEYS = 32   # keys of the kernel's staged tile
+MAX_SPLITS = 16  # the kernel's largest cluster
 
 
 def _read(cache: torch.Tensor, scale: Optional[torch.Tensor],
@@ -52,13 +61,39 @@ def decode_torch(q: torch.Tensor, k_cache: torch.Tensor,
     return o
 
 
+def decode_plan(live: int, B: int, Hkv: int, sms: int,
+                most: int = MAX_SPLITS) -> Tuple[int, int]:
+    """How the kernel cuts a live prefix of ``live`` keys across blocks:
+    ``(n_split, split_tiles)``, split s taking the 32-key tiles
+    ``[s * split_tiles, (s + 1) * split_tiles)`` of the prefix (the last
+    split may hold fewer, never none). The grid has ``B * Hkv * n_split``
+    blocks: at least one wave of ``sms`` wherever the live tiles allow
+    it in at most ``most`` splits (the kernel's cap for the shapes), with
+    about as few splits as that takes, since each split costs its
+    cluster a merge and on an H100 a second wave of splits was slower at
+    the long prefixes. A function of its arguments only, so a decode
+    step's sum order is fixed."""
+    tiles = -(-live // TILE_KEYS)
+    pairs = max(1, B * Hkv)
+    want = min(tiles, most, -(-sms // pairs))
+    split_tiles = max(tiles // want, -(-tiles // most))
+    return -(-tiles // split_tiles), split_tiles
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bps_flash_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                     i, ctypes.c_float, p]
+                                     i, i, i, ctypes.c_float, p]
     lib.bps_flash_decode.restype = i
+    lib.bps_flash_decode_max_splits.argtypes = [i, i, i, i]
+    lib.bps_flash_decode_max_splits.restype = i
     return lib
 
 
@@ -79,6 +114,12 @@ def _decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         check_kernel_input(v_scale, "v_scale", (torch.float32,), q.device)
     o = torch.empty_like(q)
     lib = _lib()
+    # the most splits whose partial states fit split 0's shared memory
+    most = lib.bps_flash_decode_max_splits(H // Hkv, D,
+                                           k_cache.element_size(),
+                                           int(quant))
+    n_split, split_tiles = decode_plan(pos + 1, B, Hkv,
+                                       _sm_count(q.device.index), most)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.bps_flash_decode(
@@ -86,7 +127,7 @@ def _decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None, o.data_ptr(),
             int(q.dtype == torch.bfloat16), int(quant), B, S, Hkv, H // Hkv,
-            D, pos, 1.0 / (D ** 0.5), stream)
+            D, pos, n_split, split_tiles, 1.0 / (D ** 0.5), stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_decode kernel launch failed: "

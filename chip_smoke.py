@@ -8,23 +8,31 @@ Phases, each printing one JSON line:
 1. card — name and power limit (``nvidia-smi``), then the kernel build
    (one ``nvcc`` per source, all started together) and its time, the
    ptxas register and spill report, and the attention libraries' SASS
-   counts (HGMMA, HMMA, UTMALDG, LDGSTS, SYNCS);
+   counts (HGMMA, HMMA, UTMALDG, LDGSTS, SYNCS; flash_fwd, flash_bwd,
+   flash_decode);
 2. flash_fwd — the forward kernel against its plain PyTorch version at
    the slice's prefill shapes, bf16 and f32, the training shape, head
    dim 128 (B=4, S=1024, 8 heads) and a non-causal ragged S=1000: error
    against a stated tolerance, and kernel / plain /
    ``scaled_dot_product_attention`` times from CUDA events with the L2
    cache flushed before each launch;
-3. flash_decode — the decode kernel the same way, dense and int8 caches;
+3. flash_decode — the decode kernel the same way, dense and int8 caches:
+   generate's step (B=4, pos 160), B=8 at pos 0, 100, 700 and 1023 (the
+   long case), f32, GQA 16/4, B=1 at pos 1023 (the most splits), the
+   tile edges pos 31 and 32, the long case's bytes with one kv head
+   (B=128: each sequence's cache rows side by side), and head dims 128
+   (GQA, int8), 256 (f32, 16 query heads a kv head) and 36;
    flash_bwd — the dq and dk/dv kernels against ``flash_bwd_torch`` at
    the training shape (B=8, S=1024, 16 heads of 64, causal) in bf16 and
    f32, GQA 16/4, a ragged S=1000, an offset chunk with dead rows and
-   a nonzero lse cotangent, head dim 128 and a non-causal ragged S=1000:
-   each element against a tolerance of its own
-   size plus a floor of a thousandth of max |grad|, the relative L2
-   error, and kernel / plain / SDPA-backward times; flash_determinism —
-   two launches of the bf16 forward, dq and dk/dv on the same inputs
-   bit-equal, at the training shape and head dim 128; onebit — pack words
+   a nonzero lse cotangent, one partial tile (B=1, S=17), head dim 128,
+   head dim 128 with GQA 8/2, offsets, dead rows and an lse cotangent,
+   and a non-causal ragged S=1000: each element against a tolerance of
+   its own size plus a floor of a thousandth of max |grad|, the relative
+   L2 error, and kernel / plain / SDPA-backward times; flash_determinism
+   — two launches of the bf16 forward, dq and dk/dv on the same inputs
+   bit-equal, at the training shape and head dim 128, and of decode at
+   B=8, pos 1023, dense and int8; onebit — pack words
    bit-equal to
    the plain version at the 1,024,000-element chunk, a ragged length and
    an input seeded with -0.0, 0 and NaN, unpack-sum equal at K=1 and K=8
@@ -129,7 +137,8 @@ A ``launches`` line gives the counts per path, then a
 (generate, serve, multitenant, the three train legs, train_ring's
 three legs on one rank; the ring rows' times are the ring phase's
 n = 2 cases; the flash_fwd row, timed at serve's chunk, also gives the
-training shape's ms, bound and SDPA ms as ``train_*``), and, last,
+training shape's ms, bound and SDPA ms as ``train_*``, the flash_decode
+row, timed at generate's step, the long case's as ``long_*``), and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so it does without a CUDA card or without the package beside it.
@@ -329,6 +338,60 @@ def decode_case(timer, name, B, S, H, Hkv, D, pos, dtype, quant, seed):
            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
     emit({"phase": "flash_decode", **res})
     return res
+
+
+def decode_twice_case(name, B, S, H, Hkv, D, pos, quant, seed):
+    """Two launches of the decode kernel on the same bf16 inputs give the
+    same bits: the split plan depends only on the shapes, the splits
+    merge in a fixed order and each output element has one writer."""
+    from byteps_tpu_torch.models.generate import _quantize_block
+    from byteps_tpu_torch.ops.flash_decode import flash_decode
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, 1, H, D, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    ks = vs = None
+    if quant:
+        k, ks = _quantize_block(k)
+        v, vs = _quantize_block(v)
+    a, b = (flash_decode(q, k, v, pos, ks, vs) for _ in range(2))
+    torch.cuda.synchronize()
+    same = torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    res = {"case": name, "shape": [B, S, H, Hkv, D], "pos": pos,
+           "cache": "int8" if quant else "dense", "bit_equal": same}
+    emit({"phase": "flash_determinism", **res})
+    if not same:
+        raise AssertionError(f"flash_decode {name}: two launches differ")
+    return res
+
+
+# (name, B, S, H, Hkv, D, pos, dtype, quant, seed): the main path's
+# generate step first, the long case (B=8, pos 1023, dense bf16) second
+DECODE_CASES = (
+    [("main_path", 4, 1024, 16, 16, 64, 160, torch.bfloat16, False, 20),
+     ("b8", 8, 1024, 16, 16, 64, 1023, torch.bfloat16, False, 21)]
+    + [("b8", 8, 1024, 16, 16, 64, pos, torch.bfloat16, quant, 21)
+       for pos in (0, 100, 700, 1023) for quant in (False, True)
+       if (pos, quant) != (1023, False)]
+    + [(nm, 8, 1024, 16, Hkv, 64, 700, dt, quant, seed)
+       for quant in (False, True)
+       for nm, Hkv, dt, seed in (("b8", 16, torch.float32, 22),
+                                 ("gqa", 4, torch.bfloat16, 23))]
+    # the most splits (B=1), the tile edges, and the long case's bytes
+    # and grid with one kv head, whose cache rows lie side by side
+    + [("b1", 1, 1024, 16, 16, 64, 1023, torch.bfloat16, False, 24),
+       ("tile_edge", 4, 1024, 16, 16, 64, 31, torch.bfloat16, False, 25),
+       ("tile_edge", 4, 1024, 16, 16, 64, 32, torch.bfloat16, False, 25),
+       ("one_head", 128, 1024, 1, 1, 64, 1023, torch.bfloat16, False, 28)]
+    # other head dims: 128 with GQA over int8; 256 in f32 beside 16 query
+    # heads a kv head (one staged tile a warp fits); 36, whose rows are
+    # no whole number of 16-byte vectors
+    + [("d128_gqa", 4, 1024, 16, 4, 128, 700, torch.bfloat16, True, 29),
+       ("d256_gqa16", 2, 600, 16, 1, 256, 599, torch.float32, False, 30),
+       ("d36", 3, 333, 6, 3, 36, 332, torch.bfloat16, False, 31)])
+DECODE_TWICE = (("b8", 8, 1024, 16, 16, 64, 1023, False, 26),
+                ("b8", 8, 1024, 16, 16, 64, 1023, True, 27))
 
 
 def grad_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
@@ -1872,7 +1935,8 @@ def main() -> int:
     emit({"phase": "card", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
           "sass": {n: sass_counts(libs[n]) for n in ("flash_fwd",
-                                                     "flash_bwd")}})
+                                                     "flash_bwd",
+                                                     "flash_decode")}})
 
     timer = Timer()
     bf, f32 = torch.bfloat16, torch.float32
@@ -1888,17 +1952,9 @@ def main() -> int:
                             13))
         fwd.append(fwd_case(timer, "long_prefill", 1, 700, 1024, 16, 16, 64,
                             0, dt, 14))
-    dec = [decode_case(timer, "main_path", 4, 1024, 16, 16, 64, 160, bf,
-                       False, 20)]
-    for pos in (0, 100, 700, 1023):
-        for quant in (False, True):
-            dec.append(decode_case(timer, "b8", 8, 1024, 16, 16, 64, pos, bf,
-                                   quant, 21))
-    for quant in (False, True):
-        dec.append(decode_case(timer, "b8", 8, 1024, 16, 16, 64, 700, f32,
-                               quant, 22))
-        dec.append(decode_case(timer, "gqa", 8, 1024, 16, 4, 64, 700, bf,
-                               quant, 23))
+    dec = [decode_case(timer, *case) for case in DECODE_CASES]
+    for case in DECODE_TWICE:
+        decode_twice_case(*case)
     # the training shape: B=8, S=1024, 16 heads of 64
     fwd.append(fwd_case(timer, "train", 8, 1024, 1024, 16, 16, 64, 0, bf,
                         15))
@@ -1916,7 +1972,10 @@ def main() -> int:
                   34, True),
                  ("offset_dead_rows", 2, 256, 512, 16, 16, 64, 128, 256, f32,
                   35, True),
+                 ("tiny_partial", 1, 17, 17, 2, 2, 64, 0, 0, bf, 28),
                  ("d128", 4, 1024, 1024, 8, 8, 128, 0, 0, bf, 36),
+                 ("d128_gqa_offset", 2, 256, 512, 8, 2, 128, 128, 256, bf, 29,
+                  True),
                  ("noncausal_ragged", 2, 1000, 1000, 16, 16, 64, 0, 0, bf, 37,
                   False, False)):
         try:                       # run every case, then fail on any
@@ -2015,7 +2074,8 @@ def main() -> int:
     # the gradient chunks
     main_fwd = next(r for r in fwd if r["case"] == "chunk")
     train_fwd = next(r for r in fwd if r["case"] == "train")
-    main_dec = dec[0]
+    main_dec = {**dec[0], **{f"long_{k}": dec[1][k]
+                             for k in ("ms", "bound_ms", "library_ms")}}
     main_bwd = bwd[0]
     main_bits = bits[0]
     common = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2077,7 +2137,9 @@ def main() -> int:
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          "case": main["case"], **{k: main[k] for k in common},
          **{k: main[k] for k in ("ms_time_sliced", "train_ms",
-                                 "train_bound_ms", "train_library_ms")
+                                 "train_bound_ms", "train_library_ms",
+                                 "long_ms", "long_bound_ms",
+                                 "long_library_ms")
             if k in main}}
         for name, src, rep, main in rows]
     print(card, flush=True)

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""The bf16 tensor-core attention kernels on one CUDA card: the forward's
-wgmma path and the dk/dv kernel, with dq beside them.
+"""The attention kernels on one CUDA card: the bf16 tensor-core forward,
+dq and dk/dv, and (with ``--decode``) flash decode.
 
-    python3 scripts/torch_flash_tc.py [--repo DIR] [--train-only]
+    python3 scripts/torch_flash_tc.py [--repo DIR] [--train-only] [--decode]
 
-Builds flash_fwd and flash_bwd from DIR's sources (default: this
-checkout) and prints each library's ptxas report and SASS counts. Then
-it runs ``chip_smoke.py``'s forward and backward cases on the
-tensor-core paths: each kernel against its plain version at the smoke's
-tolerances, kernel / plain / SDPA times from CUDA events with the L2
-cache flushed before each launch, and the two-launch bit-equality
-checks. ``--train-only`` keeps the training shape's two cases (B=8,
-S=1024, 16 heads of 64, causal). ``--repo`` points at another checkout
-(a parent commit unpacked with ``git archive``) so that two versions
-are compared on one card in one call: run parent, change, change,
-parent. One JSON line per case; exits non-zero if a case fails or
-there is no CUDA card.
+Builds flash_fwd and flash_bwd (and flash_decode) from DIR's sources
+(default: this checkout) and prints each library's ptxas report and SASS
+counts. Then it runs ``chip_smoke.py``'s forward and backward cases on
+the tensor-core paths: each kernel against its plain version at the
+smoke's tolerances, kernel / plain / SDPA times from CUDA events with
+the L2 cache flushed before each launch, and the two-launch
+bit-equality checks. ``--train-only`` keeps the training shape's two
+cases (B=8, S=1024, 16 heads of 64, causal: the forward, then dq and
+dk/dv). ``--decode`` adds every decode case of the smoke (generate's
+step B=4 pos 160, B=8 up to pos 1023 dense and int8, f32, GQA, B=1 pos
+1023, the tile edges) and its two-launch check. ``--repo`` points at
+another checkout (a parent commit unpacked with ``git archive``) so
+that two versions are compared on one card in one call: run parent,
+change, change, parent. One JSON line per case; exits non-zero if a
+case fails or there is no CUDA card.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ def main() -> int:
                     help="checkout whose byteps_tpu_torch is measured")
     ap.add_argument("--train-only", action="store_true",
                     help="only the training shape's forward and backward")
+    ap.add_argument("--decode", action="store_true",
+                    help="also the flash-decode cases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_flash_tc: no CUDA device", file=sys.stderr)
@@ -55,7 +60,8 @@ def main() -> int:
     from byteps_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = _build.build(("flash_fwd", "flash_bwd"))
+    libs = _build.build(("flash_fwd", "flash_bwd")
+                        + (("flash_decode",) if args.decode else ()))
     ptxas = {n: [ln.strip() for ln in p.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln
                  or "Compiling" in ln or "warning" in ln]
@@ -79,26 +85,34 @@ def main() -> int:
                 (("ragged", 8, 1000, 1000, 16, 16, 64, 0, 0, bf, 33), {}),
                 (("offset_dead_rows", 2, 256, 512, 16, 16, 64, 128, 256, bf,
                   34, True), {}),
+                (("tiny_partial", 1, 17, 17, 2, 2, 64, 0, 0, bf, 28), {}),
                 (("d128", 4, 1024, 1024, 8, 8, 128, 0, 0, bf, 36), {}),
+                (("d128_gqa_offset", 2, 256, 512, 8, 2, 128, 128, 256, bf, 29,
+                  True), {}),
                 (("noncausal_ragged", 2, 1000, 1000, 16, 16, 64, 0, 0, bf,
                   37), {"causal": False})]
         twice = [("train", 8, 1024, 16, 16, 64, 38),
                  ("d128", 4, 1024, 8, 8, 128, 39)]
+    dec = [(case, {}) for case in cs.DECODE_CASES] if args.decode else []
+    twice = [(cs.twice_case, case) for case in twice]
+    if args.decode:
+        twice += [(cs.decode_twice_case, case) for case in cs.DECODE_TWICE]
     timer = cs.Timer()
     failed = []
-    for fn, cases in ((cs.fwd_case, fwd), (cs.bwd_case, bwd)):
+    for fn, cases in ((cs.fwd_case, fwd), (cs.bwd_case, bwd),
+                      (cs.decode_case, dec)):
         for case, kw in cases:
             try:
                 fn(timer, *case, **kw)
             except AssertionError as e:      # run every case, then fail
                 print(e, file=sys.stderr, flush=True)
                 failed.append(f"{fn.__name__} {case[0]}")
-    for case in twice:
+    for fn, case in twice:
         try:
-            cs.twice_case(*case)
+            fn(*case)
         except AssertionError as e:
             print(e, file=sys.stderr, flush=True)
-            failed.append(f"twice {case[0]}")
+            failed.append(f"{fn.__name__} {case[0]}")
     if failed:
         print(f"torch_flash_tc: failed {failed}", file=sys.stderr)
         return 1

@@ -35,12 +35,12 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repo
 
 # the port's hand-written kernels by their CUDA names (FMA and
-# tensor-core paths alike: fwd_wgmma, dq_mma, dkv_wgmma), in the launch
+# tensor-core paths alike: fwd_wgmma, dq_wgmma, dkv_wgmma), in the launch
 # counters' names
 OWN = {"flash_fwd": r"\b(fwd|fwd_wgmma|merge)_kernel\b",
        "flash_decode": r"\bdecode_kernel\b",
        "segmented_lora": r"\bsegmented_lora_kernel\b",
-       "flash_bwd_dq": r"\bdq(_mma)?_kernel\b",
+       "flash_bwd_dq": r"\bdq(_wgmma)?_kernel\b",
        "flash_bwd_dkv": r"\bdkv(_wgmma)?_kernel\b",
        "onebit_pack": r"\bpack_kernel\b",
        "onebit_unpack_sum": r"\bunpack_sum_kernel\b",

@@ -10,6 +10,9 @@ Tolerances: f32 1e-5 (summation order of ≤ 64-term sums); bf16 2e-2
 (dS and P round to bf16 before their products on both sides, the
 gradients round to bf16 on output, and the two round at slightly
 different values). Shapes stay at ≤ 64 rows: interpret mode is slow.
+``DQ_CASES`` are the shapes the tensor-core dq kernel's tiling puts at
+risk; the reference's kernels take no S = 17, so that case is held
+against its jnp twin.
 
 The CUDA kernels are checked against ``flash_bwd_torch`` on the card by
 ``chip_smoke.py``."""
@@ -45,6 +48,25 @@ TC_CASES = {
     for D in (64, 128)
     for kind, Sk, qo in (("seq80", 80, 0), ("chunk80", 160, 80))
 }
+
+
+# shapes the tensor-core dq kernel's tiling puts at risk (its 64-row
+# tiles, 64-key stages and dead-row rule): one partial tile, an offset
+# chunk whose first 16 rows see no key (every case carries a nonzero lse
+# cotangent), and 8 query heads on one kv head
+DQ_CASES = {
+    "partial17": (1, 17, 17, 2, 2, 64, 0, 0),
+    "dead_offset": (1, 32, 64, 2, 2, 64, 16, 32),
+    "gqa8": (1, 32, 32, 8, 1, 64, 0, 0),
+}
+
+
+def _dq_reference(Sq, Sk, D):
+    """The reference's Pallas kernels where they take the shape, else
+    (S = 17: no 8..256 tiling) its jnp twin, the numerics golden."""
+    if jfa.supported(Sq, Sk, D):
+        return jfa.flash_attention_lse
+    return jax.jit(jfa.attention_lse_jnp, static_argnames="causal")
 
 
 def _inputs(B, Sq, Sk, H, Hkv, D, seed):
@@ -122,6 +144,31 @@ def test_tc_head_dims_bf16_match_pallas_kernels(case, monkeypatch):
     arrs = [np.asarray(torch.as_tensor(a).bfloat16().float())
             for a in arrs[:4]] + [arrs[4]]
     want = _ref_grads(jfa.flash_attention_lse, arrs, qo, ko,
+                      dtype=jnp.bfloat16)
+    _close(_port_plain(arrs, qo, ko, dtype=torch.bfloat16), want, BF16_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(DQ_CASES))
+def test_dq_tiling_cases_match_reference(case, monkeypatch):
+    monkeypatch.setenv("BYTEPS_KERNEL_BACKEND", "pallas")
+    B, Sq, Sk, H, Hkv, D, qo, ko = DQ_CASES[case]
+    arrs = _inputs(B, Sq, Sk, H, Hkv, D, seed=Sq + H)
+    want = _ref_grads(_dq_reference(Sq, Sk, D), arrs, qo, ko)
+    plain = _port_plain(arrs, qo, ko)
+    _close(plain, want, F32_TOL)
+    _close(_port_autograd(arrs, qo, ko), want, F32_TOL)
+    n_dead = max(0, ko - qo)
+    assert np.all(plain[0][:, :n_dead] == 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(DQ_CASES))
+def test_dq_tiling_cases_bf16_match_reference(case, monkeypatch):
+    monkeypatch.setenv("BYTEPS_KERNEL_BACKEND", "pallas")
+    B, Sq, Sk, H, Hkv, D, qo, ko = DQ_CASES[case]
+    arrs = _inputs(B, Sq, Sk, H, Hkv, D, seed=Sq + H + 1)
+    arrs = [np.asarray(torch.as_tensor(a).bfloat16().float())
+            for a in arrs[:4]] + [arrs[4]]
+    want = _ref_grads(_dq_reference(Sq, Sk, D), arrs, qo, ko,
                       dtype=jnp.bfloat16)
     _close(_port_plain(arrs, qo, ko, dtype=torch.bfloat16), want, BF16_TOL)
 

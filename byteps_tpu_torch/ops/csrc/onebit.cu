@@ -13,22 +13,38 @@
 // coalesced row across the warp, all 32 loads in flight) and writes one
 // word. Elements past n read as 0.0, so the caller never pads.
 //
-// unpack_sum: one thread per output element e = k * L + j < n folds the K
-// payloads in order r = 0..K-1 from 0.0f: acc = acc + (bit ? s_r : -s_r),
-// the reference's _rows_unpack_acc sum, term for term, so the result is
-// the plain version's bit for bit. A warp reads 32 consecutive words of a
-// row (coalesced); each word is read again by the 32 threads of its bit
-// rows, from cache.
+// unpack_sum (K <= 32): a thread owns 2 adjacent word columns j, j+1
+// and kRowsPerThread = 8 of their 32 bit rows k (4 threads a column, in
+// 4 warps of one block; the 32,000 words of a full chunk give 64,000
+// threads). A warp takes 32 adjacent column pairs, so for payload r it
+// reads 256 consecutive bytes of words, one 8-byte vector a lane: each
+// word once per payload and warp (the 4 warps of a column share their
+// block's L1), the words of 16 payloads in flight at once. One thread per
+// element used to read each word in 32 threads of 32 blocks. The block
+// reads scales[0..K) once into shared memory. For each of its bit rows k
+// and columns a thread folds r = 0..K-1 from 0.0f with
+// acc = __fadd_rn(acc, bit ? s_r : -s_r), the reference's
+// _rows_unpack_acc sum, term for term, so the result is the plain
+// version's bit for bit. It stores row k's two elements out[k * L + j..]
+// as one 8-byte vector (L from packed_words is a multiple of 128; an odd
+// L, which it never gives, loads and stores a word or an element at a
+// time), coalesced across the warp; the elements at or past n (ragged n)
+// are masked. Offsets are
+// products, never a division. Two columns a thread keep the word loads
+// and the stores vectors while a chunk still fills the card; on an H100
+// it was faster than 1 or 4 columns (by 4, 8 or 16 rows) at K = 32 and
+// about as fast at K = 1 and 2.
 //
-// unpack_sum_grid (K > 32): the same thread layout, the reference grid
-// kernel's order of adds. The K rows, padded to a multiple of 8 with
-// zero-scale rows (which add -0.0), fold in blocks of 8 rows, each block
-// from 0.0f; the output is block 0, then out + block b in block order.
+// unpack_sum_grid (K > 32): one thread per output element e = k * L + j
+// (k and j by a division), the reference grid kernel's order of adds. The
+// K rows, padded to a multiple of 8 with zero-scale rows (which add
+// -0.0), fold in blocks of 8 rows, each block from 0.0f; the output is
+// block 0, then out + block b in block order.
 //
 // What bounds them: bytes. A 1,024,000-element chunk (the default
 // 4,096,000-byte partition) moves 4 MB of f32 and 128 KB of words each
 // way, about 1.3 us at 3.35 TB/s; at that size a launch costs about as
-// much as the transfer.
+// much as the transfer. Unpack-sum's stores are 8-byte vectors.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,6 +52,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kGridRows = 8;      // the reference grid kernel's row block
+constexpr int kUnrollK = 32;      // the most payloads unpack_sum takes
+// unpack_sum: bit rows a thread (of 2 adjacent word columns), row groups
+// a column, strips of 64 columns a block (each strip one warp per row
+// group), payloads whose words a thread loads before adding them
+constexpr int kRowsPerThread = 8;
+constexpr int kRowGroups = 32 / kRowsPerThread;
+constexpr int kStrips = kThreads / 32 / kRowGroups;
+constexpr int kLoadBatch = 16;
 
 __global__ void __launch_bounds__(kThreads)
 pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
@@ -54,21 +78,68 @@ pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
   words[j] = w;
 }
 
+// the two words of a row at p (one 8-byte vector when aligned; the
+// second 0 when `two` is false, at an odd L's last column)
+__device__ __forceinline__ void load_pair(const uint32_t* p, bool vec,
+                                          bool two, uint32_t (&w)[2]) {
+  if (vec) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x, w[1] = v.y;
+    return;
+  }
+  w[0] = __ldg(p), w[1] = two ? __ldg(p + 1) : 0u;
+}
+
 __global__ void __launch_bounds__(kThreads)
 unpack_sum_kernel(const uint32_t* __restrict__ words,
                   const float* __restrict__ scales, float* __restrict__ out,
                   int K, int L, long long n) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
-  const int k = (int)(e / L);
-  const int j = (int)(e - (long long)k * L);
-  float acc = 0.f;
-  for (int r = 0; r < K; ++r) {
-    const float s = scales[r];
-    const uint32_t bit = (words[(long long)r * L + j] >> k) & 1u;
-    acc = __fadd_rn(acc, bit ? s : -s);
+  __shared__ float sc[kUnrollK];
+  if ((int)threadIdx.x < K) sc[threadIdx.x] = scales[threadIdx.x];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = (warp % kRowGroups) * kRowsPerThread;
+  const int j = ((blockIdx.x * kStrips + warp / kRowGroups) * 32 + lane) * 2;
+  const long long e0 = (long long)k0 * L + j;
+  if (j >= L || e0 >= n) return;        // no element of this thread < n
+  // an even L starts every row 8-byte aligned; an odd L's last column
+  // has no second column
+  const bool even = (L & 1) == 0;
+  const bool vec = even && ((uintptr_t)words & 7) == 0;
+  const bool two = j + 1 < L;
+  float acc[kRowsPerThread][2];
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) acc[k][0] = acc[k][1] = 0.f;
+  // the word pairs of kLoadBatch payloads in flight at once, then their adds
+  for (int r0 = 0; r0 < K; r0 += kLoadBatch) {
+    uint32_t w[kLoadBatch][2];
+#pragma unroll
+    for (int t = 0; t < kLoadBatch; ++t)
+      if (r0 + t < K)
+        load_pair(words + (long long)(r0 + t) * L + j, vec, two, w[t]);
+#pragma unroll
+    for (int t = 0; t < kLoadBatch; ++t) {
+      if (r0 + t < K) {
+        const float s = sc[r0 + t];
+#pragma unroll
+        for (int k = 0; k < kRowsPerThread; ++k)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            acc[k][c] = __fadd_rn(acc[k][c],
+                                  (w[t][c] >> (k0 + k)) & 1u ? s : -s);
+      }
+    }
   }
-  out[e] = acc;
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const long long e = e0 + (long long)k * L;
+    if (even && e + 1 < n) {
+      *reinterpret_cast<float2*>(out + e) = make_float2(acc[k][0], acc[k][1]);
+    } else {
+      if (e < n) out[e] = acc[k][0];
+      if (two && e + 1 < n) out[e + 1] = acc[k][1];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -109,11 +180,14 @@ extern "C" int bps_onebit_pack(const void* x, void* words, long long n, int L,
 
 // words: (K, L) 32-bit words; scales: K f32 on the card; out: n f32, the
 // first n elements of the (32, L) sum. Returns a cudaError_t.
+// 0 <= K <= 32.
 extern "C" int bps_onebit_unpack_sum(const void* words, const void* scales,
                                      void* out, int K, int L, long long n,
                                      void* stream) {
+  if (K < 0 || K > kUnrollK) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  unpack_sum_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+  const int per_block = kStrips * 64;   // word columns a block
+  unpack_sum_kernel<<<(L + per_block - 1) / per_block, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const float*>(scales),
       static_cast<float*>(out), K, L, n);

@@ -15,10 +15,13 @@ instead casts the slabs to x's dtype and rounds ``u`` there, which
 differs in bf16; the port follows the kernel on both devices.
 
 Both versions are batch invariant: a row's delta is summed in an order
-that depends only on ``d_in`` and the rank, never on R, S or the row's
-place in the batch. The kernel does it by construction (see its note);
-the plain version sums ``x * A`` over ``d_in`` with one reduction and
-adds the rank terms in order with elementwise ops, where a CPU
+that depends only on ``d_in``, the rank and ``d_out``, never on R, S or
+the row's place in the batch. The kernel does it by construction: one
+thread-block cluster a (row, position) splits ``d_in`` across its blocks
+and warps and adds the partials in a fixed order, on a launch plan the
+kernel's library computes from those three widths (see the kernel's
+note); the plain version sums ``x * A`` over ``d_in`` with one reduction
+and adds the rank terms in order with elementwise ops, where a CPU
 ``matmul``'s blocking changes with the number of rows. That is what lets
 ``models/lora.lora_delta`` (one slot, all rows on it) and the pooled
 decode step compute the same bits for the same row.
@@ -36,7 +39,7 @@ from byteps_tpu_torch.ops.backend import check_kernel_input, launches
 
 __all__ = ["segmented_lora_delta", "delta_torch", "MAX_RANK"]
 
-# the kernel's largest rank bucket (its register arrays are sized by it)
+# the kernel's largest rank bucket (its shared arrays are sized by it)
 MAX_RANK = 64
 
 

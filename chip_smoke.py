@@ -35,9 +35,10 @@ Phases, each printing one JSON line:
    B=8, pos 1023, dense and int8; onebit — pack words
    bit-equal to
    the plain version at the 1,024,000-element chunk, a ragged length and
-   an input seeded with -0.0, 0 and NaN, unpack-sum equal at K=1 and K=8
-   and, in the grid order the reference takes above 32 payloads, at K=40
-   and K=256; topk — select, reconstruct-sum and the fused round trip
+   an input seeded with -0.0, 0 and NaN, unpack-sum equal by bit pattern
+   at K=1, 2, 8 and 32 and, in the grid order the reference takes above
+   32 payloads, at K=40 and K=256, and at n = 1, 31 and 4097 with a zero
+   scale; topk — select, reconstruct-sum and the fused round trip
    bit-equal to their plain versions at the training step's shapes (the
    (80, 100) round trip of a full chunk with and without the EF residual,
    select and reconstruct at (100, 10240) and the ragged tail's
@@ -46,9 +47,12 @@ Phases, each printing one JSON line:
    plain version on a layer's strided slice of pool-shaped slabs: the
    packed decode shape (R=16, S=1, 1024 -> 8 -> 1024, 33 slots, mixed
    slots with 0 and repeats) in bf16 and f32, a 64-row prefill chunk,
-   w2's 4096 -> 8 -> 1024, rank 64, slot-0 rows exactly 0, and a row
-   alone, in R=16 and on a one-slot view bit-equal (batch invariance);
-   library yardstick: index_select + two bmm;
+   w2's 4096 -> 8 -> 1024, rank 64, d_in 1000 and 36, ranks 1, 3 and
+   33, S=17, d_out 1001 and 4096, a B=4 T=128 prefill on one adapter,
+   slot-0 rows exactly 0, two launches
+   bit-equal, and a row alone, in R=16 and on a one-slot view bit-equal
+   at the decode, w2 and rank-64 shapes (batch invariance); library
+   yardstick: index_select + two bmm;
 4. generate — ``make_generate_fn`` at the full width of GPT-2 medium in
    bf16 (random weights from a seed): B=4, T0=128, 64 new tokens;
 5. serve — ``Scheduler.serve`` at the same width, bf16: 8 requests with
@@ -530,11 +534,18 @@ def twice_case(name, B, S, H, Hkv, D, seed, causal=True):
     return res
 
 
-def sass_counts(lib) -> dict:
-    """How many instructions of each kind of interest a built library's
-    SASS holds (``cuobjdump -sass``, beside nvcc): HGMMA (wgmma), HMMA
-    (mma.sync), UTMALDG (TMA loads), LDGSTS (cp.async), SYNCS (mbarrier
-    operations)."""
+ATTN_SASS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "SYNCS")
+# the FMA kernels: no tensor cores and no atomics (ATOM, ATOMS, RED);
+# cp.async (LDGSTS), shuffles, cluster barriers, FMAs and adds
+FMA_SASS = ("HGMMA", "HMMA", "ATOM", "ATOMS", "RED", "LDGSTS", "SHFL",
+            "UCGABAR_ARV", "UCGABAR_WAIT", "FFMA", "FADD")
+
+
+def sass_counts(lib, ops=ATTN_SASS) -> dict:
+    """How many instructions of each kind in ``ops`` a built library's
+    SASS holds (``cuobjdump -sass``, beside nvcc); by default those of
+    the attention kernels: HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA
+    loads), LDGSTS (cp.async), SYNCS (mbarrier operations)."""
     import re
     from pathlib import Path
 
@@ -543,13 +554,15 @@ def sass_counts(lib) -> dict:
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    return {op: len(re.findall(rf"\b{op}\b", text))
-            for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "SYNCS")}
+    return {op: len(re.findall(rf"\b{op}\b", text)) for op in ops}
 
 
 def onebit_case(timer, name, n, seed, special=False):
-    """Pack words bit-equal to the plain version; unpack-sum equal at
-    K = 1 and K = 8 (the fold order is fixed, so equality is exact)."""
+    """Pack words bit-equal to the plain version; unpack-sum bit-equal
+    (by bit pattern: -0.0 is not 0.0) at K = 1 (one card), 2 (train_ring's
+    owner), 8 and 32 (the most the unrolled order takes), and at K = 40
+    and 256 in the grid order; the fold order is fixed, so equality is
+    exact."""
     from byteps_tpu_torch.ops.onebit_kernels import (
         _pack_torch, _unpack_sum_torch, onebit_pack, onebit_unpack_sum,
         packed_words)
@@ -579,43 +592,56 @@ def onebit_case(timer, name, n, seed, special=False):
     res["pack_plain_ms"] = timer(lambda: _pack_torch(x))
     res["pack_bound_ms"], res["pack_bound_by"] = bound_ms(
         4 * n + 4 * L, 32 * L, torch.float32)
-    for K in (1, 8):
-        ws = torch.stack([onebit_pack(torch.randn(n, generator=g,
-                                                  device="cuda"))
-                          for _ in range(K)])
+    for K in (1, 2, 8, 32, 40, 256):
+        if K <= 8:
+            ws = torch.stack([onebit_pack(torch.randn(n, generator=g,
+                                                      device="cuda"))
+                              for _ in range(K)])
+        else:
+            ws = torch.randint(-2 ** 31, 2 ** 31 - 1, (K, L), generator=g,
+                               device="cuda", dtype=torch.int32)
         sc = torch.rand(K, generator=g, device="cuda")
         out = onebit_unpack_sum(ws, sc, n)
         ref = _unpack_sum_torch(ws, sc, n)
         err = float((out - ref).abs().max())
-        if not torch.equal(out, ref):
+        if not bits_equal(out, ref):
             raise AssertionError(f"onebit unpack_sum {name} K={K}: differs "
                                  f"from the plain version (max err {err})")
         res[f"unpack_k{K}_equal"] = True
         res[f"unpack_k{K}_max_abs_err"] = err
         res[f"unpack_k{K}_ms"] = timer(lambda: onebit_unpack_sum(ws, sc, n))
         res[f"unpack_k{K}_plain_ms"] = timer(
-            lambda: _unpack_sum_torch(ws, sc, n))
-        res[f"unpack_k{K}_bound_ms"], res[f"unpack_k{K}_bound_by"] = \
-            bound_ms(4 * K * L + 4 * K + 4 * n, 2 * K * n, torch.float32)
-    # above 32 payloads: the reference's grid order (8-row blocks)
-    for K in (40, 256):
-        ws = torch.randint(-2 ** 31, 2 ** 31 - 1, (K, L), generator=g,
-                           device="cuda", dtype=torch.int32)
-        sc = torch.rand(K, generator=g, device="cuda")
-        out = onebit_unpack_sum(ws, sc, n)
-        ref = _unpack_sum_torch(ws, sc, n)
-        if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
-            raise AssertionError(f"onebit unpack_sum {name} K={K}: differs "
-                                 "from the plain version (grid order)")
-        res[f"unpack_k{K}_equal"] = True
-        res[f"unpack_k{K}_max_abs_err"] = float((out - ref).abs().max())
-        res[f"unpack_k{K}_ms"] = timer(lambda: onebit_unpack_sum(ws, sc, n))
-        res[f"unpack_k{K}_plain_ms"] = timer(
-            lambda: _unpack_sum_torch(ws, sc, n), iters=5)
+            lambda: _unpack_sum_torch(ws, sc, n), iters=20 if K <= 8 else 5)
         res[f"unpack_k{K}_bound_ms"], res[f"unpack_k{K}_bound_by"] = \
             bound_ms(4 * K * L + 4 * K + 4 * n, 2 * K * n, torch.float32)
     emit({"phase": "onebit", **res})
     return res
+
+
+def unpack_edge_cases(seed=43):
+    """Unpack-sum at the lengths that cut a row of words short (n = 1,
+    31, 4097) and at an odd word count (L = 33, whose last column has no
+    pair, n = 1055) for K = 1, 2, 8 and 32, one payload's scale 0 (its
+    terms add +-0.0): bit-equal to the plain version by bit pattern."""
+    from byteps_tpu_torch.ops.onebit_kernels import (
+        _unpack_sum_torch, onebit_unpack_sum, packed_words)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    checked = []
+    for n, L in [(n, packed_words(n)) for n in (1, 31, 4097)] + [(1055, 33)]:
+        for K in (1, 2, 8, 32):
+            ws = torch.randint(-2 ** 31, 2 ** 31 - 1, (K, L), generator=g,
+                               device="cuda", dtype=torch.int32)
+            sc = torch.rand(K, generator=g, device="cuda")
+            sc[K // 2] = 0.0
+            out = onebit_unpack_sum(ws, sc, n)
+            if not bits_equal(out, _unpack_sum_torch(ws, sc, n)):
+                raise AssertionError(f"onebit unpack_sum n={n} L={L} K={K} "
+                                     "(one zero scale): differs from the "
+                                     "plain version")
+            checked.append([n, L, K])
+    emit({"phase": "onebit", "case": "unpack_edges", "checked": checked,
+          "bit_equal": True})
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -747,15 +773,16 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
 
 
-def lora_case(timer, name, R, S, d_in, rb, d_out, dtype, seed, n_slots=33,
-              slots=None):
+def lora_case(timer, name, R, S, d_in, rb, d_out, dtype, seed, slots=None,
+              n_slots=33):
     """The segmented LoRA kernel against its plain version on a layer's
     slice of pool-shaped slabs ((n_slots, 24, d_in, rb), strided, as the
     packed decode step hands them over), slot 0 all zero. f32: within
     LORA_F32_TOL of max |plain|; bf16: within one bf16 ulp of the plain
     version's f32 result, plus that f32 allowance (where the rank terms
     cancel to near 0, the two f32 sums differ by more than the result's
-    own bf16 ulp). Rows on slot 0 must be exactly 0."""
+    own bf16 ulp). Rows on slot 0 must be exactly 0, and a second launch
+    on the same inputs must give the same bits."""
     from byteps_tpu_torch.ops.segmented_lora import (delta_torch,
                                                      segmented_lora_delta)
 
@@ -770,9 +797,10 @@ def lora_case(timer, name, R, S, d_in, rb, d_out, dtype, seed, n_slots=33,
         slots = torch.randint(0, n_slots, (R,), generator=g, device="cuda")
         slots[0] = 0
         slots[R // 2:] = slots[:R - R // 2].flip(0)
-    slots = slots.to(device="cuda", dtype=torch.int32)
+    slots = torch.as_tensor(slots).to(device="cuda", dtype=torch.int32)
     x = torch.randn(R, S, d_in, generator=g, device="cuda").to(dtype)
     out = segmented_lora_delta(x, a, b, slots)
+    again = segmented_lora_delta(x, a, b, slots)
     plain = delta_torch(x, a, b, slots)
     plain32 = delta_torch(x.float(), a, b, slots)
     torch.cuda.synchronize()
@@ -786,10 +814,12 @@ def lora_case(timer, name, R, S, d_in, rb, d_out, dtype, seed, n_slots=33,
                    <= bf16_ulp(plain32) + f32_tol).all())
         tol = f"1 bf16 ulp of the plain f32 result + {f32_tol:.3g}"
     zero = slots == 0
-    if not ok or not bool((out[zero] == 0).all()):
+    twice = torch.equal(out.view(torch.uint8), again.view(torch.uint8))
+    if not ok or not bool((out[zero] == 0).all()) or not twice:
         raise AssertionError(f"segmented_lora {name} {dtype}: err {err} "
                              f"(tolerance {tol}), slot-0 rows exactly 0: "
-                             f"{bool((out[zero] == 0).all())}")
+                             f"{bool((out[zero] == 0).all())}, two launches "
+                             f"bit-equal: {twice}")
     ms = timer(lambda: segmented_lora_delta(x, a, b, slots))
     plain_ms = timer(lambda: delta_torch(x, a, b, slots))
     # the library yardstick: gather the rows' slabs, two bmm (f32), cast
@@ -808,22 +838,23 @@ def lora_case(timer, name, R, S, d_in, rb, d_out, dtype, seed, n_slots=33,
            "shape": [R, S, d_in, rb, d_out], "n_slots": n_slots,
            "live_slots": live, "slot0_rows": int(zero.sum()),
            "max_abs_err": err, "max_abs": float(plain32.abs().max()),
-           "tolerance": tol, "slot0_exact": True, "ms": ms,
+           "tolerance": tol, "slot0_exact": True,
+           "two_launches_bit_equal": True, "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
            "bound_by": by}
     emit({"phase": "segmented_lora", **res})
     return res
 
 
-def lora_invariance_case():
+def lora_invariance_case(d_in, rb, d_out, seed):
     """A row computed alone (R = 1), inside R = 16 and on a one-slot view
     (as ``lora_delta`` calls the kernel) is bit for bit the same, for a
     decode row and a 64-row prefill chunk and its 1- and 7-row parts."""
     from byteps_tpu_torch.ops.segmented_lora import segmented_lora_delta
 
-    g = torch.Generator(device="cuda").manual_seed(67)
-    A = torch.randn(33, 24, 1024, 8, generator=g, device="cuda")
-    B = 0.02 * torch.randn(33, 24, 8, 1024, generator=g, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.randn(33, 24, d_in, rb, generator=g, device="cuda")
+    B = 0.02 * torch.randn(33, 24, rb, d_out, generator=g, device="cuda")
     a, b = A[:, 3], B[:, 3]
     slots = torch.randint(1, 33, (16,), generator=g, device="cuda",
                           dtype=torch.int32)
@@ -831,7 +862,7 @@ def lora_invariance_case():
     checked = 0
     for dtype in (torch.bfloat16, torch.float32):
         for S in (1, 64):
-            x = torch.randn(16, S, 1024, generator=g, device="cuda").to(dtype)
+            x = torch.randn(16, S, d_in, generator=g, device="cuda").to(dtype)
             full = segmented_lora_delta(x, a, b, slots)
             for r in (0, 9, 15):
                 s = int(slots[r])
@@ -843,32 +874,60 @@ def lora_invariance_case():
                     part = segmented_lora_delta(x[r:r + 1, lo:hi], a, b,
                                                 slots[r:r + 1])
                     if not torch.equal(part[0], full[r, lo:hi]):
-                        raise AssertionError(f"segmented_lora: rows {lo}:{hi} "
-                                             "differ from the full chunk")
+                        raise AssertionError(
+                            f"segmented_lora {d_in}->{rb}->{d_out}: rows "
+                            f"{lo}:{hi} differ from the full chunk")
                 if not (torch.equal(alone, full[r:r + 1])
                         and torch.equal(one, full[r:r + 1])):
-                    raise AssertionError("segmented_lora: a row alone or on "
-                                         "a one-slot view differs from R=16")
+                    raise AssertionError(
+                        f"segmented_lora {d_in}->{rb}->{d_out}: a row alone "
+                        "or on a one-slot view differs from R=16")
                 checked += 1
     emit({"phase": "segmented_lora", "case": "batch_invariance",
-          "rows_checked": checked, "bit_equal": True})
+          "shape": [d_in, rb, d_out], "rows_checked": checked,
+          "bit_equal": True})
+
+
+# (name, R, S, d_in, rank bucket, d_out, dtype, seed[, slots]): the packed
+# decode shape first (the kernels line's), a 64-row prefill chunk, w2's
+# 4096 -> 8 -> 1024, rank 64, mostly slot 0, then the edges: a d_in that
+# the cluster's warps do not split evenly (1000, 36), ranks below and
+# above a bucket (1, 3, 33), 17 positions a row, a d_out that is not a
+# multiple of 4 (no vector access lines up), a block's columns past what
+# it stages in shared memory (rank 64, d_out 4096), and generate's prefill
+# through ``lora_delta`` (B=4, T=128 on one adapter: 512 blocks)
+LORA_CASES = (
+    ("decode", 16, 1, 1024, 8, 1024, torch.bfloat16, 60),
+    ("decode", 16, 1, 1024, 8, 1024, torch.float32, 61),
+    ("prefill_chunk", 1, 64, 1024, 8, 1024, torch.bfloat16, 62, [5]),
+    ("w2", 16, 1, 4096, 8, 1024, torch.bfloat16, 63),
+    ("rank64", 16, 1, 1024, 64, 1024, torch.bfloat16, 64),
+    ("rank64", 16, 1, 1024, 64, 1024, torch.float32, 65),
+    ("slot0", 16, 1, 1024, 8, 1024, torch.bfloat16, 66,
+     [0] * 12 + [3, 0, 7, 0]),
+    ("d_in1000", 16, 1, 1000, 8, 1024, torch.bfloat16, 68),
+    ("d_in36", 16, 1, 36, 8, 1024, torch.bfloat16, 69),
+    ("rank1", 16, 1, 1024, 1, 1024, torch.bfloat16, 70),
+    ("rank3", 16, 1, 1024, 3, 1024, torch.bfloat16, 71),
+    ("rank33", 16, 1, 1024, 33, 1024, torch.bfloat16, 72),
+    ("rank33", 16, 1, 1024, 33, 1024, torch.float32, 73),
+    ("S17", 4, 17, 1024, 8, 1024, torch.bfloat16, 74),
+    ("ragged_all", 4, 17, 1000, 3, 1001, torch.float32, 75),
+    ("rank64_d4096", 4, 1, 1024, 64, 4096, torch.float32, 78),
+    ("solo_prefill", 4, 128, 1024, 8, 1024, torch.bfloat16, 79, [5] * 4),
+)
+# (d_in, rank bucket, d_out, seed): packed decode, w2, rank 64
+LORA_INVARIANCE = ((1024, 8, 1024, 67), (4096, 8, 1024, 76),
+                   (1024, 64, 1024, 77))
 
 
 def lora_cases(timer) -> dict:
     """Every case of the segmented LoRA kernel; the decode case (the
     packed decode step's shape) for the kernels line."""
-    bf, f32 = torch.bfloat16, torch.float32
-    main = lora_case(timer, "decode", 16, 1, 1024, 8, 1024, bf, 60)
-    lora_case(timer, "decode", 16, 1, 1024, 8, 1024, f32, 61)
-    lora_case(timer, "prefill_chunk", 1, 64, 1024, 8, 1024, bf, 62,
-              slots=torch.tensor([5]))
-    lora_case(timer, "w2", 16, 1, 4096, 8, 1024, bf, 63)
-    lora_case(timer, "rank64", 16, 1, 1024, 64, 1024, bf, 64)
-    lora_case(timer, "rank64", 16, 1, 1024, 64, 1024, f32, 65)
-    lora_case(timer, "slot0", 16, 1, 1024, 8, 1024, bf, 66,
-              slots=torch.tensor([0] * 12 + [3, 0, 7, 0]))
-    lora_invariance_case()
-    return main
+    res = [lora_case(timer, *case) for case in LORA_CASES]
+    for case in LORA_INVARIANCE:
+        lora_invariance_case(*case)
+    return res[0]
 
 
 # --------------------------------------------------------------------------
@@ -1934,9 +1993,11 @@ def main() -> int:
              for n, p in libs.items()}
     emit({"phase": "card", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
-          "sass": {n: sass_counts(libs[n]) for n in ("flash_fwd",
-                                                     "flash_bwd",
-                                                     "flash_decode")}})
+          "sass": {**{n: sass_counts(libs[n]) for n in ("flash_fwd",
+                                                        "flash_bwd",
+                                                        "flash_decode")},
+                   **{n: sass_counts(libs[n], FMA_SASS)
+                      for n in ("segmented_lora", "onebit")}}})
 
     timer = Timer()
     bf, f32 = torch.bfloat16, torch.float32
@@ -1992,6 +2053,7 @@ def main() -> int:
             onebit_case(timer, "ragged", 1_000_003, 41),
             onebit_case(timer, "signed_zero_nan", 1_000_003, 42,
                         special=True)]
+    unpack_edge_cases()
     topk = topk_cases(timer)
     lora = lora_cases(timer)
     del timer

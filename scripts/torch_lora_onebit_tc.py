@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""The segmented-LoRA and onebit kernels on one CUDA card.
+
+    python3 scripts/torch_lora_onebit_tc.py [--repo DIR]
+
+Builds segmented_lora and onebit from DIR's sources (default: this
+checkout) and prints each library's ptxas report and, per kernel, its
+SASS counts (tensor-core and atomic instructions, cp.async, shuffles,
+cluster barriers, FMAs and adds). Then it runs ``chip_smoke.py``'s LoRA
+cases (every shape of ``LORA_CASES`` against the plain version at the
+smoke's tolerances, slot-0 rows exactly 0, two launches bit-equal, and
+the batch-invariance checks of ``LORA_INVARIANCE``) and its onebit cases
+(pack and unpack-sum at the 1,024,000-element chunk and a ragged
+1,000,003 at K = 1, 2, 8, 32 and, in the grid order, 40 and 256, bit for
+bit; the short lengths with a zero scale): kernel / plain / library
+times from CUDA events with the L2 cache flushed before each launch,
+beside what the same timer reads for zeroing one float and 4 MB.
+``--repo`` points at another checkout (a parent commit unpacked with
+``git archive``) so that two versions are compared on one card in one
+call: run parent, change, change, parent. One JSON line per case; exits
+non-zero if a case fails or there is no CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _smoke():
+    """This checkout's ``chip_smoke.py`` as a module (its cases)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sass_by_kernel(lib: Path, ops) -> dict:
+    """``{kernel's mangled name: {op: count}}`` from ``cuobjdump -sass``."""
+    from byteps_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = chunk.split("\n", 1)
+        out[name.strip()] = {op: len(re.findall(rf"\b{op}\b", body))
+                             for op in ops}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", default=str(ROOT),
+                    help="checkout whose byteps_tpu_torch is measured")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_lora_onebit_tc: no CUDA device", file=sys.stderr)
+        return 1
+    repo = Path(args.repo).resolve()
+    sys.path.insert(0, str(repo))
+    cs = _smoke()
+    from byteps_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = _build.build(("segmented_lora", "onebit"))
+    ptxas = {n: [ln.strip() for ln in p.with_suffix(".log").read_text()
+                 .splitlines() if "registers" in ln or "spill" in ln
+                 or "Compiling" in ln or "warning" in ln]
+             for n, p in libs.items()}
+    cs.emit({"phase": "build", "repo": str(repo),
+             "card": cs.card_name_and_limit(), "ptxas": ptxas,
+             "sass": {n: sass_by_kernel(p, cs.FMA_SASS)
+                      for n, p in libs.items()}})
+
+    timer = cs.Timer()
+    # what the timer reads for any launch: one float zeroed, and a
+    # chunk's 4 MB of output written
+    one, chunk_f32 = (torch.zeros(n, device="cuda") for n in (1, 1024000))
+    cs.emit({"phase": "timer_floor", "zero_1_ms": timer(one.zero_),
+             "zero_4MB_ms": timer(chunk_f32.zero_)})
+    chunk = 4096000 // 4           # one default partition of f32
+    cases = ([(cs.lora_case, (timer, *c)) for c in cs.LORA_CASES]
+             + [(cs.lora_invariance_case, c) for c in cs.LORA_INVARIANCE]
+             + [(cs.onebit_case, (timer, "chunk", chunk, 40)),
+                (cs.onebit_case, (timer, "ragged", 1_000_003, 41)),
+                (cs.unpack_edge_cases, ())])
+    failed = []
+    for fn, case in cases:
+        try:
+            fn(*case)
+        except AssertionError as e:      # run every case, then fail
+            print(e, file=sys.stderr, flush=True)
+            failed.append(f"{fn.__name__} {case[1:3]}")
+    if failed:
+        print(f"torch_lora_onebit_tc: failed {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,8 +2,9 @@
 (the reference's uint32 words as the port's int32 bits) under both of
 the reference's backends — jnp and its Pallas kernels in interpret
 mode — at ragged lengths and on -0.0 / 0 / NaN; unpack-sum equal at
-K = 1, 3 and 8 (both fold the K rows in order from 0.0, so equality is
-exact) and at K = 40 and 64 against the reference's grid kernel (rows
+K = 1, 3 and 8, and at K = 2 and 32 (the ring owner's and the most the
+unrolled kernel takes) at n = 1 and 31 (both fold the K rows in order
+from 0.0, so equality is exact) and at K = 40 and 64 against the reference's grid kernel (rows
 in blocks of 8, block partials added in order: bit-equal, where a fold
 of all K rows in one sequence is not); and the compressor's compress / decompress / decompress_sum /
 roundtrip with error feedback. The scale is mean(|x|), whose reduction
@@ -57,9 +58,12 @@ def test_pack_words_bit_equal(backend, n, special):
 
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas"])
-@pytest.mark.parametrize("K", [1, 3, 8])
-def test_unpack_sum_equal(backend, K):
-    n = 5003
+@pytest.mark.parametrize("K,n", [
+    pytest.param(1, 5003, id="1"), pytest.param(3, 5003, id="3"),
+    pytest.param(8, 5003, id="8"), pytest.param(2, 1, id="2-n1"),
+    pytest.param(2, 31, id="2-n31"), pytest.param(32, 1, id="32-n1"),
+    pytest.param(32, 31, id="32-n31")])
+def test_unpack_sum_equal(backend, K, n):
     words = np.stack([np.asarray(rob.onebit_pack(jnp.asarray(_x(n, 10 + r)),
                                                  backend="jnp"))
                       for r in range(K)])

@@ -12,7 +12,9 @@ Entry points (``gpt_init``, ``params_from_numpy``, ``make_generate_fn``,
 
 ``launches`` holds one plain integer per kernel wrapper, bumped where
 the wrapper launches its kernel and nowhere else, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. ``flash_fwd_split`` counts
+the forward's launches that took its split path (every ``flash_fwd``
+launch is one or the other).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from typing import Dict, Optional, Union
 
 import torch
 
-launches: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
+launches: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_split": 0,
+                             "flash_decode": 0,
                              "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                              "onebit_pack": 0, "onebit_unpack_sum": 0,
                              "onebit_unpack_sum_grid": 0,

@@ -202,6 +202,68 @@ __device__ __forceinline__ void fold_rows(const float* __restrict__ qrows,
 }
 
 // --------------------------------------------------------------------------
+// Asynchronous copies and thread-block clusters (flash_fwd.cu's split path,
+// flash_decode.cu).
+// --------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// 16 bytes from src, or 16 zero bytes (nothing read) where `valid` is false
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are pending
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the cluster barrier: a thread's arrival releases its shared-memory
+// stores before it (the relaxed one orders nothing), the wait acquires
+// every arrived thread's
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// p's place in the shared memory of cluster block `rank`
+__device__ __forceinline__ uint32_t map_cluster(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))),
+                 "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t a, float x) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(x)
+               : "memory");
+}
+
+// store x at p's place in the shared memory of cluster block `rank`
+__device__ __forceinline__ void st_cluster(float* p, int rank, float x) {
+  st_cluster(map_cluster(p, rank), x);
+}
+
+// --------------------------------------------------------------------------
 // Pieces of the bf16 tensor-core paths (the wgmma kernels, hopper.cuh).
 //
 // Accumulator layout of a 16x8 block of a product, lane l = 4g + t:

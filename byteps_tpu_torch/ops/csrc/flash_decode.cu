@@ -76,50 +76,10 @@ __host__ __device__ __forceinline__ int tile_bytes(int rs, bool quant) {
   return 2 * kTileKeys * rs + (quant ? 2 * kTileKeys * 4 : 0);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are pending
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// the cluster barrier: a thread's arrival releases its shared-memory
-// stores before it (the relaxed one orders nothing), the wait acquires
-// every arrived thread's
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// store x at p's place in the shared memory of cluster block `rank`
-__device__ __forceinline__ void st_cluster(float* p, int rank, float x) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))),
-                 "r"(rank));
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(x)
                : "memory");
 }
 

@@ -191,6 +191,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// make this thread's generic-proxy stores to shared memory (st.shared,
+// cp.async) visible to the async proxy that wgmma reads through; a
+// barrier after it extends that to the other threads' reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

@@ -9,9 +9,23 @@
 // Words are 32-bit; the Python side holds them as int32 with the uint32
 // bits.
 //
-// pack: one thread per word j reads x[k * L + j] for k = 0..31 (each k a
-// coalesced row across the warp, all 32 loads in flight) and writes one
-// word. Elements past n read as 0.0, so the caller never pads.
+// pack: a thread owns kPackWords = 2 adjacent word columns j, j + 1 and
+// reads bit row k of both as one 8-byte vector x[k * L + j ..], coalesced
+// across the warp (256 contiguous bytes a row), all 32 in flight before
+// any is used, then stores the two words as one 8-byte vector; blocks of
+// 128 threads (a 1,024,000-element chunk, L = 32,000, is 125 blocks). A
+// thread whose 32 vectors all lie below n (and x on 8 bytes) loads them
+// with no branch or predicate between them; the others (the columns
+// that reach n, about a ninth of a ragged chunk's, or every column where
+// x is off 8 bytes) go row by row: a whole vector where it lies below
+// n, else element by element, elements at or past n reading as 0.0, so
+// the caller never pads. On an H100, warm (the input just written, as
+// error feedback leaves it), a ballot transpose (lane k reading bit row
+// k in 16-byte vectors, one __ballot_sync a word), 4 words a thread, and
+// a vector-or-scalar choice on every row were slower than one word a
+// thread with 32 scalar loads; this form was a little faster than that,
+// warm and cold. Cold, every form reads its 4 MB about as fast as `ge`
+// or copy_ read the same 4 MB.
 //
 // unpack_sum (K <= 32): a thread owns 2 adjacent word columns j, j+1
 // and kRowsPerThread = 8 of their 32 bit rows k (4 threads a column, in
@@ -44,13 +58,16 @@
 // What bounds them: bytes. A 1,024,000-element chunk (the default
 // 4,096,000-byte partition) moves 4 MB of f32 and 128 KB of words each
 // way, about 1.3 us at 3.35 TB/s; at that size a launch costs about as
-// much as the transfer. Unpack-sum's stores are 8-byte vectors.
+// much as the transfer. Unpack-sum's and pack's stores are 8-byte
+// vectors, and so are pack's loads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPackThreads = 128;
+constexpr int kPackWords = 2;     // adjacent word columns a pack thread
 constexpr int kGridRows = 8;      // the reference grid kernel's row block
 constexpr int kUnrollK = 32;      // the most payloads unpack_sum takes
 // unpack_sum: bit rows a thread (of 2 adjacent word columns), row groups
@@ -61,21 +78,40 @@ constexpr int kRowGroups = 32 / kRowsPerThread;
 constexpr int kStrips = kThreads / 32 / kRowGroups;
 constexpr int kLoadBatch = 16;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPackThreads)
 pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
             long long n, int L) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
+  const int j = (blockIdx.x * kPackThreads + threadIdx.x) * kPackWords;
   if (j >= L) return;
-  float v[32];
+  float v[32][kPackWords];
+  const bool vec = ((uintptr_t)x & 7) == 0;
+  if (vec && 31LL * L + j + kPackWords <= n) {   // every row a whole vector
 #pragma unroll
-  for (int k = 0; k < 32; ++k) {
-    const long long e = (long long)k * L + j;
-    v[k] = e < n ? x[e] : 0.f;
+    for (int k = 0; k < 32; ++k) {
+      const float2 f =
+          __ldg(reinterpret_cast<const float2*>(x + (long long)k * L + j));
+      v[k][0] = f.x, v[k][1] = f.y;
+    }
+  } else {   // rows that reach n, or x off 8 bytes: row by row, masked
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const long long e = (long long)k * L + j;
+      if (vec && e + kPackWords <= n) {
+        const float2 f = __ldg(reinterpret_cast<const float2*>(x + e));
+        v[k][0] = f.x, v[k][1] = f.y;
+      } else {
+        v[k][0] = e < n ? __ldg(x + e) : 0.f;
+        v[k][1] = e + 1 < n ? __ldg(x + e + 1) : 0.f;
+      }
+    }
   }
-  uint32_t w = 0;
+  uint32_t w[kPackWords] = {0u, 0u};
 #pragma unroll
-  for (int k = 0; k < 32; ++k) w |= (uint32_t)(v[k] >= 0.f) << k;
-  words[j] = w;
+  for (int k = 0; k < 32; ++k)
+#pragma unroll
+    for (int c = 0; c < kPackWords; ++c)
+      w[c] |= (uint32_t)(v[k][c] >= 0.f) << k;
+  *reinterpret_cast<uint2*>(words + j) = make_uint2(w[0], w[1]);
 }
 
 // the two words of a row at p (one 8-byte vector when aligned; the
@@ -167,12 +203,16 @@ unpack_sum_grid_kernel(const uint32_t* __restrict__ words,
 
 }  // namespace
 
-// x: n f32 on the card; words: L = packed_words(n) 32-bit words. Returns a
-// cudaError_t (0 = success).
+// x: n f32 on the card, any 4-byte aligned start; words: L =
+// packed_words(n) 32-bit words (a multiple of 128), 8-byte aligned.
+// Returns a cudaError_t (0 = success).
 extern "C" int bps_onebit_pack(const void* x, void* words, long long n, int L,
                                void* stream) {
   if (L == 0) return 0;
-  pack_kernel<<<(L + kThreads - 1) / kThreads, kThreads, 0,
+  if (L % kPackWords != 0 || ((uintptr_t)words & 7) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int per_block = kPackThreads * kPackWords;   // word columns
+  pack_kernel<<<(L + per_block - 1) / per_block, kPackThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<uint32_t*>(words), n, L);
   return (int)cudaGetLastError();

@@ -190,19 +190,30 @@ def _lib() -> ctypes.CDLL:
     lib.bps_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                                   i, i, ctypes.c_float, p]
     lib.bps_flash_fwd.restype = i
-    lib.bps_flash_fwd_workspace.argtypes = [i] * 10
-    lib.bps_flash_fwd_workspace.restype = ctypes.c_longlong
+    lib.bps_flash_fwd_route.argtypes = [p, p, p, i, i, i, i, i]
+    lib.bps_flash_fwd_route.restype = i
     return lib
+
+
+def fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The path the forward kernel takes for these CUDA inputs, as its
+    library decides from the shapes, the dtype and the rows' alignment:
+    ``"wgmma"`` (bf16 grids that fill the card) or ``"split"``."""
+    B, Sq, H, D = q.shape
+    tc = _lib().bps_flash_fwd_route(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    int(q.dtype == torch.bfloat16), B, Sq, H,
+                                    D)
+    return "wgmma" if tc else "split"
 
 
 def _fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_offset: int, k_offset: int, causal: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on shapes :func:`check_shapes` passed.
-    bf16 grids large enough to fill the card run on the tensor cores;
-    otherwise keys are cut into fixed splits across blocks, and when a
-    row's live keys span more than one, the kernel needs an f32 workspace
-    for the partial states, allocated here (the library says how much)."""
+    """Launch the forward kernel on shapes :func:`check_shapes` passed:
+    one launch, outputs only. bf16 grids large enough to fill the card
+    run on the wgmma path; the others on the split path, whose key splits
+    merge inside one thread-block cluster (counted again as
+    ``flash_fwd_split``)."""
     check_kernel_input(q, "q")
     for t, name in ((k, "k"), (v, "v")):
         check_kernel_input(t, name, (q.dtype,), q.device)
@@ -211,24 +222,20 @@ def _fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     lib = _lib()
-    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    ws_bytes = lib.bps_flash_fwd_workspace(
-        int(q.dtype == torch.bfloat16), int(aligned), B, Sq, Sk, H, D,
-        int(q_offset), int(k_offset), int(causal))
-    ws = (torch.empty(ws_bytes // 4, dtype=torch.float32, device=q.device)
-          if ws_bytes else None)
+    split = fwd_route(q, k, v) == "split"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.bps_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), None if ws is None else ws.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, Sq, Sk, H, Hkv, D,
-            int(q_offset), int(k_offset), int(causal), 1.0 / (D ** 0.5),
-            stream)
+            lse.data_ptr(), None, int(q.dtype == torch.bfloat16), B, Sq, Sk,
+            H, Hkv, D, int(q_offset), int(k_offset), int(causal),
+            1.0 / (D ** 0.5), stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_fwd kernel launch failed: {_build.error_string(lib, rc)}")
     launches["flash_fwd"] += 1
+    if split:
+        launches["flash_fwd_split"] += 1
     return o, lse
 
 

@@ -7,15 +7,27 @@ Phases, each printing one JSON line:
 
 1. card — name and power limit (``nvidia-smi``), then the kernel build
    (one ``nvcc`` per source, all started together) and its time, the
-   ptxas register and spill report, and the attention libraries' SASS
-   counts (HGMMA, HMMA, UTMALDG, LDGSTS, SYNCS; flash_fwd, flash_bwd,
-   flash_decode);
+   ptxas register and spill report, and each kernel's SASS counts
+   (attention: HGMMA, HMMA, UTMALDG, LDGSTS, SYNCS; the FMA kernels:
+   tensor-core, atomic, cp.async, shuffle, cluster-barrier, FFMA and
+   FADD instructions); the bf16 split-path forward must show
+   tensor-core instructions (HGMMA or HMMA);
 2. flash_fwd — the forward kernel against its plain PyTorch version at
    the slice's prefill shapes, bf16 and f32, the training shape, head
-   dim 128 (B=4, S=1024, 8 heads) and a non-causal ragged S=1000: error
-   against a stated tolerance, and kernel / plain /
-   ``scaled_dot_product_attention`` times from CUDA events with the L2
-   cache flushed before each launch;
+   dim 128 (B=4, S=1024, 8 heads) and a non-causal ragged S=1000, and
+   on its split path (the serving chunks: one launch, key splits merged
+   in a thread-block cluster) serve's 32-row chunk at 256 and a ragged
+   37 rows at 475 (bf16, f32), multitenant's 64-row chunk at 640 against
+   1024 keys (bf16, f32), GQA 16/4, head dim 128, 37 rows at 4000
+   against 4096 keys (32 splits, more than a cluster's 8 blocks) and 32
+   rows at 5984 at head dim 128 (47 splits, a cluster of 16): error
+   against a stated tolerance, the route (split or wgmma), and kernel /
+   plain / ``scaled_dot_product_attention`` times from CUDA events with
+   the L2 cache flushed before each launch; the split path's invariance
+   (bf16 and f32 at head dim 64, bf16 GQA at 128): a 32-row chunk's o
+   and lse bit-equal to the same rows inside a 64-row chunk, against 300
+   keys more, as batch entry 0 of B = 4 (f32: B = 9, whose tiles fill
+   the card, so one block takes each), and on a second launch;
 3. flash_decode — the decode kernel the same way, dense and int8 caches:
    generate's step (B=4, pos 160), B=8 at pos 0, 100, 700 and 1023 (the
    long case), f32, GQA 16/4, B=1 at pos 1023 (the most splits), the
@@ -32,16 +44,17 @@ Phases, each printing one JSON line:
    L2 error, and kernel / plain / SDPA-backward times; flash_determinism
    — two launches of the bf16 forward, dq and dk/dv on the same inputs
    bit-equal, at the training shape and head dim 128, and of decode at
-   B=8, pos 1023, dense and int8; onebit — pack words
-   bit-equal to
-   the plain version at the 1,024,000-element chunk, a ragged length and
-   an input seeded with -0.0, 0 and NaN, unpack-sum equal by bit pattern
-   at K=1, 2, 8 and 32 and, in the grid order the reference takes above
-   32 payloads, at K=40 and K=256, and at n = 1, 31 and 4097 with a zero
-   scale; topk — select, reconstruct-sum and the fused round trip
-   bit-equal to their plain versions at the training step's shapes (the
-   (80, 100) round trip of a full chunk with and without the EF residual,
-   select and reconstruct at (100, 10240) and the ragged tail's
+   B=8, pos 1023, dense and int8; onebit — pack words bit-equal to
+   the plain version at the 1,024,000-element chunk, a ragged length,
+   an input seeded with -0.0, 0 and NaN, and inputs that start 4 bytes
+   past an aligned address (the chunk, n = 4097 and 33), unpack-sum
+   equal by bit pattern at K=1, 2, 8 and 32 and, in the grid order the
+   reference takes above 32 payloads, at K=40 and K=256, and at n = 1,
+   31 and 4097 with a zero scale; topk — select, reconstruct-sum and
+   the fused round trip bit-equal to their plain versions at the
+   training step's shapes (the (80, 100) round trip of a full chunk
+   with and without the EF residual, select and reconstruct at
+   (100, 10240) and the ragged tail's
    (101, 5617) with n = 567,296, reconstruct at K = 8) and on ties,
    zeros and NaN; segmented_lora — the per-row LoRA delta against its
    plain version on a layer's strided slice of pool-shaped slabs: the
@@ -115,8 +128,10 @@ Phases, each printing one JSON line:
     step ms, tokens/s (time-sliced) and each rank's peak memory.
 
 Each of phases 4-6 and each train leg runs with the launch counters set
-to 0 just before it and read just after: the multitenant paths must
-launch the forward and segmented LoRA kernels, the race exactly 2 x 24
+to 0 just before it and read just after: serve, exact and the
+multitenant paths must launch the forward on its split path
+(``flash_fwd_split``), the multitenant paths the segmented LoRA kernel,
+the race exactly 2 x 24
 times for each packed decode step and each prefill chunk of an
 adapter-tagged request (counted by wrapping the schedulers' callables);
 generate must launch the
@@ -141,7 +156,9 @@ A ``launches`` line gives the counts per path, then a
 (generate, serve, multitenant, the three train legs, train_ring's
 three legs on one rank; the ring rows' times are the ring phase's
 n = 2 cases; the flash_fwd row, timed at serve's chunk, also gives the
-training shape's ms, bound and SDPA ms as ``train_*``, the flash_decode
+training shape's ms, bound and SDPA ms as ``train_*``, the split path's
+at serve's chunk as ``split_*`` and its launches, in all and by path,
+as ``split_launches`` and ``split_launches_by_path``, the flash_decode
 row, timed at generate's step, the long case's as ``long_*``), and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -155,6 +172,7 @@ import copy
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -288,11 +306,93 @@ def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed,
     bms, by = bound_ms(n_bytes, n_ops, dtype)
     res = {"case": name, "dtype": str(dtype).split(".")[-1],
            "shape": [B, Sq, Sk, H, Hkv, D], "q_off": q_off,
-           "causal": causal, "max_abs_err": max(err_o, err_l),
+           "causal": causal, "route": fwd_route_of(q, k, v),
+           "max_abs_err": max(err_o, err_l),
            "tolerance": tol,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bms, "bound_by": by}
     emit({"phase": "flash_fwd", **res})
+    return res
+
+
+def fwd_route_of(q, k, v):
+    """The forward's route for these inputs ("split" or "wgmma"), or None
+    from a checkout whose library does not say."""
+    from byteps_tpu_torch.ops import flash_attention as tfa
+
+    route = getattr(tfa, "fwd_route", None)
+    return route(q, k, v) if route is not None else None
+
+
+# (name, B, Sq, Sk, H, Hkv, D, q_off, dtypes, seed): the split path at the
+# serving chunks' geometry beyond serve's own chunk: multitenant's 64-row
+# chunk at a long prefix, GQA, head dim 128, more splits than one cluster
+# holds (32 splits of 128 keys on clusters of 8), and 47 splits at head
+# dim 128, whose merge slots take a cluster of 16
+SPLIT_CASES = (
+    ("chunk64", 1, 64, 1024, 16, 16, 64, 640, ("bf16", "f32"), 18),
+    ("chunk_gqa", 1, 32, 512, 16, 4, 64, 256, ("bf16",), 19),
+    ("chunk_d128", 1, 32, 512, 8, 8, 128, 256, ("bf16",), 20),
+    ("many_splits", 1, 37, 4096, 4, 4, 64, 4000, ("bf16",), 21),
+    ("wide_cluster", 1, 32, 6016, 8, 8, 128, 5984, ("bf16",), 22),
+)
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def split_cases(timer) -> list:
+    return [fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, DTYPES[dt],
+                     seed)
+            for name, B, Sq, Sk, H, Hkv, D, q_off, dts, seed in SPLIT_CASES
+            for dt in dts]
+
+
+# (dtype, H, Hkv, D, position of the chunk, batch, seed): in f32 the
+# batch of 9 makes the tiles fill the card (one block a tile) and the
+# 64-row chunk takes 32-row tiles, so the plan differs on each side
+INVARIANCE = (("bf16", 16, 16, 64, 475, 4, 51),
+              ("f32", 16, 16, 64, 475, 9, 52),
+              ("bf16", 16, 4, 128, 200, 4, 53))
+
+
+def fwd_invariance(dtype, H, Hkv, D, pos, batch, seed):
+    """The split path's contract: a row's o and lse depend only on its q
+    row and its live keys. The 32 rows of a chunk at ``pos`` against
+    their live keys, bit for bit the same (o and lse) as: the same rows
+    inside a 64-row chunk; against 300 keys more past the live ones; as
+    batch entry 0 of ``batch``; and a second launch."""
+    from byteps_tpu_torch.ops.flash_attention import flash_attention_lse
+
+    dt = DTYPES[dtype]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(batch, 64, H, D, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(batch, pos + 364, Hkv, D, generator=g,
+                        device="cuda").to(dt) for _ in range(2))
+    live = pos + 32
+
+    def rows32(qq, kk, vv):
+        o, lse = flash_attention_lse(qq.contiguous(), kk.contiguous(),
+                                     vv.contiguous(), pos, 0)
+        return o[:1, :32], lse[:1, :32], fwd_route_of(qq, kk, vv)
+
+    base = rows32(q[:1, :32], k[:1, :live], v[:1, :live])
+    variants = {
+        "in_64_row_chunk": rows32(q[:1], k[:1, :pos + 64], v[:1, :pos + 64]),
+        "sk_live_plus_300": rows32(q[:1, :32], k[:1, :live + 300],
+                                   v[:1, :live + 300]),
+        f"batch_{batch}": rows32(q[:, :32], k[:, :live], v[:, :live]),
+        "second_launch": rows32(q[:1, :32], k[:1, :live], v[:1, :live]),
+    }
+    torch.cuda.synchronize()
+    same = {nm: bits_equal(o, base[0]) and bits_equal(lse, base[1])
+            for nm, (o, lse, _) in variants.items()}
+    res = {"case": "fwd_invariance", "dtype": dtype, "H": H, "Hkv": Hkv,
+           "D": D, "pos": pos, "batch": batch, "route": base[2],
+           "routes": {nm: r for nm, (_, _, r) in variants.items()},
+           "bit_equal": same}
+    emit({"phase": "flash_fwd", **res})
+    if not all(same.values()):
+        raise AssertionError(f"flash_fwd invariance {dtype} H{H}/{Hkv} D{D}: "
+                             f"{same}")
     return res
 
 
@@ -542,19 +642,42 @@ FMA_SASS = ("HGMMA", "HMMA", "ATOM", "ATOMS", "RED", "LDGSTS", "SHFL",
 
 
 def sass_counts(lib, ops=ATTN_SASS) -> dict:
-    """How many instructions of each kind in ``ops`` a built library's
-    SASS holds (``cuobjdump -sass``, beside nvcc); by default those of
-    the attention kernels: HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA
-    loads), LDGSTS (cp.async), SYNCS (mbarrier operations)."""
-    import re
+    """``{kernel: {op: count}}``: how many instructions of each kind in
+    ``ops`` each kernel of a built library holds (``cuobjdump -sass``
+    beside nvcc; kernels named as ``cu++filt`` demangles them, without
+    their parameters). By default the kinds of the attention kernels:
+    HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA loads), LDGSTS
+    (cp.async), SYNCS (mbarrier operations)."""
     from pathlib import Path
 
     from byteps_tpu_torch.ops import _build
 
-    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    return {op: len(re.findall(rf"\b{op}\b", text)) for op in ops}
+    bin_dir = Path(_build.find_nvcc()).parent
+    text = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    chunks = re.split(r"\n\s*Function : ", text)[1:]
+    names = [c.split("\n", 1)[0].strip() for c in chunks]
+    if (bin_dir / "cu++filt").is_file():
+        names = subprocess.run([str(bin_dir / "cu++filt")], input="\n".join(
+            names), capture_output=True, text=True, check=True,
+            timeout=60).stdout.splitlines()
+    out = {}
+    for name, chunk in zip(names, chunks):
+        name = re.sub(r"^(void )?(\(anonymous namespace\)::|<unnamed>::)?",
+                      "", name)
+        if "<" in name:   # up to the template's closing ">"
+            depth, i = 0, name.index("<")
+            for i in range(i, len(name)):
+                depth += {"<": 1, ">": -1}.get(name[i], 0)
+                if depth == 0:
+                    break
+            name = name[:i + 1]
+        else:
+            name = name.split("(", 1)[0]
+        body = chunk.split("\n", 1)[1] if "\n" in chunk else ""
+        out[name] = {op: len(re.findall(rf"\b{op}\b", body)) for op in ops}
+    return out
 
 
 def onebit_case(timer, name, n, seed, special=False):
@@ -618,6 +741,36 @@ def onebit_case(timer, name, n, seed, special=False):
     return res
 
 
+def pack_unaligned_cases(timer) -> list:
+    """The chunk (timed), n = 4097 and n = 33, each from a 4-byte offset."""
+    return [pack_unaligned_case(timer, "chunk_unaligned", 4096000 // 4, 44,
+                                timed=True),
+            pack_unaligned_case(timer, "n4097_unaligned", 4097, 45),
+            pack_unaligned_case(timer, "n33_unaligned", 33, 46)]
+
+
+def pack_unaligned_case(timer, name, n, seed, timed=False):
+    """Pack of an input that starts 4 bytes past an aligned address
+    (``buf[1:n+1]``, so no 16-byte vector of it is aligned): words
+    bit-equal to the plain version's; timed at the chunk."""
+    from byteps_tpu_torch.ops.onebit_kernels import _pack_torch, onebit_pack
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn(n + 1, generator=g, device="cuda")
+    buf[1::11] = -0.0
+    x = buf[1:n + 1]
+    words = onebit_pack(x)
+    if not torch.equal(words, _pack_torch(x)):
+        raise AssertionError(f"onebit pack {name} (4-byte offset): words "
+                             "differ from the plain version")
+    res = {"case": name, "n": n, "offset_bytes": x.data_ptr() % 16,
+           "pack_bit_equal": True}
+    if timed:
+        res["pack_ms"] = timer(lambda: onebit_pack(x))
+    emit({"phase": "onebit", **res})
+    return res
+
+
 def unpack_edge_cases(seed=43):
     """Unpack-sum at the lengths that cut a row of words short (n = 1,
     31, 4097) and at an odd word count (L = 33, whose last column has no
@@ -646,8 +799,9 @@ def unpack_edge_cases(seed=43):
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal bit for bit: -0.0 against 0.0 and NaN against NaN count."""
+    as_int = {4: torch.int32, 2: torch.int16}[a.element_size()]
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.view(torch.int32), b.view(torch.int32))
+        a.contiguous().view(as_int), b.contiguous().view(as_int))
 
 
 def topk_select_case(timer, name, block, rows, n, seed, ties=False):
@@ -1931,10 +2085,12 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
 # the kernels each run of the main path must launch
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
-PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": ("flash_fwd",),
-         "exact": ("flash_fwd", "flash_decode"),
-         "multitenant": ("flash_fwd", "segmented_lora"),
-         "multitenant_exact": ("flash_fwd", "segmented_lora"),
+# (serving chunks take the forward's split path: flash_fwd_split)
+SPLIT = ("flash_fwd", "flash_fwd_split")
+PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
+         "exact": SPLIT + ("flash_decode",),
+         "multitenant": SPLIT + ("segmented_lora",),
+         "multitenant_exact": SPLIT + ("segmented_lora",),
          "train_bf16": TRAIN,
          "train_raw": TRAIN,
          "train_onebit": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
@@ -1998,6 +2154,16 @@ def main() -> int:
                                                         "flash_decode")},
                    **{n: sass_counts(libs[n], FMA_SASS)
                       for n in ("segmented_lora", "onebit")}}})
+    # the bf16 split kernel's tensor-core instantiations (MMA = true)
+    tc_split = re.compile(
+        r"fwd_split_kernel<__nv_bfloat16, [^,]+, (\(bool\)1|true)[,>]"
+        r"|fwd_split_kernelI13__nv_bfloat16Li\d+ELb1E")
+    split_sass = {k: c for k, c in sass_counts(libs["flash_fwd"]).items()
+                  if tc_split.search(k)}
+    if not split_sass or not all(c["HGMMA"] + c["HMMA"] > 0
+                                 for c in split_sass.values()):
+        raise AssertionError("the bf16 split kernel shows no tensor-core "
+                             f"instruction: {split_sass}")
 
     timer = Timer()
     bf, f32 = torch.bfloat16, torch.float32
@@ -2013,6 +2179,9 @@ def main() -> int:
                             13))
         fwd.append(fwd_case(timer, "long_prefill", 1, 700, 1024, 16, 16, 64,
                             0, dt, 14))
+    fwd += split_cases(timer)
+    for case in INVARIANCE:
+        fwd_invariance(*case)
     dec = [decode_case(timer, *case) for case in DECODE_CASES]
     for case in DECODE_TWICE:
         decode_twice_case(*case)
@@ -2053,6 +2222,7 @@ def main() -> int:
             onebit_case(timer, "ragged", 1_000_003, 41),
             onebit_case(timer, "signed_zero_nan", 1_000_003, 42,
                         special=True)]
+    pack_unaligned_cases(timer)
     unpack_edge_cases()
     topk = topk_cases(timer)
     lora = lora_cases(timer)
@@ -2144,7 +2314,13 @@ def main() -> int:
               "library_ms")
     rows = [("flash_fwd", "flash_fwd", "byteps_tpu/ops/flash_attention.py:207",
              {**main_fwd, **{f"train_{k}": train_fwd[k]
-                             for k in ("ms", "bound_ms", "library_ms")}}),
+                             for k in ("ms", "bound_ms", "library_ms")},
+              **{f"split_{k}": main_fwd[k]
+                 for k in ("ms", "bound_ms", "library_ms")},
+              "split_launches": sum(by_path[p]["flash_fwd_split"]
+                                    for p in MAIN_PATHS),
+              "split_launches_by_path": {
+                  p: c["flash_fwd_split"] for p, c in by_path.items()}}),
             ("flash_decode", "flash_decode",
              "byteps_tpu/ops/flash_decode.py:77", main_dec),
             ("flash_bwd_dq", "flash_bwd",
@@ -2200,8 +2376,10 @@ def main() -> int:
          "case": main["case"], **{k: main[k] for k in common},
          **{k: main[k] for k in ("ms_time_sliced", "train_ms",
                                  "train_bound_ms", "train_library_ms",
-                                 "long_ms", "long_bound_ms",
-                                 "long_library_ms")
+                                 "split_ms", "split_bound_ms",
+                                 "split_library_ms", "split_launches",
+                                 "split_launches_by_path", "long_ms",
+                                 "long_bound_ms", "long_library_ms")
             if k in main}}
         for name, src, rep, main in rows]
     print(card, flush=True)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """The attention kernels on one CUDA card: the bf16 tensor-core forward,
-dq and dk/dv, and (with ``--decode``) flash decode.
+dq and dk/dv, (with ``--decode``) flash decode, and (with ``--split``)
+the forward's split path.
 
     python3 scripts/torch_flash_tc.py [--repo DIR] [--train-only] [--decode]
+    python3 scripts/torch_flash_tc.py --split [--repo DIR]
 
 Builds flash_fwd and flash_bwd (and flash_decode) from DIR's sources
 (default: this checkout) and prints each library's ptxas report and SASS
@@ -14,7 +16,14 @@ bit-equality checks. ``--train-only`` keeps the training shape's two
 cases (B=8, S=1024, 16 heads of 64, causal: the forward, then dq and
 dk/dv). ``--decode`` adds every decode case of the smoke (generate's
 step B=4 pos 160, B=8 up to pos 1023 dense and int8, f32, GQA, B=1 pos
-1023, the tile edges) and its two-launch check. ``--repo`` points at
+1023, the tile edges) and its two-launch check. ``--split`` runs instead
+the forward's split-path cases of the smoke (serve's 32-row chunk, the
+ragged 37-row chunk, multitenant's 64-row chunk, GQA, head dim 128,
+more splits than a cluster holds; bf16 and f32; and the f32 prefills,
+which always take it) and its invariance
+checks (a chunk's rows bit for bit the same inside a larger chunk,
+against more keys, in a batch, launched twice), beside what the timer
+reads for zeroing one float. ``--repo`` points at
 another checkout (a parent commit unpacked with ``git archive``) so
 that two versions are compared on one card in one call: run parent,
 change, change, parent. One JSON line per case; exits non-zero if a
@@ -50,6 +59,9 @@ def main() -> int:
                     help="only the training shape's forward and backward")
     ap.add_argument("--decode", action="store_true",
                     help="also the flash-decode cases")
+    ap.add_argument("--split", action="store_true",
+                    help="only the forward's split-path cases and its "
+                    "invariance checks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_flash_tc: no CUDA device", file=sys.stderr)
@@ -60,7 +72,8 @@ def main() -> int:
     from byteps_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = _build.build(("flash_fwd", "flash_bwd")
+    libs = _build.build(("flash_fwd",) if args.split else
+                        ("flash_fwd", "flash_bwd")
                         + (("flash_decode",) if args.decode else ()))
     ptxas = {n: [ln.strip() for ln in p.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln
@@ -70,6 +83,8 @@ def main() -> int:
              "card": cs.card_name_and_limit(), "ptxas": ptxas,
              "sass": {n: cs.sass_counts(p) for n, p in libs.items()}})
 
+    if args.split:
+        return split_only(cs)
     bf = torch.bfloat16
     fwd = [(("train", 8, 1024, 1024, 16, 16, 64, 0, bf, 15), {})]
     bwd = [(("train", 8, 1024, 1024, 16, 16, 64, 0, 0, bf, 30), {})]
@@ -113,6 +128,39 @@ def main() -> int:
         except AssertionError as e:
             print(e, file=sys.stderr, flush=True)
             failed.append(f"{fn.__name__} {case[0]}")
+    if failed:
+        print(f"torch_flash_tc: failed {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def split_only(cs) -> int:
+    """The split-path cases and the invariance checks; 1 if any failed."""
+    timer = cs.Timer()
+    one = torch.zeros(1, device="cuda")
+    cs.emit({"phase": "timer_floor", "zero_1_ms": timer(one.zero_)})
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(cs.fwd_case, (timer, name, B, Sq, Sk, H, Hkv, 64, q_off, dt,
+                            seed))
+             for name, B, Sq, Sk, H, Hkv, q_off, dts, seed in (
+                 ("chunk", 1, 32, 512, 16, 16, 256, (bf, f32), 11),
+                 ("ragged_chunk", 1, 37, 512, 16, 16, 475, (bf, f32), 12),
+                 ("prefill", 4, 128, 1024, 16, 16, 0, (f32,), 10),
+                 ("gqa", 4, 128, 1024, 16, 4, 0, (f32,), 13),
+                 ("long_prefill", 1, 700, 1024, 16, 16, 0, (f32,), 14))
+             for dt in dts]
+    cases += [(cs.fwd_case, (timer, name, B, Sq, Sk, H, Hkv, D, q_off,
+                             cs.DTYPES[dt], seed))
+              for name, B, Sq, Sk, H, Hkv, D, q_off, dts, seed
+              in cs.SPLIT_CASES for dt in dts]
+    cases += [(cs.fwd_invariance, case) for case in cs.INVARIANCE]
+    failed = []
+    for fn, case in cases:
+        try:
+            fn(*case)
+        except AssertionError as e:      # run every case, then fail
+            print(e, file=sys.stderr, flush=True)
+            failed.append(f"{fn.__name__} {case[:2]}")
     if failed:
         print(f"torch_flash_tc: failed {failed}", file=sys.stderr)
         return 1

@@ -12,9 +12,11 @@ smoke's tolerances, slot-0 rows exactly 0, two launches bit-equal, and
 the batch-invariance checks of ``LORA_INVARIANCE``) and its onebit cases
 (pack and unpack-sum at the 1,024,000-element chunk and a ragged
 1,000,003 at K = 1, 2, 8, 32 and, in the grid order, 40 and 256, bit for
-bit; the short lengths with a zero scale): kernel / plain / library
+bit; pack on -0.0, 0 and NaN and from a 4-byte offset at the chunk, n =
+4097 and n = 33; the short lengths with a zero scale): kernel / plain / library
 times from CUDA events with the L2 cache flushed before each launch,
-beside what the same timer reads for zeroing one float and 4 MB.
+beside what the same timer reads for zeroing one float and 4 MB and for
+copying 4 MB.
 ``--repo`` points at another checkout (a parent commit unpacked with
 ``git archive``) so that two versions are compared on one card in one
 call: run parent, change, change, parent. One JSON line per case; exits
@@ -25,8 +27,6 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -42,21 +42,6 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def sass_by_kernel(lib: Path, ops) -> dict:
-    """``{kernel's mangled name: {op: count}}`` from ``cuobjdump -sass``."""
-    from byteps_tpu_torch.ops import _build
-
-    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    out = {}
-    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
-        name, body = chunk.split("\n", 1)
-        out[name.strip()] = {op: len(re.findall(rf"\b{op}\b", body))
-                             for op in ops}
-    return out
 
 
 def main() -> int:
@@ -80,20 +65,25 @@ def main() -> int:
              for n, p in libs.items()}
     cs.emit({"phase": "build", "repo": str(repo),
              "card": cs.card_name_and_limit(), "ptxas": ptxas,
-             "sass": {n: sass_by_kernel(p, cs.FMA_SASS)
+             "sass": {n: cs.sass_counts(p, cs.FMA_SASS)
                       for n, p in libs.items()}})
 
     timer = cs.Timer()
-    # what the timer reads for any launch: one float zeroed, and a
-    # chunk's 4 MB of output written
-    one, chunk_f32 = (torch.zeros(n, device="cuda") for n in (1, 1024000))
+    # what the timer reads for any launch: one float zeroed, a chunk's 4
+    # MB of output written, and a chunk's 4 MB read and written (copy_)
+    one, chunk_f32, dst = (torch.zeros(n, device="cuda")
+                           for n in (1, 1024000, 1024000))
     cs.emit({"phase": "timer_floor", "zero_1_ms": timer(one.zero_),
-             "zero_4MB_ms": timer(chunk_f32.zero_)})
+             "zero_4MB_ms": timer(chunk_f32.zero_),
+             "copy_4MB_ms": timer(lambda: dst.copy_(chunk_f32))})
     chunk = 4096000 // 4           # one default partition of f32
     cases = ([(cs.lora_case, (timer, *c)) for c in cs.LORA_CASES]
              + [(cs.lora_invariance_case, c) for c in cs.LORA_INVARIANCE]
              + [(cs.onebit_case, (timer, "chunk", chunk, 40)),
                 (cs.onebit_case, (timer, "ragged", 1_000_003, 41)),
+                (cs.onebit_case, (timer, "signed_zero_nan", 1_000_003, 42,
+                                  True)),
+                (cs.pack_unaligned_cases, (timer,)),
                 (cs.unpack_edge_cases, ())])
     failed = []
     for fn, case in cases:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's serving path, on one CUDA card.
 
-    python3 scripts/torch_profile_serve.py [--multitenant] [--out bench_results/torch_profile_serve.json]
+    python3 scripts/torch_profile_serve.py [--multitenant] [--repo DIR] [--out bench_results/torch_profile_serve.json]
 
 Runs GPT-2 medium (bf16, random weights from a seed) through
 ``make_generate_fn`` (B=4, T0=128, 16 new tokens) and ``Scheduler.serve``
@@ -15,8 +15,14 @@ pass of ``chip_smoke.py``'s LoRA race (32 adapters on wq/wv, ranks
 2/4/8 in a 33-slot pool, 32 tenants' requests of 16/64/128 prompt
 tokens and 16 new tokens, max_batch 16, prefill chunk 64) and adds the
 device time by group (the port's kernels by name, GEMMs, the rest) and
-the number of packed decode steps and prefill chunks. Needs a CUDA
-card; prints one JSON line per run.
+the number of packed decode steps and prefill chunks. Every run also
+reports the kernel launches by group and the port's launch counters
+over the profiled pass (``calls``: ``flash_fwd``, and ``flash_fwd_split``
+where the tree counts its split path), so the forward's device ms and
+launches a pass read off one line. ``--repo`` profiles another
+checkout's ``byteps_tpu_torch`` (a parent commit unpacked with ``git
+archive``), so two trees are compared in one call. Needs a CUDA card;
+prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -43,29 +49,37 @@ def _kernel_stats(prof, top: int = 12) -> dict:
             and not getattr(e, "is_user_annotation", False)]
     total_us = sum(e.self_device_time_total for e in rows)
     groups: dict = {}
+    counts: dict = {}
     for e in rows:
         g = _group(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total * 1e-3
+        counts[g] = counts.get(g, 0) + e.count
     rows.sort(key=lambda e: -e.self_device_time_total)
     return {"device_us": total_us,
             "launches": sum(e.count for e in rows),
             "device_ms_by_group": dict(sorted(groups.items(),
                                               key=lambda kv: -kv[1])),
+            "launches_by_group": counts,
             "top": [{"kernel": e.key[:90], "count": e.count,
                      "device_us": e.self_device_time_total}
                     for e in rows[:top]]}
 
 
 def _profiled(fn) -> dict:
+    from byteps_tpu_torch.ops import launches, reset_launches
+
     fn()                                   # warm-up: builds, allocator
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    calls = {k: v for k, v in launches.items() if v}
     stats = _kernel_stats(prof)
+    stats["calls"] = calls
     stats["wall_s"] = wall_s
     stats["device_busy_share"] = stats["device_us"] * 1e-6 / wall_s
     return stats
@@ -114,10 +128,14 @@ def main() -> int:
     ap.add_argument("--multitenant", action="store_true",
                     help="profile one multiplexed pass of the LoRA race "
                     "instead of generate and serve")
+    ap.add_argument("--repo", default=str(Path(__file__).resolve()
+                                          .parents[1]),
+                    help="checkout whose byteps_tpu_torch is profiled")
     ap.add_argument("--out", default="bench_results/torch_profile_serve.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_serve: no CUDA device")
+    sys.path.insert(0, str(Path(args.repo).resolve()))
     from byteps_tpu_torch.models import GPTConfig, gpt_init, make_generate_fn
     from byteps_tpu_torch.serve import Request, Scheduler
 
@@ -128,7 +146,8 @@ def main() -> int:
     cfg = GPTConfig.gpt2_medium()
     params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
     if args.multitenant:
-        out = {"card": card, "multitenant": _multitenant(params, cfg)}
+        out = {"card": card, "repo": str(Path(args.repo).resolve()),
+               "multitenant": _multitenant(params, cfg)}
         print(json.dumps({"run": "multitenant", **out["multitenant"],
                           "card": card}), flush=True)
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -146,7 +165,7 @@ def main() -> int:
             [Request(rid=i, prompt=p, max_new=16)
              for i, p in enumerate(prompts)])
 
-    out = {"card": card,
+    out = {"card": card, "repo": str(Path(args.repo).resolve()),
            "generate": _profiled(lambda: gen(params, prompt)),
            "serve": _profiled(serve)}
     for name in ("generate", "serve"):

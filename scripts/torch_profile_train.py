@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's training step, on one CUDA card.
 
-    python3 scripts/torch_profile_train.py [--steps 3] [--out bench_results/torch_profile_train.json]
+    python3 scripts/torch_profile_train.py [--steps 3] [--legs raw,onebit_ef,topk_block_ef] [--repo DIR] [--out bench_results/torch_profile_train.json]
 
 Builds ``make_gpt_train_step`` at the full width and depth of GPT-2
 medium (bf16 activations over f32 master weights, AdamW(1e-3), random
@@ -15,7 +15,10 @@ tracing slows the host, not the kernels), the summed device time of
 every kernel per step, the device's busy share (that device time over
 the unprofiled wall time), the kernel launches per step, the device
 time per step by group (the port's hand-written kernels one by one,
-GEMMs, everything else) and the kernels that took the most device time.
+GEMMs, everything else), the launches per step by group and the kernels
+that took the most device time. ``--legs`` picks legs by name; ``--repo``
+profiles another checkout's ``byteps_tpu_torch`` (a parent commit
+unpacked with ``git archive``), so two trees are compared in one call.
 Needs a CUDA card; prints one JSON line per leg.
 """
 
@@ -34,10 +37,11 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repo
 
-# the port's hand-written kernels by their CUDA names (FMA and
-# tensor-core paths alike: fwd_wgmma, dq_wgmma, dkv_wgmma), in the launch
-# counters' names
-OWN = {"flash_fwd": r"\b(fwd|fwd_wgmma|merge)_kernel\b",
+# the port's hand-written kernels by their CUDA names (every path: the
+# forward's fwd_split and fwd_wgmma, dq_wgmma, dkv_wgmma; fwd and merge,
+# the forward's two-launch split path of earlier trees, so that a profile
+# of such a tree with --repo counts it too), in the launch counters' names
+OWN = {"flash_fwd": r"\b(fwd|fwd_split|fwd_wgmma|merge)_kernel\b",
        "flash_decode": r"\bdecode_kernel\b",
        "segmented_lora": r"\bsegmented_lora_kernel\b",
        "flash_bwd_dq": r"\bdq(_wgmma)?_kernel\b",
@@ -91,9 +95,11 @@ def _profiled_leg(compression, steps: int, B: int, S: int) -> dict:
             and not getattr(e, "is_user_annotation", False)]
     total_us = sum(e.self_device_time_total for e in rows) / steps
     groups: dict = {}
+    counts: dict = {}
     for e in rows:
         g = _group(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / steps
+        counts[g] = counts.get(g, 0) + e.count / steps
     rows.sort(key=lambda e: -e.self_device_time_total)
     del step, params, opt
     torch.cuda.empty_cache()
@@ -106,6 +112,7 @@ def _profiled_leg(compression, steps: int, B: int, S: int) -> dict:
             "device_ms_by_group": {k: v * 1e-3 for k, v in
                                    sorted(groups.items(),
                                           key=lambda kv: -kv[1])},
+            "launches_per_step_by_group": counts,
             "top": [{"kernel": e.key[:90], "count": e.count // steps,
                      "device_ms": e.self_device_time_total * 1e-3 / steps}
                     for e in rows[:15]]}
@@ -114,8 +121,14 @@ def _profiled_leg(compression, steps: int, B: int, S: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--legs", default="raw,onebit_ef,topk_block_ef",
+                    help="comma-separated legs to profile")
+    ap.add_argument("--repo", default=str(Path(__file__).resolve()
+                                          .parents[1]),
+                    help="checkout whose byteps_tpu_torch is profiled")
     ap.add_argument("--out", default="bench_results/torch_profile_train.json")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.repo).resolve()))
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_train: no CUDA device")
     card = subprocess.run(
@@ -123,13 +136,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"card": card}
-    for leg, comp in (("raw", None),
-                      ("onebit_ef", {"compressor": "onebit", "ef": "vanilla"}),
-                      ("topk_block_ef", {"compressor": "topk", "k": 0.01,
-                                         "ef": "vanilla",
-                                         "selection": "block"})):
-        out[leg] = _profiled_leg(comp, args.steps, 8, 1024)
+    out = {"card": card, "repo": str(Path(args.repo).resolve())}
+    legs = {"raw": None,
+            "onebit_ef": {"compressor": "onebit", "ef": "vanilla"},
+            "topk_block_ef": {"compressor": "topk", "k": 0.01,
+                              "ef": "vanilla", "selection": "block"}}
+    for leg in args.legs.split(","):
+        out[leg] = _profiled_leg(legs[leg], args.steps, 8, 1024)
         print(json.dumps({"leg": leg, "card": card, **out[leg]}), flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:

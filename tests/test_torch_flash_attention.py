@@ -43,6 +43,18 @@ TC_CASES = {
     for kind, Sk, qo in (("seq80", 80, 0), ("chunk80", 160, 80))
 }
 CASES.update(TC_CASES)
+# the serving chunks' geometry across 128-key split boundaries (the card's
+# split path merges a row's splits in one cluster): 37 rows at 260 reach
+# key 297, 40 rows at 264 key 304, 64 rows at 130 under GQA 4:1 key 194.
+# The reference's Pallas forward takes lengths in whole 8-row tiles only,
+# so it runs the last two.
+SPLIT_CASES = {
+    "chunk_splits": (1, 37, 300, 2, 2, 64, 260, 0),
+    "chunk40_splits": (1, 40, 304, 2, 2, 64, 264, 0),
+    "chunk64_gqa": (1, 64, 200, 4, 1, 64, 130, 0),
+}
+PALLAS_SPLIT_CASES = ["chunk40_splits", "chunk64_gqa"]
+CASES.update(SPLIT_CASES)
 
 
 def _inputs(B, Sq, Sk, H, Hkv, D, seed):
@@ -87,7 +99,8 @@ def test_attention_lse_matches_jnp_twin(case, causal):
         assert np.all(got[1][:, :8] == jfa._NEG)
 
 
-@pytest.mark.parametrize("case", ["offsets", "dead_rows", "gqa"])
+@pytest.mark.parametrize("case", ["offsets", "dead_rows", "gqa",
+                                  *PALLAS_SPLIT_CASES])
 def test_attention_lse_matches_pallas_forward_kernel(case, monkeypatch):
     monkeypatch.setenv("BYTEPS_KERNEL_BACKEND", "pallas")
     B, Sq, Sk, H, Hkv, D, qo, ko = CASES[case]
@@ -129,7 +142,7 @@ def test_per_row_offsets_match_jnp_twin():
     _close(got, want, F32_TOL)
 
 
-@pytest.mark.parametrize("case", ["offsets", "gqa"])
+@pytest.mark.parametrize("case", ["offsets", "gqa", *sorted(SPLIT_CASES)])
 def test_bf16_matches_jnp_twin(case):
     B, Sq, Sk, H, Hkv, D, qo, ko = CASES[case]
     arrs = _inputs(B, Sq, Sk, H, Hkv, D, seed=11)

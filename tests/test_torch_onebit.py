@@ -1,7 +1,8 @@
 """The port's onebit codec against the reference: pack words bit for bit
 (the reference's uint32 words as the port's int32 bits) under both of
 the reference's backends — jnp and its Pallas kernels in interpret
-mode — at ragged lengths and on -0.0 / 0 / NaN; unpack-sum equal at
+mode — at ragged lengths, on -0.0 / 0 / NaN and from a view 4 bytes
+into its buffer; unpack-sum equal at
 K = 1, 3 and 8, and at K = 2 and 32 (the ring owner's and the most the
 unrolled kernel takes) at n = 1 and 31 (both fold the K rows in order
 from 0.0, so equality is exact) and at K = 40 and 64 against the reference's grid kernel (rows
@@ -54,6 +55,19 @@ def test_pack_words_bit_equal(backend, n, special):
     want = np.asarray(rob.onebit_pack(jnp.asarray(x), backend=backend))
     got = tob.onebit_pack(torch.as_tensor(x)).numpy().view(np.uint32)
     assert got.shape == (tob.packed_words(n),) == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("n", [33, 4097])
+def test_pack_from_unaligned_start_bit_equal(backend, n):
+    """A view that starts 4 bytes into its buffer (``buf[1:n+1]``), as the
+    card's pack takes it without a vector load: the reference's words."""
+    buf = _x(n + 1, seed=n + 1, special=True)
+    want = np.asarray(rob.onebit_pack(jnp.asarray(buf[1:]), backend=backend))
+    view = torch.as_tensor(buf)[1:n + 1]
+    assert view.storage_offset() == 1
+    got = tob.onebit_pack(view).numpy().view(np.uint32)
     np.testing.assert_array_equal(got, want)
 
 

@@ -29,8 +29,8 @@ Wire tiers (``BYTEPS_ICI_TIER``, per-call ``tier=``; ``None`` reads the
 config): ``staged`` moves each payload leaf with one ``all_to_all_single``
 ("push") and one ``all_gather`` ("pull"); ``ring`` moves the same leaves
 through ``n−1`` ring hops (``ops/ring_collective_kernels.py``: the
-hand-written peer-copy kernels on the card, point-to-point rounds on the
-CPU). Both move bits only, and the aggregation arithmetic (the codec's
+hand-written peer-copy kernels on the card, every leaf of a payload in
+one call a direction, point-to-point rounds on the CPU). Both move bits only, and the aggregation arithmetic (the codec's
 ``decompress_sum``, the worker-order fold, the ``two_way`` recompression)
 is shared, so deterministic codecs give the same bits under both tiers.
 Stochastic presummable codecs (randomk) instead take ``ring_presum``
@@ -58,8 +58,8 @@ from byteps_tpu_torch.common.config import ICI_TIERS, get_config
 from byteps_tpu_torch.common.metrics import get_registry
 from byteps_tpu_torch.compression.base import Compressor, Payload, fold_in
 from byteps_tpu_torch.ops.ring_collective_kernels import (
-    ring_allgather,
-    ring_collect,
+    ring_allgather_tree,
+    ring_collect_tree,
     ring_presum,
 )
 
@@ -186,7 +186,7 @@ def _exchange(payload: Payload, n: int, tier: str) -> Payload:
     if n == 1:
         return payload
     if tier == "ring":
-        return {k: ring_collect(a, n) for k, a in payload.items()}
+        return ring_collect_tree(payload, n)
     out = {}
     for k, a in payload.items():
         a = _as_wire(a)
@@ -198,14 +198,12 @@ def _exchange(payload: Payload, n: int, tier: str) -> Payload:
 
 def _gather(out_payload: Payload, n: int, tier: str) -> Payload:
     """Owner-ordered stack of every owner's result payload (the "pull")."""
+    if n == 1:
+        return {k: a[None] for k, a in out_payload.items()}
+    if tier == "ring":
+        return ring_allgather_tree(out_payload, n)
     out = {}
     for k, a in out_payload.items():
-        if n == 1:
-            out[k] = a[None]
-            continue
-        if tier == "ring":
-            out[k] = ring_allgather(a, n)
-            continue
         w = _as_wire(a)
         parts = [torch.empty_like(w) for _ in range(n)]
         dist.all_gather(parts, w)

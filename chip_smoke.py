@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``byteps_tpu_torch``) on one card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
+    python3 chip_smoke.py --ring     # the ring phases (10-11) alone
 
 Phases, each printing one JSON line:
 
@@ -102,22 +103,35 @@ Phases, each printing one JSON line:
     training step's payload rows (onebit words of a full 1,024,000 and
     of the 567,296 tail chunk's segment, the f32 scale, randomk's
     k = 0.01 values), an odd 1,003-byte uint8 row, a 300,001-byte row
-    that makes the ranks grow their workspaces, and an int32 row, the
-    rotate kernel (collect and gather) and presum are bit-equal to their
-    plain versions over gloo on CPU copies; 2,000 back-to-back calls
-    cycling the three over changing contents come out right; at chunk
-    level ``compressed_allreduce_local`` on the ring equals the staged
-    tier bit for bit for onebit + EF and top-k block + EF, and randomk
-    keeps the same support, values within 1e-5. Each case also runs with
-    n in-process peers (one workspace and stream a rank in this process,
-    all n kernels at once), bit-equal to what the ranks sent. Per call:
-    ms, CUDA events around a call of the n in-process peers, its launches
-    issued while a sleep kernel holds the card (the kernels' own time);
-    ms_time_sliced, around one rank process's launch
-    after the ranks meet on the host, the slowest rank's median (the
-    protocol's cost with the ranks time-slicing the card); library_ms,
-    gloo's ``all_to_all_single``, ``all_gather`` or ``reduce_scatter``
-    on the same CUDA rows, timed as ms_time_sliced; the byte bound;
+    that makes the ranks grow their workspaces, an int32 row, and two
+    payloads in one tree call (onebit's signs and scale, the main path's
+    call; the tail's signs, the scale and an odd uint8 leaf), the rotate
+    call (collect and gather: a push kernel, the stream's waits on the
+    rank's own flags, a land kernel) and presum (n kernels, n - 1 stream
+    waits) are bit-equal to their plain versions over gloo on CPU
+    copies; 2,000 back-to-back calls cycling the three over changing
+    contents come out right; at chunk level ``compressed_allreduce_local``
+    on the ring equals the staged tier bit for bit for onebit + EF and
+    top-k block + EF, and randomk keeps the same support, values within
+    1e-5; the last rank holds back a call and every other rank's
+    workspace check raises, naming the epoch and the late rank's flag,
+    within its bound (2 s here), before the late call releases them.
+    Each case also runs with n in-process peers (one workspace and stream
+    a rank in this process, all n at once), bit-equal to what the ranks
+    sent, under both protocols (the stream's waits, which the ranks on
+    one card take, and the spinning kernel, which peers that run at once
+    take). Per call: ms, CUDA events around a call of the n in-process
+    peers in the stream protocol, its launches and waits issued while a
+    sleep kernel holds the card (the kernels' own time), ms_spin the same
+    in the spinning protocol; ms_time_sliced, around one rank
+    process's bare call after the ranks meet on the host, the slowest
+    rank's median (the protocol's cost with the ranks time-slicing the
+    card); library_ms, gloo's ``all_to_all_single``, ``all_gather`` or
+    ``reduce_scatter`` on the same CUDA rows, timed as ms_time_sliced
+    (null for a payload of several leaves: no one call moves it); the
+    byte bound. At n = 2, ring_switch: an empty push bounced between the
+    two processes 200 times, half a round being the card's cost of one
+    switch between their contexts;
 11. train_ring — two rank processes on the card run
     ``make_gpt_train_step`` at GPT-2 medium's full width and depth,
     B=4 × S=1024 each (the single-card legs' global batch), one warm-up
@@ -148,17 +162,19 @@ per leg: the flash kernels once per layer and step; onebit pack n + 1 and
 unpack-sum 1 + 2n times per chunk and step at n = 2 ranks (n segments
 packed and the owner's sum repacked; the owner's K = n unpack-sum, then
 n gathered and n own rows decoded); the ring onebit leg the rotate
-kernel 4 times per chunk and step (collect and gather of the signs and
-the scale), the randomk leg presum once and rotate once (the gather)
-and no collect.
+call twice per chunk and step (one collect and one gather, each moving
+the signs and the scale), the randomk leg presum once and rotate once
+(the gather) and no collect.
 A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
 (generate, serve, multitenant, the three train legs, train_ring's
 three legs on one rank; the ring rows' times are the ring phase's
-n = 2 cases; the flash_fwd row, timed at serve's chunk, also gives the
-training shape's ms, bound and SDPA ms as ``train_*``, the split path's
-at serve's chunk as ``split_*`` and its launches, in all and by path,
-as ``split_launches`` and ``split_launches_by_path``, the flash_decode
+n = 2 cases, rotate's the onebit payload's tree collect with the signs
+leaf alone as ``signs_*``; the flash_fwd row, timed at serve's chunk,
+also gives the training shape's ms, bound and SDPA ms as ``train_*``,
+the split path's at serve's chunk as ``split_*`` and its launches, in
+all and by path, as ``split_launches`` and ``split_launches_by_path``,
+the flash_decode
 row, timed at generate's step, the long case's as ``long_*``), and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -1574,40 +1590,84 @@ def rank_entry(body_name, rank, n, store, q, *args):
 
 
 def ring_cases(n: int) -> list:
-    """(name, op, dtype, row shape) of the ring phase at n ranks: the
-    training step's payload rows (onebit words of a full and of the tail
-    chunk's segment, the f32 scale, randomk's values), an odd uint8 row,
-    a row past the workspace's first 64 KB slots (the ranks grow it
-    together; every later call runs on the grown one) and an int32
-    row."""
+    """(name, op, leaves) of the ring phase at n ranks, leaves a tuple of
+    (key, dtype, row shape): the training step's payload rows (onebit
+    words of a full and of the tail chunk's segment, the f32 scale,
+    randomk's values), an odd uint8 row, a row past the workspace's first
+    64 KB slots (the ranks grow it together; every later call runs on the
+    grown one), an int32 row, and two payloads of several leaves in one
+    tree call: onebit's signs and scale (the main path's call), and the
+    tail's signs, the scale and an odd uint8 leaf (a leaf of 1,003 bytes
+    ahead of the others in the slot)."""
     from byteps_tpu_torch.compression.topk import resolve_k
     from byteps_tpu_torch.ops.onebit_kernels import packed_words
 
     seg, tseg = -(-CHUNK // n), -(-TAIL // n)
     k = resolve_k(RANDOMK_K, seg)
+    signs = ("signs", torch.int32, (packed_words(seg),))
+    scale = ("scale", torch.float32, (1,))
     cases = []
-    for name, dt, row in (("signs_full", torch.int32, (packed_words(seg),)),
-                          ("signs_tail", torch.int32, (packed_words(tseg),)),
-                          ("scale", torch.float32, (1,)),
-                          ("randomk_values", torch.float32, (k,)),
-                          ("odd_uint8", torch.uint8, (1003,)),
-                          ("grow_uint8", torch.uint8, (300_001,)),
-                          ("int32", torch.int32, (4, 250))):
+    for name, leaves in (
+            ("signs_full", (("x",) + signs[1:],)),
+            ("signs_tail", (("x", torch.int32, (packed_words(tseg),)),)),
+            ("scale", (("x",) + scale[1:],)),
+            ("randomk_values", (("x", torch.float32, (k,)),)),
+            ("odd_uint8", (("x", torch.uint8, (1003,)),)),
+            ("grow_uint8", (("x", torch.uint8, (300_001,)),)),
+            ("int32", (("x", torch.int32, (4, 250)),)),
+            ("onebit_tree", (signs, scale)),
+            ("odd_tree", (("signs", torch.int32, (packed_words(tseg),)),
+                          scale, ("odd", torch.uint8, (1003,))))):
         for op in ("collect", "gather"):
-            cases.append((name, op, dt, row))
-    cases.append(("randomk_values", "presum", torch.float32, (k,)))
+            cases.append((name, op, leaves))
+    cases.append(("randomk_values", "presum",
+                  (("x", torch.float32, (k,)),)))
     return cases
 
 
-def ring_input(i, op, dt, row, n, rank):
-    """Case ``i``'s input on ``rank``, from a seed of its own."""
+def ring_input(i, op, leaves, n, rank) -> dict:
+    """Case ``i``'s payload on ``rank``, from a seed of its own."""
     g = torch.Generator(device="cuda").manual_seed(1000 * rank + i)
-    shape = row if op == "gather" else (n,) + row
-    if dt == torch.float32:
-        return torch.randn(shape, generator=g, device="cuda")
-    hi = 256 if dt == torch.uint8 else 2 ** 31 - 1
-    return torch.randint(0 if dt == torch.uint8 else -hi, hi, shape,
-                         generator=g, device="cuda", dtype=dt)
+    out = {}
+    for key, dt, row in leaves:
+        shape = row if op == "gather" else (n,) + row
+        if dt == torch.float32:
+            out[key] = torch.randn(shape, generator=g, device="cuda")
+            continue
+        hi = 256 if dt == torch.uint8 else 2 ** 31 - 1
+        out[key] = torch.randint(0 if dt == torch.uint8 else -hi, hi, shape,
+                                 generator=g, device="cuda", dtype=dt)
+    return out
+
+
+def ring_call(rk, op, payload) -> dict:
+    """The public call of ``op`` on ``payload``: a leaf alone through
+    ``ring_collect``/``ring_allgather``/``ring_presum``, several through
+    the tree calls."""
+    if op == "presum":
+        return {"x": rk.ring_presum(payload["x"])}
+    if len(payload) == 1:
+        fn = rk.ring_collect if op == "collect" else rk.ring_allgather
+        return {"x": fn(payload["x"])}
+    fn = rk.ring_collect_tree if op == "collect" else rk.ring_allgather_tree
+    return fn(payload)
+
+
+def ring_outputs(rk, op, payload, n):
+    """(empty outputs, the rotate's (src, out, slot offset) leaves or None,
+    the slot span) of a bare call."""
+    if op == "presum":
+        x = payload["x"]
+        out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+        return {"x": out}, None, out.numel() * 4
+    gather = op == "gather"
+    outs = {k: torch.empty((n,) + tuple(x.shape[0 if gather else 1:]),
+                           dtype=x.dtype, device=x.device)
+            for k, x in payload.items()}
+    layout, span = rk.slot_layout({k: (o.shape[1:], o.dtype)
+                                   for k, o in outs.items()})
+    return outs, [(payload[k], o, layout[k][0]) for k, o in outs.items()], \
+        span
 
 
 def ring_bytes(op, n, row_bytes):
@@ -1618,53 +1678,53 @@ def ring_bytes(op, n, row_bytes):
             "presum": (n * row_bytes, row_bytes)}[op]
 
 
-def ring_kernel_ms(x, op, n, rank, iters=20):
-    """The median of CUDA events around the bare kernel launch, after the
-    ranks drain their streams and meet on the host (the ranks time-slice
-    the card)."""
+def ring_kernel_ms(payload, op, n, rank, iters=20):
+    """The median of CUDA events around the bare call (push, the stream's
+    waits, land; presum's n kernels and n-1 waits), after the ranks drain
+    their streams and meet on the host (the ranks time-slice the card)."""
     import statistics
 
     import torch.distributed as dist
 
     from byteps_tpu_torch.ops import ring_collective_kernels as rk
 
+    x = next(iter(payload.values()))
     ws = rk.workspace(x.device)
-    gather = op == "gather"
-    if op == "presum":
-        out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
-    else:
-        out = torch.empty((n,) + tuple(x.shape[0 if gather else 1:]),
-                          dtype=x.dtype, device=x.device)
-    nbytes = out.numel() * x.element_size() // (1 if op == "presum" else n)
+    outs, leaves, span = ring_outputs(rk, op, payload, n)
     evs = []
     for _ in range(iters):
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
-        epoch = ws.prepare(nbytes)
+        epoch = ws.prepare(span)
         torch.cuda.current_stream().synchronize()
         dist.barrier()
         ev[0].record()
         if op == "presum":
-            rk.launch_presum(ws, x, out, n, rank, epoch)
+            rk.launch_presum(ws, x, outs["x"], n, rank, epoch)
         else:
-            rk.launch_rotate(ws, x, out, n, rank, gather, epoch)
+            rk.launch_rotate(ws, leaves, n, rank, op == "gather", epoch)
         ev[1].record()
         evs.append(ev)
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
-def ring_library_ms(x, op, n, iters=20):
+def ring_library_ms(payload, op, n, iters=20):
     """{"library_ms": the median of CUDA events around the one PyTorch call
     of the same function on the same CUDA rows, gloo's
     ``all_to_all_single`` (collect), ``all_gather`` (gather) or
     ``reduce_scatter`` (presum), after the ranks meet on the host as for
-    the kernel's time}; where gloo refuses the tensors, null and the
-    reason."""
+    the kernel's time}; null and the reason where gloo refuses the
+    tensors, or where no one call moves a payload of several leaves."""
     import statistics
 
     import torch.distributed as dist
 
+    if len(payload) > 1:
+        return {"library_ms": None,
+                "library_refused": "no one PyTorch call moves a payload's "
+                                   "leaves"}
+    x = payload["x"]
     if op == "collect":
         out = torch.empty_like(x)
         call = lambda: dist.all_to_all_single(out, x)           # noqa: E731
@@ -1692,10 +1752,72 @@ def ring_library_ms(x, op, n, iters=20):
                                             for a, b in evs)}
 
 
+def ring_switch_ms(rank, rounds=200):
+    """Ranks 0 and 1 bounce an empty push ``rounds`` times, back to back
+    (rank 0 signals then its stream waits, rank 1 waits then signals):
+    host clock over the rounds, per round. A round is two switches of a
+    time-sliced card between the ranks' contexts."""
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.ops import ring_collective_kernels as rk
+
+    ws = rk.workspace(torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        epoch = ws.prepare(0)
+        p = (epoch & 1) * 2
+        if rank == 0:
+            rk.launch_push(ws, [], 2, 0, False, epoch)
+            rk.wait_flag(ws, p + 1, epoch)
+        else:
+            rk.wait_flag(ws, p, epoch)
+            rk.launch_push(ws, [], 2, 1, False, epoch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / rounds
+
+
+def ring_dead_peer(rank, n):
+    """The last rank holds back its call: every other rank's check must
+    raise within the workspace's bound (set to 2 s here), naming the
+    epoch and the late rank's flag, instead of hanging; then the late
+    call releases their streams."""
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.ops import ring_collective_kernels as rk
+
+    ws = rk.workspace(torch.device("cuda", 0))
+    ws.wait_bound_s = 2.0
+    late, res = n - 1, {}
+    x = torch.full((n, 16), rank, dtype=torch.int32, device="cuda")
+    if rank != late:
+        rk.ring_collect(x)
+        epoch, t0, err = ws.epoch, time.monotonic(), None
+        while err is None and time.monotonic() - t0 < 60:
+            time.sleep(0.2)
+            try:
+                ws.check()
+            except RuntimeError as e:
+                err = str(e)
+        want = (f"epoch {epoch}", f"source {late})")
+        if err is None or not all(w in err for w in want):
+            raise AssertionError(f"dead peer at n={n}: rank {rank}'s check "
+                                 f"gave {err!r}, not an error naming {want}")
+        res = {"dead_peer_error": err, "dead_peer_raised_s":
+               time.monotonic() - t0}
+    dist.barrier()
+    if rank == late:
+        rk.ring_collect(x)
+    torch.cuda.synchronize()
+    return res
+
+
 def ring_rank(rank, n):
     """One rank of the ring phase: every case's kernel output against
     the plain version over gloo on CPU copies, timed; the race check;
-    the chunk-level tiers on the card."""
+    the chunk-level tiers on the card; at n = 2 the switch; last, a rank
+    that holds back its call."""
     import statistics
 
     from byteps_tpu_torch.comm.ici import compressed_allreduce_local
@@ -1705,21 +1827,21 @@ def ring_rank(rank, n):
     from byteps_tpu_torch.ops import launches
     from byteps_tpu_torch.ops import ring_collective_kernels as rk
 
-    fns = {"collect": rk.ring_collect, "gather": rk.ring_allgather,
-           "presum": rk.ring_presum}
     res = {"cases": []}
-    for i, (name, op, dt, row) in enumerate(ring_cases(n)):
-        x = ring_input(i, op, dt, row, n, rank)
-        before = launches["ring_presum" if op == "presum" else "ring_rotate"]
-        got = fns[op](x)
+    for i, (name, op, leaves) in enumerate(ring_cases(n)):
+        x = ring_input(i, op, leaves, n, rank)
+        kernel = "ring_presum" if op == "presum" else "ring_rotate"
+        before = launches[kernel]
+        got = ring_call(rk, op, x)
         torch.cuda.synchronize()
-        if launches["ring_presum" if op == "presum" else "ring_rotate"] \
-                != before + 1:
-            raise AssertionError(f"ring {op} {name} did not launch")
-        xc = x.cpu()
-        plain = fns[op](xc)
-        equal = got.dtype == plain.dtype and torch.equal(
-            got.cpu().view(torch.uint8), plain.view(torch.uint8))
+        if launches[kernel] != before + 1:
+            raise AssertionError(f"ring {op} {name} did not launch once")
+        xc = {k: v.cpu() for k, v in x.items()}
+        plain = ring_call(rk, op, xc)
+        equal = got.keys() == plain.keys() and all(
+            got[k].dtype == plain[k].dtype and torch.equal(
+                got[k].cpu().view(torch.uint8), plain[k].view(torch.uint8))
+            for k in got)
         if not equal:
             raise AssertionError(f"ring {op} {name} at n={n}: the kernel "
                                  "differs from the plain version")
@@ -1728,13 +1850,16 @@ def ring_rank(rank, n):
         plain_ms = []
         for _ in range(5):
             t0 = time.perf_counter()
-            fns[op](xc)
+            ring_call(rk, op, xc)
             plain_ms.append((time.perf_counter() - t0) * 1e3)
-        row_bytes = int(np.prod(row)) * x.element_size()
+        row_bytes = sum(int(np.prod(row)) * dt.itemsize
+                        for _, dt, row in leaves)
         res["cases"].append({
-            "case": name, "op": op, "dtype": str(dt).split(".")[1],
-            "row": list(row), "row_bytes": row_bytes, "bit_equal": True,
-            "ms": ms, "plain_ms": statistics.median(plain_ms), **lib_ms})
+            "case": name, "op": op,
+            "leaves": [[k, str(dt).split(".")[1], list(row)]
+                       for k, dt, row in leaves],
+            "row_bytes": row_bytes, "bit_equal": True, "ms": ms,
+            "plain_ms": statistics.median(plain_ms), **lib_ms})
     # the race check: back-to-back calls cycling collect, gather and
     # presum over changing contents, against what each rank knows the
     # others sent (rank w's row i is base + 7 i + 1000 w)
@@ -1758,7 +1883,11 @@ def ring_rank(rank, n):
         raise AssertionError(f"ring race check at n={n}: {int(wrong)} "
                              f"elements wrong over {RING_CALLS} calls")
     res["race_calls"], res["race_wrong"] = RING_CALLS, 0
-    res["slot_bytes"] = rk.workspace(base.device).cap
+    ws = rk.workspace(base.device)
+    if (ws.layout, ws.protocol) != ("same_card", "stream"):
+        raise AssertionError(f"ranks on one card took {ws.protocol} "
+                             f"({ws.layout}), not the stream protocol")
+    res.update(slot_bytes=ws.cap, layout=ws.layout, protocol=ws.protocol)
     # chunk level on the card: ring == staged bit for bit (deterministic
     # codecs, with error feedback); randomk the same support, values at
     # summation-order roundoff
@@ -1789,109 +1918,71 @@ def ring_rank(rank, n):
     res["chunk_randomk_same_support"] = True
     res["chunk_randomk_max_abs_diff"] = diff
     res["chunk_randomk_max_abs"] = top
+    if n == 2:
+        res["switch_round_trip_ms"] = ring_switch_ms(rank)
+    res.update(ring_dead_peer(rank, n))
     return res
 
 
-class LocalRing:
-    """n ranks' workspaces in this one process: the peer table holds plain
-    device pointers and each rank launches on a stream of its own, so all
-    n kernels run at once (no time-slicing, no rendezvous): the kernels'
-    own time for a call, hops and flag round trips included."""
-
-    def __init__(self, n, row_bytes):
-        import ctypes
-
-        from byteps_tpu_torch.ops import ring_collective_kernels as rk
-
-        self.rk, self.n, self.epoch = rk, n, 0
-        lib = rk._lib()
-        self.slots_off = rk._round_up(2 * n * lib.bps_ring_max_blocks() * 4,
-                                      256)
-        self.cap = rk._round_up(max(row_bytes, 1), 256)
-        self.bufs = [torch.zeros(self.slots_off + 2 * n * self.cap,
-                                 dtype=torch.uint8, device="cuda")
-                     for _ in range(n)]
-        self.peers = torch.tensor([b.data_ptr() for b in self.bufs],
-                                  dtype=torch.int64, device="cuda")
-        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
-        rk._check(lib.bps_ring_host_alloc(8 * 5, ctypes.byref(host),
-                                          ctypes.byref(dev)), "error words")
-        self._err_host, self.err_dev = host.value, dev.value
-        self.streams = [torch.cuda.Stream() for _ in range(n)]
-
-    def __call__(self, op, xs, outs):
-        """One call of every rank, on its own stream, after the current
-        stream's work; the current stream then waits for all."""
-        self.epoch += 1
-        cur = torch.cuda.current_stream()
-        for r, st in enumerate(self.streams):
-            st.wait_stream(cur)
-            with torch.cuda.stream(st):
-                if op == "presum":
-                    self.rk.launch_presum(self, xs[r], outs[r], self.n, r,
-                                          self.epoch)
-                else:
-                    self.rk.launch_rotate(self, xs[r], outs[r], self.n, r,
-                                          op == "gather", self.epoch)
-        for st in self.streams:
-            cur.wait_stream(st)
-
-    def close(self):
-        torch.cuda.synchronize()
-        self.rk._check(self.rk._lib().bps_ring_host_free(self._err_host),
-                       "free")
-
-
-def ring_local_case(i, op, dt, row, n, iters=50):
-    """Case ``i`` at ``n`` in-process peers (``LocalRing``) on every rank's
-    input of the ring phase: every rank's output bit-equal to what the
-    ranks sent (presum: the chain's adds in its order), and the median of
-    CUDA events around a call of all n. A ~1 ms sleep kernel ahead of the
-    start event holds the card while the host issues the n launches, so
-    the events see the kernels, not the host."""
+def ring_local_case(i, op, leaves, n, protocol, iters=50):
+    """Case ``i`` at ``n`` in-process peers (``LocalPeers``: one workspace
+    and stream a rank in this process, all n running at once, no
+    time-slicing) under ``protocol`` on every rank's input of the ring
+    phase: every rank's output bit-equal to what the ranks sent (presum:
+    the chain's adds in its order), and the median of CUDA events around
+    a call of all n. A ~1 ms sleep kernel ahead of the start event holds
+    the card while the host issues the n calls, so the events see the
+    kernels and the stream waits, not the host."""
     import statistics
 
-    xs = [ring_input(i, op, dt, row, n, r) for r in range(n)]
+    from byteps_tpu_torch.ops import ring_collective_kernels as rk
+
+    xs = [ring_input(i, op, leaves, n, r) for r in range(n)]
     if op == "presum":
         want = []
         for d in range(n):
-            acc = xs[(d + 1) % n][d].clone()
+            acc = xs[(d + 1) % n]["x"][d].clone()
             for t in range(2, n + 1):
-                acc = acc + xs[(d + t) % n][d]
-            want.append(acc)
-        outs = [torch.empty_like(w) for w in want]
+                acc = acc + xs[(d + t) % n]["x"][d]
+            want.append({"x": acc})
     elif op == "gather":
-        want = [torch.stack(xs)] * n
-        outs = [torch.empty_like(w) for w in want]
+        want = [{k: torch.stack([x[k] for x in xs]) for k in xs[0]}] * n
     else:
-        want = [torch.stack([x[r] for x in xs]) for r in range(n)]
-        outs = [torch.empty_like(w) for w in want]
-    nbytes = outs[0].numel() * outs[0].element_size() \
-        // (1 if op == "presum" else n)
-    ring = LocalRing(n, nbytes)
-    try:
-        evs = []
-        for it in range(iters + 1):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            torch.cuda._sleep(2_000_000)          # cycles
-            ev[0].record()
-            ring(op, xs, outs)
-            ev[1].record()
-            if it == 0:                 # check the first call and the last
-                check = [o.clone() for o in outs]
-            else:
-                evs.append(ev)
-        torch.cuda.synchronize()
-        for got in (check, outs):
-            if not all(torch.equal(g.reshape(-1).view(torch.uint8),
-                                   w.reshape(-1).view(torch.uint8))
-                       for g, w in zip(got, want)):
-                raise AssertionError(f"ring {op} case {i} at {n} in-process "
-                                     "peers: wrong output")
-        return statistics.median(a.elapsed_time(b) for a, b in evs)
-    finally:
-        ring.close()
+        want = [{k: torch.stack([x[k][r] for x in xs]) for k in xs[0]}
+                for r in range(n)]
+    outs = [{k: torch.empty_like(w) for k, w in wr.items()} for wr in want]
+    peers = rk.LocalPeers(n, ring_outputs(rk, op, xs[0], n)[2],
+                          torch.device("cuda", 0), protocol)
+    if op == "presum":
+        call = lambda: peers.presum([x["x"] for x in xs],      # noqa: E731
+                                    [o["x"] for o in outs])
+    else:
+        leaves = []
+        for x, out in zip(xs, outs):
+            _, lv, _ = ring_outputs(rk, op, x, n)
+            leaves.append([(src, out[k], off)
+                           for (src, _, off), k in zip(lv, x)])
+        call = lambda: peers.rotate(leaves, op == "gather")    # noqa: E731
+    evs = []
+    for it in range(iters + 1):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        torch.cuda._sleep(2_000_000)          # cycles
+        ev[0].record()
+        call()
+        ev[1].record()
+        if it == 0:                 # check the first call and the last
+            check = [{k: o.clone() for k, o in out.items()} for out in outs]
+        else:
+            evs.append(ev)
+    torch.cuda.synchronize()
+    for got in (check, outs):
+        if not all(torch.equal(g[k].reshape(-1).view(torch.uint8),
+                               w[k].reshape(-1).view(torch.uint8))
+                   for g, w in zip(got, want) for k in w):
+            raise AssertionError(f"ring {op} case {i} at {n} in-process "
+                                 "peers: wrong output")
+    return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
 def phase_ring() -> dict:
@@ -1912,32 +2003,49 @@ def phase_ring() -> dict:
             lib = [r["cases"][i]["library_ms"] for r in per_rank]
             bound, by = bound_ms(rd + wr, 0, torch.float32)
             cases.append({
-                **c, "ms": ring_local_case(i, *spec[1:], n),
+                **c, "ms": ring_local_case(i, *spec[1:], n, "stream"),
+                "ms_spin": ring_local_case(i, *spec[1:], n, "spin"),
                 # the slowest rank's median
                 "ms_time_sliced": max(r["cases"][i]["ms"] for r in per_rank),
                 "plain_ms": max(r["cases"][i]["plain_ms"] for r in per_rank),
                 "library_ms": None if None in lib else max(lib),
                 "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0})
         r0 = {k: v for k, v in per_rank[0].items()
-              if k not in ("cases", "rank")}
+              if k not in ("cases", "rank", "switch_round_trip_ms")}
         emit({"phase": "ring", "ranks": n, "compute_mode": mode,
               "timing": "ms: CUDA events around a call of n in-process "
-                        "peers running at once; ms_time_sliced and "
+                        "peers running at once (the stream protocol, the "
+                        "main path's; ms_spin: the spinning one, the "
+                        "protocol of peers that run at once); "
+                        "ms_time_sliced and "
                         "library_ms (gloo on the same CUDA rows): around "
                         "one rank process's call after the ranks meet, "
                         "median per rank, the slowest rank, the ranks "
                         "time-slicing the card",
               "wall_s": time.perf_counter() - t0, "cases": cases, **r0})
         if n == 2:
-            for kernel, case, op in (("ring_rotate", "signs_full", "collect"),
+            trip = max(r["switch_round_trip_ms"] for r in per_rank)
+            emit({"phase": "ring_switch", "ranks": 2,
+                  "switch_ms": trip / 2, "round_trip_ms": trip,
+                  "timing": "an empty push bounced between two rank "
+                            "processes time-slicing the card, 200 rounds "
+                            "back to back, host clock; the slower rank; a "
+                            "switch is half a round"})
+            for kernel, case, op in (("ring_rotate", "onebit_tree",
+                                      "collect"),
                                      ("ring_presum", "randomk_values",
                                       "presum")):
                 c = next(c for c in cases
                          if c["case"] == case and c["op"] == op)
                 main[kernel] = {**c, "case": f"{case} {op}, 2 ranks: ms "
                                              "in-process peers, "
-                                             "ms_time_sliced and library_ms "
-                                             "two processes on one card"}
+                                             "ms_time_sliced two processes "
+                                             "on one card"}
+            # the signs leaf alone, beside gloo's one call on it
+            c = next(c for c in cases
+                     if c["case"] == "signs_full" and c["op"] == "collect")
+            main["ring_rotate"].update({f"signs_{k}": c[k] for k in (
+                "ms", "ms_time_sliced", "library_ms", "bound_ms")})
     return main
 
 
@@ -2042,8 +2150,9 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
               "onebit_unpack_sum": calls * chunks * (1 + 2 * n)}
     want = {
         "staged_onebit_ef": {**onebit, "ring_rotate": 0, "ring_presum": 0},
-        # collect and gather on both leaves (signs, scale)
-        "ring_onebit_ef": {**onebit, "ring_rotate": calls * chunks * 4,
+        # one collect and one gather call, each for both leaves (signs,
+        # scale)
+        "ring_onebit_ef": {**onebit, "ring_rotate": calls * chunks * 2,
                            "ring_presum": 0},
         # presum on the values, gather of the summed values; no collect
         "ring_randomk_ef": {"onebit_pack": 0, "onebit_unpack_sum": 0,
@@ -2131,7 +2240,12 @@ def counted_ranks(name, fn, *args) -> dict:
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ring", action="store_true",
+                    help="run only the ring phases (ring, train_ring), for "
+                         "work on the ring kernels; no kernels line, no "
+                         "result line")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2165,6 +2279,11 @@ def main() -> int:
         raise AssertionError("the bf16 split kernel shows no tensor-core "
                              f"instruction: {split_sass}")
 
+    if args.ring:
+        phase_ring()
+        emit({"phase": "launches", "train_ring": counted_ranks(
+            "train_ring", phase_train_ring)})
+        return 0
     timer = Timer()
     bf, f32 = torch.bfloat16, torch.float32
     fwd = []
@@ -2379,7 +2498,10 @@ def main() -> int:
                                  "split_ms", "split_bound_ms",
                                  "split_library_ms", "split_launches",
                                  "split_launches_by_path", "long_ms",
-                                 "long_bound_ms", "long_library_ms")
+                                 "long_bound_ms", "long_library_ms",
+                                 "ms_spin", "signs_ms",
+                                 "signs_ms_time_sliced",
+                                 "signs_library_ms", "signs_bound_ms")
             if k in main}}
         for name, src, rep, main in rows]
     print(card, flush=True)

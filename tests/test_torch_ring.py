@@ -15,9 +15,15 @@ plain versions (one ``batch_isend_irecv`` round a hop) are held against:
 
 Every comparison is exact, presum included: it is the same chain of f32
 adds in the same order. uint8 rows and fp8 rows move as bytes,
-unchanged. With one rank each function is a passthrough that needs no
-process group. The CUDA kernels are held against these plain versions on
-the card by ``chip_smoke.py`` (phase ``ring``)."""
+unchanged. The tree calls (``ring_collect_tree``, ``ring_allgather_tree``:
+every leaf of a payload in one call) at n = 2, 3 and 4, on onebit's two
+leaves (int32 words ``(n, 40)``, an f32 scale ``(n, 1)``) and an odd
+uint8 leaf of 1,003 bytes, equal the per-leaf calls and the reference's
+per-leaf twins; the landing slot's layout of a payload
+(``slot_layout``) is a pure function of the leaves' shapes and dtypes.
+With one rank each function is a passthrough that needs no process
+group. The CUDA kernels are held against these plain versions on the
+card by ``chip_smoke.py`` (phase ``ring``)."""
 
 import json
 import os
@@ -37,16 +43,21 @@ from byteps_tpu.ops.ring_collective_kernels import \
 from byteps_tpu.ops.ring_collective_kernels import ring_collect as r_collect
 from byteps_tpu.ops.ring_collective_kernels import ring_presum as r_presum
 from byteps_tpu_torch.ops import _build
-from byteps_tpu_torch.ops.ring_collective_kernels import (ring_allgather,
+from byteps_tpu_torch.ops.ring_collective_kernels import (LEAF_ALIGN,
+                                                          ring_allgather,
                                                           ring_collect,
-                                                          ring_presum)
+                                                          ring_presum,
+                                                          slot_layout)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 # (name, per-row shape) of the cases every group runs
 ROWS = {"aligned": (4, 128), "unaligned": (21,)}
 DTYPES = {"f32": np.float32, "i32": np.int32}
-GROUPS = (3, 4, 8)
+GROUPS = (2, 3, 4, 8)
+# a onebit payload's leaves and an odd uint8 leaf: (dtype, row shape)
+TREE = {"words": (np.int32, (40,)), "scale": (np.float32, (1,)),
+        "odd": (np.uint8, (1003,))}
 
 
 def _inputs(n: int) -> dict:
@@ -61,6 +72,12 @@ def _inputs(n: int) -> dict:
             d[f"{rname}_{dname}_g"] = x[:, 0]
     d["u8"] = rng.integers(0, 256, (n, n, 1003), dtype=np.uint8)
     d["fp8"] = rng.integers(0, 256, (n, n, 37), dtype=np.uint8)
+    for k, (dt, row) in TREE.items():
+        if dt == np.uint8:
+            d["tree_" + k] = rng.integers(0, 256, (n, n) + row, dtype=dt)
+        else:
+            d["tree_" + k] = (rng.standard_normal((n, n) + row)
+                              * 1e4).astype(dt)
     return d
 
 
@@ -70,7 +87,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from byteps_tpu_torch.ops.ring_collective_kernels import (
-    ring_allgather, ring_collect, ring_presum)
+    ring_allgather, ring_allgather_tree, ring_collect, ring_collect_tree,
+    ring_presum)
 
 rank, world, store_path, io = int(sys.argv[1]), int(sys.argv[2]), \
     sys.argv[3], sys.argv[4]
@@ -79,9 +97,12 @@ dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                         rank=rank, world_size=world)
 d = np.load(io + "/in.npz")
 out = {}
+tree = {}
 for k in d.files:
     x = torch.as_tensor(d[k][rank])
-    if k == "fp8":          # fp8 rows move as their bytes
+    if k.startswith("tree_"):  # one payload: its leaves in one call
+        tree[k[5:]] = x
+    elif k == "fp8":          # fp8 rows move as their bytes
         x = x.view(torch.float8_e4m3fn)
         out[k] = ring_collect(x).view(torch.uint8).numpy()
         out[k + "_g"] = ring_allgather(x[0]).view(torch.uint8).numpy()
@@ -91,6 +112,15 @@ for k in d.files:
         out[k] = ring_collect(x).numpy()
         if x.dtype == torch.float32:
             out[k + "_presum"] = ring_presum(x).numpy()
+rows = {k: x[0] for k, x in tree.items()}
+for op, got in (("collect", ring_collect_tree(tree)),
+                ("gather", ring_allgather_tree(rows))):
+    assert list(got) == list(tree), (op, list(got))
+    for k, v in got.items():
+        out[f"tree_{op}_{k}"] = v.numpy()
+for k, x in tree.items():
+    out[f"leaf_collect_{k}"] = ring_collect(x).numpy()
+    out[f"leaf_gather_{k}"] = ring_allgather(x[0]).numpy()
 np.savez(f"{io}/out{rank}.npz", **out)
 dist.barrier()
 dist.destroy_process_group()
@@ -229,3 +259,56 @@ def test_misuse_raises_without_touching_the_build(monkeypatch):
         ring_collect(x, 2)
     with pytest.raises(RuntimeError, match="process group"):
         ring_presum(x, 2)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("op", ["collect", "gather"])
+def test_tree_calls_equal_leaf_calls_and_twins(groups, n, op):
+    """A payload of three leaves (onebit's words and scale, an odd uint8
+    row) in one tree call: each leaf bit-equal to its own call and to the
+    reference's per-leaf twin (``_collect_jnp``/``_allgather_jnp``) under
+    ``shard_map``; the keys keep the payload's order."""
+    d, outs = groups[n]
+    for k in TREE:
+        x = d["tree_" + k]
+        x = x if op == "collect" else x[:, 0]
+        want = _ref(op, x, n)
+        for r, o in enumerate(outs):
+            got = o[f"tree_{op}_{k}"]
+            assert got.dtype == x.dtype
+            np.testing.assert_array_equal(got, o[f"leaf_{op}_{k}"])
+            np.testing.assert_array_equal(got, want[r])
+            np.testing.assert_array_equal(got, x[:, r] if op == "collect"
+                                          else x)
+
+
+_LEAF_SETS = {
+    "onebit": {"signs": ((16000,), torch.int32),
+               "scale": ((1,), torch.float32)},
+    "odd": {"words": ((40,), torch.int32), "scale": ((1,), torch.float32),
+            "odd": ((1003,), torch.uint8)},
+    "mixed": {"a": ((3, 5), torch.float16), "b": ((), torch.float64),
+              "c": ((7,), torch.uint8), "d": ((0,), torch.float32),
+              "e": ((2, 2, 2), torch.bfloat16)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(_LEAF_SETS))
+def test_slot_layout_is_aligned_packed_and_order_free(name):
+    rows = _LEAF_SETS[name]
+    layout, span = slot_layout(rows)
+    assert sorted(layout) == sorted(rows)
+    spans = []
+    for k, (off, nbytes) in layout.items():
+        shape, dtype = rows[k]
+        assert off % LEAF_ALIGN == 0
+        assert nbytes == int(np.prod(shape)) * dtype.itemsize
+        spans.append((off, off + nbytes))
+    spans.sort()
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        assert end <= start                      # no two leaves overlap
+    assert span == sum(-(-nb // LEAF_ALIGN) * LEAF_ALIGN
+                       for _, nb in layout.values())
+    # any order the dict gives, the same layout
+    for keys in (sorted(rows, reverse=True), list(rows)[1:] + list(rows)[:1]):
+        assert slot_layout({k: rows[k] for k in keys}) == (layout, span)

@@ -21,7 +21,11 @@ every case under both tiers (the ring on the CPU: the plain versions of
 * dithering (stochastic, not presummable: the collect exchange): ring
   equals staged;
 * ``BYTEPS_ICI_TIER`` and the per-call ``tier=`` pick the transport, an
-  unknown tier raises, and ``ici.wire_bytes`` is the same under both.
+  unknown tier raises, and ``ici.wire_bytes`` is the same under both;
+  the ring moves a payload's leaves in one tree call a direction;
+* at n = 2 and 3 (groups of their own), onebit + EF at chunk level, the
+  pull compressed or not: ring equals staged bit for bit, through one
+  ``ring_collect_tree`` and one ``ring_allgather_tree`` call a chunk.
 
 The port's stochastic codecs draw from ``torch.Generator``s, so randomk
 and dithering are held against the port's staged tier, not the
@@ -118,7 +122,7 @@ for tier in ("staged", "ring"):
         rng=6, two_way=False, tier=tier).numpy()
 
 # which transport each call takes: count the ring entry points
-calls = {"collect": 0, "presum": 0}
+calls = {"collect_tree": 0, "allgather_tree": 0, "presum": 0}
 for name in calls:
     real = getattr(ici, "ring_" + name)
 
@@ -133,20 +137,22 @@ def run(**kw):
     for k in calls:
         calls[k] = 0
     ici.compressed_allreduce_flat(d["g"], OnebitCompressor(), **kw)
-    return calls["collect"]
+    return [calls["collect_tree"], calls["allgather_tree"]]
 
 
 os.environ["BYTEPS_ICI_TIER"] = "ring"
 reset_config()
-dispatch = [run(), run(tier="staged")]
+dispatch = run() + run(tier="staged")
 os.environ["BYTEPS_ICI_TIER"] = "staged"
 reset_config()
-dispatch += [run(), run(tier="ring")]
+dispatch += run() + run(tier="ring")
 for k in calls:
     calls[k] = 0
 ici.compressed_allreduce_flat(d["gk"], RandomkCompressor(k=0.25), rng=5,
                               tier="ring")
-out["dispatch"] = np.array(dispatch + [calls["collect"], calls["presum"]])
+out["dispatch"] = np.array(dispatch + [calls["collect_tree"],
+                                       calls["presum"],
+                                       calls["allgather_tree"]])
 os.environ["BYTEPS_ICI_TIER"] = "bogus"
 reset_config()
 try:
@@ -278,13 +284,15 @@ def test_ring_dithering_equals_staged(four_ranks):
 
 
 def test_tier_env_and_override_dispatch(four_ranks):
-    """Collect calls of one onebit all-reduce (two payload leaves) under
-    env ring, env ring + tier="staged", env staged, env staged +
-    tier="ring"; then randomk on the ring: no collect exchange, one
-    presum (one payload leaf)."""
+    """Ring calls (collect, gather) of one onebit all-reduce under env
+    ring, env ring + tier="staged", env staged, env staged +
+    tier="ring": one call a direction for both payload leaves (signs and
+    scale) on the ring, none staged; then randomk on the ring: no
+    collect exchange, one presum (one payload leaf), one gather."""
     _, outs = four_ranks
     for o in outs:
-        np.testing.assert_array_equal(o["dispatch"], [2, 0, 0, 2, 0, 1])
+        np.testing.assert_array_equal(o["dispatch"],
+                                      [1, 1, 0, 0, 0, 0, 1, 1, 0, 1, 1])
         assert "unknown ICI tier 'bogus'" in str(o["bogus"])
 
 
@@ -301,3 +309,71 @@ def test_unknown_tier_raises_at_one_rank():
             tici.compressed_allreduce_flat(x + 1, Compressor(),
                                            tier=tier).numpy(),
             np.ones(64, np.float32))
+
+
+_CHUNK_RANK = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from byteps_tpu_torch.comm import ici
+from byteps_tpu_torch.compression import OnebitCompressor
+
+rank, world, store_path, io = int(sys.argv[1]), int(sys.argv[2]), \
+    sys.argv[3], sys.argv[4]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                        rank=rank, world_size=world)
+d = {k: torch.as_tensor(v[rank]) for k, v in np.load(io + "/in.npz").items()}
+calls = {"collect_tree": 0, "allgather_tree": 0}
+for name in calls:
+    real = getattr(ici, "ring_" + name)
+
+    def counting(*a, _real=real, _name=name, **k):
+        calls[_name] += 1
+        return _real(*a, **k)
+
+    setattr(ici, "ring_" + name, counting)
+out = {}
+for tier in ("staged", "ring"):
+    for tw in (True, False):
+        o, ne = ici.compressed_allreduce_local(
+            d["g"], OnebitCompressor(scaling=True), world, two_way=tw,
+            ef_residual=d["e"], tier=tier)
+        out[f"{tier}_{int(tw)}"], out[f"{tier}_{int(tw)}_e"] = \
+            o.numpy(), ne.numpy()
+out["tree_calls"] = np.array([calls["collect_tree"],
+                              calls["allgather_tree"]])
+np.savez(f"{io}/out{rank}.npz", **out)
+dist.barrier()
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "ok": True}))
+"""
+
+
+@pytest.fixture(scope="module")
+def chunk_groups(tmp_path_factory):
+    """{n: each rank's outputs} for n = 2 and 3: one onebit + EF chunk
+    (L = 1003) under both tiers, the pull compressed and not."""
+    res = {}
+    for n in (2, 3):
+        io = tmp_path_factory.mktemp(f"ring_chunk{n}")
+        np.savez(io / "in.npz", g=_rand((n, L), 20 + n),
+                 e=_rand((n, L), 30 + n, 0.1))
+        res[n] = run_group(io, n, _CHUNK_RANK)
+    return res
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("two_way", [True, False])
+def test_ring_onebit_ef_chunk_equals_staged_with_tree_calls(chunk_groups, n,
+                                                            two_way):
+    """Ring == staged bit for bit at chunk level (the all-reduce and each
+    rank's new residual), the ring moving both payload leaves (signs and
+    scale) in one collect and one gather call a chunk."""
+    for o in chunk_groups[n]:
+        for suffix in ("", "_e"):
+            np.testing.assert_array_equal(o[f"ring_{int(two_way)}{suffix}"],
+                                          o[f"staged_{int(two_way)}"
+                                            f"{suffix}"])
+        np.testing.assert_array_equal(o["tree_calls"], [2, 2])

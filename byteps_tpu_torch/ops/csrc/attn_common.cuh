@@ -18,6 +18,8 @@
 
 #include <type_traits>
 
+#include "cluster.cuh"
+
 namespace bps {
 
 constexpr float kNeg = -1e30f;
@@ -202,8 +204,8 @@ __device__ __forceinline__ void fold_rows(const float* __restrict__ qrows,
 }
 
 // --------------------------------------------------------------------------
-// Asynchronous copies and thread-block clusters (flash_fwd.cu's split path,
-// flash_decode.cu).
+// Asynchronous copies (flash_fwd.cu's split path, flash_decode.cu); the
+// cluster pieces are in cluster.cuh.
 // --------------------------------------------------------------------------
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -228,39 +230,6 @@ __device__ __forceinline__ void cp_async_commit() {
 // wait until at most N of this thread's committed groups are pending
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// the cluster barrier: a thread's arrival releases its shared-memory
-// stores before it (the relaxed one orders nothing), the wait acquires
-// every arrived thread's
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// p's place in the shared memory of cluster block `rank`
-__device__ __forceinline__ uint32_t map_cluster(const void* p, int rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))),
-                 "r"(rank));
-  return a;
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t a, float x) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(x)
-               : "memory");
-}
-
-// store x at p's place in the shared memory of cluster block `rank`
-__device__ __forceinline__ void st_cluster(float* p, int rank, float x) {
-  st_cluster(map_cluster(p, rank), x);
 }
 
 // --------------------------------------------------------------------------

@@ -73,6 +73,8 @@
 #include <algorithm>
 #include <atomic>
 
+#include "cluster.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -145,29 +147,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
-// the cluster barrier: a thread's arrival releases its shared-memory
-// stores before it (the relaxed one orders nothing), the wait acquires
-// every arrived thread's
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// store x at p's place in the shared memory of cluster block `rank`
-__device__ __forceinline__ void st_cluster(float* p, int rank, float x) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))),
-                 "r"(rank));
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(x)
-               : "memory");
-}
+using bps::cluster_arrive;
+using bps::cluster_arrive_relaxed;
+using bps::cluster_wait;
+using bps::st_cluster;
 
 template <typename T, int RB>
 __global__ void __launch_bounds__(kThreads)

@@ -22,13 +22,19 @@ limit of the TPU's lanes (:func:`kernels_supported`, kept for the tests).
 The CUDA kernels take any shape, so the ragged tail chunk of a gradient
 runs them too: :func:`block_select`'s ``n`` marks the slots at or past
 the chunk's length, which never win, as the reference's -1 padding does.
+
+Select and the round trip split each group's rows over the threads of a
+block and the blocks of a thread-block cluster on a launch plan that is
+a function of the shapes alone (:func:`select_plan`,
+:func:`roundtrip_plan`), so the grid follows the chunk, not the number
+of groups.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,6 +43,19 @@ from byteps_tpu_torch.ops.backend import check_kernel_input, launches
 
 _LANES = 128
 _INT32_MAX = 2 ** 31 - 1
+# the kernels' launch limits (csrc/topk.cu): threads a block, blocks a
+# cluster, rows a round-trip thread keeps in registers, rows a select
+# thread loads at once; and the blocks a plan aims at: about two an SM of
+# an H100's 132 for the round trip, one for select, whose blocks hold
+# nothing between their reads and their one write (on an H100, select at
+# the training tail took 0.43 us longer warm split over clusters of two
+# than on 176 single blocks)
+_MAX_THREADS = 512
+_MAX_CLUSTER = 16
+_RT_ROWS = 4
+_SEL_ROWS = 8
+_TARGET_BLOCKS = 256
+_SEL_TARGET_BLOCKS = 128
 
 
 def kernels_supported(block: int, rows: int) -> bool:
@@ -96,15 +115,84 @@ def _roundtrip_torch(x: torch.Tensor, J: int, g: int,
 
 
 # --------------------------------------------------------------------------
+# launch plans: functions of the shapes alone
+# --------------------------------------------------------------------------
+class Plan(NamedTuple):
+    """A select or round-trip launch: clusters of ``cluster`` blocks of
+    ``threads``, each block holding ``rows`` consecutive rows of a group
+    (the last one fewer) for ``width`` columns (select: 32 lanes; round
+    trip: ``width`` 4-lane columns of a 128-lane tile); ``blocks`` in
+    all."""
+    width: int
+    cluster: int
+    rows: int
+    threads: int
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _target(cells: int, per_thread: int, most: int) -> int:
+    """Blocks to aim at for ``cells`` thread-cells (an element of select,
+    4 lanes of a round-trip row): ``most``, fewer for a small input (no
+    fewer than 128 threads' full share a block)."""
+    return min(most, _cdiv(cells, per_thread * 128))
+
+
+def _split(height: int, columns: int, per_thread: int, width: int,
+           target: int) -> Plan:
+    """Split ``height`` rows of ``columns`` column slices of ``width``
+    columns over clusters: as many blocks as it takes to reach ``target``
+    or to give no thread more than ``per_thread`` rows, at most
+    ``_MAX_CLUSTER`` a slice, none empty (no block for an empty input)."""
+    if height == 0 or columns == 0:
+        return Plan(width, 1, 1, 32, 0)
+    smax = _MAX_THREADS // width
+    c = max(_cdiv(target, columns), _cdiv(height, per_thread * smax))
+    rows = _cdiv(height, min(c, _MAX_CLUSTER, height))
+    c = _cdiv(height, rows)
+    step = 32 // width                  # row-threads that fill a warp
+    s = min(smax, _cdiv(_cdiv(rows, per_thread), step) * step)
+    return Plan(width, c, rows, s * width, columns * c)
+
+
+@functools.lru_cache(maxsize=None)
+def select_plan(block: int, rows: int) -> Plan:
+    """Select over (block, rows): 32 lanes a block, each thread loading up
+    to 8 of its rows at once."""
+    return _split(block, _cdiv(rows, 32), _SEL_ROWS, 32,
+                  _target(block * rows, _SEL_ROWS, _SEL_TARGET_BLOCKS))
+
+
+@functools.lru_cache(maxsize=None)
+def roundtrip_plan(J: int, g: int) -> Plan:
+    """The round trip over (J, g, 128): a block takes ``width`` 4-lane
+    columns of a tile (128, 64, 32 or 16 lanes), each thread up to 4 rows
+    in registers (taller groups are read twice). Of the widths, the plan
+    that comes nearest the target block count, then keeps whole 128-byte
+    row segments (width >= 8), then needs the smallest cluster (on an
+    H100 the (80, 100) chunk took 7.4 us warm on clusters of 4 blocks of
+    128 lanes, 5.9 on 320 blocks of 32 lanes and none), then is
+    widest."""
+    target = _target(J * g * 32, _RT_ROWS, _TARGET_BLOCKS)
+    plans = [_split(g, J * (32 // lw), _RT_ROWS, lw, target)
+             for lw in (32, 16, 8, 4)]
+    return min(plans, key=lambda p: (-min(p.blocks, target), p.width < 8,
+                                      p.cluster, -p.width))
+
+
+# --------------------------------------------------------------------------
 # the CUDA kernels
 # --------------------------------------------------------------------------
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("topk")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bps_topk_select.argtypes = [p, p, p, i, i, ll, p]
+    lib.bps_topk_select.argtypes = [p, p, p, i, i, ll, i, i, i, p]
     lib.bps_topk_reconstruct_sum.argtypes = [p, p, p, i, i, i, p]
-    lib.bps_topk_roundtrip.argtypes = [p, p, p, p, i, i, p]
+    lib.bps_topk_roundtrip.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     for fn in (lib.bps_topk_select, lib.bps_topk_reconstruct_sum,
                lib.bps_topk_roundtrip):
         fn.restype = i
@@ -133,8 +221,10 @@ def _select_cuda(x2d: torch.Tensor, n: int):
     block, rows = x2d.shape
     local = torch.empty(rows, dtype=torch.int32, device=x2d.device)
     vals = torch.empty(rows, dtype=torch.float32, device=x2d.device)
+    p = select_plan(block, rows)
     _launch(_lib(), "bps_topk_select", "topk_select", x2d, x2d.data_ptr(),
-            local.data_ptr(), vals.data_ptr(), block, rows, n)
+            local.data_ptr(), vals.data_ptr(), block, rows, n, p.cluster,
+            p.rows, p.threads)
     return local, vals
 
 
@@ -158,9 +248,13 @@ def _roundtrip_cuda(x: torch.Tensor, J: int, g: int,
         check_kernel_input(e, "e", (torch.float32,), x.device)
     dense = torch.empty_like(x)
     resid = torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (x, e, dense, resid) if t is not None]
+    vec = all(a % 16 == 0 for a in ptrs)   # else the 4-byte-load variant
+    p = roundtrip_plan(J, g)
     _launch(_lib(), "bps_topk_roundtrip", "topk_roundtrip", x, x.data_ptr(),
             None if e is None else e.data_ptr(), dense.data_ptr(),
-            resid.data_ptr(), J, g)
+            resid.data_ptr(), J, g, p.width, p.cluster, p.rows, p.threads,
+            int(vec))
     return dense, resid
 
 

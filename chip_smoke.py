@@ -56,8 +56,16 @@ Phases, each printing one JSON line:
    training step's shapes (the (80, 100) round trip of a full chunk
    with and without the EF residual, select and reconstruct at
    (100, 10240) and the ragged tail's
-   (101, 5617) with n = 567,296, reconstruct at K = 8) and on ties,
-   zeros and NaN; segmented_lora — the per-row LoRA delta against its
+   (101, 5617) with n = 567,296, reconstruct at K = 8), the round trip
+   of a chunk at (8, 1000) and (1, 8000) (k = 0.001 and 128), on ties,
+   zeros and NaN, on ``split_ties`` (equal maxima 16, 32 and the launch
+   plan's thread stride apart and across its block boundary, ±inf
+   after a finite max, a lone -0.0) at (80, 100), (8, 1000), (1, 8000),
+   (3, 257), (1, 600), (2, 1) and (1, 8193) (rows past a cluster's
+   registers, read twice) and select at the tail and at (1000, 1024) (a
+   cluster of 8), and from a 4-byte offset (the round trip's 4-byte
+   variant and select); select and the round trip also give
+   ``warm_ms``: 200 calls back to back, L2 not flushed; segmented_lora — the per-row LoRA delta against its
    plain version on a layer's strided slice of pool-shaped slabs: the
    packed decode shape (R=16, S=1, 1024 -> 8 -> 1024, 33 slots, mixed
    slots with 0 and repeats) in bf16 and f32, a 64-row prefill chunk,
@@ -175,8 +183,10 @@ also gives the training shape's ms, bound and SDPA ms as ``train_*``,
 the split path's at serve's chunk as ``split_*`` and its launches, in
 all and by path, as ``split_launches`` and ``split_launches_by_path``,
 the flash_decode
-row, timed at generate's step, the long case's as ``long_*``), and, last,
-``{"ok": true, "device": ...}``.
+row, timed at generate's step, the long case's as ``long_*``; the
+topk_select and topk_roundtrip rows add ``warm_ms`` and the 4-byte
+offset's ``offset_ms``, the round trip ``tall``: (8, 1000) and (1, 8000)),
+and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so it does without a CUDA card or without the package beside it.
 """
@@ -820,14 +830,92 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
         a.contiguous().view(as_int), b.contiguous().view(as_int))
 
 
-def topk_select_case(timer, name, block, rows, n, seed, ties=False):
-    """block_select against its plain version; returns the winners too."""
-    from byteps_tpu_torch.ops.topk_kernels import _select_torch, block_select
+def warm_ms(fn, calls: int = 200) -> dict:
+    """Device ms a call of ``calls`` calls of ``fn`` issued back to back
+    and one synchronize, the L2 cache not flushed (warm, as the main path
+    meets these kernels). A sleep kernel holds the card while the host
+    enqueues the calls, so the events see the kernels and the gaps between
+    them; ``warm_host_ms`` (the enqueue, host clock) must stay below
+    ``warm_sleep_ms`` (the sleep, device clock) for that to hold."""
+    fn()
+    e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    e0.record()
+    torch.cuda._sleep(50_000_000)          # cycles
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3
+    b.record()
+    torch.cuda.synchronize()
+    return {"warm_ms": a.elapsed_time(b) / calls, "warm_host_ms": host,
+            "warm_sleep_ms": e0.elapsed_time(a)}
+
+
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` that starts 4 bytes past an aligned address (no
+    16-byte vector of it is aligned), same shape."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def topk_plan(tk, name: str, *shape) -> dict:
+    """``tk.<name>(*shape)`` as a dict; on a tree before launch plans (a
+    parent timed with ``scripts/torch_topk_tc.py --repo``), a stand-in
+    that puts split_ties' block and thread strides 16 rows apart."""
+    fn = getattr(tk, name, None)
+    if fn is None:
+        return {"width": 32, "cluster": 1, "rows": 16, "threads": 512,
+                "blocks": None}
+    return fn(*shape)._asdict()
+
+
+def split_ties(x: torch.Tensor, L: int, S: int) -> None:
+    """On the group-row axis (-2) of a (..., G, W) view whose groups a
+    launch plan splits into blocks of L rows and threads S rows apart:
+    equal maxima (+50 first, -50 second) 16, 32 and S rows apart, on both
+    sides of a block boundary (rows L - 1 and L) and at the first and last
+    row; +inf and -inf after a finite max (the first inf wins, its
+    residual NaN); a column whose only non-zero is -0.0; an all-zero column
+    led by -0.0 (index 0); a NaN column. Columns 0-9, where G allows."""
+    G = x.shape[-2]
+    pairs = [(1, 17), (3, 35), (5, 5 + S), (L - 1, L), (0, G - 1)]
+    for c, (a, b) in enumerate(pairs):
+        if 0 <= a < b < G:
+            x[..., a, c] = 50.0
+            x[..., b, c] = -50.0
+    if G >= 5:
+        x[..., 0, 5] = 50.0
+        x[..., 2, 5] = float("inf")
+        x[..., 4, 5] = float("-inf")
+    x[..., :, 6] = 0.0
+    x[..., G // 2, 6] = -0.0
+    x[..., :, 7] = 0.0
+    x[..., 0, 7] = -0.0
+    x[..., G - 1, 8] = float("nan")
+    x[..., 0, 9] = float("-inf")
+
+
+def topk_select_case(timer, name, block, rows, n, seed, ties=False,
+                     splits=False, offset=False, timed=True):
+    """block_select against its plain version, bit for bit; returns the
+    winners too. ``ties``: :func:`tie_rows`; ``splits``:
+    :func:`split_ties` at the launch plan's block and thread strides;
+    ``offset``: x starts 4 bytes past an aligned address."""
+    from byteps_tpu_torch.ops import topk_kernels as tk
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(block, rows, generator=g, device="cuda")
+    plan = topk_plan(tk, "select_plan", block, rows)
     if ties:
         tie_rows(x)
+    if splits:
+        split_ties(x, plan["rows"], plan["threads"] // 32)
+    if offset:
+        x = offset_view(x)
+    block_select, _select_torch = tk.block_select, tk._select_torch
     lo, va = block_select(x, n)
     plo, pva = _select_torch(x, n)
     torch.cuda.synchronize()
@@ -835,9 +923,12 @@ def topk_select_case(timer, name, block, rows, n, seed, ties=False):
         raise AssertionError(f"topk select {name}: differs from the plain "
                              "version")
     res = {"case": name, "shape": [block, rows], "n": n, "ties": ties,
-           "bit_equal": True, "max_abs_err": float((va - pva).abs().max())}
-    if not ties:
+           "splits": splits, "offset_bytes": x.data_ptr() % 16,
+           "plan": plan, "bit_equal": True,
+           "max_abs_err": float((va - pva).abs().max())}
+    if timed:
         res["ms"] = timer(lambda: block_select(x, n))
+        res.update(warm_ms(lambda: block_select(x, n)))
         res["plain_ms"] = timer(lambda: _select_torch(x, n))
         # two calls: abs, then max over the rows
         res["library_ms"] = timer(lambda: torch.max(x.abs(), 0))
@@ -885,16 +976,30 @@ def topk_reconstruct_case(timer, name, lo, va, block):
     return res
 
 
-def topk_roundtrip_case(timer, name, J, g_, with_e, seed, ties=False):
-    from byteps_tpu_torch.ops.topk_kernels import (_roundtrip_torch,
-                                                   block_roundtrip)
+def topk_roundtrip_case(timer, name, J, g_, with_e, seed, ties=False,
+                        splits=False, offset=False, timed=True):
+    """block_roundtrip against its plain version, dense and residual bit
+    for bit. ``ties``: :func:`tie_rows`; ``splits``: :func:`split_ties`
+    at the launch plan's block and thread strides; ``offset``: x and e
+    start 4 bytes past an aligned address (the 4-byte-load variant)."""
+    from byteps_tpu_torch.ops import topk_kernels as tk
 
+    block_roundtrip, _roundtrip_torch = tk.block_roundtrip, tk._roundtrip_torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     N = J * g_ * 128
     x = torch.randn(N, generator=g, device="cuda")
     e = 0.1 * torch.randn(N, generator=g, device="cuda") if with_e else None
+    plan = topk_plan(tk, "roundtrip_plan", J, g_)
     if ties:
         tie_rows(x.view(J, g_, 128))
+    if splits:
+        split_ties(x.view(J, g_, 128), plan["rows"],
+                   plan["threads"] // plan["width"])
+        if e is not None:     # the planted values (-0.0 too) survive the add
+            e.view(J, g_, 128)[..., :10] = -0.0
+    if offset:
+        x = offset_view(x)
+        e = None if e is None else offset_view(e)
     d, r = block_roundtrip(x, J, g_, e)
     pd, pr = _roundtrip_torch(x, J, g_, e)
     torch.cuda.synchronize()
@@ -902,11 +1007,13 @@ def topk_roundtrip_case(timer, name, J, g_, with_e, seed, ties=False):
         raise AssertionError(f"topk roundtrip {name}: differs from the "
                              "plain version")
     res = {"case": name, "J": J, "g": g_, "with_e": with_e, "ties": ties,
-           "bit_equal": True,
+           "splits": splits, "offset_bytes": x.data_ptr() % 16,
+           "plan": plan, "bit_equal": True,
            "max_abs_err": float(max((d - pd).nan_to_num().abs().max(),
                                     (r - pr).nan_to_num().abs().max()))}
-    if not ties:
+    if timed:
         res["ms"] = timer(lambda: block_roundtrip(x, J, g_, e))
+        res.update(warm_ms(lambda: block_roundtrip(x, J, g_, e)))
         res["plain_ms"] = timer(lambda: _roundtrip_torch(x, J, g_, e))
         res["library_ms"] = None      # no one library call does this
         res["bound_ms"], res["bound_by"] = bound_ms(
@@ -916,13 +1023,30 @@ def topk_roundtrip_case(timer, name, J, g_, with_e, seed, ties=False):
     return res
 
 
+# round trips of one 1,024,000-element chunk at other group heights
+# (TopkCompressor k = 0.001 and k = 128), with e: timed
+TOPK_TALL = [(8, 1000), (1, 8000)]
+# (J, g) cases with split_ties, with e: odd and tall groups, one group row
+# (2, 1), and (1, 8193), whose rows outgrow a cluster's registers (read
+# twice)
+TOPK_SPLITS = [(80, 100), (8, 1000), (1, 8000), (3, 257), (1, 600), (2, 1),
+               (1, 8193)]
+
+
 def topk_cases(timer) -> dict:
     """Each top-k kernel against its plain version at the training step's
-    shapes; the main-path cases by kernel name."""
+    shapes and on the cases above; the main-path cases by kernel name."""
     chunk, tail = 1_024_000, 354_871_296 % 1_024_000      # GPT-2 medium
     _, lo, va = topk_select_case(timer, "chunk", 100, 10240, chunk, 50)
     tsel, tlo, tva = topk_select_case(timer, "tail", 101, 5617, tail, 51)
-    topk_select_case(timer, "ties", 100, 10240, chunk, 52, ties=True)
+    topk_select_case(timer, "ties", 100, 10240, chunk, 52, ties=True,
+                     timed=False)
+    topk_select_case(timer, "tail_splits", 101, 5617, tail, 59, splits=True,
+                     timed=False)
+    topk_select_case(timer, "tall_splits", 1000, 1024, chunk, 60,
+                     splits=True, timed=False)
+    tsel["offset_ms"] = topk_select_case(timer, "tail_offset", 101, 5617,
+                                         tail, 61, offset=True)[0]["ms"]
     topk_reconstruct_case(timer, "chunk", lo[None], va[None], 100)
     trec = topk_reconstruct_case(timer, "tail", tlo[None], tva[None], 101)
     g = torch.Generator(device="cuda").manual_seed(55)
@@ -932,7 +1056,22 @@ def topk_cases(timer) -> dict:
     topk_reconstruct_case(timer, "K8", lo8, va8, 100)
     rt = topk_roundtrip_case(timer, "chunk_ef", 80, 100, True, 56)
     topk_roundtrip_case(timer, "chunk", 80, 100, False, 57)
-    topk_roundtrip_case(timer, "ties", 80, 100, True, 58, ties=True)
+    topk_roundtrip_case(timer, "ties", 80, 100, True, 58, ties=True,
+                        timed=False)
+    rt["tall"] = {}
+    for i, (J, g_) in enumerate(TOPK_TALL):
+        t = topk_roundtrip_case(timer, f"tall_{J}x{g_}", J, g_, True, 62 + i)
+        rt["tall"][f"{J}x{g_}"] = {k: t[k] for k in ("ms", "warm_ms",
+                                                     "bound_ms", "plan")}
+    for i, (J, g_) in enumerate(TOPK_SPLITS):
+        topk_roundtrip_case(timer, f"splits_{J}x{g_}", J, g_, True, 64 + i,
+                            splits=True, timed=False)
+    topk_roundtrip_case(timer, "splits_no_e", 3, 257, False, 71, splits=True,
+                        timed=False)
+    rt["offset_ms"] = topk_roundtrip_case(timer, "chunk_ef_offset", 80, 100,
+                                          True, 72, offset=True)["ms"]
+    topk_roundtrip_case(timer, "splits_offset", 1, 600, False, 73,
+                        splits=True, offset=True, timed=False)
     return {"topk_select": tsel, "topk_reconstruct_sum": trec,
             "topk_roundtrip": rt}
 
@@ -2493,7 +2632,8 @@ def main() -> int:
          "launches": sum(by_path[p][name] for p in MAIN_PATHS),
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          "case": main["case"], **{k: main[k] for k in common},
-         **{k: main[k] for k in ("ms_time_sliced", "train_ms",
+         **{k: main[k] for k in ("warm_ms", "offset_ms", "tall",
+                                 "ms_time_sliced", "train_ms",
                                  "train_bound_ms", "train_library_ms",
                                  "split_ms", "split_bound_ms",
                                  "split_library_ms", "split_launches",

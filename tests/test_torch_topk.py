@@ -7,7 +7,14 @@
   as the Pallas arithmetic gives; the reference's jnp twin would pick the
   NaN); ``block_reconstruct_sum`` at K = 1, 3 and 8; ``block_roundtrip``
   dense and residual, with and without the error-feedback residual, at
-  the default partition's (80, 100) and with ties and a NaN group.
+  the default partition's (80, 100), at tall and odd groups ((1, 600),
+  (3, 257), (2, 1)) and with ties and a NaN group.
+* Ties where the CUDA kernels split a group: 16 and 32 rows apart, the
+  launch plan's thread stride apart and on both sides of its block
+  boundary, with ±inf beside a finite max and -0.0 as a group's only
+  non-zero (the kernels meet the same inputs in ``chip_smoke.py``); the
+  launch plans (``select_plan``, ``roundtrip_plan``) give every slot to
+  exactly one thread and fill the card at a chunk's three layouts.
 * ``resolve_k`` / ``block_shape`` / ``tiled_shape`` over a grid of
   (k, n) covering the tiled, strided-aligned and ragged layouts.
 * ``TopkCompressor`` compress / decompress / roundtrip / decompress_sum
@@ -34,6 +41,8 @@ from byteps_tpu_torch.ops import topk_kernels as tk
 
 rk = importlib.import_module("byteps_tpu.ops.topk_kernels")
 rtopk = importlib.import_module("byteps_tpu.compression.topk")
+# the ties, infs and signed zeros the kernels meet on the card
+split_ties = importlib.import_module("chip_smoke").split_ties
 
 torch.set_num_threads(1)
 
@@ -126,7 +135,10 @@ def test_reconstruct_sum_matches_pallas(K):
 
 
 @pytest.mark.parametrize("J,g,with_e", [(2, 64, False), (2, 64, True),
-                                        (80, 100, True)])
+                                        (80, 100, True),
+                                        (1, 600, False), (1, 600, True),
+                                        (3, 257, False), (3, 257, True),
+                                        (2, 1, False), (2, 1, True)])
 def test_roundtrip_matches_pallas(J, g, with_e):
     n = J * g * 128
     x = _rand(n, J * g)
@@ -160,6 +172,112 @@ def test_roundtrip_ties_and_nan_match_pallas():
     want[1, :, 9] = 0.0            # no winner
     np.testing.assert_array_equal(td.numpy().reshape(J, g, 128), want)
     assert np.isnan(tr.numpy().reshape(J, g, 128)[1, 11, 9])
+
+
+@pytest.mark.parametrize("J,g,with_e", [(80, 100, True), (1, 600, False),
+                                        (3, 257, True), (2, 40, False)])
+def test_roundtrip_split_ties_match_pallas(J, g, with_e):
+    n = J * g * 128
+    x = _rand(n, 7 * g)
+    e = 0.1 * _rand(n, 7 * g + 1) if with_e else None
+    p = tk.roundtrip_plan(J, g)
+    split_ties(torch.from_numpy(x).view(J, g, 128), p.rows,
+               p.threads // p.width)
+    if with_e:              # the planted values (-0.0 too) survive the add
+        e.reshape(J, g, 128)[:, :, :10] = -0.0
+    d, r = rk.block_roundtrip(jnp.asarray(x), J, g,
+                              e=None if e is None else jnp.asarray(e),
+                              backend="pallas")
+    td, tr = tk.block_roundtrip(torch.as_tensor(x), J, g,
+                                e=None if e is None else torch.as_tensor(e))
+    _eq(td, d)
+    _eq(tr, r)
+    got = td.numpy().reshape(J, g, 128)
+    if g > 35:                      # the first of each tie won
+        assert (got[:, 1, 0] == 50.0).all() and (got[:, 3, 1] == 50.0).all()
+    assert np.isnan(tr.numpy().reshape(J, g, 128)[:, 2, 5]).all()
+    assert (got[:, :, 8] == 0).all()              # the NaN column: no winner
+    res = tr.numpy().reshape(J, g, 128)
+    if g > 1:           # a lone -0.0 ties with 0.0 and loses to row 0
+        assert np.signbit(res[:, g // 2, 6]).all()
+    assert np.signbit(got[:, 0, 7]).all()         # a -0.0 winner stays -0.0
+
+
+@pytest.mark.parametrize("block,rows", [(100, 1280), (600, 128)])
+def test_select_split_ties_match_pallas(block, rows):
+    x = _rand((block, rows), block)
+    p = tk.select_plan(block, rows)
+    split_ties(torch.from_numpy(x), p.rows, p.threads // 32)
+    lo, va = _select_both(x)
+    assert lo[0] == 1 and lo[1] == 3 and va[0] == 50.0
+    assert lo[5] == 2 and va[5] == np.inf and lo[8] == block
+    assert lo[6] == 0 and lo[7] == 0 and not np.signbit(va[7].item())
+
+
+def _covered(plan, height, columns, width, ends):
+    """How often each (row, column) of ``columns`` column slices of
+    ``width`` the plan's threads visit (the kernels' index arithmetic);
+    ``ends[col]`` is a column's row count."""
+    cnt = np.zeros((height, columns * width), np.int32)
+    S = plan.threads // width
+    for b in range(plan.blocks):
+        rank, sl = b % plan.cluster, b // plan.cluster
+        lo = rank * plan.rows
+        for t in range(plan.threads):
+            col = sl * width + t % width
+            hi = min(ends[col], lo + plan.rows)
+            cnt[lo + t // width:hi:S, col] += 1
+    return cnt
+
+
+@pytest.mark.parametrize("J,g", [(80, 100), (8, 1000), (1, 8000), (3, 257),
+                                 (2, 1), (1, 8193), (0, 5)])
+def test_roundtrip_plan_covers_every_slot_once(J, g):
+    p = tk.roundtrip_plan(J, g)
+    assert p.threads % 32 == 0 and p.threads <= 512 and p.cluster <= 16
+    cnt = _covered(p, g, J * 32 // p.width, p.width, [g] * (J * 32))
+    assert (cnt == 1).all()
+
+
+@pytest.mark.parametrize("block,rows,n", [(101, 5617, 567_296),
+                                          (100, 10240, 1_024_000),
+                                          (1000, 1024, 1_024_000),
+                                          (7, 50, 337), (4, 0, 0)])
+def test_select_plan_covers_every_slot_once(block, rows, n):
+    p = tk.select_plan(block, rows)
+    slices = -(-rows // 32)
+    ends = [min(block, -(-(n - c) // rows)) if c < rows else 0
+            for c in range(slices * 32)]
+    cnt = _covered(p, block, slices, 32, ends)[:, :rows].reshape(-1)
+    assert (cnt[:n] == 1).all() and (cnt[n:] == 0).all()
+
+
+@pytest.mark.parametrize("J,g", [(80, 100), (8, 1000), (1, 8000)])
+def test_roundtrip_plan_fills_the_card_at_a_chunk(J, g):
+    """One 1,024,000-element chunk at k = 0.01, 0.001 and 128: about two
+    blocks an SM of the H100's 132 whatever the group height, each thread
+    holding its rows (at most 4) in registers: one read."""
+    p = tk.roundtrip_plan(J, g)
+    assert p.blocks >= 128 and p.blocks * p.threads >= 64_000
+    S = p.threads // p.width
+    assert -(-p.rows // S) <= 4
+
+
+def test_topk_compressor_k128_roundtrip_matches_reference(monkeypatch):
+    """k = 128 on 76,800 elements tiles as (1, 600): one tall group a
+    lane, through the reference's Pallas kernel (interpret mode)."""
+    monkeypatch.setenv("BYTEPS_KERNEL_BACKEND", "pallas")
+    n = 76_800
+    assert ttopk.tiled_shape(128, n) == (1, 600)
+    x = _rand(n, 11)
+    e = 0.1 * _rand(n, 12)
+    rd, rr = rtopk.TopkCompressor(k=128, selection="block").roundtrip(
+        jnp.asarray(x), e=jnp.asarray(e))
+    td, tr = TopkCompressor(k=128, selection="block").roundtrip(
+        torch.as_tensor(x), e=torch.as_tensor(e))
+    _eq(td, rd)
+    _eq(tr, rr)
+    assert np.count_nonzero(td.numpy()) == 128
 
 
 # --- the codec ----------------------------------------------------------------

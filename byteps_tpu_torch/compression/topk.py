@@ -163,8 +163,9 @@ class TopkCompressor(Compressor):
                        dtype: torch.dtype = torch.float32,
                        rng_keys=None) -> torch.Tensor:
         """Σ_k decompress(payload_k) over K stacked payloads, in order
-        k = 0..K-1 (as ``block_reconstruct_sum``), without K dense
-        temporaries on the block layouts."""
+        k = 0..K-1, without K dense temporaries on the block layouts: on
+        the tiled layout from zeros (as the reference's sum there), on
+        the strided one through ``block_reconstruct_sum``."""
         idx = payloads["indices"]
         vals = payloads["values"].float()
         tiled = tiled_shape(self.k, n)
@@ -173,12 +174,13 @@ class TopkCompressor(Compressor):
             J, g = tiled
             ii = torch.arange(g, dtype=idx.dtype,
                               device=idx.device)[None, :, None]
-            acc = None
+            # from zeros, as the reference: a lone -0.0 comes back 0.0
+            acc = torch.zeros((J, g, _LANES), dtype=torch.float32,
+                              device=vals.device)
             for ki in range(idx.shape[0]):
-                term = torch.where(
+                acc = acc + torch.where(
                     ii == _tiled_local(idx[ki], J, g)[:, None, :],
                     vals[ki].reshape(J, 1, _LANES), 0.0)
-                acc = term if acc is None else acc + term
             return acc.reshape(-1).to(dtype)
         rows, block = block_shape(self.k, n)
         if (self.selection == "block" and idx.ndim == 2

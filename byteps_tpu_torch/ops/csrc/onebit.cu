@@ -49,17 +49,24 @@
 // it was faster than 1 or 4 columns (by 4, 8 or 16 rows) at K = 32 and
 // about as fast at K = 1 and 2.
 //
-// unpack_sum_grid (K > 32): one thread per output element e = k * L + j
-// (k and j by a division), the reference grid kernel's order of adds. The
-// K rows, padded to a multiple of 8 with zero-scale rows (which add
-// -0.0), fold in blocks of 8 rows, each block from 0.0f; the output is
-// block 0, then out + block b in block order.
+// unpack_sum_grid (K > 32): the same layout and loads (each word read
+// once per warp, no division), the scales loaded beside the words (K has
+// no bound, so no fixed table holds them), and the reference grid
+// kernel's order of adds: rows in blocks of 8, each block folded from
+// 0.0f, the output block 0 then + block b in block order (see
+// unpack_sum_body). It used to run one thread per element e = k * L + j
+// (k and j by a division), reading each word in 32 threads of 32 blocks.
+// On an H100 a column a thread (twice the warps), and loading the next
+// row block while adding the last, were both slower at K = 40 and 256.
 //
 // What bounds them: bytes. A 1,024,000-element chunk (the default
 // 4,096,000-byte partition) moves 4 MB of f32 and 128 KB of words each
 // way, about 1.3 us at 3.35 TB/s; at that size a launch costs about as
 // much as the transfer. Unpack-sum's and pack's stores are 8-byte
-// vectors, and so are pack's loads.
+// vectors, and so are pack's loads. At large K the unpack-sums' issue
+// rate comes first: a term is a shift, a LOP3 and an add, so K = 256 on a
+// chunk (2.6e8 terms) takes about 26 us of issue on 132 SMs at 1.75 GHz
+// against 11 us of bytes (on an H100 the grid kernel took 45 us).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -126,13 +133,96 @@ __device__ __forceinline__ void load_pair(const uint32_t* p, bool vec,
   w[0] = __ldg(p), w[1] = two ? __ldg(p + 1) : 0u;
 }
 
-__global__ void __launch_bounds__(kThreads)
-unpack_sum_kernel(const uint32_t* __restrict__ words,
-                  const float* __restrict__ scales, float* __restrict__ out,
-                  int K, int L, long long n) {
-  __shared__ float sc[kUnrollK];
-  if ((int)threadIdx.x < K) sc[threadIdx.x] = scales[threadIdx.x];
-  __syncthreads();
+// Payload r's terms into a thread's 8 x 2 sums: acc[k][c] += bit (k0 + k)
+// of w[c] ? s_r : -s_r, from ws = w >> k0 and ns = the bits of -s_r. Setting
+// the sign bit of -s_r where the bit is set gives s_r (for a NaN s_r, a NaN
+// whose sign bit may differ; the add returns the card's one NaN either
+// way): a shift, a LOP3 and the add a term.
+__device__ __forceinline__ void add_terms(float (&acc)[kRowsPerThread][2],
+                                          const uint32_t (&ws)[2],
+                                          uint32_t ns) {
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      acc[k][c] = __fadd_rn(
+          acc[k][c],
+          __uint_as_float(ns ^ ((ws[c] << (31 - k)) & 0x80000000u)));
+}
+
+// payloads r0 .. r0 + kLoadBatch - 1 (those < K; kFull: all, loaded as
+// 8-byte vectors with no guard) into a thread's sums (see
+// unpack_sum_body)
+template <bool kGrid, bool kFull>
+__device__ __forceinline__ void unpack_batch(
+    float (&acc)[kRowsPerThread][2], const uint32_t* __restrict__ words,
+    const float* __restrict__ scales, const float* sc, int r0, int K, int L,
+    int j, int k0, bool vec, bool two) {
+  uint32_t w[kLoadBatch][2];
+  float s[kLoadBatch];
+#pragma unroll
+  for (int t = 0; t < kLoadBatch; ++t) {
+    if (kFull || r0 + t < K) {
+      const uint32_t* p = words + (long long)(r0 + t) * L + j;
+      if constexpr (kFull) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+        w[t][0] = v.x, w[t][1] = v.y;
+      } else {
+        load_pair(p, vec, two, w[t]);
+      }
+      if constexpr (kGrid) s[t] = __ldg(scales + r0 + t);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kLoadBatch; ++t) {
+    w[t][0] >>= k0;
+    w[t][1] >>= k0;
+  }
+  if constexpr (kGrid) {
+#pragma unroll
+    for (int h = 0; h < kLoadBatch; h += kGridRows) {
+      if (kFull || r0 + h < K) {
+        float part[kRowsPerThread][2];
+#pragma unroll
+        for (int k = 0; k < kRowsPerThread; ++k)
+          part[k][0] = part[k][1] = 0.f;
+#pragma unroll
+        for (int t = h; t < h + kGridRows; ++t)
+          if (kFull || r0 + t < K)
+            add_terms(part, w[t], __float_as_uint(s[t]) ^ 0x80000000u);
+#pragma unroll
+        for (int k = 0; k < kRowsPerThread; ++k)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            acc[k][c] = __fadd_rn(acc[k][c], part[k][c]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < kLoadBatch; ++t)
+      if (kFull || r0 + t < K)
+        add_terms(acc, w[t], __float_as_uint(sc[r0 + t]) ^ 0x80000000u);
+  }
+}
+
+// One thread's share of both unpack-sums: 2 adjacent word columns j, j + 1
+// and bit rows k0 .. k0 + 7 (the layout above). kGrid false: payloads
+// r = 0..K-1 fold into the sums in order from 0.0, the scales from `sc`
+// (shared memory). kGrid true: the reference grid kernel's order. Rows
+// 8b .. 8b + 7 fold into a partial from 0.0, and the output is partial 0,
+// then + partial b in order b = 1..B-1; the scales come in beside the
+// words, as loads whose address a warp shares. A fold from +0.0 never
+// gives -0.0 under round-to-nearest, so 0.0 + partial 0 is partial 0 and
+// the output folds the partials from 0.0 too. The reference pads K to a
+// multiple of 8 with rows of scale 0 and bit 0: each adds -0.0, which
+// leaves every float unchanged under round-to-nearest (+0 + -0 = +0,
+// -0 + -0 = -0, a NaN stays a NaN), so rows r >= K are skipped, with no
+// copy. A batch of kLoadBatch payloads is two whole row blocks.
+template <bool kGrid>
+__device__ __forceinline__ void unpack_sum_body(
+    const uint32_t* __restrict__ words, const float* __restrict__ scales,
+    const float* sc, float* __restrict__ out, int K, int L, long long n) {
+  static_assert(kLoadBatch % kGridRows == 0, "a batch holds whole blocks");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int k0 = (warp % kRowGroups) * kRowsPerThread;
   const int j = ((blockIdx.x * kStrips + warp / kRowGroups) * 32 + lane) * 2;
@@ -146,25 +236,18 @@ unpack_sum_kernel(const uint32_t* __restrict__ words,
   float acc[kRowsPerThread][2];
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) acc[k][0] = acc[k][1] = 0.f;
-  // the word pairs of kLoadBatch payloads in flight at once, then their adds
+  // the word pairs (and, kGrid, scales) of kLoadBatch payloads in flight
+  // at once, then their adds. The grid kernel takes a whole batch of
+  // aligned pairs on a path with no guard and no branch (on an H100: K =
+  // 256 in 0.045 ms against 0.060 guarded); for K <= 32 that path was
+  // slower at K = 32 (0.0141 ms against 0.0126), so it keeps the guards.
   for (int r0 = 0; r0 < K; r0 += kLoadBatch) {
-    uint32_t w[kLoadBatch][2];
-#pragma unroll
-    for (int t = 0; t < kLoadBatch; ++t)
-      if (r0 + t < K)
-        load_pair(words + (long long)(r0 + t) * L + j, vec, two, w[t]);
-#pragma unroll
-    for (int t = 0; t < kLoadBatch; ++t) {
-      if (r0 + t < K) {
-        const float s = sc[r0 + t];
-#pragma unroll
-        for (int k = 0; k < kRowsPerThread; ++k)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            acc[k][c] = __fadd_rn(acc[k][c],
-                                  (w[t][c] >> (k0 + k)) & 1u ? s : -s);
-      }
-    }
+    if (kGrid && vec && r0 + kLoadBatch <= K)
+      unpack_batch<kGrid, true>(acc, words, scales, sc, r0, K, L, j, k0, vec,
+                                two);
+    else
+      unpack_batch<kGrid, false>(acc, words, scales, sc, r0, K, L, j, k0,
+                                 vec, two);
   }
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
@@ -179,26 +262,20 @@ unpack_sum_kernel(const uint32_t* __restrict__ words,
 }
 
 __global__ void __launch_bounds__(kThreads)
+unpack_sum_kernel(const uint32_t* __restrict__ words,
+                  const float* __restrict__ scales, float* __restrict__ out,
+                  int K, int L, long long n) {
+  __shared__ float sc[kUnrollK];
+  if ((int)threadIdx.x < K) sc[threadIdx.x] = scales[threadIdx.x];
+  __syncthreads();
+  unpack_sum_body<false>(words, scales, sc, out, K, L, n);
+}
+
+__global__ void __launch_bounds__(kThreads)
 unpack_sum_grid_kernel(const uint32_t* __restrict__ words,
                        const float* __restrict__ scales,
                        float* __restrict__ out, int K, int L, long long n) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
-  const int k = (int)(e / L);
-  const int j = (int)(e - (long long)k * L);
-  float acc = 0.f;
-  for (int b = 0; b < K; b += kGridRows) {
-    float part = 0.f;
-#pragma unroll
-    for (int r = b; r < b + kGridRows; ++r) {
-      const float s = r < K ? scales[r] : 0.f;
-      const uint32_t bit =
-          r < K ? (words[(long long)r * L + j] >> k) & 1u : 0u;
-      part = __fadd_rn(part, bit ? s : -s);
-    }
-    acc = b == 0 ? part : __fadd_rn(acc, part);
-  }
-  out[e] = acc;
+  unpack_sum_body<true>(words, scales, nullptr, out, K, L, n);
 }
 
 }  // namespace
@@ -239,9 +316,11 @@ extern "C" int bps_onebit_unpack_sum_grid(const void* words,
                                           const void* scales, void* out,
                                           int K, int L, long long n,
                                           void* stream) {
+  if (K < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  unpack_sum_grid_kernel<<<(unsigned)((n + kThreads - 1) / kThreads),
-                           kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int per_block = kStrips * 64;   // word columns a block
+  unpack_sum_grid_kernel<<<(L + per_block - 1) / per_block, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const float*>(scales),
       static_cast<float*>(out), K, L, n);
   return (int)cudaGetLastError();

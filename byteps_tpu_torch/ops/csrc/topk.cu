@@ -45,11 +45,26 @@
 // and stores, a thread's lanes lw apart so that a warp's accesses are
 // consecutive floats.
 //
-// reconstruct_sum: one thread per output element (r, c) takes payload 0's
-// term (locals[0][c] == r ? vals[0][c] : 0) and adds payload k's in order
-// k = 1..K-1 (K >= 1): the Pallas kernel's sum as XLA compiles it (its first
-// add, to 0.0, folded away), so a lone -0.0 stays -0.0; the plain version's
-// bit for bit.
+// reconstruct_sum: element (r, c) is payload 0's term (locals[0][c] == r ?
+// vals[0][c] : 0) plus payload k's in order k = 1..K-1 (K >= 1): the
+// Pallas kernel's sum as XLA compiles it (its first add, to 0.0, folded
+// away), so a lone -0.0 stays -0.0; the plain version's bit for bit. A
+// local that is negative or >= block (select's "no winner") matches no
+// row. A warp holds a 128-column slice and a stripe of up to 8 rows; a
+// thread 4 columns (adjacent, with 16-byte loads and stores, where rows
+// % 4 == 0 and the pointers are 16-byte aligned; else 32 apart, 4-byte
+// accesses, so a warp's store is 128 consecutive bytes) and the stripe's
+// sums in registers. It reads its columns' K pairs once, 8 payloads in
+// flight, before its first store, then writes its rows with streaming
+// stores. So no K needs passes over L2: the registers hold the stripe,
+// not the pairs. The grid (slices / warps a block, stripes) follows the
+// output, on a plan that is a function of the shapes alone
+// (ops/topk_kernels.py reconstruct_plan). It used to run one thread per
+// element on a grid of (rows / 256, min(block, 1024)) blocks, each row
+// reading its column's K pairs again. On an H100, stripes of up to 16
+// rows (4 payloads in flight) and storing the stripe's zeros while the
+// pairs load, then each hit, were no faster at the tail and slower at
+// K = 8.
 //
 // What bounds them: bytes. The round trip at (80, 100) with e reads 8 MB and
 // writes 8 MB, about 4.9 us at 3.35 TB/s; select at (100, 10240) reads
@@ -81,7 +96,11 @@ constexpr int kMaxCluster = 16;   // blocks a cluster (above 8: non-portable)
 constexpr int kRows = 4;          // rows a round-trip thread keeps
 constexpr int kSelRows = 8;       // loads a select thread keeps in flight
 constexpr int kTileLanes = 128;
-constexpr int kReconThreads = 256;
+// reconstruct_sum: rows a thread holds at most, payloads whose pairs it
+// loads at once, threads a block at most
+constexpr int kReconRows = 8;
+constexpr int kReconBatch = 8;
+constexpr int kReconMaxThreads = 256;
 // combine's tables: (warps + cluster + 1) x 128 groups x 16 bytes
 constexpr int kMaxSmem = (kMaxThreads / 32 + kMaxCluster + 1) * kTileLanes * 16;
 
@@ -281,19 +300,83 @@ select_kernel(const float* __restrict__ x, int* __restrict__ local,
   stamp(3);
 }
 
-__global__ void __launch_bounds__(kReconThreads)
+// reconstruct_sum: the 4 columns of payload row p (a (K, rows) array) a
+// thread holds: c0 .. c0 + 3 (kVec: one 16-byte load), else c0 + 32 i
+// (4-byte loads; a warp reads consecutive words), columns at or past
+// `rows` reading `pad`
+template <bool kVec, typename T, typename T4>
+__device__ __forceinline__ void load_cols(const T* p, int c0, int rows, T pad,
+                                          T (&v)[4]) {
+  if constexpr (kVec) {
+    const T4 x = __ldg(reinterpret_cast<const T4*>(p + c0));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = c0 + 32 * i < rows ? __ldg(p + c0 + 32 * i) : pad;
+  }
+}
+
+// Warp w of block (bx, by) holds column slice s = bx W + w (128 columns)
+// and the stripes of R rows (R <= kReconRows) [r0, r0 + R), r0 = (by + m
+// gridDim.y) R (one stripe but where the stripes outnumber the grid's
+// 65,535 rows); its lane the 4 columns of load_cols from c0. A stripe's
+// sums stay in registers while the K pairs of its columns stream in,
+// kReconBatch payloads in flight, each read once.
+template <bool kVec>
+__global__ void __launch_bounds__(kReconMaxThreads)
 reconstruct_sum_kernel(const int* __restrict__ locals,
                        const float* __restrict__ vals, float* __restrict__ out,
-                       int K, int block, int rows) {
-  const int c = blockIdx.x * kReconThreads + threadIdx.x;
-  if (c >= rows) return;
-  for (int r = blockIdx.y; r < block; r += gridDim.y) {
-    float acc = locals[c] == r ? vals[c] : 0.f;
-    for (int k = 1; k < K; ++k) {
-      const long long kc = (long long)k * rows + c;
-      acc = __fadd_rn(acc, locals[kc] == r ? vals[kc] : 0.f);
+                       int K, int block, int rows, int R) {
+  const int lane = threadIdx.x & 31;
+  const int slice = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int c0 = slice * kTileLanes + (kVec ? 4 * lane : lane);
+  if (c0 >= rows) return;   // every column of the thread is past rows
+  for (long long r0 = (long long)blockIdx.y * R; r0 < block;
+       r0 += (long long)gridDim.y * R) {
+    float acc[kReconRows][4] = {};   // each set by payload 0's term
+    // rows compare as unsigned: a negative local matches no row
+    const unsigned rb = (unsigned)r0;
+    for (int k0 = 0; k0 < K; k0 += kReconBatch) {
+      int lo[kReconBatch][4];
+      float va[kReconBatch][4];
+#pragma unroll
+      for (int t = 0; t < kReconBatch; ++t) {
+        if (k0 + t < K) {
+          const long long p = (long long)(k0 + t) * rows;
+          load_cols<kVec, int, int4>(locals + p, c0, rows, -1, lo[t]);
+          load_cols<kVec, float, float4>(vals + p, c0, rows, 0.f, va[t]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kReconBatch; ++t) {
+        if (k0 + t < K) {
+          const bool first = k0 + t == 0;
+#pragma unroll
+          for (int i = 0; i < kReconRows; ++i)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float term =
+                  (unsigned)lo[t][q] == rb + i ? va[t][q] : 0.f;
+              acc[i][q] = first ? term : __fadd_rn(acc[i][q], term);
+            }
+        }
+      }
     }
-    out[(long long)r * rows + c] = acc;
+#pragma unroll
+    for (int i = 0; i < kReconRows; ++i) {
+      if (i < R && r0 + i < block) {
+        float* o = out + (r0 + i) * rows + c0;
+        if (kVec) {
+          __stcs(reinterpret_cast<float4*>(o),
+                 make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (c0 + 32 * q < rows) __stcs(o + 32 * q, acc[i][q]);
+        }
+      }
+    }
   }
 }
 
@@ -482,17 +565,32 @@ extern "C" int bps_topk_select(const void* x, void* local, void* vals,
                 (int)(n % rows), C, L);
 }
 
-// locals, vals: (K, rows) int32 / f32; out: (block, rows) f32.
+// locals, vals: (K, rows) int32 / f32; out: (block, rows) f32. Plan
+// (ops/topk_kernels.py reconstruct_plan): stripes of R rows, blocks of
+// `threads` (one 128-column slice a warp), at most 65,535 blocks of
+// stripes; vec: rows % 4 == 0 and every pointer 16-byte aligned. K >= 1.
 extern "C" int bps_topk_reconstruct_sum(const void* locals, const void* vals,
                                         void* out, int K, int block, int rows,
+                                        int R, int threads, int vec,
                                         void* stream) {
   if (rows == 0 || block == 0) return 0;
-  const dim3 grid((rows + kReconThreads - 1) / kReconThreads,
-                  block < 1024 ? block : 1024);
-  reconstruct_sum_kernel<<<grid, kReconThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(locals), static_cast<const float*>(vals),
-      static_cast<float*>(out), K, block, rows);
+  if (K < 1 || R < 1 || R > kReconRows || threads < 32 ||
+      threads > kReconMaxThreads || threads % 32 != 0 ||
+      (vec && rows % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  const int slices = (rows + kTileLanes - 1) / kTileLanes, W = threads / 32;
+  const int stripes = (int)(((long long)block + R - 1) / R);
+  const dim3 grid((slices + W - 1) / W, stripes < 65535 ? stripes : 65535);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto lp = static_cast<const int*>(locals);
+  auto vp = static_cast<const float*>(vals);
+  auto op = static_cast<float*>(out);
+  if (vec)
+    reconstruct_sum_kernel<true><<<grid, threads, 0, s>>>(lp, vp, op, K,
+                                                          block, rows, R);
+  else
+    reconstruct_sum_kernel<false><<<grid, threads, 0, s>>>(lp, vp, op, K,
+                                                           block, rows, R);
   return (int)cudaGetLastError();
 }
 

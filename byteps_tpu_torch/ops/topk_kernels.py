@@ -27,7 +27,8 @@ Select and the round trip split each group's rows over the threads of a
 block and the blocks of a thread-block cluster on a launch plan that is
 a function of the shapes alone (:func:`select_plan`,
 :func:`roundtrip_plan`), so the grid follows the chunk, not the number
-of groups.
+of groups; reconstruct-sum gives each warp a column slice and a stripe
+of rows (:func:`reconstruct_plan`), so its grid follows the output.
 """
 
 from __future__ import annotations
@@ -56,6 +57,14 @@ _RT_ROWS = 4
 _SEL_ROWS = 8
 _TARGET_BLOCKS = 256
 _SEL_TARGET_BLOCKS = 128
+# reconstruct-sum: rows a thread holds at most, threads a block, and the
+# warps a plan aims at (about 6 an SM of an H100's 132: on an H100 the
+# tail and a chunk ran fastest on 2-warp blocks of 6 to 8 rows a thread,
+# cold and warm, `scripts/torch_topk_tc.py --plans`)
+_RECON_ROWS = 8
+_RECON_THREADS = 64
+_RECON_TARGET_WARPS = 768
+_GRID_Y = 65535
 
 
 def kernels_supported(block: int, rows: int) -> bool:
@@ -122,7 +131,8 @@ class Plan(NamedTuple):
     ``threads``, each block holding ``rows`` consecutive rows of a group
     (the last one fewer) for ``width`` columns (select: 32 lanes; round
     trip: ``width`` 4-lane columns of a 128-lane tile); ``blocks`` in
-    all."""
+    all. A reconstruct-sum launch (:func:`reconstruct_plan`) uses the
+    same fields."""
     width: int
     cluster: int
     rows: int
@@ -183,6 +193,26 @@ def roundtrip_plan(J: int, g: int) -> Plan:
                                       p.cluster, -p.width))
 
 
+@functools.lru_cache(maxsize=None)
+def reconstruct_plan(K: int, block: int, rows: int) -> Plan:
+    """Reconstruct-sum over (block, rows) from K payloads: a warp takes a
+    128-column slice (``width`` 4 columns a thread) and a stripe of
+    ``rows`` rows (at most 8, the fewest that keep the warps near the
+    target), blocks of up to 2 warps on a grid of (slices / warps,
+    stripes). Each thread holds its stripe's sums in registers while the K
+    pairs stream in, so K does not change the plan."""
+    slices = _cdiv(rows, _LANES)
+    if block == 0 or slices == 0:
+        return Plan(4, 1, 1, 32, 0)
+    r = min(_RECON_ROWS, _cdiv(block * slices, _RECON_TARGET_WARPS))
+    r = _cdiv(block, _cdiv(block, r))          # even stripes
+    w = min(_RECON_THREADS // 32, slices)
+    # the grid's second axis holds up to 65,535 stripes; a warp takes the
+    # stripes past it in turn
+    return Plan(4, 1, r, 32 * w,
+                _cdiv(slices, w) * min(_cdiv(block, r), _GRID_Y))
+
+
 # --------------------------------------------------------------------------
 # the CUDA kernels
 # --------------------------------------------------------------------------
@@ -191,7 +221,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("topk")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bps_topk_select.argtypes = [p, p, p, i, i, ll, i, i, i, p]
-    lib.bps_topk_reconstruct_sum.argtypes = [p, p, p, i, i, i, p]
+    lib.bps_topk_reconstruct_sum.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.bps_topk_roundtrip.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     for fn in (lib.bps_topk_select, lib.bps_topk_reconstruct_sum,
                lib.bps_topk_roundtrip):
@@ -235,9 +265,14 @@ def _reconstruct_sum_cuda(locals_: torch.Tensor, vals: torch.Tensor,
     K, rows = locals_.shape
     out = torch.empty((block, rows), dtype=torch.float32,
                       device=locals_.device)
+    # 16-byte accesses where every row starts aligned, else the 4-byte
+    # variant
+    vec = rows % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                for t in (locals_, vals, out))
+    p = reconstruct_plan(K, block, rows)
     _launch(_lib(), "bps_topk_reconstruct_sum", "topk_reconstruct_sum",
             locals_, locals_.data_ptr(), vals.data_ptr(), out.data_ptr(), K,
-            block, rows)
+            block, rows, p.rows, p.threads, int(vec))
     return out
 
 

@@ -50,13 +50,19 @@ Phases, each printing one JSON line:
    an input seeded with -0.0, 0 and NaN, and inputs that start 4 bytes
    past an aligned address (the chunk, n = 4097 and 33), unpack-sum
    equal by bit pattern at K=1, 2, 8 and 32 and, in the grid order the
-   reference takes above 32 payloads, at K=40 and K=256, and at n = 1,
-   31 and 4097 with a zero scale; topk — select, reconstruct-sum and
+   reference takes above 32 payloads, at K=33, 40, 41, 129 and 256, at
+   n = 1, 31 and 4097 and an odd word count with a zero scale (K = 1 to
+   256: 33, 40, 41, 64, 72, 129, 256 in the grid order), and with NaN
+   and inf scales (non-finite elements by position, finite ones
+   bit-equal); topk — select, reconstruct-sum and
    the fused round trip bit-equal to their plain versions at the
    training step's shapes (the (80, 100) round trip of a full chunk
    with and without the EF residual, select and reconstruct at
    (100, 10240) and the ragged tail's
-   (101, 5617) with n = 567,296, reconstruct at K = 8), the round trip
+   (101, 5617) with n = 567,296, reconstruct at K = 8, both from a
+   4-byte offset, and at K = 1, 2, 3 and 8 on no-winner and out-of-range
+   locals, one slot hit by two and three payloads, -0.0 values, and one
+   column of 600,000 rows), the round trip
    of a chunk at (8, 1000) and (1, 8000) (k = 0.001 and 128), on ties,
    zeros and NaN, on ``split_ties`` (equal maxima 16, 32 and the launch
    plan's thread stride apart and across its block boundary, ±inf
@@ -64,8 +70,9 @@ Phases, each printing one JSON line:
    (3, 257), (1, 600), (2, 1) and (1, 8193) (rows past a cluster's
    registers, read twice) and select at the tail and at (1000, 1024) (a
    cluster of 8), and from a 4-byte offset (the round trip's 4-byte
-   variant and select); select and the round trip also give
-   ``warm_ms``: 200 calls back to back, L2 not flushed; segmented_lora — the per-row LoRA delta against its
+   variant, select and reconstruct); select, reconstruct and the round
+   trip also give ``warm_ms``: 200 calls back to back, L2 not flushed;
+   segmented_lora — the per-row LoRA delta against its
    plain version on a layer's strided slice of pool-shaped slabs: the
    packed decode shape (R=16, S=1, 1024 -> 8 -> 1024, 33 slots, mixed
    slots with 0 and repeats) in bf16 and f32, a 64-row prefill chunk,
@@ -103,6 +110,11 @@ Phases, each printing one JSON line:
    block + error-feedback leg (k = 0.01, the reference's ``topk-block``
    configuration), each one warm-up and 5 timed steps; the loss stays
    finite and falls; step ms, tokens/s and peak memory;
+   aggregate_onebit — the aggregation tier's onebit decompress-sum at
+   pod scale: 40, then 256 workers' gradients of one default partition
+   (1,024,000 f32) through ``OnebitCompressor.compress``, stacked and
+   summed by ``decompress_sum``: one grid unpack-sum launch a sum, equal
+   to the plain version bit for bit;
 9. train_tiny — a tiny f32 model trains 3 raw steps on the CPU (plain
    versions) and on the card (kernels) to losses within 1e-4;
 10. ring — the ring kernels with 2, 3 and 4 rank processes (``spawn``)
@@ -149,8 +161,9 @@ Phases, each printing one JSON line:
     every leg ends with the ranks' parameters equal and finite losses;
     step ms, tokens/s (time-sliced) and each rank's peak memory.
 
-Each of phases 4-6 and each train leg runs with the launch counters set
-to 0 just before it and read just after: serve, exact and the
+Each of phases 4-6, each train leg and aggregate_onebit runs with the
+launch counters set to 0 just before it and read just after: serve,
+exact and the
 multitenant paths must launch the forward on its split path
 (``flash_fwd_split``), the multitenant paths the segmented LoRA kernel,
 the race exactly 2 x 24
@@ -163,8 +176,9 @@ prefill chunk), exact both; train_bf16 and the train legs the forward
 and both backward kernels once per layer and step, the onebit leg the
 pack and unpack-sum kernels once per gradient chunk and step, and the
 top-k leg the round trip once per full chunk and step (346) and select
-and reconstruct-sum once per step (the ragged tail chunk). The grid
-unpack-sum runs only in the onebit phase: one card aggregates K = 1.
+and reconstruct-sum once per step (the ragged tail chunk),
+aggregate_onebit the pack once a worker (296) and the grid unpack-sum
+once a sum (2).
 train_ring's ranks report their counts, equal on both ranks and exact
 per leg: the flash kernels once per layer and step; onebit pack n + 1 and
 unpack-sum 1 + 2n times per chunk and step at n = 2 ranks (n segments
@@ -176,7 +190,8 @@ the signs and the scale), the randomk leg presum once and rotate once
 A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
 (generate, serve, multitenant, the three train legs, train_ring's
-three legs on one rank; the ring rows' times are the ring phase's
+three legs on one rank, aggregate_onebit; the ring rows' times are the
+ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
 leaf alone as ``signs_*``; the flash_fwd row, timed at serve's chunk,
 also gives the training shape's ms, bound and SDPA ms as ``train_*``,
@@ -184,8 +199,11 @@ the split path's at serve's chunk as ``split_*`` and its launches, in
 all and by path, as ``split_launches`` and ``split_launches_by_path``,
 the flash_decode
 row, timed at generate's step, the long case's as ``long_*``; the
-topk_select and topk_roundtrip rows add ``warm_ms`` and the 4-byte
-offset's ``offset_ms``, the round trip ``tall``: (8, 1000) and (1, 8000)),
+topk rows add ``warm_ms`` and the 4-byte offset's ``offset_ms``, the
+round trip ``tall``: (8, 1000) and (1, 8000), reconstruct the chunk's
+and K = 8's ms as ``chunk_ms`` and ``k8_ms``; the grid unpack-sum row,
+timed at K = 40, K = 256's ms and bound as ``k256_*`` and the ragged
+1,000,003's ms as ``ragged_ms``),
 and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no
 result; so it does without a CUDA card or without the package beside it.
@@ -665,6 +683,11 @@ ATTN_SASS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "SYNCS")
 # cp.async (LDGSTS), shuffles, cluster barriers, FMAs and adds
 FMA_SASS = ("HGMMA", "HMMA", "ATOM", "ATOMS", "RED", "LDGSTS", "SHFL",
             "UCGABAR_ARV", "UCGABAR_WAIT", "FFMA", "FADD")
+# the codec kernels' arithmetic and memory instructions, and "ALL": every
+# instruction (a line of cuobjdump's listing)
+CODEC_SASS = ("FADD", "FSEL", "SEL", "LOP3", "SHF", "IMAD", "ISETP", "LDG",
+              "LDS", "STG", "ALL")
+SASS_ALL = r"/\*[0-9a-f]{4,}\*/\s+\S"
 
 
 def sass_counts(lib, ops=ATTN_SASS) -> dict:
@@ -702,16 +725,24 @@ def sass_counts(lib, ops=ATTN_SASS) -> dict:
         else:
             name = name.split("(", 1)[0]
         body = chunk.split("\n", 1)[1] if "\n" in chunk else ""
-        out[name] = {op: len(re.findall(rf"\b{op}\b", body)) for op in ops}
+        out[name] = {op: len(re.findall(SASS_ALL if op == "ALL"
+                                        else rf"\b{op}\b", body))
+                     for op in ops}
     return out
+
+
+# unpack-sum payload counts: timed, and checked only (the grid order's
+# 8-row blocks cut at 33, 41 and 129 rows)
+UNPACK_TIMED = (1, 2, 8, 32, 40, 256)
+UNPACK_GRID_KS = (33, 40, 41, 64, 72, 129, 256)
 
 
 def onebit_case(timer, name, n, seed, special=False):
     """Pack words bit-equal to the plain version; unpack-sum bit-equal
     (by bit pattern: -0.0 is not 0.0) at K = 1 (one card), 2 (train_ring's
-    owner), 8 and 32 (the most the unrolled order takes), and at K = 40
-    and 256 in the grid order; the fold order is fixed, so equality is
-    exact."""
+    owner), 8 and 32 (the most the unrolled order takes), and at K = 33,
+    40, 41, 129 and 256 in the grid order (timed at 40 and 256); the fold
+    order is fixed, so equality is exact."""
     from byteps_tpu_torch.ops.onebit_kernels import (
         _pack_torch, _unpack_sum_torch, onebit_pack, onebit_unpack_sum,
         packed_words)
@@ -741,7 +772,7 @@ def onebit_case(timer, name, n, seed, special=False):
     res["pack_plain_ms"] = timer(lambda: _pack_torch(x))
     res["pack_bound_ms"], res["pack_bound_by"] = bound_ms(
         4 * n + 4 * L, 32 * L, torch.float32)
-    for K in (1, 2, 8, 32, 40, 256):
+    for K in sorted(UNPACK_TIMED + (33, 41, 129)):
         if K <= 8:
             ws = torch.stack([onebit_pack(torch.randn(n, generator=g,
                                                       device="cuda"))
@@ -758,6 +789,8 @@ def onebit_case(timer, name, n, seed, special=False):
                                  f"from the plain version (max err {err})")
         res[f"unpack_k{K}_equal"] = True
         res[f"unpack_k{K}_max_abs_err"] = err
+        if K not in UNPACK_TIMED:
+            continue
         res[f"unpack_k{K}_ms"] = timer(lambda: onebit_unpack_sum(ws, sc, n))
         res[f"unpack_k{K}_plain_ms"] = timer(
             lambda: _unpack_sum_torch(ws, sc, n), iters=20 if K <= 8 else 5)
@@ -800,15 +833,16 @@ def pack_unaligned_case(timer, name, n, seed, timed=False):
 def unpack_edge_cases(seed=43):
     """Unpack-sum at the lengths that cut a row of words short (n = 1,
     31, 4097) and at an odd word count (L = 33, whose last column has no
-    pair, n = 1055) for K = 1, 2, 8 and 32, one payload's scale 0 (its
-    terms add +-0.0): bit-equal to the plain version by bit pattern."""
+    pair, n = 1055) for K = 1, 2, 8 and 32 and the grid order's K = 33,
+    40, 41, 64, 72, 129 and 256, one payload's scale 0 (its terms add
+    +-0.0): bit-equal to the plain version by bit pattern."""
     from byteps_tpu_torch.ops.onebit_kernels import (
         _unpack_sum_torch, onebit_unpack_sum, packed_words)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     checked = []
     for n, L in [(n, packed_words(n)) for n in (1, 31, 4097)] + [(1055, 33)]:
-        for K in (1, 2, 8, 32):
+        for K in (1, 2, 8, 32) + UNPACK_GRID_KS:
             ws = torch.randint(-2 ** 31, 2 ** 31 - 1, (K, L), generator=g,
                                device="cuda", dtype=torch.int32)
             sc = torch.rand(K, generator=g, device="cuda")
@@ -821,6 +855,51 @@ def unpack_edge_cases(seed=43):
             checked.append([n, L, K])
     emit({"phase": "onebit", "case": "unpack_edges", "checked": checked,
           "bit_equal": True})
+
+
+def unpack_nonfinite_cases(seed=47):
+    """Unpack-sum with one payload's scale NaN, or two payloads' scales
+    inf (NaN where their bits differ, an inf of either sign where they
+    agree), at the ragged 1,000,003 and K = 8, 40 and 256: the
+    non-finite elements where the plain version has them (NaN and each
+    sign of inf by position), every finite element bit-equal (every
+    element takes each payload's term, so here none is finite). Whether
+    the NaNs' bits agree too is reported (``all_bits_equal``), not
+    required: ``bit ? s : -s`` and ``(2 bit - 1) * s`` may give NaNs of
+    other signs."""
+    from byteps_tpu_torch.ops.onebit_kernels import (
+        _unpack_sum_torch, onebit_unpack_sum, packed_words)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 1_000_003
+    L = packed_words(n)
+    checked = []
+    for K in (8, 40, 256):
+        ws = torch.randint(-2 ** 31, 2 ** 31 - 1, (K, L), generator=g,
+                           device="cuda", dtype=torch.int32)
+        for bad in (float("nan"), float("inf")):
+            sc = torch.rand(K, generator=g, device="cuda")
+            sc[K // 3] = bad
+            if bad == float("inf"):
+                sc[2 * K // 3] = bad
+            out = onebit_unpack_sum(ws, sc, n)
+            ref = _unpack_sum_torch(ws, sc, n)
+            fin = torch.isfinite(ref)
+            same = (torch.equal(out.isnan(), ref.isnan())
+                    and torch.equal(out == float("inf"), ref == float("inf"))
+                    and torch.equal(out == -float("inf"),
+                                    ref == -float("inf"))
+                    and bits_equal(out[fin], ref[fin]))
+            if not same:
+                raise AssertionError(f"onebit unpack_sum K={K} with a "
+                                     f"{bad} scale: differs from the plain "
+                                     "version")
+            checked.append({"K": K, "scale": str(bad),
+                            "nan": int(ref.isnan().sum()),
+                            "non_finite": int((~fin).sum()),
+                            "all_bits_equal": bits_equal(out, ref)})
+    emit({"phase": "onebit", "case": "unpack_nonfinite", "n": n,
+          "checked": checked, "finite_bit_equal": True})
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -950,30 +1029,62 @@ def tie_rows(x: torch.Tensor) -> None:
     x[..., 7, 70] = float("nan")
 
 
-def topk_reconstruct_case(timer, name, lo, va, block):
-    from byteps_tpu_torch.ops.topk_kernels import (_reconstruct_sum_torch,
-                                                   block_reconstruct_sum)
+def topk_reconstruct_case(timer, name, lo, va, block, offset=False,
+                          timed=True):
+    """block_reconstruct_sum against its plain version, bit for bit;
+    ``offset``: locals and values start 4 bytes past an aligned address
+    (the kernel's 4-byte variant)."""
+    from byteps_tpu_torch.ops import topk_kernels as tk
 
+    block_reconstruct_sum = tk.block_reconstruct_sum
+    _reconstruct_sum_torch = tk._reconstruct_sum_torch
     K, rows = lo.shape
+    if offset:
+        lo, va = offset_view(lo), offset_view(va)
     out = block_reconstruct_sum(lo, va, block)
     ref = _reconstruct_sum_torch(lo, va, block)
     torch.cuda.synchronize()
     if not bits_equal(out, ref):
         raise AssertionError(f"topk reconstruct {name} K={K}: differs from "
                              "the plain version")
-    idx = lo.long().clamp(max=block - 1)    # no-winner lanes: in range
-    res = {"case": name, "K": K, "shape": [block, rows], "bit_equal": True,
-           "max_abs_err": float((out - ref).abs().max()),
-           "ms": timer(lambda: block_reconstruct_sum(lo, va, block)),
-           "plain_ms": timer(lambda: _reconstruct_sum_torch(lo, va, block)),
-           # two calls: zeros, then scatter_add_
-           "library_ms": timer(
-               lambda: torch.zeros(block, rows, device="cuda").scatter_add_(
-                   0, idx, va))}
-    res["bound_ms"], res["bound_by"] = bound_ms(
-        8 * K * rows + 4 * block * rows, 2 * K * block * rows, torch.float32)
+    res = {"case": name, "K": K, "shape": [block, rows],
+           "offset_bytes": lo.data_ptr() % 16,
+           "plan": topk_plan(tk, "reconstruct_plan", K, block, rows),
+           "bit_equal": True, "max_abs_err": float((out - ref).abs().max())}
+    if timed:
+        idx = lo.long().clamp(0, block - 1)  # no-winner lanes: in range
+        res["ms"] = timer(lambda: block_reconstruct_sum(lo, va, block))
+        res.update(warm_ms(lambda: block_reconstruct_sum(lo, va, block)))
+        res["plain_ms"] = timer(
+            lambda: _reconstruct_sum_torch(lo, va, block))
+        # two calls: zeros, then scatter_add_
+        res["library_ms"] = timer(
+            lambda: torch.zeros(block, rows, device="cuda").scatter_add_(
+                0, idx, va))
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            8 * K * rows + 4 * block * rows, 2 * K * block * rows,
+            torch.float32)
     emit({"phase": "topk_reconstruct", **res})
     return res
+
+
+def recon_payloads(K, block, rows, seed):
+    """K payloads' (locals, values) for (block, rows) as aggregation
+    meets them: locals in [-1, block] (block: select's "no winner"; -1
+    out of range), a third of the lanes with no winner, payload 1 hitting
+    payload 0's slot on every other lane (and payload 2 on every fifth:
+    three hits), -0.0 among the values."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lo = torch.randint(-1, block + 1, (K, rows), generator=g, device="cuda",
+                       dtype=torch.int32)
+    va = torch.randn(K, rows, generator=g, device="cuda")
+    lo[:, 1::3] = block
+    if K > 1:
+        lo[1, ::2] = lo[0, ::2]
+    if K > 2:
+        lo[2, ::5] = lo[0, ::5]
+    va[:, ::7] = -0.0
+    return lo, va
 
 
 def topk_roundtrip_case(timer, name, J, g_, with_e, seed, ties=False,
@@ -1047,13 +1158,28 @@ def topk_cases(timer) -> dict:
                      splits=True, timed=False)
     tsel["offset_ms"] = topk_select_case(timer, "tail_offset", 101, 5617,
                                          tail, 61, offset=True)[0]["ms"]
-    topk_reconstruct_case(timer, "chunk", lo[None], va[None], 100)
+    rchunk = topk_reconstruct_case(timer, "chunk", lo[None], va[None], 100)
     trec = topk_reconstruct_case(timer, "tail", tlo[None], tva[None], 101)
+    trec["offset_ms"] = topk_reconstruct_case(
+        timer, "tail_offset", tlo[None], tva[None], 101, offset=True)["ms"]
+    rchunk["offset_ms"] = topk_reconstruct_case(
+        timer, "chunk_offset", lo[None], va[None], 100, offset=True)["ms"]
     g = torch.Generator(device="cuda").manual_seed(55)
     lo8 = torch.randint(0, 101, (8, 10240), generator=g, device="cuda",
                         dtype=torch.int32)
     va8 = torch.randn(8, 10240, generator=g, device="cuda")
-    topk_reconstruct_case(timer, "K8", lo8, va8, 100)
+    trec["k8_ms"] = topk_reconstruct_case(timer, "K8", lo8, va8, 100)["ms"]
+    trec["chunk_ms"] = rchunk["ms"]
+    # and one column of 600,000 rows (k = 1): more stripes than the grid
+    for K, block, rows, seed in ((3, 101, 5617, 74), (8, 100, 10240, 75),
+                                 (3, 100, 10240, 76), (1, 101, 5617, 77),
+                                 (2, 600_000, 1, 79)):
+        topk_reconstruct_case(timer, f"hits_K{K}_{block}x{rows}",
+                              *recon_payloads(K, block, rows, seed), block,
+                              timed=False)
+    topk_reconstruct_case(timer, "hits_K3_tail_offset",
+                          *recon_payloads(3, 101, 5617, 78), 101,
+                          offset=True, timed=False)
     rt = topk_roundtrip_case(timer, "chunk_ef", 80, 100, True, 56)
     topk_roundtrip_case(timer, "chunk", 80, 100, False, 57)
     topk_roundtrip_case(timer, "ties", 80, 100, True, 58, ties=True,
@@ -1625,6 +1751,55 @@ def phase_train_bf16():
             and rel[worst] <= TRAIN_BF16_REL_L2):
         raise AssertionError(f"bf16 step: CPU loss {lc} vs card {lg}, "
                              f"gradient of {worst} {rel[worst]} apart")
+
+
+# the aggregation tier's worker counts for one chunk's decompress-sum:
+# above 32, the grid order
+AGGREGATE_KS = (40, 256)
+
+
+def phase_aggregate_onebit(n=4096000 // 4):
+    """The aggregation tier's onebit decompress-sum at pod scale (K
+    workers, one default 4,096,000-byte partition each): K seeded
+    gradients go through ``OnebitCompressor.compress`` (scaled), the
+    payloads are stacked as the tier receives them and summed by
+    ``decompress_sum``, at K = 40 and 256. Each sum must launch the grid
+    unpack-sum exactly once and equal the plain version bit for bit,
+    finite, of n elements."""
+    from byteps_tpu_torch.compression import OnebitCompressor
+    from byteps_tpu_torch.ops import launches
+    from byteps_tpu_torch.ops.onebit_kernels import _unpack_sum_torch
+
+    comp = OnebitCompressor(scaling=True)
+    g = torch.Generator(device="cuda").manual_seed(48)
+    res = {}
+    for K in AGGREGATE_KS:
+        grads = torch.randn(K, n, generator=g, device="cuda")
+        pays = [comp.compress(grads[k]) for k in range(K)]
+        del grads
+        stacked = {key: torch.stack([p[key] for p in pays])
+                   for key in pays[0]}
+        before = launches["onebit_unpack_sum_grid"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = comp.decompress_sum(stacked, n)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        calls = launches["onebit_unpack_sum_grid"] - before
+        ref = _unpack_sum_torch(stacked["signs"], stacked["scale"][:, 0], n)
+        if calls != 1:
+            raise AssertionError(f"aggregate_onebit K={K}: decompress_sum "
+                                 f"launched the grid unpack-sum {calls} "
+                                 "times, not once")
+        if not (out.shape == (n,) and bool(out.isfinite().all())
+                and bits_equal(out, ref)):
+            raise AssertionError(f"aggregate_onebit K={K}: decompress_sum "
+                                 "differs from the plain version")
+        res[K] = {"grid_launches": calls, "bit_equal": True,
+                  "wall_ms": wall}
+    emit({"phase": "aggregate_onebit", "n": n, **{f"K{K}": r
+                                                  for K, r in res.items()}})
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -2344,9 +2519,10 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
          "train_onebit": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
          "train_topk": TRAIN + TOPK,
          "train_ring": TRAIN + ("onebit_pack", "onebit_unpack_sum",
-                                "ring_rotate", "ring_presum")}
+                                "ring_rotate", "ring_presum"),
+         "aggregate_onebit": ("onebit_pack", "onebit_unpack_sum_grid")}
 MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
-              "train_onebit", "train_topk", "train_ring")
+              "train_onebit", "train_topk", "train_ring", "aggregate_onebit")
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
@@ -2482,6 +2658,7 @@ def main() -> int:
                         special=True)]
     pack_unaligned_cases(timer)
     unpack_edge_cases()
+    unpack_nonfinite_cases()
     topk = topk_cases(timer)
     lora = lora_cases(timer)
     del timer
@@ -2515,6 +2692,15 @@ def main() -> int:
         {"compressor": "onebit", "ef": "vanilla"})
     by_path["train_topk"] = counted("train_topk", phase_train,
                                     "topk_block_ef", TOPK_BLOCK_EF)
+    by_path["aggregate_onebit"] = counted("aggregate_onebit",
+                                          phase_aggregate_onebit)
+    want = {"onebit_pack": sum(AGGREGATE_KS),
+            "onebit_unpack_sum_grid": len(AGGREGATE_KS)}
+    for name, n in want.items():
+        if by_path["aggregate_onebit"][name] != n:
+            raise AssertionError(f"aggregate_onebit launched {name} "
+                                 f"{by_path['aggregate_onebit'][name]} "
+                                 f"times, not {n}")
     steps = 6                      # one warm-up and five timed
     chunks = TRAIN_CHUNKS["onebit_ef"]
     for name in ("onebit_pack", "onebit_unpack_sum"):
@@ -2604,13 +2790,16 @@ def main() -> int:
               "library_ms": None}),
             ("onebit_unpack_sum_grid", "onebit",
              "byteps_tpu/ops/onebit_kernels.py:134",
-             {"case": "chunk K=40 (onebit phase only: one card has K=1)",
+             {"case": "chunk K=40 (aggregate_onebit: K = 40 and 256)",
               "max_abs_err": main_bits["unpack_k40_max_abs_err"],
               "ms": main_bits["unpack_k40_ms"],
               "plain_ms": main_bits["unpack_k40_plain_ms"],
               "bound_ms": main_bits["unpack_k40_bound_ms"],
               "bound_by": main_bits["unpack_k40_bound_by"],
-              "library_ms": None}),
+              "library_ms": None,
+              "k256_ms": main_bits["unpack_k256_ms"],
+              "k256_bound_ms": main_bits["unpack_k256_bound_ms"],
+              "ragged_ms": bits[1]["unpack_k40_ms"]}),
             ("topk_select", "topk", "byteps_tpu/ops/topk_kernels.py:76",
              topk["topk_select"]),
             ("topk_reconstruct_sum", "topk",
@@ -2633,6 +2822,8 @@ def main() -> int:
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          "case": main["case"], **{k: main[k] for k in common},
          **{k: main[k] for k in ("warm_ms", "offset_ms", "tall",
+                                 "chunk_ms", "k8_ms", "k256_ms",
+                                 "k256_bound_ms", "ragged_ms",
                                  "ms_time_sliced", "train_ms",
                                  "train_bound_ms", "train_library_ms",
                                  "split_ms", "split_bound_ms",

@@ -5,9 +5,11 @@ mode — at ragged lengths, on -0.0 / 0 / NaN and from a view 4 bytes
 into its buffer; unpack-sum equal at
 K = 1, 3 and 8, and at K = 2 and 32 (the ring owner's and the most the
 unrolled kernel takes) at n = 1 and 31 (both fold the K rows in order
-from 0.0, so equality is exact) and at K = 40 and 64 against the reference's grid kernel (rows
-in blocks of 8, block partials added in order: bit-equal, where a fold
-of all K rows in one sequence is not); and the compressor's compress / decompress / decompress_sum /
+from 0.0, so equality is exact) and at K = 33, 40, 41, 64 and 129
+against the reference's grid kernel (rows in blocks of 8, block partials
+added in order: bit-equal, where a fold of all K rows in one sequence is
+not), also with a zero scale and with inf scales; and the compressor's
+compress / decompress / decompress_sum /
 roundtrip with error feedback. The scale is mean(|x|), whose reduction
 order differs between the frameworks: scales and everything scaled by
 them are held at 1e-6 relative.
@@ -96,20 +98,36 @@ def test_unpack_sum_equal(backend, K, n):
                                           backend=backend)))
 
 
-@pytest.mark.parametrize("K", [40, 64])
-def test_unpack_sum_grid_order_equal(K):
+@pytest.mark.parametrize("K,zero,inf", [
+    pytest.param(40, False, False, id="40"),
+    pytest.param(64, False, False, id="64"),
+    pytest.param(33, True, False, id="33-zero"),
+    pytest.param(41, False, True, id="41-inf"),
+    pytest.param(129, True, True, id="129-zero-inf")])
+def test_unpack_sum_grid_order_equal(K, zero, inf):
+    """At a ragged n, K cutting the last 8-row block short (33, 41, 129)
+    or not; a zero scale (its terms add +-0.0) and two inf scales (inf
+    where their bits agree, NaN where they differ): bit-equal by bit
+    pattern, NaN included."""
     n = 5003
     rng = np.random.default_rng(K)
     words = np.stack([np.asarray(rob.onebit_pack(
         jnp.asarray(rng.standard_normal(n).astype(np.float32)),
         backend="jnp")) for _ in range(K)])
     scales = rng.random(K).astype(np.float32)
+    if zero:
+        scales[K // 2] = 0.0
+    if inf:
+        scales[[K // 3, 2 * K // 3]] = np.inf
     want = np.asarray(rob.onebit_unpack_sum(jnp.asarray(words),
                                             jnp.asarray(scales), n,
                                             backend="pallas"))
     tw, ts = torch.as_tensor(words.view(np.int32)), torch.as_tensor(scales)
-    np.testing.assert_array_equal(tob.onebit_unpack_sum(tw, ts, n).numpy(),
-                                  want)
+    got = tob.onebit_unpack_sum(tw, ts, n).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    if inf:
+        assert np.isnan(want).any() and np.isinf(want).any()
+        return
     # the order is the point: one fold over all K rows differs in the
     # last bit on a share of the elements
     one_fold = tob._rows_unpack_acc(tw, ts).reshape(-1)[:n].numpy()

@@ -5,7 +5,10 @@
   admits): ``block_select`` winner rows and values, including the
   first-max tie-break, an all-zero lane, -0.0 and a NaN lane (no winner,
   as the Pallas arithmetic gives; the reference's jnp twin would pick the
-  NaN); ``block_reconstruct_sum`` at K = 1, 3 and 8; ``block_roundtrip``
+  NaN); ``block_reconstruct_sum`` at K = 1, 3 and 8 on (100, 1280),
+  (101, 1280) and (3, 128), with no-winner and out-of-range locals and
+  one slot hit by two and three payloads (odd rows against the
+  reference's jnp twin, without -0.0); ``block_roundtrip``
   dense and residual, with and without the error-feedback residual, at
   the default partition's (80, 100), at tall and odd groups ((1, 600),
   (3, 257), (2, 1)) and with ties and a NaN group.
@@ -13,15 +16,19 @@
   launch plan's thread stride apart and on both sides of its block
   boundary, with ±inf beside a finite max and -0.0 as a group's only
   non-zero (the kernels meet the same inputs in ``chip_smoke.py``); the
-  launch plans (``select_plan``, ``roundtrip_plan``) give every slot to
-  exactly one thread and fill the card at a chunk's three layouts.
+  launch plans (``select_plan``, ``roundtrip_plan``,
+  ``reconstruct_plan``) give every slot to exactly one thread and fill
+  the card at a chunk's layouts.
 * ``resolve_k`` / ``block_shape`` / ``tiled_shape`` over a grid of
   (k, n) covering the tiled, strided-aligned and ragged layouts.
 * ``TopkCompressor`` compress / decompress / roundtrip / decompress_sum
   on each layout and on ``exact`` selection, against the reference's;
   the ragged strided chunk goes through ``block_select`` with its length
   here (the CUDA kernel on the card) and through the reference's jnp
-  argmax branch there.
+  argmax branch there; the tiled ``decompress_sum`` of 1, 2 and 3
+  payloads holding -0.0, bit for bit (a sum from the first payload's
+  term instead of zeros keeps at K = 1 a -0.0 the reference returns as
+  0.0).
 
 Everything is exact: the winner rule is a max and a min over exact
 comparisons, a winner's value is copied, and sums add the same terms in
@@ -120,13 +127,32 @@ def test_select_valid_length():
         tk.block_select(torch.as_tensor(x), rows - 1)
 
 
-@pytest.mark.parametrize("K", [1, 3, 8])
-def test_reconstruct_sum_matches_pallas(K):
-    block, rows = 100, 1280
-    rng = np.random.default_rng(K)
-    locals_ = rng.integers(0, block + 1, (K, rows)).astype(np.int32)
+RECON_CASES = (
+    [pytest.param(100, 1280, K, id=str(K)) for K in (1, 3, 8)]
+    + [pytest.param(101, 1280, K, id=f"101x1280-{K}") for K in (1, 3, 8)]
+    + [pytest.param(3, 128, K, id=f"3x128-{K}") for K in (1, 3)]
+    + [pytest.param(101, 617, K, id=f"101x617-{K}") for K in (1, 3)])
+
+
+@pytest.mark.parametrize("block,rows,K", RECON_CASES)
+def test_reconstruct_sum_matches_pallas(block, rows, K):
+    """Locals in [-1, block] (-1 out of range, block select's "no
+    winner", also on every ninth lane), payloads 1 and 2 hitting payload
+    0's slot on every other and every fifth lane. Odd ``rows`` take the
+    reference's jnp twin, which sums from 0.0 and so returns a lone -0.0
+    as 0.0 (ROADMAP C): there the values hold no -0.0."""
+    rng = np.random.default_rng(K * 1000 + block + rows)
+    locals_ = rng.integers(-1, block + 1, (K, rows)).astype(np.int32)
+    locals_[:, ::9] = block
+    if K > 1:
+        locals_[1, ::2] = locals_[0, ::2]
+    if K > 2:
+        locals_[2, ::5] = locals_[0, ::5]
     vals = rng.standard_normal((K, rows)).astype(np.float32)
-    vals[0, :7] = -0.0
+    aligned = rk.kernels_supported(block, rows)
+    assert aligned == (rows % 128 == 0)
+    if aligned:
+        vals[0, :7] = -0.0
     want = rk.block_reconstruct_sum(jnp.asarray(locals_), jnp.asarray(vals),
                                     block, backend="pallas")
     got = tk.block_reconstruct_sum(torch.as_tensor(locals_),
@@ -252,6 +278,47 @@ def test_select_plan_covers_every_slot_once(block, rows, n):
     assert (cnt[:n] == 1).all() and (cnt[n:] == 0).all()
 
 
+@pytest.mark.parametrize("K,block,rows", [(1, 101, 5617), (1, 100, 10240),
+                                         (8, 100, 10240), (3, 3, 128),
+                                         (1, 1000, 1024), (2, 2, 1),
+                                         (1, 4, 0), (1, 600_000, 1)])
+@pytest.mark.parametrize("vec", [True, False])
+def test_reconstruct_plan_covers_every_element_once(K, block, rows, vec):
+    """The kernel's index arithmetic on ``reconstruct_plan``: a grid of
+    (slices / warps a block, stripes, at most 65,535), warp w of block
+    (bx, by) on the 128-column slice bx·W + w and the rows [r0, r0 + R),
+    r0 = (by + m·gy)·R, its lane on 4 columns (adjacent, or 32 apart).
+    600,000 rows of one column (k = 1 on the strided layout) outnumber
+    the grid's stripes."""
+    p = tk.reconstruct_plan(K, block, rows)
+    assert 1 <= p.rows <= 8 and p.threads % 32 == 0 and p.threads <= 256
+    W, slices = p.threads // 32, -(-rows // 128)
+    gx, gy = -(-slices // W), min(-(-block // p.rows), 65535)
+    assert p.blocks == (gx * gy if rows else 0)
+    cnt = np.zeros((block, slices * 128), np.int32)
+    lane = np.arange(32)
+    for bx in range(gx if rows else 0):
+        for w in range(W):
+            c0 = (bx * W + w) * 128 + (4 * lane if vec else lane)
+            cols = (c0[:, None] + np.arange(4)[None, :] * (1 if vec else 32))
+            cols = cols[cols < rows]
+            for by in range(gy):
+                for r0 in range(by * p.rows, block, gy * p.rows):
+                    cnt[r0:r0 + p.rows, cols] += 1
+    assert (cnt[:, :rows] == 1).all() and (cnt[:, rows:] == 0).all()
+
+
+@pytest.mark.parametrize("K,block,rows", [(1, 101, 5617), (1, 100, 10240),
+                                         (8, 100, 10240)])
+def test_reconstruct_plan_fills_the_card(K, block, rows):
+    """The training tail and a chunk: one wave of 4 to 12 warps an SM of
+    the H100's 132 (12 fit at the kernel's 160 registers), a thread
+    holding at most 8 rows."""
+    p = tk.reconstruct_plan(K, block, rows)
+    warps = -(-rows // 128) * -(-block // p.rows)
+    assert 132 * 4 <= warps <= 132 * 12 and p.rows <= 8
+
+
 @pytest.mark.parametrize("J,g", [(80, 100), (8, 1000), (1, 8000)])
 def test_roundtrip_plan_fills_the_card_at_a_chunk(J, g):
     """One 1,024,000-element chunk at k = 0.01, 0.001 and 128: about two
@@ -343,6 +410,28 @@ def test_codec_matches_reference(selection, k, n):
     else:
         _eq(ts, rs)
     assert port.compressed_bytes(n) == ref.compressed_bytes(n)
+
+
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_tiled_decompress_sum_signed_zero_matches_reference(K):
+    """The tiled (80, 100) layout of a 1,024,000-element chunk: K stacked
+    payloads, the first holding -0.0 values, sum from zeros as the
+    reference's does, so a lone -0.0 comes back 0.0 at K = 1 too."""
+    n = 1_024_000
+    ref = rtopk.TopkCompressor(k=0.01, selection="block")
+    port = TopkCompressor(k=0.01, selection="block")
+    assert ttopk.tiled_shape(0.01, n) == (80, 100)
+    pays = [port.compress(torch.as_tensor(_rand(n, 90 + w)))
+            for w in range(K)]
+    idx = torch.stack([p["indices"] for p in pays]).numpy()
+    vals = torch.stack([p["values"] for p in pays]).numpy()
+    vals[0, :5] = -0.0
+    want = ref.decompress_sum({"indices": jnp.asarray(idx),
+                               "values": jnp.asarray(vals)}, n)
+    got = port.decompress_sum({"indices": torch.as_tensor(idx),
+                               "values": torch.as_tensor(vals)}, n)
+    _eq(got, want)
+    assert not np.signbit(got.numpy()[idx[0, :5]]).any()
 
 
 def test_ragged_chunk_with_ties_matches_reference():

@@ -3,10 +3,17 @@
 A lean copy of ``byteps_tpu/common/config.py`` holding only what the
 ported slices read: the log level, the metrics switch, the ``serve_*``
 knobs of the continuous-batching tier (adapter pool, tenant quotas and
-fair queuing included), and the gradient-aggregation
+fair queuing included), the gradient-aggregation
 knobs of the data-parallel training step (partition size, reduce dtype,
-the onebit codec's scaling default, the ICI wire tier), under the same
-variable names and defaults.
+the onebit codec's scaling default, the ICI wire tier), and the
+``DMLC_*`` topology and ``BYTEPS_*`` knobs of the DCN parameter-server
+tier, under the same variable names and defaults.
+
+The tier's knobs that are not ported yet (asynchronous or stale rounds,
+worker leases, the health monitor, the in-process IPC path, the sharded
+pod wire, fault injection) are parsed all the same, so that
+:func:`check_ported` can refuse a caller who sets one instead of
+silently running the default.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ DEFAULT_PARTITION_BYTES = 4096000
 REDUCE_DTYPES = ("float32", "bfloat16")
 # wire tiers of the compressed collectives (comm/ici.py)
 ICI_TIERS = ("staged", "ring")
+# the reference's BYTEPS_SCHEDULING_CREDIT default (scheduled_queue.cc)
+DEFAULT_SCHEDULING_CREDIT = 4
+DEFAULT_SERVER_ENGINE_THREADS = 4
 
 
 def _env_int(name: str, default: int) -> int:
@@ -36,6 +46,13 @@ def _env_bool(name: str, default: bool = False) -> bool:
     return v.strip().lower() in ("1", "true", "on", "yes", "y")
 
 
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return float(v)
+
+
 @dataclasses.dataclass
 class Config:
     """Process-wide runtime configuration of the port."""
@@ -43,6 +60,47 @@ class Config:
     log_level: str = "INFO"
     # BYTEPS_METRICS_ON=0 swaps every metric handle for a shared no-op
     metrics_on: bool = True
+
+    # --- DMLC_* cluster topology (DCN parameter-server tier) ---------------
+    role: str = "worker"  # scheduler | server | worker | joint
+    num_worker: int = 1
+    num_server: int = 0
+    # server i listens on ps_root_port + 1 + i at ps_root_uri
+    ps_root_uri: str = "127.0.0.1"
+    ps_root_port: int = 9000
+    worker_id: int = 0
+    local_rank: int = 0
+    local_size: int = 1
+
+    # --- DCN tier tuning ---------------------------------------------------
+    # partitions in flight between COMPRESS and the end of PUSH
+    scheduling_credit: int = DEFAULT_SCHEDULING_CREDIT
+    server_engine_threads: int = DEFAULT_SERVER_ENGINE_THREADS
+    # a contended server engine sums and answers lower keys first
+    server_enable_schedule: bool = False
+    # the server fails a pull that waited longer than this (0: never)
+    pull_timeout_ms: int = 60000
+    # partitions below this many bytes ride the raw f32 wire
+    min_compress_bytes: int = 65536
+    # > 0 paces each PSWorker's payload bytes at this many megabits/s
+    dcn_throttle_mbps: float = 0.0
+    # wire retries per op (exponential backoff from retry_backoff_ms,
+    # x2 an attempt, capped at 2 s, seeded jitter); replays are deduped
+    # server-side by (worker, key, round)
+    retry_limit: int = 8
+    retry_backoff_ms: int = 50
+    # CRC32 of every push (checked before the sum) and pull response
+    wire_crc: bool = False
+
+    # --- DCN tier knobs not ported yet (check_ported refuses them) ---------
+    enable_async: bool = False
+    enable_ipc: bool = False
+    staleness: int = 0
+    worker_lease_ms: int = 0
+    health_interval_ms: int = 0
+    hybrid_sharded: bool = True
+    pod_controllers: int = 1
+    fault_spec: str = ""
 
     # --- inference serving tier --------------------------------------------
     # KV block size (tokens per paged-cache block); should divide the
@@ -107,6 +165,33 @@ class Config:
         return cls(
             log_level=os.environ.get("BYTEPS_LOG_LEVEL", "INFO").upper(),
             metrics_on=_env_bool("BYTEPS_METRICS_ON", True),
+            role=os.environ.get("DMLC_ROLE", "worker"),
+            num_worker=_env_int("DMLC_NUM_WORKER", 1),
+            num_server=_env_int("DMLC_NUM_SERVER", 0),
+            ps_root_uri=os.environ.get("DMLC_PS_ROOT_URI", "127.0.0.1"),
+            ps_root_port=_env_int("DMLC_PS_ROOT_PORT", 9000),
+            worker_id=_env_int("DMLC_WORKER_ID", 0),
+            local_rank=_env_int("BYTEPS_LOCAL_RANK", 0),
+            local_size=_env_int("BYTEPS_LOCAL_SIZE", 1),
+            scheduling_credit=_env_int("BYTEPS_SCHEDULING_CREDIT",
+                                       DEFAULT_SCHEDULING_CREDIT),
+            server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD",
+                                           DEFAULT_SERVER_ENGINE_THREADS),
+            server_enable_schedule=_env_bool("BYTEPS_SERVER_ENABLE_SCHEDULE"),
+            pull_timeout_ms=_env_int("BYTEPS_SERVER_PULL_TIMEOUT_MS", 60000),
+            min_compress_bytes=_env_int("BYTEPS_MIN_COMPRESS_BYTES", 65536),
+            dcn_throttle_mbps=_env_float("BYTEPS_DCN_THROTTLE_MBPS", 0.0),
+            retry_limit=_env_int("BYTEPS_RETRY_LIMIT", 8),
+            retry_backoff_ms=_env_int("BYTEPS_RETRY_BACKOFF_MS", 50),
+            wire_crc=_env_bool("BYTEPS_WIRE_CRC"),
+            enable_async=_env_bool("BYTEPS_ENABLE_ASYNC"),
+            enable_ipc=_env_bool("BYTEPS_ENABLE_IPC"),
+            staleness=max(0, _env_int("BYTEPS_STALENESS", 0)),
+            worker_lease_ms=_env_int("BYTEPS_WORKER_LEASE_MS", 0),
+            health_interval_ms=_env_int("BYTEPS_HEALTH_INTERVAL_MS", 0),
+            hybrid_sharded=_env_bool("BYTEPS_HYBRID_SHARDED", True),
+            pod_controllers=_env_int("BYTEPS_POD_CONTROLLERS", 1),
+            fault_spec=os.environ.get("BYTEPS_FAULT_SPEC", ""),
             serve_block_size=_env_int("BYTEPS_SERVE_BLOCK_SIZE", 16),
             serve_pool_blocks=_env_int("BYTEPS_SERVE_POOL_BLOCKS", 0),
             serve_max_batch=_env_int("BYTEPS_SERVE_MAX_BATCH", 8),
@@ -142,3 +227,25 @@ def reset_config() -> None:
     """Drop the cached config so the next read re-parses the environment."""
     global _config
     _config = None
+
+
+def check_ported(cfg: Optional[Config] = None) -> None:
+    """Refuse, naming the knob, any DCN-tier setting whose behaviour the
+    port does not have yet, instead of running the synchronous default
+    in its place. Called where the tier starts: ``start_server``,
+    ``PSWorker`` and ``DcnCore``."""
+    from byteps_tpu_torch.common.logging import bps_check
+
+    cfg = cfg or get_config()
+    for knob, unported in (
+            ("BYTEPS_ENABLE_ASYNC", cfg.enable_async),
+            ("BYTEPS_STALENESS", cfg.staleness > 0),
+            ("BYTEPS_WORKER_LEASE_MS", cfg.worker_lease_ms > 0),
+            ("BYTEPS_HEALTH_INTERVAL_MS", cfg.health_interval_ms > 0),
+            ("BYTEPS_ENABLE_IPC", cfg.enable_ipc),
+            ("BYTEPS_HYBRID_SHARDED/BYTEPS_POD_CONTROLLERS",
+             cfg.hybrid_sharded and cfg.pod_controllers > 1),
+            ("BYTEPS_FAULT_SPEC", bool(cfg.fault_spec))):
+        bps_check(not unported,
+                  f"{knob} is set, and the port's DCN tier has not ported "
+                  "it yet (not ported yet)")

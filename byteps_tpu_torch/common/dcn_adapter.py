@@ -1,0 +1,352 @@
+"""Shared worker-side core for host-framework adapters (the port's
+counterpart of ``byteps_tpu/common/dcn_adapter.py``).
+
+Reference analog: the common machinery ``byteps/torch/ops.cc`` calls into
+(``EnqueueTensor`` + queue lists, ``operations.cc``): tensor
+declaration/partitioning, the credit-scheduled PUSH/PULL pipeline against
+the DCN summation servers, and handle assembly.
+
+A flat CPU buffer (numpy, or a CPU tensor) runs the reference's four
+stages, ``DCN_STAGE_ORDER``, unchanged. A CUDA tensor runs
+``CUDA_DCN_STAGE_ORDER``: ``push_pull_async`` records an event on the
+caller's current stream and issues one ``non_blocking`` copy of the
+tensor into a pinned host buffer (kept per tensor name) on a copy stream
+that waits on that event; ``COPYD2H``, on a pool thread, waits for that
+copy; the pulled sums are decoded into a second pinned buffer of the
+name, and ``COPYH2D`` copies each partition back into the tensor on the
+copy stream and waits for it, so a finished handle holds its result on
+the card and neither pinned buffer is still in use. One core holds one
+PSWorker (one controller); the sharded pod wire, failover and degraded
+fallback are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from byteps_tpu_torch.common.config import check_ported, get_config
+from byteps_tpu_torch.common.logging import bps_check, get_logger
+from byteps_tpu_torch.common.metrics import get_registry
+from byteps_tpu_torch.common.partition import TensorRegistry
+from byteps_tpu_torch.common.scheduler import (
+    Handle,
+    PartitionTask,
+    PipelineScheduler,
+    Stage,
+)
+from byteps_tpu_torch.common.stage_orders import (
+    CUDA_DCN_STAGE_ORDER,
+    DCN_STAGE_ORDER,
+)
+from byteps_tpu_torch.compression.wire import (
+    Fp16Wire,
+    WireCodec,
+    WirePlan,
+    pull_seed,
+    wire_seed,
+)
+from byteps_tpu_torch.server import PSWorker
+
+log = get_logger("dcn_adapter")
+
+
+def wire_codec_for(compression: Optional[str]) -> Optional[WireCodec]:
+    """Map a host adapter's ``Compression`` choice onto a DCN wire codec
+    (reference: byteps/torch/compression.py — fp16 halves actual wire
+    bytes, it is not a round-trip simulation)."""
+    if compression in (None, "none", ""):
+        return None
+    if compression == "fp16":
+        return Fp16Wire()
+    raise ValueError(f"unknown compression {compression!r}; "
+                     "host adapters support 'none' or 'fp16'")
+
+
+class DcnCore:
+    """One per process; drives flat fp32 buffers through the DCN pipeline.
+
+    Stages mirror the reference queue list around the wire
+    (``core_loops.cc`` COMPRESS → PUSH → PULL → DECOMPRESS): codec work
+    runs on its own pool so chunk i+1 compresses WHILE chunk i is on the
+    wire. The credit is acquired at COMPRESS and released when the chunk
+    leaves PUSH (``releases_credit`` wire scope): at most ``credit``
+    encoded payloads exist at once, overlap survives whenever credit ≥ 2
+    (default 4), and slow pulls never starve later pushes. CUDA tensors
+    take the same stages between ``COPYD2H`` and ``COPYH2D`` on a
+    pipeline of their own, built at the first CUDA call.
+    """
+
+    def __init__(self, servers=None, worker_id=None) -> None:
+        cfg = get_config()
+        check_ported(cfg)
+        self.cfg = cfg
+        self.worker = PSWorker(servers=servers, worker_id=worker_id)
+        self.registry = TensorRegistry()
+        # PUSH/PULL are stage-retryable: the second line of defense above
+        # PSWorker's wire retries (a pinned round is re-sent, see
+        # _push_stage)
+        self._wire_stages = [
+            Stage("COMPRESS", self._compress_stage, credited=True,
+                  pool_size=2),
+            Stage("PUSH", self._push_stage, credited=True, pool_size=4,
+                  releases_credit=True, retryable=True),
+            Stage("PULL", self._pull_stage, pool_size=4, retryable=True),
+            Stage("DECOMPRESS", self._decompress_stage, pool_size=2),
+        ]
+        bps_check(
+            tuple(s.name for s in self._wire_stages) == DCN_STAGE_ORDER,
+            "DcnCore stage list drifted from DCN_STAGE_ORDER")
+        self.scheduler = PipelineScheduler(
+            stages=self._wire_stages, credit=cfg.scheduling_credit)
+        self._cuda_scheduler: Optional[PipelineScheduler] = None
+        self._copy_streams: Dict[int, torch.cuda.Stream] = {}
+        # per tensor name: (push, pull) pinned f32 host buffers
+        self._pinned: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._inited_keys = set()
+        self._key_lock = threading.Lock()
+        self._versions: Dict[str, int] = {}
+        self.bytes_d2h = 0
+        self.bytes_h2d = 0
+        _reg = get_registry()
+        self._m_d2h = _reg.counter("dcn.d2h_bytes")
+        self._m_h2d = _reg.counter("dcn.h2d_bytes")
+        self.worker.barrier()
+
+    # -- the CUDA pipeline ---------------------------------------------------
+    def _cuda_pipeline(self) -> PipelineScheduler:
+        with self._key_lock:
+            if self._cuda_scheduler is None:
+                stages = ([Stage("COPYD2H", self._d2h_stage, pool_size=2)]
+                          + [dataclasses.replace(s)
+                             for s in self._wire_stages]
+                          + [Stage("COPYH2D", self._h2d_stage, pool_size=2)])
+                bps_check(
+                    tuple(s.name for s in stages) == CUDA_DCN_STAGE_ORDER,
+                    "DcnCore CUDA stage list drifted from "
+                    "CUDA_DCN_STAGE_ORDER")
+                self._cuda_scheduler = PipelineScheduler(
+                    stages=stages, credit=self.cfg.scheduling_credit)
+            return self._cuda_scheduler
+
+    def _copy_stream(self, device: torch.device) -> torch.cuda.Stream:
+        with self._key_lock:
+            s = self._copy_streams.get(device.index)
+            if s is None:
+                s = self._copy_streams[device.index] = torch.cuda.Stream(
+                    device)
+            return s
+
+    def _pinned_buffers(self, name: str, n: int):
+        with self._key_lock:
+            bufs = self._pinned.get(name)
+            if bufs is None:
+                bufs = self._pinned[name] = tuple(
+                    torch.empty(n, dtype=torch.float32, pin_memory=True)
+                    for _ in range(2))
+            return bufs
+
+    def _d2h_stage(self, task: PartitionTask):
+        task.context["d2h"].synchronize()
+        return None
+
+    def _h2d_stage(self, task: PartitionTask):
+        p = task.partition
+        ctx = task.context
+        stream = ctx["stream"]
+        with torch.cuda.stream(stream):
+            ctx["device"][p.offset:p.offset + p.length].copy_(
+                ctx["pull_t"][p.offset:p.offset + p.length],
+                non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        done.synchronize()
+        with self._key_lock:
+            self.bytes_h2d += p.length * 4
+        self._m_h2d.inc(p.length * 4)
+        return None
+
+    # -- the wire stages ------------------------------------------------------
+    def _compress_stage(self, task: PartitionTask):
+        """Wire encode on the codec pool (reference COMPRESS stage) —
+        decoupled from PUSH so the encode of chunk i+1 overlaps the wire
+        time of chunk i."""
+        p = task.partition
+        flat: np.ndarray = task.context["flat"]
+        # fp32 coercion here, not at push: the registry declared float32
+        # and the store was sized at length*4
+        chunk = np.ascontiguousarray(
+            flat[p.offset:p.offset + p.length], np.float32)
+        plan: Optional[WirePlan] = task.context["plans"][p.part_idx]
+        if plan is None:
+            return chunk.view(np.uint8).ravel()
+        return plan.codec.encode(
+            chunk,
+            wire_seed(task.name, task.context["version"], p.part_idx),
+        )
+
+    def _push_stage(self, task: PartitionTask):
+        p = task.partition
+        plan: Optional[WirePlan] = task.context["plans"][p.part_idx]
+        store_bytes = (
+            plan.codec.store_elems(p.length) * 4 if plan is not None
+            else p.length * 4
+        )
+        with self._key_lock:
+            needs_init = p.key not in self._inited_keys
+        if needs_init:
+            # server-side init is idempotent and never resets an existing
+            # store, so only this worker's init must precede its own push
+            # (serial on its connection); marked only after success, so a
+            # stage retry re-runs a failed init
+            self.worker.init_key(p.key, store_bytes)
+            with self._key_lock:
+                self._inited_keys.add(p.key)
+        codec_id = plan.codec.codec_id if plan is not None else 0
+        # pin the round BEFORE the wire attempt: a stage retry must re-send
+        # the SAME round, whether the first try was applied (ack lost: the
+        # server dedupe drops the re-send) or never arrived
+        task.push_version = self.worker.mint_version(
+            p.key, getattr(task, "push_version", None))
+        return self.worker.push_bytes(p.key, task.payload, codec_id,
+                                      version=task.push_version)
+
+    def _pull_stage(self, task: PartitionTask):
+        p = task.partition
+        plan: Optional[WirePlan] = task.context["plans"][p.part_idx]
+        capacity = (plan.pull_capacity(p.length) if plan is not None
+                    else p.length * 4)
+        codec_id = plan.pull_codec_id if plan is not None else 0
+        return self.worker.pull_bytes(p.key, capacity, task.payload,
+                                      codec_id)
+
+    def _decompress_stage(self, task: PartitionTask):
+        """Wire decode of the pulled round result (reference DECOMPRESS),
+        off the wire pool so decodes overlap later chunks' pulls; divided
+        by the handle's ``divisor`` in f32 on the host when it is not 1,
+        and, for a CUDA tensor, written into the name's pinned pull
+        buffer."""
+        p = task.partition
+        ctx = task.context
+        plan: Optional[WirePlan] = ctx["plans"][p.part_idx]
+        buf = np.ascontiguousarray(task.payload)
+        if plan is None:
+            out = buf.view(np.float32)
+        else:
+            out = plan.decode_pull(
+                buf, p.length, pull_seed(task.name, ctx["version"],
+                                         p.part_idx))
+        if ctx["divisor"] != 1:
+            out = out / ctx["divisor"]
+        dst = ctx.get("pull")
+        if dst is None:
+            return out
+        dst[p.offset:p.offset + p.length] = out
+        return None
+
+    # -- public -------------------------------------------------------------
+    def push_pull_async(self, flat: Union[np.ndarray, torch.Tensor],
+                        name: str,
+                        priority: Optional[int] = None,
+                        codec: Optional[WireCodec] = None,
+                        two_way: bool = True,
+                        divisor: int = 1) -> Handle:
+        """Enqueue a flat fp32 vector; returns a Handle. ``codec``
+        compresses the DCN wire per partition (the server decodes,
+        fp32-sums, re-encodes); partitions below
+        BYTEPS_MIN_COMPRESS_BYTES ride raw fp32, matching the reference's
+        BYTEPS_MIN_COMPRESS_BYTES semantics. The sums are divided by
+        ``divisor`` (f32, on the host). A numpy array or CPU tensor gives
+        per-partition numpy results (:meth:`assemble` concatenates them);
+        a CUDA tensor (f32, contiguous) receives the result in place."""
+        cuda = isinstance(flat, torch.Tensor) and flat.is_cuda
+        if isinstance(flat, torch.Tensor) and not cuda:
+            flat = flat.detach().numpy()
+        n = flat.numel() if cuda else flat.size
+        ctx = self.registry.declare(name, (n,), np.float32)
+        with self._key_lock:
+            version = self._versions.get(name, 0)
+            self._versions[name] = version + 1
+        plans = [
+            None
+            if codec is None or p.length * 4 < self.cfg.min_compress_bytes
+            else WirePlan(codec, two_way)
+            for p in ctx.partitions
+        ]
+        handle = Handle(name, len(ctx.partitions))
+        handle.diag = self._stall_diag
+        shared = {"flat": flat, "plans": plans, "version": version,
+                  "divisor": divisor}
+        scheduler = self.scheduler
+        if cuda:
+            bps_check(flat.dtype == torch.float32 and flat.is_contiguous(),
+                      f"push_pull of '{name}' on the card needs a "
+                      "contiguous f32 tensor")
+            push_t, pull_t = self._pinned_buffers(name, n)
+            stream = self._copy_stream(flat.device)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(flat.device))
+            stream.wait_event(ready)
+            with torch.cuda.stream(stream):
+                push_t.copy_(flat.detach(), non_blocking=True)
+                # the copy stream still reads (and later writes) the tensor
+                flat.record_stream(stream)
+                d2h = torch.cuda.Event()
+                d2h.record(stream)
+            with self._key_lock:
+                self.bytes_d2h += n * 4
+            self._m_d2h.inc(n * 4)
+            shared.update(flat=push_t.numpy(), d2h=d2h, stream=stream,
+                          device=flat, pull_t=pull_t, pull=pull_t.numpy())
+            handle.device_out = flat
+            scheduler = self._cuda_pipeline()
+        tasks = []
+        for p in ctx.partitions:
+            if priority is not None:
+                p = dataclasses.replace(p, priority=priority)
+            tasks.append(PartitionTask(partition=p, name=name, handle=handle,
+                                       context=shared, round=version))
+        scheduler.enqueue(tasks)
+        return handle
+
+    @staticmethod
+    def assemble(handle: Handle, timeout: Optional[float] = 120.0
+                 ) -> Union[np.ndarray, torch.Tensor]:
+        """Wait for ``handle``: the concatenated numpy result of a CPU
+        buffer, or the CUDA tensor that holds its result."""
+        results = handle.wait(timeout)
+        out = getattr(handle, "device_out", None)
+        if out is not None:
+            return out
+        parts = [results[i] for i in sorted(results)]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    def _stall_diag(self):
+        """Handle.diag callback: wire counters, bytes and credit pools."""
+        scheds = [s for s in (self.scheduler, self._cuda_scheduler) if s]
+        return {"worker": self.worker.get_counters(),
+                "wire_bytes": {"pushed": self.worker.bytes_pushed,
+                               "pulled": self.worker.bytes_pulled},
+                "credit_pools": [s.credit_pools() for s in scheds],
+                "stage_busy": [{st.name: b for st, b in
+                                zip(s.stages, s._busy)} for s in scheds]}
+
+    def bytes_moved(self) -> Tuple[int, int]:
+        """(bytes pushed, bytes pulled) over the wire."""
+        return self.worker.bytes_pushed, self.worker.bytes_pulled
+
+    def bytes_copied(self) -> Tuple[int, int]:
+        """(bytes copied device to host, host to device) by the CUDA
+        pipeline."""
+        with self._key_lock:
+            return self.bytes_d2h, self.bytes_h2d
+
+    def shutdown(self) -> None:
+        self.scheduler.shutdown()
+        if self._cuda_scheduler is not None:
+            self._cuda_scheduler.shutdown()
+        self.worker.shutdown()

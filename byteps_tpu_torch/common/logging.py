@@ -43,3 +43,9 @@ def get_logger(name: str = _ROOT) -> logging.Logger:
     if not name.startswith(_ROOT):
         name = f"{_ROOT}.{name}"
     return logging.getLogger(name)
+
+
+def bps_check(cond: bool, msg: str = "") -> None:
+    """``BPS_CHECK``-style invariant assertion."""
+    if not cond:
+        raise RuntimeError(f"BPS_CHECK failed: {msg}")

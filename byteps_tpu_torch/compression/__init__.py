@@ -7,8 +7,8 @@ explicit state the optimizer carries.
 Selection mirrors the reference's ``compression_params`` dict, e.g.
 ``{"compressor": "topk", "k": 0.01, "ef": "vanilla", "selection":
 "block"}``. onebit and block top-k run hand-written kernels on CUDA
-tensors. The host-side wire codecs (``compression/wire.py``) belong to
-the parameter-server tier and are not ported.
+tensors. The host-side wire codecs of the parameter-server tier live in
+``compression/wire.py`` (imported on its own, not from here).
 """
 
 from byteps_tpu_torch.compression.base import (  # noqa: F401

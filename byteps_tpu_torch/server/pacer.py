@@ -1,0 +1,145 @@
+"""Application-level DCN bandwidth pacer (token bucket on the wire path);
+the port's copy of ``byteps_tpu/server/pacer.py``.
+
+The framework's compression story is about slow *cross-pod* networks
+(SURVEY §6: up to ~2× on bandwidth-starved DCN links), but every benchmark
+host exposes only loopback — where raw fp32 trivially beats every codec
+because the "wire" runs at memcpy speed. ``BYTEPS_DCN_THROTTLE_MBPS``
+arms this pacer inside :class:`~byteps_tpu_torch.server.PSWorker` (and therefore
+every consumer of the framed-TCP client path: ``DcnCore`` and the torch
+adapter): payload bytes are charged
+against per-direction token buckets before/after each wire operation, so
+loopback behaves like a NIC of the configured speed — no root, no netem,
+no tc, fully deterministic across hosts.
+
+Model: one emulated full-duplex NIC per worker (one ``DcnPacer`` per
+``PSWorker``), with independent send/recv buckets — pushes and pulls
+overlap like they would on a real link, while all scheduler threads of
+one worker share that worker's bandwidth (deficit accounting serializes
+them exactly as a shared NIC would). Frame headers and control messages
+(init/barrier/ack) are not charged; at the ≥64 KB partition sizes the
+DCN tier moves, header bytes are noise.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from typing import Optional
+
+from byteps_tpu_torch.common.metrics import get_registry
+
+# sequential id per DcnPacer: one pacer per emulated NIC, and a shared
+# debt gauge would be last-writer-wins across NICs — NIC 0's idle
+# update must not mask NIC 2's 4 MB backlog
+_PACER_SEQ = itertools.count()
+
+
+class TokenBucket:
+    """Deficit token bucket: ``throttle(n)`` sleeps long enough that the
+    long-run byte rate never exceeds ``rate_bytes_per_s``.
+
+    The balance may go arbitrarily negative (a 4 MB partition against a
+    64 KB burst simply books its full transmission time), which is what
+    makes one bucket correctly serialize concurrent senders: each caller
+    books its bytes under the lock and sleeps out its own share of the
+    accumulated deficit.
+    """
+
+    def __init__(self, rate_bytes_per_s: float,
+                 burst_bytes: Optional[float] = None):
+        if rate_bytes_per_s <= 0:
+            raise ValueError(f"rate must be positive, got {rate_bytes_per_s}")
+        self.rate = float(rate_bytes_per_s)
+        # default burst: a FIXED 64 KB — small control messages ride it
+        # (a real NIC does not pace a lone frame) while every payload
+        # beyond one socket buffer pays wire time. Deliberately NOT
+        # rate-scaled: a burst proportional to rate would let a heavily
+        # compressed payload cross a fast emulated link entirely free,
+        # skewing codec-vs-raw races at high rates.
+        self.burst = float(
+            burst_bytes if burst_bytes is not None else 64 << 10
+        )
+        self._avail = self.burst
+        self._last = time.monotonic()
+        self._lock = threading.Lock()
+
+    def debt_bytes(self) -> float:
+        """Current token DEBT: how many booked bytes have not yet 'fit'
+        the rate (0 when the burst absorbs traffic). The always-on gauge
+        of how far behind the emulated NIC is running."""
+        with self._lock:
+            return max(0.0, -self._avail)
+
+    def throttle(self, nbytes: int) -> float:
+        """Charge ``nbytes`` and sleep until they fit the rate; returns
+        the seconds slept (0.0 when the burst absorbed the charge)."""
+        if nbytes <= 0:
+            return 0.0
+        with self._lock:
+            now = time.monotonic()
+            self._avail = min(
+                self.burst, self._avail + (now - self._last) * self.rate
+            )
+            self._last = now
+            self._avail -= nbytes
+            wait = -self._avail / self.rate if self._avail < 0 else 0.0
+        if wait > 0:
+            time.sleep(wait)
+        return wait
+
+
+class DcnPacer:
+    """One emulated full-duplex NIC: independent send/recv buckets, each
+    at ``mbps`` megabits/s (the way link speeds are quoted)."""
+
+    def __init__(self, mbps: float, burst_bytes: Optional[float] = None):
+        if mbps <= 0:
+            raise ValueError(f"mbps must be positive, got {mbps}")
+        self.mbps = float(mbps)
+        rate = self.mbps * 1e6 / 8.0
+        self.send = TokenBucket(rate, burst_bytes)
+        self.recv = TokenBucket(rate, burst_bytes)
+        # wire accounting for tests/bench: bytes charged + seconds slept
+        self.sent_bytes = 0
+        self.recv_bytes = 0
+        self._acct_lock = threading.Lock()
+        self.send_sleep_s = 0.0
+        self.recv_sleep_s = 0.0
+        # always-on registry mirror (docs/observability.md): sleep time
+        # is the price the emulated link charged (process-wide counters
+        # sum correctly across pacers); token debt is how far behind
+        # THIS NIC is running, so the gauges are per-pacer series —
+        # their max() is the high-water mark a stall report wants
+        _reg = get_registry()
+        tag = f"p{next(_PACER_SEQ)}"
+        self._m_send_sleep = _reg.counter("pacer.send_sleep_us")
+        self._m_recv_sleep = _reg.counter("pacer.recv_sleep_us")
+        self._m_send_debt = _reg.gauge(f"pacer.{tag}.send_debt_bytes")
+        self._m_recv_debt = _reg.gauge(f"pacer.{tag}.recv_debt_bytes")
+
+    def throttle_send(self, nbytes: int) -> float:
+        slept = self.send.throttle(nbytes)
+        with self._acct_lock:
+            self.sent_bytes += int(nbytes)
+            self.send_sleep_s += slept
+        if slept > 0:
+            self._m_send_sleep.inc(int(slept * 1e6))
+        self._m_send_debt.set(self.send.debt_bytes())
+        return slept
+
+    def throttle_recv(self, nbytes: int) -> float:
+        slept = self.recv.throttle(nbytes)
+        with self._acct_lock:
+            self.recv_bytes += int(nbytes)
+            self.recv_sleep_s += slept
+        if slept > 0:
+            self._m_recv_sleep.inc(int(slept * 1e6))
+        self._m_recv_debt.set(self.recv.debt_bytes())
+        return slept
+
+
+def pacer_from_mbps(mbps: float) -> Optional[DcnPacer]:
+    """``DcnPacer`` for a positive rate, None for 0/negative (pacing off)."""
+    return DcnPacer(mbps) if mbps and mbps > 0 else None

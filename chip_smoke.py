@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --ring     # the ring phases (10-11) alone
+    python3 chip_smoke.py --dcn      # train_dcn (12) alone
 
 Phases, each printing one JSON line:
 
@@ -159,7 +160,24 @@ Phases, each printing one JSON line:
     onebit + EF, ring randomk (k = 0.01) + EF. The ring onebit leg's
     losses and each rank's parameter digest equal the staged leg's;
     every leg ends with the ranks' parameters equal and finite losses;
-    step ms, tokens/s (time-sliced) and each rank's peak memory.
+    step ms, tokens/s (time-sliced) and each rank's peak memory;
+12. train_dcn — the DCN parameter-server tier: one server process of the
+    port (``python -m byteps_tpu_torch.server``, two workers, a free
+    port; built with g++ first) and two rank processes on the card, each
+    training GPT-2 medium at full width, B=4 × S=1024, one warm-up and 2
+    steps a leg: staged_raw (``make_gpt_train_step`` at n = 2, the
+    yardstick), dcn_raw and dcn_fp16 (``byteps_tpu_torch.torch``'s
+    ``DistributedOptimizer`` over the server, ``Compression.fp16`` on the
+    second, after ``broadcast_parameters`` from rank 0). Both ranks'
+    parameters are equal after every step of every leg, dcn_raw's equal
+    staged_raw's bit for bit, dcn_fp16's losses lie within 1e-2 of
+    dcn_raw's, the bytes pushed and pulled per step are the partitions'
+    codec bytes (raw 1,419,485,184 each way), the bytes copied D2H and
+    H2D per step 1,419,485,184 each, and the flash kernels launch once
+    per layer and step on every leg; the server exits 0 after both
+    ranks' goodbyes and is killed on any other way out. Step ms (the
+    slower rank), tokens/s, wire and copy bytes, the scheduler's stage
+    run and dwell sums per step, peak memory.
 
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
@@ -190,7 +208,8 @@ the signs and the scale), the randomk leg presum once and rotate once
 A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
 (generate, serve, multitenant, the three train legs, train_ring's
-three legs on one rank, aggregate_onebit; the ring rows' times are the
+three legs on one rank, train_dcn's three legs on one rank,
+aggregate_onebit; the ring rows' times are the
 ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
 leaf alone as ``signs_*``; the flash_fwd row, timed at serve's chunk,
@@ -2505,6 +2524,259 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
     return total
 
 
+# the DCN legs of train_dcn: the torch adapter's DistributedOptimizer with
+# the raw f32 wire, then with the fp16 wire (Compression.fp16)
+DCN_LEGS = (("dcn_raw", "none"), ("dcn_fp16", "fp16"))
+# fp16 wire against raw, each rank's loss at each step (absolute)
+DCN_FP16_LOSS_TOL = 1e-2
+
+
+def params_digest(leaves) -> str:
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1) for p in leaves])
+    return hashlib.sha1(flat.cpu().numpy().data).hexdigest()
+
+
+def dcn_timed_steps(step_fn, leaves, steps, probe=None) -> dict:
+    """One warm-up and ``steps`` timed calls of ``step_fn``: losses, step
+    times, the parameters' digest after every step, peak memory, and the
+    change of ``probe()`` (a tuple of counts) over each step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "times": [], "digests": [], "deltas": []}
+    for _ in range(steps + 1):
+        before = probe() if probe else ()
+        t0 = time.perf_counter()
+        loss = step_fn()
+        torch.cuda.synchronize()
+        out["times"].append(time.perf_counter() - t0)
+        out["losses"].append(float(loss))
+        after = probe() if probe else ()
+        out["deltas"].append([a - b for a, b in zip(after, before)])
+        out["digests"].append(params_digest(leaves))
+    if probe is None:
+        del out["deltas"]
+    out["step_ms_each"] = [t * 1e3 for t in out.pop("times")[1:]]
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def stage_sums(reg) -> dict:
+    """``{histogram: sum}`` of the scheduler's stage run and dwell times."""
+    snap = reg.snapshot("scheduler.stage.")["histograms"]
+    return {k: v.get("sum", 0.0) for k, v in snap.items()}
+
+
+def train_dcn_rank(rank, n, B, S, steps, port):
+    """One rank of train_dcn. The yardstick first: ``make_gpt_train_step``
+    over the gloo group (staged all-reduce, raw). Then each DCN leg: the
+    same seeded weights and batch, the same ``gpt_loss`` and ``adamw``,
+    through ``byteps_tpu_torch.torch.DistributedOptimizer`` over the
+    summation server on ``port`` after ``broadcast_parameters`` from rank
+    0. Reports each leg's losses, step times, parameter digests, peak
+    memory and launch counts, and each DCN leg's wire, copy and stage
+    numbers per step, checking the byte counts itself."""
+    import os
+
+    import byteps_tpu_torch.torch as bps
+    from byteps_tpu_torch.common.config import get_config, reset_config
+    from byteps_tpu_torch.common.metrics import get_registry
+    from byteps_tpu_torch.compression.wire import Fp16Wire
+    from byteps_tpu_torch.models import (GPTConfig, gpt_init,
+                                         make_gpt_train_step,
+                                         synthetic_batch)
+    from byteps_tpu_torch.models.convert import flat_leaves
+    from byteps_tpu_torch.models.gpt import gpt_loss
+    from byteps_tpu_torch.models.train import adamw
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    os.environ.update(DMLC_NUM_WORKER=str(n), DMLC_NUM_SERVER="1",
+                      DMLC_PS_ROOT_URI="127.0.0.1",
+                      DMLC_PS_ROOT_PORT=str(port - 1),
+                      DMLC_WORKER_ID=str(rank))
+    reset_config()
+    cfg = GPTConfig.gpt2_medium()
+    tok, tgt = synthetic_batch(
+        torch.Generator(device="cuda").manual_seed(1 + rank), cfg, B, S)
+    res = {}
+    reset_launches()
+    step, params, opt = make_gpt_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    res["staged_raw"] = dcn_timed_steps(lambda: step(tok, tgt), opt.params,
+                                        steps)
+    res["staged_raw"]["launches"] = dict(launches)
+    del step, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bps.init()
+    core = bps._state.core
+    reg = get_registry()
+    min_bytes = get_config().min_compress_bytes
+    for leg, comp in DCN_LEGS:
+        reset_launches()
+        params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+        params.requires_grad_(True)
+        leaves = flat_leaves(params)
+        opt = bps.DistributedOptimizer(adamw(leaves),
+                                       params.named_parameters(),
+                                       compression=comp)
+        bps.broadcast_parameters(dict(params.named_parameters()),
+                                 root_rank=0)
+        # the wire bytes of one step: each partition's codec bytes, raw
+        # f32 below min_compress_bytes
+        codec = Fp16Wire() if comp == "fp16" else None
+        wire = 0
+        for name, _ in params.named_parameters():
+            for p in core.registry.get(f"byteps_push_pull.{name}").partitions:
+                wire += (codec.wire_bytes(p.length)
+                         if codec and p.length * 4 >= min_bytes
+                         else p.length * 4)
+
+        def one_step():
+            opt.zero_grad()
+            loss = gpt_loss(params, tok, tgt, cfg, chunked_ce=True)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        # bytes pushed, pulled, copied D2H and H2D, then each stage
+        # histogram's sum, read around every step
+        keys = sorted(stage_sums(reg))
+        out = dcn_timed_steps(
+            one_step, leaves, steps,
+            lambda: (core.bytes_moved() + core.bytes_copied()
+                     + tuple(stage_sums(reg)[k] for k in keys)))
+        timed = out["deltas"][1:]         # step 0 is the warm-up
+        out["stage_us_per_step"] = {
+            k: sum(d[4 + i] for d in timed) / steps
+            for i, k in enumerate(keys)}
+        n_bytes = GPT2M_PARAMS * 4
+        want = [wire, wire, n_bytes, n_bytes]
+        bad = [d[:4] for d in out["deltas"] if d[:4] != want]
+        if bad:
+            raise AssertionError(
+                f"train_dcn {leg}: bytes (pushed, pulled, D2H, H2D) per step "
+                f"{bad}, want {want}")
+        del out["deltas"]
+        out["wire_bytes_per_step"] = wire
+        out["copy_bytes_per_step"] = n_bytes
+        out["launches"] = dict(launches)
+        res[leg] = out
+        del opt, params, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    bps.shutdown()
+    return res
+
+
+def phase_train_dcn(B=4, S=1024, steps=2) -> dict:
+    """The DCN parameter-server tier on the card: one server process of the
+    port (``python -m byteps_tpu_torch.server``, two workers) and two rank
+    processes that time-slice the card, each training GPT-2 medium at full
+    width, B=4 × S=1024, bf16 over f32 master weights, one warm-up and
+    ``steps`` timed steps a leg: staged_raw (the all-reduce step, the
+    yardstick), dcn_raw and dcn_fp16 (``DistributedOptimizer`` over the
+    server). Every leg ends each step with both ranks' parameters equal;
+    dcn_raw's equal staged_raw's after every step, bit for bit (two
+    workers: a + b is exact in either order and /2 is exact); dcn_fp16's
+    losses lie within 1e-2 of dcn_raw's; bytes pushed, pulled and copied
+    each way per step are exact; the flash kernels launch once per layer
+    and step. The server must exit 0 once both ranks said goodbye, and is
+    killed on any other way out. Returns rank 0's launch counts summed
+    over the legs."""
+    import os
+    import socket
+    from pathlib import Path
+
+    from byteps_tpu_torch.models import GPTConfig
+    from byteps_tpu_torch.server import native
+
+    n = 2
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, DMLC_ROLE="server", DMLC_NUM_WORKER=str(n),
+               DMLC_NUM_SERVER="1", DMLC_PS_ROOT_URI="127.0.0.1",
+               DMLC_PS_ROOT_PORT=str(port - 1), DMLC_SERVER_ID="0")
+    server = subprocess.Popen(
+        [sys.executable, "-m", "byteps_tpu_torch.server"], env=env,
+        cwd=Path(__file__).resolve().parent, stdout=sys.stderr)
+    try:
+        t0 = time.perf_counter()
+        per_rank = spawn_ranks(train_dcn_rank, n, B, S, steps, port)
+        wall = time.perf_counter() - t0
+        try:
+            rc = server.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("train_dcn: the server outlived its "
+                                 "workers") from None
+        if rc != 0:
+            raise AssertionError(f"train_dcn: the server exited {rc}")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    cfg = GPTConfig.gpt2_medium()
+    calls = steps + 1
+    legs = ("staged_raw",) + tuple(leg for leg, _ in DCN_LEGS)
+    for leg in legs:
+        a, b = (r[leg] for r in per_rank)
+        if a["digests"] != b["digests"]:
+            raise AssertionError(f"train_dcn {leg}: the ranks' parameters "
+                                 "differ")
+        for r in per_rank:
+            if not np.isfinite(r[leg]["losses"]).all():
+                raise AssertionError(f"train_dcn {leg}: a loss is not "
+                                     f"finite: {r[leg]['losses']}")
+            got = {k: r[leg]["launches"][k] for k in TRAIN}
+            if got != {k: calls * cfg.n_layers for k in TRAIN}:
+                raise AssertionError(f"train_dcn {leg}: rank {r['rank']} "
+                                     f"launched {got}, not "
+                                     f"{calls * cfg.n_layers} each")
+    for r in per_rank:
+        differ = [i for i, (x, y) in enumerate(zip(
+            r["dcn_raw"]["digests"], r["staged_raw"]["digests"])) if x != y]
+        if differ:
+            raise AssertionError(
+                f"train_dcn: rank {r['rank']}'s dcn_raw parameters differ "
+                f"from staged_raw's after step(s) {differ} (0: warm-up)")
+        gap = max(abs(x - y) for x, y in zip(r["dcn_fp16"]["losses"],
+                                             r["dcn_raw"]["losses"]))
+        if not gap <= DCN_FP16_LOSS_TOL:
+            raise AssertionError(f"train_dcn: rank {r['rank']}'s fp16 losses "
+                                 f"lie {gap} from raw's")
+    tokens = n * B * S
+    legs_out = {}
+    for leg in legs:
+        step_ms = max(sum(r[leg]["step_ms_each"]) / steps for r in per_rank)
+        legs_out[leg] = {
+            "losses": [r[leg]["losses"] for r in per_rank],
+            "step_ms": step_ms,
+            "step_ms_each": [r[leg]["step_ms_each"] for r in per_rank],
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "max_memory_allocated_gb": [r[leg]["max_memory_allocated_gb"]
+                                        for r in per_rank],
+            **{k: [r[leg][k] for r in per_rank]
+               for k in ("wire_bytes_per_step", "copy_bytes_per_step",
+                         "stage_us_per_step") if k in r[leg]}}
+    emit({"phase": "train_dcn", "ranks": n, "server": "one process",
+          "timing": "two ranks time-slice one card", "batch_per_rank": B,
+          "seq": S, "steps": steps, "server_build_s": build_s,
+          "numpy": np.__version__, "host_cpus": os.cpu_count(),
+          "dcn_raw_equals_staged_raw": True, "wall_s": wall,
+          "legs": legs_out})
+    total = {}
+    for leg in legs:
+        for k, v in per_rank[0][leg]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 # the kernels each run of the main path must launch
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
@@ -2520,9 +2792,11 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
          "train_topk": TRAIN + TOPK,
          "train_ring": TRAIN + ("onebit_pack", "onebit_unpack_sum",
                                 "ring_rotate", "ring_presum"),
+         "train_dcn": TRAIN,
          "aggregate_onebit": ("onebit_pack", "onebit_unpack_sum_grid")}
 MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
-              "train_onebit", "train_topk", "train_ring", "aggregate_onebit")
+              "train_onebit", "train_topk", "train_ring", "train_dcn",
+              "aggregate_onebit")
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
@@ -2560,6 +2834,9 @@ def main() -> int:
                     help="run only the ring phases (ring, train_ring), for "
                          "work on the ring kernels; no kernels line, no "
                          "result line")
+    ap.add_argument("--dcn", action="store_true",
+                    help="run only train_dcn, for work on the DCN tier; no "
+                         "kernels line, no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2598,6 +2875,10 @@ def main() -> int:
         phase_ring()
         emit({"phase": "launches", "train_ring": counted_ranks(
             "train_ring", phase_train_ring)})
+        return 0
+    if args.dcn:
+        emit({"phase": "launches", "train_dcn": counted_ranks(
+            "train_dcn", phase_train_dcn)})
         return 0
     timer = Timer()
     bf, f32 = torch.bfloat16, torch.float32
@@ -2741,6 +3022,7 @@ def main() -> int:
     ring = phase_ring()
     # its exact counts are checked leg by leg inside
     by_path["train_ring"] = counted_ranks("train_ring", phase_train_ring)
+    by_path["train_dcn"] = counted_ranks("train_dcn", phase_train_dcn)
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()

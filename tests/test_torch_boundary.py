@@ -21,13 +21,18 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, json, pkgutil, subprocess, sys
 import numpy as np
 import byteps_tpu_torch
 mods = sorted(m.name for m in pkgutil.walk_packages(
     byteps_tpu_torch.__path__, "byteps_tpu_torch."))
+popen = subprocess.Popen
+started = []
+subprocess.Popen = lambda *a, **k: started.append(a) or popen(*a, **k)
 for m in mods:
     importlib.import_module(m)
+subprocess.Popen = popen
+from byteps_tpu_torch.server import native
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "byteps_tpu"
                 or m.startswith("byteps_tpu."))
@@ -64,7 +69,9 @@ for name, fn in calls.items():
         raised[name] = None
     except RuntimeError as e:
         raised[name] = str(e)
-print(json.dumps({"modules": mods, "leaked": leaked, "raised": raised}))
+print(json.dumps({"modules": mods, "leaked": leaked, "raised": raised,
+                  "import_processes": len(started),
+                  "server_lib_loaded": native._lib is not None}))
 """
 
 
@@ -79,7 +86,15 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
     assert "byteps_tpu_torch.ops.segmented_lora" in res["modules"]
     assert "byteps_tpu_torch.ops._build" in res["modules"]
     assert "byteps_tpu_torch.ops.ring_collective_kernels" in res["modules"]
+    for m in ("common.dcn_adapter", "common.partition", "common.scheduler",
+              "common.stage_orders", "compression.wire", "server",
+              "server.__main__", "server.native", "server.pacer", "torch"):
+        assert f"byteps_tpu_torch.{m}" in res["modules"], m
     assert res["leaked"] == [], res["leaked"]
+    # importing every module (the server entry included) built, loaded and
+    # started nothing
+    assert res["import_processes"] == 0
+    assert res["server_lib_loaded"] is False
     for name, msg in res["raised"].items():
         assert msg is not None and "device='cpu'" in msg, (name, msg)
 
@@ -97,6 +112,23 @@ def test_ring_modules_import_alone_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_dcn_modules_import_alone_without_jax():
+    """The DCN tier and the torch adapter, imported on their own, load
+    neither jax nor byteps_tpu, and leave the server library unbuilt and
+    unloaded (the first server or connection builds it)."""
+    probe = ("import sys\n"
+             "import byteps_tpu_torch.torch\n"
+             "import byteps_tpu_torch.server.__main__\n"
+             "from byteps_tpu_torch.server import native\n"
+             "print([m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'byteps_tpu')], native._lib)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] None", out.stdout
 
 
 def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):

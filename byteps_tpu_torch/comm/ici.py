@@ -64,11 +64,11 @@ from byteps_tpu_torch.ops.ring_collective_kernels import (
 )
 
 
-def world() -> Tuple[int, int]:
-    """(size, rank) of the default process group; (1, 0) when none is
-    initialized."""
+def world(group=None) -> Tuple[int, int]:
+    """(size, rank) of ``group`` (the default process group when None);
+    (1, 0) when none is initialized."""
     if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
+        return dist.get_world_size(group), dist.get_rank(group)
     return 1, 0
 
 
@@ -122,12 +122,13 @@ def reduce_scatter_flat(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def all_gather_flat(seg: torch.Tensor,
-                    length: Optional[int] = None) -> torch.Tensor:
+def all_gather_flat(seg: torch.Tensor, length: Optional[int] = None,
+                    group=None) -> torch.Tensor:
     """Every rank's (seg,) owner segment, concatenated in rank order and
-    cut to ``length``: the tail half of :func:`reduce_scatter_flat`.
-    Exact: gathering moves bits."""
-    n, _ = world()
+    cut to ``length``: the tail half of :func:`reduce_scatter_flat`, over
+    ``group`` (the default process group when None). Exact: gathering
+    moves bits."""
+    n, _ = world(group)
     _count_dispatch("all_gather")
     raw = (n - 1) * seg.shape[0] * seg.element_size()
     _account_wire(raw, raw)
@@ -135,7 +136,7 @@ def all_gather_flat(seg: torch.Tensor,
         out = seg.clone()
     else:
         out = seg.new_empty(n * seg.shape[0])
-        dist.all_gather_into_tensor(out, seg.contiguous())
+        dist.all_gather_into_tensor(out, seg.contiguous(), group=group)
     return out if length is None else out[:length]
 
 

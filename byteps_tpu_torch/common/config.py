@@ -11,9 +11,9 @@ tier, under the same variable names and defaults.
 
 The tier's knobs that are not ported yet (asynchronous or stale rounds,
 worker leases, the health monitor, the in-process IPC path, the sharded
-pod wire, fault injection) are parsed all the same, so that
-:func:`check_ported` can refuse a caller who sets one instead of
-silently running the default.
+pod wire over more than one controller, fault injection, the auto-tuner)
+are parsed all the same, so that :func:`check_ported` can refuse a
+caller who sets one instead of silently running the default.
 """
 
 from __future__ import annotations
@@ -71,6 +71,8 @@ class Config:
     worker_id: int = 0
     local_rank: int = 0
     local_size: int = 1
+    # run the hybrid (server) pipeline of ``eager`` even with one pod
+    force_distributed: bool = False
 
     # --- DCN tier tuning ---------------------------------------------------
     # partitions in flight between COMPRESS and the end of PUSH
@@ -101,6 +103,7 @@ class Config:
     hybrid_sharded: bool = True
     pod_controllers: int = 1
     fault_spec: str = ""
+    auto_tune: bool = False
 
     # --- inference serving tier --------------------------------------------
     # KV block size (tokens per paged-cache block); should divide the
@@ -155,6 +158,13 @@ class Config:
     # deterministic codecs. Checked where it is used (ici._resolve_tier).
     ici_tier: str = "staged"
 
+    @property
+    def is_distributed(self) -> bool:
+        """The hybrid pipeline over the summation servers (several pods,
+        or one pod forced onto them) rather than the pod's collectives
+        alone."""
+        return self.num_worker > 1 or self.force_distributed
+
     def __post_init__(self):
         if self.reduce_dtype not in REDUCE_DTYPES:
             raise ValueError(f"BYTEPS_REDUCE_DTYPE={self.reduce_dtype!r}: "
@@ -173,6 +183,7 @@ class Config:
             worker_id=_env_int("DMLC_WORKER_ID", 0),
             local_rank=_env_int("BYTEPS_LOCAL_RANK", 0),
             local_size=_env_int("BYTEPS_LOCAL_SIZE", 1),
+            force_distributed=_env_bool("BYTEPS_FORCE_DISTRIBUTED"),
             scheduling_credit=_env_int("BYTEPS_SCHEDULING_CREDIT",
                                        DEFAULT_SCHEDULING_CREDIT),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD",
@@ -192,6 +203,7 @@ class Config:
             hybrid_sharded=_env_bool("BYTEPS_HYBRID_SHARDED", True),
             pod_controllers=_env_int("BYTEPS_POD_CONTROLLERS", 1),
             fault_spec=os.environ.get("BYTEPS_FAULT_SPEC", ""),
+            auto_tune=_env_bool("BYTEPS_AUTO_TUNE"),
             serve_block_size=_env_int("BYTEPS_SERVE_BLOCK_SIZE", 16),
             serve_pool_blocks=_env_int("BYTEPS_SERVE_POOL_BLOCKS", 0),
             serve_max_batch=_env_int("BYTEPS_SERVE_MAX_BATCH", 8),
@@ -233,7 +245,7 @@ def check_ported(cfg: Optional[Config] = None) -> None:
     """Refuse, naming the knob, any DCN-tier setting whose behaviour the
     port does not have yet, instead of running the synchronous default
     in its place. Called where the tier starts: ``start_server``,
-    ``PSWorker`` and ``DcnCore``."""
+    ``PSWorker``, ``DcnCore`` and ``eager.init``."""
     from byteps_tpu_torch.common.logging import bps_check
 
     cfg = cfg or get_config()
@@ -245,7 +257,8 @@ def check_ported(cfg: Optional[Config] = None) -> None:
             ("BYTEPS_ENABLE_IPC", cfg.enable_ipc),
             ("BYTEPS_HYBRID_SHARDED/BYTEPS_POD_CONTROLLERS",
              cfg.hybrid_sharded and cfg.pod_controllers > 1),
-            ("BYTEPS_FAULT_SPEC", bool(cfg.fault_spec))):
+            ("BYTEPS_FAULT_SPEC", bool(cfg.fault_spec)),
+            ("BYTEPS_AUTO_TUNE", cfg.auto_tune)):
         bps_check(not unported,
                   f"{knob} is set, and the port's DCN tier has not ported "
                   "it yet (not ported yet)")

@@ -67,6 +67,35 @@ def wire_codec_for(compression: Optional[str]) -> Optional[WireCodec]:
                      "host adapters support 'none' or 'fp16'")
 
 
+class HostStaging:
+    """The host side of a CUDA tensor's trip over the wire: one copy
+    stream per device, and per tensor name a pair of pinned f32 host
+    buffers (push, pull), kept for the process's later rounds of the
+    name. Shared by :class:`DcnCore` and the hybrid pipeline of
+    ``byteps_tpu_torch.eager``."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._streams: Dict[int, torch.cuda.Stream] = {}
+        self._pinned: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def copy_stream(self, device: torch.device) -> torch.cuda.Stream:
+        with self._lock:
+            s = self._streams.get(device.index)
+            if s is None:
+                s = self._streams[device.index] = torch.cuda.Stream(device)
+            return s
+
+    def pinned_buffers(self, name: str, n: int):
+        with self._lock:
+            bufs = self._pinned.get(name)
+            if bufs is None:
+                bufs = self._pinned[name] = tuple(
+                    torch.empty(n, dtype=torch.float32, pin_memory=True)
+                    for _ in range(2))
+            return bufs
+
+
 class DcnCore:
     """One per process; drives flat fp32 buffers through the DCN pipeline.
 
@@ -104,9 +133,7 @@ class DcnCore:
         self.scheduler = PipelineScheduler(
             stages=self._wire_stages, credit=cfg.scheduling_credit)
         self._cuda_scheduler: Optional[PipelineScheduler] = None
-        self._copy_streams: Dict[int, torch.cuda.Stream] = {}
-        # per tensor name: (push, pull) pinned f32 host buffers
-        self._pinned: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._staging = HostStaging()
         self._inited_keys = set()
         self._key_lock = threading.Lock()
         self._versions: Dict[str, int] = {}
@@ -132,23 +159,6 @@ class DcnCore:
                 self._cuda_scheduler = PipelineScheduler(
                     stages=stages, credit=self.cfg.scheduling_credit)
             return self._cuda_scheduler
-
-    def _copy_stream(self, device: torch.device) -> torch.cuda.Stream:
-        with self._key_lock:
-            s = self._copy_streams.get(device.index)
-            if s is None:
-                s = self._copy_streams[device.index] = torch.cuda.Stream(
-                    device)
-            return s
-
-    def _pinned_buffers(self, name: str, n: int):
-        with self._key_lock:
-            bufs = self._pinned.get(name)
-            if bufs is None:
-                bufs = self._pinned[name] = tuple(
-                    torch.empty(n, dtype=torch.float32, pin_memory=True)
-                    for _ in range(2))
-            return bufs
 
     def _d2h_stage(self, task: PartitionTask):
         task.context["d2h"].synchronize()
@@ -286,8 +296,8 @@ class DcnCore:
             bps_check(flat.dtype == torch.float32 and flat.is_contiguous(),
                       f"push_pull of '{name}' on the card needs a "
                       "contiguous f32 tensor")
-            push_t, pull_t = self._pinned_buffers(name, n)
-            stream = self._copy_stream(flat.device)
+            push_t, pull_t = self._staging.pinned_buffers(name, n)
+            stream = self._staging.copy_stream(flat.device)
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(flat.device))
             stream.wait_event(ready)

@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --ring     # the ring phases (10-11) alone
     python3 chip_smoke.py --dcn      # train_dcn (12) alone
+    python3 chip_smoke.py --hybrid   # train_hybrid (13) alone
 
 Phases, each printing one JSON line:
 
@@ -177,7 +178,30 @@ Phases, each printing one JSON line:
     per layer and step on every leg; the server exits 0 after both
     ranks' goodbyes and is killed on any other way out. Step ms (the
     slower rank), tokens/s, wire and copy bytes, the scheduler's stage
-    run and dwell sums per step, peak memory.
+    run and dwell sums per step, peak memory;
+13. train_hybrid — the eager surface (``byteps_tpu_torch.eager``) over
+    one pod of two rank processes on the card, with one port server
+    process (``DMLC_NUM_WORKER=1``) for each hybrid leg, the ranks under
+    ``BYTEPS_FORCE_DISTRIBUTED=1``: GPT-2 medium at full width, B=4 ×
+    S=1024 a rank, one warm-up and 2 steps a leg, ``push_pull_tree`` of
+    the gradients (``flat_leaves`` order, averaged) between backward and
+    AdamW: staged_raw (``make_gpt_train_step``, the yardstick), eager_raw
+    (not distributed: the eager ICI pipeline), hybrid_raw (sharded, the
+    staged tier, the raw wire) and hybrid_ring_onebit
+    (``BYTEPS_ICI_TIER=ring``: the ring's compressed reduce-scatter, the
+    onebit wire with the controller's host EF). Both ranks' parameters
+    equal after every step of every leg, eager_raw's and hybrid_raw's
+    equal staged_raw's bit for bit, hybrid_ring_onebit's averaged
+    gradients of block 0 after every step held against the same
+    pipeline's on the CPU (the plain versions of the kernels, the same
+    host codec and EF) from the same raw gradients: every sign equal,
+    every value within 1e-5 of its leaf's largest magnitude, the
+    controller's bytes pushed and
+    pulled per step the plans' (raw 1,419,485,184 each way), D2H and H2D
+    1,419,485,184, the other rank's none; step ms (the slower rank),
+    tokens/s, bytes and ``ici.wire_bytes`` per step, the stage run and
+    dwell sums (REDUCE's, run in the caller's thread, too) and the tail
+    thread's sum (``eager.tail_us``) per step, peak memory.
 
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
@@ -197,8 +221,12 @@ top-k leg the round trip once per full chunk and step (346) and select
 and reconstruct-sum once per step (the ragged tail chunk),
 aggregate_onebit the pack once a worker (296) and the grid unpack-sum
 once a sum (2).
-train_ring's ranks report their counts, equal on both ranks and exact
-per leg: the flash kernels once per layer and step; onebit pack n + 1 and
+train_hybrid's ranks report theirs, exact on both ranks per leg: the
+flash kernels once per layer and step; in hybrid_ring_onebit, per
+compressed partition (at least ``BYTEPS_MIN_COMPRESS_BYTES``) and step,
+onebit pack twice, unpack-sum once and the rotate call once (the ring's
+reduce-scatter at n = 2). train_ring's ranks report their counts, equal
+on both ranks and exact per leg: the flash kernels once per layer and step; onebit pack n + 1 and
 unpack-sum 1 + 2n times per chunk and step at n = 2 ranks (n segments
 packed and the owner's sum repacked; the owner's K = n unpack-sum, then
 n gathered and n own rows decoded); the ring onebit leg the rotate
@@ -209,7 +237,7 @@ A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
 (generate, serve, multitenant, the three train legs, train_ring's
 three legs on one rank, train_dcn's three legs on one rank,
-aggregate_onebit; the ring rows' times are the
+train_hybrid's four legs on one rank, aggregate_onebit; the ring rows' times are the
 ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
 leaf alone as ``signs_*``; the flash_fwd row, timed at serve's chunk,
@@ -2562,9 +2590,10 @@ def dcn_timed_steps(step_fn, leaves, steps, probe=None) -> dict:
     return out
 
 
-def stage_sums(reg) -> dict:
-    """``{histogram: sum}`` of the scheduler's stage run and dwell times."""
-    snap = reg.snapshot("scheduler.stage.")["histograms"]
+def hist_sums(reg, prefix="scheduler.stage.") -> dict:
+    """``{histogram: sum}`` of the registry's histograms under ``prefix``
+    (by default the scheduler's stage run and dwell times)."""
+    snap = reg.snapshot(prefix)["histograms"]
     return {k: v.get("sum", 0.0) for k, v in snap.items()}
 
 
@@ -2643,11 +2672,11 @@ def train_dcn_rank(rank, n, B, S, steps, port):
 
         # bytes pushed, pulled, copied D2H and H2D, then each stage
         # histogram's sum, read around every step
-        keys = sorted(stage_sums(reg))
+        keys = sorted(hist_sums(reg))
         out = dcn_timed_steps(
             one_step, leaves, steps,
             lambda: (core.bytes_moved() + core.bytes_copied()
-                     + tuple(stage_sums(reg)[k] for k in keys)))
+                     + tuple(hist_sums(reg)[k] for k in keys)))
         timed = out["deltas"][1:]         # step 0 is the warm-up
         out["stage_us_per_step"] = {
             k: sum(d[4 + i] for d in timed) / steps
@@ -2777,6 +2806,311 @@ def phase_train_dcn(B=4, S=1024, steps=2) -> dict:
     return total
 
 
+# the legs of train_hybrid after staged_raw: (name, environment, the
+# default compression of eager.init, which server of the phase's)
+# hybrid_ring_onebit against its CPU replay: every sign equal, and each
+# value within this share of its leaf's largest magnitude (the f32 means
+# of the onebit scales sum in another order on the CPU, and EF carries
+# the difference into the next step)
+HYBRID_HOLD_TOL = 1e-5
+HYBRID_LEGS = (
+    ("eager_raw", {}, None, None),
+    ("hybrid_raw", {"BYTEPS_FORCE_DISTRIBUTED": "1"}, None, 0),
+    ("hybrid_ring_onebit", {"BYTEPS_FORCE_DISTRIBUTED": "1",
+                            "BYTEPS_ICI_TIER": "ring"},
+     {"compressor": "onebit", "ef": "vanilla"}, 1))
+HYBRID_KNOBS = ("BYTEPS_FORCE_DISTRIBUTED", "BYTEPS_ICI_TIER",
+                "DMLC_PS_ROOT_PORT")
+
+
+def hybrid_plan(bps, n_leaves, params) -> dict:
+    """One step's wire bytes (each partition's codec bytes, raw f32 below
+    ``BYTEPS_MIN_COMPRESS_BYTES``) and the partitions the ring compresses
+    at REDUCE, from the registry of ``eager``."""
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.compression import from_params
+    from byteps_tpu_torch.compression.wire import make_wire_codec
+
+    codec = make_wire_codec(from_params(params))
+    min_bytes = get_config().min_compress_bytes
+    wire = compressed = 0
+    for i in range(n_leaves):
+        for p in bps._state.registry.get(f"grad.{i}").partitions:
+            big = codec is not None and p.length * 4 >= min_bytes
+            wire += codec.wire_bytes(p.length) if big else p.length * 4
+            compressed += big
+    return {"wire": wire, "compressed": compressed}
+
+
+def train_hybrid_rank(rank, n, B, S, steps, ports):
+    """One rank of train_hybrid's pod. The yardstick first:
+    ``make_gpt_train_step`` over the gloo group (staged all-reduce, raw).
+    Then each leg of ``HYBRID_LEGS``: the same seeded weights and batch,
+    ``gpt_loss`` and ``adamw``, with ``eager.push_pull_tree`` of the
+    gradients (declared in ``flat_leaves`` order, averaged) between
+    ``backward`` and the optimizer step. Reports each leg's losses, step
+    times, parameter digests, peak memory and launch counts, and for each
+    eager leg its bytes per step (DCN pushed and pulled, D2H, H2D,
+    ``ici.wire_bytes``), stage and tail sums per step and plan. A leg
+    with compression also keeps block 0's raw and averaged gradients of
+    every step and, after its timed steps, replays their aggregation on
+    the CPU under other names (the same pipeline with the kernels' plain
+    versions, the same host codec and EF, step by step), reporting per
+    step the elements whose sign differs and the largest error relative
+    to its leaf's largest magnitude in the replay."""
+    import os
+
+    from byteps_tpu_torch import eager as bps
+    from byteps_tpu_torch.common.config import reset_config
+    from byteps_tpu_torch.common.metrics import get_registry
+    from byteps_tpu_torch.models import (GPTConfig, gpt_init,
+                                         make_gpt_train_step,
+                                         synthetic_batch)
+    from byteps_tpu_torch.models.convert import flat_leaves
+    from byteps_tpu_torch.models.gpt import gpt_loss
+    from byteps_tpu_torch.models.train import adamw
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    os.environ.update(DMLC_NUM_WORKER="1", DMLC_NUM_SERVER="1",
+                      DMLC_PS_ROOT_URI="127.0.0.1", DMLC_WORKER_ID="0")
+    reset_config()
+    cfg = GPTConfig.gpt2_medium()
+    tok, tgt = synthetic_batch(
+        torch.Generator(device="cuda").manual_seed(1 + rank), cfg, B, S)
+    res = {}
+    reset_launches()
+    step, params, opt = make_gpt_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    res["staged_raw"] = dcn_timed_steps(lambda: step(tok, tgt), opt.params,
+                                        steps)
+    res["staged_raw"]["launches"] = dict(launches)
+    del step, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reg = get_registry()
+    for leg, env, comp, server in HYBRID_LEGS:
+        for k in HYBRID_KNOBS:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        if server is not None:
+            os.environ["DMLC_PS_ROOT_PORT"] = str(ports[server] - 1)
+        reset_config()
+        reset_launches()
+        bps.init(compression_params=comp)
+        params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+        params.requires_grad_(True)
+        leaves = flat_leaves(params)
+        opt = adamw(leaves)
+        # block 0's leaves (flat_leaves puts the blocks first): raw and
+        # averaged gradients of every step, kept on the card
+        n_hold = len(leaves) // cfg.n_layers if comp is not None else 0
+        held = []
+
+        def one_step():
+            for p in leaves:
+                p.grad = None
+            loss = gpt_loss(params, tok, tgt, cfg, chunked_ce=True)
+            loss.backward()
+            raw = [p.grad.clone() for p in leaves[:n_hold]]
+            avg = bps.push_pull_tree([p.grad for p in leaves], average=True)
+            for p, g in zip(leaves, avg):
+                p.grad = g
+            opt.step()
+            if n_hold:
+                held.append((raw, [g.clone() for g in avg[:n_hold]]))
+            return loss.detach()
+
+        reg.histogram("eager.tail_us")      # listed from the first step on
+        keys = sorted({**hist_sums(reg), **hist_sums(reg, "eager.")})
+
+        def probe():
+            sums = {**hist_sums(reg), **hist_sums(reg, "eager.")}
+            wire = reg.snapshot("ici.")["counters"].get("ici.wire_bytes", 0)
+            return (bps.bytes_moved() + bps.bytes_copied() + (wire,)
+                    + tuple(sums.get(k, 0.0) for k in keys))
+
+        out = dcn_timed_steps(one_step, leaves, steps, probe)
+        timed = out["deltas"][1:]         # step 0 is the warm-up
+        out["bytes_per_step"] = [d[:5] for d in out.pop("deltas")]
+        out["stage_us_per_step"] = {
+            k: sum(d[5 + i] for d in timed) / steps
+            for i, k in enumerate(keys)}
+        out["plan"] = hybrid_plan(bps, len(leaves), comp)
+        out["stages"] = list(bps._state.stages)
+        out["launches"] = dict(launches)
+        if n_hold:
+            errs, flips = [], []
+            for raw, avg in held:
+                want = bps.push_pull_tree([g.cpu() for g in raw],
+                                          average=True, name_prefix="hold")
+                err = flip = 0
+                for g, w in zip(avg, want):
+                    g = g.cpu()
+                    scale = max(float(w.abs().max()), 1e-30)
+                    err = max(err, float((g - w).abs().max()) / scale)
+                    flip += int((torch.sign(g) != torch.sign(w)).sum())
+                errs.append(err)
+                flips.append(flip)
+            out["hold"] = {"leaves": n_hold,
+                           "numel": sum(g.numel() for g in held[0][0]),
+                           "max_rel_err": errs, "sign_flips": flips}
+            del held
+        res[leg] = out
+        bps.shutdown()
+        del opt, params, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_hybrid(B=4, S=1024, steps=2) -> dict:
+    """The eager surface and the hybrid two-tier pipeline on the card: one
+    pod of two rank processes time-slicing the card over gloo, and one
+    port server process a hybrid leg (``DMLC_NUM_WORKER=1``, the ranks
+    with ``BYTEPS_FORCE_DISTRIBUTED=1``: every hybrid stage runs and the
+    pod's sums cross the server). Each rank trains GPT-2 medium at full
+    width, B=4 × S=1024, bf16 over f32 master weights, one warm-up and
+    ``steps`` timed steps a leg: staged_raw (``make_gpt_train_step``, the
+    yardstick), eager_raw (the eager ICI pipeline), hybrid_raw (sharded,
+    staged tier, raw wire) and hybrid_ring_onebit (the ring's compressed
+    reduce-scatter, the onebit wire with the controller's host EF).
+    Checks: both ranks' parameters equal after every step of every leg and
+    every loss finite; eager_raw and hybrid_raw equal staged_raw bit for
+    bit after every step (one pod of two: a + b is exact in either order,
+    /2 exact); on the controller the bytes pushed and pulled a step equal
+    the plans' wire bytes and D2H and H2D the gradient's f32 bytes, the
+    other rank moving none; the flash kernels once per layer and step,
+    and in hybrid_ring_onebit, per compressed partition and step, two
+    onebit packs, one unpack-sum and one ring rotate. Every server exits 0
+    after its pod's goodbye and is killed on any other way out. Returns
+    rank 0's launch counts summed over the legs."""
+    import os
+    import socket
+    from pathlib import Path
+
+    from byteps_tpu_torch.models import GPTConfig
+    from byteps_tpu_torch.server import native
+
+    n = 2
+    native.build()
+    servers, ports = [], []
+    try:
+        for _ in range(2):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            env = dict(os.environ, DMLC_ROLE="server", DMLC_NUM_WORKER="1",
+                       DMLC_NUM_SERVER="1", DMLC_PS_ROOT_URI="127.0.0.1",
+                       DMLC_PS_ROOT_PORT=str(port - 1), DMLC_SERVER_ID="0")
+            servers.append(subprocess.Popen(
+                [sys.executable, "-m", "byteps_tpu_torch.server"], env=env,
+                cwd=Path(__file__).resolve().parent, stdout=sys.stderr))
+            ports.append(port)
+        t0 = time.perf_counter()
+        per_rank = spawn_ranks(train_hybrid_rank, n, B, S, steps, ports)
+        wall = time.perf_counter() - t0
+        for i, server in enumerate(servers):
+            try:
+                rc = server.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"train_hybrid: server {i} outlived "
+                                     "its pod") from None
+            if rc != 0:
+                raise AssertionError(f"train_hybrid: server {i} exited {rc}")
+    finally:
+        for server in servers:
+            if server.poll() is None:
+                server.kill()
+                server.wait()
+    cfg = GPTConfig.gpt2_medium()
+    calls = steps + 1
+    legs = ("staged_raw",) + tuple(leg for leg, _, _, _ in HYBRID_LEGS)
+    for leg in legs:
+        a, b = (r[leg] for r in per_rank)
+        if a["digests"] != b["digests"]:
+            raise AssertionError(f"train_hybrid {leg}: the ranks' parameters "
+                                 "differ")
+        for r in per_rank:
+            if not np.isfinite(r[leg]["losses"]).all():
+                raise AssertionError(f"train_hybrid {leg}: a loss is not "
+                                     f"finite: {r[leg]['losses']}")
+            got = {k: r[leg]["launches"][k] for k in TRAIN}
+            if got != {k: calls * cfg.n_layers for k in TRAIN}:
+                raise AssertionError(f"train_hybrid {leg}: rank {r['rank']} "
+                                     f"launched {got}, not "
+                                     f"{calls * cfg.n_layers} each")
+    for r in per_rank:
+        for leg in ("eager_raw", "hybrid_raw"):
+            differ = [i for i, (x, y) in enumerate(zip(
+                r[leg]["digests"], r["staged_raw"]["digests"])) if x != y]
+            if differ:
+                raise AssertionError(
+                    f"train_hybrid: rank {r['rank']}'s {leg} parameters "
+                    f"differ from staged_raw's after step(s) {differ} (0: "
+                    "warm-up)")
+    n_bytes = GPT2M_PARAMS * 4
+    for leg, _, _, server in HYBRID_LEGS:
+        for r in per_rank:
+            wire = r[leg]["plan"]["wire"]
+            want = ([wire, wire, n_bytes, n_bytes]
+                    if server is not None and r["rank"] == 0 else [0, 0, 0, 0])
+            bad = [d[:4] for d in r[leg]["bytes_per_step"] if d[:4] != want]
+            if bad:
+                raise AssertionError(
+                    f"train_hybrid {leg}: rank {r['rank']}'s bytes (pushed, "
+                    f"pulled, D2H, H2D) per step {bad}, want {want}")
+    # the ring's compressed reduce-scatter at n = 2, per compressed
+    # partition: pack the two segments, unpack-sum the owner's two, one
+    # rotate call (the collect); the wire codec is the host's
+    comp = per_rank[0]["hybrid_ring_onebit"]["plan"]["compressed"]
+    want = {"onebit_pack": calls * comp * n,
+            "onebit_unpack_sum": calls * comp, "ring_rotate": calls * comp,
+            "ring_presum": 0, "onebit_unpack_sum_grid": 0}
+    for r in per_rank:
+        got = r["hybrid_ring_onebit"]["launches"]
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad:
+            raise AssertionError(f"train_hybrid hybrid_ring_onebit: rank "
+                                 f"{r['rank']} launches (got, want) {bad}")
+        hold = r["hybrid_ring_onebit"]["hold"]
+        if (hold["sign_flips"] != [0] * calls
+                or not max(hold["max_rel_err"]) <= HYBRID_HOLD_TOL):
+            raise AssertionError(
+                f"train_hybrid hybrid_ring_onebit: rank {r['rank']}'s "
+                f"averaged gradients against the CPU replay {hold}, want "
+                f"{calls} steps, no sign flip, within {HYBRID_HOLD_TOL}")
+    tokens = n * B * S
+    legs_out = {}
+    for leg in legs:
+        step_ms = max(sum(r[leg]["step_ms_each"]) / steps for r in per_rank)
+        legs_out[leg] = {
+            "losses": [r[leg]["losses"] for r in per_rank],
+            "step_ms": step_ms,
+            "step_ms_each": [r[leg]["step_ms_each"] for r in per_rank],
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "max_memory_allocated_gb": [r[leg]["max_memory_allocated_gb"]
+                                        for r in per_rank],
+            **{k: [r[leg][k] for r in per_rank]
+               for k in ("bytes_per_step", "stage_us_per_step", "hold")
+               if k in r[leg]},
+            **{k: per_rank[0][leg][k] for k in ("plan", "stages")
+               if k in per_rank[0][leg]}}
+    emit({"phase": "train_hybrid", "ranks": n, "pods": 1,
+          "servers": "one process a hybrid leg",
+          "timing": "two ranks time-slice one card", "batch_per_rank": B,
+          "seq": S, "steps": steps, "host_cpus": os.cpu_count(),
+          "bytes_per_step_fields": ["pushed", "pulled", "d2h", "h2d",
+                                    "ici.wire_bytes"],
+          "raw_legs_equal_staged_raw": True, "wall_s": wall,
+          "legs": legs_out})
+    total = {}
+    for leg in legs:
+        for k, v in per_rank[0][leg]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 # the kernels each run of the main path must launch
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
@@ -2793,10 +3127,12 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
          "train_ring": TRAIN + ("onebit_pack", "onebit_unpack_sum",
                                 "ring_rotate", "ring_presum"),
          "train_dcn": TRAIN,
+         "train_hybrid": TRAIN + ("onebit_pack", "onebit_unpack_sum",
+                                  "ring_rotate"),
          "aggregate_onebit": ("onebit_pack", "onebit_unpack_sum_grid")}
 MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
               "train_onebit", "train_topk", "train_ring", "train_dcn",
-              "aggregate_onebit")
+              "train_hybrid", "aggregate_onebit")
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
@@ -2837,6 +3173,9 @@ def main() -> int:
     ap.add_argument("--dcn", action="store_true",
                     help="run only train_dcn, for work on the DCN tier; no "
                          "kernels line, no result line")
+    ap.add_argument("--hybrid", action="store_true",
+                    help="run only train_hybrid, for work on the eager "
+                         "surface; no kernels line, no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2879,6 +3218,10 @@ def main() -> int:
     if args.dcn:
         emit({"phase": "launches", "train_dcn": counted_ranks(
             "train_dcn", phase_train_dcn)})
+        return 0
+    if args.hybrid:
+        emit({"phase": "launches", "train_hybrid": counted_ranks(
+            "train_hybrid", phase_train_hybrid)})
         return 0
     timer = Timer()
     bf, f32 = torch.bfloat16, torch.float32
@@ -3023,6 +3366,8 @@ def main() -> int:
     # its exact counts are checked leg by leg inside
     by_path["train_ring"] = counted_ranks("train_ring", phase_train_ring)
     by_path["train_dcn"] = counted_ranks("train_dcn", phase_train_dcn)
+    by_path["train_hybrid"] = counted_ranks("train_hybrid",
+                                            phase_train_hybrid)
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()

@@ -88,7 +88,8 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
     assert "byteps_tpu_torch.ops.ring_collective_kernels" in res["modules"]
     for m in ("common.dcn_adapter", "common.partition", "common.scheduler",
               "common.stage_orders", "compression.wire", "server",
-              "server.__main__", "server.native", "server.pacer", "torch"):
+              "server.__main__", "server.native", "server.pacer", "torch",
+              "eager"):
         assert f"byteps_tpu_torch.{m}" in res["modules"], m
     assert res["leaked"] == [], res["leaked"]
     # importing every module (the server entry included) built, loaded and
@@ -115,11 +116,13 @@ def test_ring_modules_import_alone_without_jax():
 
 
 def test_dcn_modules_import_alone_without_jax():
-    """The DCN tier and the torch adapter, imported on their own, load
-    neither jax nor byteps_tpu, and leave the server library unbuilt and
-    unloaded (the first server or connection builds it)."""
+    """The DCN tier, the torch adapter and the eager surface, imported on
+    their own, load neither jax nor byteps_tpu, and leave the server
+    library unbuilt and unloaded (the first server or connection builds
+    it)."""
     probe = ("import sys\n"
              "import byteps_tpu_torch.torch\n"
+             "import byteps_tpu_torch.eager\n"
              "import byteps_tpu_torch.server.__main__\n"
              "from byteps_tpu_torch.server import native\n"
              "print([m for m in sys.modules if m.split('.')[0] in "

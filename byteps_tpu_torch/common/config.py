@@ -9,11 +9,13 @@ the onebit codec's scaling default, the ICI wire tier), and the
 ``DMLC_*`` topology and ``BYTEPS_*`` knobs of the DCN parameter-server
 tier, under the same variable names and defaults.
 
-The tier's knobs that are not ported yet (asynchronous or stale rounds,
-worker leases, the health monitor, the in-process IPC path, the sharded
-pod wire over more than one controller, fault injection, the auto-tuner)
-are parsed all the same, so that :func:`check_ported` can refuse a
-caller who sets one instead of silently running the default.
+The tier's robustness knobs (fault injection, the health monitor,
+degraded fallback, the handle deadline) are ported. Its knobs that are
+not ported yet (asynchronous or stale rounds, worker leases, the
+in-process IPC path, the sharded pod wire over more than one controller,
+the auto-tuner, a fault plan's ``join`` rule) are parsed all the same,
+so that :func:`check_ported` can refuse a caller who sets one instead of
+silently running the default.
 """
 
 from __future__ import annotations
@@ -91,18 +93,32 @@ class Config:
     # server-side by (worker, key, round)
     retry_limit: int = 8
     retry_backoff_ms: int = 50
-    # CRC32 of every push (checked before the sum) and pull response
+    # CRC32 of every push (checked before the sum) and pull response;
+    # forced on while a fault plan injects corruption
     wire_crc: bool = False
+    # deterministic fault injection at the PSWorker wire boundary
+    # (common/faults.py grammar), seeded per worker; empty = off
+    fault_spec: str = ""
+    fault_seed: int = 0
+    # > 0: a thread pings every live server each interval, and after
+    # health_miss_limit consecutive misses fails the server over (its
+    # keys move to the survivors); 0 = no monitor
+    health_interval_ms: int = 0
+    health_miss_limit: int = 3
+    # no live server left: degrade push_pull to the local (DcnCore) or
+    # pod-local (eager's hybrid) sum, warning once; False fails the handle
+    degraded_ok: bool = True
+    # > 0 caps every Handle.wait at this many ms with a StallError that
+    # carries the pipeline's counters; 0 = the caller's timeout only
+    handle_deadline_ms: int = 0
 
     # --- DCN tier knobs not ported yet (check_ported refuses them) ---------
     enable_async: bool = False
     enable_ipc: bool = False
     staleness: int = 0
     worker_lease_ms: int = 0
-    health_interval_ms: int = 0
     hybrid_sharded: bool = True
     pod_controllers: int = 1
-    fault_spec: str = ""
     auto_tune: bool = False
 
     # --- inference serving tier --------------------------------------------
@@ -195,14 +211,18 @@ class Config:
             retry_limit=_env_int("BYTEPS_RETRY_LIMIT", 8),
             retry_backoff_ms=_env_int("BYTEPS_RETRY_BACKOFF_MS", 50),
             wire_crc=_env_bool("BYTEPS_WIRE_CRC"),
+            fault_spec=os.environ.get("BYTEPS_FAULT_SPEC", ""),
+            fault_seed=_env_int("BYTEPS_FAULT_SEED", 0),
+            health_interval_ms=_env_int("BYTEPS_HEALTH_INTERVAL_MS", 0),
+            health_miss_limit=_env_int("BYTEPS_HEALTH_MISS_LIMIT", 3),
+            degraded_ok=_env_bool("BYTEPS_DEGRADED_OK", True),
+            handle_deadline_ms=_env_int("BYTEPS_HANDLE_DEADLINE_MS", 0),
             enable_async=_env_bool("BYTEPS_ENABLE_ASYNC"),
             enable_ipc=_env_bool("BYTEPS_ENABLE_IPC"),
             staleness=max(0, _env_int("BYTEPS_STALENESS", 0)),
             worker_lease_ms=_env_int("BYTEPS_WORKER_LEASE_MS", 0),
-            health_interval_ms=_env_int("BYTEPS_HEALTH_INTERVAL_MS", 0),
             hybrid_sharded=_env_bool("BYTEPS_HYBRID_SHARDED", True),
             pod_controllers=_env_int("BYTEPS_POD_CONTROLLERS", 1),
-            fault_spec=os.environ.get("BYTEPS_FAULT_SPEC", ""),
             auto_tune=_env_bool("BYTEPS_AUTO_TUNE"),
             serve_block_size=_env_int("BYTEPS_SERVE_BLOCK_SIZE", 16),
             serve_pool_blocks=_env_int("BYTEPS_SERVE_POOL_BLOCKS", 0),
@@ -245,19 +265,26 @@ def check_ported(cfg: Optional[Config] = None) -> None:
     """Refuse, naming the knob, any DCN-tier setting whose behaviour the
     port does not have yet, instead of running the synchronous default
     in its place. Called where the tier starts: ``start_server``,
-    ``PSWorker``, ``DcnCore`` and ``eager.init``."""
+    ``PSWorker``, ``DcnCore`` and ``eager.init``. A fault spec is parsed
+    here, so a malformed one fails at start; its ``join`` rules (elastic
+    membership) are refused."""
     from byteps_tpu_torch.common.logging import bps_check
 
     cfg = cfg or get_config()
+    joins = []
+    if cfg.fault_spec:
+        from byteps_tpu_torch.common.faults import parse_fault_spec
+
+        joins = [r.to_spec() for r in parse_fault_spec(cfg.fault_spec)
+                 if r.kind == "join"]
     for knob, unported in (
             ("BYTEPS_ENABLE_ASYNC", cfg.enable_async),
             ("BYTEPS_STALENESS", cfg.staleness > 0),
             ("BYTEPS_WORKER_LEASE_MS", cfg.worker_lease_ms > 0),
-            ("BYTEPS_HEALTH_INTERVAL_MS", cfg.health_interval_ms > 0),
             ("BYTEPS_ENABLE_IPC", cfg.enable_ipc),
             ("BYTEPS_HYBRID_SHARDED/BYTEPS_POD_CONTROLLERS",
              cfg.hybrid_sharded and cfg.pod_controllers > 1),
-            ("BYTEPS_FAULT_SPEC", bool(cfg.fault_spec)),
+            (f"BYTEPS_FAULT_SPEC join rule {joins}", bool(joins)),
             ("BYTEPS_AUTO_TUNE", cfg.auto_tune)):
         bps_check(not unported,
                   f"{knob} is set, and the port's DCN tier has not ported "

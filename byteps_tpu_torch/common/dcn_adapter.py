@@ -16,15 +16,18 @@ copy; the pulled sums are decoded into a second pinned buffer of the
 name, and ``COPYH2D`` copies each partition back into the tensor on the
 copy stream and waits for it, so a finished handle holds its result on
 the card and neither pinned buffer is still in use. One core holds one
-PSWorker (one controller); the sharded pod wire, failover and degraded
-fallback are not ported yet.
+PSWorker (one controller; the sharded pod wire and owner remap are not
+ported yet). Its PSWorker fails servers over (docs/robustness.md); with
+no live server left, a partition degrades to this worker's own
+contribution under ``BYTEPS_DEGRADED_OK`` (the default) and fails its
+handle otherwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,9 +53,88 @@ from byteps_tpu_torch.compression.wire import (
     pull_seed,
     wire_seed,
 )
-from byteps_tpu_torch.server import PSWorker
+from byteps_tpu_torch.server import NoLiveServersError, PSWorker
 
 log = get_logger("dcn_adapter")
+
+
+def stall_diag(workers, schedulers) -> Dict[str, Any]:
+    """A ``Handle.diag`` payload, shared by DcnCore and eager's hybrid
+    pipeline so their stall reports never drift: per-NIC robustness and
+    health counters, bytes on the wire, live servers, and the
+    schedulers' credit pools and busy stages. ``workers`` is the process's
+    PSWorkers (none on a rank that is no controller), ``schedulers`` its
+    pipelines (None where one is not built)."""
+    scheds = [s for s in schedulers if s is not None]
+    return {
+        "workers": {f"nic{r}": w.get_counters()
+                    for r, w in enumerate(workers)},
+        "wire_bytes": {f"nic{r}": {"pushed": w.bytes_pushed,
+                                   "pulled": w.bytes_pulled}
+                       for r, w in enumerate(workers)},
+        "live_servers": {f"nic{r}": sorted(w.live_servers())
+                         for r, w in enumerate(workers)},
+        "credit_pools": [s.credit_pools() for s in scheds],
+        "stage_busy": [{st.name: b for st, b in zip(s.stages, s._busy)}
+                       for s in scheds],
+    }
+
+
+class DegradedLocal:
+    """Marker payload riding PULL when the whole DCN tier is dead: carries
+    the encoded LOCAL contribution through the pipeline, so DECOMPRESS
+    yields this worker's own sum instead of the cross-worker one —
+    graceful degradation (BYTEPS_DEGRADED_OK) rather than a failed handle.
+    Shared with eager's hybrid pipeline, where the local contribution is
+    the pod's sum."""
+
+    __slots__ = ("payload",)
+
+    def __init__(self, payload):
+        self.payload = payload
+
+
+def degraded_fallback(worker, cfg, task, adapter_log, what: str):
+    """The no-live-servers gate of the PUSH stages (DcnCore and eager's
+    hybrid): fails fast when BYTEPS_DEGRADED_OK is off, else counts the
+    fallback, warns once, and wraps the task's payload (the encoded local
+    contribution) in :class:`DegradedLocal`.
+
+    Degradation is recorded PER PARTITION: ``handle.degraded_parts`` maps
+    part_idx -> (offset, length). A handle can be mixed — earlier
+    partitions aggregated globally before the last server died — so
+    averaging divides slice by slice: global slices by the global size,
+    degraded ones by the participants the fallback could reach."""
+    p = task.partition
+    if not cfg.degraded_ok:
+        err = NoLiveServersError(
+            f"push {task.name}.{p.part_idx}: no live summation servers "
+            "(BYTEPS_DEGRADED_OK=0)")
+        # fail-fast: a stage retry cannot help when degrading is forbidden
+        err.retryable = False
+        raise err
+    worker._count("ici_fallbacks")
+    if worker.counters["ici_fallbacks"] == 1:
+        adapter_log.warning(
+            "no live summation servers: degrading push_pull to %s "
+            "(BYTEPS_DEGRADED_OK)", what)
+    task.degraded = True  # DECOMPRESS decodes the PUSH-side encoding
+    with task.handle._lock:
+        parts = getattr(task.handle, "degraded_parts", None)
+        if parts is None:
+            parts = {}
+            task.handle.degraded_parts = parts
+        parts[p.part_idx] = (p.offset, p.length)
+    return DegradedLocal(task.payload)
+
+
+def part_divisor(divisor: int, reach: int, degraded: bool) -> int:
+    """One partition's divisor for an average: ``divisor``, every
+    participant, for a global sum; ``reach``, the participants the
+    degraded fallback summed (this worker for DcnCore, the pod for the
+    hybrid pipeline), for a degraded one, whose average then stands for
+    the global one."""
+    return reach if degraded else divisor
 
 
 def wire_codec_for(compression: Optional[str]) -> Optional[WireCodec]:
@@ -201,6 +283,11 @@ class DcnCore:
 
     def _push_stage(self, task: PartitionTask):
         p = task.partition
+        if not self.worker.has_live_servers():
+            # total DCN outage: degrade to the local contribution instead
+            # of failing the handle (docs/robustness.md)
+            return degraded_fallback(self.worker, self.cfg, task, log,
+                                     "LOCAL sums")
         plan: Optional[WirePlan] = task.context["plans"][p.part_idx]
         store_bytes = (
             plan.codec.store_elems(p.length) * 4 if plan is not None
@@ -226,6 +313,8 @@ class DcnCore:
                                       version=task.push_version)
 
     def _pull_stage(self, task: PartitionTask):
+        if isinstance(task.payload, DegradedLocal):
+            return task.payload.payload  # DECOMPRESS decodes the local sum
         p = task.partition
         plan: Optional[WirePlan] = task.context["plans"][p.part_idx]
         capacity = (plan.pull_capacity(p.length) if plan is not None
@@ -239,19 +328,27 @@ class DcnCore:
         off the wire pool so decodes overlap later chunks' pulls; divided
         by the handle's ``divisor`` in f32 on the host when it is not 1,
         and, for a CUDA tensor, written into the name's pinned pull
-        buffer."""
+        buffer. A degraded partition decodes its push-side encoding (the
+        pull format never existed for its round) and is not divided: it
+        is this worker's contribution alone."""
         p = task.partition
         ctx = task.context
         plan: Optional[WirePlan] = ctx["plans"][p.part_idx]
         buf = np.ascontiguousarray(task.payload)
+        degraded = getattr(task, "degraded", False)
         if plan is None:
             out = buf.view(np.float32)
+        elif degraded:
+            out = plan.codec.decode(
+                buf, p.length,
+                wire_seed(task.name, ctx["version"], p.part_idx))
         else:
             out = plan.decode_pull(
                 buf, p.length, pull_seed(task.name, ctx["version"],
                                          p.part_idx))
-        if ctx["divisor"] != 1:
-            out = out / ctx["divisor"]
+        d = part_divisor(ctx["divisor"], 1, degraded)
+        if d != 1:
+            out = out / d
         dst = ctx.get("pull")
         if dst is None:
             return out
@@ -270,7 +367,9 @@ class DcnCore:
         fp32-sums, re-encodes); partitions below
         BYTEPS_MIN_COMPRESS_BYTES ride raw fp32, matching the reference's
         BYTEPS_MIN_COMPRESS_BYTES semantics. The sums are divided by
-        ``divisor`` (f32, on the host). A numpy array or CPU tensor gives
+        ``divisor`` (f32, on the host; a degraded partition, which holds
+        this worker's contribution alone, is not). A numpy array or CPU
+        tensor gives
         per-partition numpy results (:meth:`assemble` concatenates them);
         a CUDA tensor (f32, contiguous) receives the result in place."""
         cuda = isinstance(flat, torch.Tensor) and flat.is_cuda
@@ -336,14 +435,9 @@ class DcnCore:
         return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def _stall_diag(self):
-        """Handle.diag callback: wire counters, bytes and credit pools."""
-        scheds = [s for s in (self.scheduler, self._cuda_scheduler) if s]
-        return {"worker": self.worker.get_counters(),
-                "wire_bytes": {"pushed": self.worker.bytes_pushed,
-                               "pulled": self.worker.bytes_pulled},
-                "credit_pools": [s.credit_pools() for s in scheds],
-                "stage_busy": [{st.name: b for st, b in
-                                zip(s.stages, s._busy)} for s in scheds]}
+        """Handle.diag callback (shared assembly: :func:`stall_diag`)."""
+        return stall_diag([self.worker],
+                          [self.scheduler, self._cuda_scheduler])
 
     def bytes_moved(self) -> Tuple[int, int]:
         """(bytes pushed, bytes pulled) over the wire."""

@@ -33,7 +33,7 @@ import itertools
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from byteps_tpu_torch.common.logging import get_logger
 from byteps_tpu_torch.common.metrics import get_registry
@@ -92,22 +92,44 @@ def registered_stage_order() -> List[str]:
 
 
 class StallError(TimeoutError):
-    """A Handle.wait() that did not complete in time. Carries which
-    partitions completed and, when the owning pipeline attached a
-    ``handle.diag`` callback, its counters at the moment of the stall."""
+    """A Handle.wait() that did not complete in time — including a wait
+    capped by ``BYTEPS_HANDLE_DEADLINE_MS``, which turns a would-be
+    infinite wait (a dead peer, a wedged server) into this diagnosable
+    error. Carries which partitions completed and, when the owning
+    pipeline attached a ``handle.diag`` callback, its counters at the
+    moment of the stall (retries, failovers, live servers, health-probe
+    ages, credit pools), so the report shows why retry or failover did or
+    did not fire."""
 
     def __init__(self, handle_name: str, waited_s: Optional[float],
                  done_parts: List[int], total_parts: int,
-                 diag: Optional[Dict[str, Any]] = None):
+                 diag: Optional[Dict[str, Any]] = None,
+                 deadline_capped: bool = False):
+        cap = (" (BYTEPS_HANDLE_DEADLINE_MS cap)" if deadline_capped
+               else "")
         waited = "?" if waited_s is None else f"{waited_s:.1f}"
         super().__init__(
             f"handle '{handle_name}' stalled: {len(done_parts)}/"
-            f"{total_parts} partition(s) done after {waited}s; "
+            f"{total_parts} partition(s) done after {waited}s{cap}; "
             f"diagnostics: {diag if diag is not None else 'none attached'}")
         self.handle_name = handle_name
         self.done_parts = done_parts
         self.total_parts = total_parts
         self.diag = diag
+        self.deadline_capped = deadline_capped
+
+
+def capped_timeout(timeout: Optional[float]) -> Tuple[Optional[float], bool]:
+    """``timeout`` (seconds, None = forever) under the
+    ``BYTEPS_HANDLE_DEADLINE_MS`` cap, which bounds EVERY wait, so no
+    configuration turns a dead peer into an infinite block; and whether
+    the cap is what applies."""
+    from byteps_tpu_torch.common.config import get_config
+
+    deadline_ms = get_config().handle_deadline_ms
+    if deadline_ms > 0 and (timeout is None or deadline_ms / 1e3 < timeout):
+        return deadline_ms / 1e3, True
+    return timeout, False
 
 
 class PartitionFailure(RuntimeError):
@@ -188,7 +210,8 @@ class Handle:
         return self._error
 
     def wait(self, timeout: Optional[float] = None) -> Dict[int, Any]:
-        if not self._event.wait(timeout):
+        effective, capped = capped_timeout(timeout)
+        if not self._event.wait(effective):
             diag = None
             if self.diag is not None:
                 try:
@@ -199,8 +222,9 @@ class Handle:
                     diag = {"diag_error": f"{type(e).__name__}: {e}"}
             with self._lock:
                 done = sorted(self.results)
-            raise StallError(self.name, timeout, done, self._num_partitions,
-                             diag)
+            raise StallError(self.name, effective, done,
+                             self._num_partitions, diag,
+                             deadline_capped=capped)
         if self._error is not None:
             raise self._error
         return self.results
@@ -525,10 +549,16 @@ class PipelineScheduler:
                         needs_credit = (stage.credited
                                         and not head.holds_credit)
                         if needs_credit and self._credits <= 0:
-                            continue
-                        task = q.pop()
-                        if needs_credit:
-                            self._acquire_credit_locked(task)
+                            # a stage-retried head gave its credit back;
+                            # the tasks behind it that hold one must pass
+                            # it, or the credits it waits for never return
+                            task = q.pop_ready(lambda t: t.holds_credit)
+                            if task is None:
+                                continue
+                        else:
+                            task = q.pop()
+                            if needs_credit:
+                                self._acquire_credit_locked(task)
                     self._busy[si] += 1
                     issued = (si, task)
                     break

@@ -63,8 +63,16 @@ from one thread a rank, and a name's next hybrid call comes after
 :func:`synchronize` of its last (the controller reuses the name's pinned
 host buffers; an earlier call is refused). Every tail collective carries
 one status element, so a partition that failed on the controller fails
-on every rank instead of leaving them waiting. The controller's DCN
+on every rank instead of leaving them waiting, and a partition that
+degraded there is averaged as one on every rank. The controller's DCN
 stages keep the scheduler's priority order.
+
+**Robustness.** The controller's ``PSWorker`` injects faults, retries,
+and fails servers over as ``byteps_tpu_torch.server`` describes. When it
+has no live server left, a partition's PUSH degrades to the pod's
+REDUCE sum under ``BYTEPS_DEGRADED_OK`` (the default; otherwise the
+partition fails on every rank): no DCN bytes move, and the average
+divides by ``pod_size()`` alone.
 
 **Backend.** The pod has run on gloo only, CPU and CUDA tensors alike.
 The hybrid pipeline of a pod of several ranks refuses any other backend
@@ -73,10 +81,9 @@ differs from rank to rank, which gloo allows and NCCL does not
 promise to.
 
 Not ported yet, and refused or absent: several controllers a pod
-(``BYTEPS_POD_CONTROLLERS`` > 1 when sharded), owner failover, key
-remap, degraded fallback, elastic membership (``join``,
-``linear_scale``), bounded staleness, the auto-tuner
-(``BYTEPS_AUTO_TUNE``) and tracing spans.
+(``BYTEPS_POD_CONTROLLERS`` > 1 when sharded) and with them owner
+remap, elastic membership (``join``, ``linear_scale``), bounded
+staleness, the auto-tuner (``BYTEPS_AUTO_TUNE``) and tracing spans.
 """
 
 from __future__ import annotations
@@ -103,7 +110,13 @@ from byteps_tpu_torch.comm.ici import (
     world,
 )
 from byteps_tpu_torch.common.config import Config, check_ported, get_config
-from byteps_tpu_torch.common.dcn_adapter import HostStaging
+from byteps_tpu_torch.common.dcn_adapter import (
+    DegradedLocal,
+    HostStaging,
+    degraded_fallback,
+    part_divisor,
+    stall_diag,
+)
 from byteps_tpu_torch.common.logging import bps_check, get_logger
 from byteps_tpu_torch.common.metrics import get_registry
 from byteps_tpu_torch.common.partition import TensorRegistry
@@ -113,6 +126,7 @@ from byteps_tpu_torch.common.scheduler import (
     PipelineScheduler,
     Stage,
     StallError,
+    capped_timeout,
 )
 from byteps_tpu_torch.common.stage_orders import HYBRID_STAGE_ORDER
 from byteps_tpu_torch.compression import (
@@ -458,14 +472,19 @@ def _compress_stage(task: PartitionTask):
 
 
 def _push_stage(task: PartitionTask):
-    """PUSH (reference ``:656``), on the controller: init the key once,
-    pin the round, push the payload. No owner failover or degraded
-    fallback; a wire error past the stage's retries fails the handle."""
+    """PUSH (reference ``:659``), on the controller: init the key once,
+    pin the round, push the payload. With no live server left, degrade to
+    the pod's REDUCE sum (``BYTEPS_DEGRADED_OK``). One controller has no
+    owner to remap to: a wire error past the stage's retries fails the
+    handle, as the reference's ``_owner_giveup`` re-raises."""
     if task.payload is None:
         return None
     p = task.partition
-    plan = task.context["plans"][p.part_idx]
     worker = _state.psworker
+    if not worker.has_live_servers():
+        return degraded_fallback(worker, _state.cfg, task, log,
+                                 "the pod-local sum")
+    plan = task.context["plans"][p.part_idx]
     store_bytes = (plan.codec.store_elems(p.length) * 4 if plan is not None
                    else p.length * 4)
     with _state.lock:
@@ -486,6 +505,8 @@ def _pull_stage(task: PartitionTask):
     in the plan's pull format."""
     if task.payload is None:
         return None
+    if isinstance(task.payload, DegradedLocal):
+        return task.payload.payload  # DECOMPRESS decodes the pod sum
     p = task.partition
     plan = task.context["plans"][p.part_idx]
     if plan is None:
@@ -497,7 +518,8 @@ def _pull_stage(task: PartitionTask):
 
 def _decompress_stage(task: PartitionTask):
     """DECOMPRESS (reference ``:753``), on the controller: the wire decode
-    of the pulled global sum (staleness 0)."""
+    of the pulled global sum (staleness 0), or of a degraded partition's
+    push-side encoding of the pod sum."""
     buf = task.payload
     if buf is None:
         return None
@@ -506,6 +528,8 @@ def _decompress_stage(task: PartitionTask):
     buf = np.ascontiguousarray(buf)
     if plan is None:
         return buf.view(np.float32)
+    if getattr(task, "degraded", False):
+        return plan.codec.decode(buf, p.length, _wire_seed(task))
     seed = pull_seed(task.name, task.context["version"], p.part_idx,
                      salt=task.context["spec"].seed)
     return plan.decode_pull(buf, p.length, seed)
@@ -513,7 +537,8 @@ def _decompress_stage(task: PartitionTask):
 
 def _place(task: PartitionTask, g: np.ndarray) -> torch.Tensor:
     """The controller's global sum in the tail's send layout on the
-    tensor's device, status element 0: unsharded ``(L + 1,)``; sharded
+    tensor's device, with its status element (0; ``_DEGRADED`` for the
+    pod's own sum): unsharded ``(L + 1,)``; sharded
     ``(n, seg + 1)``, row r rank r's zero-padded segment. A CUDA tensor's
     sum goes through the name's pinned pull buffer and the copy stream."""
     p, ctx = task.partition, task.context
@@ -540,11 +565,13 @@ def _place(task: PartitionTask, g: np.ndarray) -> torch.Tensor:
         _m("dcn.h2d_bytes", "counter").inc(L * 4)
     else:
         flat[:L] = torch.from_numpy(g)
-    if not sharded:
-        return flat
-    buf = flat.new_zeros(n, seg + 1)
-    buf[:, :seg] = flat.view(n, seg)
-    return buf
+    if sharded:
+        buf = flat.new_zeros(n, seg + 1)
+        buf[:, :seg] = flat.view(n, seg)
+        flat = buf
+    if getattr(task, "degraded", False):
+        flat[..., -1] = _DEGRADED
+    return flat
 
 
 def _h2d_stage(task: PartitionTask):
@@ -571,6 +598,11 @@ def _allgather_stage(task: PartitionTask):
     return fut.result()
 
 
+# the tail's status element, 0 for the global sum: a failed partition,
+# or the pod's own sum of a degraded one
+_FAILED, _DEGRADED = 1, 2
+
+
 class _TailItem:
     """One partition's place in the tail: the controller's send buffer
     (set by COPYH2D) and the future of the partition's result."""
@@ -592,9 +624,10 @@ class _Tail:
     """One rank's issuer of the pod's tail collectives, first in first out
     by (call, partition), over ``group``: unsharded, the controller's
     broadcast of the global sum; sharded, its scatter of the segments and
-    every rank's all-gather. Averages on the device after them. The
+    every rank's all-gather. Averages on the device after them: by
+    ``size()``, or by the pod's size for a degraded partition. The
     controller waits for each partition's sum (or its handle's failure,
-    which it sends on as status 1); the other ranks just take part."""
+    which it sends on as ``_FAILED``); the other ranks just take part."""
 
     def __init__(self, n: int, rank: int, group) -> None:
         self.n, self.rank, self.group = n, rank, group
@@ -626,7 +659,11 @@ class _Tail:
                 while not (item.ready.is_set() or item.task.handle.failed()
                            or self.closed):
                     item.ready.wait(0.05)
-            if self.closed:
+            # a partition that failed on the controller still tells the
+            # pod after a shutdown: the controller's synchronize raised
+            # before this collective, the other ranks' wait for it
+            if self.closed and not (self.rank == 0
+                                    and item.task.handle.failed()):
                 item.future.set_exception(
                     RuntimeError("the eager pipeline was shut down"))
                 continue
@@ -649,30 +686,33 @@ class _Tail:
         seg = -(-L // n)
         buf = item.buf
         if self.rank == 0 and buf is None:
-            # the partition failed upstream: tell the pod, status 1
+            # the partition failed upstream: tell the pod
             buf = torch.zeros((n, seg + 1) if sharded else (L + 1,),
                               dtype=torch.float32, device=dev)
-            buf[..., -1] = 1
+            buf[..., -1] = _FAILED
         if not sharded:
             if buf is None:
                 buf = torch.empty(L + 1, dtype=torch.float32, device=dev)
             if n > 1:
                 dist.broadcast(buf, src=0, group=self.group)
-            ok, out = buf[L].item() == 0, buf[:L]
+            status, out = int(buf[L].item()), buf[:L]
         else:
             mine = buf[0] if n == 1 else torch.empty(
                 seg + 1, dtype=torch.float32, device=dev)
             if n > 1:
                 dist.scatter(mine, list(buf.unbind(0)) if self.rank == 0
                              else None, src=0, group=self.group)
-            ok = mine[seg].item() == 0
-            if ok:
+            status = int(mine[seg].item())
+            if status != _FAILED:
                 out = all_gather_flat(mine[:seg], length=L, group=self.group)
-        if not ok:
+        if status == _FAILED:
             raise RuntimeError(f"partition {task.partition.part_idx} of "
                                f"'{task.name}' failed on the pod controller")
         if task.context["average"]:
-            out = out / (n * max(1, _state.cfg.num_worker))
+            # a degraded partition holds the pod's sum alone: its pod
+            # average stands for the global one
+            out = out / part_divisor(n * max(1, _state.cfg.num_worker), n,
+                                     status == _DEGRADED)
         return out
 
 
@@ -774,8 +814,10 @@ def synchronize(handle: Handle, timeout: Optional[float] = 120.0
                 ) -> torch.Tensor:
     """Wait for ``handle`` and return the result: the partitions put
     together in the input's shape and dtype, on the input's device
-    (reference: ``synchronize``, ``:1048``)."""
-    end = None if timeout is None else time.monotonic() + timeout
+    (reference: ``synchronize``, ``:1048``). ``BYTEPS_HANDLE_DEADLINE_MS``
+    caps the whole wait, the tail's included."""
+    limit, capped = capped_timeout(timeout)
+    end = None if limit is None else time.monotonic() + limit
     try:
         results = handle.wait(timeout)
     finally:
@@ -792,9 +834,10 @@ def synchronize(handle: Handle, timeout: Optional[float] = 120.0
             left = None if end is None else max(0.0, end - time.monotonic())
             done, _ = concurrent.futures.wait([r], timeout=left)
             if not done:
-                raise StallError(handle.name, timeout,
+                raise StallError(handle.name, limit,
                                  [j for j in sorted(results) if j < i],
-                                 len(results), _stall_diag())
+                                 len(results), _stall_diag(),
+                                 deadline_capped=capped)
             r = r.result()
         parts.append(r)
     flat = parts[0] if len(parts) == 1 else torch.cat(parts)
@@ -908,14 +951,9 @@ def bytes_copied() -> Tuple[int, int]:
 
 
 def _stall_diag() -> Dict[str, Any]:
-    """Handle.diag: wire counters and bytes, credits, busy stages."""
-    sched = _state.scheduler
-    d: Dict[str, Any] = {"bytes_moved": bytes_moved(),
-                         "bytes_copied": bytes_copied()}
-    if sched is not None:
-        d["credit_pools"] = sched.credit_pools()
-        d["stage_busy"] = {s.name: b for s, b in zip(sched.stages,
-                                                     sched._busy)}
-    if _state.psworker is not None:
-        d["worker"] = _state.psworker.get_counters()
-    return d
+    """Handle.diag (shared assembly: ``dcn_adapter.stall_diag``: the
+    controller's counters, health and live servers, wire bytes, credits,
+    busy stages), and this rank's copied bytes."""
+    workers = [_state.psworker] if _state.psworker is not None else []
+    return {**stall_diag(workers, [_state.scheduler]),
+            "bytes_copied": bytes_copied()}

@@ -18,12 +18,16 @@ decompress→sum→recompress engine (SURVEY §2.2/§3.3).
 
 Ported: placement, per-key round tracking with replay-safe re-sends,
 the wire retry loop, CRC32 payload checks (``BYTEPS_WIRE_CRC``), byte
-accounting and the bandwidth pacer. Not ported yet, and refused by
+accounting, the bandwidth pacer, and the client's half of robustness
+(docs/robustness.md): fault injection from a seeded plan
+(``BYTEPS_FAULT_SPEC``, ``common/faults.py``), the health monitor
+(``BYTEPS_HEALTH_INTERVAL_MS``), and server failover with key remap (a
+dead server's keys move to the survivors by rendezvous hash, with fresh
+round numbers and a lazy re-init). Not ported yet, and refused by
 :func:`~byteps_tpu_torch.common.config.check_ported` when asked for:
-server failover, the health monitor, worker leases and elastic
-membership, bounded staleness and asynchronous rounds, the in-process
-IPC path and fault injection. Importing this package neither builds nor
-loads the native library; the first server or connection does.
+worker leases and elastic membership, bounded staleness and asynchronous
+rounds, the in-process IPC path. Importing this package neither builds
+nor loads the native library; the first server or connection does.
 """
 
 from __future__ import annotations
@@ -33,11 +37,19 @@ import random
 import threading
 import time
 import zlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
 from byteps_tpu_torch.common.config import Config, check_ported, get_config
+from byteps_tpu_torch.common.faults import (
+    FaultPlan,
+    InjectedConnectionError,
+    InjectedTimeout,
+    ServerDownError,
+    WorkerKilledError,
+    plan_from_env,
+)
 from byteps_tpu_torch.common.logging import get_logger
 from byteps_tpu_torch.common.metrics import get_registry
 from byteps_tpu_torch.server.native import (
@@ -55,12 +67,18 @@ log = get_logger("server")
 __all__ = [
     "start_server", "start_server_any_port", "stop_server", "any_port",
     "serve_forever", "server_addresses", "PSWorker", "reduce_sum_f32",
-    "DcnPacer", "WireCorruption", "WorkerEvictedError", "wire_crc32",
+    "DcnPacer", "FailedOverError", "NoLiveServersError", "WireCorruption",
+    "WorkerEvictedError", "WorkerKilledError", "wire_crc32",
 ]
 
 # Sequential id per PSWorker instance: each emulated NIC gets its own
 # per-NIC metric series (wire.nic<N>.*) beside the process aggregates.
 _NIC_SEQ = itertools.count()
+
+# A data-plane connect retries for the worker's whole connect budget (the
+# server may still be starting), in slices this long, so that a connect
+# to a server failed over meanwhile gives up.
+_CONNECT_SLICE_MS = 500
 
 
 def wire_crc32(buf) -> int:
@@ -71,12 +89,28 @@ def wire_crc32(buf) -> int:
     return c if c != 0 else 1
 
 
+class FailedOverError(RuntimeError):
+    """The key's server placement changed (failover) while this op was in
+    flight; its round numbering is gone. Not retryable at the wire level:
+    the *stage* retry re-runs the op, which re-derives version and target
+    against the post-failover topology."""
+
+
+class NoLiveServersError(ConnectionError):
+    """Every summation server is marked dead. Excluded from the wire retry
+    budget (re-sending cannot help), but stage-retryable: the re-run of
+    the PUSH stage takes the degraded branch when BYTEPS_DEGRADED_OK, else
+    fails the handle."""
+
+
 def _is_retryable_wire_error(e: BaseException) -> bool:
     """Errors the worker retry engine may safely re-attempt: lost
     responses (rc=-7), desynchronized/killed sockets (rc=-6/-2/-3, the
-    next attempt reconnects) and detected corruption (CRC). Server-side
-    kErr rejections (size/init mismatches, pull deadline expiry) are
-    semantic failures a resend cannot fix."""
+    next attempt reconnects), detected corruption (CRC), and injected
+    equivalents. Server-side kErr rejections (size/init mismatches, pull
+    deadline expiry) are semantic failures a resend cannot fix."""
+    if isinstance(e, (NoLiveServersError, FailedOverError)):
+        return False
     if isinstance(e, (TimeoutError, ConnectionError, WireCorruption)):
         return True
     if isinstance(e, RuntimeError):
@@ -189,6 +223,12 @@ class PSWorker:
     With ``BYTEPS_DCN_THROTTLE_MBPS`` > 0 (or ``throttle_mbps=``), this
     worker's payload bytes are paced through an emulated full-duplex NIC
     of that speed (``server/pacer.py``).
+
+    Robustness (docs/robustness.md): a fault plan
+    (``BYTEPS_FAULT_SPEC``/``BYTEPS_FAULT_SEED``) intercepts every wire
+    attempt; a health monitor (``health_interval_ms=``, else
+    ``BYTEPS_HEALTH_INTERVAL_MS``) pings every live server and fails one
+    over after ``BYTEPS_HEALTH_MISS_LIMIT`` consecutive misses.
     """
 
     def __init__(
@@ -198,7 +238,11 @@ class PSWorker:
         recv_timeout_ms: int = 120000,
         worker_id: Optional[int] = None,
         throttle_mbps: Optional[float] = None,
+        health_interval_ms: Optional[int] = None,
     ):
+        """``health_interval_ms`` overrides BYTEPS_HEALTH_INTERVAL_MS for
+        this worker (a test arms a monitored worker beside one without a
+        monitor in one process; None = the config value)."""
         cfg = get_config()
         check_ported(cfg)
         self._servers = list(servers) if servers else server_addresses(cfg)
@@ -220,14 +264,29 @@ class PSWorker:
             throttle_mbps if throttle_mbps is not None
             else cfg.dcn_throttle_mbps
         )
-        self._crc = bool(cfg.wire_crc)
+        self._plan = plan_from_env(cfg, worker_id=self._worker_id)
+        # CRC is forced on while corruption injection is armed: corruption
+        # must be detected to be retried instead of summed. The loss kinds
+        # are caught by the rc/desync classification and the version
+        # dedupe, and latency touches no payload, so they leave it off.
+        self._crc = bool(cfg.wire_crc) or (
+            self._plan is not None
+            and any(r.kind == "corrupt" for r in self._plan.rules))
         self._retry_limit = max(0, cfg.retry_limit)
         self._backoff_ms = max(1, cfg.retry_backoff_ms)
         # seeded jitter: reproducible backoff schedules per worker
-        self._retry_rng = random.Random(0xC0FFEE ^ (self._worker_id * 7919))
+        self._retry_rng = random.Random(
+            0xC0FFEE ^ (self._worker_id * 7919) ^ cfg.fault_seed)
+        self._live: Set[int] = set(range(len(self._servers)))
+        self._epoch = 0  # bumped per failover; in-flight ops self-abort
+        self._key_nbytes: Dict[int, int] = {}  # for post-failover re-init
+        # injected self-death (worker:kill) / wedge window (worker:hang)
+        self._self_killed = False
+        self._wedged_until = 0.0
         self.counters: Dict[str, int] = {
             "retries": 0, "timeouts": 0, "conn_errors": 0,
-            "crc_errors": 0, "give_ups": 0,
+            "crc_errors": 0, "reinits": 0, "give_ups": 0,
+            "failovers": 0, "ici_fallbacks": 0,
         }
         self._counter_lock = threading.Lock()
         # every robustness count and wire byte also lands in the
@@ -247,7 +306,16 @@ class PSWorker:
                  _reg.counter(f"wire.{self._nic_tag}.{op}_attempts"))
             for op in ("push", "pull", "init")
         }
+        self._health: Optional[_HealthMonitor] = None
+        hb_ms = (health_interval_ms if health_interval_ms is not None
+                 else cfg.health_interval_ms)
+        if hb_ms > 0 and self._servers:
+            self._health = _HealthMonitor(
+                self, interval_ms=hb_ms,
+                miss_limit=max(1, cfg.health_miss_limit))
+            self._health.start()
 
+    # -- robustness helpers -------------------------------------------------
     def _count(self, name: str, n: int = 1) -> None:
         with self._counter_lock:
             self.counters[name] = self.counters.get(name, 0) + n
@@ -260,9 +328,136 @@ class PSWorker:
         m[0].inc(n)
         m[1].inc(n)
 
+    def _kill_conn(self, sidx: int) -> None:
+        """Drop this thread's connection to ``sidx`` (injected socket
+        death); the next attempt reconnects through ``_conn``."""
+        c = getattr(self._tls, "conns", {}).get(sidx)
+        if c is not None:
+            self._evict(sidx, c)
+
+    def _inject_pre(self, op: str, sidx: int):
+        """Evaluate the fault plan for one wire attempt. 'kill'/'down'
+        raise here (the request never leaves); 'timeout'/'corrupt' are
+        returned for the caller to act on around the real op. Worker-scope
+        rules simulate this process's death ('worker:kill': sticky, every
+        later op refuses) or wedge ('worker:hang': ops block out the
+        window, then report a lost response); both silence the health
+        monitor."""
+        if self._self_killed:
+            raise WorkerKilledError(
+                f"worker {self._worker_id} is dead (injected worker:kill); "
+                f"{op} refused")
+        rest = self._wedged_until - time.time()
+        if rest > 0:
+            time.sleep(rest)
+            self._kill_conn(sidx)
+            raise InjectedTimeout(
+                f"injected: worker {self._worker_id} wedged through {op} "
+                "(worker:hang window)")
+        if self._plan is None:
+            return None
+        inj = self._plan.intercept(op, sidx)
+        if inj is None:
+            return None
+        if inj.rule.scope == "worker":
+            if inj.kind == "kill":
+                self._self_killed = True
+                log.warning(
+                    "worker %d killed by injection at plan step %d",
+                    self._worker_id, self._plan.step)
+                # a dead process's sockets die with it
+                for s in list(getattr(self._tls, "conns", {})):
+                    self._kill_conn(s)
+                raise WorkerKilledError(
+                    f"injected: worker {self._worker_id} killed during "
+                    f"{op} (plan step {self._plan.step})")
+            if inj.kind == "hang":
+                self._wedged_until = (time.time()
+                                      + inj.rule.latency_ms / 1e3)
+                time.sleep(inj.rule.latency_ms / 1e3)
+                self._kill_conn(sidx)
+                raise InjectedTimeout(
+                    f"injected: worker {self._worker_id} wedged for "
+                    f"{inj.rule.latency_ms} ms during {op}")
+            # other kinds under the worker scope fall through to the
+            # generic handling below (worker:timeout = lose own responses)
+        if inj.kind == "down":
+            self._kill_conn(sidx)
+            raise ServerDownError(
+                f"injected: server {sidx} down during {op} "
+                f"(plan step {self._plan.step})")
+        if inj.kind == "kill":
+            self._kill_conn(sidx)
+            raise InjectedConnectionError(
+                f"injected: connection to server {sidx} killed before {op}")
+        return inj
+
+    def is_wedged(self) -> bool:
+        """True while a worker:hang window is open or after a worker:kill
+        (the health monitor goes silent, as a wedged process would)."""
+        return self._self_killed or self._wedged_until > time.time()
+
+    def has_live_servers(self) -> bool:
+        return bool(self._live)
+
+    def live_servers(self) -> Set[int]:
+        return set(self._live)
+
+    def fail_over(self, sidx: int, barrier: bool = True) -> bool:
+        """Mark server ``sidx`` dead and remap its keys to the survivors.
+
+        Every worker must take the same view of the live set before any
+        pushes the new placement: their health monitors each call this,
+        and the worker barrier through the lowest surviving server aligns
+        them. Key remap is rendezvous-hashed over the live set; the dead
+        server's keys get fresh round counters (their stores, and the
+        rounds in flight against them, are gone): in-flight ops for
+        remapped keys abort with :class:`FailedOverError` and the stage
+        retry re-runs them against the new placement. Returns False if
+        the server was already dead."""
+        with self._vlock:
+            if sidx not in self._live:
+                return False
+            old_live = set(self._live)
+            self._live.discard(sidx)
+            self._epoch += 1
+            # reset the round numbering of every key whose placement
+            # changed, atomically with the live-set shrink: a push racing
+            # this either sees the old placement (and aborts) or a reset
+            # counter, never a continuation version on the new server,
+            # which the server's dedupe watermark would take for replays
+            for key in list(self._versions):
+                if (self._server_for_live(key, old_live)
+                        != self._server_for_live(key, self._live)):
+                    del self._versions[key]
+        self._count("failovers")
+        log.warning("server %d marked dead; %s", sidx,
+                    f"keys fail over to {sorted(self._live)}"
+                    if self._live else "NO live servers remain "
+                    "(degraded mode)")
+        if barrier and self._live:
+            try:
+                self.barrier()
+            except Exception as e:  # noqa: BLE001 - best-effort alignment
+                log.warning("failover barrier failed: %s", e)
+        return True
+
+    def _server_for_live(self, key: int, live: Set[int]) -> int:
+        """Deterministic placement agreed across workers: the home slot
+        (key % n) when alive, else a rendezvous hash over the survivors
+        (zlib.crc32 is stable across processes, unlike salted hash())."""
+        home = key % len(self._servers)
+        if home in live or not live:
+            return home  # no survivors: the degraded path decides upstream
+        return max(live,
+                   key=lambda s: zlib.crc32(f"{key}:{s}".encode()))
+
     def server_for(self, key: int) -> int:
-        """The reference's key → server placement: ``key % num_server``."""
-        return key % len(self._servers)
+        """The key's server over the live set (``key % num_server`` while
+        every server lives)."""
+        with self._vlock:
+            live = set(self._live)
+        return self._server_for_live(key, live)
 
     # -- connection management ----------------------------------------------
     def _conn(self, sidx: int) -> NativeClient:
@@ -278,14 +473,29 @@ class PSWorker:
             self._evict(sidx, c)
             c = None
         if c is None:
-            if self._closed:
-                raise RuntimeError("PSWorker is shut down")
-            host, port = self._servers[sidx]
-            c = NativeClient(host, port, self._timeout, self._recv_timeout)
+            c = self._connect(sidx)
             pool[sidx] = c
             with self._conn_lock:
                 self._all_conns.append(c)
         return c
+
+    def _connect(self, sidx: int) -> NativeClient:
+        """Connect within the worker's connect budget, in slices, giving
+        up early once the worker shuts down or ``sidx`` is failed over."""
+        if self._closed:
+            raise RuntimeError("PSWorker is shut down")
+        host, port = self._servers[sidx]
+        end = time.monotonic() + self._timeout / 1e3
+        while True:
+            left = int((end - time.monotonic()) * 1e3)
+            try:
+                return NativeClient(host, port,
+                                    max(1, min(left, _CONNECT_SLICE_MS)),
+                                    self._recv_timeout)
+            except ConnectionError:
+                if (left <= _CONNECT_SLICE_MS or sidx not in self._live
+                        or self._closed):
+                    raise
 
     def _evict(self, sidx: int, c: NativeClient) -> None:
         pool = getattr(self._tls, "conns", {})
@@ -301,19 +511,49 @@ class PSWorker:
     # -- retry engine -------------------------------------------------------
     def _retry_loop(self, op: str, key: int, attempt_fn):
         """Drive ``attempt_fn(sidx) -> result`` under the per-op retry
-        budget (``BYTEPS_RETRY_LIMIT``). Backoff: ``BYTEPS_RETRY_BACKOFF_MS``
-        × 2^attempt, capped at 2 s, with seeded jitter in [0.5, 1.0] — the
-        standard exponential backoff + jitter that keeps a retry storm from
-        re-synchronizing every worker onto the recovering server."""
-        sidx = self.server_for(key)
-        m_att = self._m_attempts[op]
+        budget (``BYTEPS_RETRY_LIMIT``). Placement is re-resolved every
+        attempt, so an op whose key moved since the first attempt aborts
+        with :class:`FailedOverError` (its round numbering died with the
+        old server: the stage retry re-runs it with a fresh version), and
+        one with no live server left raises :class:`NoLiveServersError`.
+        A server that never saw the key ("before init", a remap target)
+        gets it re-inited from its recorded size.
+
+        Backoff: ``BYTEPS_RETRY_BACKOFF_MS`` × 2^attempt, capped at 2 s,
+        with seeded jitter in [0.5, 1.0] — the standard exponential
+        backoff + jitter that keeps a retry storm from re-synchronizing
+        every worker onto the recovering server."""
+        sidx0 = self.server_for(key)
+        m_att = self._m_attempts.get(op)
         attempt = 0
         while True:
-            m_att[0].inc()
-            m_att[1].inc()
+            with self._vlock:
+                live = set(self._live)
+                epoch = self._epoch
+            if not live:
+                raise NoLiveServersError(
+                    f"{op} key {key}: every summation server is dead")
+            sidx = self._server_for_live(key, live)
+            if sidx != sidx0:
+                raise FailedOverError(
+                    f"{op} key {key}: placement moved {sidx0}->{sidx} "
+                    f"(failover epoch {epoch}); round abandoned")
+            if m_att is not None:
+                m_att[0].inc()
+                m_att[1].inc()
             try:
                 return attempt_fn(sidx)
             except BaseException as e:  # noqa: BLE001 - classified below
+                if (isinstance(e, RuntimeError) and "before init" in str(e)
+                        and key in self._key_nbytes
+                        and attempt < self._retry_limit):
+                    # a failover target that never saw this key: re-init it
+                    # from the recorded size and go again (init is
+                    # idempotent server-side)
+                    attempt += 1
+                    self._count("reinits")
+                    self._conn(sidx).init_key(key, self._key_nbytes[key])
+                    continue
                 if not _is_retryable_wire_error(e):
                     raise
                 if attempt >= self._retry_limit:
@@ -335,9 +575,23 @@ class PSWorker:
 
     # -- data plane ---------------------------------------------------------
     def init_key(self, key: int, nbytes: int) -> None:
-        """Size key's f32 store on its server (idempotent server-side)."""
-        self._retry_loop("init", key,
-                         lambda s: self._conn(s).init_key(key, nbytes))
+        """Size key's f32 store on its server (idempotent server-side); the
+        size is kept for a re-init on a failover target."""
+        with self._vlock:
+            self._key_nbytes[key] = int(nbytes)
+
+        def attempt(s):
+            # 'init'/server-scoped rules only (down windows, init-ack
+            # loss): push/pull loss rules target the data plane proper
+            inj = self._inject_pre("init", s)
+            self._conn(s).init_key(key, nbytes)
+            if inj is not None and inj.kind == "timeout":
+                # the init WAS applied (and is idempotent); lose the ack
+                self._kill_conn(s)
+                raise InjectedTimeout(
+                    f"injected: init ack for key {key} lost (server {s})")
+
+        self._retry_loop("init", key, attempt)
 
     def mint_version(self, key: int, pinned: Optional[int] = None) -> int:
         """Reserve the round number a push will carry, BEFORE the wire
@@ -346,8 +600,9 @@ class PSWorker:
         ``push_bytes`` could return it. Re-sending the pinned round is
         safe in both failure modes: never-applied → the server sums it as
         round v; applied-but-ack-lost → the (worker, key, version) dedupe
-        drops it. A pin beyond the counter is discarded and a fresh round
-        minted, exactly like ``push_bytes``'s own rule."""
+        drops it. A pin beyond the counter (it predates a failover's
+        counter reset) is discarded and a fresh round minted, exactly like
+        ``push_bytes``'s own rule."""
         with self._vlock:
             cur = self._versions.get(key, 0)
             if pinned is None or pinned > cur:
@@ -377,8 +632,23 @@ class PSWorker:
                 # BEFORE the wire op (every re-send pays wire time again,
                 # as it would on a real NIC)
                 self.pacer.throttle_send(int(b.nbytes))
-            self._conn(sidx).push(key, b, codec, self._worker_id, version,
-                                  crc)
+            inj = self._inject_pre("push", sidx)
+            send = b
+            if inj is not None and inj.kind == "corrupt":
+                # the CRC was computed on the pristine payload: the flipped
+                # byte is detected server-side and never summed
+                send = b.copy()
+                FaultPlan.corrupt(send.view(np.uint8).reshape(-1),
+                                  inj.corrupt_at)
+            self._conn(sidx).push(key, send, codec, self._worker_id,
+                                  version, crc)
+            if inj is not None and inj.kind == "timeout":
+                # the push WAS applied; lose the ack, and the retry's
+                # re-send exercises the dedupe
+                self._kill_conn(sidx)
+                raise InjectedTimeout(
+                    f"injected: push ack for key {key} lost "
+                    f"(server {sidx})")
 
         self._retry_loop("push", key, attempt)
         with self._vlock:
@@ -395,12 +665,22 @@ class PSWorker:
 
         def attempt(sidx):
             out = np.empty(capacity, np.uint8)
+            inj = self._inject_pre("pull", sidx)
             got, resp_crc = self._conn(sidx).pull(
                 key, out, version, codec, want_crc=self._crc,
                 worker_id=self._worker_id)
             if self.pacer is not None:
-                # book the response's transmission time per ATTEMPT
+                # book the response's transmission time per ATTEMPT: a lost
+                # or corrupted response still crossed the emulated NIC
                 self.pacer.throttle_recv(int(got))
+            if inj is not None:
+                if inj.kind == "timeout":
+                    self._kill_conn(sidx)
+                    raise InjectedTimeout(
+                        f"injected: pull response for key {key} lost "
+                        f"(server {sidx})")
+                if inj.kind == "corrupt" and got > 0:
+                    FaultPlan.corrupt(out[:got], inj.corrupt_at)
             if resp_crc and wire_crc32(out[:got]) != resp_crc:
                 raise WireCorruption(
                     f"pull response for key {key} failed CRC "
@@ -428,9 +708,36 @@ class PSWorker:
         return self.pull(key, data.size, v)
 
     def barrier(self) -> None:
-        """Global worker barrier through server 0 (reference: ps-lite
-        Postoffice::Barrier via the scheduler)."""
-        self._conn(0).barrier(self._worker_id)
+        """Global worker barrier through the lowest live server (server 0
+        while healthy — reference: ps-lite Postoffice::Barrier via the
+        scheduler; after a failover the survivors host it)."""
+        with self._vlock:
+            sidx = min(self._live) if self._live else 0
+        self._conn(sidx).barrier(self._worker_id)
+
+    def ping(self, sidx: int = 0) -> Tuple[int, int]:
+        """(server CLOCK_REALTIME ns, rtt ns) of one probe of ``sidx``; an
+        injected down window fails it, as it fails the health monitor's."""
+        self._inject_pre("ping", sidx)
+        return self._conn(sidx).ping(self._worker_id)
+
+    def close(self) -> None:
+        """Stop the health monitor and drop every connection WITHOUT the
+        goodbye (a process that dies says none)."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._health is not None:
+            self._health.stop(join=True)
+        self._drop_conns()
+
+    def _drop_conns(self) -> None:
+        with self._conn_lock:
+            conns = list(self._all_conns)
+            self._all_conns.clear()
+        for c in conns:
+            c.close()
+        self._tls.conns = {}
 
     def shutdown(self) -> None:
         """Tell every server this worker is done (a server exits once all
@@ -438,6 +745,10 @@ class PSWorker:
         if self._closed:
             return
         self._closed = True
+        if self._health is not None:
+            # joined (bounded by the monitor's short probe timeouts) before
+            # the teardown: a fail_over it triggers must not race it
+            self._health.stop(join=True)
         # one shutdown per server (not per connection): servers count
         # shutdowns against DMLC_NUM_WORKER
         pool = getattr(self._tls, "conns", {})
@@ -453,17 +764,152 @@ class PSWorker:
                         self._all_conns.append(c)
                 c.shutdown(self._worker_id)
             except Exception as e:  # noqa: BLE001 - the server may be gone
+                # (it stops itself once every worker said goodbye, and a
+                # fault may have killed it): debug, with the index of the
+                # server that missed its count
                 log.debug("shutdown of server %d failed: %s: %s",
                           sidx, type(e).__name__, e)
-        with self._conn_lock:
-            conns = list(self._all_conns)
-            self._all_conns.clear()
-        for c in conns:
-            c.close()
-        self._tls.conns = {}
+        self._drop_conns()
 
     def get_counters(self) -> Dict[str, int]:
-        """The wire robustness counters (retries, timeouts, connection and
-        CRC errors, give-ups)."""
+        """The robustness counters (retries, timeouts, connection and CRC
+        errors, re-inits, give-ups, failovers, degraded fallbacks), the
+        plan's injected counts by kind (``injected_<kind>``) when a fault
+        plan is armed, and the health monitor's miss counts and last probe
+        age when it runs."""
         with self._counter_lock:
-            return dict(self.counters)
+            out = dict(self.counters)
+        if self._plan is not None:
+            for k, v in self._plan.counters().items():
+                out[f"injected_{k}"] = v
+        if self._health is not None:
+            out.update(self._health.debug_counters())
+        return out
+
+
+class _HealthMonitor:
+    """Marks servers dead after ``miss_limit`` consecutive missed pings.
+
+    Built on the kPing probe, on the monitor's OWN connections with short
+    connect/recv timeouts (scaled to the probe interval): they are never
+    shared with, or torn down by, the data plane, so a probe in flight
+    during ``PSWorker.shutdown`` cannot race a freed native client, and a
+    hung server costs one bounded probe, not the data plane's long recv
+    timeout. The reference analog is ps-lite's scheduler heartbeat; every
+    worker monitors on its own, and the failover barrier aligns their
+    live sets. Injected ``server<N>`` windows fail the probe through the
+    worker's plan (``_inject_pre('ping', ...)``), so the monitor's pings
+    tick the plan too.
+    """
+
+    def __init__(self, worker: "PSWorker", interval_ms: int,
+                 miss_limit: int):
+        self._worker = worker
+        self._interval = max(1, interval_ms) / 1e3
+        # probe timeout: generous against the interval, small against the
+        # data plane's recv timeout
+        self._probe_ms = max(500, 4 * interval_ms)
+        self._miss_limit = miss_limit
+        self._misses: Dict[int, int] = {}
+        # stall reports: per-server cumulative misses and the monotonic
+        # time of the last finished probe, under _dbg_lock so a reader
+        # never iterates a dict the monitor is changing
+        self._total_misses: Dict[int, int] = {}
+        self._last_probe: Dict[int, float] = {}
+        self._dbg_lock = threading.Lock()
+        self._m_misses = get_registry().counter("health.misses")
+        self._conns: Dict[int, NativeClient] = {}
+        self._stop_ev = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="bps-health", daemon=True)
+
+    def debug_counters(self) -> Dict[str, int]:
+        """Per-server consecutive and cumulative miss counts and the age
+        of the newest probe: a stall report shows whether the monitor was
+        looking, and how close each server sat to the miss limit."""
+        now = time.monotonic()
+        out: Dict[str, int] = {}
+        with self._dbg_lock:
+            for sidx, n in sorted(self._misses.items()):
+                out[f"health_consec_miss_s{sidx}"] = n
+            for sidx, n in sorted(self._total_misses.items()):
+                out[f"health_misses_s{sidx}"] = n
+            if self._last_probe:
+                age = now - max(self._last_probe.values())
+                out["health_last_probe_age_ms"] = int(age * 1e3)
+        return out
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self, join: bool = False) -> None:
+        self._stop_ev.set()
+        if join and self._thread.is_alive():
+            # bounded: one probe and one bounded failover barrier, both on
+            # probe timeouts
+            self._thread.join(timeout=2 * self._probe_ms / 1e3 + 5.0)
+
+    def _probe(self, sidx: int) -> None:
+        self._worker._inject_pre("ping", sidx)
+        c = self._conns.get(sidx)
+        if c is None or c.is_dead():
+            if c is not None:
+                c.close()
+            host, port = self._worker._servers[sidx]
+            c = NativeClient(host, port, self._probe_ms, self._probe_ms)
+            self._conns[sidx] = c
+        c.ping(self._worker._worker_id)
+
+    def _run(self) -> None:
+        try:
+            while not self._stop_ev.wait(self._interval):
+                if self._worker.is_wedged():
+                    # a dead or wedged process pings nothing
+                    continue
+                for sidx in sorted(self._worker.live_servers()):
+                    if self._stop_ev.is_set():
+                        return
+                    try:
+                        self._probe(sidx)
+                        with self._dbg_lock:
+                            self._last_probe[sidx] = time.monotonic()
+                            self._misses[sidx] = 0
+                    except WorkerKilledError:
+                        return  # injected process death: no more probes
+                    except Exception as e:  # noqa: BLE001 - a miss
+                        self._m_misses.inc()
+                        with self._dbg_lock:
+                            self._last_probe[sidx] = time.monotonic()
+                            n = self._misses.get(sidx, 0) + 1
+                            self._misses[sidx] = n
+                            self._total_misses[sidx] = (
+                                self._total_misses.get(sidx, 0) + 1)
+                        log.debug(
+                            "heartbeat miss %d/%d for server %d (%s)",
+                            n, self._miss_limit, sidx, e)
+                        if n >= self._miss_limit:
+                            self._fail_over(sidx)
+        finally:
+            for c in self._conns.values():
+                c.close()
+
+    def _fail_over(self, sidx: int) -> None:
+        """Failover with a BOUNDED alignment barrier: the data-plane
+        barrier waits on the worker's long recv timeout, which would hold
+        this thread (and a joining shutdown) for tens of seconds, so it
+        takes a probe-timeout connection of its own instead, and a laggard
+        peer makes the barrier best-effort (as fail_over's own is)."""
+        if not self._worker.fail_over(sidx, barrier=False):
+            return
+        live = self._worker.live_servers()
+        if not live:
+            return
+        try:
+            host, port = self._worker._servers[min(live)]
+            c = NativeClient(host, port, self._probe_ms, self._probe_ms)
+            try:
+                c.barrier()
+            finally:
+                c.close()
+        except Exception as e:  # noqa: BLE001 - best-effort alignment
+            log.warning("failover barrier (monitor) failed: %s", e)

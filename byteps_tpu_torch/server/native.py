@@ -24,7 +24,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -132,6 +132,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                               c.POINTER(c.c_uint64)], c.c_int),
         "bps_client_barrier": ([c.c_void_p, c.c_int], c.c_int),
         "bps_client_shutdown": ([c.c_void_p, c.c_int], c.c_int),
+        "bps_client_ping": ([c.c_void_p, c.POINTER(c.c_int64),
+                             c.POINTER(c.c_int64), c.c_int], c.c_int),
         "bps_client_last_error": ([c.c_void_p], c.c_char_p),
         "bps_client_is_dead": ([c.c_void_p], c.c_int),
         "bps_client_free": ([c.c_void_p], None),
@@ -233,6 +235,19 @@ class NativeClient:
             self._require_open()
             self._check(self._lib.bps_client_barrier(self._h, worker_id),
                         "barrier")
+
+    def ping(self, worker_id: int = -1) -> Tuple[int, int]:
+        """(server CLOCK_REALTIME ns, round-trip ns): the health monitor's
+        probe. The port arms no worker leases, so the worker id it
+        carries refreshes nothing on a port server."""
+        with self._op_lock:
+            self._require_open()
+            sns = ctypes.c_int64(0)
+            rtt = ctypes.c_int64(0)
+            self._check(self._lib.bps_client_ping(
+                self._h, ctypes.byref(sns), ctypes.byref(rtt), worker_id),
+                "ping")
+            return int(sns.value), int(rtt.value)
 
     def is_dead(self) -> bool:
         """True once a timeout or desync closed the socket (or the client

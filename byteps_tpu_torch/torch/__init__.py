@@ -12,11 +12,15 @@ Tensors on the card take the pipeline's CUDA path: copied to pinned host
 memory behind the caller's stream, pushed, pulled, and copied back in
 place. CPU tensors take the host path and give exactly the reference
 adapter's result. Averages are taken on the host in f32, in both cases,
-as the reference does.
+partition by partition in the pipeline's DECOMPRESS, as the reference
+takes them slice by slice: a partition that degraded to this worker's
+own contribution (no live summation server, ``BYTEPS_DEGRADED_OK``)
+stays that contribution.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -116,7 +120,8 @@ def push_pull_async(
               "byteps_tpu_torch.torch.push_pull requires a tensor name (keys "
               "must agree across workers)")
     flat = tensor.detach().to(torch.float32).contiguous().view(-1)
-    if not flat.is_cuda:
+    cuda = flat.is_cuda
+    if not cuda:
         flat = flat.numpy()
     handle = _state.core.push_pull_async(
         flat, name, priority, codec=wire_codec_for(compression),
@@ -127,9 +132,11 @@ def push_pull_async(
 
 def synchronize(handle: Handle, timeout: Optional[float] = 120.0) -> torch.Tensor:
     """Wait and write the aggregated value back into the original tensor
-    (reference: ``synchronize``/``wait_and_clear``). The average was taken
-    on the host in f32, partition by partition, as the reference divides
-    the assembled vector."""
+    (reference: ``synchronize``/``wait_and_clear``). The result was
+    averaged partition by partition in DECOMPRESS: the globally summed
+    slices divided by ``size()``, while a degraded slice
+    (``handle.degraded_parts``) stays the local contribution, which is
+    its own average."""
     flat = DcnCore.assemble(handle, timeout)
     tensor: torch.Tensor = handle.tensor  # type: ignore[attr-defined]
     if isinstance(flat, np.ndarray):
@@ -264,9 +271,15 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return self._opt.zero_grad(set_to_none=set_to_none)
 
     def _make_hook(self):
+        # the hook lives on the parameter, whose hooks the garbage
+        # collector does not traverse: a strong reference to the optimizer
+        # (which holds the parameters) would keep both alive for good
+        ref = weakref.ref(self)
+
         def hook(p: torch.Tensor) -> None:
-            if (self._pass_count + 1) % self._bpps != 0:
-                return  # accumulate locally this pass
+            self = ref()
+            if self is None or (self._pass_count + 1) % self._bpps != 0:
+                return  # dropped, or accumulating locally this pass
             self._handles[p] = push_pull_async(
                 p.grad, average=True, name=self._names[p],
                 compression=self._compression,

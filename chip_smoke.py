@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ring     # the ring phases (10-11) alone
     python3 chip_smoke.py --dcn      # train_dcn (12) alone
     python3 chip_smoke.py --hybrid   # train_hybrid (13) alone
+    python3 chip_smoke.py --chaos    # train_chaos (14) alone
 
 Phases, each printing one JSON line:
 
@@ -201,7 +202,29 @@ Phases, each printing one JSON line:
     1,419,485,184, the other rank's none; step ms (the slower rank),
     tokens/s, bytes and ``ici.wire_bytes`` per step, the stage run and
     dwell sums (REDUCE's, run in the caller's thread, too) and the tail
-    thread's sum (``eager.tail_us``) per step, peak memory.
+    thread's sum (``eager.tail_us``) per step, peak memory;
+14. train_chaos — the DCN tier's robustness, the same two ranks and
+    model, two port server processes a leg (``DMLC_NUM_SERVER=2``), one
+    warm-up and 2 steps a leg: staged_raw (the yardstick); dcn_chaos
+    (``DistributedOptimizer`` under ``BYTEPS_FAULT_SPEC=
+    push:timeout@p=0.02;pull:corrupt@p=0.02``, a fixed seed: retries,
+    injected ack losses and corruptions and CRC errors on each rank, no
+    give-up, every credit back); dcn_failover (the health monitor at 50
+    ms, 3 misses; after the first timed step the parent SIGKILLs server
+    1 and the next step runs through the failure: one failover a rank,
+    its keys re-inited on server 0, which exits 0 after both goodbyes;
+    then each rank fails server 0 over too, and a 3,000,000-float
+    ``push_pull`` average on the card degrades to the rank's own value,
+    undivided by ``size()`` 2);
+    hybrid_degraded (the pod of train_hybrid's hybrid_raw with the
+    monitor on; after the first timed step the parent SIGKILLs both
+    servers and the next step degrades to the pod's sum over the pod:
+    degraded fallbacks on the controller, no wire byte). Every leg's
+    parameters equal staged_raw's bit for bit after every step (two
+    ranks: a + b exact in either order, /2 exact; one pod is the whole
+    job); bytes pushed, pulled, D2H and H2D per step exact; step ms (the
+    slower rank), the counters, and the time from each kill to each
+    rank's failover.
 
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
@@ -221,8 +244,8 @@ top-k leg the round trip once per full chunk and step (346) and select
 and reconstruct-sum once per step (the ragged tail chunk),
 aggregate_onebit the pack once a worker (296) and the grid unpack-sum
 once a sum (2).
-train_hybrid's ranks report theirs, exact on both ranks per leg: the
-flash kernels once per layer and step; in hybrid_ring_onebit, per
+train_hybrid's and train_chaos's ranks report theirs, exact on both
+ranks per leg: the flash kernels once per layer and step; in hybrid_ring_onebit, per
 compressed partition (at least ``BYTEPS_MIN_COMPRESS_BYTES``) and step,
 onebit pack twice, unpack-sum once and the rotate call once (the ring's
 reduce-scatter at n = 2). train_ring's ranks report their counts, equal
@@ -237,7 +260,8 @@ A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
 (generate, serve, multitenant, the three train legs, train_ring's
 three legs on one rank, train_dcn's three legs on one rank,
-train_hybrid's four legs on one rank, aggregate_onebit; the ring rows' times are the
+train_hybrid's four legs on one rank, train_chaos's four legs on one
+rank, aggregate_onebit; the ring rows' times are the
 ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
 leaf alone as ``signs_*``; the flash_fwd row, timed at serve's chunk,
@@ -2566,10 +2590,12 @@ def params_digest(leaves) -> str:
     return hashlib.sha1(flat.cpu().numpy().data).hexdigest()
 
 
-def dcn_timed_steps(step_fn, leaves, steps, probe=None) -> dict:
+def dcn_timed_steps(step_fn, leaves, steps, probe=None,
+                    between=None) -> dict:
     """One warm-up and ``steps`` timed calls of ``step_fn``: losses, step
     times, the parameters' digest after every step, peak memory, and the
-    change of ``probe()`` (a tuple of counts) over each step."""
+    change of ``probe()`` (a tuple of counts) over each step.
+    ``between(i)`` runs after step i (0: the warm-up), untimed."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = {"losses": [], "times": [], "digests": [], "deltas": []}
@@ -2583,6 +2609,8 @@ def dcn_timed_steps(step_fn, leaves, steps, probe=None) -> dict:
         after = probe() if probe else ()
         out["deltas"].append([a - b for a, b in zip(after, before)])
         out["digests"].append(params_digest(leaves))
+        if between is not None:
+            between(len(out["digests"]) - 1)
     if probe is None:
         del out["deltas"]
     out["step_ms_each"] = [t * 1e3 for t in out.pop("times")[1:]]
@@ -3111,6 +3139,422 @@ def phase_train_hybrid(B=4, S=1024, steps=2) -> dict:
     return total
 
 
+# train_chaos: (leg, environment); the dcn legs run on two workers, the
+# hybrid leg on one pod. dcn_chaos's faults: 2% of push attempts lose
+# their ack (the push was applied), 2% of pull responses arrive with a
+# byte flipped (the CRC, forced on, catches it)
+CHAOS_SPEC = "push:timeout@p=0.02;pull:corrupt@p=0.02"
+CHAOS_HEALTH = {"BYTEPS_HEALTH_INTERVAL_MS": "50",
+                "BYTEPS_HEALTH_MISS_LIMIT": "3"}
+CHAOS_LEGS = (
+    ("dcn_chaos", {"BYTEPS_FAULT_SPEC": CHAOS_SPEC,
+                   "BYTEPS_FAULT_SEED": "15", "BYTEPS_RETRY_LIMIT": "10",
+                   "BYTEPS_RETRY_BACKOFF_MS": "10"}),
+    ("dcn_failover", CHAOS_HEALTH),
+    ("hybrid_degraded", {**CHAOS_HEALTH, "BYTEPS_FORCE_DISTRIBUTED": "1",
+                         "BYTEPS_DEGRADED_OK": "1"}))
+CHAOS_KNOBS = sorted({k for _, env in CHAOS_LEGS for k in env}
+                     | {"DMLC_PS_ROOT_PORT"})
+# the servers of a leg's pair the parent kills once both ranks ended
+# the first timed step (step 1)
+CHAOS_KILL = {"dcn_failover": (1,), "hybrid_degraded": (0, 1)}
+CHAOS_KILL_STEP = 1
+
+
+def wait_file(path: str, bound: float = 120.0) -> str:
+    import os
+
+    end = time.monotonic() + bound
+    while not os.path.exists(path):
+        if time.monotonic() > end:
+            raise TimeoutError(f"{path} did not appear in {bound} s")
+        time.sleep(0.005)
+    with open(path) as f:
+        return f.read()
+
+
+def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
+    """One rank of train_chaos. The yardstick first, as in train_dcn. Then
+    each leg of ``CHAOS_LEGS`` on its own pair of servers (``bases``: the
+    first server's port): the dcn legs through
+    ``byteps_tpu_torch.torch.DistributedOptimizer`` after
+    ``broadcast_parameters``, the hybrid leg through
+    ``eager.push_pull_tree`` of the gradients, with the seeded weights,
+    batch, ``gpt_loss`` and ``adamw`` of train_dcn. A leg the parent
+    kills servers in touches ``<leg>.done<rank>`` in ``sigdir`` after the
+    first timed step and steps on once ``<leg>.killed`` holds the kill's
+    time. Reports each leg's losses, step times, digests, launches, bytes
+    per step (pushed, pulled, D2H, H2D) and stage sums per step (thread
+    ms, each stage's run and dwell, the tail's), the wire counters, live
+    servers and the wall time of each failover, and the dcn legs' credit
+    pools and the keys homed on server 1."""
+    import os
+    from pathlib import Path
+
+    import byteps_tpu_torch.torch as tbps
+    from byteps_tpu_torch import eager
+    from byteps_tpu_torch.common.config import reset_config
+    from byteps_tpu_torch.common.metrics import get_registry
+    from byteps_tpu_torch.models import (GPTConfig, gpt_init,
+                                         make_gpt_train_step,
+                                         synthetic_batch)
+    from byteps_tpu_torch.models.convert import flat_leaves
+    from byteps_tpu_torch.models.gpt import gpt_loss
+    from byteps_tpu_torch.models.train import adamw
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    cfg = GPTConfig.gpt2_medium()
+    tok, tgt = synthetic_batch(
+        torch.Generator(device="cuda").manual_seed(1 + rank), cfg, B, S)
+    res = {}
+    reset_launches()
+    step, params, opt = make_gpt_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    res["staged_raw"] = dcn_timed_steps(lambda: step(tok, tgt), opt.params,
+                                        steps)
+    res["staged_raw"]["launches"] = dict(launches)
+    del step, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reg = get_registry()
+    for leg, env in CHAOS_LEGS:
+        hybrid = leg.startswith("hybrid")
+        for k in CHAOS_KNOBS:
+            os.environ.pop(k, None)
+        os.environ.update(env, DMLC_NUM_WORKER="1" if hybrid else str(n),
+                          DMLC_NUM_SERVER="2", DMLC_PS_ROOT_URI="127.0.0.1",
+                          DMLC_PS_ROOT_PORT=str(bases[leg] - 1),
+                          DMLC_WORKER_ID="0" if hybrid else str(rank))
+        reset_config()
+        reset_launches()
+        params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+        params.requires_grad_(True)
+        leaves = flat_leaves(params)
+        out = {}
+        if hybrid:
+            eager.init()
+            worker = eager._state.psworker       # the controller's only
+            opt = adamw(leaves)
+
+            def one_step():
+                for p in leaves:
+                    p.grad = None
+                loss = gpt_loss(params, tok, tgt, cfg, chunked_ce=True)
+                loss.backward()
+                avg = eager.push_pull_tree([p.grad for p in leaves],
+                                           average=True)
+                for p, g in zip(leaves, avg):
+                    p.grad = g
+                opt.step()
+                return loss.detach()
+
+            def copies():
+                return eager.bytes_moved() + eager.bytes_copied()
+        else:
+            tbps.init()
+            core = tbps._state.core
+            worker = core.worker
+            opt = tbps.DistributedOptimizer(adamw(leaves),
+                                            params.named_parameters())
+            tbps.broadcast_parameters(dict(params.named_parameters()),
+                                      root_rank=0)
+
+            def one_step():
+                opt.zero_grad()
+                loss = gpt_loss(params, tok, tgt, cfg, chunked_ce=True)
+                loss.backward()
+                opt.step()
+                return loss.detach()
+
+            def copies():
+                return core.bytes_moved() + core.bytes_copied()
+            keys = [p.key for name, _ in params.named_parameters()
+                    for p in core.registry.get(
+                        f"byteps_push_pull.{name}").partitions]
+            out["keys_on_server1"] = sum(k % 2 == 1 for k in keys)
+        failed_over = []
+        if worker is not None:
+            fail_over = worker.fail_over
+
+            def timed_fail_over(sidx, barrier=True):
+                ok = fail_over(sidx, barrier)
+                if ok:
+                    failed_over.append(time.time())
+                return ok
+            worker.fail_over = timed_fail_over
+
+        def between(i):
+            if leg in CHAOS_KILL and i == CHAOS_KILL_STEP:
+                Path(f"{sigdir}/{leg}.done{rank}").touch()
+                out["killed_at"] = float(wait_file(f"{sigdir}/{leg}.killed"))
+
+        # bytes pushed, pulled, copied D2H and H2D, then each stage's (and
+        # the tail's) run and dwell sums, read around every step
+        reg.histogram("eager.tail_us")
+        stages = sorted({**hist_sums(reg), **hist_sums(reg, "eager.")})
+
+        def probe():
+            sums = {**hist_sums(reg), **hist_sums(reg, "eager.")}
+            return copies() + tuple(sums.get(k, 0.0) for k in stages)
+
+        out.update(dcn_timed_steps(one_step, leaves, steps, probe, between))
+        deltas = out.pop("deltas")
+        out["bytes_per_step"] = [d[:4] for d in deltas]
+        out["stage_ms_per_step"] = {
+            k: [d[4 + i] / 1e3 for d in deltas]
+            for i, k in enumerate(stages) if any(d[4 + i] for d in deltas)}
+        out["launches"] = dict(launches)
+        if worker is not None:
+            out["counters"] = worker.get_counters()
+            out["live_servers"] = sorted(worker.live_servers())
+            out["failover_at"] = failed_over
+        if leg == "dcn_failover":
+            # DcnCore's degraded path on the card at size() 2: once no
+            # server lives, a tensor's average is its own value, undivided
+            fail_over(0, barrier=False)
+            gen = torch.Generator(device="cuda").manual_seed(7 + rank)
+            x = torch.randn(3_000_000, device="cuda", generator=gen)
+            y = tbps.push_pull(x.clone(), average=True, name="degraded_probe")
+            out["degraded_probe"] = {
+                "equal_local": bool(torch.equal(y, x)),
+                "ici_fallbacks": worker.get_counters()["ici_fallbacks"]}
+        if hybrid:
+            eager.shutdown()
+        else:
+            out["credits"] = [(s._credits, s._credit_total) for s in
+                              (core.scheduler, core._cuda_scheduler) if s]
+            tbps.shutdown()
+        res[leg] = out
+        del opt, params, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def free_port_pair() -> int:
+    """A port p with p and p + 1 both free on the loopback."""
+    import socket
+
+    while True:
+        with socket.socket() as a:
+            a.bind(("127.0.0.1", 0))
+            p = a.getsockname()[1]
+            try:
+                with socket.socket() as b:
+                    b.bind(("127.0.0.1", p + 1))
+            except OSError:
+                continue
+            return p
+
+
+def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
+    """The DCN tier's robustness on the card: the two rank processes of
+    train_dcn, a pair of port server processes a leg, and the legs of
+    ``CHAOS_LEGS`` after staged_raw (see phase 14 in the module's
+    docstring). A watcher thread kills a leg's servers (``CHAOS_KILL``)
+    once both ranks ended its first timed step and tells them the kill's
+    time. Checks: every leg's parameters equal on both ranks and equal to
+    staged_raw's after every step, bit for bit; every loss finite; the
+    flash kernels once per layer and step; bytes pushed, pulled, D2H and
+    H2D per step exact (none on the wire in hybrid_degraded's step after
+    the kill, none at all on the pod's other rank); dcn_chaos: retries,
+    injected timeouts and corruptions and CRC errors on each rank, no
+    give-up; dcn_failover: one failover a rank to ``{0}``, and re-inits
+    that cover every key homed on server 1; hybrid_degraded: both servers
+    failed over on the controller and a degraded fallback a partition of
+    the step after the kill; every credit of the dcn legs back; the
+    servers not killed exit 0 after the ranks' goodbyes. Returns rank 0's
+    launch counts summed over the legs."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from byteps_tpu_torch.models import GPTConfig
+    from byteps_tpu_torch.server import native
+
+    n = 2
+    native.build()
+    bases = {leg: free_port_pair() for leg, _ in CHAOS_LEGS}
+    servers = {}
+    sigdir = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    stop = threading.Event()
+    watch_errors = []
+
+    def watch():
+        pending = dict(CHAOS_KILL)
+        try:
+            while pending and not stop.is_set():
+                for leg, idx in list(pending.items()):
+                    if all(os.path.exists(f"{sigdir}/{leg}.done{r}")
+                           for r in range(n)):
+                        t = time.time()
+                        for i in idx:
+                            servers[leg][i].kill()
+                        for i in idx:
+                            servers[leg][i].wait()
+                        with open(f"{sigdir}/{leg}.tmp", "w") as f:
+                            f.write(repr(t))
+                        os.replace(f"{sigdir}/{leg}.tmp",
+                                   f"{sigdir}/{leg}.killed")
+                        del pending[leg]
+                stop.wait(0.005)
+        except Exception as e:       # the ranks then time out waiting
+            watch_errors.append(e)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    try:
+        for leg, _ in CHAOS_LEGS:
+            workers = "1" if leg.startswith("hybrid") else str(n)
+            servers[leg] = [subprocess.Popen(
+                [sys.executable, "-m", "byteps_tpu_torch.server"],
+                env=dict(os.environ, DMLC_ROLE="server",
+                         DMLC_NUM_WORKER=workers, DMLC_NUM_SERVER="2",
+                         DMLC_PS_ROOT_URI="127.0.0.1",
+                         DMLC_PS_ROOT_PORT=str(bases[leg] - 1),
+                         DMLC_SERVER_ID=str(i)),
+                cwd=Path(__file__).resolve().parent, stdout=sys.stderr)
+                for i in range(2)]
+        watcher.start()
+        t0 = time.perf_counter()
+        per_rank = spawn_ranks(train_chaos_rank, n, B, S, steps, bases,
+                               sigdir)
+        wall = time.perf_counter() - t0
+        if watch_errors:
+            raise AssertionError(f"train_chaos: the watcher failed: "
+                                 f"{watch_errors}")
+        for leg, pair in servers.items():
+            for i, server in enumerate(pair):
+                try:
+                    rc = server.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"train_chaos {leg}: server {i} "
+                                         "outlived its workers") from None
+                want = -9 if i in CHAOS_KILL.get(leg, ()) else 0
+                if rc != want:
+                    raise AssertionError(f"train_chaos {leg}: server {i} "
+                                         f"exited {rc}, not {want}")
+    finally:
+        stop.set()
+        if watcher.is_alive():
+            watcher.join(5)
+        for pair in servers.values():
+            for server in pair:
+                if server.poll() is None:
+                    server.kill()
+                    server.wait()
+        shutil.rmtree(sigdir, ignore_errors=True)
+    cfg = GPTConfig.gpt2_medium()
+    calls = steps + 1
+    n_bytes = GPT2M_PARAMS * 4
+    legs = ("staged_raw",) + tuple(leg for leg, _ in CHAOS_LEGS)
+    for leg in legs:
+        a, b = (r[leg] for r in per_rank)
+        if a["digests"] != b["digests"]:
+            raise AssertionError(f"train_chaos {leg}: the ranks' parameters "
+                                 "differ")
+        for r in per_rank:
+            if not np.isfinite(r[leg]["losses"]).all():
+                raise AssertionError(f"train_chaos {leg}: a loss is not "
+                                     f"finite: {r[leg]['losses']}")
+            got = {k: r[leg]["launches"][k] for k in TRAIN}
+            if got != {k: calls * cfg.n_layers for k in TRAIN}:
+                raise AssertionError(f"train_chaos {leg}: rank {r['rank']} "
+                                     f"launched {got}, not "
+                                     f"{calls * cfg.n_layers} each")
+            if leg == "staged_raw":
+                continue
+            differ = [i for i, (x, y) in enumerate(zip(
+                r[leg]["digests"], r["staged_raw"]["digests"])) if x != y]
+            if differ:
+                raise AssertionError(
+                    f"train_chaos: rank {r['rank']}'s {leg} parameters "
+                    f"differ from staged_raw's after step(s) {differ} (0: "
+                    "warm-up)")
+            # every leg's wire is raw f32: the gradient's bytes each way
+            wire = n_bytes
+            want = [[wire, wire, n_bytes, n_bytes]] * calls
+            if leg == "hybrid_degraded":
+                want = ([[wire, wire, n_bytes, n_bytes]] * (CHAOS_KILL_STEP + 1)
+                        + [[0, 0, n_bytes, n_bytes]]
+                        * (calls - CHAOS_KILL_STEP - 1)
+                        if r["rank"] == 0 else [[0, 0, 0, 0]] * calls)
+            if r[leg]["bytes_per_step"] != want:
+                raise AssertionError(
+                    f"train_chaos {leg}: rank {r['rank']}'s bytes (pushed, "
+                    f"pulled, D2H, H2D) per step {r[leg]['bytes_per_step']},"
+                    f" want {want}")
+            if "credits" in r[leg] and any(
+                    a != b for a, b in r[leg]["credits"]):
+                raise AssertionError(f"train_chaos {leg}: rank {r['rank']} "
+                                     f"leaked credits: {r[leg]['credits']}")
+    for r in per_rank:
+        c = r["dcn_chaos"]["counters"]
+        if not (c["retries"] > 0 and c["injected_timeout"] > 0
+                and c["injected_corrupt"] > 0 and c["crc_errors"] > 0
+                and c["give_ups"] == 0):
+            raise AssertionError(f"train_chaos dcn_chaos: rank {r['rank']}'s "
+                                 f"counters {c}")
+        f = r["dcn_failover"]
+        if (f["counters"]["failovers"] != 1 or f["live_servers"] != [0]
+                or f["counters"]["give_ups"] != 0):
+            raise AssertionError(f"train_chaos dcn_failover: rank "
+                                 f"{r['rank']}: live {f['live_servers']}, "
+                                 f"counters {f['counters']}")
+        if not (f["degraded_probe"]["equal_local"]
+                and f["degraded_probe"]["ici_fallbacks"] > 0):
+            raise AssertionError(f"train_chaos dcn_failover: rank "
+                                 f"{r['rank']}'s degraded push_pull: "
+                                 f"{f['degraded_probe']}")
+    # each key homed on server 1 is re-inited on server 0 by whichever
+    # rank pushes it there first
+    reinits = sum(r["dcn_failover"]["counters"]["reinits"] for r in per_rank)
+    moved = per_rank[0]["dcn_failover"]["keys_on_server1"]
+    if not 0 < moved <= reinits:
+        raise AssertionError(f"train_chaos dcn_failover: {reinits} re-inits "
+                             f"for {moved} keys moved to server 0")
+    h = per_rank[0]["hybrid_degraded"]
+    if (h["counters"]["ici_fallbacks"] < 1 or h["live_servers"] != []
+            or h["counters"]["failovers"] != 2):
+        raise AssertionError(f"train_chaos hybrid_degraded: live "
+                             f"{h['live_servers']}, counters {h['counters']}")
+    tokens = n * B * S
+    legs_out = {}
+    for leg in legs:
+        step_ms = max(sum(r[leg]["step_ms_each"]) / steps for r in per_rank)
+        legs_out[leg] = {
+            "losses": [r[leg]["losses"] for r in per_rank],
+            "step_ms": step_ms,
+            "step_ms_each": [r[leg]["step_ms_each"] for r in per_rank],
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "max_memory_allocated_gb": [r[leg]["max_memory_allocated_gb"]
+                                        for r in per_rank],
+            **{k: [r[leg].get(k) for r in per_rank]
+               for k in ("counters", "live_servers", "bytes_per_step",
+                         "stage_ms_per_step", "degraded_probe")
+               if k in per_rank[0][leg]}}
+        if leg in CHAOS_KILL:
+            legs_out[leg]["kill_to_failover_ms"] = [
+                [(t - r[leg]["killed_at"]) * 1e3 for t in r[leg]["failover_at"]]
+                if "failover_at" in r[leg] else None for r in per_rank]
+    legs_out["dcn_failover"]["reinits_for_keys_on_server1"] = [reinits,
+                                                               moved]
+    emit({"phase": "train_chaos", "ranks": n, "servers": "two processes a leg",
+          "timing": "two ranks time-slice one card", "batch_per_rank": B,
+          "seq": S, "steps": steps, "kill_after_step": CHAOS_KILL_STEP,
+          "fault_spec": CHAOS_SPEC, "health": CHAOS_HEALTH,
+          "host_cpus": os.cpu_count(), "legs_equal_staged_raw": True,
+          "bytes_per_step_fields": ["pushed", "pulled", "d2h", "h2d"],
+          "wall_s": wall, "legs": legs_out})
+    total = {}
+    for leg in legs:
+        for k, v in per_rank[0][leg]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 # the kernels each run of the main path must launch
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
@@ -3129,10 +3573,11 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
          "train_dcn": TRAIN,
          "train_hybrid": TRAIN + ("onebit_pack", "onebit_unpack_sum",
                                   "ring_rotate"),
+         "train_chaos": TRAIN,
          "aggregate_onebit": ("onebit_pack", "onebit_unpack_sum_grid")}
 MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
               "train_onebit", "train_topk", "train_ring", "train_dcn",
-              "train_hybrid", "aggregate_onebit")
+              "train_hybrid", "train_chaos", "aggregate_onebit")
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
@@ -3176,6 +3621,9 @@ def main() -> int:
     ap.add_argument("--hybrid", action="store_true",
                     help="run only train_hybrid, for work on the eager "
                          "surface; no kernels line, no result line")
+    ap.add_argument("--chaos", action="store_true",
+                    help="run only train_chaos, for work on the DCN tier's "
+                         "robustness; no kernels line, no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3222,6 +3670,10 @@ def main() -> int:
     if args.hybrid:
         emit({"phase": "launches", "train_hybrid": counted_ranks(
             "train_hybrid", phase_train_hybrid)})
+        return 0
+    if args.chaos:
+        emit({"phase": "launches", "train_chaos": counted_ranks(
+            "train_chaos", phase_train_chaos)})
         return 0
     timer = Timer()
     bf, f32 = torch.bfloat16, torch.float32
@@ -3368,6 +3820,7 @@ def main() -> int:
     by_path["train_dcn"] = counted_ranks("train_dcn", phase_train_dcn)
     by_path["train_hybrid"] = counted_ranks("train_hybrid",
                                             phase_train_hybrid)
+    by_path["train_chaos"] = counted_ranks("train_chaos", phase_train_chaos)
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()

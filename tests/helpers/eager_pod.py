@@ -22,6 +22,11 @@ Scenarios:
   between its calls, waited for in reverse order within a bound.
 * ``fail`` — the controller's pushes of one partition raise: every
   rank's call fails, and the next call of the pod still sums.
+* ``degraded`` — one pod on its own server, whose controller failed the
+  server over before any push: each step degrades to the pod's sum
+  (averaged over the pod), then a call with ``degraded_ok`` off fails on
+  every rank; then the same rows through the eager ICI pipeline of the
+  pod alone.
 """
 
 from __future__ import annotations
@@ -206,6 +211,44 @@ def fail(rank, io, spec, d):
     return out
 
 
+def degraded(rank, io, spec, d):
+    os.environ["BYTEPS_FORCE_DISTRIBUTED"] = "1"
+    _own_server(rank, spec["ports"][0])
+    bps.init()
+    if rank == 0:
+        bps._state.psworker.fail_over(0, barrier=False)
+    out = {}
+    for i, (name, params, avg) in enumerate(spec["steps"]):
+        out[f"r{i}"] = bps.push_pull(torch.as_tensor(d[f"x{i}"][rank]),
+                                     average=avg, name=name,
+                                     compression_params=params).numpy()
+    if rank == 0:
+        out["fallbacks"] = np.array(
+            bps._state.psworker.get_counters()["ici_fallbacks"])
+    out["moved"] = np.array(bps.bytes_moved())
+    bps._state.cfg.degraded_ok = False
+    out["strict"] = np.array("")
+    try:
+        bps.synchronize(bps.push_pull_async(torch.as_tensor(d["x0"][rank]),
+                                            name="strict"),
+                        timeout=spec["wait_s"])
+    except Exception as e:  # noqa: BLE001 - the test reads the message
+        out["strict"] = np.array(f"{type(e).__name__}: {e}")
+    bps.shutdown()
+    _stop_own_server(rank)
+    # the ICI result is the pod's alone, whatever the job's pod count
+    os.environ["BYTEPS_FORCE_DISTRIBUTED"] = "0"
+    os.environ["DMLC_NUM_WORKER"] = "1"
+    reset_config()
+    bps.init()
+    for i, (name, params, avg) in enumerate(spec["steps"]):
+        if params is None:
+            out[f"e{i}"] = bps.push_pull(torch.as_tensor(d[f"x{i}"][rank]),
+                                         average=avg, name=name).numpy()
+    bps.shutdown()
+    return out
+
+
 def main() -> None:
     scenario, rank, world, io = (sys.argv[1], int(sys.argv[2]),
                                  int(sys.argv[3]), sys.argv[4])
@@ -218,7 +261,7 @@ def main() -> None:
         spec = json.load(f)
     d = np.load(f"{io}/in.npz")
     out = {"mixed": mixed, "alone": alone, "order": order,
-           "fail": fail}[scenario](
+           "fail": fail, "degraded": degraded}[scenario](
         rank, io, spec, d)
     np.savez(f"{io}/out{rank}.npz", **out)
     dist.barrier()

@@ -86,8 +86,9 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
     assert "byteps_tpu_torch.ops.segmented_lora" in res["modules"]
     assert "byteps_tpu_torch.ops._build" in res["modules"]
     assert "byteps_tpu_torch.ops.ring_collective_kernels" in res["modules"]
-    for m in ("common.dcn_adapter", "common.partition", "common.scheduler",
-              "common.stage_orders", "compression.wire", "server",
+    for m in ("common.dcn_adapter", "common.faults", "common.partition",
+              "common.scheduler", "common.stage_orders", "compression.wire",
+              "server",
               "server.__main__", "server.native", "server.pacer", "torch",
               "eager"):
         assert f"byteps_tpu_torch.{m}" in res["modules"], m

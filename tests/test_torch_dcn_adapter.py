@@ -291,3 +291,35 @@ def _free(p):
     with socket.socket() as s:
         s.bind(("127.0.0.1", p))
     return p
+
+
+def test_dropped_optimizer_frees_its_parameters(monkeypatch):
+    """The optimizer's gradient hooks live on the parameters, whose hooks
+    the garbage collector does not traverse: they must not keep the
+    optimizer, and with it the parameters and their state, alive once the
+    caller drops both."""
+    import gc
+    import weakref
+
+    torch.set_num_threads(1)
+    port = tserver.any_port(
+        lambda p: tserver.start_server(port=p, num_workers=1,
+                                       engine_threads=2), next_port())
+    job_env(monkeypatch, port, workers=1)
+    monkeypatch.setenv("DMLC_WORKER_ID", "0")
+    tconfig.reset_config()
+    try:
+        tbps.init()
+        net = torch.nn.Linear(8, 4)
+        alive = weakref.ref(net.weight)
+        opt = tbps.DistributedOptimizer(
+            torch.optim.SGD(net.parameters(), lr=LR), net.named_parameters())
+        net(torch.ones(2, 8)).sum().backward()
+        opt.step()
+        del net, opt
+        gc.collect()
+        assert alive() is None
+    finally:
+        tbps.shutdown()
+        tserver.stop_server()
+        tconfig.reset_config()

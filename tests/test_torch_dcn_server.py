@@ -199,11 +199,11 @@ def test_native_sum_and_codecs_match_reference():
         [ref.bps_float_to_fp8(float(v)) for v in grid]
 
 
+# a fault spec is ported but for its join rules (elastic membership)
 UNPORTED = [("BYTEPS_ENABLE_ASYNC", "1"), ("BYTEPS_STALENESS", "2"),
-            ("BYTEPS_WORKER_LEASE_MS", "500"),
-            ("BYTEPS_HEALTH_INTERVAL_MS", "100"), ("BYTEPS_ENABLE_IPC", "1"),
+            ("BYTEPS_WORKER_LEASE_MS", "500"), ("BYTEPS_ENABLE_IPC", "1"),
             ("BYTEPS_POD_CONTROLLERS", "2"),
-            ("BYTEPS_FAULT_SPEC", "push:kill@op=1")]
+            ("BYTEPS_FAULT_SPEC", "push:kill@op=1;worker2:join@step=3")]
 
 
 @pytest.mark.parametrize("knob,value", UNPORTED)

@@ -10,12 +10,13 @@ the onebit codec's scaling default, the ICI wire tier), and the
 tier, under the same variable names and defaults.
 
 The tier's robustness knobs (fault injection, the health monitor,
-degraded fallback, the handle deadline) are ported. Its knobs that are
-not ported yet (asynchronous or stale rounds, worker leases, the
-in-process IPC path, the sharded pod wire over more than one controller,
-the auto-tuner, a fault plan's ``join`` rule) are parsed all the same,
-so that :func:`check_ported` can refuse a caller who sets one instead of
-silently running the default.
+degraded fallback, the handle deadline), the sharded pod wire over
+several controllers (``BYTEPS_POD_CONTROLLERS``, ``BYTEPS_OWNER_SALT``)
+and the in-process IPC path (``BYTEPS_ENABLE_IPC``) are ported. Its
+knobs that are not ported yet (asynchronous or stale rounds, worker
+leases, the auto-tuner, a fault plan's ``join`` rule) are parsed all the
+same, so that :func:`check_ported` can refuse a caller who sets one
+instead of silently running the default.
 """
 
 from __future__ import annotations
@@ -112,13 +113,24 @@ class Config:
     # carries the pipeline's counters; 0 = the caller's timeout only
     handle_deadline_ms: int = 0
 
+    # pushes, pulls and inits of keys homed on a summation server running
+    # in this process skip TCP (server/__init__.py, PSWorker(use_ipc=))
+    enable_ipc: bool = False
+    # the hybrid pipeline reduce-scatters the pod and all-gathers the
+    # global sums (else all-reduce and broadcast)
+    hybrid_sharded: bool = True
+    # controller NICs a sharded pod pushes through, each its own PSWorker
+    # (connections, fault plan, health monitor); a partition's owner is
+    # a rendezvous hash over the live controllers (partition.OwnerTable)
+    pod_controllers: int = 1
+    # salt of that hash: reshuffles placement without renaming tensors;
+    # must agree across a pod's controllers
+    owner_salt: int = 0
+
     # --- DCN tier knobs not ported yet (check_ported refuses them) ---------
     enable_async: bool = False
-    enable_ipc: bool = False
     staleness: int = 0
     worker_lease_ms: int = 0
-    hybrid_sharded: bool = True
-    pod_controllers: int = 1
     auto_tune: bool = False
 
     # --- inference serving tier --------------------------------------------
@@ -223,6 +235,7 @@ class Config:
             worker_lease_ms=_env_int("BYTEPS_WORKER_LEASE_MS", 0),
             hybrid_sharded=_env_bool("BYTEPS_HYBRID_SHARDED", True),
             pod_controllers=_env_int("BYTEPS_POD_CONTROLLERS", 1),
+            owner_salt=_env_int("BYTEPS_OWNER_SALT", 0),
             auto_tune=_env_bool("BYTEPS_AUTO_TUNE"),
             serve_block_size=_env_int("BYTEPS_SERVE_BLOCK_SIZE", 16),
             serve_pool_blocks=_env_int("BYTEPS_SERVE_POOL_BLOCKS", 0),
@@ -281,9 +294,6 @@ def check_ported(cfg: Optional[Config] = None) -> None:
             ("BYTEPS_ENABLE_ASYNC", cfg.enable_async),
             ("BYTEPS_STALENESS", cfg.staleness > 0),
             ("BYTEPS_WORKER_LEASE_MS", cfg.worker_lease_ms > 0),
-            ("BYTEPS_ENABLE_IPC", cfg.enable_ipc),
-            ("BYTEPS_HYBRID_SHARDED/BYTEPS_POD_CONTROLLERS",
-             cfg.hybrid_sharded and cfg.pod_controllers > 1),
             (f"BYTEPS_FAULT_SPEC join rule {joins}", bool(joins)),
             ("BYTEPS_AUTO_TUNE", cfg.auto_tune)):
         bps_check(not unported,

@@ -15,27 +15,37 @@ that waits on that event; ``COPYD2H``, on a pool thread, waits for that
 copy; the pulled sums are decoded into a second pinned buffer of the
 name, and ``COPYH2D`` copies each partition back into the tensor on the
 copy stream and waits for it, so a finished handle holds its result on
-the card and neither pinned buffer is still in use. One core holds one
-PSWorker (one controller; the sharded pod wire and owner remap are not
-ported yet). Its PSWorker fails servers over (docs/robustness.md); with
-no live server left, a partition degrades to this worker's own
-contribution under ``BYTEPS_DEGRADED_OK`` (the default) and fails its
-handle otherwise.
+the card and neither pinned buffer is still in use.
+
+A core holds one PSWorker a pod controller (``BYTEPS_POD_CONTROLLERS``
+under ``BYTEPS_HYBRID_SHARDED``, else one), all pushing under the pod's
+worker id; each partition crosses the wire through its owner's
+(``OwnerTable``), and credits are scoped per owner. A controller whose
+NIC dies fails over: its rounds move to the survivors and its partitions
+remap. Each PSWorker fails servers over (docs/robustness.md); with no
+live server left, the last controller degrades a partition to this
+worker's own contribution under ``BYTEPS_DEGRADED_OK`` (the default) and
+fails its handle otherwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
 
 from byteps_tpu_torch.common.config import check_ported, get_config
+from byteps_tpu_torch.common.faults import (
+    FaultPlan,
+    ServerDownError,
+    parse_fault_spec,
+)
 from byteps_tpu_torch.common.logging import bps_check, get_logger
 from byteps_tpu_torch.common.metrics import get_registry
-from byteps_tpu_torch.common.partition import TensorRegistry
+from byteps_tpu_torch.common.partition import OwnerTable, TensorRegistry
 from byteps_tpu_torch.common.scheduler import (
     Handle,
     PartitionTask,
@@ -53,17 +63,59 @@ from byteps_tpu_torch.compression.wire import (
     pull_seed,
     wire_seed,
 )
-from byteps_tpu_torch.server import NoLiveServersError, PSWorker
+from byteps_tpu_torch.server import (
+    FailedOverError,
+    NoLiveServersError,
+    PSWorker,
+    hand_off_owner,
+    retire_nic,
+)
 
 log = get_logger("dcn_adapter")
 
 
-def stall_diag(workers, schedulers) -> Dict[str, Any]:
+def owner_wire_death(e: BaseException) -> bool:
+    """Whether a wire error that escaped the PSWorker's retries blames the
+    owner's own NIC (a pod of several controllers): a connection-class
+    error means every attempt through that owner's connections failed,
+    so its partitions remap to the surviving controllers. Server-side
+    conditions are not owner deaths: a failover in progress, no live
+    server, a server-down window past the retry budget (it names the
+    server; remapping would let one outage kill every controller in
+    turn), a receive timeout (a slow server as likely as a dead NIC,
+    which shows as a refused reconnect next) and a CRC-detected
+    corruption. Those get the stage retry; failover is irreversible."""
+    if isinstance(e, (NoLiveServersError, FailedOverError,
+                      ServerDownError)):
+        return False
+    return isinstance(e, ConnectionError)
+
+
+def remap_dead_owner(task, owner: int, owners, fail_owner, owner_of,
+                     cause: BaseException, verb: str) -> None:
+    """The owner-failover policy of DcnCore and eager's hybrid pipeline:
+    fail ``owner`` over (or find that a sibling task already did, which
+    ``fail_owner`` reports as False, as it does for the last controller)
+    and raise a stage-retryable error, so that the re-run resolves a
+    survivor. Returns without raising only when no survivor exists (the
+    last controller): the caller's degraded or terminal path decides."""
+    failed = fail_owner(owner, cause)
+    if failed or owner not in owners.live():
+        err = RuntimeError(
+            f"owner {owner} {verb} for {task.name}."
+            f"{task.partition.part_idx}; remapped: retrying via owner "
+            f"{owner_of(task.partition.key)}")
+        err.retryable = True
+        raise err from cause
+
+
+def stall_diag(workers, owners, schedulers) -> Dict[str, Any]:
     """A ``Handle.diag`` payload, shared by DcnCore and eager's hybrid
     pipeline so their stall reports never drift: per-NIC robustness and
-    health counters, bytes on the wire, live servers, and the
+    health counters, bytes on the wire, live servers and owners, and the
     schedulers' credit pools and busy stages. ``workers`` is the process's
-    PSWorkers (none on a rank that is no controller), ``schedulers`` its
+    PSWorkers (none on a rank that is no controller), ``owners`` its
+    ``OwnerTable`` (None where there is none), ``schedulers`` its
     pipelines (None where one is not built)."""
     scheds = [s for s in schedulers if s is not None]
     return {
@@ -74,6 +126,7 @@ def stall_diag(workers, schedulers) -> Dict[str, Any]:
                        for r, w in enumerate(workers)},
         "live_servers": {f"nic{r}": sorted(w.live_servers())
                          for r, w in enumerate(workers)},
+        "live_owners": sorted(owners.live()) if owners is not None else None,
         "credit_pools": [s.credit_pools() for s in scheds],
         "stage_busy": [{st.name: b for st, b in zip(s.stages, s._busy)}
                        for s in scheds],
@@ -192,31 +245,82 @@ class DcnCore:
     pipeline of their own, built at the first CUDA call.
     """
 
-    def __init__(self, servers=None, worker_id=None) -> None:
+    def __init__(self, servers=None, worker_id=None,
+                 pod_controllers: Optional[int] = None,
+                 fault_specs: Optional[Sequence[Optional[str]]] = None,
+                 health_interval_ms: Optional[int] = None) -> None:
+        """``pod_controllers`` > 1 models the pod as that many
+        controllers, each its own PSWorker (connections, pacer, fault
+        plan, health monitor), all under the pod's worker id; each
+        partition is compressed, pushed and pulled by its rendezvous-
+        hashed owner alone, so the wire bytes divide over the NICs.
+        Default: ``BYTEPS_POD_CONTROLLERS`` under
+        ``BYTEPS_HYBRID_SHARDED``, else 1. ``fault_specs`` arms one fault
+        plan an owner (None: none), ``health_interval_ms`` each worker's
+        monitor (None: ``BYTEPS_HEALTH_INTERVAL_MS``)."""
         cfg = get_config()
         check_ported(cfg)
         self.cfg = cfg
-        self.worker = PSWorker(servers=servers, worker_id=worker_id)
+        if pod_controllers is None:
+            pod_controllers = (max(1, cfg.pod_controllers)
+                               if cfg.hybrid_sharded else 1)
+        plans: List[Optional[FaultPlan]] = [None] * pod_controllers
+        if fault_specs is not None:
+            bps_check(len(fault_specs) == pod_controllers,
+                      f"fault_specs needs one entry per controller (got "
+                      f"{len(fault_specs)} for {pod_controllers})")
+            plans = [FaultPlan(parse_fault_spec(spec), seed=cfg.fault_seed,
+                               worker_id=o) if spec else None
+                     for o, spec in enumerate(fault_specs)]
+            joins = [r.to_spec() for p in plans if p is not None
+                     for r in p.rules if r.kind == "join"]
+            bps_check(not joins, f"fault_specs join rule {joins}: the "
+                      "port's DCN tier has not ported it yet (not ported "
+                      "yet)")
+        # every controller pushes under the pod's worker id: the server
+        # sees one contribution a pod, and its (worker, key, round) replay
+        # dedupe survives an owner remap, since the survivor adopts the
+        # dead owner's round counters (PSWorker.adopt_rounds)
+        self.workers: List[PSWorker] = [
+            PSWorker(servers=servers, worker_id=worker_id,
+                     fault_plan=plans[o],
+                     health_interval_ms=health_interval_ms)
+            for o in range(pod_controllers)]
+        self.worker = self.workers[0]        # NIC 0: barrier and goodbye
+        self.owners = OwnerTable(pod_controllers, salt=cfg.owner_salt)
+        self._owner_lock = threading.Lock()
+        self.owner_failovers = 0
         self.registry = TensorRegistry()
         # PUSH/PULL are stage-retryable: the second line of defense above
         # PSWorker's wire retries (a pinned round is re-sent, see
-        # _push_stage)
+        # _push_stage); one more attempt a controller, since a total
+        # outage spends one failing each owner over before the last
+        # degrades
         self._wire_stages = [
             Stage("COMPRESS", self._compress_stage, credited=True,
                   pool_size=2),
             Stage("PUSH", self._push_stage, credited=True, pool_size=4,
-                  releases_credit=True, retryable=True),
-            Stage("PULL", self._pull_stage, pool_size=4, retryable=True),
+                  releases_credit=True, retryable=True,
+                  max_attempts=2 + pod_controllers),
+            Stage("PULL", self._pull_stage, pool_size=4, retryable=True,
+                  max_attempts=2 + pod_controllers),
             Stage("DECOMPRESS", self._decompress_stage, pool_size=2),
         ]
         bps_check(
             tuple(s.name for s in self._wire_stages) == DCN_STAGE_ORDER,
             "DcnCore stage list drifted from DCN_STAGE_ORDER")
+        # several controllers scope credits per owner: one faulted NIC
+        # backing off does not starve its siblings' wires
+        self._credit_scope = "owner" if pod_controllers > 1 else "global"
         self.scheduler = PipelineScheduler(
-            stages=self._wire_stages, credit=cfg.scheduling_credit)
+            stages=self._wire_stages, credit=cfg.scheduling_credit,
+            credit_scope=self._credit_scope)
         self._cuda_scheduler: Optional[PipelineScheduler] = None
         self._staging = HostStaging()
-        self._inited_keys = set()
+        # the keys each owner has initialised on the servers: an owner
+        # that inherits a key re-runs the idempotent init first
+        self._inited_keys: Dict[int, Set[int]] = {
+            o: set() for o in range(pod_controllers)}
         self._key_lock = threading.Lock()
         self._versions: Dict[str, int] = {}
         self.bytes_d2h = 0
@@ -239,8 +343,44 @@ class DcnCore:
                     "DcnCore CUDA stage list drifted from "
                     "CUDA_DCN_STAGE_ORDER")
                 self._cuda_scheduler = PipelineScheduler(
-                    stages=stages, credit=self.cfg.scheduling_credit)
+                    stages=stages, credit=self.cfg.scheduling_credit,
+                    credit_scope=self._credit_scope)
             return self._cuda_scheduler
+
+    # -- ownership ------------------------------------------------------------
+    def _owner_of(self, key: int) -> int:
+        return self.owners.owner(key)
+
+    def fail_owner(self, rank: int,
+                   cause: Optional[BaseException] = None) -> bool:
+        """Mark controller ``rank`` dead and remap its partitions to the
+        survivors (fence, export, adopt, shrink: ``hand_off_owner``).
+        This core keeps no per-owner codec state to reset. False if
+        ``rank`` is already dead or the last controller (then the
+        degraded or terminal path decides)."""
+        with self._owner_lock:
+            if hand_off_owner(self.workers, self.owners, rank) is None:
+                return False
+            self.owner_failovers += 1
+        if rank != 0:
+            # nothing routes through the dead NIC again; NIC 0 stays open,
+            # fenced, for the pod's one goodbye round
+            retire_nic(self.workers[rank])
+        log.warning("pod controller %d gave up its wire (%s); its "
+                    "partitions remap to owners %s", rank,
+                    cause if cause is not None else "requested",
+                    sorted(self.owners.live()))
+        return True
+
+    def _owner_giveup(self, task: PartitionTask, owner: int,
+                      e: BaseException):
+        """A wire error through ``owner``'s NIC past its retries: fail the
+        owner over and raise stage-retryably, so that the re-run lands on
+        a survivor; anything else, or the last controller, re-raises."""
+        if len(self.workers) > 1 and owner_wire_death(e):
+            remap_dead_owner(task, owner, self.owners, self.fail_owner,
+                             self._owner_of, e, "wire dead")
+        raise e
 
     def _d2h_stage(self, task: PartitionTask):
         task.context["d2h"].synchronize()
@@ -283,10 +423,25 @@ class DcnCore:
 
     def _push_stage(self, task: PartitionTask):
         p = task.partition
-        if not self.worker.has_live_servers():
+        owner = self._owner_of(p.key)
+        worker = self.workers[owner]
+        if not worker.has_live_servers():
+            # this NIC sees no live server; each worker's monitor pings
+            # through its own connections, so with siblings alive that is
+            # the owner's link dying: fail the owner over first (degrading
+            # here would make this partition pod-local while other pods
+            # sum globally). A total outage walks the owners down to the
+            # last controller, which degrades.
+            if len(self.workers) > 1:
+                remap_dead_owner(
+                    task, owner, self.owners, self.fail_owner,
+                    self._owner_of,
+                    NoLiveServersError(
+                        f"owner {owner} sees no live servers"),
+                    "lost all servers")
             # total DCN outage: degrade to the local contribution instead
             # of failing the handle (docs/robustness.md)
-            return degraded_fallback(self.worker, self.cfg, task, log,
+            return degraded_fallback(worker, self.cfg, task, log,
                                      "LOCAL sums")
         plan: Optional[WirePlan] = task.context["plans"][p.part_idx]
         store_bytes = (
@@ -294,23 +449,27 @@ class DcnCore:
             else p.length * 4
         )
         with self._key_lock:
-            needs_init = p.key not in self._inited_keys
-        if needs_init:
-            # server-side init is idempotent and never resets an existing
-            # store, so only this worker's init must precede its own push
-            # (serial on its connection); marked only after success, so a
-            # stage retry re-runs a failed init
-            self.worker.init_key(p.key, store_bytes)
-            with self._key_lock:
-                self._inited_keys.add(p.key)
-        codec_id = plan.codec.codec_id if plan is not None else 0
-        # pin the round BEFORE the wire attempt: a stage retry must re-send
-        # the SAME round, whether the first try was applied (ack lost: the
-        # server dedupe drops the re-send) or never arrived
-        task.push_version = self.worker.mint_version(
-            p.key, getattr(task, "push_version", None))
-        return self.worker.push_bytes(p.key, task.payload, codec_id,
-                                      version=task.push_version)
+            needs_init = p.key not in self._inited_keys[owner]
+        try:
+            if needs_init:
+                # server-side init is idempotent and never resets an
+                # existing store, so only this owner's init must precede
+                # its own push (serial on its connection); marked only
+                # after success, so a stage retry re-runs a failed init
+                worker.init_key(p.key, store_bytes)
+                with self._key_lock:
+                    self._inited_keys[owner].add(p.key)
+            codec_id = plan.codec.codec_id if plan is not None else 0
+            # pin the round BEFORE the wire attempt: a stage retry, on
+            # this owner or a survivor after a failover, must re-send the
+            # SAME round, whether the first try was applied (ack lost: the
+            # server dedupe drops the re-send) or never arrived
+            task.push_version = worker.mint_version(
+                p.key, getattr(task, "push_version", None))
+            return worker.push_bytes(p.key, task.payload, codec_id,
+                                     version=task.push_version)
+        except BaseException as e:  # noqa: BLE001 - owner-death classify
+            self._owner_giveup(task, owner, e)
 
     def _pull_stage(self, task: PartitionTask):
         if isinstance(task.payload, DegradedLocal):
@@ -320,8 +479,12 @@ class DcnCore:
         capacity = (plan.pull_capacity(p.length) if plan is not None
                     else p.length * 4)
         codec_id = plan.pull_codec_id if plan is not None else 0
-        return self.worker.pull_bytes(p.key, capacity, task.payload,
-                                      codec_id)
+        owner = self._owner_of(p.key)
+        try:
+            return self.workers[owner].pull_bytes(p.key, capacity,
+                                                  task.payload, codec_id)
+        except BaseException as e:  # noqa: BLE001 - owner-death classify
+            self._owner_giveup(task, owner, e)
 
     def _decompress_stage(self, task: PartitionTask):
         """Wire decode of the pulled round result (reference DECOMPRESS),
@@ -415,8 +578,12 @@ class DcnCore:
             scheduler = self._cuda_pipeline()
         tasks = []
         for p in ctx.partitions:
-            if priority is not None:
-                p = dataclasses.replace(p, priority=priority)
+            # the owner label is the placement at enqueue (the credit
+            # pool); the stages re-resolve it, so a failover in flight
+            # moves the wire all the same
+            p = dataclasses.replace(
+                p, owner=self._owner_of(p.key),
+                **({"priority": priority} if priority is not None else {}))
             tasks.append(PartitionTask(partition=p, name=name, handle=handle,
                                        context=shared, round=version))
         scheduler.enqueue(tasks)
@@ -436,12 +603,14 @@ class DcnCore:
 
     def _stall_diag(self):
         """Handle.diag callback (shared assembly: :func:`stall_diag`)."""
-        return stall_diag([self.worker],
+        return stall_diag(self.workers, self.owners,
                           [self.scheduler, self._cuda_scheduler])
 
     def bytes_moved(self) -> Tuple[int, int]:
-        """(bytes pushed, bytes pulled) over the wire."""
-        return self.worker.bytes_pushed, self.worker.bytes_pulled
+        """(bytes pushed, bytes pulled) over the wire, summed over every
+        controller NIC."""
+        return (sum(w.bytes_pushed for w in self.workers),
+                sum(w.bytes_pulled for w in self.workers))
 
     def bytes_copied(self) -> Tuple[int, int]:
         """(bytes copied device to host, host to device) by the CUDA
@@ -453,4 +622,9 @@ class DcnCore:
         self.scheduler.shutdown()
         if self._cuda_scheduler is not None:
             self._cuda_scheduler.shutdown()
+        # one goodbye round a pod, through NIC 0 (servers count one a
+        # pod, and every controller shares the pod's worker id); the
+        # other NICs retire
+        for w in self.workers[1:]:
+            retire_nic(w)
         self.worker.shutdown()

@@ -58,11 +58,12 @@ class Partition:
     length: int        # element count
     priority: int      # = -tensor_id (higher = schedule earlier)
     # Sharded-wire hierarchical mode: the pod controller that carries this
-    # partition over the DCN (rendezvous hash over the pod's controllers,
-    # see OwnerTable). 0 — the only controller — everywhere else; the
-    # field is assigned at hash time and is a LABEL (credit-pool identity,
-    # trace attribution): live routing re-resolves through the OwnerTable
-    # so an owner failover moves the wire without rewriting tasks.
+    # partition over the DCN (rendezvous hash over the pod's live
+    # controllers, see OwnerTable), set when DcnCore or eager's hybrid
+    # pipeline enqueues it; 0, the only controller, with one. A LABEL
+    # (the credit pool it draws from): the stages re-resolve the owner
+    # through the OwnerTable, so an owner failover moves the wire without
+    # rewriting tasks.
     owner: int = 0
 
 

@@ -295,6 +295,10 @@ class PartitionTask:
     # partition of a tensor, which would let partition 0's credit cover
     # its siblings.
     holds_credit: bool = False
+    # The credit POOL this task's credit came from (owner-scoped credits):
+    # recorded at acquire time so the release refunds the same pool even
+    # if an owner failover re-routes the task's wire mid-flight.
+    credit_pool: int = 0
     # Tries consumed at the CURRENT stage (Stage.retryable); reset to 0
     # when the task advances, so each stage gets its own budget.
     stage_attempts: int = 0
@@ -324,9 +328,10 @@ class _StageQueue:
 
     def pop_ready(self, ready) -> Optional[PartitionTask]:
         """Pop the highest-priority task satisfying ``ready``, skipping
-        blocked heads (a round-blocked key must not head-of-line-block a
-        sibling key whose window is open). Skipped items keep their heap
-        position."""
+        blocked heads (a round-blocked key, or a drained owner's
+        partition under owner-scoped credits, must not head-of-line-block
+        a sibling whose window or credits are open). Skipped items keep
+        their heap position."""
         skipped = []
         got = None
         while self._heap:
@@ -359,13 +364,22 @@ class PipelineScheduler:
         self,
         stages: Sequence[Stage],
         credit: int = 4,
+        credit_scope: str = "global",
         rounds_window: Optional[int] = None,
     ) -> None:
-        """``rounds_window=K`` arms a per-KEY run-ahead bound on top of the
+        """``credit_scope="owner"`` gives each partition owner (the pod
+        controller whose NIC carries it, ``Partition.owner``) its own
+        pool of ``credit``: one owner's slow or faulted wire backs off
+        only its own partitions instead of starving its siblings' NICs.
+        "global" (the default) is one shared pool.
+
+        ``rounds_window=K`` arms a per-KEY run-ahead bound on top of the
         credit gate: a task whose ``round`` is more than K rounds ahead of
         its key's oldest still-in-flight round is held in its queue. A
         round-blocked head is SKIPPED (other keys keep flowing); None =
         ungated."""
+        if credit_scope not in ("global", "owner"):
+            raise ValueError(f"unknown credit_scope {credit_scope!r}")
         self.stages = list(stages)
         register_stage_order([s.name for s in self.stages])
         # metrics handles resolved ONCE (the per-op cost is the metric's
@@ -386,7 +400,10 @@ class PipelineScheduler:
         self._credits_in_use = 0
         self._queues = [_StageQueue() for _ in self.stages]
         self._credit_total = max(1, credit)
+        self._credit_scope = credit_scope
         self._credits = self._credit_total
+        # owner scope: pool id -> available credits, created on first use
+        self._owner_credits: Dict[int, int] = {}
         # per-key in-flight ROUNDS (rounds_window): key -> set of rounds
         # with at least one task between enqueue and finish
         self._rounds_window = (None if rounds_window is None
@@ -424,6 +441,8 @@ class PipelineScheduler:
             delta = max(1, credit) - self._credit_total
             self._credit_total = max(1, credit)
             self._credits += delta
+            for pool in self._owner_credits:
+                self._owner_credits[pool] += delta
         self._pump()
 
     # -- round-window accounting (call with self._lock held) ----------------
@@ -457,11 +476,24 @@ class PipelineScheduler:
             max((len(r) for r in self._key_rounds.values()), default=0))
 
     # -- credit accounting (call with self._lock held) ----------------------
+    def _credit_available(self, task: PartitionTask) -> bool:
+        if self._credit_scope == "global":
+            return self._credits > 0
+        return self._owner_credits.get(
+            task.partition.owner, self._credit_total) > 0
+
     def _acquire_credit_locked(self, task: PartitionTask) -> None:
         task.holds_credit = True
         self._credits_in_use += 1
         self._m_credit_in_use.set(self._credits_in_use)
-        self._credits -= 1
+        if self._credit_scope == "global":
+            task.credit_pool = 0
+            self._credits -= 1
+            return
+        pool = task.partition.owner
+        task.credit_pool = pool
+        self._owner_credits[pool] = self._owner_credits.get(
+            pool, self._credit_total) - 1
 
     def _release_credit_locked(self, task: PartitionTask) -> None:
         if not task.holds_credit:
@@ -469,12 +501,21 @@ class PipelineScheduler:
         task.holds_credit = False
         self._credits_in_use -= 1
         self._m_credit_in_use.set(self._credits_in_use)
-        self._credits = min(self._credits + 1, self._credit_total)
+        if self._credit_scope == "global":
+            self._credits = min(self._credits + 1, self._credit_total)
+            return
+        pool = task.credit_pool
+        self._owner_credits[pool] = min(
+            self._owner_credits.get(pool, self._credit_total) + 1,
+            self._credit_total)
 
     def credit_pools(self) -> Dict[int, int]:
-        """Snapshot of available credits (leak assertions), under key 0."""
+        """Snapshot of available credits per pool (leak assertions): the
+        global pool under key 0; owner scope, every pool touched."""
         with self._lock:
-            return {0: self._credits}
+            if self._credit_scope == "global":
+                return {0: self._credits}
+            return dict(self._owner_credits)
 
     def drain(self, timeout: Optional[float] = None) -> None:
         with self._idle:
@@ -535,11 +576,13 @@ class PipelineScheduler:
                     # rounds window armed, a round-blocked head is
                     # SKIPPED (its unblockers are earlier rounds in
                     # LATER stages, never behind it in this queue).
-                    if self._rounds_window is not None:
+                    if self._rounds_window is not None or (
+                            stage.credited
+                            and self._credit_scope == "owner"):
                         task = q.pop_ready(
                             lambda t: self._round_ready_locked(t)
                             and (not stage.credited or t.holds_credit
-                                 or self._credits > 0))
+                                 or self._credit_available(t)))
                         if task is None:
                             continue
                         if stage.credited and not task.holds_credit:
@@ -548,7 +591,7 @@ class PipelineScheduler:
                         head = q.peek()
                         needs_credit = (stage.credited
                                         and not head.holds_credit)
-                        if needs_credit and self._credits <= 0:
+                        if needs_credit and not self._credit_available(head):
                             # a stage-retried head gave its credit back;
                             # the tasks behind it that hold one must pass
                             # it, or the credits it waits for never return

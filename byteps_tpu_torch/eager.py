@@ -16,8 +16,12 @@ with no leading axis. ``pod_size()`` is the group's size,
 ``local_rank()`` / ``local_size()`` the rank and size in it, ``rank()``
 the pod's id (``DMLC_WORKER_ID``, shared by the pod's ranks) and
 ``size()`` = ``pod_size()`` × ``DMLC_NUM_WORKER``. Pod rank 0 is the
-controller: the only rank that holds a ``PSWorker`` and talks to the
-summation servers, which count pods, not ranks.
+controller: the only rank that holds ``PSWorker`` objects and talks to the
+summation servers, which count pods, not ranks. Sharded, it holds one
+``PSWorker`` a pod controller NIC (``BYTEPS_POD_CONTROLLERS``, all under
+the pod's worker id), and each partition crosses the wire through its
+owner's, a rendezvous hash over the live controllers
+(``BYTEPS_OWNER_SALT``), with credits scoped per owner.
 
 **Two pipelines**, as in the reference (``:164``–``:267``):
 
@@ -67,12 +71,16 @@ on every rank instead of leaving them waiting, and a partition that
 degraded there is averaged as one on every rank. The controller's DCN
 stages keep the scheduler's priority order.
 
-**Robustness.** The controller's ``PSWorker`` injects faults, retries,
-and fails servers over as ``byteps_tpu_torch.server`` describes. When it
-has no live server left, a partition's PUSH degrades to the pod's
-REDUCE sum under ``BYTEPS_DEGRADED_OK`` (the default; otherwise the
-partition fails on every rank): no DCN bytes move, and the average
-divides by ``pod_size()`` alone.
+**Robustness.** Each of the controller's ``PSWorker`` objects injects faults,
+retries, and fails servers over as ``byteps_tpu_torch.server``
+describes. A NIC whose wire dies, or that sees no live server while a
+sibling lives, fails its owner over: its round counters move to the
+survivors, its partitions remap, and their error-feedback and momentum
+state restarts from zero. When the last controller has no live server
+left, a partition's PUSH degrades to the pod's REDUCE sum under
+``BYTEPS_DEGRADED_OK`` (the default; otherwise the partition fails on
+every rank): no DCN bytes move, and the average divides by
+``pod_size()`` alone.
 
 **Backend.** The pod has run on gloo only, CPU and CUDA tensors alike.
 The hybrid pipeline of a pod of several ranks refuses any other backend
@@ -80,10 +88,9 @@ The hybrid pipeline of a pod of several ranks refuses any other backend
 differs from rank to rank, which gloo allows and NCCL does not
 promise to.
 
-Not ported yet, and refused or absent: several controllers a pod
-(``BYTEPS_POD_CONTROLLERS`` > 1 when sharded) and with them owner
-remap, elastic membership (``join``, ``linear_scale``), bounded
-staleness, the auto-tuner (``BYTEPS_AUTO_TUNE``) and tracing spans.
+Not ported yet, and refused or absent: elastic membership (``join``,
+``linear_scale``), bounded staleness, the auto-tuner
+(``BYTEPS_AUTO_TUNE``) and tracing spans.
 """
 
 from __future__ import annotations
@@ -114,12 +121,14 @@ from byteps_tpu_torch.common.dcn_adapter import (
     DegradedLocal,
     HostStaging,
     degraded_fallback,
+    owner_wire_death,
     part_divisor,
+    remap_dead_owner,
     stall_diag,
 )
 from byteps_tpu_torch.common.logging import bps_check, get_logger
 from byteps_tpu_torch.common.metrics import get_registry
-from byteps_tpu_torch.common.partition import TensorRegistry
+from byteps_tpu_torch.common.partition import OwnerTable, TensorRegistry
 from byteps_tpu_torch.common.scheduler import (
     Handle,
     PartitionTask,
@@ -141,7 +150,12 @@ from byteps_tpu_torch.compression.wire import (
     pull_seed,
     wire_seed,
 )
-from byteps_tpu_torch.server import PSWorker
+from byteps_tpu_torch.server import (
+    NoLiveServersError,
+    PSWorker,
+    hand_off_owner,
+    retire_nic,
+)
 
 log = get_logger("eager")
 
@@ -161,11 +175,21 @@ class _EagerState:
         self.mom_state: Dict[Any, Any] = {}
         self.anon_counter = 0
         self.lock = threading.Lock()
-        self.psworker: Optional[PSWorker] = None     # the controller's
+        # the controller's PSWorkers, one a pod controller NIC (psworker
+        # is NIC 0's); owners maps a partition key to the controller whose
+        # NIC carries it
+        self.psworker: Optional[PSWorker] = None
+        self.psworkers: List[PSWorker] = []
+        self.owners: Optional[OwnerTable] = None
+        self.owner_failovers = 0
+        # bumped (under lock) by _fail_owner's EF and momentum reset: a
+        # COMPRESS that read its state before the bump must not write
+        # the stale residual back after it (see _compress_stage)
+        self.failover_gen = 0
         # the pipeline's stage names, hybrid REDUCE (caller's thread) first
         self.stages: Tuple[str, ...] = ()
         self.m_reduce = None
-        self.inited_keys = set()
+        self.inited_keys = set()          # {(owner, key)} initialised
         # hybrid names whose last call is not synchronized yet
         self.inflight = set()
         self.tail: Optional[_Tail] = None
@@ -212,9 +236,13 @@ def init(compression_params: Optional[Dict[str, Any]] = None,
             bps_check(backend == "gloo",
                       f"the hybrid pipeline over a {backend} group (not "
                       "ported yet: only gloo has run it)")
-        n_ctl = 1          # more controllers a pod: refused by check_ported
+        n_ctl = max(1, cfg.pod_controllers) if cfg.hybrid_sharded else 1
+        # every rank labels partitions with their owners (credit pools);
+        # the controller alone routes by them
+        _state.owners = OwnerTable(n_ctl, salt=cfg.owner_salt)
         if r == 0:
-            _state.psworker = PSWorker()
+            _state.psworkers = [PSWorker() for _ in range(n_ctl)]
+            _state.psworker = _state.psworkers[0]
         # REDUCE runs in the caller's thread (_issue_reduce), timed into
         # the stage's own histogram; the scheduler starts at COPYD2H
         _state.m_reduce = _m("scheduler.stage.REDUCE.run_us")
@@ -239,8 +267,11 @@ def init(compression_params: Optional[Dict[str, Any]] = None,
         # never interleave with the caller's REDUCE on the default group
         group = dist.new_group(backend="gloo") if n > 1 else None
         _state.tail = _Tail(n, r, group)
-        _state.scheduler = PipelineScheduler(stages=stages,
-                                             credit=cfg.scheduling_credit)
+        # several controllers scope credits per owner: one faulted NIC
+        # backing off does not starve its siblings' wires
+        _state.scheduler = PipelineScheduler(
+            stages=stages, credit=cfg.scheduling_credit,
+            credit_scope="owner" if n_ctl > 1 else "global")
     _state.initialized = True
     log.info("byteps_tpu_torch.eager initialized: pod %d of %d, rank %d of "
              "%d, %s pipeline, compression=%s", cfg.worker_id,
@@ -259,8 +290,15 @@ def shutdown() -> None:
         _state.tail.close()
         _state.tail = None
     if _state.psworker is not None:
+        # one goodbye round a pod, through NIC 0 (servers count one a
+        # pod, and every controller shares the pod's worker id); the
+        # other NICs retire
+        for w in _state.psworkers[1:]:
+            retire_nic(w)
         _state.psworker.shutdown()
         _state.psworker = None
+    _state.psworkers = []
+    _state.owners = None
     _state.initialized = False
     _state.stages = ()
     _state.inflight.clear()
@@ -450,6 +488,10 @@ def _compress_stage(task: PartitionTask):
     spec = task.context["spec"]
     seed = _wire_seed(task)
     skey = (task.name, p.part_idx)
+    # _fail_owner resets the state of the partitions whose owner moved: a
+    # write-back of state read before that reset is dropped (one lost
+    # update beats resurrecting a residual the reset cleared)
+    gen = _state.failover_gen
     if spec.momentum:
         m = _state.mom_state.get(skey)
         if m is None:
@@ -457,7 +499,8 @@ def _compress_stage(task: PartitionTask):
         m_new = spec.mu * m + x
         x = x + spec.mu * m_new
         with _state.lock:
-            _state.mom_state[skey] = m_new
+            if _state.failover_gen == gen:
+                _state.mom_state[skey] = m_new
     if spec.ef:
         e = _state.ef_state.get(skey)
         if e is None:
@@ -466,54 +509,117 @@ def _compress_stage(task: PartitionTask):
         payload = plan.codec.encode(corrected, seed)
         approx = plan.codec.decode(payload, x.size, seed)
         with _state.lock:
-            _state.ef_state[skey] = corrected - approx
+            if _state.failover_gen == gen:
+                _state.ef_state[skey] = corrected - approx
         return payload
     return plan.codec.encode(x, seed)
 
 
+def _owner_of(key: int) -> int:
+    return _state.owners.owner(key) if _state.owners is not None else 0
+
+
+def _fail_owner(rank: int, cause: Optional[BaseException] = None) -> bool:
+    """Fail controller ``rank`` over (``hand_off_owner``: fence, export,
+    adopt, shrink), under the state lock, and drop the error-feedback and
+    momentum state of every partition whose owner moved: a dead
+    controller's codec state does not migrate, and the residual restarts
+    from zero with the remap. False if ``rank`` is already dead or the
+    last controller."""
+    with _state.lock:
+        live = hand_off_owner(_state.psworkers, _state.owners, rank)
+        if live is None:
+            return False
+        moved = {(name, part.part_idx)
+                 for name, ctx in _state.registry.snapshot()
+                 for part in ctx.partitions
+                 if _state.owners.owner_in(part.key, live) == rank}
+        for skey in moved:
+            _state.ef_state.pop(skey, None)
+            _state.mom_state.pop(skey, None)
+        _state.failover_gen += 1
+        _state.owner_failovers += 1
+        survivors = sorted(_state.owners.live())
+    if rank != 0:
+        # nothing routes through the dead NIC again; NIC 0 stays open,
+        # fenced, for the pod's one goodbye round
+        retire_nic(_state.psworkers[rank])
+    log.warning("pod controller %d gave up its wire (%s); %d partition "
+                "state buffer(s) reset, partitions remap to owners %s",
+                rank, cause if cause is not None else "requested",
+                len(moved), survivors)
+    return True
+
+
+def _owner_giveup(task: PartitionTask, owner: int, e: BaseException):
+    """A wire error through ``owner``'s NIC past its retries: fail it over
+    and raise stage-retryably, so that the re-run lands on a survivor;
+    anything else, or the last controller, re-raises."""
+    if len(_state.psworkers) > 1 and owner_wire_death(e):
+        remap_dead_owner(task, owner, _state.owners, _fail_owner, _owner_of,
+                         e, "wire dead")
+    raise e
+
+
 def _push_stage(task: PartitionTask):
-    """PUSH (reference ``:659``), on the controller: init the key once,
-    pin the round, push the payload. With no live server left, degrade to
-    the pod's REDUCE sum (``BYTEPS_DEGRADED_OK``). One controller has no
-    owner to remap to: a wire error past the stage's retries fails the
-    handle, as the reference's ``_owner_giveup`` re-raises."""
+    """PUSH (reference ``:659``), on the controller, through the
+    partition's owner: init the key once an owner, pin the round, push
+    the payload. An owner that sees no live server while a sibling lives
+    fails over; a wire error past the owner's retries fails it over too
+    (``_owner_giveup``). With no live server left on the last controller,
+    degrade to the pod's REDUCE sum (``BYTEPS_DEGRADED_OK``)."""
     if task.payload is None:
         return None
     p = task.partition
-    worker = _state.psworker
+    owner = _owner_of(p.key)
+    worker = _state.psworkers[owner]
     if not worker.has_live_servers():
+        if len(_state.psworkers) > 1:
+            remap_dead_owner(
+                task, owner, _state.owners, _fail_owner, _owner_of,
+                NoLiveServersError(f"owner {owner} sees no live servers"),
+                "lost all servers")
         return degraded_fallback(worker, _state.cfg, task, log,
                                  "the pod-local sum")
     plan = task.context["plans"][p.part_idx]
     store_bytes = (plan.codec.store_elems(p.length) * 4 if plan is not None
                    else p.length * 4)
     with _state.lock:
-        needs_init = p.key not in _state.inited_keys
-    if needs_init:
-        worker.init_key(p.key, store_bytes)
-        with _state.lock:
-            _state.inited_keys.add(p.key)
-    codec_id = plan.codec.codec_id if plan is not None else 0
-    task.push_version = worker.mint_version(
-        p.key, getattr(task, "push_version", None))
-    return worker.push_bytes(p.key, task.payload, codec_id,
-                             version=task.push_version)
+        needs_init = (owner, p.key) not in _state.inited_keys
+    try:
+        if needs_init:
+            worker.init_key(p.key, store_bytes)
+            with _state.lock:
+                _state.inited_keys.add((owner, p.key))
+        codec_id = plan.codec.codec_id if plan is not None else 0
+        # pin the round before the wire attempt: a stage retry, possibly
+        # through a survivor after a failover, re-sends the same round
+        task.push_version = worker.mint_version(
+            p.key, getattr(task, "push_version", None))
+        return worker.push_bytes(p.key, task.payload, codec_id,
+                                 version=task.push_version)
+    except BaseException as e:  # noqa: BLE001 - owner-death classify
+        _owner_giveup(task, owner, e)
 
 
 def _pull_stage(task: PartitionTask):
-    """PULL (reference ``:722``), on the controller: the round's result,
-    in the plan's pull format."""
+    """PULL (reference ``:722``), on the controller, through the
+    partition's owner: the round's result, in the plan's pull format."""
     if task.payload is None:
         return None
     if isinstance(task.payload, DegradedLocal):
         return task.payload.payload  # DECOMPRESS decodes the pod sum
     p = task.partition
     plan = task.context["plans"][p.part_idx]
-    if plan is None:
-        return _state.psworker.pull_bytes(p.key, p.length * 4, task.payload,
-                                          0)
-    return _state.psworker.pull_bytes(p.key, plan.pull_capacity(p.length),
-                                      task.payload, plan.pull_codec_id)
+    owner = _owner_of(p.key)
+    worker = _state.psworkers[owner]
+    try:
+        if plan is None:
+            return worker.pull_bytes(p.key, p.length * 4, task.payload, 0)
+        return worker.pull_bytes(p.key, plan.pull_capacity(p.length),
+                                 task.payload, plan.pull_codec_id)
+    except BaseException as e:  # noqa: BLE001 - owner-death classify
+        _owner_giveup(task, owner, e)
 
 
 def _decompress_stage(task: PartitionTask):
@@ -787,8 +893,15 @@ def push_pull_async(
         "rng": _tensor_rng(name, version, spec.seed)}
     tasks = []
     for p in ctx.partitions:
+        overrides: Dict[str, Any] = {}
         if priority is not None:
-            p = dataclasses.replace(p, priority=priority)
+            overrides["priority"] = priority
+        if _state.owners is not None:
+            # the owner label is the placement at enqueue (the credit
+            # pool); the stages re-resolve it live
+            overrides["owner"] = _state.owners.owner(p.key)
+        if overrides:
+            p = dataclasses.replace(p, **overrides)
         tasks.append(PartitionTask(partition=p, name=name, handle=handle,
                                    context=shared, round=version))
     flat = x.detach().reshape(-1)
@@ -938,9 +1051,9 @@ def default_partition_bytes() -> int:
 
 def bytes_moved() -> Tuple[int, int]:
     """(bytes pushed, bytes pulled) over the DCN wire by this rank: the
-    controller's; 0 on the other ranks."""
-    w = _state.psworker
-    return (w.bytes_pushed, w.bytes_pulled) if w is not None else (0, 0)
+    controller's, summed over its NICs; 0 on the other ranks."""
+    return (sum(w.bytes_pushed for w in _state.psworkers),
+            sum(w.bytes_pulled for w in _state.psworkers))
 
 
 def bytes_copied() -> Tuple[int, int]:
@@ -952,8 +1065,8 @@ def bytes_copied() -> Tuple[int, int]:
 
 def _stall_diag() -> Dict[str, Any]:
     """Handle.diag (shared assembly: ``dcn_adapter.stall_diag``: the
-    controller's counters, health and live servers, wire bytes, credits,
-    busy stages), and this rank's copied bytes."""
-    workers = [_state.psworker] if _state.psworker is not None else []
-    return {**stall_diag(workers, [_state.scheduler]),
+    controller's counters, health and live servers a NIC, live owners,
+    wire bytes, credits, busy stages), and this rank's copied bytes."""
+    return {**stall_diag(_state.psworkers, _state.owners,
+                         [_state.scheduler]),
             "bytes_copied": bytes_copied()}

@@ -23,11 +23,14 @@ accounting, the bandwidth pacer, and the client's half of robustness
 (``BYTEPS_FAULT_SPEC``, ``common/faults.py``), the health monitor
 (``BYTEPS_HEALTH_INTERVAL_MS``), and server failover with key remap (a
 dead server's keys move to the survivors by rendezvous hash, with fresh
-round numbers and a lazy re-init). Not ported yet, and refused by
-:func:`~byteps_tpu_torch.common.config.check_ported` when asked for:
-worker leases and elastic membership, bounded staleness and asynchronous
-rounds, the in-process IPC path. Importing this package neither builds
-nor loads the native library; the first server or connection does.
+round numbers and a lazy re-init), the owner handoff of a pod of
+several controllers (:func:`hand_off_owner`, :func:`retire_nic`), and
+the in-process IPC path (``BYTEPS_ENABLE_IPC``: a worker in the process
+of a running server reaches its store without TCP). Not ported yet, and
+refused by :func:`~byteps_tpu_torch.common.config.check_ported` when
+asked for: worker leases and elastic membership, bounded staleness and
+asynchronous rounds. Importing this package neither builds nor loads the
+native library; the first server or connection does.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from byteps_tpu_torch.server.native import (
     NativeClient,
     WireCorruption,
     WorkerEvictedError,
+    check_local,
     load_lib,
     reduce_sum_f32,
 )
@@ -69,6 +73,7 @@ __all__ = [
     "serve_forever", "server_addresses", "PSWorker", "reduce_sum_f32",
     "DcnPacer", "FailedOverError", "NoLiveServersError", "WireCorruption",
     "WorkerEvictedError", "WorkerKilledError", "wire_crc32",
+    "hand_off_owner", "retire_nic",
 ]
 
 # Sequential id per PSWorker instance: each emulated NIC gets its own
@@ -103,6 +108,42 @@ class NoLiveServersError(ConnectionError):
     fails the handle."""
 
 
+def hand_off_owner(workers, owners, rank: int):
+    """The owner-failover handoff, shared by ``DcnCore`` and the hybrid
+    pipeline of ``eager`` (the caller holds its own lock around it):
+    fence the dying controller's worker, so that it mints no round past
+    the snapshot; export its round counters and store sizes; adopt them
+    into every survivor; then fail ``rank`` in ``owners``, in that order.
+    Fence before export closes the mint race; export before the fail
+    keeps a racing stage retry from minting a round at or below the
+    server's replay watermark. Returns the live set from before the fail
+    (callers diff it to find the partitions that moved), or None if
+    ``rank`` is already dead or the last controller."""
+    live = owners.live()
+    if rank not in live or len(live) <= 1:
+        return None
+    workers[rank].fence()
+    versions, nbytes = workers[rank].export_rounds()
+    for r in sorted(live - {rank}):
+        workers[r].adopt_rounds(versions, nbytes)
+    owners.fail(rank)
+    return live
+
+
+def retire_nic(worker: "PSWorker") -> None:
+    """Free an extra pod controller's NIC (owner failover or the pod's
+    shutdown): count ``nic.retired`` and close the worker (its health
+    monitor, connections and pacer). Its counters stay in the registry
+    under ``wire.nic<N>.*`` and ``psworker.nic<N>.*``. A NIC retires
+    once: a pod's shutdown passes over one an owner failover retired.
+    NIC 0 never retires: it alone carries the pod's one goodbye round
+    (servers count one a pod), through :meth:`PSWorker.shutdown`."""
+    if worker._closed:
+        return
+    get_registry().counter("nic.retired").inc()
+    worker.close()
+
+
 def _is_retryable_wire_error(e: BaseException) -> bool:
     """Errors the worker retry engine may safely re-attempt: lost
     responses (rc=-7), desynchronized/killed sockets (rc=-6/-2/-3, the
@@ -126,6 +167,12 @@ def server_addresses(cfg: Optional[Config] = None) -> List[Tuple[str, int]]:
     return [(cfg.ps_root_uri, cfg.ps_root_port + 1 + i) for i in range(num)]
 
 
+# server_id of the summation service running in this process, if any: a
+# PSWorker with IPC on routes that server's keys through the in-process
+# path instead of TCP loopback
+_INPROC_SERVER_ID: Optional[int] = None
+
+
 def start_server(
     port: Optional[int] = None,
     num_workers: Optional[int] = None,
@@ -137,6 +184,7 @@ def start_server(
     """Start the native summation service in this process (non-blocking);
     returns the port. Rounds are synchronous: every worker's push of a
     round is summed before any pull of it is answered."""
+    global _INPROC_SERVER_ID
     cfg = get_config()
     check_ported(cfg)
     lib = load_lib()
@@ -157,12 +205,15 @@ def start_server(
     )
     if rc != 0:
         raise RuntimeError(f"bps_server_start failed (rc={rc}, port={port})")
+    _INPROC_SERVER_ID = server_id
     log.info("summation server listening on :%d", port)
     return port
 
 
 def stop_server() -> None:
+    global _INPROC_SERVER_ID
     load_lib().bps_server_stop()
+    _INPROC_SERVER_ID = None
 
 
 def any_port(bind, port: int, attempts: int = 16, stride: int = 1):
@@ -229,6 +280,13 @@ class PSWorker:
     attempt; a health monitor (``health_interval_ms=``, else
     ``BYTEPS_HEALTH_INTERVAL_MS``) pings every live server and fails one
     over after ``BYTEPS_HEALTH_MISS_LIMIT`` consecutive misses.
+
+    With ``BYTEPS_ENABLE_IPC`` (or ``use_ipc=True``) and a summation
+    server running in this process, init, push and pull of the keys that
+    server holds skip TCP and reach its store directly (the reference's
+    colocated fast path), without a CRC; pushes and pulls run under the
+    retry loop and failover as on the wire, an init goes straight to the
+    store.
     """
 
     def __init__(
@@ -237,12 +295,18 @@ class PSWorker:
         timeout_ms: int = 60000,
         recv_timeout_ms: int = 120000,
         worker_id: Optional[int] = None,
+        use_ipc: Optional[bool] = None,
         throttle_mbps: Optional[float] = None,
+        fault_plan: Optional[FaultPlan] = None,
         health_interval_ms: Optional[int] = None,
     ):
         """``health_interval_ms`` overrides BYTEPS_HEALTH_INTERVAL_MS for
         this worker (a test arms a monitored worker beside one without a
-        monitor in one process; None = the config value)."""
+        monitor in one process; None = the config value). ``fault_plan``
+        overrides the plan of BYTEPS_FAULT_SPEC for this worker (a pod
+        kills one controller's NIC while its siblings stay healthy).
+        ``use_ipc`` overrides BYTEPS_ENABLE_IPC; it takes effect only if
+        a server runs in this process."""
         cfg = get_config()
         check_ported(cfg)
         self._servers = list(servers) if servers else server_addresses(cfg)
@@ -254,17 +318,22 @@ class PSWorker:
         self._tls = threading.local()
         self._versions: Dict[int, int] = {}
         self._vlock = threading.Lock()
+        # set by fence(): an owner failed over mints no more rounds
+        self._fenced = False
         self._all_conns: List[NativeClient] = []
         self._conn_lock = threading.Lock()
         self._closed = False
         # wire accounting (compression tests and the smoke assert these)
         self.bytes_pushed = 0
         self.bytes_pulled = 0
+        self._ipc = (use_ipc if use_ipc is not None
+                     else cfg.enable_ipc) and _INPROC_SERVER_ID is not None
         self.pacer: Optional[DcnPacer] = pacer_from_mbps(
             throttle_mbps if throttle_mbps is not None
             else cfg.dcn_throttle_mbps
         )
-        self._plan = plan_from_env(cfg, worker_id=self._worker_id)
+        self._plan = (fault_plan if fault_plan is not None
+                      else plan_from_env(cfg, worker_id=self._worker_id))
         # CRC is forced on while corruption injection is armed: corruption
         # must be detected to be retried instead of summed. The loss kinds
         # are caught by the rc/desync classification and the version
@@ -508,6 +577,10 @@ class PSWorker:
                 pass
         c.close()
 
+    def _is_local(self, sidx: int) -> bool:
+        """``sidx`` is the server of this process and IPC is on."""
+        return self._ipc and sidx == _INPROC_SERVER_ID
+
     # -- retry engine -------------------------------------------------------
     def _retry_loop(self, op: str, key: int, attempt_fn):
         """Drive ``attempt_fn(sidx) -> result`` under the per-op retry
@@ -573,12 +646,53 @@ class PSWorker:
                 time.sleep(backoff * self._retry_rng.uniform(0.5, 1.0)
                            / 1e3)
 
+    # -- owner handoff (a pod of several controllers) -------------------------
+    def fence(self) -> None:
+        """Refuse every later round mint on this worker. Set when its owner
+        is declared dead, before :meth:`export_rounds` snapshots the
+        counters: a push thread that resolved this owner before the
+        failover could otherwise mint a round after the snapshot, unseen
+        by the survivors, whose re-mint of the same number the server's
+        replay dedupe would then drop. The :class:`FailedOverError` is
+        stage-retryable: the re-run resolves the owner afresh."""
+        with self._vlock:
+            self._fenced = True
+
+    def export_rounds(self) -> Tuple[Dict[int, int], Dict[int, int]]:
+        """(round counter, store size) per key: what a surviving
+        controller adopts when this worker's owner dies."""
+        with self._vlock:
+            return dict(self._versions), dict(self._key_nbytes)
+
+    def adopt_rounds(self, versions: Dict[int, int],
+                     nbytes: Dict[int, int]) -> None:
+        """Take a dead owner's round counters (the larger of the two per
+        key) and store sizes. Unlike a server failover, the server and its
+        per-(worker, key) replay watermark survive an owner's death, and
+        all of a pod's controllers push under the pod's worker id, so a
+        survivor must continue the pod's round numbering: a fresh counter
+        would mint rounds at or below the watermark, dropped as replays.
+        A round the dead owner pushed but did not pull stays replayable:
+        the stage retry re-sends its pinned version through this worker,
+        and the dedupe recognizes it."""
+        with self._vlock:
+            for k, v in versions.items():
+                if v > self._versions.get(k, 0):
+                    self._versions[k] = v
+            for k, nb in nbytes.items():
+                self._key_nbytes.setdefault(k, nb)
+
     # -- data plane ---------------------------------------------------------
     def init_key(self, key: int, nbytes: int) -> None:
         """Size key's f32 store on its server (idempotent server-side); the
         size is kept for a re-init on a failover target."""
         with self._vlock:
             self._key_nbytes[key] = int(nbytes)
+        if self._is_local(self.server_for(key)):
+            rc = load_lib().bps_local_init(key, nbytes)
+            if rc != 0:
+                check_local(rc, "init")
+            return
 
         def attempt(s):
             # 'init'/server-scoped rules only (down windows, init-ack
@@ -602,8 +716,13 @@ class PSWorker:
         round v; applied-but-ack-lost → the (worker, key, version) dedupe
         drops it. A pin beyond the counter (it predates a failover's
         counter reset) is discarded and a fresh round minted, exactly like
-        ``push_bytes``'s own rule."""
+        ``push_bytes``'s own rule. A fenced worker (its owner failed
+        over) refuses with :class:`FailedOverError`."""
         with self._vlock:
+            if self._fenced:
+                raise FailedOverError(
+                    f"owner worker fenced (failed over); re-resolve the "
+                    f"owner for key {key}")
             cur = self._versions.get(key, 0)
             if pinned is None or pinned > cur:
                 pinned = cur + 1
@@ -624,14 +743,23 @@ class PSWorker:
                 version = cur + 1
                 self._versions[key] = version
         b = np.ascontiguousarray(buf)
-        crc = wire_crc32(b) if self._crc else 0
+        crc = (wire_crc32(b) if self._crc
+               and not self._is_local(self.server_for(key)) else 0)
 
         def attempt(sidx):
             if self.pacer is not None:
                 # book the payload's transmission time on the emulated NIC
                 # BEFORE the wire op (every re-send pays wire time again,
-                # as it would on a real NIC)
+                # as it would on a real NIC; the IPC path too: a
+                # colocated deployment being modelled still crosses one)
                 self.pacer.throttle_send(int(b.nbytes))
+            if self._is_local(sidx):
+                rc = load_lib().bps_local_push2(
+                    self._worker_id, key, codec, version, b.ctypes.data,
+                    b.nbytes)
+                if rc != 0:
+                    check_local(rc, f"push of key {key}")
+                return
             inj = self._inject_pre("push", sidx)
             send = b
             if inj is not None and inj.kind == "corrupt":
@@ -665,6 +793,15 @@ class PSWorker:
 
         def attempt(sidx):
             out = np.empty(capacity, np.uint8)
+            if self._is_local(sidx):
+                got = load_lib().bps_local_pull(
+                    key, codec, version, self._recv_timeout,
+                    out.ctypes.data, out.nbytes)
+                if got < 0:
+                    check_local(got, f"pull of key {key}")
+                if self.pacer is not None:
+                    self.pacer.throttle_recv(int(got))
+                return out, int(got)
             inj = self._inject_pre("pull", sidx)
             got, resp_crc = self._conn(sidx).pull(
                 key, out, version, codec, want_crc=self._crc,

@@ -59,6 +59,28 @@ class WorkerEvictedError(RuntimeError):
     only by a server that another program started with leases."""
 
 
+# the in-process path's return codes (csrc/api.cc, csrc/server.cc)
+LOCAL_NO_SERVER = -10
+LOCAL_EVICTED = -11
+
+
+def check_local(rc: int, op: str) -> None:
+    """Raise for a failed ``bps_local_*`` call (``rc`` < 0; a push or init
+    also fails on any rc != 0). -10, no server running in this process
+    (a worker-driven shutdown stopped it, or none was started), raises
+    loudly instead of reaching a stopped server's store; -11 is the
+    eviction the TCP path reports as a server-side error."""
+    if rc == LOCAL_NO_SERVER:
+        raise RuntimeError(
+            f"local {op} failed (rc={rc}): no summation server is running "
+            "in this process (stopped by the workers' shutdown, or never "
+            "started); start_server reclaims the slot")
+    if rc == LOCAL_EVICTED:
+        raise WorkerEvictedError(f"local {op} rejected: worker evicted "
+                                 "(rc=-11); rejoin required")
+    raise RuntimeError(f"local {op} failed (rc={rc})")
+
+
 def _cpu_model() -> str:
     """The first CPU's model name and feature flags (what ``-march=native``
     compiles for)."""
@@ -139,6 +161,20 @@ def _bind(lib: ctypes.CDLL) -> None:
         "bps_client_free": ([c.c_void_p], None),
         "bps_reduce_sum_f32": ([c.POINTER(c.c_float), c.POINTER(c.c_float),
                                 c.c_int64], None),
+        # the in-process (IPC) path: the server's store in this process
+        "bps_local_init": ([c.c_uint64, c.c_uint64], c.c_int),
+        "bps_local_push": ([c.c_uint16, c.c_uint64, c.c_uint8, c.c_void_p,
+                            c.c_uint64], c.c_int),
+        "bps_local_push2": ([c.c_uint16, c.c_uint64, c.c_uint8, c.c_uint64,
+                             c.c_void_p, c.c_uint64], c.c_int),
+        "bps_local_pull": ([c.c_uint64, c.c_uint8, c.c_uint64, c.c_int,
+                            c.c_void_p, c.c_uint64], c.c_int64),
+        "bps_local_pull2": ([c.c_uint64, c.c_uint8, c.c_uint64, c.c_int,
+                             c.c_void_p, c.c_uint64, c.POINTER(c.c_uint64)],
+                            c.c_int64),
+        "bps_local_pull3": ([c.c_uint64, c.c_uint8, c.c_uint64, c.c_int,
+                             c.c_void_p, c.c_uint64, c.POINTER(c.c_uint64),
+                             c.POINTER(c.c_uint64)], c.c_int64),
     }
     for name, (args, res) in sigs.items():
         fn = getattr(lib, name)

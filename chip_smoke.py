@@ -170,9 +170,14 @@ Phases, each printing one JSON line:
     steps a leg: staged_raw (``make_gpt_train_step`` at n = 2, the
     yardstick), dcn_raw and dcn_fp16 (``byteps_tpu_torch.torch``'s
     ``DistributedOptimizer`` over the server, ``Compression.fp16`` on the
-    second, after ``broadcast_parameters`` from rank 0). Both ranks'
-    parameters are equal after every step of every leg, dcn_raw's equal
-    staged_raw's bit for bit, dcn_fp16's losses lie within 1e-2 of
+    second, after ``broadcast_parameters`` from rank 0), then dcn_ipc_raw
+    (the raw leg over a server rank 0 starts in its own process, reached
+    there through the in-process path, ``BYTEPS_ENABLE_IPC=1``; rank 1
+    over TCP). Both ranks'
+    parameters are equal after every step of every leg, dcn_raw's and
+    dcn_ipc_raw's equal staged_raw's bit for bit (rank 0's data plane
+    opening no TCP connection, its server stopped by the two goodbyes),
+    dcn_fp16's losses lie within 1e-2 of
     dcn_raw's, the bytes pushed and pulled per step are the partitions'
     codec bytes (raw 1,419,485,184 each way), the bytes copied D2H and
     H2D per step 1,419,485,184 each, and the flash kernels launch once
@@ -190,9 +195,13 @@ Phases, each printing one JSON line:
     (not distributed: the eager ICI pipeline), hybrid_raw (sharded, the
     staged tier, the raw wire) and hybrid_ring_onebit
     (``BYTEPS_ICI_TIER=ring``: the ring's compressed reduce-scatter, the
-    onebit wire with the controller's host EF). Both ranks' parameters
-    equal after every step of every leg, eager_raw's and hybrid_raw's
-    equal staged_raw's bit for bit, hybrid_ring_onebit's averaged
+    onebit wire with the controller's host EF) and hybrid_ctl3_raw
+    (``BYTEPS_POD_CONTROLLERS=3``: each partition on its owner's NIC).
+    Both ranks' parameters
+    equal after every step of every leg, eager_raw's, hybrid_raw's and
+    hybrid_ctl3_raw's equal staged_raw's bit for bit (every NIC of the
+    three moving bytes, their sum hybrid_raw's each way),
+    hybrid_ring_onebit's averaged
     gradients of block 0 after every step held against the same
     pipeline's on the CPU (the plain versions of the kernels, the same
     host codec and EF) from the same raw gradients: every sign equal,
@@ -219,7 +228,13 @@ Phases, each printing one JSON line:
     hybrid_degraded (the pod of train_hybrid's hybrid_raw with the
     monitor on; after the first timed step the parent SIGKILLs both
     servers and the next step degrades to the pod's sum over the pod:
-    degraded fallbacks on the controller, no wire byte). Every leg's
+    degraded fallbacks on the controller, no wire byte);
+    hybrid_owner_failover (that pod over three controller NICs, two wire
+    retries; after the first timed step a fault plan on owner 1's NIC
+    kills every push through it, and the next step runs through the
+    owner failover: one failover, the NIC retired, owners 0 and 2 left,
+    every credit pool full, the servers exiting 0; the time from the
+    first kill to the remap). Every leg's
     parameters equal staged_raw's bit for bit after every step (two
     ranks: a + b exact in either order, /2 exact; one pod is the whole
     job); bytes pushed, pulled, D2H and H2D per step exact; step ms (the
@@ -259,8 +274,8 @@ the signs and the scale), the randomk leg presum once and rotate once
 A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
 (generate, serve, multitenant, the three train legs, train_ring's
-three legs on one rank, train_dcn's three legs on one rank,
-train_hybrid's four legs on one rank, train_chaos's four legs on one
+three legs on one rank, train_dcn's four legs on one rank,
+train_hybrid's five legs on one rank, train_chaos's five legs on one
 rank, aggregate_onebit; the ring rows' times are the
 ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
@@ -2625,15 +2640,20 @@ def hist_sums(reg, prefix="scheduler.stage.") -> dict:
     return {k: v.get("sum", 0.0) for k, v in snap.items()}
 
 
-def train_dcn_rank(rank, n, B, S, steps, port):
+def train_dcn_rank(rank, n, B, S, steps, port, ipc_port):
     """One rank of train_dcn. The yardstick first: ``make_gpt_train_step``
     over the gloo group (staged all-reduce, raw). Then each DCN leg: the
     same seeded weights and batch, the same ``gpt_loss`` and ``adamw``,
     through ``byteps_tpu_torch.torch.DistributedOptimizer`` over the
     summation server on ``port`` after ``broadcast_parameters`` from rank
-    0. Reports each leg's losses, step times, parameter digests, peak
-    memory and launch counts, and each DCN leg's wire, copy and stage
-    numbers per step, checking the byte counts itself."""
+    0; then dcn_ipc_raw, the raw leg over a server that rank 0 starts in
+    its own process on ``ipc_port`` and reaches through the in-process
+    path (``BYTEPS_ENABLE_IPC=1``), rank 1 over TCP. Reports each leg's
+    losses, step times, parameter digests, peak memory and launch counts,
+    and each DCN leg's wire, copy and stage numbers per step, checking
+    the byte counts itself; dcn_ipc_raw also whether the worker takes the
+    IPC path, the TCP connections its data plane opened over the leg and
+    whether the workers' goodbyes stopped rank 0's server."""
     import os
 
     import byteps_tpu_torch.torch as bps
@@ -2668,10 +2688,11 @@ def train_dcn_rank(rank, n, B, S, steps, port):
     torch.cuda.empty_cache()
 
     bps.init()
-    core = bps._state.core
     reg = get_registry()
     min_bytes = get_config().min_compress_bytes
-    for leg, comp in DCN_LEGS:
+
+    def run_leg(leg, comp):
+        core = bps._state.core
         reset_launches()
         params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
         params.requires_grad_(True)
@@ -2720,11 +2741,43 @@ def train_dcn_rank(rank, n, B, S, steps, port):
         out["wire_bytes_per_step"] = wire
         out["copy_bytes_per_step"] = n_bytes
         out["launches"] = dict(launches)
-        res[leg] = out
         del opt, params, leaves
         gc.collect()
         torch.cuda.empty_cache()
+        return out
+
+    for leg, comp in DCN_LEGS:
+        res[leg] = run_leg(leg, comp)
     bps.shutdown()
+
+    from byteps_tpu_torch.server import start_server, stop_server
+    from byteps_tpu_torch.server.native import LOCAL_NO_SERVER, load_lib
+
+    os.environ["DMLC_PS_ROOT_PORT"] = str(ipc_port - 1)
+    if rank == 0:
+        os.environ["BYTEPS_ENABLE_IPC"] = "1"
+    reset_config()
+    if rank == 0:
+        start_server(num_workers=n)
+    bps.init()
+    worker = bps._state.core.worker
+    conns = len(worker._all_conns)        # the init barrier's
+    out = run_leg("dcn_ipc_raw", "none")
+    out["ipc"] = worker._ipc
+    out["tcp_conns_opened"] = len(worker._all_conns) - conns
+    bps.shutdown()
+    os.environ.pop("BYTEPS_ENABLE_IPC", None)
+    if rank == 0:
+        # both workers' goodbyes stop the server; a key no partition has
+        # probes it
+        end = time.monotonic() + 60
+        while (load_lib().bps_local_init(1 << 62, 4) != LOCAL_NO_SERVER
+               and time.monotonic() < end):
+            time.sleep(0.05)
+        out["server_stopped_by_goodbyes"] = (
+            load_lib().bps_local_init(1 << 62, 4) == LOCAL_NO_SERVER)
+        stop_server()
+    res["dcn_ipc_raw"] = out
     return res
 
 
@@ -2735,9 +2788,13 @@ def phase_train_dcn(B=4, S=1024, steps=2) -> dict:
     width, B=4 × S=1024, bf16 over f32 master weights, one warm-up and
     ``steps`` timed steps a leg: staged_raw (the all-reduce step, the
     yardstick), dcn_raw and dcn_fp16 (``DistributedOptimizer`` over the
-    server). Every leg ends each step with both ranks' parameters equal;
-    dcn_raw's equal staged_raw's after every step, bit for bit (two
-    workers: a + b is exact in either order and /2 is exact); dcn_fp16's
+    server), dcn_ipc_raw (over a server in rank 0's process, which rank 0
+    reaches through the in-process path). Every leg ends each step with
+    both ranks' parameters equal; dcn_raw's and dcn_ipc_raw's equal
+    staged_raw's after every step, bit for bit (two workers: a + b is
+    exact in either order and /2 is exact); in dcn_ipc_raw rank 0's data
+    plane opens no TCP connection and the goodbyes stop its server;
+    dcn_fp16's
     losses lie within 1e-2 of dcn_raw's; bytes pushed, pulled and copied
     each way per step are exact; the flash kernels launch once per layer
     and step. The server must exit 0 once both ranks said goodbye, and is
@@ -2754,9 +2811,7 @@ def phase_train_dcn(B=4, S=1024, steps=2) -> dict:
     t0 = time.perf_counter()
     native.build()
     build_s = time.perf_counter() - t0
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port, ipc_port = free_port_pair(), free_port_pair()
     env = dict(os.environ, DMLC_ROLE="server", DMLC_NUM_WORKER=str(n),
                DMLC_NUM_SERVER="1", DMLC_PS_ROOT_URI="127.0.0.1",
                DMLC_PS_ROOT_PORT=str(port - 1), DMLC_SERVER_ID="0")
@@ -2765,7 +2820,8 @@ def phase_train_dcn(B=4, S=1024, steps=2) -> dict:
         cwd=Path(__file__).resolve().parent, stdout=sys.stderr)
     try:
         t0 = time.perf_counter()
-        per_rank = spawn_ranks(train_dcn_rank, n, B, S, steps, port)
+        per_rank = spawn_ranks(train_dcn_rank, n, B, S, steps, port,
+                               ipc_port)
         wall = time.perf_counter() - t0
         try:
             rc = server.wait(timeout=60)
@@ -2780,7 +2836,8 @@ def phase_train_dcn(B=4, S=1024, steps=2) -> dict:
             server.wait()
     cfg = GPTConfig.gpt2_medium()
     calls = steps + 1
-    legs = ("staged_raw",) + tuple(leg for leg, _ in DCN_LEGS)
+    legs = (("staged_raw",) + tuple(leg for leg, _ in DCN_LEGS)
+            + ("dcn_ipc_raw",))
     for leg in legs:
         a, b = (r[leg] for r in per_rank)
         if a["digests"] != b["digests"]:
@@ -2796,12 +2853,23 @@ def phase_train_dcn(B=4, S=1024, steps=2) -> dict:
                                      f"launched {got}, not "
                                      f"{calls * cfg.n_layers} each")
     for r in per_rank:
-        differ = [i for i, (x, y) in enumerate(zip(
-            r["dcn_raw"]["digests"], r["staged_raw"]["digests"])) if x != y]
-        if differ:
+        for leg in ("dcn_raw", "dcn_ipc_raw"):
+            differ = [i for i, (x, y) in enumerate(zip(
+                r[leg]["digests"], r["staged_raw"]["digests"])) if x != y]
+            if differ:
+                raise AssertionError(
+                    f"train_dcn: rank {r['rank']}'s {leg} parameters differ "
+                    f"from staged_raw's after step(s) {differ} (0: warm-up)")
+        ipc = r["dcn_ipc_raw"]
+        want = ((True, 0, True) if r["rank"] == 0 else (False,))
+        got = ((ipc["ipc"], ipc["tcp_conns_opened"],
+                ipc["server_stopped_by_goodbyes"]) if r["rank"] == 0
+               else (ipc["ipc"],))
+        if got != want:
             raise AssertionError(
-                f"train_dcn: rank {r['rank']}'s dcn_raw parameters differ "
-                f"from staged_raw's after step(s) {differ} (0: warm-up)")
+                f"train_dcn dcn_ipc_raw: rank {r['rank']}'s (IPC path, TCP "
+                f"connections its data plane opened, server stopped by the "
+                f"goodbyes) {got}, want {want}")
         gap = max(abs(x - y) for x, y in zip(r["dcn_fp16"]["losses"],
                                              r["dcn_raw"]["losses"]))
         if not gap <= DCN_FP16_LOSS_TOL:
@@ -2820,8 +2888,10 @@ def phase_train_dcn(B=4, S=1024, steps=2) -> dict:
                                         for r in per_rank],
             **{k: [r[leg][k] for r in per_rank]
                for k in ("wire_bytes_per_step", "copy_bytes_per_step",
-                         "stage_us_per_step") if k in r[leg]}}
-    emit({"phase": "train_dcn", "ranks": n, "server": "one process",
+                         "stage_us_per_step", "ipc", "tcp_conns_opened")
+               if k in r[leg]}}
+    emit({"phase": "train_dcn", "ranks": n,
+          "server": "one process; dcn_ipc_raw's in rank 0's process",
           "timing": "two ranks time-slice one card", "batch_per_rank": B,
           "seq": S, "steps": steps, "server_build_s": build_s,
           "numpy": np.__version__, "host_cpus": os.cpu_count(),
@@ -2846,9 +2916,14 @@ HYBRID_LEGS = (
     ("hybrid_raw", {"BYTEPS_FORCE_DISTRIBUTED": "1"}, None, 0),
     ("hybrid_ring_onebit", {"BYTEPS_FORCE_DISTRIBUTED": "1",
                             "BYTEPS_ICI_TIER": "ring"},
-     {"compressor": "onebit", "ef": "vanilla"}, 1))
+     {"compressor": "onebit", "ef": "vanilla"}, 1),
+    # the sharded pod wire over three controller NICs (owner-routed)
+    ("hybrid_ctl3_raw", {"BYTEPS_FORCE_DISTRIBUTED": "1",
+                         "BYTEPS_POD_CONTROLLERS": "3"}, None, 2))
 HYBRID_KNOBS = ("BYTEPS_FORCE_DISTRIBUTED", "BYTEPS_ICI_TIER",
-                "DMLC_PS_ROOT_PORT")
+                "BYTEPS_POD_CONTROLLERS", "DMLC_PS_ROOT_PORT")
+# the raw legs of train_hybrid, each bit-equal to staged_raw
+HYBRID_RAW = ("eager_raw", "hybrid_raw", "hybrid_ctl3_raw")
 
 
 def hybrid_plan(bps, n_leaves, params) -> dict:
@@ -2967,6 +3042,9 @@ def train_hybrid_rank(rank, n, B, S, steps, ports):
         out["plan"] = hybrid_plan(bps, len(leaves), comp)
         out["stages"] = list(bps._state.stages)
         out["launches"] = dict(launches)
+        # each controller NIC's (pushed, pulled) over the leg's calls
+        out["nic_bytes"] = [[w.bytes_pushed, w.bytes_pulled]
+                            for w in bps._state.psworkers]
         if n_hold:
             errs, flips = [], []
             for raw, avg in held:
@@ -3001,12 +3079,14 @@ def phase_train_hybrid(B=4, S=1024, steps=2) -> dict:
     width, B=4 × S=1024, bf16 over f32 master weights, one warm-up and
     ``steps`` timed steps a leg: staged_raw (``make_gpt_train_step``, the
     yardstick), eager_raw (the eager ICI pipeline), hybrid_raw (sharded,
-    staged tier, raw wire) and hybrid_ring_onebit (the ring's compressed
-    reduce-scatter, the onebit wire with the controller's host EF).
-    Checks: both ranks' parameters equal after every step of every leg and
-    every loss finite; eager_raw and hybrid_raw equal staged_raw bit for
+    staged tier, raw wire), hybrid_ring_onebit (the ring's compressed
+    reduce-scatter, the onebit wire with the controller's host EF) and
+    hybrid_ctl3_raw (three controller NICs). Checks: both ranks'
+    parameters equal after every step of every leg and every loss finite;
+    eager_raw, hybrid_raw and hybrid_ctl3_raw equal staged_raw bit for
     bit after every step (one pod of two: a + b is exact in either order,
-    /2 exact); on the controller the bytes pushed and pulled a step equal
+    /2 exact); in hybrid_ctl3_raw every NIC moves bytes and their sums
+    are hybrid_raw's; on the controller the bytes pushed and pulled a step equal
     the plans' wire bytes and D2H and H2D the gradient's f32 bytes, the
     other rank moving none; the flash kernels once per layer and step,
     and in hybrid_ring_onebit, per compressed partition and step, two
@@ -3024,7 +3104,8 @@ def phase_train_hybrid(B=4, S=1024, steps=2) -> dict:
     native.build()
     servers, ports = [], []
     try:
-        for _ in range(2):
+        for _ in range(1 + max(i for *_, i in HYBRID_LEGS
+                               if i is not None)):
             with socket.socket() as s:
                 s.bind(("127.0.0.1", 0))
                 port = s.getsockname()[1]
@@ -3069,7 +3150,7 @@ def phase_train_hybrid(B=4, S=1024, steps=2) -> dict:
                                      f"launched {got}, not "
                                      f"{calls * cfg.n_layers} each")
     for r in per_rank:
-        for leg in ("eager_raw", "hybrid_raw"):
+        for leg in HYBRID_RAW:
             differ = [i for i, (x, y) in enumerate(zip(
                 r[leg]["digests"], r["staged_raw"]["digests"])) if x != y]
             if differ:
@@ -3088,6 +3169,16 @@ def phase_train_hybrid(B=4, S=1024, steps=2) -> dict:
                 raise AssertionError(
                     f"train_hybrid {leg}: rank {r['rank']}'s bytes (pushed, "
                     f"pulled, D2H, H2D) per step {bad}, want {want}")
+    # three controller NICs: each carries some of the partitions, and
+    # their bytes add up to hybrid_raw's one NIC's, each way
+    nics = per_rank[0]["hybrid_ctl3_raw"]["nic_bytes"]
+    one = per_rank[0]["hybrid_raw"]["nic_bytes"]
+    if (len(nics) != 3 or not all(p > 0 and q > 0 for p, q in nics)
+            or [sum(c) for c in zip(*nics)] != one[0]
+            or one[0] != [calls * per_rank[0]["hybrid_raw"]["plan"]["wire"]]
+            * 2):
+        raise AssertionError(f"train_hybrid hybrid_ctl3_raw: the NICs' "
+                             f"(pushed, pulled) {nics}, hybrid_raw's {one}")
     # the ring's compressed reduce-scatter at n = 2, per compressed
     # partition: pack the two segments, unpack-sum the owner's two, one
     # rotate call (the collect); the wire codec is the host's
@@ -3122,7 +3213,8 @@ def phase_train_hybrid(B=4, S=1024, steps=2) -> dict:
             **{k: [r[leg][k] for r in per_rank]
                for k in ("bytes_per_step", "stage_us_per_step", "hold")
                if k in r[leg]},
-            **{k: per_rank[0][leg][k] for k in ("plan", "stages")
+            **{k: per_rank[0][leg][k] for k in ("plan", "stages",
+                                                "nic_bytes")
                if k in per_rank[0][leg]}}
     emit({"phase": "train_hybrid", "ranks": n, "pods": 1,
           "servers": "one process a hybrid leg",
@@ -3152,13 +3244,21 @@ CHAOS_LEGS = (
                    "BYTEPS_RETRY_BACKOFF_MS": "10"}),
     ("dcn_failover", CHAOS_HEALTH),
     ("hybrid_degraded", {**CHAOS_HEALTH, "BYTEPS_FORCE_DISTRIBUTED": "1",
-                         "BYTEPS_DEGRADED_OK": "1"}))
+                         "BYTEPS_DEGRADED_OK": "1"}),
+    # three controller NICs; a NIC gives up after 2 wire retries
+    ("hybrid_owner_failover", {"BYTEPS_FORCE_DISTRIBUTED": "1",
+                               "BYTEPS_POD_CONTROLLERS": "3",
+                               "BYTEPS_RETRY_LIMIT": "2",
+                               "BYTEPS_RETRY_BACKOFF_MS": "10"}))
 CHAOS_KNOBS = sorted({k for _, env in CHAOS_LEGS for k in env}
                      | {"DMLC_PS_ROOT_PORT"})
 # the servers of a leg's pair the parent kills once both ranks ended
 # the first timed step (step 1)
 CHAOS_KILL = {"dcn_failover": (1,), "hybrid_degraded": (0, 1)}
 CHAOS_KILL_STEP = 1
+# the controller NIC a leg's per-owner plan kills, armed after the first
+# timed step: every push through it from the second step's first on
+OWNER_KILL = {"hybrid_owner_failover": (1, "push:kill@op=1..")}
 
 
 def wait_file(path: str, bound: float = 120.0) -> str:
@@ -3194,6 +3294,7 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
     import byteps_tpu_torch.torch as tbps
     from byteps_tpu_torch import eager
     from byteps_tpu_torch.common.config import reset_config
+    from byteps_tpu_torch.common.faults import FaultPlan, parse_fault_spec
     from byteps_tpu_torch.common.metrics import get_registry
     from byteps_tpu_torch.models import (GPTConfig, gpt_init,
                                          make_gpt_train_step,
@@ -3283,11 +3384,40 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
                     failed_over.append(time.time())
                 return ok
             worker.fail_over = timed_fail_over
+        # the owner leg on the controller: the times of the first injected
+        # kill and of each owner failover
+        owner_kill = OWNER_KILL.get(leg) if worker is not None else None
+        kills, remaps = [], []
+        fail_owner = eager._fail_owner
+        if owner_kill is not None:
+            retired0 = reg.counter("nic.retired").value()
+
+            def timed_fail_owner(o, cause=None):
+                ok = fail_owner(o, cause)
+                if ok:
+                    remaps.append(time.time())
+                return ok
+            eager._fail_owner = timed_fail_owner
+
+        def arm_owner_kill():
+            o, rule = owner_kill
+            plan = FaultPlan(parse_fault_spec(rule), worker_id=o)
+            intercept = plan.intercept
+
+            def timed_intercept(op, sidx, tenant=None):
+                hit = intercept(op, sidx, tenant)
+                if hit is not None and not kills:
+                    kills.append(time.time())
+                return hit
+            plan.intercept = timed_intercept
+            eager._state.psworkers[o]._plan = plan
 
         def between(i):
             if leg in CHAOS_KILL and i == CHAOS_KILL_STEP:
                 Path(f"{sigdir}/{leg}.done{rank}").touch()
                 out["killed_at"] = float(wait_file(f"{sigdir}/{leg}.killed"))
+            if owner_kill is not None and i == CHAOS_KILL_STEP:
+                arm_owner_kill()
 
         # bytes pushed, pulled, copied D2H and H2D, then each stage's (and
         # the tail's) run and dwell sums, read around every step
@@ -3309,6 +3439,22 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
             out["counters"] = worker.get_counters()
             out["live_servers"] = sorted(worker.live_servers())
             out["failover_at"] = failed_over
+        if owner_kill is not None:
+            eager._fail_owner = fail_owner
+            pools = eager._state.scheduler.credit_pools()
+            out["owner"] = {
+                "owner_failovers": eager._state.owner_failovers,
+                "live_owners": sorted(eager._state.owners.live()),
+                "nic_retired": reg.counter("nic.retired").value() - retired0,
+                "credit_pools": {str(k): v for k, v in pools.items()},
+                "credits_full": all(v == eager._state.cfg.scheduling_credit
+                                    for v in pools.values()),
+                "nic_counters": [w.get_counters()
+                                 for w in eager._state.psworkers],
+                "nic_bytes": [[w.bytes_pushed, w.bytes_pulled]
+                              for w in eager._state.psworkers],
+                "kill_to_remap_ms": [(t - kills[0]) * 1e3 for t in remaps]
+                if kills else None}
         if leg == "dcn_failover":
             # DcnCore's degraded path on the card at size() 2: once no
             # server lives, a tensor's average is its own value, undivided
@@ -3363,9 +3509,11 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
     give-up; dcn_failover: one failover a rank to ``{0}``, and re-inits
     that cover every key homed on server 1; hybrid_degraded: both servers
     failed over on the controller and a degraded fallback a partition of
-    the step after the kill; every credit of the dcn legs back; the
-    servers not killed exit 0 after the ranks' goodbyes. Returns rank 0's
-    launch counts summed over the legs."""
+    the step after the kill; hybrid_owner_failover: one owner failover,
+    its NIC retired, owners 0 and 2 left, no server failed over, every
+    credit pool full; every credit of the dcn legs back; the servers not
+    killed exit 0 after the ranks' goodbyes. Returns rank 0's launch
+    counts summed over the legs."""
     import os
     import shutil
     import tempfile
@@ -3479,8 +3627,9 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
             if leg == "hybrid_degraded":
                 want = ([[wire, wire, n_bytes, n_bytes]] * (CHAOS_KILL_STEP + 1)
                         + [[0, 0, n_bytes, n_bytes]]
-                        * (calls - CHAOS_KILL_STEP - 1)
-                        if r["rank"] == 0 else [[0, 0, 0, 0]] * calls)
+                        * (calls - CHAOS_KILL_STEP - 1))
+            if leg.startswith("hybrid") and r["rank"] != 0:
+                want = [[0, 0, 0, 0]] * calls
             if r[leg]["bytes_per_step"] != want:
                 raise AssertionError(
                     f"train_chaos {leg}: rank {r['rank']}'s bytes (pushed, "
@@ -3520,6 +3669,18 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
             or h["counters"]["failovers"] != 2):
         raise AssertionError(f"train_chaos hybrid_degraded: live "
                              f"{h['live_servers']}, counters {h['counters']}")
+    # owner 1's NIC gave up inside the second timed step: one owner
+    # failover, its NIC retired, owners 0 and 2 carry the rest, every
+    # credit pool full, no server failed over
+    o = per_rank[0]["hybrid_owner_failover"]["owner"]
+    c = o["nic_counters"]
+    if (o["owner_failovers"] != 1 or o["nic_retired"] != 1
+            or o["live_owners"] != [0, 2] or not o["credits_full"]
+            or c[1].get("injected_kill", 0) < 1
+            or any(x["failovers"] for x in c)
+            or not o["kill_to_remap_ms"]
+            or not all(p > 0 for p, _ in o["nic_bytes"])):
+        raise AssertionError(f"train_chaos hybrid_owner_failover: {o}")
     tokens = n * B * S
     legs_out = {}
     for leg in legs:
@@ -3535,6 +3696,8 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
                for k in ("counters", "live_servers", "bytes_per_step",
                          "stage_ms_per_step", "degraded_probe")
                if k in per_rank[0][leg]}}
+        if "owner" in per_rank[0][leg]:
+            legs_out[leg]["owner"] = per_rank[0][leg]["owner"]
         if leg in CHAOS_KILL:
             legs_out[leg]["kill_to_failover_ms"] = [
                 [(t - r[leg]["killed_at"]) * 1e3 for t in r[leg]["failover_at"]]

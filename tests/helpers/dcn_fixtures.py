@@ -36,6 +36,17 @@ def reference_lib():
         return load_lib()
 
 
+def port_lib():
+    """The port's ``load_lib``, before any worker starts. The library is
+    built at first use (``make`` under its own file lock: seconds alone,
+    tens of seconds on a loaded host); built on a worker's first
+    connection instead, it holds that worker back while its peer's pull
+    runs into the server's pull deadline."""
+    from byteps_tpu_torch.server.native import load_lib
+
+    return load_lib()
+
+
 def csrc_listing(path: Path = _REF_CSRC) -> dict:
     """{name: (size, mtime_ns)} of a source directory."""
     return {f.name: (f.stat().st_size, f.stat().st_mtime_ns)

@@ -12,7 +12,13 @@ Scenarios:
 
 * ``mixed`` — the port pod beside a reference pod on one server: step i
   waits for ``DIR/go<i>`` (the reference pod's pushes of it landed), then
-  pushes and pulls; the controller records every payload it pushes.
+  pushes and pulls; the controller records every payload it pushes,
+  through each of its NICs. Optional in the spec: ``kill``, {owner: a
+  fault spec} armed on that controller NIC alone at init;
+  ``fail_before``, {step: owner} failed over on the controller just
+  before the step (the partitions' error-feedback keys are recorded
+  around it); then the controller's failover count, live owners,
+  per-NIC bytes and credit pools.
 * ``alone`` — one pod on its own servers (started here by rank 0, one a
   configuration), under each configuration of the spec (sharded or not,
   staged or ring tier): results, wire bytes against the plans', the
@@ -43,6 +49,7 @@ import torch.distributed as dist
 
 from byteps_tpu_torch import eager as bps
 from byteps_tpu_torch.common.config import get_config, reset_config
+from byteps_tpu_torch.common.faults import FaultPlan, parse_fault_spec
 from byteps_tpu_torch.compression import from_params
 from byteps_tpu_torch.compression.wire import make_wire_codec
 
@@ -56,15 +63,14 @@ def _wait_for(path: str, bound: float = 60.0) -> None:
 
 
 def _record_pushes(log: dict) -> None:
-    """Record every payload the controller pushes, by key, into ``log``."""
-    w = bps._state.psworker
-    push = w.push_bytes
+    """Record every payload the controller pushes, by key, into ``log``,
+    through each of its NICs."""
+    for w in bps._state.psworkers:
+        def recording(key, buf, *a, _push=w.push_bytes, **k):
+            log[key] = np.array(buf, copy=True)
+            return _push(key, buf, *a, **k)
 
-    def recording(key, buf, *a, **k):
-        log[key] = np.array(buf, copy=True)
-        return push(key, buf, *a, **k)
-
-    w.push_bytes = recording
+        w.push_bytes = recording
 
 
 def mixed(rank, io, spec, d):
@@ -73,14 +79,34 @@ def mixed(rank, io, spec, d):
     pushes = {}
     if rank == 0:
         _record_pushes(pushes)
+        for owner, rule in spec.get("kill", {}).items():
+            bps._state.psworkers[int(owner)]._plan = FaultPlan(
+                parse_fault_spec(rule), seed=get_config().fault_seed,
+                worker_id=int(owner))
+    fail_before = {int(i): o for i, o in spec.get("fail_before", {}).items()}
     for i, (name, params, avg) in enumerate(spec["steps"]):
         _wait_for(f"{io}/go{i}")
+        if rank == 0 and i in fail_before:
+            out[f"ef_before{i}"] = np.array(sorted(
+                p for _, p in bps._state.ef_state))
+            assert bps._fail_owner(fail_before[i])
+            out[f"ef_after{i}"] = np.array(sorted(
+                p for _, p in bps._state.ef_state))
         pushes.clear()
         out[f"r{i}"] = bps.push_pull(torch.as_tensor(d[f"x{i}"][rank]),
                                      average=avg, name=name,
                                      compression_params=params).numpy()
         for key, buf in pushes.items():
             out[f"push{i}_{key}"] = buf
+    if rank == 0:
+        out["owner_failovers"] = np.array(bps._state.owner_failovers)
+        out["live_owners"] = np.array(sorted(bps._state.owners.live()))
+        out["nic_pushed"] = np.array([w.bytes_pushed
+                                      for w in bps._state.psworkers])
+        pools = bps._state.scheduler.credit_pools()
+        out["credits_back"] = np.array(
+            all(v == bps._state.cfg.scheduling_credit
+                for v in pools.values()))
     bps.shutdown()
     return out
 

@@ -52,7 +52,7 @@ from byteps_tpu_torch.common import config as tconfig
 from byteps_tpu_torch.common import faults as tfaults
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
-from dcn_fixtures import next_port, reference_lib  # noqa: E402
+from dcn_fixtures import next_port, port_lib, reference_lib  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -181,6 +181,7 @@ def serve():
     from byteps_tpu_torch import server as tserver
 
     reference_lib()
+    port_lib()
     started = []
 
     def start(kind, workers=1):
@@ -843,7 +844,18 @@ def test_robustness_knobs_parse_and_are_accepted(env, values):
     ("BYTEPS_POD_CONTROLLERS", "2"), ("BYTEPS_AUTO_TUNE", "1"),
     ("BYTEPS_FAULT_SPEC", "push:timeout@p=0.1;worker1:join@step=4")])
 def test_unported_knobs_and_join_rules_are_refused(env, knob, value):
+    """Each knob not ported yet is refused by name; the IPC path and
+    several controllers a pod are ported since: accepted, and parsed as
+    the reference parses them."""
     env(**{knob: value})
+    if knob in ("BYTEPS_ENABLE_IPC", "BYTEPS_POD_CONTROLLERS"):
+        tconfig.check_ported()
+        t, r = tconfig.get_config(), rconfig.get_config()
+        for f in ("enable_ipc", "pod_controllers", "hybrid_sharded",
+                  "owner_salt"):
+            assert getattr(t, f) == getattr(r, f), f
+        assert t.enable_ipc or t.pod_controllers == 2
+        return
     name = "join rule" if knob == "BYTEPS_FAULT_SPEC" else knob
     with pytest.raises(RuntimeError, match=f"{name}.*not ported yet"):
         tconfig.check_ported()

@@ -272,7 +272,8 @@ DCN_ENV = {"DMLC_ROLE": "server", "DMLC_NUM_WORKER": "3",
            "BYTEPS_ENABLE_ASYNC": "on", "BYTEPS_ENABLE_IPC": "1",
            "BYTEPS_STALENESS": "-3", "BYTEPS_WORKER_LEASE_MS": "50",
            "BYTEPS_HEALTH_INTERVAL_MS": "20", "BYTEPS_HYBRID_SHARDED": "0",
-           "BYTEPS_POD_CONTROLLERS": "2", "BYTEPS_FAULT_SPEC": "push:kill@op=1"}
+           "BYTEPS_POD_CONTROLLERS": "2", "BYTEPS_OWNER_SALT": "7",
+           "BYTEPS_FAULT_SPEC": "push:kill@op=1"}
 DCN_FIELDS = ("role", "num_worker", "num_server", "ps_root_uri",
               "ps_root_port", "worker_id", "local_rank", "local_size",
               "scheduling_credit", "server_engine_threads",
@@ -280,7 +281,8 @@ DCN_FIELDS = ("role", "num_worker", "num_server", "ps_root_uri",
               "min_compress_bytes", "dcn_throttle_mbps", "retry_limit",
               "retry_backoff_ms", "wire_crc", "enable_async", "enable_ipc",
               "staleness", "worker_lease_ms", "health_interval_ms",
-              "hybrid_sharded", "pod_controllers", "fault_spec")
+              "hybrid_sharded", "pod_controllers", "owner_salt",
+              "fault_spec")
 
 
 @pytest.mark.parametrize("env", [{}, DCN_ENV], ids=["defaults", "set"])

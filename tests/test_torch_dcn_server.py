@@ -8,6 +8,7 @@ bit; and each DCN-tier knob the port has not ported is refused."""
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -20,7 +21,7 @@ from byteps_tpu_torch.server import native as tnative
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
 from dcn_fixtures import (csrc_listing, job_env, next_port,  # noqa: E402
-                          reference_lib)
+                          port_lib, reference_lib)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -64,6 +65,7 @@ def servers():
     from byteps_tpu_torch import server as tserver
 
     reference_lib()
+    port_lib()
     started = []
 
     def start(kind):
@@ -80,8 +82,10 @@ def servers():
         mod.stop_server()
 
 
-def _mixed_round(servers, n, seed):
-    """Worker 0 is the reference's PSWorker, worker 1 the port's; each
+def _mixed_round(servers, n, seed, port_kw=None):
+    """Worker 0 is the reference's PSWorker, worker 1 the port's (built
+    with ``port_kw``, and reporting its TCP connections before the
+    closing barrier under ``"conns"``); each
     pushes its own seeded vector under every codec and pulls the round raw
     and in the codec's own pull format. Returns {worker: {case: bytes}}.
     Worker 1 pushes a key only after worker 0's push of it returned: where
@@ -102,7 +106,8 @@ def _mixed_round(servers, n, seed):
     def work(wid, mod, wire):
         try:
             w = mod.PSWorker(servers=servers, worker_id=wid,
-                             recv_timeout_ms=20000)
+                             recv_timeout_ms=20000,
+                             **((port_kw or {}) if wid == 1 else {}))
             codecs = {"raw": wire.WireCodec(), "fp16": wire.Fp16Wire(),
                       "fp8": wire.Fp8Wire(), "onebit": wire.OnebitWire(),
                       "topk": wire.TopkWire(k=0.01),
@@ -125,9 +130,13 @@ def _mixed_round(servers, n, seed):
                     key, c.store_elems(n) * 4, v).tobytes()
                 got[case] = w.pull_bytes(key, plan.pull_capacity(n), v,
                                          plan.pull_codec_id).tobytes()
+            if wid == 1:
+                conns = len(w._all_conns)
             w.barrier()
             w.shutdown()
             out[wid] = got
+            if wid == 1:
+                out["conns"] = conns
         except Exception as e:  # noqa: BLE001 - reported below
             errors.append((wid, repr(e)))
 
@@ -156,6 +165,66 @@ def test_mixed_workers_pull_bit_equal_on_either_server(servers, n):
     xs[1][1::7] = -xs[0][1::7]
     np.testing.assert_array_equal(
         np.frombuffer(on_port[0]["raw.raw"], np.float32), xs[0] + xs[1])
+
+
+@pytest.mark.parametrize("n", [1000, 20001])
+def test_ipc_worker_pulls_bit_equal_beside_a_tcp_worker(servers, n):
+    """The port worker reaches the port's in-process server through the
+    IPC path (no TCP connection until the closing barrier) beside a
+    reference worker on TCP: under every codec both pull the bytes that
+    two TCP workers pull from the reference's server."""
+    on_ref = _mixed_round(servers("ref"), n, seed=n)
+    on_ipc = _mixed_round(servers("port"), n, seed=n,
+                          port_kw={"use_ipc": True})
+    assert on_ipc["conns"] == 0 and on_ref["conns"] > 0
+    assert on_ipc[0] == on_ipc[1]
+    assert on_ipc[0] == on_ref[0]
+
+
+def test_ipc_path_without_tcp_and_after_shutdown():
+    """IPC on: init, push and pull of the in-process server's keys open
+    no TCP connection (reference ``tests/test_dcn.py:505``); a
+    worker-driven shutdown stops the server, after which the local path
+    raises on -10 instead of reaching the stopped store, and a restart
+    in the process reclaims it (``:464``). IPC asked for with no server
+    in the process stays on TCP."""
+    from byteps_tpu_torch import server as tserver
+
+    lib = port_lib()
+    port = tserver.start_server_any_port(next_port(), num_workers=1,
+                                         engine_threads=1)
+    addr = [("127.0.0.1", port)]
+    x = np.arange(32, dtype=np.float32)
+    try:
+        w = tserver.PSWorker(servers=addr, use_ipc=True)
+        assert w._is_local(0)
+        w.init_key(4, x.nbytes)
+        np.testing.assert_array_equal(w.push_pull(4, x), x)
+        np.testing.assert_array_equal(w.push_pull(4, 2 * x), 2 * x)
+        assert not w._all_conns and w.bytes_pushed == 2 * x.nbytes
+        w.shutdown()               # the one worker's goodbye stops it
+        deadline = time.monotonic() + 5
+        while (lib.bps_local_init(12, 32) != tnative.LOCAL_NO_SERVER
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        w2 = tserver.PSWorker(servers=addr, use_ipc=True)
+        with pytest.raises(RuntimeError, match="rc=-10.*no summation"):
+            w2.init_key(12, 32)
+        w2.close()
+        port = tserver.start_server_any_port(port, num_workers=1,
+                                             engine_threads=1)
+        w3 = tserver.PSWorker(servers=[("127.0.0.1", port)],
+                              use_ipc=True)
+        w3.init_key(13, x.nbytes)
+        np.testing.assert_array_equal(w3.push_pull(13, x), x)
+        assert not w3._all_conns
+        w3.shutdown()
+    finally:
+        tserver.stop_server()
+    assert tserver._INPROC_SERVER_ID is None
+    w4 = tserver.PSWorker(servers=addr, use_ipc=True)
+    assert not w4._ipc
+    w4.close()
 
 
 def test_native_sum_and_codecs_match_reference():
@@ -199,21 +268,59 @@ def test_native_sum_and_codecs_match_reference():
         [ref.bps_float_to_fp8(float(v)) for v in grid]
 
 
-# a fault spec is ported but for its join rules (elastic membership)
+# a fault spec is ported but for its join rules (elastic membership);
+# the IPC path and several controllers a pod are ported since, and
+# accepted
 UNPORTED = [("BYTEPS_ENABLE_ASYNC", "1"), ("BYTEPS_STALENESS", "2"),
             ("BYTEPS_WORKER_LEASE_MS", "500"), ("BYTEPS_ENABLE_IPC", "1"),
             ("BYTEPS_POD_CONTROLLERS", "2"),
             ("BYTEPS_FAULT_SPEC", "push:kill@op=1;worker2:join@step=3")]
+PORTED = ("BYTEPS_ENABLE_IPC", "BYTEPS_POD_CONTROLLERS")
+
+
+def _accepted(monkeypatch, knob):
+    """A one-worker job with ``knob`` set: the server starts, a DcnCore
+    built from the environment takes the knob (the IPC path to the
+    in-process server; two controller NICs with owner-scoped credits),
+    and a push_pull sums exactly."""
+    from byteps_tpu_torch import server as tserver
+    from byteps_tpu_torch.common.dcn_adapter import DcnCore
+
+    monkeypatch.setenv("DMLC_NUM_WORKER", "1")
+    tconfig.reset_config()
+    tconfig.check_ported()
+    port = tserver.start_server_any_port(next_port())
+    core = None
+    try:
+        core = DcnCore(servers=[("127.0.0.1", port)])
+        if knob == "BYTEPS_ENABLE_IPC":
+            assert core.worker._ipc and len(core.workers) == 1
+        else:
+            assert len(core.workers) == 2
+            assert core.scheduler._credit_scope == "owner"
+        x = np.arange(50000, dtype=np.float32)
+        h = core.push_pull_async(x, name="accepted")
+        np.testing.assert_array_equal(DcnCore.assemble(h, 30), x)
+    finally:
+        if core is not None:
+            core.shutdown()
+        tserver.stop_server()
+        tconfig.reset_config()
 
 
 @pytest.mark.parametrize("knob,value", UNPORTED)
 def test_unported_knobs_are_refused(monkeypatch, knob, value):
+    """Each knob not ported yet is refused by every entry of the tier;
+    the knobs of ``PORTED`` are accepted."""
     from byteps_tpu_torch import server as tserver
     from byteps_tpu_torch.common.dcn_adapter import DcnCore
 
     job_env(monkeypatch, next_port())
     monkeypatch.setenv(knob, value)
     tconfig.reset_config()
+    if knob in PORTED:
+        _accepted(monkeypatch, knob)
+        return
     try:
         short = knob.split("_", 1)[1]
         for call in (tconfig.check_ported, tserver.start_server,

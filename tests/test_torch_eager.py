@@ -365,8 +365,7 @@ def test_pod_of_one_rank_without_a_process_group(solo, monkeypatch):
 
 
 def test_unported_knobs_raise(monkeypatch):
-    for knob, value in (("BYTEPS_AUTO_TUNE", "1"),
-                        ("BYTEPS_POD_CONTROLLERS", "2")):
+    for knob, value in (("BYTEPS_AUTO_TUNE", "1"),):
         monkeypatch.setenv(knob, value)
         t_reset()
         try:
@@ -378,3 +377,50 @@ def test_unported_knobs_raise(monkeypatch):
             eager._state.__init__()
             t_reset()
     assert eager.auto_tune_enabled() is False
+
+
+def test_pod_controllers_are_accepted(monkeypatch):
+    """``BYTEPS_POD_CONTROLLERS`` > 1 (sharded) is ported: a pod of one
+    rank in this process holds a ``PSWorker`` a controller NIC and an
+    owner table, with owner-scoped credits; its sums are exact and its
+    NICs' wire bytes add up to the plans' (``BYTEPS_OWNER_SALT`` moves
+    which NIC carries which partition, not the result)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
+    from dcn_fixtures import job_env, next_port
+
+    from byteps_tpu_torch.server import start_server_any_port, stop_server
+
+    x = torch.as_tensor(np.random.RandomState(5).randn(60000)
+                        .astype(np.float32))
+    split = []
+    for salt in ("0", "7"):
+        port = start_server_any_port(next_port(), num_workers=1)
+        job_env(monkeypatch, port, workers=1)
+        for k, v in (("BYTEPS_FORCE_DISTRIBUTED", "1"),
+                     ("BYTEPS_POD_CONTROLLERS", "3"),
+                     ("BYTEPS_OWNER_SALT", salt),
+                     ("BYTEPS_PARTITION_BYTES", "16384")):
+            monkeypatch.setenv(k, v)
+        t_reset()
+        eager.init()
+        try:
+            assert len(eager._state.psworkers) == 3
+            assert eager._state.psworker is eager._state.psworkers[0]
+            assert eager._state.owners.salt == int(salt)
+            assert eager._state.scheduler._credit_scope == "owner"
+            out = eager.push_pull(x, average=False, name="w")
+            np.testing.assert_array_equal(out.numpy(), x.numpy())
+            per_nic = [w.bytes_pushed for w in eager._state.psworkers]
+            assert eager.bytes_moved() == (x.numel() * 4, x.numel() * 4)
+            assert sum(per_nic) == x.numel() * 4
+            assert sum(b > 0 for b in per_nic) >= 2, per_nic
+            pools = eager._state.scheduler.credit_pools()
+            assert pools and all(v == eager._state.cfg.scheduling_credit
+                                 for v in pools.values()), pools
+            split.append(per_nic)
+        finally:
+            eager.shutdown()
+            eager._state.__init__()
+            t_reset()
+            stop_server()
+    assert split[0] != split[1]

@@ -375,3 +375,130 @@ def test_failed_partition_fails_every_rank(tmp_path):
     for o in outs:
         np.testing.assert_array_equal(o["good"],
                                       xs["x1"][0] + xs["x1"][1])
+
+
+# the owners legs: raw, then onebit + EF across a requested failover
+OWNER_STEPS = [("g", None, False), ("g", None, False),
+               ("c", {"compressor": "onebit", "ef": "vanilla"}, True),
+               ("c", {"compressor": "onebit", "ef": "vanilla"}, True),
+               ("c", {"compressor": "onebit", "ef": "vanilla"}, True),
+               ("c", {"compressor": "onebit", "ef": "vanilla"}, True),
+               ("g", None, False)]
+OWNER_KILL = {"1": "push:kill@op=2.."}   # owner 1's NIC, in step 0
+OWNER_FAIL_BEFORE = {"4": 2}             # owner 2, before step 4
+
+
+def test_three_controller_pods_match_through_owner_failover(
+        tmp_path, monkeypatch, port_server):
+    """A reference pod and a port pod of three controller NICs each
+    (``BYTEPS_POD_CONTROLLERS=3``, sharded) on one port server, holding
+    the same rows. Owner 1's NIC is killed on both by the same plan (every
+    push from its second wire op on; wire retries 1), and owner 2 is failed
+    over on both before step 4, between onebit + EF steps. Every rank's
+    result equals the reference pod's bit for bit at every step, and so
+    does every payload the port controller pushes: the remapped
+    partitions' error feedback restarts from zero on both (the same keys
+    dropped); two failovers, owner 0 alone left, every credit pool full,
+    the NICs' bytes summing to the reference's."""
+    import byteps_tpu.jax as rbps
+    from byteps_tpu.common.config import reset_config as r_reset
+    from byteps_tpu.common.faults import FaultPlan as RPlan
+    from byteps_tpu.common.faults import parse_fault_spec as rparse
+    from byteps_tpu_torch.server import start_server_any_port
+
+    Lo = 50000                  # 13 partitions of 16,384 bytes
+    reference_lib()
+    port = start_server_any_port(next_port(), num_workers=2)
+    job_env(monkeypatch, port, workers=2)
+    knobs = {"BYTEPS_HYBRID_SHARDED": "1", "BYTEPS_POD_CONTROLLERS": "3",
+             "BYTEPS_PARTITION_BYTES": str(PARTITION_BYTES),
+             "BYTEPS_MIN_COMPRESS_BYTES": "0", "BYTEPS_RETRY_LIMIT": "1",
+             "BYTEPS_RETRY_BACKOFF_MS": "2"}
+    for k, v in knobs.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("DMLC_WORKER_ID", "0")
+    r_reset()
+    xs = {f"x{i}": _rand((N, Lo), 500 + i) for i in range(len(OWNER_STEPS))}
+    np.savez(tmp_path / "in.npz", **xs)
+    (tmp_path / "spec.json").write_text(json.dumps({
+        "steps": OWNER_STEPS, "kill": OWNER_KILL,
+        "fail_before": OWNER_FAIL_BEFORE}))
+    procs = _start_pod("mixed", tmp_path, _clean_env(
+        DMLC_NUM_WORKER="2", DMLC_NUM_SERVER="1",
+        DMLC_PS_ROOT_URI="127.0.0.1", DMLC_PS_ROOT_PORT=str(port - 1),
+        DMLC_WORKER_ID="1", **knobs))
+    mesh = jax.make_mesh((N,), ("dp",), devices=jax.devices()[:N])
+    want, ref_pushes, ef = [], [], {}
+    parts = -(-Lo * 4 // PARTITION_BYTES)
+    try:
+        t = threading.Thread(target=rbps.init, kwargs={"mesh": mesh})
+        t.start()
+        t.join(60)
+        assert rbps._state.initialized
+        workers = rbps._state.psworkers
+        assert len(workers) == 3
+        pushes = {}
+        for w in workers:
+            def recording(key, buf, *a, _push=w.push_bytes, **k):
+                v = _push(key, buf, *a, **k)
+                pushes[key] = np.array(buf, copy=True)
+                return v
+
+            w.push_bytes = recording
+        for o, rule in OWNER_KILL.items():
+            workers[int(o)]._plan = RPlan(
+                rparse(rule), seed=rbps._state.cfg.fault_seed,
+                worker_id=int(o))
+        for i, (name, params, avg) in enumerate(OWNER_STEPS):
+            if str(i) in OWNER_FAIL_BEFORE:
+                ef["before"] = sorted(p for _, p in rbps._state.ef_state)
+                assert rbps._fail_owner(OWNER_FAIL_BEFORE[str(i)])
+                ef["after"] = sorted(p for _, p in rbps._state.ef_state)
+            pushes.clear()
+            box = []
+            call = threading.Thread(target=lambda: box.append(rbps.push_pull(
+                jnp.asarray(xs[f"x{i}"]), average=avg, name=name,
+                compression_params=params)))
+            call.start()
+            end = time.monotonic() + 60
+            while len(pushes) < parts and call.is_alive():
+                assert time.monotonic() < end, f"step {i}: reference push"
+                time.sleep(0.002)
+            (tmp_path / f"go{i}").touch()    # now the port pod's pushes
+            call.join(60)
+            assert box, f"step {i} ({name}) gave no reference result"
+            want.append(np.asarray(box[0]))
+            ref_pushes.append(dict(pushes))
+        ref_state = {"failovers": rbps._state.owner_failovers,
+                     "live": sorted(rbps._state.owners.live()),
+                     "nic_pushed": [w.bytes_pushed for w in workers]}
+    finally:
+        rbps.shutdown()
+        rbps._state.__init__()
+        r_reset()
+        outs = _finish_pod(procs, tmp_path)
+    for i, (name, params, avg) in enumerate(OWNER_STEPS):
+        for o in outs:
+            np.testing.assert_array_equal(o[f"r{i}"], want[i],
+                                          err_msg=f"step {i}: {name}")
+        got = {int(k.split("_")[1]): v for k, v in outs[0].items()
+               if k.startswith(f"push{i}_")}
+        assert sorted(got) == sorted(ref_pushes[i]) == list(range(
+            min(got), min(got) + parts)), name
+        for key, buf in ref_pushes[i].items():
+            np.testing.assert_array_equal(got[key], buf,
+                                          err_msg=f"step {i}: {name}")
+    c = outs[0]
+    # the moved partitions' residuals were dropped, the same on both
+    assert list(c["ef_before4"]) == ef["before"] == list(range(parts))
+    assert list(c["ef_after4"]) == ef["after"]
+    assert 0 < len(ef["after"]) < parts
+    assert int(c["owner_failovers"]) == ref_state["failovers"] == 2
+    assert list(c["live_owners"]) == ref_state["live"] == [0]
+    # the killed NIC's share depends on how the pool threads interleave
+    # its first ops; the surviving NICs carry the rest, the same total
+    assert sum(c["nic_pushed"]) == sum(ref_state["nic_pushed"])
+    assert c["nic_pushed"][0] > 0 and c["nic_pushed"][2] > 0
+    assert bool(c["credits_back"])
+    x = xs["x0"]
+    np.testing.assert_array_equal(want[0], 2 * (x[0] + x[1]))

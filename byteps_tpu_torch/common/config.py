@@ -127,10 +127,17 @@ class Config:
     # must agree across a pod's controllers
     owner_salt: int = 0
 
-    # --- DCN tier knobs not ported yet (check_ported refuses them) ---------
+    # --- elastic membership and rounds -------------------------------------
+    # asynchronous rounds: the server sums every push into its store, no
+    # rounds, no barrier (the staleness = inf limit; wins over staleness)
     enable_async: bool = False
+    # bounded staleness K: a pull of round v may be served from the newest
+    # closed round >= v-K; the scheduler keeps K+1 rounds of a key in flight
     staleness: int = 0
+    # worker lease: a worker silent this long is evicted (0 = fixed
+    # membership); the health monitor's ping is the heartbeat
     worker_lease_ms: int = 0
+    # the auto-tuner, not ported yet (check_ported refuses it)
     auto_tune: bool = False
 
     # --- inference serving tier --------------------------------------------
@@ -276,26 +283,17 @@ def reset_config() -> None:
 
 def check_ported(cfg: Optional[Config] = None) -> None:
     """Refuse, naming the knob, any DCN-tier setting whose behaviour the
-    port does not have yet, instead of running the synchronous default
-    in its place. Called where the tier starts: ``start_server``,
-    ``PSWorker``, ``DcnCore`` and ``eager.init``. A fault spec is parsed
-    here, so a malformed one fails at start; its ``join`` rules (elastic
-    membership) are refused."""
+    port does not have yet, instead of running the default in its place:
+    the auto-tuner (``BYTEPS_AUTO_TUNE``). Called where the tier starts:
+    ``start_server``, ``PSWorker``, ``DcnCore`` and ``eager.init``. A
+    fault spec is parsed here, so a malformed one fails at start."""
     from byteps_tpu_torch.common.logging import bps_check
 
     cfg = cfg or get_config()
-    joins = []
     if cfg.fault_spec:
         from byteps_tpu_torch.common.faults import parse_fault_spec
 
-        joins = [r.to_spec() for r in parse_fault_spec(cfg.fault_spec)
-                 if r.kind == "join"]
-    for knob, unported in (
-            ("BYTEPS_ENABLE_ASYNC", cfg.enable_async),
-            ("BYTEPS_STALENESS", cfg.staleness > 0),
-            ("BYTEPS_WORKER_LEASE_MS", cfg.worker_lease_ms > 0),
-            (f"BYTEPS_FAULT_SPEC join rule {joins}", bool(joins)),
-            ("BYTEPS_AUTO_TUNE", cfg.auto_tune)):
-        bps_check(not unported,
-                  f"{knob} is set, and the port's DCN tier has not ported "
-                  "it yet (not ported yet)")
+        parse_fault_spec(cfg.fault_spec)
+    bps_check(not cfg.auto_tune,
+              "BYTEPS_AUTO_TUNE is set, and the port's DCN tier has not "
+              "ported it yet (not ported yet)")

@@ -26,6 +26,14 @@ remap. Each PSWorker fails servers over (docs/robustness.md); with no
 live server left, the last controller degrades a partition to this
 worker's own contribution under ``BYTEPS_DEGRADED_OK`` (the default) and
 fails its handle otherwise.
+
+Elastic membership: each PULL records the round it was served from (the
+codec seed of its decode) and the live count of the epoch its round
+closed under (``handle.part_live``, the divisor of an average); a push
+refused as evicted drops its pinned round, so that the stage retry mints
+afresh after the in-line rejoin; :meth:`DcnCore.join` admits the pod
+into a running job. Under ``BYTEPS_STALENESS=K`` the schedulers keep up
+to K+1 rounds of a key in flight (``rounds_window``).
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ from byteps_tpu_torch.server import (
     FailedOverError,
     NoLiveServersError,
     PSWorker,
+    WorkerEvictedError,
     hand_off_owner,
     retire_nic,
 )
@@ -181,13 +190,17 @@ def degraded_fallback(worker, cfg, task, adapter_log, what: str):
     return DegradedLocal(task.payload)
 
 
-def part_divisor(divisor: int, reach: int, degraded: bool) -> int:
-    """One partition's divisor for an average: ``divisor``, every
-    participant, for a global sum; ``reach``, the participants the
-    degraded fallback summed (this worker for DcnCore, the pod for the
-    hybrid pipeline), for a degraded one, whose average then stands for
-    the global one."""
-    return reach if degraded else divisor
+def live_average(x: np.ndarray, d: int, live: Optional[int]) -> np.ndarray:
+    """A partition's f32 sum ``x`` as an average, in the reference torch
+    adapter's arithmetic, bit for bit: ``x / d`` with ``d`` the adopted
+    live count, then ``* (d / live)`` when the partition's round closed
+    under another membership (``live``; None: the same). That is not
+    bitwise ``x / live``, and the parity tests hold it to the reference's
+    bytes."""
+    out = x / d
+    if live is not None and live != d:
+        out *= d / np.float32(live)
+    return out
 
 
 def wire_codec_for(compression: Optional[str]) -> Optional[WireCodec]:
@@ -272,11 +285,6 @@ class DcnCore:
             plans = [FaultPlan(parse_fault_spec(spec), seed=cfg.fault_seed,
                                worker_id=o) if spec else None
                      for o, spec in enumerate(fault_specs)]
-            joins = [r.to_spec() for p in plans if p is not None
-                     for r in p.rules if r.kind == "join"]
-            bps_check(not joins, f"fault_specs join rule {joins}: the "
-                      "port's DCN tier has not ported it yet (not ported "
-                      "yet)")
         # every controller pushes under the pod's worker id: the server
         # sees one contribution a pod, and its (worker, key, round) replay
         # dedupe survives an owner remap, since the survivor adopts the
@@ -312,9 +320,14 @@ class DcnCore:
         # several controllers scope credits per owner: one faulted NIC
         # backing off does not starve its siblings' wires
         self._credit_scope = "owner" if pod_controllers > 1 else "global"
+        # bounded staleness: a caller that pipelines may keep K+1 rounds of
+        # a key in flight (round r+K's PUSH no longer waits for round r's
+        # PULL); the server serves within K, the window bounds the run-ahead
+        self._rounds_window = cfg.staleness if cfg.staleness > 0 else None
         self.scheduler = PipelineScheduler(
             stages=self._wire_stages, credit=cfg.scheduling_credit,
-            credit_scope=self._credit_scope)
+            credit_scope=self._credit_scope,
+            rounds_window=self._rounds_window)
         self._cuda_scheduler: Optional[PipelineScheduler] = None
         self._staging = HostStaging()
         # the keys each owner has initialised on the servers: an owner
@@ -328,7 +341,10 @@ class DcnCore:
         _reg = get_registry()
         self._m_d2h = _reg.counter("dcn.d2h_bytes")
         self._m_h2d = _reg.counter("dcn.h2d_bytes")
-        self.worker.barrier()
+        # a worker id beyond DMLC_NUM_WORKER is no member the start barrier
+        # counts: it enters the running job through join()
+        if self.worker._worker_id < cfg.num_worker:
+            self.worker.barrier()
 
     # -- the CUDA pipeline ---------------------------------------------------
     def _cuda_pipeline(self) -> PipelineScheduler:
@@ -344,7 +360,8 @@ class DcnCore:
                     "CUDA_DCN_STAGE_ORDER")
                 self._cuda_scheduler = PipelineScheduler(
                     stages=stages, credit=self.cfg.scheduling_credit,
-                    credit_scope=self._credit_scope)
+                    credit_scope=self._credit_scope,
+                    rounds_window=self._rounds_window)
             return self._cuda_scheduler
 
     # -- ownership ------------------------------------------------------------
@@ -469,6 +486,11 @@ class DcnCore:
             return worker.push_bytes(p.key, task.payload, codec_id,
                                      version=task.push_version)
         except BaseException as e:  # noqa: BLE001 - owner-death classify
+            if isinstance(e, WorkerEvictedError):
+                # the rejoin adopted the server's watermarks: a pin at or
+                # below them would be dropped as a replay and the key
+                # stall for good, so the stage retry mints afresh
+                task.push_version = None
             self._owner_giveup(task, owner, e)
 
     def _pull_stage(self, task: PartitionTask):
@@ -480,20 +502,34 @@ class DcnCore:
                     else p.length * 4)
         codec_id = plan.pull_codec_id if plan is not None else 0
         owner = self._owner_of(p.key)
+        worker = self.workers[owner]
         try:
-            return self.workers[owner].pull_bytes(p.key, capacity,
-                                                  task.payload, codec_id)
+            out = worker.pull_bytes(p.key, capacity, task.payload, codec_id)
         except BaseException as e:  # noqa: BLE001 - owner-death classify
             self._owner_giveup(task, owner, e)
+        # the served round (up to K behind the requested one under bounded
+        # staleness) keys DECOMPRESS's seed; the live count of the epoch
+        # the round closed under divides it: a handle can be mixed across
+        # a membership change, as across a degraded partition
+        task.served_round = worker.last_pull_round()
+        task.round_live = worker.last_round_live()
+        with task.handle._lock:
+            parts = getattr(task.handle, "part_live", None)
+            if parts is None:
+                parts = task.handle.part_live = {}
+            parts[p.part_idx] = (p.offset, p.length, task.round_live)
+        return out
 
     def _decompress_stage(self, task: PartitionTask):
         """Wire decode of the pulled round result (reference DECOMPRESS),
-        off the wire pool so decodes overlap later chunks' pulls; divided
-        by the handle's ``divisor`` in f32 on the host when it is not 1,
-        and, for a CUDA tensor, written into the name's pinned pull
-        buffer. A degraded partition decodes its push-side encoding (the
-        pull format never existed for its round) and is not divided: it
-        is this worker's contribution alone."""
+        off the wire pool so decodes overlap later chunks' pulls, with
+        the seed of the round it was served from; averaged (``average``)
+        in f32 on the host by :func:`live_average` over the live count
+        adopted when the partition is decoded, and, for a CUDA tensor,
+        written into the name's pinned pull buffer. A degraded partition
+        decodes its push-side encoding (the pull format never existed for
+        its round) and is not divided: it is this worker's contribution
+        alone."""
         p = task.partition
         ctx = task.context
         plan: Optional[WirePlan] = ctx["plans"][p.part_idx]
@@ -501,22 +537,40 @@ class DcnCore:
         degraded = getattr(task, "degraded", False)
         if plan is None:
             out = buf.view(np.float32)
-        elif degraded:
-            out = plan.codec.decode(
-                buf, p.length,
-                wire_seed(task.name, ctx["version"], p.part_idx))
         else:
-            out = plan.decode_pull(
-                buf, p.length, pull_seed(task.name, ctx["version"],
-                                         p.part_idx))
-        d = part_divisor(ctx["divisor"], 1, degraded)
-        if d != 1:
-            out = out / d
+            seed = pull_seed(task.name, ctx["version"], p.part_idx,
+                             served_round=getattr(task, "served_round", None),
+                             staleness=self.cfg.staleness, degraded=degraded)
+            out = (plan.codec.decode(buf, p.length, seed) if degraded
+                   else plan.decode_pull(buf, p.length, seed))
+        if ctx["average"] and not degraded:
+            out = live_average(out, self.live_size(),
+                               getattr(task, "round_live", None))
         dst = ctx.get("pull")
         if dst is None:
             return out
         dst[p.offset:p.offset + p.length] = out
         return None
+
+    # -- elasticity -----------------------------------------------------------
+    def join(self) -> int:
+        """Mid-stream admission of this pod into a running job: the kJoin
+        handshake and the round-watermark adoption on every controller
+        NIC (:meth:`PSWorker.join`, all under the pod's worker id), so the
+        pod enters at a round boundary. Returns the adopted live pod
+        count. A worker id beyond ``DMLC_NUM_WORKER`` builds its core
+        without the start barrier, then calls this."""
+        for w in self.workers:
+            w.join()
+        return self.live_size()
+
+    def live_size(self) -> int:
+        """Live workers (pods) in the most recently adopted membership
+        epoch: what an average divides by in place of
+        ``DMLC_NUM_WORKER``. The least over the pod's NICs: they adopt
+        the same epochs, and between adoptions the smaller view is the
+        one already shrunk."""
+        return max(1, min(w.live_pods() for w in self.workers))
 
     # -- public -------------------------------------------------------------
     def push_pull_async(self, flat: Union[np.ndarray, torch.Tensor],
@@ -524,15 +578,15 @@ class DcnCore:
                         priority: Optional[int] = None,
                         codec: Optional[WireCodec] = None,
                         two_way: bool = True,
-                        divisor: int = 1) -> Handle:
+                        average: bool = False) -> Handle:
         """Enqueue a flat fp32 vector; returns a Handle. ``codec``
         compresses the DCN wire per partition (the server decodes,
         fp32-sums, re-encodes); partitions below
         BYTEPS_MIN_COMPRESS_BYTES ride raw fp32, matching the reference's
-        BYTEPS_MIN_COMPRESS_BYTES semantics. The sums are divided by
-        ``divisor`` (f32, on the host; a degraded partition, which holds
-        this worker's contribution alone, is not). A numpy array or CPU
-        tensor gives
+        BYTEPS_MIN_COMPRESS_BYTES semantics. ``average`` divides each
+        partition's sum by the live workers (:func:`live_average`, f32,
+        on the host; a degraded partition, which holds this worker's
+        contribution alone, is not). A numpy array or CPU tensor gives
         per-partition numpy results (:meth:`assemble` concatenates them);
         a CUDA tensor (f32, contiguous) receives the result in place."""
         cuda = isinstance(flat, torch.Tensor) and flat.is_cuda
@@ -552,7 +606,7 @@ class DcnCore:
         handle = Handle(name, len(ctx.partitions))
         handle.diag = self._stall_diag
         shared = {"flat": flat, "plans": plans, "version": version,
-                  "divisor": divisor}
+                  "average": average}
         scheduler = self.scheduler
         if cuda:
             bps_check(flat.dtype == torch.float32 and flat.is_contiguous(),

@@ -11,10 +11,10 @@ loopback: application-level like the bandwidth pacer
 reproducible from a seed. Every scope and kind parses, renders and plans
 exactly as the reference's; the port's PSWorker consumes the wire scopes
 (push, pull, all, init, server<N>) and the worker scopes' kill, hang,
-slow and the loss kinds. ``join`` rules are refused by
-:func:`~byteps_tpu_torch.common.config.check_ported` (elastic membership
-is not ported), and the replica, tenant and proc scopes only parse here:
-nothing in the port ticks their ops yet.
+slow, join (the mid-stream admission, once, when the plan's step first
+enters the window: ``PSWorker.join``) and the loss kinds. The replica,
+tenant and proc scopes only parse here: nothing in the port ticks their
+ops yet.
 
 Spec grammar (semicolon-separated rules)::
 

@@ -48,8 +48,9 @@ owner's, a rendezvous hash over the live controllers
   its card; unsharded it reaches the other ranks by a broadcast, sharded
   as per-rank zero-padded segments (a scatter) that an all-gather puts
   together on every rank. The average divides on the device by
-  ``pod_size() × DMLC_NUM_WORKER``. The other ranks pass the DCN stages
-  through and move no DCN bytes.
+  ``pod_size()`` × the live count of the epoch the partition's round
+  closed under (``DMLC_NUM_WORKER`` while no pod joined or was evicted).
+  The other ranks pass the DCN stages through and move no DCN bytes.
 
 **Collective order.** A process group matches its collectives by issue
 order, and each rank runs its own scheduler, whose pop order depends on
@@ -88,9 +89,18 @@ The hybrid pipeline of a pod of several ranks refuses any other backend
 differs from rank to rank, which gloo allows and NCCL does not
 promise to.
 
-Not ported yet, and refused or absent: elastic membership (``join``,
-``linear_scale``), bounded staleness, the auto-tuner
-(``BYTEPS_AUTO_TUNE``) and tracing spans.
+**Elastic membership.** Under ``BYTEPS_WORKER_LEASE_MS`` a silent pod
+is evicted; each partition's round carries the live count it closed
+under, which the controller hands the pod in the tail's status element,
+so every rank divides by it. :func:`join` admits a pod into a running
+job and fires the :func:`on_membership_change` hooks (the place for a
+data-shard remap and :func:`linear_scale`). Under ``BYTEPS_STALENESS=K``
+a pull may be served a round up to K behind (decoded with that round's
+seed) and the scheduler keeps up to K+1 rounds of a key in flight.
+
+Not ported yet, and refused or absent: the auto-tuner
+(``BYTEPS_AUTO_TUNE``), tracing spans, the elastic data-shard map and
+autoscaler.
 """
 
 from __future__ import annotations
@@ -122,7 +132,6 @@ from byteps_tpu_torch.common.dcn_adapter import (
     HostStaging,
     degraded_fallback,
     owner_wire_death,
-    part_divisor,
     remap_dead_owner,
     stall_diag,
 )
@@ -153,6 +162,7 @@ from byteps_tpu_torch.compression.wire import (
 from byteps_tpu_torch.server import (
     NoLiveServersError,
     PSWorker,
+    WorkerEvictedError,
     hand_off_owner,
     retire_nic,
 )
@@ -196,6 +206,10 @@ class _EagerState:
         self.staging: Optional[HostStaging] = None
         self.bytes_d2h = 0
         self.bytes_h2d = 0
+        # on_membership_change hooks, and the live pods the last join()
+        # adopted (what a rank that is no controller knows of them)
+        self.membership_hooks: List[Callable[[int], Any]] = []
+        self.live_pods: Optional[int] = None
 
 
 _state = _EagerState()
@@ -268,10 +282,12 @@ def init(compression_params: Optional[Dict[str, Any]] = None,
         group = dist.new_group(backend="gloo") if n > 1 else None
         _state.tail = _Tail(n, r, group)
         # several controllers scope credits per owner: one faulted NIC
-        # backing off does not starve its siblings' wires
+        # backing off does not starve its siblings' wires; bounded
+        # staleness keeps up to K+1 rounds of a key in flight
         _state.scheduler = PipelineScheduler(
             stages=stages, credit=cfg.scheduling_credit,
-            credit_scope="owner" if n_ctl > 1 else "global")
+            credit_scope="owner" if n_ctl > 1 else "global",
+            rounds_window=cfg.staleness if cfg.staleness > 0 else None)
     _state.initialized = True
     log.info("byteps_tpu_torch.eager initialized: pod %d of %d, rank %d of "
              "%d, %s pipeline, compression=%s", cfg.worker_id,
@@ -299,6 +315,8 @@ def shutdown() -> None:
         _state.psworker = None
     _state.psworkers = []
     _state.owners = None
+    _state.membership_hooks.clear()
+    _state.live_pods = None
     _state.initialized = False
     _state.stages = ()
     _state.inflight.clear()
@@ -599,12 +617,17 @@ def _push_stage(task: PartitionTask):
         return worker.push_bytes(p.key, task.payload, codec_id,
                                  version=task.push_version)
     except BaseException as e:  # noqa: BLE001 - owner-death classify
+        if isinstance(e, WorkerEvictedError):
+            # the rejoin adopted the server's watermarks: the stage retry
+            # mints afresh (a stale pin is dropped as a replay)
+            task.push_version = None
         _owner_giveup(task, owner, e)
 
 
 def _pull_stage(task: PartitionTask):
     """PULL (reference ``:722``), on the controller, through the
-    partition's owner: the round's result, in the plan's pull format."""
+    partition's owner: the round's result, in the plan's pull format, the
+    round it was served from and the live count it closed under."""
     if task.payload is None:
         return None
     if isinstance(task.payload, DegradedLocal):
@@ -615,17 +638,22 @@ def _pull_stage(task: PartitionTask):
     worker = _state.psworkers[owner]
     try:
         if plan is None:
-            return worker.pull_bytes(p.key, p.length * 4, task.payload, 0)
-        return worker.pull_bytes(p.key, plan.pull_capacity(p.length),
-                                 task.payload, plan.pull_codec_id)
+            out = worker.pull_bytes(p.key, p.length * 4, task.payload, 0)
+        else:
+            out = worker.pull_bytes(p.key, plan.pull_capacity(p.length),
+                                    task.payload, plan.pull_codec_id)
     except BaseException as e:  # noqa: BLE001 - owner-death classify
         _owner_giveup(task, owner, e)
+    task.round_live = worker.last_round_live()
+    task.served_round = worker.last_pull_round()
+    return out
 
 
 def _decompress_stage(task: PartitionTask):
     """DECOMPRESS (reference ``:753``), on the controller: the wire decode
-    of the pulled global sum (staleness 0), or of a degraded partition's
-    push-side encoding of the pod sum."""
+    of the pulled global sum, with the seed of the round it was served
+    from, or of a degraded partition's push-side encoding of the pod
+    sum."""
     buf = task.payload
     if buf is None:
         return None
@@ -637,14 +665,17 @@ def _decompress_stage(task: PartitionTask):
     if getattr(task, "degraded", False):
         return plan.codec.decode(buf, p.length, _wire_seed(task))
     seed = pull_seed(task.name, task.context["version"], p.part_idx,
+                     served_round=getattr(task, "served_round", None),
+                     staleness=_state.cfg.staleness,
                      salt=task.context["spec"].seed)
     return plan.decode_pull(buf, p.length, seed)
 
 
 def _place(task: PartitionTask, g: np.ndarray) -> torch.Tensor:
     """The controller's global sum in the tail's send layout on the
-    tensor's device, with its status element (0; ``_DEGRADED`` for the
-    pod's own sum): unsharded ``(L + 1,)``; sharded
+    tensor's device, with its status element (minus the live count of
+    the round's epoch; ``_DEGRADED`` for the pod's own sum): unsharded
+    ``(L + 1,)``; sharded
     ``(n, seg + 1)``, row r rank r's zero-padded segment. A CUDA tensor's
     sum goes through the name's pinned pull buffer and the copy stream."""
     p, ctx = task.partition, task.context
@@ -675,8 +706,8 @@ def _place(task: PartitionTask, g: np.ndarray) -> torch.Tensor:
         buf = flat.new_zeros(n, seg + 1)
         buf[:, :seg] = flat.view(n, seg)
         flat = buf
-    if getattr(task, "degraded", False):
-        flat[..., -1] = _DEGRADED
+    flat[..., -1] = (_DEGRADED if getattr(task, "degraded", False)
+                     else -task.round_live)
     return flat
 
 
@@ -704,8 +735,9 @@ def _allgather_stage(task: PartitionTask):
     return fut.result()
 
 
-# the tail's status element, 0 for the global sum: a failed partition,
-# or the pod's own sum of a degraded one
+# the tail's status element: a failed partition, the pod's own sum of a
+# degraded one, or, for a global sum, minus the live pods of the epoch
+# its round closed under (exact in f32), which divides it on every rank
 _FAILED, _DEGRADED = 1, 2
 
 
@@ -730,10 +762,11 @@ class _Tail:
     """One rank's issuer of the pod's tail collectives, first in first out
     by (call, partition), over ``group``: unsharded, the controller's
     broadcast of the global sum; sharded, its scatter of the segments and
-    every rank's all-gather. Averages on the device after them: by
-    ``size()``, or by the pod's size for a degraded partition. The
-    controller waits for each partition's sum (or its handle's failure,
-    which it sends on as ``_FAILED``); the other ranks just take part."""
+    every rank's all-gather. Averages on the device after them: by the
+    pod's size × the live pods of the partition's round, or by the pod's
+    size for a degraded partition. The controller waits for each
+    partition's sum (or its handle's failure, which it sends on as
+    ``_FAILED``); the other ranks just take part."""
 
     def __init__(self, n: int, rank: int, group) -> None:
         self.n, self.rank, self.group = n, rank, group
@@ -816,10 +849,60 @@ class _Tail:
                                f"'{task.name}' failed on the pod controller")
         if task.context["average"]:
             # a degraded partition holds the pod's sum alone: its pod
-            # average stands for the global one
-            out = out / part_divisor(n * max(1, _state.cfg.num_worker), n,
-                                     status == _DEGRADED)
+            # average stands for the global one; a global sum divides by
+            # the participants of its round's epoch
+            out = out / (n if status == _DEGRADED else n * -status)
         return out
+
+
+# --- elastic membership (reference ``:776``–``:833``) -----------------------
+def _live_size() -> int:
+    """Participants under elastic membership: ``pod_size()`` × the live
+    pods of the most recently adopted epoch (``size()`` while the
+    membership is full). A rank that is no controller knows the live pods
+    its last :func:`join` adopted."""
+    if _state.psworkers:
+        live = min(w.live_pods() for w in _state.psworkers)
+    else:
+        live = _state.live_pods or _state.cfg.num_worker
+    return pod_size() * max(1, live)
+
+
+def on_membership_change(hook: Callable[[int], Any]) -> None:
+    """Register ``hook(live)`` to run after :func:`join` adopted a
+    membership change, with the participants it adopted: the place for a
+    data-shard remap and an LR rescale (:func:`linear_scale`)."""
+    _require_init()
+    _state.membership_hooks.append(hook)
+
+
+def join() -> int:
+    """Admit this pod into a running job (reference ``:802``): the
+    controller runs the kJoin handshake and the round-watermark adoption
+    on every controller NIC (all under the pod's worker id), so the pod
+    enters at a round boundary; the adopted live pods reach the pod's
+    other ranks by a broadcast on the default group (a collective: every
+    rank calls this, from its calling thread). Fires the
+    :func:`on_membership_change` hooks with the participants and returns
+    them."""
+    _require_init()
+    for w in _state.psworkers:
+        w.join()
+    live = _live_size()
+    if pod_size() > 1:
+        t = torch.tensor([live], dtype=torch.int64)
+        dist.broadcast(t, src=0)
+        live = int(t.item())
+    _state.live_pods = live // pod_size()
+    for hook in list(_state.membership_hooks):
+        hook(live)
+    return live
+
+
+def linear_scale(base: float, base_live: int, live: int) -> float:
+    """The linear LR (or batch) rescale for elastic membership: ``base``
+    was tuned at ``base_live`` participants, the job now has ``live``."""
+    return base * (live / max(1, base_live))
 
 
 # --- the user surface ---------------------------------------------------------

@@ -26,15 +26,19 @@ dead server's keys move to the survivors by rendezvous hash, with fresh
 round numbers and a lazy re-init), the owner handoff of a pod of
 several controllers (:func:`hand_off_owner`, :func:`retire_nic`), and
 the in-process IPC path (``BYTEPS_ENABLE_IPC``: a worker in the process
-of a running server reaches its store without TCP). Not ported yet, and
-refused by :func:`~byteps_tpu_torch.common.config.check_ported` when
-asked for: worker leases and elastic membership, bounded staleness and
-asynchronous rounds. Importing this package neither builds nor loads the
-native library; the first server or connection does.
+of a running server reaches its store without TCP), and elastic
+membership: worker leases (``BYTEPS_WORKER_LEASE_MS``: a silent worker
+is evicted, the membership epoch bumps, open rounds close over the
+survivors, quorum-scaled), the epoch adoption that gives each round its
+own live count, the rejoin of an evicted worker, the mid-stream join
+(kJoin), bounded staleness (``BYTEPS_STALENESS``) and asynchronous
+rounds (``BYTEPS_ENABLE_ASYNC``). Importing this package neither builds
+nor loads the native library; the first server or connection does.
 """
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import random
 import threading
@@ -79,6 +83,12 @@ __all__ = [
 # Sequential id per PSWorker instance: each emulated NIC gets its own
 # per-NIC metric series (wire.nic<N>.*) beside the process aggregates.
 _NIC_SEQ = itertools.count()
+
+# (server, epoch) -> live count entries kept in PSWorker._epoch_live: every
+# membership change adds one, so entries further than this many epochs
+# from the newest are pruned (a round that stale falls back to the
+# adopted live count)
+_EPOCH_LIVE_WINDOW = 64
 
 # A data-plane connect retries for the worker's whole connect budget (the
 # server may still be starting), in slices this long, so that a connect
@@ -177,13 +187,26 @@ def start_server(
     port: Optional[int] = None,
     num_workers: Optional[int] = None,
     engine_threads: Optional[int] = None,
+    async_mode: Optional[bool] = None,
     server_id: int = 0,
     pull_timeout_ms: Optional[int] = None,
     enable_schedule: Optional[bool] = None,
+    lease_ms: Optional[int] = None,
+    staleness: Optional[int] = None,
 ) -> int:
     """Start the native summation service in this process (non-blocking);
-    returns the port. Rounds are synchronous: every worker's push of a
-    round is summed before any pull of it is answered."""
+    returns the port. Rounds are synchronous by default: every live
+    worker's push of a round is summed before any pull of it is answered.
+
+    ``lease_ms`` (default ``BYTEPS_WORKER_LEASE_MS``) > 0 arms worker
+    leases: a worker silent past the lease is evicted, the membership
+    epoch bumps, open rounds close over the live workers (scaled by
+    live/contributors) and stuck barriers release. ``staleness`` (default
+    ``BYTEPS_STALENESS``) K > 0 serves a pull of round v from the newest
+    closed round >= v-K and force-closes a round a straggler holds past
+    the bound; K = 0 is the synchronous tier bit for bit. ``async_mode``
+    (default ``BYTEPS_ENABLE_ASYNC``, the K = inf limit, wins over K):
+    the store is summed into without rounds or barriers."""
     global _INPROC_SERVER_ID
     cfg = get_config()
     check_ported(cfg)
@@ -194,14 +217,15 @@ def start_server(
         num_workers if num_workers is not None else cfg.num_worker,
         engine_threads if engine_threads is not None
         else cfg.server_engine_threads,
-        0,  # asynchronous rounds: not ported
+        1 if (async_mode if async_mode is not None else cfg.enable_async)
+        else 0,
         pull_timeout_ms if pull_timeout_ms is not None
         else cfg.pull_timeout_ms,
         server_id,
         1 if (enable_schedule if enable_schedule is not None
               else cfg.server_enable_schedule) else 0,
-        0,  # worker leases: not ported
-        0,  # bounded staleness: not ported
+        lease_ms if lease_ms is not None else cfg.worker_lease_ms,
+        staleness if staleness is not None else cfg.staleness,
     )
     if rc != 0:
         raise RuntimeError(f"bps_server_start failed (rc={rc}, port={port})")
@@ -287,6 +311,14 @@ class PSWorker:
     colocated fast path), without a CRC; pushes and pulls run under the
     retry loop and failover as on the wire, an init goes straight to the
     store.
+
+    Elastic membership: every response stamps the server's membership
+    epoch; a newer one is adopted from a ``kMembers`` query
+    (:meth:`live_pods`, ``membership_events``), and each pull records the
+    live count of the epoch its round closed under
+    (:meth:`last_round_live`) and the round it was served from
+    (:meth:`last_pull_round`). A push refused as evicted rejoins in line
+    (:meth:`rejoin`); :meth:`join` admits this worker into a running job.
     """
 
     def __init__(
@@ -343,19 +375,33 @@ class PSWorker:
             and any(r.kind == "corrupt" for r in self._plan.rules))
         self._retry_limit = max(0, cfg.retry_limit)
         self._backoff_ms = max(1, cfg.retry_backoff_ms)
+        # bounded staleness: a pull served a round newer than this worker
+        # minted re-syncs its mint counter (pull_bytes)
+        self._staleness = max(0, cfg.staleness)
         # seeded jitter: reproducible backoff schedules per worker
         self._retry_rng = random.Random(
             0xC0FFEE ^ (self._worker_id * 7919) ^ cfg.fault_seed)
         self._live: Set[int] = set(range(len(self._servers)))
         self._epoch = 0  # bumped per failover; in-flight ops self-abort
         self._key_nbytes: Dict[int, int] = {}  # for post-failover re-init
+        # elastic membership: the epoch (low 16 bits) adopted per server,
+        # and (server, epoch) -> live count, the divisor of a round that
+        # closed under that epoch (epoch 0: the configured membership)
+        self._epoch_seen: Dict[int, int] = {}
+        self._epoch_live: Dict[Tuple[int, int], int] = {
+            (s, 0): max(1, cfg.num_worker) for s in range(len(self._servers))}
+        self._live_pods = max(1, cfg.num_worker)
         # injected self-death (worker:kill) / wedge window (worker:hang)
         self._self_killed = False
         self._wedged_until = 0.0
+        # a worker<N>:join rule runs the admission once, however wide its
+        # window
+        self._join_fired = False
         self.counters: Dict[str, int] = {
             "retries": 0, "timeouts": 0, "conn_errors": 0,
             "crc_errors": 0, "reinits": 0, "give_ups": 0,
             "failovers": 0, "ici_fallbacks": 0,
+            "membership_events": 0, "rejoins": 0, "joins": 0,
         }
         self._counter_lock = threading.Lock()
         # every robustness count and wire byte also lands in the
@@ -370,6 +416,13 @@ class PSWorker:
         self._m_pull_bytes_nic = _reg.counter(
             f"wire.{self._nic_tag}.pull_bytes")
         self._m_push_size = _reg.histogram("wire.push_size_bytes")
+        # bounded staleness: requested - served a pull, and how many rounds
+        # this worker's newest mint runs ahead of the round it last
+        # consumed (the process's last pull, and this NIC's)
+        self._m_staleness = _reg.histogram("server.staleness")
+        self._m_rounds_ahead = _reg.gauge("psworker.rounds_ahead")
+        self._m_rounds_ahead_nic = _reg.gauge(
+            f"psworker.{self._nic_tag}.rounds_ahead")
         self._m_attempts = {
             op: (_reg.counter(f"wire.{op}_attempts"),
                  _reg.counter(f"wire.{self._nic_tag}.{op}_attempts"))
@@ -411,7 +464,9 @@ class PSWorker:
         rules simulate this process's death ('worker:kill': sticky, every
         later op refuses) or wedge ('worker:hang': ops block out the
         window, then report a lost response); both silence the health
-        monitor."""
+        monitor, whose ping is the lease heartbeat, so the server evicts
+        the worker as it would a crashed one. 'worker<N>:join' runs the
+        admission (:meth:`join`) once, then lets the op proceed."""
         if self._self_killed:
             raise WorkerKilledError(
                 f"worker {self._worker_id} is dead (injected worker:kill); "
@@ -448,6 +503,11 @@ class PSWorker:
                 raise InjectedTimeout(
                     f"injected: worker {self._worker_id} wedged for "
                     f"{inj.rule.latency_ms} ms during {op}")
+            if inj.kind == "join":
+                if not self._join_fired:
+                    self._join_fired = True
+                    self.join()
+                return None
             # other kinds under the worker scope fall through to the
             # generic handling below (worker:timeout = lose own responses)
         if inj.kind == "down":
@@ -527,6 +587,175 @@ class PSWorker:
         with self._vlock:
             live = set(self._live)
         return self._server_for_live(key, live)
+
+    # -- elastic membership -------------------------------------------------
+    def live_pods(self) -> int:
+        """Live workers (pods) in the most recently adopted membership
+        epoch: what averaging divides by in place of ``DMLC_NUM_WORKER``
+        once a peer is evicted or joins."""
+        with self._vlock:
+            return max(1, self._live_pods)
+
+    def _note_epoch(self, sidx: int) -> None:
+        """After every op: compare the epoch the server stamped on its
+        response with the adopted one, and adopt a newer one (a mod-2^16
+        window; never backwards: a connection idle across a bump still
+        holds the old stamp)."""
+        try:
+            if self._is_local(sidx):
+                e = int(load_lib().bps_server_epoch()) & 0xFFFF
+            else:
+                conn = getattr(self._tls, "conns", {}).get(sidx)
+                if conn is None:
+                    return
+                e = conn.epoch()
+        except Exception:  # noqa: BLE001 - the next op detects it again
+            return
+        with self._vlock:
+            seen = self._epoch_seen.get(sidx, 0)
+        if e != seen and ((e - seen) & 0xFFFF) < 0x8000:
+            self._adopt_membership(sidx)
+
+    def _adopt_membership(self, sidx: int) -> None:
+        """Adopt server ``sidx``'s membership from a ``kMembers`` query:
+        record the query's own (epoch, live) pair in the divisor history,
+        never the stamp that triggered it (another change may have landed
+        in between), and adopt the epoch once, whichever pool thread gets
+        there first. A failed query leaves the old epoch adopted; the next
+        op retries."""
+        try:
+            if self._is_local(sidx):
+                ep = ctypes.c_uint64(0)
+                live = ctypes.c_uint32(0)
+                bitmap = (ctypes.c_uint8 * 1024)()
+                n = load_lib().bps_server_members(
+                    ctypes.byref(ep), ctypes.byref(live), bitmap, 1024)
+                if n < 0:
+                    return
+                q_epoch, live_count = int(ep.value), int(live.value)
+                bits = bytes(bitmap[:min(n, 1024)])
+            else:
+                q_epoch, live_count, bits = self._conn(sidx).members()
+        except Exception as e:  # noqa: BLE001 - retried on the next op
+            log.debug("membership query on server %d failed: %s", sidx, e)
+            return
+        q_epoch16 = q_epoch & 0xFFFF
+        evicted_self = bool(self._worker_id < len(bits)
+                            and bits[self._worker_id] == 0)
+        with self._vlock:
+            self._record_epoch_live(sidx, q_epoch16, int(live_count))
+            seen = self._epoch_seen.get(sidx, 0)
+            if (q_epoch16 == seen
+                    or ((q_epoch16 - seen) & 0xFFFF) >= 0x8000):
+                return
+            self._epoch_seen[sidx] = q_epoch16
+            self._live_pods = max(1, int(live_count))
+        self._count("membership_events")
+        log.warning("membership epoch %d adopted from server %d: %d live "
+                    "worker(s)%s", q_epoch16, sidx, live_count,
+                    "; this worker is evicted (it rejoins on its next push)"
+                    if evicted_self else "")
+
+    def _record_epoch_live(self, sidx: int, epoch16: int,
+                           live: int) -> None:
+        """Record (epoch -> live count) for ``sidx`` and prune the entries
+        further than ``_EPOCH_LIVE_WINDOW`` epochs from it either way on
+        the mod-2^16 ring (a one-sided test would strand entries a large
+        jump left on the far half). Caller holds ``_vlock``."""
+        self._epoch_live[(sidx, epoch16 & 0xFFFF)] = max(1, int(live))
+        stale = [k for k in self._epoch_live if k[0] == sidx
+                 and ((epoch16 - k[1]) & 0xFFFF) >= _EPOCH_LIVE_WINDOW
+                 and ((k[1] - epoch16) & 0xFFFF) >= _EPOCH_LIVE_WINDOW]
+        for k in stale:
+            del self._epoch_live[k]
+
+    def _live_at(self, sidx: int, epoch16: int) -> int:
+        """The live count at ``epoch16`` on ``sidx``: the divisor of a round
+        that closed under that epoch. An unknown epoch (the round's close
+        is the first sign of the change) adopts the membership and looks
+        again; the last resort is the adopted live count."""
+        with self._vlock:
+            v = self._epoch_live.get((sidx, epoch16))
+        if v is not None:
+            return v
+        self._note_epoch(sidx)
+        with self._vlock:
+            return self._epoch_live.get((sidx, epoch16),
+                                        max(1, self._live_pods))
+
+    def last_round_live(self) -> Optional[int]:
+        """The live count of the round this thread's last
+        :meth:`pull_bytes` returned (None before any): that round's
+        averaging divisor. Thread-local, as the connections are."""
+        return getattr(self._tls, "round_live", None)
+
+    def last_pull_round(self) -> Optional[int]:
+        """The round this thread's last :meth:`pull_bytes` was served from
+        (None before any); requested - served is its staleness."""
+        return getattr(self._tls, "round_served", None)
+
+    def sync_rounds(self, sidx: int) -> None:
+        """Adopt server ``sidx``'s per-key round watermarks and store sizes
+        (max-merge, :meth:`adopt_rounds`): the server's replay watermark
+        outlives an eviction or a restart, and a fresh counter would mint
+        rounds it drops as replays."""
+        trips = self._conn(sidx).rounds()
+        self.adopt_rounds({int(k): int(v) for k, v, _ in trips},
+                          {int(k): int(nb) for k, _, nb in trips})
+
+    def rejoin(self) -> None:
+        """Re-register with every live server after an eviction (or a
+        restart against a running tier): a heartbeat with the worker id
+        re-admits it and bumps the epoch, then the round watermarks are
+        adopted. Runs in line when a push is refused as evicted; a server
+        that cannot be reached is left to its own failover."""
+        with self._vlock:
+            live = sorted(self._live)
+        for sidx in live:
+            try:
+                self.ping(sidx)
+                self.sync_rounds(sidx)
+                self._note_epoch(sidx)
+            except Exception as e:  # noqa: BLE001 - see the docstring
+                log.warning("rejoin against server %d failed: %s: %s",
+                            sidx, type(e).__name__, e)
+        self._count("rejoins")
+
+    def join(self) -> int:
+        """Mid-stream admission (kJoin) on every live server: a fresh worker
+        id grows the server's membership, an evicted one comes back; the
+        epoch bumps (peers adopt it on their next op), rounds open at
+        admission close over their contributors, and this worker adopts
+        the round watermarks, so its first mint continues at the served
+        frontier. Returns the number of servers that admitted it; raises
+        :class:`NoLiveServersError` if none did."""
+        with self._vlock:
+            live = sorted(self._live)
+        joined = []
+        for sidx in live:
+            try:
+                if self._is_local(sidx):
+                    rc = int(load_lib().bps_server_join(self._worker_id))
+                    if rc < 0:
+                        raise RuntimeError(f"local join failed (rc={rc})")
+                else:
+                    self._conn(sidx).join(self._worker_id)
+                self.sync_rounds(sidx)
+                self._note_epoch(sidx)
+                joined.append(sidx)
+            except Exception as e:  # noqa: BLE001 - as rejoin: the live
+                # quorum admits; a dead server re-admits through the
+                # eviction and in-line rejoin once it is back
+                log.warning("join against server %d failed: %s: %s",
+                            sidx, type(e).__name__, e)
+        if not joined:
+            raise NoLiveServersError(
+                f"worker {self._worker_id} could not join any summation "
+                "server")
+        self._count("joins")
+        log.info("worker %d joined mid-stream via server(s) %s",
+                 self._worker_id, joined)
+        return len(joined)
 
     # -- connection management ----------------------------------------------
     def _conn(self, sidx: int) -> NativeClient:
@@ -615,8 +844,21 @@ class PSWorker:
                 m_att[0].inc()
                 m_att[1].inc()
             try:
-                return attempt_fn(sidx)
+                result = attempt_fn(sidx)
+                self._note_epoch(sidx)
+                return result
             except BaseException as e:  # noqa: BLE001 - classified below
+                self._note_epoch(sidx)
+                if isinstance(e, WorkerEvictedError):
+                    # the server refuses this worker until it rejoins:
+                    # rejoin here, then raise stage-retryably; the op's
+                    # pinned round predates the adopted watermarks, so the
+                    # stage retry mints afresh (the push stages drop the
+                    # pin on this error)
+                    log.warning("%s key %d refused: worker %d evicted; "
+                                "rejoining", op, key, self._worker_id)
+                    self.rejoin()
+                    raise
                 if (isinstance(e, RuntimeError) and "before init" in str(e)
                         and key in self._key_nbytes
                         and attempt < self._retry_limit):
@@ -794,16 +1036,23 @@ class PSWorker:
         def attempt(sidx):
             out = np.empty(capacity, np.uint8)
             if self._is_local(sidx):
-                got = load_lib().bps_local_pull(
+                ep = ctypes.c_uint64(0)
+                served = ctypes.c_uint64(0)
+                got = load_lib().bps_local_pull3(
                     key, codec, version, self._recv_timeout,
-                    out.ctypes.data, out.nbytes)
+                    out.ctypes.data, out.nbytes, ctypes.byref(ep),
+                    ctypes.byref(served))
                 if got < 0:
                     check_local(got, f"pull of key {key}")
                 if self.pacer is not None:
                     self.pacer.throttle_recv(int(got))
+                self._tls.round_live = self._live_at(
+                    sidx, int(ep.value) & 0xFFFF)
+                self._tls.round_served = int(served.value)
                 return out, int(got)
             inj = self._inject_pre("pull", sidx)
-            got, resp_crc = self._conn(sidx).pull(
+            conn = self._conn(sidx)
+            got, resp_crc = conn.pull(
                 key, out, version, codec, want_crc=self._crc,
                 worker_id=self._worker_id)
             if self.pacer is not None:
@@ -822,6 +1071,12 @@ class PSWorker:
                 raise WireCorruption(
                     f"pull response for key {key} failed CRC "
                     f"(server {sidx}); retrying")
+            # the response carries the epoch its round closed under: that
+            # epoch's live count divides the round, whatever the current
+            # membership is by now
+            self._tls.round_live = self._live_at(sidx,
+                                                 conn.last_pull_epoch())
+            self._tls.round_served = conn.last_pull_round()
             return out, int(got)
 
         out, got = self._retry_loop("pull", key, attempt)
@@ -829,6 +1084,22 @@ class PSWorker:
             self.bytes_pulled += got
         self._m_pull_bytes.inc(got)
         self._m_pull_bytes_nic.inc(got)
+        served = self._tls.round_served
+        if version > 0:
+            self._m_staleness.observe(max(0, int(version) - served))
+            with self._vlock:
+                # under staleness, a straggler served a round newer than it
+                # asked for adopts it (max-merge), so that its next push
+                # targets the open round instead of rounds the server
+                # consumes silently; in strict sync served == requested
+                # <= the counter, and nothing changes
+                if (self._staleness > 0
+                        and served > self._versions.get(key, 0)):
+                    self._versions[key] = served
+                minted = self._versions.get(key, int(version))
+            ahead = max(0, int(minted) - served)
+            self._m_rounds_ahead.set(ahead)
+            self._m_rounds_ahead_nic.set(ahead)
         return out[:got]
 
     def push(self, key: int, data: np.ndarray) -> int:
@@ -854,7 +1125,9 @@ class PSWorker:
 
     def ping(self, sidx: int = 0) -> Tuple[int, int]:
         """(server CLOCK_REALTIME ns, rtt ns) of one probe of ``sidx``; an
-        injected down window fails it, as it fails the health monitor's."""
+        injected down window fails it, as it fails the health monitor's.
+        It carries the worker id: a lease heartbeat, and the re-admission
+        of an evicted worker."""
         self._inject_pre("ping", sidx)
         return self._conn(sidx).ping(self._worker_id)
 
@@ -910,12 +1183,14 @@ class PSWorker:
 
     def get_counters(self) -> Dict[str, int]:
         """The robustness counters (retries, timeouts, connection and CRC
-        errors, re-inits, give-ups, failovers, degraded fallbacks), the
+        errors, re-inits, give-ups, failovers, degraded fallbacks,
+        membership events, rejoins, joins) and the adopted live pods, the
         plan's injected counts by kind (``injected_<kind>``) when a fault
         plan is armed, and the health monitor's miss counts and last probe
         age when it runs."""
         with self._counter_lock:
             out = dict(self.counters)
+        out["live_pods"] = self.live_pods()
         if self._plan is not None:
             for k, v in self._plan.counters().items():
                 out[f"injected_{k}"] = v

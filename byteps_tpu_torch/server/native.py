@@ -54,9 +54,10 @@ class WireCorruption(RuntimeError):
 
 
 class WorkerEvictedError(RuntimeError):
-    """The server refused this worker as evicted. The port arms no worker
-    leases (``BYTEPS_WORKER_LEASE_MS`` is not ported), so this is raised
-    only by a server that another program started with leases."""
+    """The server refused this worker as evicted: its lease
+    (``BYTEPS_WORKER_LEASE_MS``) expired, or it re-sent a round that
+    closed without it. ``PSWorker`` rejoins on it (heartbeat and round
+    watermarks) and the stage retry mints a fresh round."""
 
 
 # the in-process path's return codes (csrc/api.cc, csrc/server.cc)
@@ -156,22 +157,33 @@ def _bind(lib: ctypes.CDLL) -> None:
         "bps_client_shutdown": ([c.c_void_p, c.c_int], c.c_int),
         "bps_client_ping": ([c.c_void_p, c.POINTER(c.c_int64),
                              c.POINTER(c.c_int64), c.c_int], c.c_int),
+        # elastic membership: the epoch stamped on every response, the
+        # live set, the per-key round watermarks and the kJoin admission
+        "bps_client_epoch": ([c.c_void_p], c.c_int),
+        "bps_client_members": ([c.c_void_p, c.POINTER(c.c_uint64),
+                                c.POINTER(c.c_uint32),
+                                c.POINTER(c.c_uint32),
+                                c.POINTER(c.c_uint8), c.c_uint32], c.c_int),
+        "bps_client_rounds": ([c.c_void_p, c.c_void_p, c.c_uint64,
+                               c.POINTER(c.c_uint64)], c.c_int),
+        "bps_client_join": ([c.c_void_p, c.c_int, c.POINTER(c.c_uint64)],
+                            c.c_int),
         "bps_client_last_error": ([c.c_void_p], c.c_char_p),
         "bps_client_is_dead": ([c.c_void_p], c.c_int),
         "bps_client_free": ([c.c_void_p], None),
         "bps_reduce_sum_f32": ([c.POINTER(c.c_float), c.POINTER(c.c_float),
                                 c.c_int64], None),
-        # the in-process (IPC) path: the server's store in this process
+        # the in-process (IPC) path: the server's store and membership in
+        # this process
+        "bps_server_epoch": ([], c.c_uint64),
+        "bps_server_members": ([c.POINTER(c.c_uint64), c.POINTER(c.c_uint32),
+                                c.POINTER(c.c_uint8), c.c_uint32], c.c_int),
+        "bps_server_join": ([c.c_int], c.c_int64),
         "bps_local_init": ([c.c_uint64, c.c_uint64], c.c_int),
         "bps_local_push": ([c.c_uint16, c.c_uint64, c.c_uint8, c.c_void_p,
                             c.c_uint64], c.c_int),
         "bps_local_push2": ([c.c_uint16, c.c_uint64, c.c_uint8, c.c_uint64,
                              c.c_void_p, c.c_uint64], c.c_int),
-        "bps_local_pull": ([c.c_uint64, c.c_uint8, c.c_uint64, c.c_int,
-                            c.c_void_p, c.c_uint64], c.c_int64),
-        "bps_local_pull2": ([c.c_uint64, c.c_uint8, c.c_uint64, c.c_int,
-                             c.c_void_p, c.c_uint64, c.POINTER(c.c_uint64)],
-                            c.c_int64),
         "bps_local_pull3": ([c.c_uint64, c.c_uint8, c.c_uint64, c.c_int,
                              c.c_void_p, c.c_uint64, c.POINTER(c.c_uint64),
                              c.POINTER(c.c_uint64)], c.c_int64),
@@ -220,6 +232,8 @@ class NativeClient:
         # held across every native call so close() cannot free the handle
         # under an in-flight op
         self._op_lock = threading.Lock()
+        self._last_pull_epoch = 0
+        self._last_pull_round = 0
         self._h: Optional[int] = self._lib.bps_client_connect(
             host.encode(), port, timeout_ms, recv_timeout_ms)
         if not self._h:
@@ -249,7 +263,10 @@ class NativeClient:
              worker_id: int = -1):
         """Pull round ``version`` into ``out`` (a capacity buffer); returns
         ``(bytes received, the response's crc)``; the server computes the
-        crc only when ``want_crc`` asks for it (0 otherwise)."""
+        crc only when ``want_crc`` asks for it (0 otherwise). ``worker_id``
+        >= 0 refreshes that worker's lease. The response's epoch (the one
+        the pulled round closed under) and served round are kept:
+        :meth:`last_pull_epoch`, :meth:`last_pull_round`."""
         if not (out.dtype == np.uint8 and out.flags.c_contiguous
                 and out.flags.writeable):
             raise ValueError("pull needs a writeable contiguous uint8 buffer")
@@ -264,7 +281,20 @@ class NativeClient:
                 int(want_crc),
                 ctypes.byref(got), ctypes.byref(crc), worker_id,
                 ctypes.byref(ep), ctypes.byref(served)), "pull")
+            self._last_pull_epoch = int(ep.value)
+            self._last_pull_round = int(served.value)
             return int(got.value), int(crc.value)
+
+    def last_pull_epoch(self) -> int:
+        """The membership epoch (low 16 bits) the last pulled round closed
+        under: the authority for that round's averaging divisor."""
+        return self._last_pull_epoch
+
+    def last_pull_round(self) -> int:
+        """The round the last pull was served from: under bounded
+        staleness (``BYTEPS_STALENESS``) up to K behind the requested
+        one, and ahead of it for a straggler the others lapped."""
+        return self._last_pull_round
 
     def barrier(self, worker_id: int = -1) -> None:
         with self._op_lock:
@@ -274,8 +304,8 @@ class NativeClient:
 
     def ping(self, worker_id: int = -1) -> Tuple[int, int]:
         """(server CLOCK_REALTIME ns, round-trip ns): the health monitor's
-        probe. The port arms no worker leases, so the worker id it
-        carries refreshes nothing on a port server."""
+        probe. With ``worker_id`` >= 0 it is that worker's lease
+        heartbeat, and it re-admits a worker the server evicted."""
         with self._op_lock:
             self._require_open()
             sns = ctypes.c_int64(0)
@@ -285,6 +315,56 @@ class NativeClient:
                 "ping")
             return int(sns.value), int(rtt.value)
 
+    def epoch(self) -> int:
+        """The membership epoch (low 16 bits) stamped on the last response
+        this connection parsed: a change triggers a :meth:`members`
+        query."""
+        with self._op_lock:
+            if not self._h:
+                return 0
+            return int(self._lib.bps_client_epoch(self._h))
+
+    def members(self) -> Tuple[int, int, np.ndarray]:
+        """(epoch, live count, live bitmap over the membership table) in
+        one view of the server's membership."""
+        with self._op_lock:
+            self._require_open()
+            ep = ctypes.c_uint64(0)
+            live = ctypes.c_uint32(0)
+            nw = ctypes.c_uint32(0)
+            bitmap = (ctypes.c_uint8 * 1024)()
+            self._check(self._lib.bps_client_members(
+                self._h, ctypes.byref(ep), ctypes.byref(live),
+                ctypes.byref(nw), bitmap, 1024), "members")
+            n = min(int(nw.value), 1024)
+            return (int(ep.value), int(live.value),
+                    np.frombuffer(bytes(bitmap[:n]), np.uint8).copy())
+
+    def join(self, worker_id: int) -> int:
+        """kJoin: admit ``worker_id`` (a fresh id grows the membership, an
+        evicted or departed one comes back) at a round boundary; returns
+        the epoch after the admission. Adopt :meth:`rounds` before the
+        first push."""
+        with self._op_lock:
+            self._require_open()
+            ep = ctypes.c_uint64(0)
+            self._check(self._lib.bps_client_join(self._h, worker_id,
+                                                  ctypes.byref(ep)), "join")
+            return int(ep.value)
+
+    def rounds(self) -> np.ndarray:
+        """The server's per-key watermarks, an (n, 3) uint64 array of
+        (key, round, store bytes)."""
+        with self._op_lock:
+            self._require_open()
+            out = np.empty(1 << 20, np.uint8)   # 43,690 keys a fetch
+            got = ctypes.c_uint64(0)
+            self._check(self._lib.bps_client_rounds(
+                self._h, out.ctypes.data, out.nbytes, ctypes.byref(got)),
+                "rounds")
+            n = int(got.value) // 24
+            return out[:n * 24].view(np.uint64).reshape(n, 3).copy()
+
     def is_dead(self) -> bool:
         """True once a timeout or desync closed the socket (or the client
         was closed): the owner connects a fresh one."""
@@ -292,8 +372,8 @@ class NativeClient:
             return not self._h or bool(self._lib.bps_client_is_dead(self._h))
 
     def shutdown(self, worker_id: int = -1) -> None:
-        """The worker's goodbye: the server stops once every worker said
-        it."""
+        """The worker's goodbye (``worker_id`` >= 0 marks it departed): the
+        server stops once every worker departed or was evicted."""
         with self._op_lock:
             if self._h:
                 self._lib.bps_client_shutdown(self._h, worker_id)

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from byteps_tpu_torch.common.config import get_config
-from byteps_tpu_torch.common.dcn_adapter import DcnCore, wire_codec_for
+from byteps_tpu_torch.common.dcn_adapter import (DcnCore, live_average,
+                                                 wire_codec_for)
 from byteps_tpu_torch.common.logging import bps_check, get_logger
 from byteps_tpu_torch.common.scheduler import Handle
 
@@ -123,23 +124,42 @@ def push_pull_async(
     cuda = flat.is_cuda
     if not cuda:
         flat = flat.numpy()
+    # a tensor on the card is averaged in DECOMPRESS, partition by
+    # partition, over the live count adopted when each is decoded (its
+    # result lands in place before synchronize); a CPU tensor is averaged
+    # in synchronize, over the live count adopted then, as the reference
+    # adapter does (the parity tests compare its bytes)
     handle = _state.core.push_pull_async(
         flat, name, priority, codec=wire_codec_for(compression),
-        divisor=size() if average else 1)
+        average=average and cuda)
     handle.tensor = tensor          # type: ignore[attr-defined]
+    handle.average = average        # type: ignore[attr-defined]
     return handle
 
 
 def synchronize(handle: Handle, timeout: Optional[float] = 120.0) -> torch.Tensor:
     """Wait and write the aggregated value back into the original tensor
-    (reference: ``synchronize``/``wait_and_clear``). The result was
-    averaged partition by partition in DECOMPRESS: the globally summed
-    slices divided by ``size()``, while a degraded slice
+    (reference: ``synchronize``/``wait_and_clear``). An average divides
+    each globally summed slice by the live workers
+    (:func:`~byteps_tpu_torch.common.dcn_adapter.live_average`: the
+    adopted count, rescaled to the one its round closed under,
+    ``handle.part_live``), while a degraded slice
     (``handle.degraded_parts``) stays the local contribution, which is
-    its own average."""
+    its own average. A CPU tensor's is done here, a CUDA tensor's was
+    done in DECOMPRESS."""
     flat = DcnCore.assemble(handle, timeout)
     tensor: torch.Tensor = handle.tensor  # type: ignore[attr-defined]
     if isinstance(flat, np.ndarray):
+        if handle.average:  # type: ignore[attr-defined]
+            d = _state.core.live_size()
+            avg = live_average(flat, d, None)
+            for off, ln, live in getattr(handle, "part_live", {}).values():
+                if live != d:
+                    avg[off:off + ln] = live_average(flat[off:off + ln], d,
+                                                     live)
+            for off, ln in getattr(handle, "degraded_parts", {}).values():
+                avg[off:off + ln] = flat[off:off + ln]
+            flat = avg
         flat = torch.from_numpy(flat)
     elif flat.data_ptr() == tensor.data_ptr() and flat.dtype == tensor.dtype:
         return tensor                   # the result landed in place

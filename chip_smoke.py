@@ -239,7 +239,25 @@ Phases, each printing one JSON line:
     ranks: a + b exact in either order, /2 exact; one pod is the whole
     job); bytes pushed, pulled, D2H and H2D per step exact; step ms (the
     slower rank), the counters, and the time from each kill to each
-    rank's failover.
+    rank's failover. Then elastic membership and bounded staleness, each
+    leg's server pair started once both ranks are about to connect (a
+    lease runs from the server's start): dcn_lease_evict
+    (``BYTEPS_WORKER_LEASE_MS=800``, heartbeats every 100 ms; rank 1
+    arms a ``worker:kill`` plan after the first timed step and its
+    second step fails on the kill; step 1 equal to staged_raw's on both
+    ranks, rank 0's second step equal to a one-worker replay of it from
+    rank 0's state after step 1, with no wire; one membership event or
+    more and live size 1 on rank 0; the time from the kill to rank 0's
+    adoption of the eviction); dcn_join (the job starts with
+    ``DMLC_NUM_WORKER=1``; rank 1, worker id 1, enters through
+    ``DcnCore.join()`` before the warm-up: every step equal to
+    staged_raw's, so the divisor is the live count 2; one join on rank
+    1, a membership event on rank 0); dcn_straggler_k0 (rank 1 pays
+    ``STRAGGLER_MS`` a wire attempt, ``worker1:slow``: equal to
+    staged_raw's); dcn_straggler_k1 (the same straggler under
+    ``BYTEPS_STALENESS=1``: the warm-up equal to staged_raw's, every
+    pull at most one round stale; stale and served-ahead pulls, and
+    both ranks' ms a step against dcn_straggler_k0's).
 
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
@@ -275,7 +293,7 @@ A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
 (generate, serve, multitenant, the three train legs, train_ring's
 three legs on one rank, train_dcn's four legs on one rank,
-train_hybrid's five legs on one rank, train_chaos's five legs on one
+train_hybrid's five legs on one rank, train_chaos's nine legs on one
 rank, aggregate_onebit; the ring rows' times are the
 ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
@@ -3250,7 +3268,23 @@ CHAOS_LEGS = (
                                "BYTEPS_POD_CONTROLLERS": "3",
                                "BYTEPS_RETRY_LIMIT": "2",
                                "BYTEPS_RETRY_BACKOFF_MS": "10"}))
-CHAOS_KNOBS = sorted({k for _, env in CHAOS_LEGS for k in env}
+# elastic membership and bounded staleness, after the chaos legs, on the
+# same yardstick: two workers a leg, leases of 800 ms heartbeated every
+# 100 ms; the straggler is worker 1, every wire attempt STRAGGLER_MS late
+STRAGGLER_MS = 20
+ELASTIC_LEASE = {"BYTEPS_WORKER_LEASE_MS": "800",
+                 "BYTEPS_HEALTH_INTERVAL_MS": "100"}
+STRAGGLER = {"BYTEPS_FAULT_SPEC": f"worker1:slow@ms={STRAGGLER_MS}"}
+ELASTIC_LEGS = (
+    # rank 1 dies by a worker:kill plan armed after the first timed step
+    ("dcn_lease_evict", ELASTIC_LEASE),
+    # the job starts with one worker; rank 1 joins before the warm-up
+    ("dcn_join", ELASTIC_LEASE),
+    ("dcn_straggler_k0", STRAGGLER),
+    ("dcn_straggler_k1", {**STRAGGLER, "BYTEPS_STALENESS": "1"}))
+# what the leg's server processes take of its environment
+SERVER_KNOBS = ("BYTEPS_WORKER_LEASE_MS", "BYTEPS_STALENESS")
+CHAOS_KNOBS = sorted({k for _, env in CHAOS_LEGS + ELASTIC_LEGS for k in env}
                      | {"DMLC_PS_ROOT_PORT"})
 # the servers of a leg's pair the parent kills once both ranks ended
 # the first timed step (step 1)
@@ -3287,7 +3321,20 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
     per step (pushed, pulled, D2H, H2D) and stage sums per step (thread
     ms, each stage's run and dwell, the tail's), the wire counters, live
     servers and the wall time of each failover, and the dcn legs' credit
-    pools and the keys homed on server 1."""
+    pools and the keys homed on server 1.
+
+    Then the legs of ``ELASTIC_LEGS``, as the dcn legs: dcn_lease_evict
+    (rank 1 arms a ``worker:kill`` plan after the first timed step and
+    its second step fails on it; rank 0 snapshots its parameters and
+    AdamW state there, and after its second step replays that step on
+    one worker, without the wire); dcn_join (``DMLC_NUM_WORKER=1``: rank
+    0 builds its core and touches ``<leg>.inited``; then rank 1 builds
+    its own, enters through ``DcnCore.join()`` and touches
+    ``<leg>.joined``, which rank 0 waits for before
+    ``broadcast_parameters``); the
+    straggler legs (each pull's requested and served round). Reports the
+    membership counters, the kill and the adoption times, the replay's
+    digest and the served rounds."""
     import os
     from pathlib import Path
 
@@ -3319,11 +3366,12 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
     torch.cuda.empty_cache()
 
     reg = get_registry()
-    for leg, env in CHAOS_LEGS:
+    for leg, env in CHAOS_LEGS + ELASTIC_LEGS:
         hybrid = leg.startswith("hybrid")
         for k in CHAOS_KNOBS:
             os.environ.pop(k, None)
-        os.environ.update(env, DMLC_NUM_WORKER="1" if hybrid else str(n),
+        os.environ.update(env, DMLC_NUM_WORKER="1" if hybrid
+                          or leg == "dcn_join" else str(n),
                           DMLC_NUM_SERVER="2", DMLC_PS_ROOT_URI="127.0.0.1",
                           DMLC_PS_ROOT_PORT=str(bases[leg] - 1),
                           DMLC_WORKER_ID="0" if hybrid else str(rank))
@@ -3353,9 +3401,24 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
             def copies():
                 return eager.bytes_moved() + eager.bytes_copied()
         else:
+            if leg in dict(ELASTIC_LEGS):
+                Path(f"{sigdir}/{leg}.want{rank}").touch()
+                wait_file(f"{sigdir}/{leg}.up")
+            if leg == "dcn_join" and rank == 1:
+                # the job runs: rank 0 took the start barrier alone
+                wait_file(f"{sigdir}/{leg}.inited")
             tbps.init()
             core = tbps._state.core
             worker = core.worker
+            if leg == "dcn_join":
+                # rank 1's id is past DMLC_NUM_WORKER: its core took no
+                # start barrier, and it enters the running job here
+                if rank == 1:
+                    out["joined_live"] = core.join()
+                    Path(f"{sigdir}/{leg}.joined").touch()
+                else:
+                    Path(f"{sigdir}/{leg}.inited").touch()
+                    wait_file(f"{sigdir}/{leg}.joined")
             opt = tbps.DistributedOptimizer(adamw(leaves),
                                             params.named_parameters())
             tbps.broadcast_parameters(dict(params.named_parameters()),
@@ -3365,7 +3428,13 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
                 opt.zero_grad()
                 loss = gpt_loss(params, tok, tgt, cfg, chunked_ce=True)
                 loss.backward()
-                opt.step()
+                try:
+                    opt.step()
+                except Exception as e:
+                    # the evicted rank's expected end: its plan killed it
+                    if not (leg == "dcn_lease_evict" and killed_by_plan(e)):
+                        raise
+                    out["died"] = f"{type(e).__name__}: {e}"[:300]
                 return loss.detach()
 
             def copies():
@@ -3399,9 +3468,9 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
                 return ok
             eager._fail_owner = timed_fail_owner
 
-        def arm_owner_kill():
-            o, rule = owner_kill
-            plan = FaultPlan(parse_fault_spec(rule), worker_id=o)
+        def timed_plan(rule, wid):
+            """A fault plan that stamps its first hit's time into kills."""
+            plan = FaultPlan(parse_fault_spec(rule), worker_id=wid)
             intercept = plan.intercept
 
             def timed_intercept(op, sidx, tenant=None):
@@ -3410,7 +3479,47 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
                     kills.append(time.time())
                 return hit
             plan.intercept = timed_intercept
-            eager._state.psworkers[o]._plan = plan
+            return plan
+
+        def arm_owner_kill():
+            o, rule = owner_kill
+            eager._state.psworkers[o]._plan = timed_plan(rule, o)
+
+        # the elastic legs: rank 1's kill plan, rank 0's snapshot for the
+        # one-worker replay, each membership adoption's time, and each
+        # pull's requested and served round and whether that round closed
+        # over this rank alone: its sum then is twice this rank's push
+        # (scaled by live/contributors = 2, exact), judged on the first 16
+        # floats of the raw wire (None where they are all zero)
+        saved, adopted, served_log, heads = {}, [], [], {}
+        if leg in dict(ELASTIC_LEGS):
+            adopt = worker._adopt_membership
+
+            def timed_adopt(sidx):
+                before = worker.counters["membership_events"]
+                adopt(sidx)
+                if worker.counters["membership_events"] > before:
+                    adopted.append(time.time())
+            worker._adopt_membership = timed_adopt
+            push, pull = worker.push_bytes, worker.pull_bytes
+
+            def logged_push(key, buf, *a, **k):
+                v = push(key, buf, *a, **k)
+                heads[(key, v)] = np.frombuffer(buf[:64].tobytes(),
+                                                np.float32)
+                return v
+
+            def logged_pull(key, capacity, version, *a, **k):
+                got = pull(key, capacity, version, *a, **k)
+                served = worker.last_pull_round()
+                mine = heads.get((key, served))
+                alone = (None if mine is None or not mine.any() else
+                         np.array_equal(np.frombuffer(got[:64].tobytes(),
+                                                      np.float32),
+                                        mine * np.float32(2)))
+                served_log.append((version, served, alone))
+                return got
+            worker.push_bytes, worker.pull_bytes = logged_push, logged_pull
 
         def between(i):
             if leg in CHAOS_KILL and i == CHAOS_KILL_STEP:
@@ -3418,6 +3527,12 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
                 out["killed_at"] = float(wait_file(f"{sigdir}/{leg}.killed"))
             if owner_kill is not None and i == CHAOS_KILL_STEP:
                 arm_owner_kill()
+            if leg == "dcn_lease_evict" and i == CHAOS_KILL_STEP:
+                if rank == 1:
+                    worker._plan = timed_plan("worker:kill", rank)
+                else:
+                    saved["params"] = [p.detach().clone() for p in leaves]
+                    saved["opt"] = copy.deepcopy(opt.state_dict())
 
         # bytes pushed, pulled, copied D2H and H2D, then each stage's (and
         # the tail's) run and dwell sums, read around every step
@@ -3439,6 +3554,27 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
             out["counters"] = worker.get_counters()
             out["live_servers"] = sorted(worker.live_servers())
             out["failover_at"] = failed_over
+        if leg in dict(ELASTIC_LEGS):
+            out["live_size"] = core.live_size()
+            out["adopted_at"] = adopted
+            out["served"] = served_log
+            out["killed_at"] = kills[0] if kills else None
+        if saved:
+            # the second timed step replayed on one worker from rank 0's
+            # state after the first: same parameters, AdamW moments and
+            # batch, the gradient undivided, no wire
+            for h in opt._hooks:
+                h.remove()
+            solo = adamw(leaves)
+            solo.load_state_dict(saved.pop("opt"))
+            with torch.no_grad():
+                for p, v in zip(leaves, saved.pop("params")):
+                    p.copy_(v)
+            solo.zero_grad()
+            gpt_loss(params, tok, tgt, cfg, chunked_ce=True).backward()
+            solo.step()
+            out["replay_digest"] = params_digest(leaves)
+            del solo
         if owner_kill is not None:
             eager._fail_owner = fail_owner
             pools = eager._state.scheduler.credit_pools()
@@ -3467,6 +3603,15 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
                 "ici_fallbacks": worker.get_counters()["ici_fallbacks"]}
         if hybrid:
             eager.shutdown()
+        elif "died" in out:
+            # a dead process says no goodbye: its lease expired, and the
+            # server counts it out
+            for sched in (core.scheduler, core._cuda_scheduler):
+                if sched is not None:
+                    sched.shutdown()
+            for w in core.workers:
+                w.close()
+            tbps._state.initialized = False
         else:
             out["credits"] = [(s._credits, s._credit_total) for s in
                               (core.scheduler, core._cuda_scheduler) if s]
@@ -3476,6 +3621,133 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
         gc.collect()
         torch.cuda.empty_cache()
     return res
+
+
+def killed_by_plan(e: BaseException) -> bool:
+    """Whether ``e`` (or the error it wraps) is an injected worker death."""
+    from byteps_tpu_torch.common.faults import WorkerKilledError
+
+    seen = set()
+    while e is not None and id(e) not in seen:
+        if isinstance(e, WorkerKilledError):
+            return True
+        seen.add(id(e))
+        e = getattr(e, "cause", None) or e.__cause__
+    return False
+
+
+def check_elastic_legs(per_rank, steps) -> dict:
+    """The checks of train_chaos's ``ELASTIC_LEGS`` beyond those every dcn
+    leg takes (dcn_join and dcn_straggler_k0 take those too): raises on a
+    miss, returns what each leg adds to its line."""
+    from byteps_tpu_torch.models import GPTConfig
+
+    cfg = GPTConfig.gpt2_medium()
+    calls = steps + 1
+    full = [GPT2M_PARAMS * 4] * 4
+    staged = [r["staged_raw"]["digests"] for r in per_rank]
+    out = {}
+    for r in per_rank:
+        for leg, _ in ELASTIC_LEGS:
+            got = {k: r[leg]["launches"][k] for k in TRAIN}
+            if got != {k: calls * cfg.n_layers for k in TRAIN}:
+                raise AssertionError(f"train_chaos {leg}: rank {r['rank']} "
+                                     f"launched {got}")
+            if not np.isfinite(r[leg]["losses"]).all():
+                raise AssertionError(f"train_chaos {leg}: a loss is not "
+                                     f"finite: {r[leg]['losses']}")
+    # dcn_lease_evict: step 1 as staged_raw's on both ranks, rank 1 dead
+    # of its plan in step 2, rank 0's step 2 the one-worker replay's
+    e0, e1 = (r["dcn_lease_evict"] for r in per_rank)
+    for r, e in zip(per_rank, (e0, e1)):
+        if e["digests"][:2] != staged[r["rank"]][:2]:
+            raise AssertionError(f"train_chaos dcn_lease_evict: rank "
+                                 f"{r['rank']}'s first steps differ from "
+                                 "staged_raw's")
+    if "died" in e0 or "died" not in e1 or e1["killed_at"] is None:
+        raise AssertionError("train_chaos dcn_lease_evict: rank 1 must die "
+                             f"of its plan and rank 0 live: {e1.get('died')}")
+    if e0["digests"][2] != e0["replay_digest"]:
+        raise AssertionError("train_chaos dcn_lease_evict: rank 0's second "
+                             "step differs from the one-worker replay")
+    c = e0["counters"]
+    if (c["membership_events"] < 1 or e0["live_size"] != 1
+            or not e0["adopted_at"]
+            or e0["bytes_per_step"] != [full] * calls):
+        raise AssertionError(f"train_chaos dcn_lease_evict: rank 0 counters "
+                             f"{c}, live {e0['live_size']}, bytes "
+                             f"{e0['bytes_per_step']}")
+    out["dcn_lease_evict"] = {
+        "kill_to_eviction_ms": (e0["adopted_at"][0] - e1["killed_at"]) * 1e3,
+        "replay_bit_equal": True, "died": e1["died"],
+        "membership_events": c["membership_events"],
+        "live_size": e0["live_size"]}
+    # dcn_join: the divisor is the live count 2, so every step is
+    # staged_raw's (checked with the other dcn legs)
+    j0, j1 = (r["dcn_join"] for r in per_rank)
+    if (j1["counters"]["joins"] != 1 or j1.get("joined_live") != 2
+            or j0["counters"]["membership_events"] < 1
+            or j0["live_size"] != 2 or j1["live_size"] != 2):
+        raise AssertionError(f"train_chaos dcn_join: joins "
+                             f"{j1['counters']['joins']}, live "
+                             f"{j1.get('joined_live')}, rank 0 "
+                             f"{j0['counters']}")
+    out["dcn_join"] = {"joins": j1["counters"]["joins"],
+                       "membership_events_rank0":
+                       j0["counters"]["membership_events"],
+                       "live_size": [j0["live_size"], j1["live_size"]]}
+    # dcn_straggler_k1: the warm-up (round 1, a full quorum sum) as
+    # staged_raw's; every pull at most one round stale; rounds served
+    # ahead to the straggler were closed past it (force-closed, at least)
+    k1 = [r["dcn_straggler_k1"] for r in per_rank]
+    for r, k in zip(per_rank, k1):
+        if k["digests"][0] != staged[r["rank"]][0]:
+            raise AssertionError(f"train_chaos dcn_straggler_k1: rank "
+                                 f"{r['rank']}'s warm-up differs from "
+                                 "staged_raw's")
+        if k["bytes_per_step"] != [full] * calls:
+            raise AssertionError(f"train_chaos dcn_straggler_k1: rank "
+                                 f"{r['rank']}'s bytes "
+                                 f"{k['bytes_per_step']}")
+    lags = [[v - s for v, s, _ in k["served"]] for k in k1]
+    if any(d > 1 for lag in lags for d in lag):
+        raise AssertionError("train_chaos dcn_straggler_k1: a pull served "
+                             "more than one round stale: "
+                             f"{max(map(max, lags))}")
+    k0 = [r["dcn_straggler_k0"] for r in per_rank]
+    if any(a for k in k0 for _, _, a in k["served"]):
+        raise AssertionError("train_chaos dcn_straggler_k0: a round closed "
+                             "over one rank alone under K = 0")
+    out["dcn_straggler_k1"] = {
+        "pulls": [len(lag) for lag in lags],
+        "stale_by_one": [sum(d == 1 for d in lag) for lag in lags],
+        "served_ahead": [sum(d < 0 for d in lag) for lag in lags],
+        # rounds the fast rank force-closed over itself past the straggler
+        "closed_over_self_alone": [sum(a is True for _, _, a in k["served"])
+                                   for k in k1],
+        "zero_heads": [sum(a is None for _, _, a in k["served"])
+                       for k in k1],
+        "max_staleness": max(max(lag) for lag in lags),
+        "step_ms_k1": [sum(k["step_ms_each"]) / steps for k in k1],
+        "step_ms_k0": [sum(k["step_ms_each"]) / steps for k in k0],
+        "straggle_ms_a_wire_attempt": STRAGGLER_MS}
+    return out
+
+
+def wait_listening(port: int, bound: float = 60.0) -> None:
+    """Return once something accepts on the loopback ``port``."""
+    import socket
+
+    end = time.monotonic() + bound
+    while True:
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1):
+                return
+        except OSError:
+            if time.monotonic() > end:
+                raise TimeoutError(f"nothing listens on :{port} after "
+                                   f"{bound} s") from None
+            time.sleep(0.01)
 
 
 def free_port_pair() -> int:
@@ -3497,11 +3769,16 @@ def free_port_pair() -> int:
 def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
     """The DCN tier's robustness on the card: the two rank processes of
     train_dcn, a pair of port server processes a leg, and the legs of
-    ``CHAOS_LEGS`` after staged_raw (see phase 14 in the module's
-    docstring). A watcher thread kills a leg's servers (``CHAOS_KILL``)
-    once both ranks ended its first timed step and tells them the kill's
-    time. Checks: every leg's parameters equal on both ranks and equal to
-    staged_raw's after every step, bit for bit; every loss finite; the
+    ``CHAOS_LEGS`` and ``ELASTIC_LEGS`` after staged_raw (see phase 14
+    in the module's docstring). A watcher thread kills a leg's servers
+    (``CHAOS_KILL``) once both ranks ended its first timed step and tells
+    them the kill's time, and starts an elastic leg's servers once both
+    ranks asked for them (``<leg>.want<rank>``), telling them once both
+    listen (``<leg>.up``); the elastic legs' own checks are
+    :func:`check_elastic_legs`'s. Checks: every chaos leg's (and
+    dcn_join's and dcn_straggler_k0's) parameters equal on both ranks and
+    equal to staged_raw's after every step, bit for bit; every loss
+    finite; the
     flash kernels once per layer and step; bytes pushed, pulled, D2H and
     H2D per step exact (none on the wire in hybrid_degraded's step after
     the kill, none at all on the pod's other rank); dcn_chaos: retries,
@@ -3525,16 +3802,42 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
 
     n = 2
     native.build()
-    bases = {leg: free_port_pair() for leg, _ in CHAOS_LEGS}
+    bases = {leg: free_port_pair() for leg, _ in CHAOS_LEGS + ELASTIC_LEGS}
     servers = {}
     sigdir = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
     stop = threading.Event()
     watch_errors = []
 
+    def start_servers(leg, env):
+        workers = ("1" if leg.startswith("hybrid") or leg == "dcn_join"
+                   else str(n))
+        servers[leg] = [subprocess.Popen(
+            [sys.executable, "-m", "byteps_tpu_torch.server"],
+            env=dict(os.environ, DMLC_ROLE="server",
+                     DMLC_NUM_WORKER=workers, DMLC_NUM_SERVER="2",
+                     DMLC_PS_ROOT_URI="127.0.0.1",
+                     DMLC_PS_ROOT_PORT=str(bases[leg] - 1),
+                     DMLC_SERVER_ID=str(i),
+                     **{k: env[k] for k in SERVER_KNOBS if k in env}),
+            cwd=Path(__file__).resolve().parent, stdout=sys.stderr)
+            for i in range(2)]
+
     def watch():
         pending = dict(CHAOS_KILL)
+        # a lease runs from the server's start: an elastic leg's servers
+        # start once both ranks are about to connect, and the ranks go on
+        # once both listen
+        to_start = dict(ELASTIC_LEGS)
         try:
-            while pending and not stop.is_set():
+            while (pending or to_start) and not stop.is_set():
+                for leg, env in list(to_start.items()):
+                    if all(os.path.exists(f"{sigdir}/{leg}.want{r}")
+                           for r in range(n)):
+                        start_servers(leg, env)
+                        for i in range(2):
+                            wait_listening(bases[leg] + i)
+                        open(f"{sigdir}/{leg}.up", "w").close()
+                        del to_start[leg]
                 for leg, idx in list(pending.items()):
                     if all(os.path.exists(f"{sigdir}/{leg}.done{r}")
                            for r in range(n)):
@@ -3554,17 +3857,8 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
 
     watcher = threading.Thread(target=watch, daemon=True)
     try:
-        for leg, _ in CHAOS_LEGS:
-            workers = "1" if leg.startswith("hybrid") else str(n)
-            servers[leg] = [subprocess.Popen(
-                [sys.executable, "-m", "byteps_tpu_torch.server"],
-                env=dict(os.environ, DMLC_ROLE="server",
-                         DMLC_NUM_WORKER=workers, DMLC_NUM_SERVER="2",
-                         DMLC_PS_ROOT_URI="127.0.0.1",
-                         DMLC_PS_ROOT_PORT=str(bases[leg] - 1),
-                         DMLC_SERVER_ID=str(i)),
-                cwd=Path(__file__).resolve().parent, stdout=sys.stderr)
-                for i in range(2)]
+        for leg, env in CHAOS_LEGS:
+            start_servers(leg, env)
         watcher.start()
         t0 = time.perf_counter()
         per_rank = spawn_ranks(train_chaos_rank, n, B, S, steps, bases,
@@ -3598,7 +3892,8 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
     calls = steps + 1
     n_bytes = GPT2M_PARAMS * 4
     legs = ("staged_raw",) + tuple(leg for leg, _ in CHAOS_LEGS)
-    for leg in legs:
+    elastic = check_elastic_legs(per_rank, steps)
+    for leg in legs + ("dcn_join", "dcn_straggler_k0"):
         a, b = (r[leg] for r in per_rank)
         if a["digests"] != b["digests"]:
             raise AssertionError(f"train_chaos {leg}: the ranks' parameters "
@@ -3683,6 +3978,7 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
         raise AssertionError(f"train_chaos hybrid_owner_failover: {o}")
     tokens = n * B * S
     legs_out = {}
+    legs += tuple(leg for leg, _ in ELASTIC_LEGS)
     for leg in legs:
         step_ms = max(sum(r[leg]["step_ms_each"]) / steps for r in per_rank)
         legs_out[leg] = {
@@ -3704,10 +4000,13 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
                 if "failover_at" in r[leg] else None for r in per_rank]
     legs_out["dcn_failover"]["reinits_for_keys_on_server1"] = [reinits,
                                                                moved]
+    for leg, extra in elastic.items():
+        legs_out[leg].update(extra)
     emit({"phase": "train_chaos", "ranks": n, "servers": "two processes a leg",
           "timing": "two ranks time-slice one card", "batch_per_rank": B,
           "seq": S, "steps": steps, "kill_after_step": CHAOS_KILL_STEP,
           "fault_spec": CHAOS_SPEC, "health": CHAOS_HEALTH,
+          "elastic_lease": ELASTIC_LEASE, "straggler": STRAGGLER,
           "host_cpus": os.cpu_count(), "legs_equal_staged_raw": True,
           "bytes_per_step_fields": ["pushed", "pulled", "d2h", "h2d"],
           "wall_s": wall, "legs": legs_out})

@@ -28,6 +28,11 @@ Scenarios:
   between its calls, waited for in reverse order within a bound.
 * ``fail`` — the controller's pushes of one partition raise: every
   rank's call fails, and the next call of the pod still sums.
+* ``evicted_peer`` — the port pod beside a reference pod and a peer pod
+  that goes silent after the first step, under a worker lease: touches
+  ``DIR/ready<RANK>`` before init (the test starts the server then), and
+  runs the steps as ``mixed`` does; the controller reports the
+  participants it adopted (``_live_size``) and its membership events.
 * ``degraded`` — one pod on its own server, whose controller failed the
   server over before any push: each step degrades to the pod's sum
   (averaged over the pod), then a call with ``degraded_ok`` off fails on
@@ -275,6 +280,23 @@ def degraded(rank, io, spec, d):
     return out
 
 
+def evicted_peer(rank, io, spec, d):
+    open(f"{io}/ready{rank}", "w").close()
+    bps.init()
+    out = {}
+    for i, (name, params, avg) in enumerate(spec["steps"]):
+        _wait_for(f"{io}/go{i}")
+        out[f"r{i}"] = bps.push_pull(torch.as_tensor(d[f"x{i}"][rank]),
+                                     average=avg, name=name,
+                                     compression_params=params).numpy()
+    if rank == 0:
+        out["live_size"] = np.array(bps._live_size())
+        out["membership_events"] = np.array(
+            bps._state.psworker.get_counters()["membership_events"])
+    bps.shutdown()
+    return out
+
+
 def main() -> None:
     scenario, rank, world, io = (sys.argv[1], int(sys.argv[2]),
                                  int(sys.argv[3]), sys.argv[4])
@@ -287,7 +309,8 @@ def main() -> None:
         spec = json.load(f)
     d = np.load(f"{io}/in.npz")
     out = {"mixed": mixed, "alone": alone, "order": order,
-           "fail": fail, "degraded": degraded}[scenario](
+           "fail": fail, "degraded": degraded,
+           "evicted_peer": evicted_peer}[scenario](
         rank, io, spec, d)
     np.savez(f"{io}/out{rank}.npz", **out)
     dist.barrier()

@@ -595,8 +595,9 @@ def test_synchronize_scales_a_mixed_handle_slice_by_slice(env, serve,
                                                           monkeypatch):
     """A handle whose first partition was summed globally (8 over 4
     workers) and whose second degraded to the local value 3: the port's
-    PUSH, PULL and DECOMPRESS stages average it slice by slice, and its
-    ``synchronize`` gives the reference's ``[2,2,2,2,3,3,3,3]``."""
+    PUSH, PULL and DECOMPRESS stages carry it, and its ``synchronize``
+    averages it slice by slice (the adopted live count, here 4), giving
+    the reference's ``[2,2,2,2,3,3,3,3]``."""
     import torch
 
     import byteps_tpu.torch as rt
@@ -624,7 +625,7 @@ def test_synchronize_scales_a_mixed_handle_slice_by_slice(env, serve,
         parts = core.registry.declare("t", (8,), np.float32).partitions
         assert [(p.offset, p.length) for p in parts] == [(0, 4), (4, 4)]
         h = THandle("t", 2)
-        ctx = {"plans": [None, None], "version": 0, "divisor": 4}
+        ctx = {"plans": [None, None], "version": 0, "average": False}
         glob, local = (PartitionTask(p, "t", h, context=ctx) for p in parts)
         glob.payload = np.full(4, 8.0, np.float32).view(np.uint8)  # pulled
         local.payload = np.full(4, 3.0, np.float32).view(np.uint8)
@@ -634,8 +635,13 @@ def test_synchronize_scales_a_mixed_handle_slice_by_slice(env, serve,
         for t in (glob, local):
             h._partition_done(t.partition.part_idx, core._decompress_stage(t))
         assert h.degraded_parts == {1: (4, 4)}
+        # the global round closed under four live workers
+        h.part_live = {0: (0, 4, 4)}
+        monkeypatch.setattr(core, "live_size", lambda: 4)
         monkeypatch.setattr(tt._state, "initialized", True)
+        monkeypatch.setattr(tt._state, "core", core)
         h.tensor = torch.zeros(8)
+        h.average = True
         got = tt.synchronize(h).numpy()
     finally:
         core.shutdown()
@@ -844,21 +850,30 @@ def test_robustness_knobs_parse_and_are_accepted(env, values):
     ("BYTEPS_POD_CONTROLLERS", "2"), ("BYTEPS_AUTO_TUNE", "1"),
     ("BYTEPS_FAULT_SPEC", "push:timeout@p=0.1;worker1:join@step=4")])
 def test_unported_knobs_and_join_rules_are_refused(env, knob, value):
-    """Each knob not ported yet is refused by name; the IPC path and
-    several controllers a pod are ported since: accepted, and parsed as
-    the reference parses them."""
+    """The auto-tuner, the one knob not ported yet, is refused by name;
+    the IPC path and several controllers a pod, asynchronous rounds,
+    bounded staleness, worker leases and a fault spec's join rules are
+    ported since: accepted, and parsed as the reference parses them."""
     env(**{knob: value})
-    if knob in ("BYTEPS_ENABLE_IPC", "BYTEPS_POD_CONTROLLERS"):
-        tconfig.check_ported()
-        t, r = tconfig.get_config(), rconfig.get_config()
-        for f in ("enable_ipc", "pod_controllers", "hybrid_sharded",
-                  "owner_salt"):
-            assert getattr(t, f) == getattr(r, f), f
-        assert t.enable_ipc or t.pod_controllers == 2
+    if knob == "BYTEPS_AUTO_TUNE":
+        with pytest.raises(RuntimeError,
+                           match="AUTO_TUNE.*not ported yet"):
+            tconfig.check_ported()
         return
-    name = "join rule" if knob == "BYTEPS_FAULT_SPEC" else knob
-    with pytest.raises(RuntimeError, match=f"{name}.*not ported yet"):
-        tconfig.check_ported()
+    tconfig.check_ported()
+    t, r = tconfig.get_config(), rconfig.get_config()
+    for f in ("enable_ipc", "pod_controllers", "hybrid_sharded",
+              "owner_salt", "enable_async", "staleness", "worker_lease_ms",
+              "fault_spec"):
+        assert getattr(t, f) == getattr(r, f), f
+    if knob == "BYTEPS_FAULT_SPEC":
+        rules = tfaults.parse_fault_spec(t.fault_spec)
+        assert [x.kind for x in rules] == ["timeout", "join"]
+        assert _fields(rules) == _fields(rfaults.parse_fault_spec(
+            r.fault_spec))
+    else:
+        assert (t.enable_ipc or t.pod_controllers == 2 or t.enable_async
+                or t.staleness == 2 or t.worker_lease_ms == 500)
 
 
 def test_malformed_fault_spec_fails_at_start(env):

@@ -82,17 +82,18 @@ def servers():
         mod.stop_server()
 
 
-def _mixed_round(servers, n, seed, port_kw=None):
-    """Worker 0 is the reference's PSWorker, worker 1 the port's (built
-    with ``port_kw``, and reporting its TCP connections before the
-    closing barrier under ``"conns"``); each
-    pushes its own seeded vector under every codec and pulls the round raw
-    and in the codec's own pull format. Returns {worker: {case: bytes}}.
-    Worker 1 pushes a key only after worker 0's push of it returned: where
-    the server's decode-and-add multiplies (fp8's and dithering's
-    ``dst += value * scale``), ``-march=native`` may fuse the multiply
-    into the add, and then the f32 sum depends on the order in which the
-    pushes arrive, on either server."""
+def _mixed_round(servers, n, seed, port_kw=None, ref_kw=None, first=0):
+    """Worker 0 is the reference's PSWorker (built with ``ref_kw``),
+    worker 1 the port's (built with ``port_kw``, and reporting its TCP
+    connections before the closing barrier under ``"conns"``); each
+    pushes a seeded vector under every codec (worker ``first`` the first
+    of the two) and pulls the round raw and in the codec's own pull
+    format. Returns {worker: {case: bytes}}. The other worker pushes a key
+    only after worker ``first``'s push of it returned: where the server's
+    decode-and-add multiplies (fp8's and dithering's ``dst += value *
+    scale``), ``-march=native`` may fuse the multiply into the add, and
+    then the f32 sum depends on the order in which the pushes are
+    applied, on either server."""
     from byteps_tpu import server as rserver
     from byteps_tpu_torch import server as tserver
 
@@ -107,7 +108,7 @@ def _mixed_round(servers, n, seed, port_kw=None):
         try:
             w = mod.PSWorker(servers=servers, worker_id=wid,
                              recv_timeout_ms=20000,
-                             **((port_kw or {}) if wid == 1 else {}))
+                             **((port_kw if wid == 1 else ref_kw) or {}))
             codecs = {"raw": wire.WireCodec(), "fp16": wire.Fp16Wire(),
                       "fp8": wire.Fp8Wire(), "onebit": wire.OnebitWire(),
                       "topk": wire.TopkWire(k=0.01),
@@ -120,11 +121,11 @@ def _mixed_round(servers, n, seed, port_kw=None):
             for key, (case, c) in enumerate(codecs.items()):
                 plan = wire.WirePlan(c, two_way=True)
                 w.init_key(key, c.store_elems(n) * 4)
-                if wid == 1:
+                if wid != first:
                     assert pushed[key].wait(20)
-                v = w.push_bytes(key, c.encode(xs[wid], seed=seed + key),
-                                 c.codec_id)
-                if wid == 0:
+                v = w.push_bytes(key, c.encode(xs[wid ^ first],
+                                               seed=seed + key), c.codec_id)
+                if wid == first:
                     pushed[key].set()
                 got[case + ".raw"] = w.pull_bytes(
                     key, c.store_elems(n) * 4, v).tobytes()
@@ -172,10 +173,16 @@ def test_ipc_worker_pulls_bit_equal_beside_a_tcp_worker(servers, n):
     """The port worker reaches the port's in-process server through the
     IPC path (no TCP connection until the closing barrier) beside a
     reference worker on TCP: under every codec both pull the bytes that
-    two TCP workers pull from the reference's server."""
-    on_ref = _mixed_round(servers("ref"), n, seed=n)
+    a reference worker and a TCP worker pull from the reference's server.
+    In both runs an IPC worker pushes the first vector (the reference's
+    worker on the reference's server): an IPC push is applied before it
+    returns, while the server acknowledges a TCP push on receipt and
+    applies it after, so of two TCP pushes the one that returned first
+    can still be applied second."""
+    on_ref = _mixed_round(servers("ref"), n, seed=n,
+                          ref_kw={"use_ipc": True})
     on_ipc = _mixed_round(servers("port"), n, seed=n,
-                          port_kw={"use_ipc": True})
+                          port_kw={"use_ipc": True}, first=1)
     assert on_ipc["conns"] == 0 and on_ref["conns"] > 0
     assert on_ipc[0] == on_ipc[1]
     assert on_ipc[0] == on_ref[0]
@@ -268,75 +275,81 @@ def test_native_sum_and_codecs_match_reference():
         [ref.bps_float_to_fp8(float(v)) for v in grid]
 
 
-# a fault spec is ported but for its join rules (elastic membership);
-# the IPC path and several controllers a pod are ported since, and
-# accepted
+# every DCN knob of this list is ported: the IPC path, several controllers
+# a pod (PR 16), and asynchronous rounds, bounded staleness, worker leases
+# and a fault spec's join rules (elastic membership)
 UNPORTED = [("BYTEPS_ENABLE_ASYNC", "1"), ("BYTEPS_STALENESS", "2"),
             ("BYTEPS_WORKER_LEASE_MS", "500"), ("BYTEPS_ENABLE_IPC", "1"),
             ("BYTEPS_POD_CONTROLLERS", "2"),
             ("BYTEPS_FAULT_SPEC", "push:kill@op=1;worker2:join@step=3")]
-PORTED = ("BYTEPS_ENABLE_IPC", "BYTEPS_POD_CONTROLLERS")
+PORTED = tuple(k for k, _ in UNPORTED)
+# the config fields each knob sets
+KNOB_FIELDS = {"BYTEPS_ENABLE_ASYNC": ("enable_async",),
+               "BYTEPS_STALENESS": ("staleness",),
+               "BYTEPS_WORKER_LEASE_MS": ("worker_lease_ms",),
+               "BYTEPS_ENABLE_IPC": ("enable_ipc",),
+               "BYTEPS_POD_CONTROLLERS": ("pod_controllers",
+                                          "hybrid_sharded", "owner_salt"),
+               "BYTEPS_FAULT_SPEC": ("fault_spec", "fault_seed")}
 
 
 def _accepted(monkeypatch, knob):
-    """A one-worker job with ``knob`` set: the server starts, a DcnCore
-    built from the environment takes the knob (the IPC path to the
-    in-process server; two controller NICs with owner-scoped credits),
-    and a push_pull sums exactly."""
+    """A one-worker job with ``knob`` set: the knob parses as the
+    reference parses it, the server starts with it, a DcnCore built from
+    the environment takes it (the IPC path to the in-process server; two
+    controller NICs with owner-scoped credits; a rounds window of K;
+    the plan's rules), and a push_pull sums exactly."""
+    from byteps_tpu.common import config as rconfig
     from byteps_tpu_torch import server as tserver
     from byteps_tpu_torch.common.dcn_adapter import DcnCore
 
     monkeypatch.setenv("DMLC_NUM_WORKER", "1")
     tconfig.reset_config()
+    rconfig.reset_config()
     tconfig.check_ported()
+    t, r = tconfig.get_config(), rconfig.get_config()
+    for f in KNOB_FIELDS[knob]:
+        assert getattr(t, f) == getattr(r, f), f
     port = tserver.start_server_any_port(next_port())
     core = None
     try:
         core = DcnCore(servers=[("127.0.0.1", port)])
         if knob == "BYTEPS_ENABLE_IPC":
             assert core.worker._ipc and len(core.workers) == 1
-        else:
+        elif knob == "BYTEPS_POD_CONTROLLERS":
             assert len(core.workers) == 2
             assert core.scheduler._credit_scope == "owner"
+        elif knob == "BYTEPS_STALENESS":
+            assert t.staleness == 2 and core.scheduler._rounds_window == 2
+        elif knob == "BYTEPS_FAULT_SPEC":
+            assert [r.kind for r in core.worker._plan.rules] == \
+                ["kill", "join"]
+        else:
+            assert t.enable_async or t.worker_lease_ms == 500
         x = np.arange(50000, dtype=np.float32)
         h = core.push_pull_async(x, name="accepted")
         np.testing.assert_array_equal(DcnCore.assemble(h, 30), x)
+        assert core.live_size() == 1
     finally:
         if core is not None:
             core.shutdown()
         tserver.stop_server()
         tconfig.reset_config()
+        rconfig.reset_config()
 
 
 @pytest.mark.parametrize("knob,value", UNPORTED)
 def test_unported_knobs_are_refused(monkeypatch, knob, value):
-    """Each knob not ported yet is refused by every entry of the tier;
-    the knobs of ``PORTED`` are accepted."""
-    from byteps_tpu_torch import server as tserver
-    from byteps_tpu_torch.common.dcn_adapter import DcnCore
-
+    """Each knob the tier once refused as not ported is accepted by every
+    entry of the tier now (``check_ported``, ``start_server``,
+    ``PSWorker``, ``DcnCore``), parses as the reference parses it, and a
+    one-worker push_pull under it sums exactly; only the auto-tuner is
+    still refused (``tests/test_torch_chaos.py``)."""
     job_env(monkeypatch, next_port())
     monkeypatch.setenv(knob, value)
     tconfig.reset_config()
-    if knob in PORTED:
-        _accepted(monkeypatch, knob)
-        return
-    try:
-        short = knob.split("_", 1)[1]
-        for call in (tconfig.check_ported, tserver.start_server,
-                     tserver.PSWorker, DcnCore):
-            with pytest.raises(RuntimeError,
-                               match=f"{short}.*not ported yet"):
-                call()
-    finally:
-        tconfig.reset_config()
-    # the same value with the knob's default elsewhere is accepted
-    monkeypatch.delenv(knob)
-    tconfig.reset_config()
-    try:
-        tconfig.check_ported()
-    finally:
-        tconfig.reset_config()
+    assert knob in PORTED
+    _accepted(monkeypatch, knob)
 
 
 @pytest.mark.parametrize("kind", ["ref", "port"])

@@ -228,13 +228,26 @@ def test_owner_death_bit_identical_to_clean_and_reference(pod_env):
 
 
 def test_per_owner_join_rule_is_refused(pod_env):
-    """A ``join`` rule (elastic membership, not ported) in a per-owner
-    plan is refused by name, as in ``BYTEPS_FAULT_SPEC``."""
+    """A ``join`` rule in a per-owner plan, once refused as not ported,
+    is accepted: each NIC's plan holds the rules the reference's
+    ``FaultPlan`` parses from the same spec."""
+    from byteps_tpu.common.faults import parse_fault_spec as rparse
+    from byteps_tpu_torch import server as tserver
     from byteps_tpu_torch.common.dcn_adapter import DcnCore
 
-    with pytest.raises(RuntimeError, match="join rule.*not ported yet"):
-        DcnCore(servers=[("127.0.0.1", 1)], pod_controllers=2,
-                fault_specs=[None, "push:kill@op=3;worker1:join@step=3"])
+    spec = "push:kill@op=3;worker1:join@step=3"
+    port = tserver.start_server_any_port(next_port(), num_workers=1)
+    core = None
+    try:
+        core = DcnCore(servers=[("127.0.0.1", port)], pod_controllers=2,
+                       fault_specs=[None, spec])
+        assert core.workers[0]._plan is None
+        assert [r.to_spec() for r in core.workers[1]._plan.rules] == \
+            [r.to_spec() for r in rparse(spec)]
+    finally:
+        if core is not None:
+            core.shutdown()
+        tserver.stop_server()
 
 
 def _lose_servers(owners):

@@ -43,8 +43,9 @@ are one code path and no ring kernel launches.
 count the host-dispatched wrappers (``allreduce_flat``,
 ``reduce_scatter_flat``, ``all_gather_flat``, ``broadcast_flat``,
 ``compressed_allreduce_flat``, ``compressed_reduce_scatter_flat``),
-under the reference's names; the bodies the optimizer calls chunk by
-chunk are not counted, as in the reference.
+under the reference's names; the bodies the optimizer calls (chunk by
+chunk, or ZeRO-1's one scatter and gather a step) are not counted, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -114,6 +115,12 @@ def reduce_scatter_flat(x: torch.Tensor) -> torch.Tensor:
     _count_dispatch("reduce_scatter")
     raw = (n - 1) * (-(-x.shape[0] // n)) * x.element_size()
     _account_wire(raw, raw)
+    return reduce_scatter_body(x, n)
+
+
+def reduce_scatter_body(x: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`reduce_scatter_flat` without the counters: the body ZeRO-1
+    calls, as the reference's optimizer calls ``psum_scatter``."""
     segs, seg = _segment(x, n)
     if n == 1:
         return segs[0].clone()
@@ -132,6 +139,13 @@ def all_gather_flat(seg: torch.Tensor, length: Optional[int] = None,
     _count_dispatch("all_gather")
     raw = (n - 1) * seg.shape[0] * seg.element_size()
     _account_wire(raw, raw)
+    return all_gather_body(seg, n, length, group)
+
+
+def all_gather_body(seg: torch.Tensor, n: int, length: Optional[int] = None,
+                    group=None) -> torch.Tensor:
+    """:func:`all_gather_flat` without the counters (ZeRO-1's gather of
+    the stepped segments)."""
     if n == 1:
         out = seg.clone()
     else:

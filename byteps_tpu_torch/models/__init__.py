@@ -1,5 +1,5 @@
 """Model families of the port: the GPT family, its generation, its LoRA
-adapters and its data-parallel training step."""
+adapters, its data-parallel training step and its eval step."""
 
 from byteps_tpu_torch.models.convert import (  # noqa: F401
     adapters_from_numpy,
@@ -17,6 +17,8 @@ from byteps_tpu_torch.models.gpt import (  # noqa: F401
     gpt_loss,
 )
 from byteps_tpu_torch.models.train import (  # noqa: F401
+    evaluate_perplexity,
+    make_eval_step,
     make_gpt_train_step,
     synthetic_batch,
 )

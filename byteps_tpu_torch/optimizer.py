@@ -1,6 +1,6 @@
 """Gradient aggregation and ``DistributedOptimizer`` (counterpart of
-``byteps_tpu/jax/optimizer.py``, data parallelism only: no ZeRO, no
-hierarchical multi-slice path).
+``byteps_tpu/jax/optimizer.py``: data parallelism, replicated or ZeRO-1;
+no hierarchical multi-slice path).
 
 The gradients of a step are flattened in the reference's leaf order
 (``models.convert.flat_leaves``), concatenated into one f32 vector,
@@ -18,6 +18,42 @@ spec.seed), count)``, chunk i's ``fold_in(step_key, i)``; deterministic
 codecs ignore them. The reference's batched-chunk mode
 (``BYTEPS_COMPRESS_BATCH_CHUNKS`` > 1) is not ported: chunks run one
 after another, its default.
+
+ZeRO-1 (``zero=True``, the reference's ``_zero_update``): the inner
+optimizer's state lives on this rank's ``ceil(L/n)`` segment of the flat
+f32 vector (segment r = elements ``[r·seg, (r+1)·seg)`` of the
+zero-padded flat). A step flattens the gradients, applies Nesterov
+momentum when the codec asks for it, and aggregates the whole vector
+ONCE (``partition_bytes`` does not apply): raw, padded to ``n·seg``, cast
+to ``BYTEPS_REDUCE_DTYPE``, reduce-scattered and divided by n; or
+compressed, through ``compressed_reduce_scatter_local`` with the EF
+residual and the step's key unchanged (no chunk fold). The inner
+optimizer steps the segment with the same segment of the f32 parameters;
+the stepped segments are all-gathered and written into the leaves. (The
+reference gathers the *updates* and adds them; gathering the stepped
+values is the same for an elementwise optimizer, and keeps the leaves
+bit-equal to a replicated step's.) The moments (AdamW's ``exp_avg``,
+``exp_avg_sq``) are ``ceil(L/n)`` f32 each; EF and momentum stay
+full-length per rank, as in the reference.
+
+The segment's master copy is transient: each step copies the segment
+out of the leaves (``ceil(L/n)·4`` B, beside the flat gradient's
+``L·4`` and the gathered ``n·ceil(L/n)·4``, all after the backward has
+freed its activations) and frees it after the write-back. Kept between
+steps it would cost ``ceil(L/n)·4`` B for good (GPT-2 medium:
+1,419,485,184 B at n = 1, 709,742,592 at n = 2). Making the leaves
+views of one flat buffer would save even the transient copy, at the
+price of re-pointing every parameter of the caller's module into that
+buffer; the transient copy does not raise the step's peak, which the
+backward sets.
+
+ZeRO restriction, as the reference's: the inner optimizer must be
+ELEMENTWISE in the gradient (SGD, Adam, AdamW, ...): it sees one
+segment, so a cross-element rule (a global-norm clip, a factored second
+moment) would compute from partial data. ``torch.optim.LBFGS`` and
+``torch.optim.Adafactor`` are refused; other such optimizers are not
+detected. The optimizer must hold one parameter group and no state yet:
+the wrapper moves that group onto the segment.
 """
 
 from __future__ import annotations
@@ -29,7 +65,10 @@ import torch.distributed as dist
 
 from byteps_tpu_torch.comm.ici import (
     _resolve_tier,
+    all_gather_body,
     compressed_allreduce_local,
+    compressed_reduce_scatter_local,
+    reduce_scatter_body,
     world,
 )
 from byteps_tpu_torch.common.config import get_config
@@ -170,6 +209,12 @@ def _push_pull_flat(flat: torch.Tensor, n: int, average: bool,
     return agg, new_e
 
 
+# inner optimizers that are not elementwise in the gradient (ZeRO refuses)
+_NOT_ELEMENTWISE = tuple(c for c in (getattr(torch.optim, "LBFGS", None),
+                                     getattr(torch.optim, "Adafactor", None))
+                         if c is not None)
+
+
 class DistributedOptimizer:
     """Wrap a ``torch.optim`` optimizer with BytePS gradient aggregation:
     :meth:`step` aggregates the ``.grad`` of ``params`` (compressed when
@@ -182,16 +227,22 @@ class DistributedOptimizer:
     this rank's flat f32 worker state (None when off). ``seed`` with the
     codec's ``seed`` and the step ``count`` gives the step's key.
 
-    Reference: ``byteps_tpu.jax.DistributedOptimizer`` (non-ZeRO,
-    non-hierarchical ``update_fn``), itself the functional form of
-    ``byteps.torch.DistributedOptimizer``."""
+    ``zero=True`` is ZeRO-1 (the module docstring): ``optimizer`` (built
+    over ``params``, one group, not stepped yet) is moved onto this
+    rank's segment of the flat parameters, the world's size fixed at
+    construction. ``params`` must be f32.
+
+    Reference: ``byteps_tpu.jax.DistributedOptimizer`` (the
+    non-hierarchical ``update_fn`` and ``_zero_update``), itself the
+    functional form of ``byteps.torch.DistributedOptimizer``."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  params: Sequence[torch.Tensor],
                  compression_params: Optional[Dict[str, Any]] = None,
                  average: bool = True,
                  partition_bytes: Optional[int] = None,
-                 seed: int = 0):
+                 seed: int = 0,
+                 zero: bool = False):
         self.optimizer = optimizer
         self.params = list(params)
         self.spec = from_params(compression_params)
@@ -199,6 +250,7 @@ class DistributedOptimizer:
         self.partition_bytes = partition_bytes
         self.seed = seed
         self.count = 0
+        self.zero = zero
         total = sum(p.numel() for p in self.params)
         dev = self.params[0].device
 
@@ -208,16 +260,58 @@ class DistributedOptimizer:
 
         self.ef = buf(self.spec.ef)
         self.momentum = buf(self.spec.momentum)
+        if zero:
+            self._zero_setup(total, dev)
+
+    def _zero_setup(self, total: int, dev: torch.device) -> None:
+        opt = self.optimizer
+        if isinstance(opt, _NOT_ELEMENTWISE):
+            raise ValueError(
+                f"zero=True needs an elementwise inner optimizer; "
+                f"{type(opt).__name__} computes across elements and would "
+                "see one segment only (use zero=False)")
+        if len(opt.param_groups) != 1 or opt.state:
+            raise ValueError("zero=True takes an optimizer with one "
+                             "parameter group and no state yet")
+        bad = [p.dtype for p in self.params if p.dtype != torch.float32]
+        if bad:
+            raise ValueError(f"zero=True steps f32 parameters; got {bad[0]}")
+        self.n, self.rank = world()
+        self.total = total
+        self.seg = -(-total // self.n)
+        # the inner optimizer's one parameter: this rank's segment, holding
+        # data only while a step runs
+        self._seg = torch.empty(0, dtype=torch.float32, device=dev)
+        opt.param_groups[0]["params"] = [self._seg]
 
     def zero_grad(self) -> None:
-        self.optimizer.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
+
+    def moment_bytes(self) -> int:
+        """Bytes of the inner optimizer's per-element state on this rank
+        (AdamW: ``exp_avg`` and ``exp_avg_sq``; scalars such as the step
+        count left out)."""
+        return sum(t.numel() * t.element_size()
+                   for st in self.optimizer.state.values()
+                   for t in st.values()
+                   if torch.is_tensor(t) and t.ndim > 0)
+
+    def _grads(self) -> List[torch.Tensor]:
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in self.params]
+
+    def _step_key(self) -> int:
+        return fold_in(fold_in(self.seed, self.spec.seed), self.count)
 
     def aggregate(self) -> None:
         """Replace each parameter's ``.grad`` with the ranks' aggregate."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+        if self.zero:
+            raise RuntimeError("under zero=True the aggregate exists only "
+                               "as this rank's segment; call step()")
+        grads = self._grads()
         spec = self.spec
-        rng = fold_in(fold_in(self.seed, spec.seed), self.count)
+        rng = self._step_key()
         if self.momentum is not None:
             # Nesterov momentum before compression, on the flat vector
             # that is then aggregated as it stands
@@ -242,7 +336,66 @@ class DistributedOptimizer:
         for p, g in zip(self.params, agg):
             p.grad = g
 
-    def step(self) -> None:
-        self.aggregate()
+    def _zero_aggregate(self) -> torch.Tensor:
+        """This rank's ``(seg,)`` segment of the aggregated flat gradient:
+        one reduce-scatter of the whole vector, raw or compressed."""
+        spec, n = self.spec, self.n
+        flat, _ = _flatten_concat(self._grads())
+        if self.momentum is not None:
+            flat, self.momentum = momentum_step(flat, self.momentum, spec.mu)
+        if spec.enabled:
+            res = compressed_reduce_scatter_local(
+                flat, spec.compressor, n, average=self.average,
+                ef_residual=self.ef, rng=self._step_key(),
+                tier=_resolve_tier(None))
+            if self.ef is None:
+                return res
+            seg, self.ef = res
+            return seg
+        # BYTEPS_REDUCE_DTYPE sets the dtype of the raw sum, as on the
+        # chunked path
+        flat = flat.to(REDUCE_DTYPES[get_config().reduce_dtype])
+        s = (reduce_scatter_body(flat, n) if n > 1 else flat).float()
+        return s / n if self.average and n > 1 else s
+
+    def _param_segment(self) -> torch.Tensor:
+        """A copy of this rank's segment of the flat f32 parameters, zero
+        past the end."""
+        start, seg = self.rank * self.seg, self.seg
+        out = torch.empty(seg, dtype=torch.float32,
+                          device=self.params[0].device)
+        end, off = start, 0
+        for p in self.params:
+            lo, hi = max(off, start), min(off + p.numel(), start + seg)
+            if lo < hi:
+                out[lo - start:hi - start] = \
+                    p.detach().reshape(-1)[lo - off:hi - off]
+                end = hi
+            off += p.numel()
+        out[end - start:].zero_()
+        return out
+
+    @torch.no_grad()
+    def _zero_step(self) -> None:
+        if world()[0] != self.n:
+            raise RuntimeError(f"ZeRO state was sharded over {self.n} ranks; "
+                               f"the group now has {world()[0]}")
+        g = self._zero_aggregate()
+        self._seg.data = self._param_segment()
+        self._seg.grad = g
         self.optimizer.step()
+        full = all_gather_body(self._seg.detach(), self.n, self.total)
+        off = 0
+        for p in self.params:
+            p.copy_(full[off:off + p.numel()].view_as(p))
+            off += p.numel()
+        self._seg.grad = None
+        self._seg.data = self._seg.new_empty(0)
+
+    def step(self) -> None:
+        if self.zero:
+            self._zero_step()
+        else:
+            self.aggregate()
+            self.optimizer.step()
         self.count += 1

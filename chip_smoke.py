@@ -6,6 +6,8 @@
     python3 chip_smoke.py --dcn      # train_dcn (12) alone
     python3 chip_smoke.py --hybrid   # train_hybrid (13) alone
     python3 chip_smoke.py --chaos    # train_chaos (14) alone
+    python3 chip_smoke.py --zero     # the training options (8b, 9, 11,
+                                     # 15) alone
 
 Phases, each printing one JSON line:
 
@@ -118,8 +120,29 @@ Phases, each printing one JSON line:
    (1,024,000 f32) through ``OnebitCompressor.compress``, stacked and
    summed by ``decompress_sum``: one grid unpack-sum launch a sum, equal
    to the plain version bit for bit;
+   zero_codecs — the onebit and top-k kernels at ZeRO-1's shapes, where
+   the whole flat gradient is one chunk: GPT-2 medium's 354,871,296 f32
+   (n = 1) and a 177,435,648 segment (n = 2); pack bit-equal, unpack-sum
+   at K = 1 and 2 by bit pattern, top-k select (the strided (101,
+   3,513,578) and (101, 1,756,789)) and reconstruct-sum at K = 1 and 2
+   bit-equal to their plain versions; kernel, plain and bound ms at the
+   whole vector;
+8b. train_zero — ZeRO-1 (``zero_1=True``) on the card, the train legs'
+   model, batch and seeds, one warm-up and 2 timed steps a leg:
+   replicated_raw, zero_raw (losses and parameter digest bit-equal to
+   replicated_raw's), zero_onebit_ef (one onebit round trip of the
+   whole vector a step), zero_topk_block_ef (k = 0.01 of the whole
+   vector: the strided layout); moments exactly 2·ceil(L/n)·4 B; step
+   ms, peak memory;
+   train_accum — ``accum_steps`` = 2 and 4 at B=8 × S=1024 (raw, one
+   warm-up and 2 timed steps): losses finite and falling, peak memory
+   below the raw leg's (accum_steps = 1);
+   eval — ``evaluate_perplexity`` of ``make_eval_step`` on two B=8 ×
+   S=1024 batches before and after three raw steps on them from the
+   train legs' weights: finite, falling, the first below 2 × vocab;
 9. train_tiny — a tiny f32 model trains 3 raw steps on the CPU (plain
-   versions) and on the card (kernels) to losses within 1e-4;
+   versions) and on the card (kernels) to losses within 1e-4; on the
+   card ``accum_steps=2`` equals the full-batch step to 1e-5;
 10. ring — the ring kernels with 2, 3 and 4 rank processes (``spawn``)
     on the card, in one gloo group over a ``FileStore``, mapping each
     other's workspaces through CUDA IPC; the card's compute mode. At the
@@ -159,15 +182,18 @@ Phases, each printing one JSON line:
     ``make_gpt_train_step`` at GPT-2 medium's full width and depth,
     B=4 × S=1024 each (the single-card legs' global batch), one warm-up
     and 2 steps a leg: staged onebit + EF, ``BYTEPS_ICI_TIER=ring``
-    onebit + EF, ring randomk (k = 0.01) + EF. The ring onebit leg's
-    losses and each rank's parameter digest equal the staged leg's;
+    onebit + EF, ring randomk (k = 0.01) + EF, then ZeRO-1: staged raw,
+    staged onebit + EF, ring onebit + EF. Each ring onebit leg's
+    losses and each rank's parameter digest equal its staged leg's;
     every leg ends with the ranks' parameters equal and finite losses;
-    step ms, tokens/s (time-sliced) and each rank's peak memory;
+    each rank's moments 1,419,485,184 B under ZeRO-1, 2,838,970,368
+    replicated; step ms, tokens/s (time-sliced) and each rank's peak
+    memory;
 12. train_dcn — the DCN parameter-server tier: one server process of the
     port (``python -m byteps_tpu_torch.server``, two workers, a free
     port; built with g++ first) and two rank processes on the card, each
-    training GPT-2 medium at full width, B=4 × S=1024, one warm-up and 2
-    steps a leg: staged_raw (``make_gpt_train_step`` at n = 2, the
+    training GPT-2 medium at full width, B=4 × S=1024, one warm-up and
+    one timed step a leg: staged_raw (``make_gpt_train_step`` at n = 2, the
     yardstick), dcn_raw and dcn_fp16 (``byteps_tpu_torch.torch``'s
     ``DistributedOptimizer`` over the server, ``Compression.fp16`` on the
     second, after ``broadcast_parameters`` from rank 0), then dcn_ipc_raw
@@ -189,7 +215,8 @@ Phases, each printing one JSON line:
     one pod of two rank processes on the card, with one port server
     process (``DMLC_NUM_WORKER=1``) for each hybrid leg, the ranks under
     ``BYTEPS_FORCE_DISTRIBUTED=1``: GPT-2 medium at full width, B=4 ×
-    S=1024 a rank, one warm-up and 2 steps a leg, ``push_pull_tree`` of
+    S=1024 a rank, one warm-up and one timed step a leg,
+    ``push_pull_tree`` of
     the gradients (``flat_leaves`` order, averaged) between backward and
     AdamW: staged_raw (``make_gpt_train_step``, the yardstick), eager_raw
     (not distributed: the eager ICI pipeline), hybrid_raw (sharded, the
@@ -258,6 +285,11 @@ Phases, each printing one JSON line:
     ``BYTEPS_STALENESS=1``: the warm-up equal to staged_raw's, every
     pull at most one round stale; stale and served-ahead pulls, and
     both ranks' ms a step against dcn_straggler_k0's).
+15. examples — the port's ``examples/torch_port/`` as their docstrings
+    run them, one port server process and two worker processes on the
+    card: the MNIST example's loss falls from epoch to epoch and both
+    workers end with equal parameters; the benchmark example prints its
+    GB/s, beside the card's name and power limit.
 
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
@@ -276,7 +308,12 @@ pack and unpack-sum kernels once per gradient chunk and step, and the
 top-k leg the round trip once per full chunk and step (346) and select
 and reconstruct-sum once per step (the ragged tail chunk),
 aggregate_onebit the pack once a worker (296) and the grid unpack-sum
-once a sum (2).
+once a sum (2). train_zero (its ZeRO legs, each counted from 0) the
+flash kernels once per layer and step, onebit pack and unpack-sum once
+a step, top-k select and reconstruct-sum once a step and the round trip
+never; train_accum the flash kernels accum × 24 a step; eval (each of
+its two evaluations counted from 0) the forward 24 times a batch and
+neither backward kernel.
 train_hybrid's and train_chaos's ranks report theirs, exact on both
 ranks per leg: the flash kernels once per layer and step; in hybrid_ring_onebit, per
 compressed partition (at least ``BYTEPS_MIN_COMPRESS_BYTES``) and step,
@@ -288,13 +325,16 @@ packed and the owner's sum repacked; the owner's K = n unpack-sum, then
 n gathered and n own rows decoded); the ring onebit leg the rotate
 call twice per chunk and step (one collect and one gather, each moving
 the signs and the scale), the randomk leg presum once and rotate once
-(the gather) and no collect.
+(the gather) and no collect; under ZeRO-1 (one reduce-scatter of the
+whole vector a step, the stepped segments all-gathered raw) onebit pack
+n and unpack-sum 1 + n times a step, the ring leg the rotate call once
+(the collect).
 A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
-(generate, serve, multitenant, the three train legs, train_ring's
-three legs on one rank, train_dcn's four legs on one rank,
-train_hybrid's five legs on one rank, train_chaos's nine legs on one
-rank, aggregate_onebit; the ring rows' times are the
+(generate, serve, multitenant, the three train legs, train_zero's
+three ZeRO legs, train_accum, eval, train_ring's six legs on one rank,
+train_dcn's four legs on one rank, train_hybrid's five legs on one
+rank, train_chaos's nine legs on one rank, aggregate_onebit; the ring rows' times are the
 ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
 leaf alone as ``signs_*``; the flash_fwd row, timed at serve's chunk,
@@ -351,7 +391,13 @@ TRAIN_BF16_REL_L2 = 5e-2
 LORA_F32_TOL = 1e-5
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1739,9 +1785,11 @@ def phase_tiny():
     emit({"phase": "tiny", "cpu_equals_card": True})
 
 
-# filled by phase_train: the gradient chunks and elements of one step
+# filled by phase_train: the gradient chunks and elements of one step,
+# and the peak memory of the leg
 TRAIN_CHUNKS = {}
 TRAIN_PARAMS = {}
+TRAIN_PEAK = {}
 
 
 def phase_train(leg, compression_params, B=8, S=1024, steps=5):
@@ -1775,6 +1823,7 @@ def phase_train(leg, compression_params, B=8, S=1024, steps=5):
     per = get_config().partition_bytes // 4
     chunks = TRAIN_CHUNKS[leg] = -(-n_params // per)
     TRAIN_PARAMS[leg] = n_params
+    TRAIN_PEAK[leg] = torch.cuda.max_memory_allocated()
     emit({"phase": "train", "leg": leg, "batch": B, "seq": S,
           "params": n_params, "chunks_per_step": chunks,
           "compression": compression_params, "losses": losses,
@@ -1785,9 +1834,16 @@ def phase_train(leg, compression_params, B=8, S=1024, steps=5):
     del step, params, opt
 
 
+# accum_steps=2 against the full-batch step (f32): the microbatch means
+# add in another order than the batch's mean
+ACCUM_TINY_TOL = 1e-5
+
+
 def phase_train_tiny(steps=3):
     """A tiny f32 model trains on the CPU (plain versions) and on the card
-    (kernels) from the same weights and batch to the same losses."""
+    (kernels) from the same weights and batch to the same losses; on the
+    card, ``accum_steps=2`` from the same weights gives the full-batch
+    step's losses and parameters to ``ACCUM_TINY_TOL``."""
     from byteps_tpu_torch.models import (GPTConfig, gpt_init,
                                          make_gpt_train_step)
 
@@ -1799,13 +1855,25 @@ def phase_train_tiny(steps=3):
     tok, tgt = toks[:, :-1], toks[:, 1:]
     cpu = make_gpt_train_step(tiny, init_params=p_cpu, device="cpu")[0]
     gpu = make_gpt_train_step(tiny, init_params=p_gpu)[0]
+    p_acc = copy.deepcopy(p_gpu)
+    acc = make_gpt_train_step(tiny, init_params=p_acc, accum_steps=2)[0]
     lc = [float(cpu(tok, tgt)) for _ in range(steps)]
     lg = [float(gpu(tok, tgt)) for _ in range(steps)]
+    la = [float(acc(tok, tgt)) for _ in range(steps)]
     diff = max(abs(a - b) for a, b in zip(lc, lg))
     if not diff <= 1e-4:
         raise AssertionError(f"tiny train: CPU losses {lc} vs card {lg}")
+    # two microbatches of 2 rows against the full batch of 4, on the card
+    acc_diff = max(abs(a - b) for a, b in zip(la, lg))
+    acc_pdiff = max(float((a - b).detach().abs().max()) for a, b in
+                    zip(p_acc.parameters(), p_gpu.parameters()))
+    if not (acc_diff <= ACCUM_TINY_TOL and acc_pdiff <= ACCUM_TINY_TOL):
+        raise AssertionError(f"tiny train: accum_steps=2 losses {la} vs the "
+                             f"full batch's {lg} (params {acc_pdiff} apart)")
     emit({"phase": "train_tiny", "cpu_losses": lc, "card_losses": lg,
-          "max_diff": diff, "tolerance": 1e-4})
+          "max_diff": diff, "tolerance": 1e-4, "accum2_losses": la,
+          "accum2_max_diff": acc_diff, "accum2_params_max_diff": acc_pdiff,
+          "accum2_tolerance": ACCUM_TINY_TOL})
 
 
 def named_grads(params) -> dict:
@@ -1903,6 +1971,391 @@ def phase_aggregate_onebit(n=4096000 // 4):
                   "wall_ms": wall}
     emit({"phase": "aggregate_onebit", "n": n, **{f"K{K}": r
                                                   for K, r in res.items()}})
+    return res
+
+
+# --------------------------------------------------------------------------
+# ZeRO-1, gradient accumulation, the eval step and the examples
+# --------------------------------------------------------------------------
+ZERO_N = 354_871_296             # GPT-2 medium's parameters: one ZeRO chunk
+ONEBIT_EF = {"compressor": "onebit", "ef": "vanilla"}
+
+
+def zero_codec_cases(timer) -> dict:
+    """The codec kernels at ZeRO-1's shapes, where the whole flat gradient
+    is one chunk: GPT-2 medium's 354,871,296 f32 (n = 1) and a segment of
+    177,435,648 (n = 2). Onebit pack bit-equal to the plain version at
+    both; unpack-sum by bit pattern at K = 1 on the whole vector and K = 2
+    on the segment (the owner's sum); top-k block select (k = 0.01: the
+    strided layout, (101, 3,513,578) and (101, 1,756,789)) and
+    reconstruct-sum bit for bit, K = 1 whole, K = 2 on two segments.
+    Kernel, plain and bound ms at the whole vector."""
+    from byteps_tpu_torch.compression.topk import block_shape, tiled_shape
+    from byteps_tpu_torch.ops.onebit_kernels import (
+        _pack_torch, _unpack_sum_torch, onebit_pack, onebit_unpack_sum,
+        packed_words)
+
+    g = torch.Generator(device="cuda").manual_seed(60)
+    out = {}
+    for name, n, K in (("whole", ZERO_N, 1), ("segment", -(-ZERO_N // 2), 2)):
+        timed = name == "whole"
+        xs = [torch.randn(n, generator=g, device="cuda") for _ in range(K)]
+        words = [onebit_pack(x) for x in xs]
+        for x, w in zip(xs, words):
+            if not torch.equal(w, _pack_torch(x)):
+                raise AssertionError(f"onebit pack at ZeRO's {name} shape "
+                                     f"(n = {n}): differs from the plain "
+                                     "version")
+        ws = torch.stack(words)
+        sc = torch.stack([x.abs().mean() for x in xs])
+        del words
+        got = onebit_unpack_sum(ws, sc, n)
+        ref = _unpack_sum_torch(ws, sc, n)
+        if not bits_equal(got, ref):
+            raise AssertionError(f"onebit unpack_sum at ZeRO's {name} shape "
+                                 f"(n = {n}, K = {K}): differs from the "
+                                 "plain version")
+        L = packed_words(n)
+        res = {"n": n, "K": K, "words": L, "pack_bit_equal": True,
+               "unpack_sum_bit_equal": True,
+               "unpack_max_abs_err": float((got - ref).abs().max())}
+        del got, ref
+        if timed:
+            x = xs[0]
+            res["pack_ms"] = timer(lambda: onebit_pack(x), iters=5)
+            res["pack_plain_ms"] = timer(lambda: _pack_torch(x), iters=3)
+            res["pack_bound_ms"], res["pack_bound_by"] = bound_ms(
+                4 * n + 4 * L, 32 * L, torch.float32)
+            res["unpack_ms"] = timer(lambda: onebit_unpack_sum(ws, sc, n),
+                                     iters=5)
+            res["unpack_plain_ms"] = timer(
+                lambda: _unpack_sum_torch(ws, sc, n), iters=3)
+            res["unpack_bound_ms"], res["unpack_bound_by"] = bound_ms(
+                4 * K * L + 4 * K + 4 * n, 2 * K * n, torch.float32)
+        del xs, ws, sc
+        if tiled_shape(0.01, n) is not None:
+            raise AssertionError(f"top-k k = 0.01 tiles at n = {n}: the "
+                                 "ZeRO legs' launch counts assume strided")
+        rows, block = block_shape(0.01, n)
+        los, vas = [], []
+        for k in range(K):
+            r, lo, va = topk_select_case(timer if timed else None,
+                                         f"zero_{name}", block, rows, n,
+                                         61 + k, timed=timed)
+            los.append(lo)
+            vas.append(va)
+            if timed:
+                res.update({f"select_{f}": r[f] for f in (
+                    "ms", "warm_ms", "plain_ms", "library_ms", "bound_ms")})
+        r = topk_reconstruct_case(timer if timed else None, f"zero_{name}",
+                                  torch.stack(los), torch.stack(vas), block,
+                                  timed=timed)
+        if timed:
+            res.update({f"reconstruct_{f}": r[f] for f in (
+                "ms", "warm_ms", "plain_ms", "library_ms", "bound_ms")})
+        res.update({"topk_shape": [block, rows], "topk_bit_equal": True})
+        out[name] = res
+        del los, vas
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "zero_codecs", **out})
+    return out
+
+
+def falls(losses) -> bool:
+    """Every loss finite, and one after the first below it. (AdamW at
+    1e-3 from GPT-2 medium's random init goes 11.03, 10.81, 12.99, 9.74
+    on the train legs' batch, on an NVIDIA H100 80GB HBM3 at 700 W: the
+    third step overshoots.)"""
+    return bool(np.isfinite(losses).all()) and min(losses[1:]) < losses[0]
+
+
+def timed_train(step, opt, tok, tgt, steps) -> dict:
+    """One warm-up and ``steps`` timed calls of ``step`` on one batch:
+    losses, step ms, the parameters' digest, the moments' bytes and peak
+    memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(steps + 1):
+        t0 = time.perf_counter()
+        losses.append(float(step(tok, tgt)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"losses": losses, "warmup_s": times[0],
+            "step_ms": sum(times[1:]) / steps * 1e3,
+            "step_ms_each": [t * 1e3 for t in times[1:]],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "moment_bytes": opt.moment_bytes(),
+            "params_sha1": params_digest(opt.params)}
+
+
+def phase_train_zero(B=8, S=1024, steps=2) -> dict:
+    """ZeRO-1 on one card, GPT-2 medium uncut, B=8 × S=1024, bf16 over f32
+    master, AdamW(1e-3), one warm-up and ``steps`` timed steps a leg from
+    the train legs' seeds: replicated_raw (the yardstick), zero_raw,
+    zero_onebit_ef (the whole vector one onebit chunk), zero_topk_block_ef
+    (k = 0.01 of the whole vector: the strided layout). zero_raw's losses
+    and parameter digest equal replicated_raw's bit for bit (n = 1
+    aggregates nothing and AdamW is elementwise); every leg's losses
+    :func:`falls`; each ZeRO leg's moments are exactly 2·ceil(L/n)·4 B
+    (n = 1: the replicated leg's); per step the flash kernels launch once
+    a layer, onebit pack and unpack-sum once each (one round trip of the
+    whole vector), top-k select and reconstruct-sum once each and the
+    tiled round trip never. Returns the ZeRO legs' launch counts, each
+    leg counted from 0."""
+    from byteps_tpu_torch.models import (GPTConfig, make_gpt_train_step,
+                                         synthetic_batch)
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    cfg = GPTConfig.gpt2_medium()
+    calls = steps + 1
+    legs, total = {}, {}
+    # (leg, compression, zero_1); replicated_raw is the yardstick
+    for leg, comp, zero in (("replicated_raw", None, False),
+                            ("zero_raw", None, True),
+                            ("zero_onebit_ef", ONEBIT_EF, True),
+                            ("zero_topk_block_ef", TOPK_BLOCK_EF, True)):
+        reset_launches()
+        step, params, opt = make_gpt_train_step(
+            cfg, compression_params=comp, zero_1=zero,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        tok, tgt = synthetic_batch(
+            torch.Generator(device="cuda").manual_seed(1), cfg, B, S)
+        r = timed_train(step, opt, tok, tgt, steps)
+        r["launches"] = dict(launches)
+        L = sum(p.numel() for p in opt.params)
+        if not falls(r["losses"]):
+            raise AssertionError(f"train_zero {leg}: losses {r['losses']}")
+        if r["moment_bytes"] != 2 * L * 4:
+            raise AssertionError(f"train_zero {leg}: moments "
+                                 f"{r['moment_bytes']} B, not 2 x {L} x 4")
+        legs[leg] = {"compression": comp, "zero_1": zero, **r}
+        del step, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        if zero:
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+    if L != ZERO_N:
+        raise AssertionError(f"GPT-2 medium has {L} parameters, not {ZERO_N}")
+    base, z = legs["replicated_raw"], legs["zero_raw"]
+    if (z["losses"] != base["losses"]
+            or z["params_sha1"] != base["params_sha1"]):
+        raise AssertionError(f"train_zero: zero_raw {z['losses']} differs "
+                             f"from replicated_raw {base['losses']}")
+    per_layer = {k: calls * cfg.n_layers for k in TRAIN}
+    want = {"zero_raw": {**per_layer, "onebit_pack": 0,
+                         "onebit_unpack_sum": 0, "topk_select": 0,
+                         "topk_reconstruct_sum": 0, "topk_roundtrip": 0},
+            "zero_onebit_ef": {**per_layer, "onebit_pack": calls,
+                               "onebit_unpack_sum": calls,
+                               "topk_select": 0, "topk_reconstruct_sum": 0,
+                               "topk_roundtrip": 0},
+            "zero_topk_block_ef": {**per_layer, "onebit_pack": 0,
+                                   "onebit_unpack_sum": 0,
+                                   "topk_select": calls,
+                                   "topk_reconstruct_sum": calls,
+                                   "topk_roundtrip": 0}}
+    for leg, w in want.items():
+        got = legs[leg]["launches"]
+        bad = {k: (got[k], v) for k, v in w.items() if got[k] != v}
+        if bad:
+            raise AssertionError(f"train_zero {leg}: launches (got, want) "
+                                 f"{bad}")
+    emit({"phase": "train_zero", "batch": B, "seq": S, "steps": steps,
+          "params": L, "zero_raw_equals_replicated": True, "legs": legs})
+    return total
+
+
+ACCUM_LEGS = (2, 4)
+
+
+def phase_train_accum(B=8, S=1024, steps=2) -> dict:
+    """Gradient accumulation at GPT-2 medium's full width: B=8 × S=1024 a
+    step as ``accum_steps`` = 2 and 4 microbatches (4 and 2 rows), raw,
+    from the train legs' seeds, one warm-up and ``steps`` timed steps a
+    leg. Losses :func:`falls`; peak memory below the train_raw leg's
+    (accum_steps = 1, the same batch); the flash kernels exactly accum x
+    24 a step each. Returns the legs' launch counts, each leg counted
+    from 0."""
+    from byteps_tpu_torch.models import (GPTConfig, make_gpt_train_step,
+                                         synthetic_batch)
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    cfg = GPTConfig.gpt2_medium()
+    legs, total = {}, {}
+    for accum in ACCUM_LEGS:
+        reset_launches()
+        step, params, opt = make_gpt_train_step(
+            cfg, accum_steps=accum,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        tok, tgt = synthetic_batch(
+            torch.Generator(device="cuda").manual_seed(1), cfg, B, S)
+        r = timed_train(step, opt, tok, tgt, steps)
+        r["launches"] = dict(launches)
+        del step, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        leg = f"accum{accum}"
+        if not falls(r["losses"]):
+            raise AssertionError(f"train_accum {leg}: losses {r['losses']}")
+        if not r["max_memory_allocated"] < TRAIN_PEAK["raw"]:
+            raise AssertionError(
+                f"train_accum {leg}: peak {r['max_memory_allocated']} B not "
+                f"below accum_steps=1's {TRAIN_PEAK['raw']}")
+        want = (steps + 1) * accum * cfg.n_layers
+        bad = {k: r["launches"][k] for k in TRAIN if r["launches"][k] != want}
+        if bad:
+            raise AssertionError(f"train_accum {leg}: launches {bad}, not "
+                                 f"{want} each")
+        legs[leg] = r
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    emit({"phase": "train_accum", "batch": B, "seq": S, "steps": steps,
+          "accum1_max_memory_allocated": TRAIN_PEAK["raw"], "legs": legs})
+    return total
+
+
+def phase_eval(B=8, S=1024, steps=2) -> dict:
+    """``evaluate_perplexity`` of ``make_eval_step`` at GPT-2 medium's
+    full width on two B=8 × S=1024 batches, before and after the raw
+    training step's warm-up and ``steps`` steps (taken on the two batches
+    in turn) from the train legs' seeded weights: both finite, the second
+    lower, the first below 2 x vocab. Each evaluation runs with the launch
+    counts at 0 and must launch the forward 24 times a batch and the
+    backward kernels never. Returns the two evaluations' counts, summed."""
+    from byteps_tpu_torch.models import (GPTConfig, evaluate_perplexity,
+                                         make_eval_step, make_gpt_train_step,
+                                         synthetic_batch)
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    cfg = GPTConfig.gpt2_medium()
+    step, params, _ = make_gpt_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    batches = [synthetic_batch(torch.Generator(device="cuda").manual_seed(s),
+                               cfg, B, S) for s in (1, 2)]
+    ev = make_eval_step(cfg)
+    ppl, counts, total, ms = [], [], {}, []
+    for phase in ("before", "after"):
+        if phase == "after":
+            for i in range(steps + 1):
+                step(*batches[i % 2])
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        ppl.append(evaluate_perplexity(ev, params, batches))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        c = dict(launches)
+        want = {"flash_fwd": len(batches) * cfg.n_layers,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        bad = {k: (c[k], v) for k, v in want.items() if c[k] != v}
+        if bad:
+            raise AssertionError(f"eval {phase}: launches (got, want) {bad}")
+        counts.append(c)
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    del step, params
+    if not (np.isfinite(ppl).all() and ppl[1] < ppl[0] < 2 * cfg.vocab_size):
+        raise AssertionError(f"eval: perplexity {ppl[0]} -> {ppl[1]}")
+    emit({"phase": "eval", "batches": len(batches), "batch": B, "seq": S,
+          "train_steps": steps + 1, "perplexity_before": ppl[0],
+          "perplexity_after": ppl[1], "vocab": cfg.vocab_size,
+          "eval_ms": ms, "launches": counts})
+    return total
+
+
+EXAMPLES = "examples/torch_port"
+
+
+def phase_examples(card: str) -> dict:
+    """The port's examples as their docstrings run them, the two jobs at
+    once: each one port server process (``python -m
+    byteps_tpu_torch.server``) and two worker processes configured by
+    ``DMLC_*``, on the card. The MNIST example
+    (2 epochs of 2,048 samples, ``--print-digest``): every worker's loss
+    falls from epoch to epoch and both end with the same parameters. The
+    benchmark example (25 MB in 8 tensors, 5 iterations): its GB/s line,
+    beside the card's name and power limit. Each server exits 0 after
+    the workers' goodbyes and is killed on any other way out."""
+    import os
+    import re
+    from pathlib import Path
+
+    from byteps_tpu_torch.server import native
+
+    root = Path(__file__).resolve().parent
+    native.build()
+
+    def job(script, args, port, n=2):
+        env = dict(os.environ, PYTHONPATH=str(root),
+                   DMLC_NUM_WORKER=str(n), DMLC_NUM_SERVER="1",
+                   DMLC_PS_ROOT_URI="127.0.0.1",
+                   DMLC_PS_ROOT_PORT=str(port - 1))
+        server = subprocess.Popen(
+            [sys.executable, "-m", "byteps_tpu_torch.server"],
+            env={**env, "DMLC_ROLE": "server", "DMLC_SERVER_ID": "0"},
+            cwd=root, stdout=sys.stderr)
+        procs = []
+        try:
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, str(root / EXAMPLES / script), *args],
+                env={**env, "DMLC_WORKER_ID": str(w)}, cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for w in range(n)]
+            outs = [p.communicate(timeout=300) for p in procs]
+            wall = time.perf_counter() - t0
+            for p, (_, err) in zip(procs, outs):
+                if p.returncode != 0:
+                    raise AssertionError(f"examples {script}: a worker "
+                                         f"exited {p.returncode}: "
+                                         f"{err[-2000:]}")
+            if server.wait(timeout=60) != 0:
+                raise AssertionError(f"examples {script}: the server exited "
+                                     f"{server.returncode}")
+            return [o for o, _ in outs], wall
+        finally:
+            for p in procs + [server]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    # the two jobs at once, each with its server and port
+    ports = [free_port_pair()]
+    while len(ports) < 2:
+        p = free_port_pair()
+        if abs(p - ports[0]) > 1:
+            ports.append(p)
+    with ThreadPoolExecutor(2) as ex:
+        mnist = ex.submit(job, "train_mnist_byteps.py",
+                          ["--samples", "2048", "--print-digest"], ports[0])
+        bench = ex.submit(job, "benchmark_byteps.py", ["--num-iters", "5"],
+                          ports[1])
+        (outs, mnist_s), (bench_outs, bench_s) = (mnist.result(),
+                                                  bench.result())
+    losses, digests = [], []
+    for out in outs:
+        ls = [float(v) for v in re.findall(r"epoch \d+: loss=(\S+)", out)]
+        if not (len(ls) == 2 and ls[1] < ls[0]):
+            raise AssertionError(f"examples mnist: losses {ls} not falling")
+        losses.append(ls)
+        digests.append(re.findall(r"params sha1=([0-9a-f]{40})", out))
+    if len(digests[0]) != 1 or digests[0] != digests[1]:
+        raise AssertionError(f"examples mnist: the workers' parameters "
+                             f"differ: {digests}")
+    line = [ln for ln in bench_outs[0].splitlines()
+            if ln.startswith("push_pull:")]
+    if len(line) != 1:
+        raise AssertionError(f"examples benchmark: no rate line: "
+                             f"{bench_outs[0]}")
+    res = {"phase": "examples", "mnist_losses": losses,
+           "mnist_params_sha1": digests[0][0], "mnist_wall_s": mnist_s,
+           "benchmark": line[0], "benchmark_wall_s": bench_s, "card": card}
+    emit(res)
     return res
 
 
@@ -2467,13 +2920,15 @@ def phase_ring() -> dict:
     return main
 
 
-TRAIN_RING_LEGS = (("staged_onebit_ef", "staged",
-                    {"compressor": "onebit", "ef": "vanilla"}),
-                   ("ring_onebit_ef", "ring",
-                    {"compressor": "onebit", "ef": "vanilla"}),
+# (leg, tier, compression, zero_1)
+TRAIN_RING_LEGS = (("staged_onebit_ef", "staged", ONEBIT_EF, False),
+                   ("ring_onebit_ef", "ring", ONEBIT_EF, False),
                    ("ring_randomk_ef", "ring",
                     {"compressor": "randomk", "k": RANDOMK_K,
-                     "ef": "vanilla"}))
+                     "ef": "vanilla"}, False),
+                   ("zero_staged_raw", "staged", None, True),
+                   ("zero_staged_onebit_ef", "staged", ONEBIT_EF, True),
+                   ("zero_ring_onebit_ef", "ring", ONEBIT_EF, True))
 
 
 def train_ring_rank(rank, n, B, S, steps):
@@ -2481,7 +2936,6 @@ def train_ring_rank(rank, n, B, S, steps):
     same seeded weights, trains on this rank's seeded batch, and reports
     losses, step times, a digest of its parameters, peak memory and the
     launch counts."""
-    import hashlib
     import os
 
     from byteps_tpu_torch.common.config import reset_config
@@ -2491,12 +2945,12 @@ def train_ring_rank(rank, n, B, S, steps):
 
     cfg = GPTConfig.gpt2_medium()
     res = {}
-    for leg, tier, comp in TRAIN_RING_LEGS:
+    for leg, tier, comp, zero in TRAIN_RING_LEGS:
         os.environ["BYTEPS_ICI_TIER"] = tier
         reset_config()
         reset_launches()
         step, params, opt = make_gpt_train_step(
-            cfg, compression_params=comp,
+            cfg, compression_params=comp, zero_1=zero,
             generator=torch.Generator(device="cuda").manual_seed(0))
         tok, tgt = synthetic_batch(
             torch.Generator(device="cuda").manual_seed(1 + rank), cfg, B, S)
@@ -2508,15 +2962,15 @@ def train_ring_rank(rank, n, B, S, steps):
             losses.append(float(step(tok, tgt)))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        flat = torch.cat([p.detach().reshape(-1) for p in opt.params])
         res[leg] = {
             "losses": losses, "step_ms_each": [t * 1e3 for t in times[1:]],
             "warmup_s": times[0],
-            "params_sha1": hashlib.sha1(flat.cpu().numpy().data).hexdigest(),
+            "params_sha1": params_digest(opt.params),
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
             / 1e9,
+            "moment_bytes": opt.moment_bytes(),
             "launches": dict(launches)}
-        del step, params, opt, flat
+        del step, params, opt
         gc.collect()
         torch.cuda.empty_cache()
     return res
@@ -2526,11 +2980,14 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
     """Two ranks on the card train GPT-2 medium at full width, B=4 × S=1024
     each (the single-card legs' global batch of 8), bf16 over f32 master
     weights, AdamW(1e-3), one warm-up and ``steps`` timed steps a leg:
-    staged onebit + EF, ring onebit + EF and ring randomk + EF. The ring
-    onebit leg equals the staged one bit for bit (losses and each rank's
-    parameter digest); every leg ends with both ranks' parameters equal
-    and every loss finite; the launch counts are exact. Returns rank 0's
-    counts summed over the legs (both ranks' are checked equal)."""
+    staged onebit + EF, ring onebit + EF and ring randomk + EF, then
+    ZeRO-1 (``zero_1=True``): staged raw, staged onebit + EF and ring
+    onebit + EF. Each ring onebit leg equals its staged one bit for bit
+    (losses and each rank's parameter digest); every leg ends with both
+    ranks' parameters equal and every loss finite; each rank's moments
+    are 2·ceil(L/2)·4 B under ZeRO-1, half the replicated legs' 2·L·4;
+    the launch counts are exact. Returns rank 0's counts summed over the
+    legs (both ranks' are checked equal)."""
     from byteps_tpu_torch.models import GPTConfig
 
     n = 2
@@ -2540,8 +2997,14 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
     cfg = GPTConfig.gpt2_medium()
     calls = steps + 1
     chunks = -(-GPT2M_PARAMS // CHUNK)
-    for leg, _, _ in TRAIN_RING_LEGS:
+    seg = -(-GPT2M_PARAMS // n)
+    for leg, _, _, zero in TRAIN_RING_LEGS:
         legs = [r[leg] for r in per_rank]
+        moments = 2 * (seg if zero else GPT2M_PARAMS) * 4
+        if any(lg["moment_bytes"] != moments for lg in legs):
+            raise AssertionError(f"train_ring {leg}: moments "
+                                 f"{[lg['moment_bytes'] for lg in legs]} B,"
+                                 f" not {moments}")
         if len({lg["params_sha1"] for lg in legs}) != 1:
             raise AssertionError(f"train_ring {leg}: the ranks' parameters "
                                  "differ")
@@ -2551,13 +3014,15 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
             raise AssertionError(f"train_ring {leg}: the ranks launched "
                                  "different counts")
     for r in per_rank:
-        if (r["ring_onebit_ef"]["losses"] != r["staged_onebit_ef"]["losses"]
-                or r["ring_onebit_ef"]["params_sha1"]
-                != r["staged_onebit_ef"]["params_sha1"]):
-            raise AssertionError(
-                f"train_ring: rank {r['rank']}'s ring onebit + EF leg "
-                f"differs from staged: losses {r['ring_onebit_ef']['losses']}"
-                f" vs {r['staged_onebit_ef']['losses']}")
+        for ring, staged in (("ring_onebit_ef", "staged_onebit_ef"),
+                             ("zero_ring_onebit_ef",
+                              "zero_staged_onebit_ef")):
+            if (r[ring]["losses"] != r[staged]["losses"]
+                    or r[ring]["params_sha1"] != r[staged]["params_sha1"]):
+                raise AssertionError(
+                    f"train_ring: rank {r['rank']}'s {ring} leg differs "
+                    f"from {staged}: losses {r[ring]['losses']} vs "
+                    f"{r[staged]['losses']}")
     # exact counts, per rank. The onebit general body at n ranks, per
     # chunk: pack n segments, recompress the owner's sum (n + 1 packs);
     # unpack-sum the owner's n received segments once, decompress the n
@@ -2575,7 +3040,20 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
         # presum on the values, gather of the summed values; no collect
         "ring_randomk_ef": {"onebit_pack": 0, "onebit_unpack_sum": 0,
                             "ring_rotate": calls * chunks,
-                            "ring_presum": calls * chunks}}
+                            "ring_presum": calls * chunks},
+        # ZeRO-1: one reduce-scatter of the whole vector a step (no pull:
+        # the stepped segments are all-gathered raw, over gloo); onebit
+        # packs the n segments, unpack-sums the owner's K = n received
+        # ones once and, for the EF residual, the n own rows
+        "zero_staged_raw": {"onebit_pack": 0, "onebit_unpack_sum": 0,
+                            "ring_rotate": 0, "ring_presum": 0},
+        "zero_staged_onebit_ef": {"onebit_pack": calls * n,
+                                  "onebit_unpack_sum": calls * (1 + n),
+                                  "ring_rotate": 0, "ring_presum": 0},
+        # the collect call alone, both leaves at once
+        "zero_ring_onebit_ef": {"onebit_pack": calls * n,
+                                "onebit_unpack_sum": calls * (1 + n),
+                                "ring_rotate": calls, "ring_presum": 0}}
     for leg, w in want.items():
         got = per_rank[0][leg]["launches"]
         w = {**w, **{k: per_layer for k in TRAIN}}
@@ -2585,10 +3063,11 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
                                  f"{bad}")
     tokens = n * B * S
     legs_out = {}
-    for leg, tier, comp in TRAIN_RING_LEGS:
+    for leg, tier, comp, zero in TRAIN_RING_LEGS:
         step_ms = max(sum(r[leg]["step_ms_each"]) / steps for r in per_rank)
         legs_out[leg] = {
-            "tier": tier, "compression": comp,
+            "tier": tier, "compression": comp, "zero_1": zero,
+            "moment_bytes": per_rank[0][leg]["moment_bytes"],
             "losses": per_rank[0][leg]["losses"],
             "params_sha1": [r[leg]["params_sha1"] for r in per_rank],
             "step_ms": step_ms,
@@ -2603,7 +3082,7 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
           "seq": S, "steps": steps, "chunks_per_step": chunks,
           "ring_equals_staged": True, "wall_s": wall, "legs": legs_out})
     total = {}
-    for leg, _, _ in TRAIN_RING_LEGS:
+    for leg, *_ in TRAIN_RING_LEGS:
         for k, v in per_rank[0][leg]["launches"].items():
             total[k] = total.get(k, 0) + v
     return total
@@ -2617,10 +3096,19 @@ DCN_FP16_LOSS_TOL = 1e-2
 
 
 def params_digest(leaves) -> str:
+    """SHA-1 of the SHA-1s of the flat parameters' bytes in 64 MiB pieces,
+    in order. The pieces hash on threads (hashlib lets go of the GIL), so
+    GPT-2 medium's 1.42 GB costs a fraction of one thread's pass."""
     import hashlib
+    from concurrent.futures import ThreadPoolExecutor
 
-    flat = torch.cat([p.detach().reshape(-1) for p in leaves])
-    return hashlib.sha1(flat.cpu().numpy().data).hexdigest()
+    flat = torch.cat([p.detach().reshape(-1) for p in leaves]).cpu()
+    buf = flat.numpy().view(np.uint8)
+    piece = 64 << 20
+    with ThreadPoolExecutor(8) as ex:
+        parts = list(ex.map(lambda i: hashlib.sha1(buf[i:i + piece])
+                            .digest(), range(0, buf.size, piece)))
+    return hashlib.sha1(b"".join(parts)).hexdigest()
 
 
 def dcn_timed_steps(step_fn, leaves, steps, probe=None,
@@ -2799,7 +3287,7 @@ def train_dcn_rank(rank, n, B, S, steps, port, ipc_port):
     return res
 
 
-def phase_train_dcn(B=4, S=1024, steps=2) -> dict:
+def phase_train_dcn(B=4, S=1024, steps=1) -> dict:
     """The DCN parameter-server tier on the card: one server process of the
     port (``python -m byteps_tpu_torch.server``, two workers) and two rank
     processes that time-slice the card, each training GPT-2 medium at full
@@ -3088,7 +3576,7 @@ def train_hybrid_rank(rank, n, B, S, steps, ports):
     return res
 
 
-def phase_train_hybrid(B=4, S=1024, steps=2) -> dict:
+def phase_train_hybrid(B=4, S=1024, steps=1) -> dict:
     """The eager surface and the hybrid two-tier pipeline on the card: one
     pod of two rank processes time-slicing the card over gloo, and one
     port server process a hybrid leg (``DMLC_NUM_WORKER=1``, the ranks
@@ -4036,10 +4524,15 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
          "train_hybrid": TRAIN + ("onebit_pack", "onebit_unpack_sum",
                                   "ring_rotate"),
          "train_chaos": TRAIN,
-         "aggregate_onebit": ("onebit_pack", "onebit_unpack_sum_grid")}
+         "aggregate_onebit": ("onebit_pack", "onebit_unpack_sum_grid"),
+         "train_zero": TRAIN + ("onebit_pack", "onebit_unpack_sum",
+                                "topk_select", "topk_reconstruct_sum"),
+         "train_accum": TRAIN,
+         "eval": ("flash_fwd",)}
 MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
               "train_onebit", "train_topk", "train_ring", "train_dcn",
-              "train_hybrid", "train_chaos", "aggregate_onebit")
+              "train_hybrid", "train_chaos", "aggregate_onebit",
+              "train_zero", "train_accum", "eval")
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
@@ -4071,6 +4564,16 @@ def counted_ranks(name, fn, *args) -> dict:
     return check_path(name, fn(*args))
 
 
+def training_options() -> dict:
+    """The raw train leg (the yardstick of accumulation's peak memory),
+    then train_zero, train_accum and eval, each counted: their launch
+    counts by path."""
+    return {"train_raw": counted("train_raw", phase_train, "raw", None),
+            "train_zero": check_path("train_zero", phase_train_zero()),
+            "train_accum": check_path("train_accum", phase_train_accum()),
+            "eval": check_path("eval", phase_eval())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ring", action="store_true",
@@ -4086,6 +4589,12 @@ def main() -> int:
     ap.add_argument("--chaos", action="store_true",
                     help="run only train_chaos, for work on the DCN tier's "
                          "robustness; no kernels line, no result line")
+    ap.add_argument("--zero", action="store_true",
+                    help="run only the training options' phases (the codec "
+                         "kernels at ZeRO's shapes, train_raw, train_zero, "
+                         "train_accum, eval, train_tiny, train_ring with "
+                         "its ZeRO legs) and examples; no kernels line, no "
+                         "result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4102,18 +4611,18 @@ def main() -> int:
     ptxas = {n: [ln.strip() for ln in p.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln]
              for n, p in libs.items()}
+    sass = {**{n: sass_counts(libs[n]) for n in ("flash_fwd", "flash_bwd",
+                                                  "flash_decode")},
+            **{n: sass_counts(libs[n], FMA_SASS)
+               for n in ("segmented_lora", "onebit")}}
     emit({"phase": "card", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
-          "sass": {**{n: sass_counts(libs[n]) for n in ("flash_fwd",
-                                                        "flash_bwd",
-                                                        "flash_decode")},
-                   **{n: sass_counts(libs[n], FMA_SASS)
-                      for n in ("segmented_lora", "onebit")}}})
+          "sass": sass})
     # the bf16 split kernel's tensor-core instantiations (MMA = true)
     tc_split = re.compile(
         r"fwd_split_kernel<__nv_bfloat16, [^,]+, (\(bool\)1|true)[,>]"
         r"|fwd_split_kernelI13__nv_bfloat16Li\d+ELb1E")
-    split_sass = {k: c for k, c in sass_counts(libs["flash_fwd"]).items()
+    split_sass = {k: c for k, c in sass["flash_fwd"].items()
                   if tc_split.search(k)}
     if not split_sass or not all(c["HGMMA"] + c["HMMA"] > 0
                                  for c in split_sass.values()):
@@ -4136,6 +4645,13 @@ def main() -> int:
     if args.chaos:
         emit({"phase": "launches", "train_chaos": counted_ranks(
             "train_chaos", phase_train_chaos)})
+        return 0
+    if args.zero:
+        zero_codec_cases(Timer())
+        emit({"phase": "launches", **training_options(),
+              "train_ring": counted_ranks("train_ring", phase_train_ring)})
+        phase_train_tiny()
+        phase_examples(card)
         return 0
     timer = Timer()
     bf, f32 = torch.bfloat16, torch.float32
@@ -4199,6 +4715,7 @@ def main() -> int:
     unpack_nonfinite_cases()
     topk = topk_cases(timer)
     lora = lora_cases(timer)
+    zero_codec_cases(timer)
     del timer
 
     cfg = GPTConfig.gpt2_medium()
@@ -4224,7 +4741,7 @@ def main() -> int:
             f"({len(MT_TARGETS)} targets x {cfg.n_layers} layers x "
             f"{MT_CALLS['multitenant']} forward calls)")
     by_path["train_bf16"] = counted("train_bf16", phase_train_bf16)
-    by_path["train_raw"] = counted("train_raw", phase_train, "raw", None)
+    by_path.update(training_options())
     by_path["train_onebit"] = counted(
         "train_onebit", phase_train, "onebit_ef",
         {"compressor": "onebit", "ef": "vanilla"})
@@ -4286,6 +4803,7 @@ def main() -> int:
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()
+    phase_examples(card)
 
     # the shapes the main path launches most: serve's prefill chunks,
     # generate's decode steps, the training step's attention backward and

@@ -36,8 +36,9 @@ from byteps_tpu_torch.server import native
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "byteps_tpu"
                 or m.startswith("byteps_tpu."))
-from byteps_tpu_torch.models import (GPTConfig, gpt_init, make_generate_fn,
-                                     make_gpt_train_step, params_from_numpy)
+from byteps_tpu_torch.models import (GPTConfig, gpt_init, make_eval_step,
+                                     make_generate_fn, make_gpt_train_step,
+                                     params_from_numpy)
 from byteps_tpu_torch.models.generate import init_cache
 from byteps_tpu_torch.serve import AdapterPool, PagedKVCache, Scheduler
 from byteps_tpu_torch.models import adapters_from_numpy
@@ -56,6 +57,7 @@ calls = {
                                          max_batch=1),
     "Scheduler": lambda: Scheduler(cpu, cfg),
     "make_gpt_train_step": lambda: make_gpt_train_step(cfg),
+    "make_eval_step": lambda: make_eval_step(cfg),
     "AdapterPool": lambda: AdapterPool(cfg, n_slots=2, rank_bucket=2),
     "lora_init": lambda: lora_init(cfg, 2),
     "adapters_from_numpy": lambda: adapters_from_numpy(
@@ -133,6 +135,50 @@ def test_dcn_modules_import_alone_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] None", out.stdout
+
+
+_EXAMPLES_PROBE = r"""
+import json, os, runpy, sys
+from byteps_tpu_torch import server
+from byteps_tpu_torch.common.config import reset_config
+port = int(sys.argv[1])
+for script, args in (
+        ("train_mnist_byteps.py", ["--device", "cpu", "--epochs", "1",
+                                   "--samples", "64"]),
+        ("benchmark_byteps.py", ["--device", "cpu", "--num-iters", "1",
+                                 "--tensor-mb", "0.1"])):
+    port = server.start_server_any_port(port, num_workers=1,
+                                        engine_threads=1)
+    os.environ["DMLC_PS_ROOT_PORT"] = str(port - 1)
+    reset_config()
+    path = os.path.join("examples", "torch_port", script)
+    sys.argv = [path, *args]
+    runpy.run_path(path, run_name="__main__")
+    server.stop_server()
+    port += 20
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "byteps_tpu"))))
+"""
+
+
+def test_examples_run_without_jax():
+    """The port's two examples, run to their end in one process (one
+    worker, a port server in the process), load neither jax nor
+    byteps_tpu."""
+    sys.path.insert(0, str(ROOT / "tests" / "helpers"))
+    from dcn_fixtures import next_port, port_lib
+
+    port_lib()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="",
+               DMLC_NUM_WORKER="1", DMLC_NUM_SERVER="1",
+               DMLC_PS_ROOT_URI="127.0.0.1", DMLC_WORKER_ID="0",
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _EXAMPLES_PROBE,
+                          str(next_port())], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "epoch 0: loss=" in out.stdout and "push_pull:" in out.stdout
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_cpu_tensors_never_touch_the_kernel_build(monkeypatch):

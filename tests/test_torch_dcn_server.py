@@ -70,6 +70,10 @@ def servers():
 
     def start(kind):
         mod = {"ref": rserver, "port": tserver}[kind]
+        if mod in started:
+            # the last round's server stops itself on the workers'
+            # goodbyes, perhaps not yet: stop it before the next start
+            mod.stop_server()
         port = tserver.any_port(
             lambda p: mod.start_server(port=p, num_workers=2,
                                        engine_threads=2,
@@ -82,14 +86,16 @@ def servers():
         mod.stop_server()
 
 
-def _mixed_round(servers, n, seed, port_kw=None, ref_kw=None, first=0):
+def _mixed_round(servers, n, seed, port_kw=None, ref_kw=None, first=0,
+                 lead=0):
     """Worker 0 is the reference's PSWorker (built with ``ref_kw``),
     worker 1 the port's (built with ``port_kw``, and reporting its TCP
     connections before the closing barrier under ``"conns"``); each
-    pushes a seeded vector under every codec (worker ``first`` the first
-    of the two) and pulls the round raw and in the codec's own pull
-    format. Returns {worker: {case: bytes}}. The other worker pushes a key
-    only after worker ``first``'s push of it returned: where the server's
+    pushes one of two seeded vectors under every codec (worker ``first``
+    the first of the two, and vector ``lead`` with it) and pulls the
+    round raw and in the codec's own pull format. Returns {worker: {case:
+    bytes}}. The other worker pushes a key only after worker ``first``'s
+    push of it returned: where the server's
     decode-and-add multiplies (fp8's and dithering's ``dst += value *
     scale``), ``-march=native`` may fuse the multiply into the add, and
     then the f32 sum depends on the order in which the pushes are
@@ -123,7 +129,7 @@ def _mixed_round(servers, n, seed, port_kw=None, ref_kw=None, first=0):
                 w.init_key(key, c.store_elems(n) * 4)
                 if wid != first:
                     assert pushed[key].wait(20)
-                v = w.push_bytes(key, c.encode(xs[wid ^ first],
+                v = w.push_bytes(key, c.encode(xs[wid ^ first ^ lead],
                                                seed=seed + key), c.codec_id)
                 if wid == first:
                     pushed[key].set()
@@ -154,11 +160,25 @@ def _mixed_round(servers, n, seed, port_kw=None, ref_kw=None, first=0):
 
 @pytest.mark.parametrize("n", [1000, 20001])
 def test_mixed_workers_pull_bit_equal_on_either_server(servers, n):
+    """Two TCP workers, the reference's and the port's, push one round
+    on a reference server and on a port server. The server acknowledges
+    a TCP push on receipt and applies it after, so the two applies land
+    in either order, key by key, and where the decode-and-add is an FMA
+    (fp8, dithering) the f32 sum depends on that order. The legal
+    results are the reference server's for each order, the order fixed
+    by pushing the vector to be applied first over the in-process path,
+    which applies before it returns: every TCP pull must equal, case by
+    case, the result of one of the two orders."""
+    legal = [_mixed_round(servers("ref"), n, seed=n,
+                          ref_kw={"use_ipc": True}, lead=lead)
+             for lead in (0, 1)]
     on_ref = _mixed_round(servers("ref"), n, seed=n)
     on_port = _mixed_round(servers("port"), n, seed=n)
-    assert on_ref[0] == on_ref[1]
-    assert on_port[0] == on_port[1]
-    assert on_ref[0] == on_port[0]
+    for got in (*legal, on_ref, on_port):
+        assert got[0] == got[1]
+    for got in (on_ref, on_port):
+        for case, pulled in got[0].items():
+            assert pulled in (legal[0][0][case], legal[1][0][case]), case
     # and the raw sum is the f32 sum of the two decoded pushes
     rng = np.random.default_rng(n)
     xs = [rng.standard_normal(n).astype(np.float32) for _ in range(2)]

@@ -21,6 +21,12 @@ as the reference's n == 1 fast path. Stochastic codecs run the general
 body at one rank too, as the reference's do; there the exchange and the
 gather are identities and need no process group.
 
+The bodies the optimizer calls take a ``group``: the process group of a
+mesh's dp axis, so that on a dp×tp×sp mesh each (tp, sp) rank aggregates
+its own leaves over dp alone (``None``: the default group). The ring
+tier's transport spans the default group only; over another group the
+staged tier is the one ported (``optimizer.py`` refuses the ring there).
+
 Keys (``compression.base.fold_in``): the caller's ``rng`` (a chunk's
 key) gives segment j the key ``fold_in(rng, j)``, the same on every
 rank, and the owner rank r recompresses with ``fold_in(rng, r)``.
@@ -195,7 +201,7 @@ def _as_wire(a: torch.Tensor) -> torch.Tensor:
     return a
 
 
-def _exchange(payload: Payload, n: int, tier: str) -> Payload:
+def _exchange(payload: Payload, n: int, tier: str, group=None) -> Payload:
     """Deliver row j of every rank's stacked payload to owner j, stacked
     in worker order (``all_to_all`` semantics); the identity at n == 1."""
     if n == 1:
@@ -206,12 +212,12 @@ def _exchange(payload: Payload, n: int, tier: str) -> Payload:
     for k, a in payload.items():
         a = _as_wire(a)
         recv = torch.empty_like(a)
-        dist.all_to_all_single(recv, a)
+        dist.all_to_all_single(recv, a, group=group)
         out[k] = recv.view(payload[k].dtype)
     return out
 
 
-def _gather(out_payload: Payload, n: int, tier: str) -> Payload:
+def _gather(out_payload: Payload, n: int, tier: str, group=None) -> Payload:
     """Owner-ordered stack of every owner's result payload (the "pull")."""
     if n == 1:
         return {k: a[None] for k, a in out_payload.items()}
@@ -221,7 +227,7 @@ def _gather(out_payload: Payload, n: int, tier: str) -> Payload:
     for k, a in out_payload.items():
         w = _as_wire(a)
         parts = [torch.empty_like(w) for _ in range(n)]
-        dist.all_gather(parts, w)
+        dist.all_gather(parts, w, group=group)
         out[k] = torch.stack(parts).view(a.dtype)
     return out
 
@@ -247,7 +253,7 @@ def _presum_route(compressor: Compressor, n: int, tier: str) -> bool:
 
 
 def _compress_push(g: torch.Tensor, rng: int, compressor: Compressor,
-                   n: int, tier: str):
+                   n: int, tier: str, group=None):
     """COMPRESS → "PUSH": segment, compress segment j with key
     ``fold_in(rng, j)``, and exchange so owner j receives every rank's
     segment j. Returns ``(payload, seg_keys, recv, seg)``; ``recv`` is
@@ -257,7 +263,7 @@ def _compress_push(g: torch.Tensor, rng: int, compressor: Compressor,
     payload = _stack([compressor.compress(segs[j], seg_keys[j])
                       for j in range(n)])
     recv = (None if _presum_route(compressor, n, tier)
-            else _exchange(payload, n, tier))
+            else _exchange(payload, n, tier, group))
     return payload, seg_keys, recv, seg
 
 
@@ -268,9 +274,10 @@ def _decompress_rows(compressor: Compressor, stacked: Payload,
                       for j, key in enumerate(keys)])
 
 
-def _size_rank(n: Optional[int]) -> Tuple[int, int]:
-    """(n, this rank's index among them): the world's by default."""
-    size, rank = world()
+def _size_rank(n: Optional[int], group=None) -> Tuple[int, int]:
+    """(n, this rank's index among them): ``group``'s (the default
+    group's by default)."""
+    size, rank = world(group)
     if n is None:
         n = size
     return n, (rank if n > 1 else 0)
@@ -308,8 +315,10 @@ def compressed_allreduce_local(
     ef_residual: Optional[torch.Tensor] = None,
     rng: Optional[int] = None,
     tier: Optional[str] = None,
+    group=None,
 ):
-    """This rank's body of the compressed all-reduce of a flat (L,) chunk.
+    """This rank's body of the compressed all-reduce of a flat (L,) chunk
+    over ``group`` (the default group when None).
 
     ``rng`` is the chunk's key, the same on every rank; stochastic codecs
     require it. With ``ef_residual`` the compressed input is ``g +
@@ -318,7 +327,7 @@ def compressed_allreduce_local(
     picks the wire transport (None reads ``BYTEPS_ICI_TIER``)."""
     tier = _resolve_tier(tier)
     rng = _require_rng(compressor, rng)
-    n, rank = _size_rank(n)
+    n, rank = _size_rank(n, group)
     L = g.shape[0]
     g = g.float()
     if n == 1 and not compressor.stochastic:
@@ -331,13 +340,13 @@ def compressed_allreduce_local(
     if ef_residual is not None:
         g = g + ef_residual
     payload, seg_keys, recv, seg = _compress_push(g, rng, compressor, n,
-                                                  tier)
+                                                  tier, group)
     out_payload = _owner_sum(payload, recv, compressor, n, seg, tier)
     if two_way and not compressor.presummable:
         # recompress the owner's sum for the pull, with the owner's key
         out_payload = compressor.compress(out_payload["dense"],
                                           fold_in(rng, rank))
-    gathered = _gather(out_payload, n, tier)
+    gathered = _gather(out_payload, n, tier, group)
     if compressor.presummable or two_way:
         out = _decompress_rows(compressor, gathered, seg_keys, seg)
     else:

@@ -1,22 +1,31 @@
 """GPT-style decoder-only transformer, the flagship model, in PyTorch.
 
-Counterpart of ``byteps_tpu/models/gpt.py`` for one card (tp = 1, no
-sequence parallelism). The parameters keep the reference's leaf names
-and layouts — ``x @ W`` with W stored ``(d_in, d_out)``, f32 master
-weights cast to the activation dtype per op — so a reference tree
-converts leaf for leaf (``models/convert.py``). They live in a
-:class:`GPT` ``nn.Module`` that also answers ``params["wq"]``,
-``"w3" in p`` and ``p.get("ln1_b")``, so the functional code below reads
-like the reference and runs on the module or on a plain dict alike.
+Counterpart of ``byteps_tpu/models/gpt.py``. The parameters keep the
+reference's leaf names and layouts — ``x @ W`` with W stored
+``(d_in, d_out)``, f32 master weights cast to the activation dtype per
+op — so a reference tree converts leaf for leaf (``models/convert.py``).
+They live in a :class:`GPT` ``nn.Module`` that also answers
+``params["wq"]``, ``"w3" in p`` and ``p.get("ln1_b")``, so the
+functional code below reads like the reference and runs on the module or
+on a plain dict alike.
+
+One forward serves every parallel layout, as the reference's does: with
+no axes it is the one-rank model; with a tp axis (a
+:class:`~byteps_tpu_torch.parallel.mesh.Axis`) each rank holds its
+Megatron shards (:func:`gpt_logical_specs`: q/k/v and w1/w3 split on
+their output dim, wo and w2 on their input dim) and ``parallel/tp.py``
+sums the row-parallel products; with an sp axis each rank holds a block
+of the sequence at its global positions (contiguous, or the zigzag
+layout) and attention runs the ring of ``parallel/ring_attention.py``.
 
 Leaves are built frozen (``requires_grad=False``), as serving holds
 them; the training step (``models/train.py``) turns them trainable.
-Attention goes through :func:`byteps_tpu_torch.ops.flash_attention
-.flash_attention`: the forward and backward kernels on CUDA, the plain
-versions on CPU. A grafted block (``models/lora.py``) adds its LoRA
-delta beside each targeted matmul (:func:`with_lora`). The readout keeps f32 logits from activation-dtype
-operands (:class:`HeadDot`); :func:`gpt_loss` reaches it through the
-fused readout + cross-entropy of ``ops/chunked_ce.py`` by default.
+Attention goes through the flash kernels on CUDA, the plain versions on
+CPU. A grafted block (``models/lora.py``) adds its LoRA delta beside
+each targeted matmul (:func:`with_lora`). The readout keeps f32 logits
+from activation-dtype operands (:class:`HeadDot`); :func:`gpt_loss`
+reaches it through the fused readout + cross-entropy of
+``ops/chunked_ce.py`` by default, its vocab split over tp on request.
 """
 
 from __future__ import annotations
@@ -31,10 +40,16 @@ from torch import nn
 from byteps_tpu_torch.models.lora import lora_delta
 from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.ops.chunked_ce import chunked_ce_nll, f32_dot
-from byteps_tpu_torch.ops.flash_attention import flash_attention
 from byteps_tpu_torch.parallel.remat import maybe_remat
+from byteps_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    zigzag_local_positions,
+    zigzag_ring_attention,
+)
 from byteps_tpu_torch.parallel.tp import (
     col_parallel_matmul,
+    copy_to_tp,
+    pmean,
     row_parallel_matmul,
 )
 
@@ -226,6 +241,68 @@ def gpt_init(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
     return GPT(cfg, leaves, blocks)
 
 
+def gpt_logical_specs(cfg: GPTConfig) -> Dict[str, Any]:
+    """Logical-axis tree matching :func:`gpt_init`'s leaves: one tuple of
+    logical names per dimension (``parallel/partitioner.py`` maps them
+    onto mesh axes)."""
+    return {
+        "wte": ("vocab", "embed"), "lnf_g": ("embed",),
+        **({"wpe": (None, "embed")} if cfg.pos_embedding == "learned"
+           else {}),
+        **({"lnf_b": ("embed",)} if cfg.norm == "layernorm" else {}),
+        **({} if cfg.tied_readout else {"lm_head": ("embed", "vocab")}),
+        "blocks": [block_logical_specs(cfg.mlp, use_bias=cfg.use_bias,
+                                       norm=cfg.norm)
+                   for _ in range(cfg.n_layers)],
+    }
+
+
+def gpt_param_specs(cfg: GPTConfig, tp_axis: Optional[str]) -> Dict[str, Any]:
+    """Spec tree matching :func:`gpt_init`'s leaves: column-parallel
+    weights (q/k/v, w1, w3) and their biases split their output dim over
+    ``tp_axis``, row-parallel weights (wo, w2) their input dim; the rest
+    is replicated."""
+    from byteps_tpu_torch.parallel.partitioner import (resolve_specs,
+                                                       rules_from_axes)
+    return resolve_specs(gpt_logical_specs(cfg),
+                         rules_from_axes(tp_axis=tp_axis))
+
+
+def block_logical_specs(mlp: str = "gelu", use_bias: bool = True,
+                        norm: str = "layernorm") -> Dict[str, Any]:
+    """Logical-axis dict of one block: q/k/v and w1/w3 column-parallel
+    (output dim heads/kv/mlp), wo and w2 row-parallel (input dim
+    likewise), biases following their weight's output dim."""
+    s = {
+        "ln1_g": ("embed",),
+        "wq": ("embed", "heads"), "wk": ("embed", "kv"),
+        "wv": ("embed", "kv"),
+        "wo": ("heads", "embed"), "ln2_g": ("embed",),
+        "w1": ("embed", "mlp"), "w2": ("mlp", "embed"),
+        **({"w3": ("embed", "mlp")} if mlp == "swiglu" else {}),
+    }
+    if norm == "layernorm":
+        s["ln1_b"] = ("embed",)
+        s["ln2_b"] = ("embed",)
+    if use_bias:
+        s.update({
+            "bq": ("heads",), "bk": ("kv",), "bv": ("kv",),
+            "bo": ("embed",),
+            "b1": ("mlp",), "b2": ("embed",),
+            **({"b3": ("mlp",)} if mlp == "swiglu" else {}),
+        })
+    return s
+
+
+def block_specs(tp_axis, mlp: str = "gelu", use_bias: bool = True,
+                norm: str = "layernorm") -> Dict[str, Any]:
+    """Spec dict of one block (see :func:`gpt_param_specs`)."""
+    from byteps_tpu_torch.parallel.partitioner import (resolve_specs,
+                                                       rules_from_axes)
+    return resolve_specs(block_logical_specs(mlp, use_bias, norm),
+                         rules_from_axes(tp_axis=tp_axis))
+
+
 def resolve_rope(cfg: GPTConfig) -> float:
     """Validate the position scheme; the rope base to thread to the
     blocks (0.0 = learned wpe, no rotation)."""
@@ -237,6 +314,17 @@ def resolve_rope(cfg: GPTConfig) -> float:
             raise ValueError(f"rope_base must be > 0; got {cfg.rope_base}")
         return cfg.rope_base
     return 0.0
+
+
+def _positions(S_loc: int, sp_axis, seq_layout: str,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """This rank's global sequence positions (layout-aware): they feed the
+    learned ``wpe`` gather and the RoPE rotations."""
+    live = sp_axis is not None and sp_axis.size > 1
+    if seq_layout == "zigzag" and live:
+        return zigzag_local_positions(S_loc, sp_axis, device=device)
+    off = sp_axis.index * S_loc if live else 0
+    return off + torch.arange(S_loc, device=device)
 
 
 def rope_rotate(x: torch.Tensor, pos: torch.Tensor,
@@ -311,9 +399,20 @@ def with_lora(y, x, p, name: str, seg=None):
     return y
 
 
-def _attention(x, p, head_dim: int, rope_base: float = 0.0,
-               use_bias: bool = True):
+def _attention(x, p, head_dim: int, tp_axis=None, sp_axis=None,
+               seq_layout: str = "contiguous", rope_base: float = 0.0,
+               use_bias: bool = True, pos: Optional[torch.Tensor] = None):
+    """The attention branch on this rank's tp-local heads: q/k/v
+    column-parallel from the tp copy of ``x``, RoPE at the global
+    positions ``pos`` (default ``arange(S)``), the sp ring (contiguous or
+    zigzag) or one rank's attention, and the row-parallel output summed
+    over tp before its bias."""
     B, S = x.shape[:2]
+    tp_live = tp_axis is not None and tp_axis.size > 1
+    if tp_live and "lora" in p:
+        raise NotImplementedError(
+            "LoRA on a tensor-parallel mesh is not ported yet (ROADMAP A.6)")
+    x = copy_to_tp(x, tp_axis)
     q = col_parallel_matmul(x, p["wq"].to(x.dtype), _bias(p, "bq", x, use_bias))
     k = col_parallel_matmul(x, p["wk"].to(x.dtype), _bias(p, "bk", x, use_bias))
     v = col_parallel_matmul(x, p["wv"].to(x.dtype), _bias(p, "bv", x, use_bias))
@@ -323,26 +422,39 @@ def _attention(x, p, head_dim: int, rope_base: float = 0.0,
     h_loc = q.shape[-1] // head_dim
     kv_loc = k.shape[-1] // head_dim
     if kv_loc == 0 or h_loc % kv_loc != 0:
-        raise ValueError(f"invalid head split: {h_loc} query heads vs "
-                         f"{kv_loc} kv heads")
+        raise ValueError(
+            f"invalid head split: {h_loc} query heads vs {kv_loc} kv heads "
+            "— with GQA under tensor parallelism, n_kv_heads must be "
+            "divisible by the tp axis size")
     q = q.reshape(B, S, h_loc, head_dim)
     k = k.reshape(B, S, kv_loc, head_dim)
     v = v.reshape(B, S, kv_loc, head_dim)
     if rope_base > 0.0:
-        pos = torch.arange(S, device=x.device)
+        if pos is None:
+            pos = torch.arange(S, device=x.device)
         q = rope_rotate(q, pos, rope_base)
         k = rope_rotate(k, pos, rope_base)
-    # GQA: k/v stay narrow; the kernel maps query heads to kv heads
-    o = flash_attention(q, k, v, causal=True)
+    # GQA: k/v stay narrow; the kernels map query heads to kv heads and
+    # the ring rotates the narrow blocks
+    if seq_layout == "zigzag":
+        o = zigzag_ring_attention(q, k, v, sp_axis, causal=True)
+    elif seq_layout == "contiguous":
+        o = ring_attention(q, k, v, sp_axis, causal=True)
+    else:
+        raise ValueError(f"unknown seq_layout {seq_layout!r} — expected "
+                         "'contiguous' or 'zigzag'")
     o = o.reshape(B, S, h_loc * head_dim)
-    out = row_parallel_matmul(o, p["wo"].to(x.dtype), None,
+    out = row_parallel_matmul(o, p["wo"].to(x.dtype), tp_axis,
                               _bias(p, "bo", x, use_bias))
     return with_lora(out, o, p, "wo")
 
 
-def _mlp(x, p, use_bias: bool = True, seg=None):
-    """The MLP branch; LoRA addends at the reference's points (value and
-    gate paths, row projection), ``seg`` as in :func:`with_lora`."""
+def _mlp(x, p, tp_axis=None, use_bias: bool = True, seg=None):
+    """The MLP branch: w1 (and the SwiGLU gate w3) column-parallel from
+    the tp copy of ``x``, w2 row-parallel summed over tp before its
+    bias; LoRA addends at the reference's points (value and gate paths,
+    row projection), ``seg`` as in :func:`with_lora`."""
+    x = copy_to_tp(x, tp_axis)
     h = col_parallel_matmul(x, p["w1"].to(x.dtype),
                             _bias(p, "b1", x, use_bias))
     h = with_lora(h, x, p, "w1", seg)
@@ -353,28 +465,36 @@ def _mlp(x, p, use_bias: bool = True, seg=None):
         h = F.silu(h) * g
     else:
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
-    out = row_parallel_matmul(h, p["w2"].to(x.dtype), None,
+    out = row_parallel_matmul(h, p["w2"].to(x.dtype), tp_axis,
                               _bias(p, "b2", x, use_bias))
     return with_lora(out, h, p, "w2", seg)
 
 
-def transformer_block(x, p, head_dim: int, rope_base: float = 0.0,
+def transformer_block(x, p, head_dim: int, tp_axis=None, sp_axis=None,
+                      seq_layout: str = "contiguous", rope_base: float = 0.0,
                       norm_fn=_layernorm, norm_eps: float = 1e-5,
-                      use_bias: bool = True):
-    """Pre-norm causal block: attention + MLP, each a residual branch."""
+                      use_bias: bool = True,
+                      pos: Optional[torch.Tensor] = None):
+    """Pre-norm causal block: attention + MLP, each a residual branch,
+    tp col/row-parallel, the sp ring, RoPE at the global positions
+    ``pos``."""
     x = x + _attention(norm_fn(x, p["ln1_g"], p.get("ln1_b"), norm_eps), p,
-                       head_dim, rope_base=rope_base, use_bias=use_bias)
+                       head_dim, tp_axis, sp_axis, seq_layout=seq_layout,
+                       rope_base=rope_base, use_bias=use_bias, pos=pos)
     return x + _mlp(norm_fn(x, p["ln2_g"], p.get("ln2_b"), norm_eps), p,
-                    use_bias=use_bias)
+                    tp_axis, use_bias=use_bias)
 
 
 def _embed(params, tokens: torch.Tensor, cfg: GPTConfig,
-           pos0: int = 0) -> torch.Tensor:
+           pos0: int = 0, pos: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
     """Token (+ learned position) embeddings in the activation dtype for
-    tokens at global positions ``pos0 ..``."""
+    tokens at global positions ``pos`` (default ``pos0 ..``: the sp
+    offset or the zigzag positions come in ``pos``)."""
     x = params["wte"][tokens]
     if cfg.pos_embedding == "learned":
-        pos = torch.arange(pos0, pos0 + tokens.shape[1], device=x.device)
+        if pos is None:
+            pos = torch.arange(pos0, pos0 + tokens.shape[1], device=x.device)
         x = x + params["wpe"][pos]
     return x.to(cfg.dtype)
 
@@ -424,31 +544,39 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def _readout_nll(params, h: torch.Tensor, targets: torch.Tensor,
                  norm_fn=_layernorm, norm_eps: float = 1e-5,
-                 chunked: bool = True) -> torch.Tensor:
-    """Final norm → per-token next-token NLL: the fused readout + CE
-    (``ops/chunked_ce.py``) when ``chunked``, else the dense ``head_dot``
-    + ``log_softmax`` chain it is held against."""
+                 tp_axis=None, chunked=True) -> torch.Tensor:
+    """Final norm → per-token next-token NLL. ``chunked`` is the
+    tri-state ``chunked_ce`` knob: truthy takes the fused readout + CE
+    (``ops/chunked_ce.py``), ``"vocab_parallel"`` with its vocab split
+    over ``tp_axis``; False the dense ``head_dot`` + ``log_softmax``
+    chain it is held against."""
     h = norm_fn(h, params["lnf_g"], params.get("lnf_b"), norm_eps)
     head = (params["lm_head"] if "lm_head" in params
             else params["wte"].T).float()
     if chunked:
-        return chunked_ce_nll(h, head, targets)
+        return chunked_ce_nll(
+            h, head, targets,
+            tp_axis=tp_axis if chunked == "vocab_parallel" else None)
     return _nll(head_dot(h, head), targets)
 
 
 def gpt_hidden(params, tokens: torch.Tensor, cfg: GPTConfig,
-               remat: bool = False) -> torch.Tensor:
+               tp_axis=None, sp_axis=None, remat: bool = False,
+               seq_layout: str = "contiguous") -> torch.Tensor:
     """Embeddings → transformer blocks, before the final norm.
-    ``remat=True`` recomputes each block's activations in the backward
-    pass (``parallel/remat.py``)."""
+    ``tokens`` is this rank's (B, S_local) block; ``remat=True``
+    recomputes each block's activations in the backward pass
+    (``parallel/remat.py``)."""
     rope_base = resolve_rope(cfg)
     norm_fn, norm_eps = resolve_norm(cfg)
-    x = _embed(params, tokens, cfg)
+    pos = _positions(tokens.shape[1], sp_axis, seq_layout, tokens.device)
+    x = _embed(params, tokens, cfg, pos=pos)
 
     def apply_block(x, p):
-        return transformer_block(x, p, cfg.head_dim, rope_base=rope_base,
+        return transformer_block(x, p, cfg.head_dim, tp_axis, sp_axis,
+                                 seq_layout=seq_layout, rope_base=rope_base,
                                  norm_fn=norm_fn, norm_eps=norm_eps,
-                                 use_bias=cfg.use_bias)
+                                 use_bias=cfg.use_bias, pos=pos)
 
     apply_block = maybe_remat(apply_block, remat)
     for p in params["blocks"]:
@@ -457,19 +585,32 @@ def gpt_hidden(params, tokens: torch.Tensor, cfg: GPTConfig,
 
 
 @torch.no_grad()
-def gpt_forward(params, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
-    """tokens (B, S) → f32 logits (B, S, vocab)."""
-    x = gpt_hidden(params, tokens, cfg)
+def gpt_forward(params, tokens: torch.Tensor, cfg: GPTConfig,
+                tp_axis=None, sp_axis=None,
+                seq_layout: str = "contiguous") -> torch.Tensor:
+    """tokens (B, S_local) → f32 logits (B, S_local, vocab), this rank's
+    block (replicated over tp)."""
+    x = gpt_hidden(params, tokens, cfg, tp_axis, sp_axis,
+                   seq_layout=seq_layout)
     return _readout(params, x, *resolve_norm(cfg))
 
 
 def gpt_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
-             cfg: GPTConfig, remat: bool = False,
-             chunked_ce: bool = True) -> torch.Tensor:
-    """Mean next-token cross-entropy of one rank's batch (the reference's
-    ``gpt_loss`` with no mesh axes): differentiable, f32.
-    ``chunked_ce=True`` (default) fuses readout + CE so the f32
-    (B, S, V) logits never exist whole; False is the dense chain."""
-    x = gpt_hidden(params, tokens, cfg, remat=remat)
-    return _readout_nll(params, x, targets, *resolve_norm(cfg),
-                        chunked=chunked_ce).mean()
+             cfg: GPTConfig, dp_axis=None, tp_axis=None, sp_axis=None,
+             remat: bool = False, seq_layout: str = "contiguous",
+             chunked_ce=True) -> torch.Tensor:
+    """Mean next-token cross-entropy, f32, differentiable, the same on
+    every rank of the named axes: the mean of this rank's block, then the
+    mean over ``dp_axis`` and ``sp_axis`` (:func:`~byteps_tpu_torch
+    .parallel.tp.pmean`, whose backward hands each rank its own share),
+    replicated over tp by construction. ``chunked_ce``: True (default)
+    fuses readout + CE so the f32 (B, S, V) logits never exist whole,
+    ``"vocab_parallel"`` also splits the readout's vocab over tp, False
+    is the dense chain."""
+    x = gpt_hidden(params, tokens, cfg, tp_axis, sp_axis, remat=remat,
+                   seq_layout=seq_layout)
+    loss = _readout_nll(params, x, targets, *resolve_norm(cfg),
+                        tp_axis=tp_axis, chunked=chunked_ce).mean()
+    for axis in (dp_axis, sp_axis):
+        loss = pmean(loss, axis)
+    return loss

@@ -1,7 +1,7 @@
-"""The data-parallel GPT training step and the eval step (counterparts
-of ``byteps_tpu/models/train.py``'s ``make_gpt_train_step``,
-``make_eval_step`` and ``evaluate_perplexity``, with dp only: no tp, sp,
-pp or ZeRO-3).
+"""The GPT training step and the eval step (counterparts of
+``byteps_tpu/models/train.py``'s ``make_gpt_train_step``,
+``make_eval_step`` and ``evaluate_perplexity``: dp, tp and sp; no pp,
+MoE or ZeRO-3).
 
 One step runs, in order: the forward, the backward (attention through
 the hand-written flash kernels on the card), the flattening of the
@@ -9,16 +9,33 @@ gradients in the reference's leaf order, the chunked aggregation of
 ``optimizer.DistributedOptimizer`` (raw, or compressed by any codec of
 ``compression``, with error feedback and momentum as asked),
 the write-back into ``.grad``, and a ``torch.optim.AdamW`` step. Each
-rank is one process with its own batch; with more than one rank the step
-aggregates over the default ``torch.distributed`` group, which the caller
-initializes. ``zero_1=True`` shards AdamW's moments over the ranks
-(ZeRO-1: one reduce-scatter of the flat gradient, the segment's step,
-an all-gather of the stepped segments). ``accum_steps`` > 1 splits the
-rank's batch into that many microbatches and runs forward and backward
-one microbatch at a time (only one microbatch's activations live),
-summing the unscaled gradients and losses and dividing once by their
-count before the one aggregation of the step, as the reference's
+rank is one process. Without a mesh each rank takes its own batch and
+the step aggregates over the default ``torch.distributed`` group, which
+the caller initializes. ``zero_1=True`` shards AdamW's moments over the
+ranks (ZeRO-1: one reduce-scatter of the flat gradient, the segment's
+step, an all-gather of the stepped segments). ``accum_steps`` > 1 splits
+the rank's batch into that many microbatches and runs forward and
+backward one microbatch at a time (only one microbatch's activations
+live), summing the unscaled gradients and losses and dividing once by
+their count before the one aggregation of the step, as the reference's
 ``_accumulating_value_and_grad`` does.
+
+On a mesh (``mesh=``, ``parallel/mesh.py``) every rank takes the global
+batch and keeps its block (:meth:`Partitioner.local_batch`: its dp rows,
+its sp slice); its parameters are its tp shards. ``gpt_loss`` runs with
+the mesh's tp and sp axes: the Megatron pair sums over tp inside the
+forward and backward, so a tp-sharded leaf's gradient is whole on its
+rank and a tp-replicated one's is whole and bit-identical on every tp
+rank (the reference's VMA contract, ``_make_resymmetrize``); the loss is
+the mean over sp, whose backward leaves each sp rank the share of its
+own tokens, so every leaf's gradient is then summed over sp (the
+reference's ``_manual_axis_sums`` over sp). The ``DistributedOptimizer``
+aggregates over the dp axis alone. A lossy codec's onebit scale (or
+top-k selection) spans a chunk that mixes a rank's tp shards with the
+replicated leaves, so the replicated leaves' aggregate would differ
+between tp ranks: the step makes it tp index 0's on every tp rank (one
+broadcast over tp between the aggregation and AdamW), where the
+reference leaves its tp replicas to drift apart.
 """
 
 from __future__ import annotations
@@ -31,10 +48,14 @@ import torch
 import torch.distributed as dist
 
 from byteps_tpu_torch.comm.ici import world
-from byteps_tpu_torch.models.convert import flat_leaves
+from byteps_tpu_torch.compression import from_params
+from byteps_tpu_torch.models.convert import (flat_leaves, flat_specs,
+                                             param_specs, shard_params)
 from byteps_tpu_torch.models.gpt import GPT, GPTConfig, gpt_init, gpt_loss
 from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.optimizer import DistributedOptimizer
+from byteps_tpu_torch.parallel.mesh import Axis, collectives
+from byteps_tpu_torch.parallel.partitioner import Partitioner, spec_axes
 
 
 def adamw(leaves: Sequence[torch.Tensor], lr: float = 1e-3
@@ -50,14 +71,78 @@ def adamw(leaves: Sequence[torch.Tensor], lr: float = 1e-3
 _A6 = "not ported yet (ROADMAP A.6, parallelism)"
 
 
-def _check_seq_layout(seq_layout: str) -> None:
+def _check_seq_layout(seq_layout: str, sp=None) -> None:
     if seq_layout not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown seq_layout {seq_layout!r} — expected "
                          "'contiguous' or 'zigzag'")
-    if seq_layout == "zigzag":
-        raise NotImplementedError(
-            f"seq_layout='zigzag' (the load-balanced causal ring over sp) "
-            f"is {_A6}")
+    if seq_layout == "zigzag" and sp is None:
+        # the zigzag contract is "feed zigzag_permutation-permuted tokens";
+        # without an sp axis those would just be scrambled tokens
+        raise ValueError(
+            "seq_layout='zigzag' requires a mesh with an sp axis — the "
+            "layout only exists to balance the causal ring over sp; on "
+            "this mesh the permuted inputs would just be scrambled tokens")
+
+
+class _Axes:
+    """The (dp, tp, sp) axes of a mesh for ``cfg`` (None where the mesh
+    has no such axis) and its partitioner; all None without a mesh."""
+
+    def __init__(self, cfg: GPTConfig, mesh):
+        self.mesh = mesh
+        self.part = (Partitioner.for_config(cfg, mesh) if mesh is not None
+                     else None)
+
+        def ax(name):
+            return mesh.axis(name) if name is not None else None
+
+        p = self.part
+        self.dp = ax(p.dp) if p else None
+        self.tp = ax(p.tp) if p else None
+        self.sp = ax(p.sp) if p else None
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.part is None else self.part.local_batch(x)
+
+    def optimizer_axis(self):
+        """What the ``DistributedOptimizer`` aggregates over: the default
+        group without a mesh, else the dp axis (one rank where the mesh
+        has none)."""
+        if self.mesh is None:
+            return None
+        if self.dp is not None:
+            return self.dp
+        return Axis("dp", 1, 0, (self.mesh.rank,))
+
+
+def _sum_over(leaves: Sequence[torch.Tensor], axis) -> None:
+    """Sum every leaf's ``.grad`` over ``axis``, in one flat all-reduce."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in leaves]
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    dist.all_reduce(flat, group=axis.group)
+    collectives["sp_grad_sum"] += 1
+    off = 0
+    for p, g in zip(leaves, grads):
+        p.grad = flat[off:off + g.numel()].view_as(g).to(g.dtype)
+        off += g.numel()
+
+
+def _tp_resymmetrize(leaves: Sequence[torch.Tensor], specs, tp):
+    """The aggregate of the tp-replicated leaves made tp index 0's on
+    every tp rank: one broadcast of their ``.grad`` over tp."""
+    rep = [p for p, s in zip(leaves, specs) if "tp" not in spec_axes(s)]
+
+    def resym() -> None:
+        flat = torch.cat([p.grad.reshape(-1) for p in rep])
+        dist.broadcast(flat, src=tp.ranks[0], group=tp.group)
+        collectives["tp_broadcast"] += 1
+        off = 0
+        for p in rep:
+            p.grad.copy_(flat[off:off + p.numel()].view_as(p))
+            off += p.numel()
+
+    return resym
 
 
 def make_gpt_train_step(
@@ -67,7 +152,7 @@ def make_gpt_train_step(
     compression_params: Optional[Dict[str, Any]] = None,
     partition_bytes: Optional[int] = None,
     remat: bool = False,
-    chunked_ce: bool = True,
+    chunked_ce=True,
     zero_1: bool = False,
     zero_3: bool = False,
     accum_steps: int = 1,
@@ -75,32 +160,39 @@ def make_gpt_train_step(
     init_params: Optional[GPT] = None,
     generator: Optional[torch.Generator] = None,
     device=None,
+    mesh=None,
 ):
     """Returns ``(step, params, opt)``.
 
-    ``step(tokens, targets) -> loss`` takes this rank's (B, S) token ids
-    (tensors or numpy) and returns the mean loss over the group, as a
-    0-d f32 tensor on the device, after updating ``params`` in place.
+    ``step(tokens, targets) -> loss`` takes (B, S) token ids (tensors or
+    numpy) and returns the mean loss over the ranks, as a 0-d f32 tensor
+    on the device, after updating ``params`` in place: this rank's batch
+    without a mesh, the global batch on one (each rank keeps its block).
     ``params`` is a :class:`GPT` on ``device`` (the card unless told
     otherwise): ``init_params`` made trainable, or fresh
-    :func:`gpt_init` weights from ``generator``. ``opt`` is the
+    :func:`gpt_init` weights from ``generator``; on a mesh, this rank's
+    shards of them (``init_params`` whole). ``opt`` is the
     :class:`DistributedOptimizer` around ``make_optimizer(leaves)``
     (default :func:`adamw`), its EF/momentum buffers this rank's state.
     ``compression_params`` as the reference's, e.g. ``{"compressor":
     "onebit", "ef": "vanilla"}`` or ``{"compressor": "topk", "k": 0.01,
-    "ef": "vanilla", "selection": "block"}``; ``remat`` recomputes each block in the
-    backward; ``chunked_ce=False`` takes the dense readout + CE.
-    ``zero_1=True`` is ZeRO-1 (``DistributedOptimizer(zero=True)``; an
-    elementwise ``make_optimizer`` only). ``accum_steps`` > 1
-    accumulates over that many sequential microbatches of the rank's
-    batch before the one aggregation and update (the torch adapter's
-    ``backward_passes_per_step``, fused into the step). ``zero_3`` and
-    ``seq_layout="zigzag"`` are not ported (ROADMAP A.6)."""
+    "ef": "vanilla", "selection": "block"}``; ``remat`` recomputes each
+    block in the backward; ``chunked_ce`` True (the fused readout + CE),
+    ``"vocab_parallel"`` (its vocab split over tp) or False (the dense
+    chain). ``zero_1=True`` is ZeRO-1 (``DistributedOptimizer(zero=True)``;
+    an elementwise ``make_optimizer`` only; on a mesh only where the dp
+    axis is the whole job). ``accum_steps`` > 1 accumulates over that
+    many sequential microbatches of the rank's batch before the one
+    aggregation and update. ``seq_layout="zigzag"`` runs the
+    load-balanced causal ring over sp: feed tokens and targets permuted
+    with ``parallel.ring_attention.zigzag_permutation``; it needs a mesh
+    with an sp axis. ``zero_3`` is not ported (ROADMAP A.6)."""
     if zero_3:
         if zero_1:
             raise ValueError("zero_1 and zero_3 are mutually exclusive")
         raise NotImplementedError(f"zero_3 (ZeRO-3 FSDP) is {_A6}")
-    _check_seq_layout(seq_layout)
+    axes = _Axes(cfg, mesh)
+    _check_seq_layout(seq_layout, axes.sp)
     if accum_steps < 1:
         raise ValueError(f"accum_steps={accum_steps} must be at least 1")
     dev = resolve_device(device)
@@ -109,16 +201,27 @@ def make_gpt_train_step(
     if params.wte.device != dev:
         raise ValueError(f"init_params live on {params.wte.device}, the "
                          f"step on {dev}")
+    if mesh is not None:
+        params = shard_params(params, mesh)
     params.requires_grad_(True)
     leaves = flat_leaves(params)
+    resym = None
+    tp = axes.tp
+    if (tp is not None and tp.size > 1
+            and from_params(compression_params).enabled):
+        resym = _tp_resymmetrize(leaves, flat_specs(param_specs(cfg, mesh)),
+                                 tp)
     opt = DistributedOptimizer(make_optimizer(leaves), leaves,
                                compression_params,
                                partition_bytes=partition_bytes,
-                               zero=zero_1)
+                               zero=zero_1, axis=axes.optimizer_axis(),
+                               resymmetrize=resym)
+    sp = axes.sp if axes.sp is not None and axes.sp.size > 1 else None
 
     def step(tokens, targets) -> torch.Tensor:
         opt.zero_grad()
-        tok, tgt = _as_ids(tokens, dev), _as_ids(targets, dev)
+        tok = axes.block(_as_ids(tokens, dev))
+        tgt = axes.block(_as_ids(targets, dev))
         B = tok.shape[0]
         if B % accum_steps:
             raise ValueError(f"per-device batch {B} not divisible by "
@@ -127,8 +230,9 @@ def make_gpt_train_step(
         loss = None
         for i in range(accum_steps):
             part = gpt_loss(params, tok[i * mb:(i + 1) * mb],
-                            tgt[i * mb:(i + 1) * mb], cfg, remat=remat,
-                            chunked_ce=chunked_ce)
+                            tgt[i * mb:(i + 1) * mb], cfg,
+                            tp_axis=axes.tp, sp_axis=axes.sp, remat=remat,
+                            seq_layout=seq_layout, chunked_ce=chunked_ce)
             part.backward()                # into .grad, summed
             part = part.detach()
             loss = part if loss is None else loss + part
@@ -138,8 +242,11 @@ def make_gpt_train_step(
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
             loss = loss / accum_steps
+        if sp is not None:
+            # each sp rank holds the share of its own tokens
+            _sum_over(leaves, sp)
         opt.step()
-        return _group_mean(loss)
+        return _group_mean(loss, axes)
 
     return step, params, opt
 
@@ -150,32 +257,44 @@ def _as_ids(x, dev) -> torch.Tensor:
     return x.to(dev, torch.long)
 
 
-def _group_mean(loss: torch.Tensor) -> torch.Tensor:
-    """The mean of ``loss`` over the default group (the reference's dp
-    ``pmean``), for reporting."""
-    n = world()[0]
+def _group_mean(loss: torch.Tensor, axes: Optional[_Axes] = None
+                ) -> torch.Tensor:
+    """The mean of ``loss`` over the data-parallel ranks (the reference's
+    dp ``pmean``), for reporting: the default group without a mesh, the
+    dp axis on one."""
+    if axes is not None and axes.mesh is not None:
+        n, group = (1, None) if axes.dp is None else (axes.dp.size,
+                                                      axes.dp.group)
+    else:
+        n, group = world()[0], None
     if n > 1:
         loss = loss.clone()
-        dist.all_reduce(loss)
+        dist.all_reduce(loss, group=group)
         loss = loss / n
     return loss
 
 
-def make_eval_step(cfg: GPTConfig, device=None, chunked_ce: bool = True):
+def make_eval_step(cfg: GPTConfig, device=None, chunked_ce=True,
+                   mesh=None, seq_layout: str = "contiguous"):
     """``eval_step(params, tokens, targets) -> mean nll`` (a 0-d f32
-    tensor on the device) of this rank's (B, S) batch under
-    ``torch.no_grad()``, through the training step's ``gpt_loss``; with
-    more than one rank, the mean over the default group, as the
-    reference's dp ``pmean``. ``exp`` of the running mean is the
-    perplexity (:func:`evaluate_perplexity`). No optimizer, no gradients:
-    safe on training parameters at any step."""
+    tensor on the device) under ``torch.no_grad()``, through the training
+    step's ``gpt_loss``: of this rank's (B, S) batch, with more than one
+    rank the mean over the default group; on a mesh, of the global batch
+    (each rank its block, ``params`` its shards), the mean over dp and
+    sp. ``exp`` of the running mean is the perplexity
+    (:func:`evaluate_perplexity`). No optimizer, no gradients: safe on
+    training parameters at any step."""
     dev = resolve_device(device)
+    axes = _Axes(cfg, mesh)
+    _check_seq_layout(seq_layout, axes.sp)
 
     @torch.no_grad()
     def eval_step(params: GPT, tokens, targets) -> torch.Tensor:
-        loss = gpt_loss(params, _as_ids(tokens, dev), _as_ids(targets, dev),
-                        cfg, chunked_ce=chunked_ce)
-        return _group_mean(loss)
+        loss = gpt_loss(params, axes.block(_as_ids(tokens, dev)),
+                        axes.block(_as_ids(targets, dev)), cfg,
+                        dp_axis=axes.dp, tp_axis=axes.tp, sp_axis=axes.sp,
+                        seq_layout=seq_layout, chunked_ce=chunked_ce)
+        return loss if mesh is not None else _group_mean(loss)
 
     return eval_step
 

@@ -400,3 +400,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[2] != q.shape[2]:
         return attention_lse_torch(q, k, v, 0, 0, causal=causal)[0]
     return attention_torch(q, k, v, causal=causal)
+
+
+def merge_attention(o_a: torch.Tensor, lse_a: torch.Tensor,
+                    o_b: torch.Tensor, lse_b: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Combine two attention partials over disjoint key sets, the
+    reference's ``merge_attention``. o: (B, S, H, D) normalized outputs;
+    lse: (B, S, H) f32 logsumexps (−1e30: no live key). A row with no
+    live key on one side merges to exactly the other partial. Plain
+    differentiable torch ops in f32: gradients reach both o and both lse
+    (the flash backward folds an lse cotangent into dS). o comes back in
+    ``o_a``'s dtype."""
+    m = torch.maximum(lse_a, lse_b)
+    wa = torch.exp(lse_a - m)
+    wb = torch.exp(lse_b - m)
+    denom = wa + wb
+    safe = torch.where(denom > 0.0, denom, torch.ones_like(denom))
+    o = (o_a.float() * wa[..., None]
+         + o_b.float() * wb[..., None]) / safe[..., None]
+    lse = torch.where(denom > 0.0, m + torch.log(safe),
+                      torch.full_like(m, _NEG))
+    return o.to(o_a.dtype), lse

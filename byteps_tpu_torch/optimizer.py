@@ -112,13 +112,19 @@ def _chunk_bounds(total: int, chunk_elems: int) -> List[Tuple[int, int]]:
 def _aggregate_flat(flat: torch.Tensor, n: int, average: bool,
                     spec: CompressionSpec, rng: Optional[int],
                     ef_flat: Optional[torch.Tensor], chunk_elems: int,
-                    two_way: bool):
+                    two_way: bool, group=None):
     """Chunk a flat gradient vector and aggregate each chunk over the
-    ranks, in order, chunk i with the key ``fold_in(rng, i)``, on the wire
-    tier of ``BYTEPS_ICI_TIER`` (read once a step). Returns
+    ranks of ``group`` (the default group when None), in order, chunk i
+    with the key ``fold_in(rng, i)``, on the wire tier of
+    ``BYTEPS_ICI_TIER`` (read once a step). Returns
     ``(agg_flat, new_ef_flat_or_None, num_chunks)``."""
     bounds = _chunk_bounds(flat.shape[0], chunk_elems)
     tier = _resolve_tier(None)
+    if group is not None and tier == "ring" and n > 1:
+        raise NotImplementedError(
+            "BYTEPS_ICI_TIER=ring over a mesh's dp subgroup is not ported "
+            "yet (ROADMAP A.6): its transport spans the default group; use "
+            "the staged tier")
     if spec.enabled and rng is None:
         if spec.compressor.stochastic:
             raise ValueError(
@@ -134,7 +140,7 @@ def _aggregate_flat(flat: torch.Tensor, n: int, average: bool,
             e = ef_flat[off:off + ln] if ef_flat is not None else None
             res = compressed_allreduce_local(
                 g, spec.compressor, n, average=average, two_way=two_way,
-                ef_residual=e, rng=fold_in(rng, ci), tier=tier)
+                ef_residual=e, rng=fold_in(rng, ci), tier=tier, group=group)
             if e is not None:
                 out, ne = res
                 new_e_chunks.append(ne)
@@ -143,7 +149,7 @@ def _aggregate_flat(flat: torch.Tensor, n: int, average: bool,
         else:
             s = g.clone()
             if n > 1:
-                dist.all_reduce(s)
+                dist.all_reduce(s, group=group)
             out = s / n if average else s
             if new_e_chunks is not None:
                 # no compression happened, so no error is carried forward
@@ -164,15 +170,16 @@ def push_pull_inside(grads: Sequence[torch.Tensor], n: Optional[int] = None,
                      rng: Optional[int] = None,
                      ef_residual: Optional[torch.Tensor] = None,
                      partition_bytes: Optional[int] = None,
-                     two_way: bool = True):
+                     two_way: bool = True, group=None):
     """Aggregate this rank's gradient leaves (in the reference's leaf
-    order) across the ranks, ``rng`` the step's key (stochastic codecs
-    require it). Returns the aggregated leaves, or ``(leaves,
-    new_ef_residual)`` when ``ef_residual`` (a flat f32 vector of the
-    total element count) is given."""
+    order) across the ranks of ``group`` (the default group when None;
+    ``n`` its size), ``rng`` the step's key (stochastic codecs require
+    it). Returns the aggregated leaves, or ``(leaves, new_ef_residual)``
+    when ``ef_residual`` (a flat f32 vector of the total element count)
+    is given."""
     cfg = get_config()
     if n is None:
-        n = world()[0]
+        n = world(group)[0]
     if spec is None:
         spec = from_params(None)
     if n == 1 and not spec.enabled:
@@ -188,7 +195,7 @@ def push_pull_inside(grads: Sequence[torch.Tensor], n: Optional[int] = None,
                  else REDUCE_DTYPES[cfg.reduce_dtype])
     flat, sizes = _flatten_concat(grads, acc_dtype)
     agg, new_e = _push_pull_flat(flat, n, average, spec, rng, ef_residual,
-                                 partition_bytes, two_way)
+                                 partition_bytes, two_way, group)
     out = _unconcat_unflatten(agg, grads, sizes)
     if ef_residual is not None:
         return out, new_e
@@ -198,14 +205,16 @@ def push_pull_inside(grads: Sequence[torch.Tensor], n: Optional[int] = None,
 def _push_pull_flat(flat: torch.Tensor, n: int, average: bool,
                     spec: CompressionSpec, rng: Optional[int],
                     ef_residual: Optional[torch.Tensor],
-                    partition_bytes: Optional[int], two_way: bool):
+                    partition_bytes: Optional[int], two_way: bool,
+                    group=None):
     """:func:`push_pull_inside` past the flatten: aggregate one flat
     vector (of the reduce dtype) in ``partition_bytes`` chunks. Returns
     ``(agg_flat, new_ef_flat_or_None)``."""
     partition_bytes = partition_bytes or get_config().partition_bytes
     chunk_elems = max(1, partition_bytes // flat.element_size())
     agg, new_e, _ = _aggregate_flat(flat, n, average, spec, rng,
-                                    ef_residual, chunk_elems, two_way)
+                                    ef_residual, chunk_elems, two_way,
+                                    group)
     return agg, new_e
 
 
@@ -232,6 +241,12 @@ class DistributedOptimizer:
     rank's segment of the flat parameters, the world's size fixed at
     construction. ``params`` must be f32.
 
+    ``axis`` (a mesh's dp :class:`~byteps_tpu_torch.parallel.mesh.Axis`)
+    aggregates over that axis's ranks instead of the default group: of
+    size 1 nothing is aggregated. ``resymmetrize``, when given, runs
+    between the aggregation and the inner step (the mesh step makes the
+    tp-replicated leaves' aggregate the same on every tp rank there).
+
     Reference: ``byteps_tpu.jax.DistributedOptimizer`` (the
     non-hierarchical ``update_fn`` and ``_zero_update``), itself the
     functional form of ``byteps.torch.DistributedOptimizer``."""
@@ -242,7 +257,9 @@ class DistributedOptimizer:
                  average: bool = True,
                  partition_bytes: Optional[int] = None,
                  seed: int = 0,
-                 zero: bool = False):
+                 zero: bool = False,
+                 axis=None,
+                 resymmetrize=None):
         self.optimizer = optimizer
         self.params = list(params)
         self.spec = from_params(compression_params)
@@ -251,6 +268,13 @@ class DistributedOptimizer:
         self.seed = seed
         self.count = 0
         self.zero = zero
+        self.axis = axis
+        self.resymmetrize = resymmetrize
+        if zero and axis is not None and \
+                tuple(axis.ranks) != tuple(range(world()[0])):
+            raise NotImplementedError(
+                "zero=True over a mesh's dp subgroup (ZeRO-1 on a tp or sp "
+                "mesh) is not ported yet (ROADMAP A.6)")
         total = sum(p.numel() for p in self.params)
         dev = self.params[0].device
 
@@ -283,6 +307,19 @@ class DistributedOptimizer:
         # data only while a step runs
         self._seg = torch.empty(0, dtype=torch.float32, device=dev)
         opt.param_groups[0]["params"] = [self._seg]
+
+    def _group(self):
+        """The process group the aggregation runs over: None for the
+        default group (no axis, one of size 1, or a dp axis that is the
+        whole job, rank for rank), else the dp axis's group."""
+        a = self.axis
+        if a is None or a.size == 1:
+            return None
+        n, _ = world()
+        return None if tuple(a.ranks) == tuple(range(n)) else a.group
+
+    def _workers(self) -> int:
+        return world()[0] if self.axis is None else self.axis.size
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -318,21 +355,21 @@ class DistributedOptimizer:
             flat, sizes = _flatten_concat(grads)
             flat, self.momentum = momentum_step(flat, self.momentum, spec.mu)
             agg, new_e = _push_pull_flat(
-                flat, world()[0], self.average, spec, rng, self.ef,
-                self.partition_bytes, spec.two_way)
+                flat, self._workers(), self.average, spec, rng, self.ef,
+                self.partition_bytes, spec.two_way, self._group())
             if self.ef is not None:
                 self.ef = new_e
             agg = _unconcat_unflatten(agg, grads, sizes)
         elif self.ef is not None:
             agg, self.ef = push_pull_inside(
-                grads, None, self.average, spec, rng, ef_residual=self.ef,
-                partition_bytes=self.partition_bytes,
-                two_way=spec.two_way)
+                grads, self._workers(), self.average, spec, rng,
+                ef_residual=self.ef, partition_bytes=self.partition_bytes,
+                two_way=spec.two_way, group=self._group())
         else:
             agg = push_pull_inside(
-                grads, None, self.average, spec, rng,
+                grads, self._workers(), self.average, spec, rng,
                 partition_bytes=self.partition_bytes,
-                two_way=spec.two_way)
+                two_way=spec.two_way, group=self._group())
         for p, g in zip(self.params, agg):
             p.grad = g
 
@@ -397,5 +434,7 @@ class DistributedOptimizer:
             self._zero_step()
         else:
             self.aggregate()
+            if self.resymmetrize is not None:
+                self.resymmetrize()
             self.optimizer.step()
         self.count += 1

@@ -1,1 +1,37 @@
-"""Parallelism building blocks of the port (tp = 1 so far)."""
+"""Parallelism of the port over the ranks of a ``torch.distributed`` job
+(counterpart of ``byteps_tpu/parallel``): the mesh of named axes, the
+partitioner's logical-axis rules, Megatron tensor parallelism over tp,
+ring attention over sp, and remat. Pipeline, MoE and ZeRO-3 are not
+ported (ROADMAP A.6)."""
+
+from byteps_tpu_torch.parallel.mesh import (  # noqa: F401
+    Axis,
+    Mesh,
+    MeshAxes,
+    factor_devices,
+    make_mesh,
+)
+from byteps_tpu_torch.parallel.partitioner import (  # noqa: F401
+    FAMILY_RULES,
+    LOGICAL_AXES,
+    Partitioner,
+    resolve_spec,
+    resolve_specs,
+    rules_from_axes,
+)
+from byteps_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    plain_attention,
+    ring_attention,
+    zigzag_inverse,
+    zigzag_local_positions,
+    zigzag_permutation,
+    zigzag_ring_attention,
+)
+from byteps_tpu_torch.parallel.sharding import opt_state_specs  # noqa: F401
+from byteps_tpu_torch.parallel.tp import (  # noqa: F401
+    col_parallel_matmul,
+    copy_to_tp,
+    maybe_psum,
+    pmean,
+    row_parallel_matmul,
+)

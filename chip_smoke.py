@@ -8,6 +8,8 @@
     python3 chip_smoke.py --chaos    # train_chaos (14) alone
     python3 chip_smoke.py --zero     # the training options (8b, 9, 11,
                                      # 15) alone
+    python3 chip_smoke.py --parallel # the flash kernels at train_parallel's
+                                     # calls and train_parallel (16) alone
 
 Phases, each printing one JSON line:
 
@@ -33,7 +35,11 @@ Phases, each printing one JSON line:
    (bf16 and f32 at head dim 64, bf16 GQA at 128): a 32-row chunk's o
    and lse bit-equal to the same rows inside a 64-row chunk, against 300
    keys more, as batch entry 0 of B = 4 (f32: B = 9, whose tiles fill
-   the card, so one block takes each), and on a second launch;
+   the card, so one block takes each), and on a second launch; and,
+   with the backward, every distinct call train_parallel's paths make
+   (each path's local batch, heads and length, each ring step's offsets,
+   live and dead blocks, the zigzag half-pairs masked and unmasked, the
+   backward with the merge's lse cotangent), each with its route;
 3. flash_decode — the decode kernel the same way, dense and int8 caches:
    generate's step (B=4, pos 160), B=8 at pos 0, 100, 700 and 1023 (the
    long case), f32, GQA 16/4, B=1 at pos 1023 (the most splits), the
@@ -290,6 +296,25 @@ Phases, each printing one JSON line:
     card: the MNIST example's loss falls from epoch to epoch and both
     workers end with equal parameters; the benchmark example prints its
     GB/s, beside the card's name and power limit.
+16. train_parallel — tensor and sequence parallelism: GPT-2 medium at
+    full width and depth (24 layers), bf16 over f32 master weights,
+    AdamW(1e-3), the global batch B=4 × S=1024, on meshes of rank
+    processes that time-slice the card (gloo), one warm-up and one timed
+    step a leg: one_rank (this process, the yardstick, and a roundoff
+    control: tp = 2's row-parallel arithmetic on one rank), tp2_raw, sp2_raw (the contiguous ring),
+    sp2_zigzag, tp2_sp2_vocab (the readout's vocab split over tp),
+    dp2_tp2_onebit_ef (onebit + EF over the dp axis), and a planted
+    fault (sp2 with the sp sum of wte and wpe dropped). Each leg's losses
+    fall and lie within 1e-2 of one_rank's (the onebit leg: its warm-up;
+    then within 0.1), each gathered leaf further than 2·lr from
+    one_rank's in under ``PARALLEL_OFF_SHARE`` of its elements (onebit:
+    the whole under 0.3; the planted fault must fail it), its
+    tp-replicated leaves bit-identical on every rank, its launch counts
+    exact, the split-path forwards those the route of its calls gives;
+    ms a step, peak memory a rank, collectives per step by kind. Then a
+    small f32 model's tp2×sp2 and dp2×sp2 zigzag steps, on the CPU
+    (plain versions) and on the card (kernels), the losses within 1e-4
+    of one rank's and each leaf under the same per-leaf limit.
 
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
@@ -334,7 +359,8 @@ A ``launches`` line gives the counts per path, then a
 (generate, serve, multitenant, the three train legs, train_zero's
 three ZeRO legs, train_accum, eval, train_ring's six legs on one rank,
 train_dcn's four legs on one rank, train_hybrid's five legs on one
-rank, train_chaos's nine legs on one rank, aggregate_onebit; the ring rows' times are the
+rank, train_chaos's nine legs on one rank, aggregate_onebit,
+train_parallel's one_rank and one rank of each leg; the ring rows' times are the
 ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
 leaf alone as ``signs_*``; the flash_fwd row, timed at serve's chunk,
@@ -343,6 +369,9 @@ the split path's at serve's chunk as ``split_*`` and its launches, in
 all and by path, as ``split_launches`` and ``split_launches_by_path``,
 the flash_decode
 row, timed at generate's step, the long case's as ``long_*``; the
+flash_fwd, flash_bwd_dq and flash_bwd_dkv rows also give each
+train_parallel call's times, bound and error (and the forward's route
+and the paths making the call) as ``ring_cases``; the
 topk rows add ``warm_ms`` and the 4-byte offset's ``offset_ms``, the
 round trip ``tall``: (8, 1000) and (1, 8000), reconstruct the chunk's
 and K = 8's ms as ``chunk_ms`` and ``k8_ms``; the grid unpack-sum row,
@@ -356,6 +385,7 @@ result; so it does without a CUDA card or without the package beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -454,7 +484,7 @@ def max_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple:
 # phases 2-3: each kernel against its plain version
 # --------------------------------------------------------------------------
 def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed,
-             causal=True):
+             causal=True, k_off=0):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from byteps_tpu_torch.ops.flash_attention import (
@@ -464,8 +494,9 @@ def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed,
     q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
     k = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
     v = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
-    o, lse = flash_attention_lse(q, k, v, q_off, 0, causal=causal)
-    o_ref, lse_ref = attention_lse_torch(q, k, v, q_off, 0, causal=causal)
+    o, lse = flash_attention_lse(q, k, v, q_off, k_off, causal=causal)
+    o_ref, lse_ref = attention_lse_torch(q, k, v, q_off, k_off,
+                                         causal=causal)
     torch.cuda.synchronize()
     tol = TOL[dtype]
     err_o, ok_o = max_err(o, o_ref, tol)
@@ -473,8 +504,9 @@ def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed,
     if not (ok_o and ok_l):
         raise AssertionError(f"flash_fwd {name}: o err {err_o}, lse err "
                              f"{err_l} beyond tolerance {tol}")
-    ms = timer(lambda: flash_attention_lse(q, k, v, q_off, 0, causal=causal))
-    plain_ms = timer(lambda: attention_lse_torch(q, k, v, q_off, 0,
+    ms = timer(lambda: flash_attention_lse(q, k, v, q_off, k_off,
+                                           causal=causal))
+    plain_ms = timer(lambda: attention_lse_torch(q, k, v, q_off, k_off,
                                                  causal=causal))
     # the library yardstick: same function (o only) from (B, H, S, D)
     # copies made outside the timing, k/v widened to H heads for GQA
@@ -483,16 +515,16 @@ def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed,
     vt = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
     if not causal:
         lib_ms = timer(lambda: sdpa(qt, kt, vt))
-    elif q_off == 0 and Sq == Sk:   # plain causal: SDPA's flash backend
+    elif q_off == k_off and Sq == Sk:   # plain causal: SDPA's flash
         lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True))
     else:
         mask = (q_off + torch.arange(Sq, device="cuda")[:, None]
-                >= torch.arange(Sk, device="cuda")[None, :])
+                >= k_off + torch.arange(Sk, device="cuda")[None, :])
         lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask))
     # the work this run's data needs: live (row, key) pairs, live keys
     pairs = (Sq * Sk if not causal else
-             sum(min(Sk, max(0, q_off + i + 1)) for i in range(Sq)))
-    kend = Sk if not causal else min(Sk, q_off + Sq)
+             sum(min(Sk, max(0, q_off + i - k_off + 1)) for i in range(Sq)))
+    kend = Sk if not causal else min(Sk, max(0, q_off + Sq - k_off))
     isz = q.element_size()
     n_bytes = (2 * B * Sq * H * D * isz + 2 * B * kend * Hkv * D * isz
                + B * Sq * H * 4)
@@ -500,13 +532,123 @@ def fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dtype, seed,
     bms, by = bound_ms(n_bytes, n_ops, dtype)
     res = {"case": name, "dtype": str(dtype).split(".")[-1],
            "shape": [B, Sq, Sk, H, Hkv, D], "q_off": q_off,
-           "causal": causal, "route": fwd_route_of(q, k, v),
+           "k_off": k_off, "causal": causal,
+           "route": fwd_route_of(q, k, v),
            "max_abs_err": max(err_o, err_l),
            "tolerance": tol,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bms, "bound_by": by}
     emit({"phase": "flash_fwd", **res})
     return res
+
+
+def parallel_layer_calls(cfg, B, S, axes, layout) -> list:
+    """The flash calls one layer of a train_parallel step makes, for each
+    sp index of the mesh ``axes`` (the schedules of
+    ``parallel/ring_attention.py``; the dp and tp ranks at one sp index
+    make the same calls): per sp index a list of (B, Sq, Sk, H, Hkv, D,
+    q_off, k_off, causal, dlse), B and the heads this rank's share.
+    Without sp the plain causal call, no lse cotangent; the contiguous
+    ring every block at its owner's offset, dead blocks included; the
+    zigzag ring its half-pairs (the diagonal masked, the others
+    unmasked); on a ring the merge gives the backward an lse cotangent."""
+    dp, tp, sp = (axes.get(a, 1) for a in ("dp", "tp", "sp"))
+    Bl, H, Hkv, D = (B // dp, cfg.n_heads // tp, cfg.kv_heads // tp,
+                     cfg.head_dim)
+    if sp == 1:
+        return [[(Bl, S, S, H, Hkv, D, 0, 0, True, False)]]
+    S_loc = S // sp
+    out = []
+    for idx in range(sp):
+        mine = []
+        for step in range(sp):
+            src = (idx - step) % sp
+            if layout == "contiguous":
+                mine.append((Bl, S_loc, S_loc, H, Hkv, D, idx * S_loc,
+                             src * S_loc, True, True))
+                continue
+            c = S_loc // 2
+            q_offs = (idx * c, (2 * sp - 1 - idx) * c)
+            k_offs = (src * c, (2 * sp - 1 - src) * c)
+            pairs = (((0, 0, True), (1, 0, False), (1, 1, True)) if step == 0
+                     else ((1, 0, False), (0, 0, False)) if idx > src
+                     else ((1, 0, False), (1, 1, False)))
+            mine += [(Bl, c, c, H, Hkv, D, q_offs[qi], k_offs[ki], masked,
+                      True) for qi, ki, masked in pairs]
+        out.append(mine)
+    return out
+
+
+def parallel_paths() -> list:
+    """(path, dtype, cfg, B, S, mesh axes, seq_layout) of every step
+    train_parallel drives: one_rank and the legs in bf16, then the f32
+    parity case's one-rank step and legs."""
+    from byteps_tpu_torch.models import GPTConfig
+
+    g, f = GPTConfig.gpt2_medium(), parallel_f32_cfg()
+    bf, f32 = torch.bfloat16, torch.float32
+    return ([("one_rank", bf, g, *PARALLEL_BATCH, {}, "contiguous")]
+            + [(leg, bf, g, *PARALLEL_BATCH, axes, layout)
+               for leg, _, axes, layout, _, _ in PARALLEL_LEGS]
+            + [("f32_one_rank", f32, f, *PARALLEL_F32_BATCH, {},
+                "contiguous")]
+            + [(leg, f32, f, *PARALLEL_F32_BATCH, axes, layout)
+               for leg, axes, layout in PARALLEL_F32_LEGS])
+
+
+def parallel_kernel_cases(timer) -> dict:
+    """The forward, dq and dk/dv kernels at every distinct call the
+    train_parallel paths make (:func:`parallel_layer_calls`: each path's
+    local batch, heads and length, each offset pair, live and dead, the
+    backward with the lse cotangent where the path has one), each against
+    its plain version under the cases' tolerances, timed and bounded:
+    {case: {"paths": [...], "fwd": ..., "bwd": ...}}, the forward's
+    ``route`` among its fields."""
+    calls = {}
+    for path, dt, cfg, B, S, axes, layout in parallel_paths():
+        for mine in parallel_layer_calls(cfg, B, S, axes, layout):
+            for call in mine:
+                paths = calls.setdefault((dt,) + call, [])
+                if path not in paths:
+                    paths.append(path)
+    out = {}
+    for i, (key, paths) in enumerate(calls.items()):
+        dt, B, Sq, Sk, H, Hkv, D, q_off, k_off, causal, dlse = key
+        name = (f"{paths[0]}:{B}x{Sq}x{H}@{q_off}/{k_off}"
+                + ("" if causal else ":unmasked"))
+        out[name] = {
+            "paths": paths,
+            "fwd": fwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, dt,
+                            200 + i, causal=causal, k_off=k_off),
+            "bwd": bwd_case(timer, name, B, Sq, Sk, H, Hkv, D, q_off, k_off,
+                            dt, 400 + i, dlse, causal)}
+    return out
+
+
+def leg_routes(path) -> dict:
+    """The forward's route at each distinct call of ``path``'s layer (as
+    the library decides it for such tensors) and the split-path launches
+    one rank of it makes a layer: {"routes": {call: route}, "split_per_layer":
+    n}."""
+    from byteps_tpu_torch.ops.flash_attention import fwd_route
+
+    _, dt, cfg, B, S, axes, layout = next(p for p in parallel_paths()
+                                          if p[0] == path)
+    routes, split = {}, []
+    for mine in parallel_layer_calls(cfg, B, S, axes, layout):
+        n = 0
+        for B_, Sq, Sk, H, Hkv, D, q_off, k_off, causal, _ in mine:
+            q = torch.empty(B_, Sq, H, D, dtype=dt, device="cuda")
+            k = torch.empty(B_, Sk, Hkv, D, dtype=dt, device="cuda")
+            r = fwd_route(q, k, k)
+            routes[f"{B_}x{Sq}x{H}@{q_off}/{k_off}"
+                   + ("" if causal else ":unmasked")] = r
+            n += r == "split"
+        split.append(n)
+    if len(set(split)) != 1:
+        raise AssertionError(f"{path}: sp ranks take the split path a "
+                             f"different number of times a layer: {split}")
+    return {"routes": routes, "split_per_layer": split[0]}
 
 
 def fwd_route_of(q, k, v):
@@ -4505,6 +4647,481 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 16: tensor and sequence parallelism, ranks that share the card
+# --------------------------------------------------------------------------
+# (name, ranks, mesh axes, seq_layout, chunked_ce, compression): GPT-2
+# medium on a mesh of rank processes time-slicing the card, each held to
+# one_rank, the same global batch and seeded weights on one rank
+PARALLEL_LEGS = (
+    ("tp2_raw", 2, {"tp": 2}, "contiguous", True, None),
+    ("sp2_raw", 2, {"sp": 2}, "contiguous", True, None),
+    ("sp2_zigzag", 2, {"sp": 2}, "zigzag", True, None),
+    ("tp2_sp2_vocab", 4, {"tp": 2, "sp": 2}, "contiguous", "vocab_parallel",
+     None),
+    ("dp2_tp2_onebit_ef", 4, {"dp": 2, "tp": 2}, "contiguous", True,
+     ONEBIT_EF))
+# the global batch (B, S) of every leg and of one_rank
+PARALLEL_BATCH = (4, 1024)
+PARALLEL_LR = 1e-3
+# a leg against one_rank: the loss at each step, and for each leaf the
+# share of its gathered elements further than 2·lr from one_rank's
+# (AdamW moves an element by about lr a step, along its gradient's sign:
+# one that lands further than 2·lr away went the other way on both steps)
+PARALLEL_LOSS_TOL = 1e-2
+# The per-leaf limit. Roundoff alone: a bf16 gradient near zero takes
+# the other sign when the forward rounds differently (tp sums two bf16
+# partial products, the ring merges two partial attentions), and AdamW
+# then moves it 2·lr the other way a step. The split_matmul control
+# (one rank whose row-parallel products are two bf16 partials summed in
+# f32, as tp = 2 computes them) reads that share on one rank; the planted
+# fault (sp2_fault: the sp sum of wte's and wpe's gradients dropped)
+# reads what a missing sum does. The limit is the geometric mean of the
+# two (NVIDIA H100 80GB HBM3, 700 W, GPT-2 medium, 2 steps): the control's
+# worst leaf 1.17e-2 (a 1,024-element bias; the raw legs' 6.8e-3 to
+# 1.07e-2, every leaf of the f32 legs 0) and the fault's wte 3.39e-2. wpe's
+# dropped sum stays under it (a rank's gradient of wpe is zero outside
+# its own positions, so those rows move by the decay alone, under 2·lr
+# from one_rank's); the replicas' digest catches that.
+PARALLEL_OFF_SHARE = 2e-2
+# leaves the per-leaf limit does not hold: the key bias's exact gradient
+# is zero (it shifts every score of a query by the same amount, which the
+# softmax cancels), so its sign is roundoff's and AdamW moves each
+# element lr one way or the other in any layout; its share is reported
+PARALLEL_NOISE_LEAVES = ("bk",)
+# the planted fault: sp2_raw with the sp sum dropped on these leaves (each
+# sp rank steps them with its own tokens' gradient), run to show that the
+# per-leaf check sees it; its leaves' readings are the upper ones
+PARALLEL_FAULT = ("sp2_fault", 2, {"sp": 2}, "contiguous", True, None)
+PARALLEL_FAULT_LEAVES = ("wte", "wpe")
+# the onebit leg against one_rank's raw step: one_rank sums the exact
+# gradients, the leg the dp ranks' signs times their chunk scales, so
+# after the warm-up's update the two are different trainings. The
+# warm-up's loss (same weights, no update yet) is held to
+# PARALLEL_LOSS_TOL; after it the loss to this gap, and the share of
+# parameters further than 2·lr to ONEBIT_OFF_BOUND (the reference's
+# own onebit + EF against its raw step, dp2 on the CPU, tiny model, 2
+# steps: loss 0.05 apart, 21.7% of the parameters further than 2·lr)
+PARALLEL_ONEBIT_LOSS_GAP = 0.1
+PARALLEL_ONEBIT_OFF_SHARE = 0.3
+# the f32 parity case: a small model, plain versions (CPU tensors) and
+# kernels (the card) through the same mesh step, against one rank's step:
+# the losses within this, the parameters held per leaf as the bf16 legs
+PARALLEL_F32_TOL = 1e-4
+PARALLEL_F32_BATCH = (4, 256)
+PARALLEL_F32_LEGS = (("f32_tp2_sp2", {"tp": 2, "sp": 2}, "contiguous"),
+                     ("f32_dp2_sp2_zigzag", {"dp": 2, "sp": 2}, "zigzag"))
+
+
+def parallel_f32_cfg():
+    from byteps_tpu_torch.models import GPTConfig
+
+    return GPTConfig(vocab_size=512, max_seq=256, d_model=256, n_heads=4,
+                     n_layers=2, d_ff=1024, dtype=torch.float32)
+
+
+def parallel_batch(cfg, B, S, device):
+    from byteps_tpu_torch.models import synthetic_batch
+
+    return synthetic_batch(torch.Generator(device=device).manual_seed(1),
+                           cfg, B, S)
+
+
+def zigzag_batch(tok, tgt, n):
+    from byteps_tpu_torch.parallel.ring_attention import zigzag_permutation
+
+    perm = zigzag_permutation(tok.shape[1], n).to(tok.device)
+    return tok[:, perm], tgt[:, perm]
+
+
+def named_leaves(tree) -> list:
+    """(name, array) of a nested parameter tree in ``flat_leaves``'
+    order: keys sorted at every level, blocks as ``blocks.<i>.<key>``."""
+    out = []
+    for k in sorted(tree):
+        if k == "blocks":
+            out += [(f"blocks.{i}.{j}", b[j])
+                    for i, b in enumerate(tree["blocks"]) for j in sorted(b)]
+        else:
+            out.append((k, tree[k]))
+    return out
+
+
+def off_2lr_by_leaf(tree, ref) -> dict:
+    """{leaf: [elements further than 2·lr from ``ref``, elements, largest
+    distance]}: ``ref`` the flat parameters in ``flat_leaves`` order."""
+    out, off = {}, 0
+    for name, a in named_leaves(tree):
+        d = np.abs(a.ravel() - np.asarray(ref[off:off + a.size]))
+        off += a.size
+        out[name] = [int((d > 2 * PARALLEL_LR).sum()), int(a.size),
+                     float(d.max())]
+    if off != ref.size:
+        raise AssertionError(f"{off} parameters against {ref.size}")
+    return out
+
+
+def off_summary(per_leaf) -> dict:
+    """A per-leaf reading: the whole share, the largest distance, the
+    worst leaf the limit holds (not of PARALLEL_NOISE_LEAVES' kinds) and
+    its share, and the share of each kind of leaf (``wq``, ``ln1_g``, …)
+    over the blocks."""
+    kinds = {}
+    for name, (o, n, _) in per_leaf.items():
+        k = kinds.setdefault(name.split(".")[-1], [0, 0])
+        k[0] += o
+        k[1] += n
+    held = [k for k in per_leaf
+            if k.split(".")[-1] not in PARALLEL_NOISE_LEAVES]
+    worst = max(held, key=lambda k: per_leaf[k][0] / per_leaf[k][1])
+    return {"share": (sum(v[0] for v in per_leaf.values())
+                      / sum(v[1] for v in per_leaf.values())),
+            "max_abs_diff": max(v[2] for v in per_leaf.values()),
+            "worst_leaf": worst,
+            "worst_share": per_leaf[worst][0] / per_leaf[worst][1],
+            "by_kind": {k: o / n for k, (o, n) in sorted(kinds.items())}}
+
+
+def flat_params(opt) -> np.ndarray:
+    return torch.cat([p.detach().reshape(-1).float()
+                      for p in opt.params]).cpu().numpy()
+
+
+@contextlib.contextmanager
+def split_row_parallel():
+    """A context in which a one-rank step computes each row-parallel
+    product (attention's output projection, the MLP's down projection) as
+    tp = 2 does: two bf16 partial products over the halves of the
+    contraction, summed in f32 and rounded, the bias after the sum."""
+    from byteps_tpu_torch.models import gpt
+
+    inner = gpt.row_parallel_matmul
+
+    def split(x, w, axis, b=None):
+        h = w.shape[0] // 2
+        y = ((x[..., :h] @ w[:h]).float()
+             + (x[..., h:] @ w[h:]).float()).to(x.dtype)
+        return y if b is None else y + b
+
+    gpt.row_parallel_matmul = split
+    try:
+        yield
+    finally:
+        gpt.row_parallel_matmul = inner
+
+
+def drop_sp_sum(params, opt, names) -> None:
+    """The planted fault: the leaves ``names`` stepped with this rank's
+    own gradient, as a step that left out their sum over sp would (each
+    leaf's gradient is kept when its backward ends, and put back in
+    place of the summed one before the optimizer steps)."""
+    held = {}
+    for nm in names:
+        params[nm].register_post_accumulate_grad_hook(
+            lambda t, nm=nm: held.__setitem__(nm, t.grad.clone()))
+    inner = opt.step
+
+    def step(*a, **kw):
+        for nm in names:
+            params[nm].grad = held[nm]
+        return inner(*a, **kw)
+
+    opt.step = step
+
+
+def parallel_f32_one(device, steps=3) -> tuple:
+    """The f32 case's one-rank losses and flat parameters on
+    ``device``."""
+    from byteps_tpu_torch.models import gpt_init, make_gpt_train_step
+
+    cfg = parallel_f32_cfg()
+    init = gpt_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    step, _, opt = make_gpt_train_step(cfg, init_params=init.to(device),
+                                       device=device)
+    tok, tgt = parallel_batch(cfg, *PARALLEL_F32_BATCH, "cpu")
+    losses = [float(step(tok.to(device), tgt.to(device)))
+              for _ in range(steps)]
+    return losses, flat_params(opt)
+
+
+def train_parallel_rank(rank, n, B, S, steps, ref_path, f32_refs):
+    """One rank of train_parallel: each leg of ``n`` ranks (and, at 2, the
+    planted fault) builds its mesh and the training step from the seeded
+    weights, trains on the global batch (its block), and reports losses,
+    step times, peak memory, the launch and collective counts, a digest
+    of its tp-replicated leaves and (rank 0) each gathered leaf's count
+    of elements further than 2·lr from one_rank's; then the f32 parity
+    legs on the CPU and on the card."""
+    from byteps_tpu_torch.models import (GPTConfig, make_gpt_train_step,
+                                         params_to_numpy)
+    from byteps_tpu_torch.models.convert import flat_specs, param_specs
+    from byteps_tpu_torch.ops import launches, reset_launches
+    from byteps_tpu_torch.parallel.mesh import (MeshAxes, collectives,
+                                                make_mesh,
+                                                reset_collectives)
+    from byteps_tpu_torch.parallel.partitioner import spec_axes
+
+    cfg = GPTConfig.gpt2_medium()
+    ref = np.load(ref_path, mmap_mode="r")
+    res = {}
+    for leg, ranks, axes, layout, ce, comp in PARALLEL_LEGS + (
+            PARALLEL_FAULT,):
+        if ranks != n:
+            continue
+        mesh = make_mesh(MeshAxes(**axes))
+        step, params, opt = make_gpt_train_step(
+            cfg, compression_params=comp, chunked_ce=ce, seq_layout=layout,
+            generator=torch.Generator(device="cuda").manual_seed(0),
+            mesh=mesh)
+        if leg == PARALLEL_FAULT[0]:
+            drop_sp_sum(params, opt, PARALLEL_FAULT_LEAVES)
+        tok, tgt = parallel_batch(cfg, B, S, "cuda")
+        if layout == "zigzag":
+            tok, tgt = zigzag_batch(tok, tgt, axes["sp"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launches()
+        reset_collectives()
+        out = timed_train(step, opt, tok, tgt, steps)
+        out["launches"] = dict(launches)
+        out["collectives"] = dict(collectives)
+        specs = flat_specs(param_specs(cfg, mesh))
+        rep = [p for p, s in zip(opt.params, specs)
+               if "tp" not in spec_axes(s)]
+        out["rep_sha1"] = params_digest(rep)
+        out["coords"] = {a: mesh.axis_index(a) for a in mesh.axis_names}
+        out["local_params"] = sum(p.numel() for p in opt.params)
+        tree = params_to_numpy(params, mesh=mesh)
+        if rank == 0:
+            out["off_2lr"] = off_2lr_by_leaf(tree, ref)
+        res[leg] = out
+        del step, params, opt, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    if n == 4:
+        res["f32"] = parallel_f32_rank(rank, f32_refs)
+    return res
+
+
+def parallel_f32_rank(rank, refs, steps=3) -> dict:
+    """The f32 parity legs on this rank: the same mesh step on CPU
+    tensors (the plain versions) and on the card (the kernels), the
+    losses and (rank 0) each leaf's count of elements further than 2·lr
+    from the one-rank step's on that device (``refs``)."""
+    from byteps_tpu_torch.models import (gpt_init, make_gpt_train_step,
+                                         params_to_numpy)
+    from byteps_tpu_torch.ops import launches, reset_launches
+    from byteps_tpu_torch.parallel.mesh import MeshAxes, make_mesh
+
+    torch.set_num_threads(2)
+    cfg = parallel_f32_cfg()
+    out = {}
+    for leg, axes, layout in PARALLEL_F32_LEGS:
+        mesh = make_mesh(MeshAxes(**axes))
+        for dev in ("cpu", "cuda"):
+            init = gpt_init(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+            step, params, _ = make_gpt_train_step(
+                cfg, init_params=init.to(dev), device=dev, mesh=mesh,
+                seq_layout=layout)
+            tok, tgt = parallel_batch(cfg, *PARALLEL_F32_BATCH, "cpu")
+            if layout == "zigzag":
+                tok, tgt = zigzag_batch(tok, tgt, axes["sp"])
+            reset_launches()
+            out[f"{leg}_{dev}"] = [float(step(tok.to(dev), tgt.to(dev)))
+                                   for _ in range(steps)]
+            out[f"{leg}_{dev}_launches"] = dict(launches)
+            tree = params_to_numpy(params, mesh=mesh)
+            if rank == 0:
+                out[f"{leg}_{dev}_off_2lr"] = off_2lr_by_leaf(tree,
+                                                              refs[dev])
+    return out
+
+
+def phase_train_parallel(B=PARALLEL_BATCH[0], S=PARALLEL_BATCH[1],
+                         steps=1) -> dict:
+    """GPT-2 medium at full width and depth on meshes of rank processes
+    (``spawn``, one gloo group over a FileStore) that time-slice the card,
+    bf16 over f32 master weights, AdamW(1e-3), the global batch B=4 ×
+    S=1024 and the seeded weights of one_rank (the same step on one rank,
+    in this process, the yardstick), one warm-up and ``steps`` timed steps
+    a leg: tp2_raw, sp2_raw (the contiguous ring), sp2_zigzag, tp2_sp2_vocab
+    (``chunked_ce="vocab_parallel"``), dp2_tp2_onebit_ef (onebit + EF over
+    the dp axis). Each leg: losses finite and falling; each step's loss
+    within PARALLEL_LOSS_TOL of one_rank's (the onebit leg: its warm-up,
+    then within PARALLEL_ONEBIT_LOSS_GAP); every gathered leaf further
+    than 2·lr from one_rank's in under PARALLEL_OFF_SHARE of its elements
+    (the onebit leg: the whole under PARALLEL_ONEBIT_OFF_SHARE); the
+    tp-replicated leaves bit-identical on every rank; the launch counts
+    exact (the flash kernels once per layer, ring step and step, five
+    half-pair calls a layer in the zigzag ring at sp = 2; onebit pack 3
+    and unpack-sum 5 times per chunk and step over the dp axis of 2), the
+    split-path forwards among them those the library's route gives the
+    leg's calls (:func:`leg_routes`); ms a step, peak memory and
+    collectives per step by kind. Beside them the roundoff control (one
+    rank with tp = 2's row-parallel arithmetic, :func:`split_row_parallel`),
+    which must pass the per-leaf check, and the planted fault
+    (PARALLEL_FAULT), which must fail it. Then the f32 parity case: a small model's tp2×sp2
+    (contiguous) and dp2×sp2 (zigzag) steps on the CPU (plain versions)
+    and on the card (kernels), three steps each, the losses within
+    PARALLEL_F32_TOL of one rank's on the same device and every leaf
+    within the per-leaf limit. Returns the counts of one rank per leg and
+    one_rank's, summed."""
+    import os
+    import shutil
+    import tempfile
+
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.models import (GPTConfig, make_gpt_train_step,
+                                         params_to_numpy)
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    cfg = GPTConfig.gpt2_medium()
+    t0 = time.perf_counter()
+    reset_launches()
+    step, params, opt = make_gpt_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    tok, tgt = parallel_batch(cfg, B, S, "cuda")
+    one = timed_train(step, opt, tok, tgt, steps)
+    one["launches"] = dict(launches)
+    calls = steps + 1
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    ref_path = os.path.join(tmp, "one_rank.npy")
+    np.save(ref_path, flat_params(opt))
+    del step, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the roundoff control: one rank with tp = 2's row-parallel arithmetic
+    step, params, _ = make_gpt_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    with split_row_parallel():
+        losses = [float(step(tok, tgt)) for _ in range(calls)]
+    control = {"losses": losses,
+               "loss_gap": [abs(a - b) for a, b in zip(losses,
+                                                       one["losses"])],
+               "off_2lr": off_summary(off_2lr_by_leaf(
+                   params_to_numpy(params),
+                   np.load(ref_path, mmap_mode="r")))}
+    del step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_one = {dev: parallel_f32_one(dev) for dev in ("cuda", "cpu")}
+    try:
+        per_n = {n: spawn_ranks(train_parallel_rank, n, B, S, steps,
+                                ref_path,
+                                {d: f32_one[d][1] for d in f32_one})
+                 for n in (2, 4)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    per = get_config().partition_bytes // 4
+    legs_out, failed = {}, []
+    total = dict(one["launches"])
+    if control["off_2lr"]["worst_share"] >= PARALLEL_OFF_SHARE:
+        failed.append(("the roundoff control", control["off_2lr"]))
+    for leg, n, axes, layout, ce, comp in PARALLEL_LEGS:
+        rs = [r[leg] for r in per_n[n]]
+        r0 = rs[0]
+        losses = r0["losses"]
+        gap = [abs(a - b) for a, b in zip(losses, one["losses"])]
+        onebit = comp is not None
+        tol = [PARALLEL_LOSS_TOL] + [PARALLEL_ONEBIT_LOSS_GAP if onebit
+                                     else PARALLEL_LOSS_TOL] * steps
+        off = off_summary(r0["off_2lr"])
+        off_ok = (off["share"] < PARALLEL_ONEBIT_OFF_SHARE if onebit
+                  else off["worst_share"] < PARALLEL_OFF_SHARE)
+        sp = axes.get("sp", 1)
+        per_layer = (1 if sp == 1 else 5 if layout == "zigzag" else sp)
+        want = {k: calls * cfg.n_layers * per_layer for k in TRAIN}
+        route = leg_routes(leg)
+        want["flash_fwd_split"] = (calls * cfg.n_layers
+                                   * route["split_per_layer"])
+        if onebit:
+            chunks = -(-r0["local_params"] // per)
+            want.update(onebit_pack=calls * chunks * 3,
+                        onebit_unpack_sum=calls * chunks * 5)
+        bad_launch = {k: (r0["launches"][k], v) for k, v in want.items()
+                      if r0["launches"][k] != v}
+        checks = {
+            "falls": all(falls(r["losses"]) for r in rs),
+            "loss_gap": all(g <= t for g, t in zip(gap, tol)),
+            "off_2lr": off_ok,
+            "rep_identical": len({r["rep_sha1"] for r in rs}) == 1,
+            "same_losses": all(r["losses"] == losses for r in rs),
+            "launches": not bad_launch,
+            "ranks_launch_alike": all(r["launches"] == r0["launches"]
+                                      for r in rs)}
+        if not all(checks.values()):
+            failed.append((leg, checks, bad_launch))
+        legs_out[leg] = {
+            "ranks": n, "mesh": axes, "seq_layout": layout,
+            "chunked_ce": ce, "compression": comp, "losses": losses,
+            "one_rank_losses": one["losses"], "loss_gap": gap,
+            "loss_tol": tol, "off_2lr": off,
+            "off_2lr_bound": (PARALLEL_ONEBIT_OFF_SHARE, "whole")
+            if onebit else (PARALLEL_OFF_SHARE, "each leaf"),
+            "routes": route["routes"],
+            "split_launches": r0["launches"]["flash_fwd_split"],
+            "step_ms": max(r["step_ms"] for r in rs),
+            "step_ms_each": [r["step_ms_each"] for r in rs],
+            "vs_one_rank": max(r["step_ms"] for r in rs) / one["step_ms"],
+            "warmup_s": max(r["warmup_s"] for r in rs),
+            "max_memory_allocated_gb": [r["max_memory_allocated"] / 1e9
+                                        for r in rs],
+            "local_params": [r["local_params"] for r in rs],
+            "collectives_per_step": {k: v / calls for k, v in
+                                     r0["collectives"].items() if v},
+            "launches": r0["launches"], "checks": checks}
+        for k, v in r0["launches"].items():
+            total[k] = total.get(k, 0) + v
+    fault_leaf = per_n[2][0][PARALLEL_FAULT[0]]["off_2lr"]
+    fault = {"leaves": {nm: fault_leaf[nm][0] / fault_leaf[nm][1]
+                        for nm in PARALLEL_FAULT_LEAVES},
+             **off_summary(fault_leaf)}
+    fault["caught"] = fault["worst_share"] >= PARALLEL_OFF_SHARE
+    fault["rep_identical"] = len({r[PARALLEL_FAULT[0]]["rep_sha1"]
+                                  for r in per_n[2]}) == 1
+    if not fault["caught"]:
+        failed.append(("the planted fault passed the per-leaf check",
+                       fault))
+    f32 = {}
+    for leg, axes, layout in PARALLEL_F32_LEGS:
+        for dev in ("cpu", "cuda"):
+            got = [r["f32"][f"{leg}_{dev}"] for r in per_n[4]]
+            gap = max(abs(a - b) for g in got
+                      for a, b in zip(g, f32_one[dev][0]))
+            off = off_summary(per_n[4][0]["f32"][f"{leg}_{dev}_off_2lr"])
+            f32[f"{leg}_{dev}"] = {"losses": got[0], "one_rank":
+                                   f32_one[dev][0], "max_gap": gap,
+                                   "off_2lr": off}
+            if gap > PARALLEL_F32_TOL or off["worst_share"] >= \
+                    PARALLEL_OFF_SHARE:
+                failed.append((f"{leg}_{dev}", gap, off))
+        kern = per_n[4][0]["f32"][f"{leg}_cuda_launches"]
+        route = leg_routes(leg)
+        want = {k: 3 * (parallel_f32_cfg().n_layers
+                        * len(parallel_layer_calls(
+                            parallel_f32_cfg(), *PARALLEL_F32_BATCH, axes,
+                            layout)[0])) for k in TRAIN}
+        want["flash_fwd_split"] = (3 * parallel_f32_cfg().n_layers
+                                   * route["split_per_layer"])
+        f32[f"{leg}_cuda"]["routes"] = route["routes"]
+        if any(kern[k] != v for k, v in want.items()):
+            failed.append((f"{leg}_cuda launches", kern, want))
+    emit({"phase": "train_parallel", "card": card_name_and_limit(),
+          "timing": "the ranks time-slice one card", "batch": B, "seq": S,
+          "steps": steps, "one_rank": {
+              k: one[k] for k in ("losses", "step_ms", "warmup_s",
+                                  "max_memory_allocated")},
+          "off_2lr_limit_each_leaf": PARALLEL_OFF_SHARE,
+          "split_matmul_control": control, "fault": fault,
+          "wall_s": wall, "legs": legs_out, "f32": f32,
+          "f32_tol": PARALLEL_F32_TOL, "failed": failed})
+    if failed:
+        raise AssertionError(f"train_parallel failed: {failed}")
+    return total
+
+
 # the kernels each run of the main path must launch
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
@@ -4528,11 +5145,12 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
          "train_zero": TRAIN + ("onebit_pack", "onebit_unpack_sum",
                                 "topk_select", "topk_reconstruct_sum"),
          "train_accum": TRAIN,
-         "eval": ("flash_fwd",)}
+         "eval": ("flash_fwd",),
+         "train_parallel": TRAIN + ("onebit_pack", "onebit_unpack_sum")}
 MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
               "train_onebit", "train_topk", "train_ring", "train_dcn",
               "train_hybrid", "train_chaos", "aggregate_onebit",
-              "train_zero", "train_accum", "eval")
+              "train_zero", "train_accum", "eval", "train_parallel")
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
@@ -4589,6 +5207,11 @@ def main() -> int:
     ap.add_argument("--chaos", action="store_true",
                     help="run only train_chaos, for work on the DCN tier's "
                          "robustness; no kernels line, no result line")
+    ap.add_argument("--parallel", action="store_true",
+                    help="run only the flash kernels at train_parallel's "
+                         "calls "
+                         "and train_parallel (tensor and sequence "
+                         "parallelism); no kernels line, no result line")
     ap.add_argument("--zero", action="store_true",
                     help="run only the training options' phases (the codec "
                          "kernels at ZeRO's shapes, train_raw, train_zero, "
@@ -4645,6 +5268,11 @@ def main() -> int:
     if args.chaos:
         emit({"phase": "launches", "train_chaos": counted_ranks(
             "train_chaos", phase_train_chaos)})
+        return 0
+    if args.parallel:
+        parallel_kernel_cases(Timer())
+        emit({"phase": "launches", "train_parallel": counted_ranks(
+            "train_parallel", phase_train_parallel)})
         return 0
     if args.zero:
         zero_codec_cases(Timer())
@@ -4703,6 +5331,7 @@ def main() -> int:
             failed.append(case[0])
     if failed:
         raise AssertionError(f"flash_bwd cases {failed} failed")
+    ring_kc = parallel_kernel_cases(timer)
     twice_case("train", 8, 1024, 16, 16, 64, 38)
     twice_case("d128", 4, 1024, 8, 8, 128, 39)
     chunk = 4096000 // 4           # one default partition of f32
@@ -4800,6 +5429,8 @@ def main() -> int:
     by_path["train_hybrid"] = counted_ranks("train_hybrid",
                                             phase_train_hybrid)
     by_path["train_chaos"] = counted_ranks("train_chaos", phase_train_chaos)
+    by_path["train_parallel"] = counted_ranks("train_parallel",
+                                              phase_train_parallel)
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()
@@ -4824,15 +5455,30 @@ def main() -> int:
               "split_launches": sum(by_path[p]["flash_fwd_split"]
                                     for p in MAIN_PATHS),
               "split_launches_by_path": {
-                  p: c["flash_fwd_split"] for p, c in by_path.items()}}),
+                  p: c["flash_fwd_split"] for p, c in by_path.items()},
+              "ring_cases": {
+                  nm: {"paths": c["paths"],
+                       **{k: c["fwd"][k] for k in ("ms", "plain_ms",
+                                                   "library_ms", "bound_ms",
+                                                   "bound_by", "max_abs_err",
+                                                   "route")}}
+                  for nm, c in ring_kc.items()}}),
             ("flash_decode", "flash_decode",
              "byteps_tpu/ops/flash_decode.py:77", main_dec),
             ("flash_bwd_dq", "flash_bwd",
              "byteps_tpu/ops/flash_attention.py:340",
-             {**main_bwd, **main_bwd["dq"]}),
+             {**main_bwd, **main_bwd["dq"],
+              "ring_cases": {nm: {**c["bwd"]["dq"],
+                                  "plain_ms": c["bwd"]["plain_ms"],
+                                  "library_ms": c["bwd"]["library_ms"]}
+                             for nm, c in ring_kc.items()}}),
             ("flash_bwd_dkv", "flash_bwd",
              "byteps_tpu/ops/flash_attention.py:399",
-             {**main_bwd, **main_bwd["dkv"]}),
+             {**main_bwd, **main_bwd["dkv"],
+              "ring_cases": {nm: {**c["bwd"]["dkv"],
+                                  "plain_ms": c["bwd"]["plain_ms"],
+                                  "library_ms": c["bwd"]["library_ms"]}
+                             for nm, c in ring_kc.items()}}),
             ("onebit_pack", "onebit", "byteps_tpu/ops/onebit_kernels.py:81",
              {"case": "chunk", "max_abs_err": main_bits["pack_max_abs_err"],
               "ms": main_bits["pack_ms"],
@@ -4892,7 +5538,8 @@ def main() -> int:
                                  "long_bound_ms", "long_library_ms",
                                  "ms_spin", "signs_ms",
                                  "signs_ms_time_sliced",
-                                 "signs_library_ms", "signs_bound_ms")
+                                 "signs_library_ms", "signs_bound_ms",
+                                 "ring_cases")
             if k in main}}
         for name, src, rep, main in rows]
     print(card, flush=True)

@@ -139,3 +139,83 @@ def port_run(io: Path, data, n: int, legs: list) -> list:
 def off_share(got, want, tol: float = TOL) -> float:
     """Share of elements further apart than ``tol`` (abs + rel)."""
     return float((np.abs(got - want) > tol + tol * np.abs(want)).mean())
+
+
+# --------------------------------------------------------------------------
+# meshes: the reference's dp×tp×sp steps on the conftest's CPU devices,
+# the port's as gloo ranks (train_rank.py's mesh legs)
+# --------------------------------------------------------------------------
+MESH_ROWS = 4                    # the global batch of the mesh legs
+
+
+def llama_cfg(**kw) -> dict:
+    """A tiny llama configuration (RoPE, GQA with kv heads divisible by
+    tp = 2, SwiGLU, RMSNorm, untied readout), as keywords of
+    ``GPTConfig.llama`` on both sides."""
+    return dict(vocab_size=256, max_seq=64, d_model=64, n_heads=4,
+                n_kv_heads=2, n_layers=2, d_ff=128, **kw)
+
+
+def llama_tree():
+    return jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(0),
+                                           JConfig.llama(**llama_cfg())))
+
+
+def j_mesh(axes: dict):
+    total = int(np.prod(list(axes.values())))
+    return make_mesh(MeshAxes(**axes), devices=jax.devices()[:total])
+
+
+def ref_mesh_run(tree, tok, tgt, axes: dict, cfg=JCFG, steps: int = 3,
+                 tx=None, resync: bool = False, **kw):
+    """The reference's step on the mesh of ``axes`` (``optax.adamw(1e-3)``
+    unless ``tx``) from ``tree`` on the global batch: (losses, flat
+    params). ``resync``: after each step every device's replica of each
+    leaf is set to device 0's (tp index 0's), the semantics the port keeps
+    for the tp-replicated leaves under a lossy codec (the reference's
+    replicas drift apart there)."""
+    step, params, opt_state, bsh = j_train_step(
+        cfg, j_mesh(axes), tx or optax.adamw(1e-3),
+        init_params=jax.tree.map(jnp.array, tree), **kw)
+    a, b = jax.device_put(tok, bsh), jax.device_put(tgt, bsh)
+    losses = []
+    for _ in range(steps):
+        loss, params, opt_state = step(params, opt_state, a, b)
+        losses.append(float(loss))
+        if resync:
+            params = jax.tree.map(
+                lambda x: jax.device_put(np.asarray(x), x.sharding), params)
+    return losses, np.concatenate([x.ravel() for x in ref_leaves(params)])
+
+
+def ref_mesh_eval(tree, tok, tgt, etok, etgt, axes: dict, cfg=JCFG, **kw):
+    ev, bsh = j_eval_step(cfg, j_mesh(axes), **kw)
+    p = jax.tree.map(jnp.array, tree)
+    loss = float(ev(p, jax.device_put(tok, bsh), jax.device_put(tgt, bsh)))
+    ppl = j_perplexity(ev, p, list(zip(etok, etgt)), bsh)
+    return loss, ppl
+
+
+def port_mesh_run(io: Path, n: int, legs: list, arrays: dict) -> list:
+    """Each of n gloo ranks' outputs of the port's mesh ``legs`` on
+    ``arrays`` (``in.npz``)."""
+    np.savez(io / "in.npz", **arrays)
+    (io / "legs.json").write_text(json.dumps(legs))
+    from test_torch_ring import run_group
+
+    return run_group(io, n, (HELPERS / "train_rank.py").read_text())
+
+
+def mesh_arrays(data, llama=None) -> dict:
+    """``in.npz`` of the mesh legs: the tiny tree's leaves, the llama
+    tree's as ``llama_p<i>``, the global batch and the eval batches."""
+    tree, tok, tgt, etok, etgt = data
+    out = {"tok": tok[:MESH_ROWS], "tgt": tgt[:MESH_ROWS],
+           "etok": etok[:, :MESH_ROWS], "etgt": etgt[:, :MESH_ROWS]}
+    for pre, t in (("", tree), ("llama_", llama)):
+        if t is None:
+            continue
+        leaves = ref_leaves(t)
+        out[f"{pre}n_leaves"] = len(leaves)
+        out.update({f"{pre}p{i}": a for i, a in enumerate(leaves)})
+    return out

@@ -92,7 +92,9 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
               "common.scheduler", "common.stage_orders", "compression.wire",
               "server",
               "server.__main__", "server.native", "server.pacer", "torch",
-              "eager"):
+              "eager", "parallel.mesh", "parallel.partitioner",
+              "parallel.sharding", "parallel.tp", "parallel.ring_attention",
+              "parallel.remat"):
         assert f"byteps_tpu_torch.{m}" in res["modules"], m
     assert res["leaked"] == [], res["leaked"]
     # importing every module (the server entry included) built, loaded and
@@ -109,6 +111,25 @@ def test_ring_modules_import_alone_without_jax():
     probe = ("import sys\n"
              "import byteps_tpu_torch.ops.ring_collective_kernels\n"
              "import byteps_tpu_torch.comm.ici\n"
+             "print([m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'byteps_tpu')])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_parallel_modules_import_alone_without_jax():
+    """The mesh, the partitioner, the sharding specs, tensor parallelism
+    and ring attention, imported on their own, load neither jax nor
+    byteps_tpu."""
+    probe = ("import sys\n"
+             "import byteps_tpu_torch.parallel.mesh\n"
+             "import byteps_tpu_torch.parallel.partitioner\n"
+             "import byteps_tpu_torch.parallel.sharding\n"
+             "import byteps_tpu_torch.parallel.tp\n"
+             "import byteps_tpu_torch.parallel.ring_attention\n"
              "print([m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'byteps_tpu')])")
     env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")

@@ -26,7 +26,8 @@ three steps of AdamW (``optax.adamw(1e-3)`` and the port's ``adamw``).
   bf16 neighbour (2 of 87,552 here);
 * the moments are ceil(L/n) f32 each on every rank;
 * the refusals: ``zero_1`` with ``zero_3``, ``zero_3`` alone, the zigzag
-  layout, an unknown layout, and a non-elementwise inner optimizer."""
+  layout without a mesh with an sp axis (the reference's ValueError), an
+  unknown layout, and a non-elementwise inner optimizer."""
 
 import sys
 from pathlib import Path
@@ -176,7 +177,8 @@ def test_zero_moments_are_one_segment_per_rank(port, n):
 @pytest.mark.parametrize("kw,exc,match", [
     ({"zero_1": True, "zero_3": True}, ValueError, "mutually exclusive"),
     ({"zero_3": True}, NotImplementedError, "ROADMAP A.6"),
-    ({"seq_layout": "zigzag"}, NotImplementedError, "ROADMAP A.6"),
+    ({"seq_layout": "zigzag"}, ValueError,
+     "requires a mesh with an sp axis"),
     ({"seq_layout": "spiral"}, ValueError, "unknown seq_layout"),
     ({"zero_1": True, "make_optimizer": lambda l: torch.optim.LBFGS(l)},
      ValueError, "elementwise"),

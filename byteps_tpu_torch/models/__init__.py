@@ -1,5 +1,6 @@
-"""Model families of the port: the GPT family, its generation, its LoRA
-adapters, its data-parallel training step and its eval step."""
+"""Model families of the port: the GPT family and its MoE sibling, their
+generation, LoRA adapters, training steps (data, tensor, sequence,
+pipeline and expert parallel) and the eval step."""
 
 from byteps_tpu_torch.models.convert import (  # noqa: F401
     adapters_from_numpy,
@@ -15,10 +16,20 @@ from byteps_tpu_torch.models.gpt import (  # noqa: F401
     gpt_forward,
     gpt_init,
     gpt_loss,
+    gpt_pp_loss,
+)
+from byteps_tpu_torch.models.moe_gpt import (  # noqa: F401
+    MoEGPTConfig,
+    moe_gpt_init,
+    moe_gpt_loss,
+    moe_gpt_pp_loss,
 )
 from byteps_tpu_torch.models.train import (  # noqa: F401
     evaluate_perplexity,
     make_eval_step,
+    make_gpt_moe_pp_train_step,
+    make_gpt_moe_train_step,
+    make_gpt_pp_train_step,
     make_gpt_train_step,
     synthetic_batch,
 )

@@ -14,9 +14,15 @@ imports the reference.
 On a mesh (``parallel/mesh.py``) a rank holds shards:
 ``params_from_numpy(tree, cfg, mesh=mesh)`` and :func:`shard_params`
 cut each leaf to this rank's block by its spec
-(``models.gpt.gpt_logical_specs`` through the partitioner), and
-``params_to_numpy(params, mesh=mesh)`` gathers the blocks back to whole
-leaves over their axes (collective: every rank of those axes calls it).
+(``models.gpt.gpt_logical_specs`` or ``models.moe_gpt
+.moe_gpt_logical_specs`` through the partitioner: an MoE block's
+experts over ep), and ``params_to_numpy(params, mesh=mesh)`` gathers the
+blocks back to whole leaves over their axes (collective: every rank of
+those axes calls it). ``stacked=True`` lays the blocks out as a pipeline
+stage's slab: this rank's pp stage's layers stacked on a leading axis,
+one leaf a key (``parallel.pipeline.stack_blocks``), so
+:func:`flat_leaves` yields the reference's stacked pytree's order;
+``params_to_numpy`` unstacks the gathered slab back into layers.
 """
 
 from __future__ import annotations
@@ -27,14 +33,18 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from byteps_tpu_torch.models.gpt import GPT, GPTConfig
+from byteps_tpu_torch.models.gpt import GPT, Block, GPTConfig
 from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.parallel.partitioner import Partitioner, block_of
+from byteps_tpu_torch.parallel.pipeline import stack_blocks
 
 
-def param_specs(cfg: GPTConfig, mesh) -> Dict[str, Any]:
-    """The spec tree of ``cfg``'s parameters on ``mesh``."""
-    return Partitioner.for_config(cfg, mesh).param_specs(cfg)
+def param_specs(cfg: GPTConfig, mesh, stacked: bool = False
+                ) -> Dict[str, Any]:
+    """The spec tree of ``cfg``'s parameters on ``mesh``; ``stacked``:
+    with the blocks as one pipeline slab (``"blocks"`` one spec tree,
+    the layer axis over pp), as :func:`shard_params` lays them out."""
+    return Partitioner.for_config(cfg, mesh).param_specs(cfg, stacked)
 
 
 def shard_leaf(a, spec: tuple, mesh):
@@ -66,37 +76,80 @@ def gather_leaf(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return t
 
 
-def _shard_tree(tree: Dict[str, Any], specs: Dict[str, Any], mesh, conv):
+def _map_leaves(fn, tree, specs):
+    """``fn(leaf, spec)`` over a (nested) dict of leaves and its specs."""
+    return {k: (_map_leaves(fn, v, specs[k]) if isinstance(v, dict)
+                else fn(v, specs[k])) for k, v in tree.items()}
+
+
+def _shard_tree(tree: Dict[str, Any], specs: Dict[str, Any], mesh, conv,
+                stacked: bool = False):
+    """This rank's top-level leaves and blocks of a whole tree (blocks a
+    list of per-layer trees). ``stacked``: the blocks become one slab of
+    this rank's pp stage, only its layers stacked, each leaf then cut by
+    the rest of its stacked spec."""
     leaves = {k: conv(shard_leaf(v, specs[k], mesh))
               for k, v in tree.items() if k != "blocks"}
-    blocks = [{k: conv(shard_leaf(v, bs[k], mesh)) for k, v in b.items()}
-              for b, bs in zip(tree["blocks"], specs["blocks"])]
+    if not stacked:
+        blocks = [_map_leaves(lambda v, sp: conv(shard_leaf(v, sp, mesh)),
+                              b, bs)
+                  for b, bs in zip(tree["blocks"], specs["blocks"])]
+        return leaves, blocks
+    n = len(tree["blocks"])
+
+    def first_target(sp):
+        while isinstance(sp, dict):
+            sp = next(iter(sp.values()))
+        return sp[0]
+
+    rows = block_of(n, first_target(specs["blocks"]), mesh)
+    slab = stack_blocks(tree["blocks"][rows])
+    blocks = _map_leaves(
+        lambda v, sp: conv(shard_leaf(v, (None,) + tuple(sp[1:]), mesh)),
+        slab, specs["blocks"])
     return leaves, blocks
 
 
-def shard_params(params: GPT, mesh) -> GPT:
+def _module_tree(module) -> Dict[str, Any]:
+    """A :class:`GPT` or :class:`Block` as a nested dict of its leaves
+    (``"blocks"`` a list of per-layer dicts, or the slab's dict)."""
+    out = {}
+    for k in module.keys():
+        v = module[k]
+        if isinstance(v, torch.nn.ModuleList):
+            out[k] = [_module_tree(b) for b in v]
+        elif isinstance(v, Block):
+            out[k] = _module_tree(v)
+        else:
+            out[k] = v
+    return out
+
+
+def shard_params(params: GPT, mesh, stacked: bool = False) -> GPT:
     """This rank's shards of whole parameters ``params`` (a :class:`GPT`
     on one rank's layout) as a :class:`GPT` on the same device: each
-    leaf cut to its block by its spec on ``mesh``, copied."""
-    specs = param_specs(params.cfg, mesh)
+    leaf cut to its block by its spec on ``mesh``, copied. ``stacked``:
+    the blocks become this rank's pipeline slab (:func:`_shard_tree`)."""
+    specs = param_specs(params.cfg, mesh, stacked)
 
     def conv(t: torch.Tensor) -> torch.Tensor:
         return t.detach().contiguous().clone()
 
-    tree = {k: params[k] for k in _leaf_names(params)}
-    tree["blocks"] = [{k: b[k] for k in _leaf_names(b)}
-                      for b in params.blocks]
-    leaves, blocks = _shard_tree(tree, specs, mesh, conv)
+    leaves, blocks = _shard_tree(_module_tree(params), specs, mesh, conv,
+                                 stacked)
     return GPT(params.cfg, leaves, blocks)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: GPTConfig,
-                      device=None, mesh=None) -> GPT:
-    """``{"wte": ..., "blocks": [{"wq": ...}, ...]}`` of numpy arrays →
-    a :class:`GPT` on ``device`` (the card unless told otherwise). Leaf
+                      device=None, mesh=None, stacked: bool = False) -> GPT:
+    """``{"wte": ..., "blocks": [{"wq": ...}, ...]}`` of numpy arrays (a
+    block's nested dicts, an MoE block's ``"moe"``, kept nested) → a
+    :class:`GPT` on ``device`` (the card unless told otherwise). Leaf
     dtypes are kept (the reference's master weights are f32). With
     ``mesh``, the leaves are whole and each is cut to this rank's shard
-    (:func:`shard_leaf`)."""
+    (:func:`shard_leaf`); ``stacked`` makes the blocks this rank's
+    pipeline slab (this stage's layers, and of its experts this rank's
+    with an ep axis)."""
     dev = resolve_device(device)
 
     def conv(a) -> torch.Tensor:
@@ -109,57 +162,63 @@ def params_from_numpy(tree: Dict[str, Any], cfg: GPTConfig,
         raise ValueError(f"wte {tuple(np.shape(tree['wte']))} does not "
                          f"match cfg ({cfg.vocab_size}, {cfg.d_model})")
     if mesh is not None:
-        leaves, blocks = _shard_tree(tree, param_specs(cfg, mesh), mesh,
-                                     conv)
+        leaves, blocks = _shard_tree(tree, param_specs(cfg, mesh, stacked),
+                                     mesh, conv, stacked)
     else:
+        if stacked:
+            raise ValueError("stacked=True takes a mesh (the pp stage)")
         leaves = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-        blocks = [{k: conv(v) for k, v in b.items()} for b in tree["blocks"]]
+        blocks = [_map_leaves(lambda v, _: conv(v), b, _nones(b))
+                  for b in tree["blocks"]]
     return GPT(cfg, leaves, blocks)
 
 
-def _leaf_names(module) -> List[str]:
-    return list(module._parameters)
+def _tree_leaves(module) -> List[torch.Tensor]:
+    out = []
+    if isinstance(module, torch.nn.ModuleList):
+        for b in module:
+            out.extend(_tree_leaves(b))
+        return out
+    for name in sorted(module.keys()):
+        v = module[name]
+        if isinstance(v, (Block, torch.nn.ModuleList)):
+            out.extend(_tree_leaves(v))
+        else:
+            out.append(v)
+    return out
 
 
 def flat_leaves(params: GPT) -> List[torch.Tensor]:
     """The leaves of ``params`` in ``jax.tree.flatten`` order of the
-    reference's tree: dict keys sorted at every level, so ``blocks``
-    (each block's keys sorted: ``b1, b2, bk, bo, bq, bv, ln1_b, …,
-    wv``) comes before ``lnf_b, lnf_g, wpe, wte``. Not the module's
+    reference's tree: dict keys sorted at every level (nested blocks
+    too, an MoE block's ``"moe"`` between ``ln2_g`` and ``wk``), so
+    ``blocks`` (each block's keys sorted: ``b1, b2, bk, bo, bq, bv,
+    ln1_b, …, wv``; a pipeline slab's stacked leaves in the same order)
+    comes before ``lnf_b, lnf_g, wpe, wte``. Not the module's
     registration order: the onebit scale is per chunk, and chunks span
     leaf boundaries in this order."""
-    out = []
-    for name in sorted(_leaf_names(params) + ["blocks"]):
-        if name == "blocks":
-            for b in params.blocks:
-                out.extend(b[k] for k in sorted(_leaf_names(b)))
-        else:
-            out.append(params[name])
-    return out
+    return _tree_leaves(params)
 
 
-def flat_specs(specs: Dict[str, Any]) -> List[tuple]:
+def flat_specs(specs: Any) -> List[tuple]:
     """A spec tree's leaves in :func:`flat_leaves` order."""
-    out = []
-    for name in sorted(specs):
-        if name == "blocks":
-            for b in specs["blocks"]:
-                out.extend(b[k] for k in sorted(b))
-        else:
-            out.append(specs[name])
-    return out
+    if isinstance(specs, list):
+        return [s for b in specs for s in flat_specs(b)]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in flat_specs(specs[k])]
+    return [specs]
 
 
 def params_to_numpy(params: GPT, mesh=None) -> Dict[str, Any]:
     """A :class:`GPT` → the reference's nested tree of f32 numpy arrays
-    (``{"wte": ..., "blocks": [{"wq": ...}, ...]}``). With ``mesh``,
-    ``params`` is this rank's shards and each leaf is gathered whole
-    over the axes its spec splits it on (:func:`gather_leaf`: every rank
-    of those axes calls it)."""
-    if mesh is None:
-        specs = None
-    else:
-        specs = param_specs(params.cfg, mesh)
+    (``{"wte": ..., "blocks": [{"wq": ...}, ...]}``, unstacked). With
+    ``mesh``, ``params`` is this rank's shards and each leaf is gathered
+    whole over the axes its spec splits it on (:func:`gather_leaf`:
+    every rank of those axes calls it): a pipeline slab's over pp (and
+    its experts over ep), then unstacked into layers."""
+    stacked = params.stacked
+    specs = (param_specs(params.cfg, mesh, stacked) if mesh is not None
+             else None)
 
     def conv(t: torch.Tensor, spec: Optional[tuple]) -> np.ndarray:
         t = t.detach()
@@ -167,12 +226,31 @@ def params_to_numpy(params: GPT, mesh=None) -> Dict[str, Any]:
             t = gather_leaf(t, spec, mesh)
         return t.cpu().numpy().copy()
 
-    tree = {k: conv(params[k], specs and specs[k])
-            for k in _leaf_names(params)}
-    tree["blocks"] = [{k: conv(b[k], specs and specs["blocks"][i][k])
-                       for k in _leaf_names(b)}
-                      for i, b in enumerate(params.blocks)]
+    mod = _module_tree(params)
+    tree = {k: conv(v, specs and specs[k]) for k, v in mod.items()
+            if k != "blocks"}
+    if stacked:
+        slab = _map_leaves(conv, mod["blocks"],
+                           specs["blocks"] if specs else _nones(
+                               mod["blocks"]))
+        tree["blocks"] = [_unstack(slab, i)
+                          for i in range(params.cfg.n_layers)]
+    else:
+        tree["blocks"] = [
+            _map_leaves(conv, b, specs["blocks"][i] if specs
+                        else _nones(b))
+            for i, b in enumerate(mod["blocks"])]
     return tree
+
+
+def _nones(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _nones(v) if isinstance(v, dict) else None
+            for k, v in tree.items()}
+
+
+def _unstack(slab: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return {k: _unstack(v, i) if isinstance(v, dict) else v[i]
+            for k, v in slab.items()}
 
 
 def adapters_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:

@@ -169,8 +169,8 @@ def _block_step(x, p, cache_k, cache_v, pos0: int, cfg: GPTConfig,
     append."""
     if "moe" in p:
         raise NotImplementedError(
-            "MoE blocks are not ported yet: they come with the MoE "
-            "model-family slice")
+            "MoE blocks in the generate step are not ported yet "
+            "(ROADMAP A.7; models/moe_gpt.py trains them)")
     x, cache_k, cache_v = _attn_cached_half(
         x, p, cache_k, cache_v, pos0, cfg.head_dim,
         rope_base=(cfg.rope_base if cfg.pos_embedding == "rope" else 0.0),

@@ -114,12 +114,21 @@ class GPTConfig:
 
 class _Leaves(nn.Module):
     """A module whose parameters are addressed by the reference's leaf
-    names: ``p["wq"]``, ``"w3" in p``, ``p.get("ln1_b")``."""
+    names: ``p["wq"]``, ``"w3" in p``, ``p.get("ln1_b")``; a nested dict
+    of leaves (an MoE block's ``"moe"``) becomes a :class:`Block` under
+    its key."""
 
-    def _add_leaves(self, leaves: Dict[str, torch.Tensor]) -> None:
+    def _add_leaves(self, leaves: Dict[str, Any]) -> None:
         for name, t in leaves.items():
-            self.register_parameter(
-                name, nn.Parameter(t, requires_grad=False))
+            if isinstance(t, dict):
+                self.add_module(name, Block(t))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(t, requires_grad=False))
+
+    def keys(self) -> List[str]:
+        """The leaf and sub-tree names, leaves first."""
+        return list(self._parameters) + list(self._modules)
 
     def __getitem__(self, name: str):
         if name in self._parameters or name in self._modules:
@@ -142,17 +151,24 @@ class Block(_Leaves):
 
 
 class GPT(_Leaves):
-    """The parameters of one GPT: top-level leaves (``wte``, ``lnf_g``,
-    optional ``wpe``/``lnf_b``/``lm_head``) plus ``blocks``, an
-    ``nn.ModuleList`` of :class:`Block`. ``forward(tokens)`` is
-    :func:`gpt_forward`."""
+    """The parameters of one GPT-family model: top-level leaves (``wte``,
+    ``lnf_g``, optional ``wpe``/``lnf_b``/``lm_head``) plus ``blocks``:
+    an ``nn.ModuleList`` of :class:`Block`, one a layer, or, given a dict
+    of stacked leaves, one :class:`Block` holding a pipeline stage's slab
+    (``(layers, ...)`` each leaf, ``parallel.pipeline.stack_blocks``;
+    :attr:`stacked`). ``forward(tokens)`` is :func:`gpt_forward`."""
 
     def __init__(self, cfg: GPTConfig, leaves: Dict[str, torch.Tensor],
-                 blocks: List[Dict[str, torch.Tensor]]):
+                 blocks):
         super().__init__()
         self.cfg = cfg
         self._add_leaves(leaves)
-        self.blocks = nn.ModuleList(Block(b) for b in blocks)
+        self.blocks = (Block(blocks) if isinstance(blocks, dict)
+                       else nn.ModuleList(Block(b) for b in blocks))
+
+    @property
+    def stacked(self) -> bool:
+        return isinstance(self.blocks, Block)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return gpt_forward(self, tokens, self.cfg)
@@ -593,6 +609,51 @@ def gpt_forward(params, tokens: torch.Tensor, cfg: GPTConfig,
     x = gpt_hidden(params, tokens, cfg, tp_axis, sp_axis,
                    seq_layout=seq_layout)
     return _readout(params, x, *resolve_norm(cfg))
+
+
+def gpt_pp_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
+                cfg: GPTConfig, pp_axis, n_micro: int, tp_axis=None,
+                sp_axis=None, remat: bool = False,
+                seq_layout: str = "contiguous",
+                chunked_ce=True) -> torch.Tensor:
+    """Pipeline-parallel next-token loss. ``params["blocks"]`` is this
+    stage's stacked slab (``params.stacked``); the embeddings and the
+    final norm are on every stage. The rank's batch splits into
+    ``n_micro`` microbatches that run through the stages
+    (:func:`~byteps_tpu_torch.parallel.pipeline.pipeline_apply`), and
+    the last stage reads out the loss, its mean over ``sp_axis``.
+    Returns the masked per-stage loss: that value on the last stage,
+    0.0 elsewhere, which still reaches the pipeline's graph, so the
+    backward of every stage runs its half of the backward pipeline.
+    Differentiate this value; replicate it over pp afterwards for
+    reporting."""
+    from byteps_tpu_torch.parallel.pipeline import (is_last_stage,
+                                                    pipeline_apply)
+
+    B, S_loc = tokens.shape
+    if B % n_micro != 0:
+        raise ValueError(f"local batch {B} not divisible by {n_micro} "
+                         "microbatches")
+    rope_base = resolve_rope(cfg)
+    norm_fn, norm_eps = resolve_norm(cfg)
+    pos = _positions(S_loc, sp_axis, seq_layout, tokens.device)
+    x = _embed(params, tokens, cfg, pos=pos)
+    x_mb = x.reshape(n_micro, B // n_micro, S_loc, x.shape[-1])
+
+    def blk(h, p):
+        return transformer_block(h, p, cfg.head_dim, tp_axis, sp_axis,
+                                 seq_layout=seq_layout, rope_base=rope_base,
+                                 norm_fn=norm_fn, norm_eps=norm_eps,
+                                 use_bias=cfg.use_bias, pos=pos)
+
+    y_mb = pipeline_apply(x_mb, params["blocks"], blk, pp_axis, remat=remat)
+    if not is_last_stage(pp_axis):
+        # zeros: the value 0.0 and the way into the pipeline's backward
+        return y_mb.float().sum()
+    y = y_mb.reshape(B, S_loc, -1)
+    loss = _readout_nll(params, y, targets, norm_fn, norm_eps,
+                        tp_axis=tp_axis, chunked=chunked_ce).mean()
+    return pmean(loss, sp_axis)
 
 
 def gpt_loss(params, tokens: torch.Tensor, targets: torch.Tensor,

@@ -1,7 +1,8 @@
-"""The GPT training step and the eval step (counterparts of
+"""The GPT training steps and the eval step (counterparts of
 ``byteps_tpu/models/train.py``'s ``make_gpt_train_step``,
-``make_eval_step`` and ``evaluate_perplexity``: dp, tp and sp; no pp,
-MoE or ZeRO-3).
+``make_gpt_pp_train_step``, ``make_gpt_moe_train_step``,
+``make_gpt_moe_pp_train_step``, ``make_eval_step`` and
+``evaluate_perplexity``: dp, tp, sp, pp and ep; no ZeRO-3).
 
 One step runs, in order: the forward, the backward (attention through
 the hand-written flash kernels on the card), the flattening of the
@@ -36,6 +37,25 @@ replicated leaves, so the replicated leaves' aggregate would differ
 between tp ranks: the step makes it tp index 0's on every tp rank (one
 broadcast over tp between the aggregation and AdamW), where the
 reference leaves its tp replicas to drift apart.
+
+The pipeline steps (``make_gpt_pp_train_step``, and
+``make_gpt_moe_pp_train_step`` with MoE blocks) hold this rank's pp
+stage's layers as one stacked slab (``models.convert.shard_params(...,
+stacked=True)``) and run ``gpt_pp_loss`` (``moe_gpt_pp_loss``): GPipe
+microbatches through ``parallel/pipeline.py``, the loss the last stage's.
+The MoE steps route each rank's tokens to the experts of its ep line
+(``parallel/moe.py``). The gradient assembly after the backward, the
+reference's ``_build_pp_jit`` and its MoE step: every leaf summed over
+sp (as above); the leaves every stage holds (the embeddings, the final
+norm) summed over pp (each stage holds its part of their gradient); the
+leaves every ep rank holds (all but the experts) summed over ep, and
+then every gradient divided by ep once (the loss is the mean of the ep
+ranks' local means, and the experts' gradients already carry their
+peers' part through the exchange's backward). Each of those sums is one
+flat all-reduce over its axis. The ``DistributedOptimizer`` then
+aggregates over dp as above, each stage its own slab with its own EF
+state. The reported loss is summed over pp, then averaged over dp (and
+ep).
 """
 
 from __future__ import annotations
@@ -51,7 +71,8 @@ from byteps_tpu_torch.comm.ici import world
 from byteps_tpu_torch.compression import from_params
 from byteps_tpu_torch.models.convert import (flat_leaves, flat_specs,
                                              param_specs, shard_params)
-from byteps_tpu_torch.models.gpt import GPT, GPTConfig, gpt_init, gpt_loss
+from byteps_tpu_torch.models.gpt import (GPT, GPTConfig, gpt_init, gpt_loss,
+                                         gpt_pp_loss)
 from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.optimizer import DistributedOptimizer
 from byteps_tpu_torch.parallel.mesh import Axis, collectives
@@ -85,8 +106,9 @@ def _check_seq_layout(seq_layout: str, sp=None) -> None:
 
 
 class _Axes:
-    """The (dp, tp, sp) axes of a mesh for ``cfg`` (None where the mesh
-    has no such axis) and its partitioner; all None without a mesh."""
+    """The (dp, tp, sp, pp, ep) axes of a mesh for ``cfg`` (None where the
+    mesh has no such axis) and its partitioner; all None without a
+    mesh."""
 
     def __init__(self, cfg: GPTConfig, mesh):
         self.mesh = mesh
@@ -100,6 +122,8 @@ class _Axes:
         self.dp = ax(p.dp) if p else None
         self.tp = ax(p.tp) if p else None
         self.sp = ax(p.sp) if p else None
+        self.pp = ax(p.pp) if p else None
+        self.ep = ax(p.ep) if p else None
 
     def block(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.part is None else self.part.local_batch(x)
@@ -115,13 +139,18 @@ class _Axes:
         return Axis("dp", 1, 0, (self.mesh.rank,))
 
 
-def _sum_over(leaves: Sequence[torch.Tensor], axis) -> None:
-    """Sum every leaf's ``.grad`` over ``axis``, in one flat all-reduce."""
+def _live(axis) -> bool:
+    return axis is not None and axis.size > 1
+
+
+def _sum_over(leaves: Sequence[torch.Tensor], axis, kind: str) -> None:
+    """Sum every leaf's ``.grad`` (zeros where a leaf has none) over
+    ``axis``, in one flat all-reduce, counted as ``kind``."""
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in leaves]
     flat = torch.cat([g.reshape(-1).float() for g in grads])
     dist.all_reduce(flat, group=axis.group)
-    collectives["sp_grad_sum"] += 1
+    collectives[kind] += 1
     off = 0
     for p, g in zip(leaves, grads):
         p.grad = flat[off:off + g.numel()].view_as(g).to(g.dtype)
@@ -196,27 +225,12 @@ def make_gpt_train_step(
     if accum_steps < 1:
         raise ValueError(f"accum_steps={accum_steps} must be at least 1")
     dev = resolve_device(device)
-    params = (init_params if init_params is not None
-              else gpt_init(cfg, generator, device=dev))
-    if params.wte.device != dev:
-        raise ValueError(f"init_params live on {params.wte.device}, the "
-                         f"step on {dev}")
+    params = _whole_params(cfg, init_params, generator, dev, gpt_init)
     if mesh is not None:
         params = shard_params(params, mesh)
-    params.requires_grad_(True)
-    leaves = flat_leaves(params)
-    resym = None
-    tp = axes.tp
-    if (tp is not None and tp.size > 1
-            and from_params(compression_params).enabled):
-        resym = _tp_resymmetrize(leaves, flat_specs(param_specs(cfg, mesh)),
-                                 tp)
-    opt = DistributedOptimizer(make_optimizer(leaves), leaves,
-                               compression_params,
-                               partition_bytes=partition_bytes,
-                               zero=zero_1, axis=axes.optimizer_axis(),
-                               resymmetrize=resym)
-    sp = axes.sp if axes.sp is not None and axes.sp.size > 1 else None
+    leaves, _, opt = _mesh_optimizer(cfg, params, mesh, axes,
+                                     make_optimizer, compression_params,
+                                     partition_bytes, zero_1)
 
     def step(tokens, targets) -> torch.Tensor:
         opt.zero_grad()
@@ -242,13 +256,254 @@ def make_gpt_train_step(
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
             loss = loss / accum_steps
-        if sp is not None:
+        if _live(axes.sp):
             # each sp rank holds the share of its own tokens
-            _sum_over(leaves, sp)
+            _sum_over(leaves, axes.sp, "sp_grad_sum")
         opt.step()
         return _group_mean(loss, axes)
 
     return step, params, opt
+
+
+def _mesh_optimizer(cfg, params: GPT, mesh, axes: _Axes, make_optimizer,
+                    compression_params, partition_bytes, zero_1: bool,
+                    stacked: bool = False):
+    """``params`` (this rank's shards) made trainable, their leaves in
+    the reference's order, the leaves' specs (None without a mesh), and
+    the ``DistributedOptimizer`` over the dp axis around
+    ``make_optimizer(leaves)`` (the tp broadcast of the replicated
+    leaves' aggregate under a lossy codec, as ``make_gpt_train_step``)."""
+    params.requires_grad_(True)
+    leaves = flat_leaves(params)
+    specs = (flat_specs(param_specs(cfg, mesh, stacked)) if mesh is not None
+             else None)
+    resym = None
+    if _live(axes.tp) and from_params(compression_params).enabled:
+        resym = _tp_resymmetrize(leaves, specs, axes.tp)
+    opt = DistributedOptimizer(make_optimizer(leaves), leaves,
+                               compression_params,
+                               partition_bytes=partition_bytes,
+                               zero=zero_1, axis=axes.optimizer_axis(),
+                               resymmetrize=resym)
+    return leaves, specs, opt
+
+
+def _assemble(leaves: Sequence[torch.Tensor], specs, axes: _Axes) -> None:
+    """The gradient assembly of the mesh steps (the module docstring):
+    the sums over sp, pp and ep, then the division by ep."""
+    if _live(axes.sp):
+        _sum_over(leaves, axes.sp, "sp_grad_sum")
+    for name in ("pp", "ep"):
+        axis = getattr(axes, name)
+        if _live(axis):
+            _sum_over([p for p, s in zip(leaves, specs)
+                       if name not in spec_axes(s)], axis,
+                      f"{name}_grad_sum")
+    if _live(axes.ep):
+        for p in leaves:
+            if p.grad is not None:
+                p.grad.div_(axes.ep.size)
+
+
+def _whole_params(cfg, init_params, generator, dev, init_fn):
+    params = (init_params if init_params is not None
+              else init_fn(cfg, generator, device=dev))
+    if params.wte.device != dev:
+        raise ValueError(f"init_params live on {params.wte.device}, the "
+                         f"step on {dev}")
+    return params
+
+
+def _pipeline_axes(cfg, mesh, seq_layout: str, factory: str) -> _Axes:
+    """The axes of a pipeline factory's mesh, checked: a pp axis, the
+    layers divisible by it, the sequence layout."""
+    if mesh is None or Partitioner.for_config(cfg, mesh).pp is None:
+        raise ValueError(f"mesh has no pp axis — use {factory}")
+    axes = _Axes(cfg, mesh)
+    _check_seq_layout(seq_layout, axes.sp)
+    nstages = mesh.shape["pp"]
+    if cfg.n_layers % nstages != 0:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} not divisible by pp={nstages}")
+    return axes
+
+
+def _check_experts(cfg, axes: _Axes) -> None:
+    if axes.ep is not None and cfg.n_experts % axes.ep.size != 0:
+        raise ValueError(
+            f"n_experts={cfg.n_experts} not divisible by ep={axes.ep.size}")
+
+
+def _mesh_step(loss_fn, params, leaves, specs, opt, axes: _Axes, dev,
+               mean_over: Sequence[str]):
+    """``step(tokens, targets) -> loss`` of the pp and MoE factories: this
+    rank's block of the global batch, ``loss_fn(params, tok, tgt)``, its
+    backward, :func:`_assemble`, the optimizer's step; the loss summed
+    over pp, then averaged over ``mean_over``."""
+
+    def step(tokens, targets) -> torch.Tensor:
+        opt.zero_grad()
+        loss = loss_fn(params, axes.block(_as_ids(tokens, dev)),
+                       axes.block(_as_ids(targets, dev)))
+        loss.backward()
+        _assemble(leaves, specs, axes)
+        opt.step()
+        loss = loss.detach()
+        if _live(axes.pp):
+            loss = loss.clone()
+            dist.all_reduce(loss, group=axes.pp.group)
+        return _group_mean(loss, axes, mean_over)
+
+    return step
+
+
+def make_gpt_pp_train_step(
+    cfg: GPTConfig,
+    mesh,
+    make_optimizer: Callable[[Sequence[torch.Tensor]],
+                             torch.optim.Optimizer] = adamw,
+    n_micro: int = 4,
+    compression_params: Optional[Dict[str, Any]] = None,
+    partition_bytes: Optional[int] = None,
+    remat: bool = False,
+    zero_1: bool = False,
+    seq_layout: str = "contiguous",
+    init_params: Optional[GPT] = None,
+    generator: Optional[torch.Generator] = None,
+    chunked_ce=True,
+    device=None,
+):
+    """Pipeline-parallel GPT train step over a (pp, dp[, tp][, sp]) mesh.
+    Returns ``(step, params, opt)`` as :func:`make_gpt_train_step`.
+
+    ``init_params`` are whole and unstacked (a :class:`GPT` as
+    ``gpt_init`` makes it), or fresh ``gpt_init`` weights from
+    ``generator``; ``params`` is this rank's stage slab
+    (``params.stacked``: n_layers/pp layers stacked on a leading axis,
+    this rank's tp shards of them) plus the leaves every stage holds.
+    ``step(tokens, targets)`` takes the global (B, S) batch and runs this
+    rank's (dp, sp) block as ``n_micro`` microbatches through the GPipe
+    schedule (``parallel/pipeline.py``); tp and sp compose inside the
+    stages as in :func:`make_gpt_train_step`. ``compression_params``
+    compresses each stage's aggregation over dp, with its own EF state.
+    ZeRO-1 on a pp mesh is refused by ``DistributedOptimizer`` (its dp
+    axis is not the whole job). Raises the reference's errors for a mesh
+    without a pp axis and for layers that pp does not divide."""
+    axes = _pipeline_axes(cfg, mesh, seq_layout, "make_gpt_train_step")
+    dev = resolve_device(device)
+    whole = _whole_params(cfg, init_params, generator, dev, gpt_init)
+    params = shard_params(whole, mesh, stacked=True)
+    leaves, specs, opt = _mesh_optimizer(
+        cfg, params, mesh, axes, make_optimizer, compression_params,
+        partition_bytes, zero_1, stacked=True)
+
+    def loss_fn(p, tok, tgt):
+        return gpt_pp_loss(p, tok, tgt, cfg, axes.pp, n_micro,
+                           tp_axis=axes.tp, sp_axis=axes.sp, remat=remat,
+                           seq_layout=seq_layout, chunked_ce=chunked_ce)
+
+    return (_mesh_step(loss_fn, params, leaves, specs, opt, axes, dev,
+                       ("dp",)), params, opt)
+
+
+def make_gpt_moe_train_step(
+    cfg,
+    mesh=None,
+    make_optimizer: Callable[[Sequence[torch.Tensor]],
+                             torch.optim.Optimizer] = adamw,
+    compression_params: Optional[Dict[str, Any]] = None,
+    partition_bytes: Optional[int] = None,
+    remat: bool = False,
+    zero_1: bool = False,
+    seq_layout: str = "contiguous",
+    init_params: Optional[GPT] = None,
+    generator: Optional[torch.Generator] = None,
+    chunked_ce=True,
+    device=None,
+):
+    """Expert-parallel MoE GPT train step (``cfg`` a ``MoEGPTConfig``)
+    over a (dp, ep[, tp][, sp]) mesh, or without one the plain
+    data-parallel step over the default group. Returns ``(step, params,
+    opt)`` as :func:`make_gpt_train_step`.
+
+    The batch splits over dp and ep (each rank routes its own tokens to
+    all experts, ``parallel/moe.py``); the experts' stacks split over ep
+    and, with a tp axis, their ff dim over tp. ``init_params`` are whole
+    (a :class:`GPT` as ``moe_gpt_init`` makes it), or fresh weights from
+    ``generator`` (the reference's factory seeds ``PRNGKey(0)``).
+    Gradients as the module docstring assembles them; dp aggregation in
+    ``DistributedOptimizer``; the loss averaged over dp and ep. Raises
+    the reference's errors for experts that ep does not divide and for a
+    mesh with a pp axis."""
+    from byteps_tpu_torch.models.moe_gpt import moe_gpt_init, moe_gpt_loss
+
+    axes = _Axes(cfg, mesh)
+    if axes.part is not None and axes.part.pp is not None:
+        raise ValueError(
+            "mesh has a pp axis — use make_gpt_moe_pp_train_step for "
+            "pipelined MoE")
+    _check_seq_layout(seq_layout, axes.sp)
+    _check_experts(cfg, axes)
+    dev = resolve_device(device)
+    params = _whole_params(cfg, init_params, generator, dev, moe_gpt_init)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    leaves, specs, opt = _mesh_optimizer(
+        cfg, params, mesh, axes, make_optimizer, compression_params,
+        partition_bytes, zero_1)
+
+    def loss_fn(p, tok, tgt):
+        return moe_gpt_loss(p, tok, tgt, cfg, ep_axis=axes.ep,
+                            tp_axis=axes.tp, sp_axis=axes.sp, remat=remat,
+                            seq_layout=seq_layout, chunked_ce=chunked_ce)
+
+    return (_mesh_step(loss_fn, params, leaves, specs, opt, axes, dev,
+                       ("dp", "ep")), params, opt)
+
+
+def make_gpt_moe_pp_train_step(
+    cfg,
+    mesh,
+    make_optimizer: Callable[[Sequence[torch.Tensor]],
+                             torch.optim.Optimizer] = adamw,
+    n_micro: int = 4,
+    compression_params: Optional[Dict[str, Any]] = None,
+    partition_bytes: Optional[int] = None,
+    remat: bool = False,
+    zero_1: bool = False,
+    seq_layout: str = "contiguous",
+    init_params: Optional[GPT] = None,
+    generator: Optional[torch.Generator] = None,
+    chunked_ce=True,
+    device=None,
+):
+    """Pipelined MoE GPT over a (pp, dp[, ep][, tp][, sp]) mesh: GPipe
+    stages (:func:`make_gpt_pp_train_step`) whose blocks are MoE blocks
+    (:func:`make_gpt_moe_train_step`), routing per microbatch (the
+    capacity from the microbatch's tokens). ``init_params`` whole and
+    unstacked (``moe_gpt_init``'s), or fresh from ``generator``;
+    ``params`` this rank's stage slab with its experts. Returns ``(step,
+    params, opt)``; the loss summed over pp, averaged over dp and ep.
+    Raises the reference's errors."""
+    from byteps_tpu_torch.models.moe_gpt import moe_gpt_init, moe_gpt_pp_loss
+
+    axes = _pipeline_axes(cfg, mesh, seq_layout, "make_gpt_moe_train_step")
+    _check_experts(cfg, axes)
+    dev = resolve_device(device)
+    whole = _whole_params(cfg, init_params, generator, dev, moe_gpt_init)
+    params = shard_params(whole, mesh, stacked=True)
+    leaves, specs, opt = _mesh_optimizer(
+        cfg, params, mesh, axes, make_optimizer, compression_params,
+        partition_bytes, zero_1, stacked=True)
+
+    def loss_fn(p, tok, tgt):
+        return moe_gpt_pp_loss(p, tok, tgt, cfg, axes.pp, n_micro,
+                               ep_axis=axes.ep, tp_axis=axes.tp,
+                               sp_axis=axes.sp, remat=remat,
+                               seq_layout=seq_layout, chunked_ce=chunked_ce)
+
+    return (_mesh_step(loss_fn, params, leaves, specs, opt, axes, dev,
+                       ("dp", "ep")), params, opt)
 
 
 def _as_ids(x, dev) -> torch.Tensor:
@@ -257,21 +512,21 @@ def _as_ids(x, dev) -> torch.Tensor:
     return x.to(dev, torch.long)
 
 
-def _group_mean(loss: torch.Tensor, axes: Optional[_Axes] = None
-                ) -> torch.Tensor:
+def _group_mean(loss: torch.Tensor, axes: Optional[_Axes] = None,
+                over: Sequence[str] = ("dp",)) -> torch.Tensor:
     """The mean of ``loss`` over the data-parallel ranks (the reference's
     dp ``pmean``), for reporting: the default group without a mesh, the
-    dp axis on one."""
+    mesh axes ``over`` (those it has) on one."""
     if axes is not None and axes.mesh is not None:
-        n, group = (1, None) if axes.dp is None else (axes.dp.size,
-                                                      axes.dp.group)
+        groups = [getattr(axes, a) for a in over if _live(getattr(axes, a))]
     else:
-        n, group = world()[0], None
-    if n > 1:
+        groups = [None] if world()[0] > 1 else []
+    n = 1
+    for g in groups:
         loss = loss.clone()
-        dist.all_reduce(loss, group=group)
-        loss = loss / n
-    return loss
+        dist.all_reduce(loss, group=None if g is None else g.group)
+        n *= world()[0] if g is None else g.size
+    return loss / n if n > 1 else loss
 
 
 def make_eval_step(cfg: GPTConfig, device=None, chunked_ce=True,

@@ -273,8 +273,8 @@ class DistributedOptimizer:
         if zero and axis is not None and \
                 tuple(axis.ranks) != tuple(range(world()[0])):
             raise NotImplementedError(
-                "zero=True over a mesh's dp subgroup (ZeRO-1 on a tp or sp "
-                "mesh) is not ported yet (ROADMAP A.6)")
+                "zero=True over a mesh's dp subgroup (ZeRO-1 on a tp, sp, pp "
+                "or ep mesh) is not ported yet (ROADMAP A.6)")
         total = sum(p.numel() for p in self.params)
         dev = self.params[0].device
 

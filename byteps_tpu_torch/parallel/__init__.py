@@ -1,8 +1,8 @@
 """Parallelism of the port over the ranks of a ``torch.distributed`` job
 (counterpart of ``byteps_tpu/parallel``): the mesh of named axes, the
 partitioner's logical-axis rules, Megatron tensor parallelism over tp,
-ring attention over sp, and remat. Pipeline, MoE and ZeRO-3 are not
-ported (ROADMAP A.6)."""
+ring attention over sp, GPipe pipelining over pp, the MoE FFN with its
+experts over ep, and remat. ZeRO-3 is not ported (ROADMAP A.6)."""
 
 from byteps_tpu_torch.parallel.mesh import (  # noqa: F401
     Axis,
@@ -11,6 +11,14 @@ from byteps_tpu_torch.parallel.mesh import (  # noqa: F401
     factor_devices,
     make_mesh,
 )
+from byteps_tpu_torch.parallel.moe import (  # noqa: F401
+    moe_ffn,
+    moe_init,
+    moe_logical_specs,
+    moe_specs,
+    top1_dispatch,
+    topk_dispatch,
+)
 from byteps_tpu_torch.parallel.partitioner import (  # noqa: F401
     FAMILY_RULES,
     LOGICAL_AXES,
@@ -18,6 +26,13 @@ from byteps_tpu_torch.parallel.partitioner import (  # noqa: F401
     resolve_spec,
     resolve_specs,
     rules_from_axes,
+    stacked_logical_specs,
+)
+from byteps_tpu_torch.parallel.pipeline import (  # noqa: F401
+    last_stage_value,
+    pipeline_apply,
+    stack_blocks,
+    stacked_specs,
 )
 from byteps_tpu_torch.parallel.ring_attention import (  # noqa: F401
     plain_attention,

@@ -29,13 +29,18 @@ AXIS_ORDER = ("slice_", "pp", "dp", "sp", "tp", "ep")
 #: Collectives issued over mesh axes, one plain integer per kind, bumped
 #: where each is issued: the tp sums of the Megatron pair forward and
 #: backward, the sp ring's k/v rotations each way, the vocab-parallel
-#: readout's combines, the train step's sums of the gradients over sp
-#: and its broadcasts over tp of the replicated leaves' aggregate.
+#: readout's combines, the pipeline's stage-to-stage shifts each way,
+#: the MoE dispatch and combine exchanges over ep each way, the train
+#: step's sums of the gradients over sp, pp and ep and its broadcasts
+#: over tp of the replicated leaves' aggregate.
 collectives: Dict[str, int] = {
     "tp_allreduce_fwd": 0, "tp_allreduce_bwd": 0,
     "sp_rotate_fwd": 0, "sp_rotate_bwd": 0,
     "vocab_allreduce_fwd": 0, "vocab_allreduce_bwd": 0,
-    "sp_grad_sum": 0, "tp_broadcast": 0}
+    "pp_shift_fwd": 0, "pp_shift_bwd": 0,
+    "ep_all_to_all_fwd": 0, "ep_all_to_all_bwd": 0,
+    "sp_grad_sum": 0, "pp_grad_sum": 0, "ep_grad_sum": 0,
+    "tp_broadcast": 0}
 
 
 def reset_collectives() -> None:

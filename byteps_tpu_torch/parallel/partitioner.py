@@ -45,8 +45,8 @@ _BASE_RULES: Dict[str, AxisTarget] = {
     "stage": "pp",               # pipeline stage dim (stacked blocks)
 }
 
-#: Per-family rule tables, the reference's (only the GPT family is
-#: ported; the others stay as data).
+#: Per-family rule tables, the reference's (the GPT and MoE GPT families
+#: are ported; the others stay as data).
 FAMILY_RULES: Dict[str, Dict[str, AxisTarget]] = {
     "gpt": dict(_BASE_RULES),
     "bert": dict(_BASE_RULES),
@@ -148,16 +148,26 @@ def rules_from_axes(tp_axis: Optional[str] = None,
     }
 
 
+def stacked_logical_specs(logical_tree: Any) -> Any:
+    """Prepend the ``stage`` logical axis to every leaf: the logical specs
+    of a pipeline slab stacked on a leading layer axis
+    (``parallel.pipeline.stack_blocks``)."""
+    return _map_tree(lambda leaf: ("stage",) + leaf, logical_tree)
+
+
 def _logical_specs_for(cfg: Any) -> Any:
     name = type(cfg).__name__
     if name == "GPTConfig":
         from byteps_tpu_torch.models.gpt import gpt_logical_specs
         return gpt_logical_specs(cfg)
+    if name == "MoEGPTConfig":
+        from byteps_tpu_torch.models.moe_gpt import moe_gpt_logical_specs
+        return moe_gpt_logical_specs(cfg)
     raise TypeError(f"no logical-spec table for config type {name} (the "
-                    "port carries the GPT family only)")
+                    "port carries the GPT and MoE GPT families only)")
 
 
-_FAMILY_BY_CONFIG = {"GPTConfig": "gpt"}
+_FAMILY_BY_CONFIG = {"GPTConfig": "gpt", "MoEGPTConfig": "moe_gpt"}
 
 
 def spec_axes(spec: Spec) -> Tuple[str, ...]:
@@ -261,9 +271,14 @@ class Partitioner:
     def resolve(self, logical_tree: Any) -> Any:
         return resolve_specs(logical_tree, self.rules, self.mesh.axis_names)
 
-    def param_specs(self, cfg: Any) -> Any:
-        """The spec tree of a model config's parameters."""
-        return self.resolve(_logical_specs_for(cfg))
+    def param_specs(self, cfg: Any, stacked: bool = False) -> Any:
+        """The spec tree of a model config's parameters; ``stacked``: the
+        blocks as one pipeline slab (``"blocks"`` one block's specs with
+        the ``stage`` axis first, :func:`stacked_logical_specs`)."""
+        logical = _logical_specs_for(cfg)
+        if stacked:
+            logical["blocks"] = stacked_logical_specs(logical["blocks"][0])
+        return self.resolve(logical)
 
     def batch_spec(self, dims: Optional[Tuple[str, ...]] = None) -> Spec:
         if dims is None:

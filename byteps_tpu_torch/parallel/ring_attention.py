@@ -63,19 +63,29 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.uint8)
 
 
+def shift_flat(buf: torch.Tensor, axis, direction: int) -> torch.Tensor:
+    """Send the contiguous ``buf`` to index ``idx + direction`` of the
+    ring of ``axis`` and return the tensor of the same shape and type
+    received from ``idx − direction``: one uneven ``all_to_all_single``
+    over the axis's group, the whole buffer to one peer as bytes."""
+    n, idx = axis.size, axis.index
+    nbytes = buf.numel() * buf.element_size()
+    send = [0] * n
+    recv = [0] * n
+    send[(idx + direction) % n] = nbytes
+    recv[(idx - direction) % n] = nbytes
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(_wire(out.reshape(-1)), _wire(buf.reshape(-1)),
+                           recv, send, group=axis.group)
+    return out
+
+
 def _shift(k: torch.Tensor, v: torch.Tensor, axis, direction: int
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Send ``(k, v)`` to index ``idx + direction`` of the ring and return
     the pair received from ``idx − direction``."""
-    n, idx = axis.size, axis.index
     buf = torch.cat([k.reshape(-1), v.reshape(-1)])
-    send = [0] * n
-    recv = [0] * n
-    send[(idx + direction) % n] = buf.numel() * buf.element_size()
-    recv[(idx - direction) % n] = buf.numel() * buf.element_size()
-    out = torch.empty_like(buf)
-    dist.all_to_all_single(_wire(out), _wire(buf), recv, send,
-                           group=axis.group)
+    out = shift_flat(buf, axis, direction)
     nk = k.numel()
     return out[:nk].view(k.shape), out[nk:].view(v.shape)
 

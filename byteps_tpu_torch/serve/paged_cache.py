@@ -609,7 +609,8 @@ def make_paged_decode_fn(cfg: GPTConfig, block_size: int):
         if "moe" in p:
             raise NotImplementedError(
                 "the paged decode step serves dense-MLP GPT families "
-                "only — MoE blocks are not ported yet")
+                "only — MoE blocks in serving are not ported yet "
+                "(ROADMAP A.7)")
         h2 = norm_fn(x, p["ln2_g"], p.get("ln2_b"), norm_eps)
         return x + _mlp(h2, p, use_bias=use_bias, seg=seg)
 

@@ -10,6 +10,9 @@
                                      # 15) alone
     python3 chip_smoke.py --parallel # the flash kernels at train_parallel's
                                      # calls and train_parallel (16) alone
+    python3 chip_smoke.py --pipeline # the flash kernels and onebit at
+                                     # their calls, train_pipeline and
+                                     # train_moe (17) alone
 
 Phases, each printing one JSON line:
 
@@ -198,7 +201,9 @@ Phases, each printing one JSON line:
 12. train_dcn — the DCN parameter-server tier: one server process of the
     port (``python -m byteps_tpu_torch.server``, two workers, a free
     port; built with g++ first) and two rank processes on the card, each
-    training GPT-2 medium at full width, B=4 × S=1024, one warm-up and
+    training GPT-2 medium at full width and the depth of
+    ``RANK_PHASE_LAYERS`` (8 layers: the cut keeps the whole smoke inside
+    its limit, as in phases 13 and 14), B=4 × S=1024, one warm-up and
     one timed step a leg: staged_raw (``make_gpt_train_step`` at n = 2, the
     yardstick), dcn_raw and dcn_fp16 (``byteps_tpu_torch.torch``'s
     ``DistributedOptimizer`` over the server, ``Compression.fp16`` on the
@@ -220,8 +225,9 @@ Phases, each printing one JSON line:
 13. train_hybrid — the eager surface (``byteps_tpu_torch.eager``) over
     one pod of two rank processes on the card, with one port server
     process (``DMLC_NUM_WORKER=1``) for each hybrid leg, the ranks under
-    ``BYTEPS_FORCE_DISTRIBUTED=1``: GPT-2 medium at full width, B=4 ×
-    S=1024 a rank, one warm-up and one timed step a leg,
+    ``BYTEPS_FORCE_DISTRIBUTED=1``: GPT-2 medium at full width and 8
+    layers (``RANK_PHASE_LAYERS``), B=4 × S=1024 a rank, one warm-up and
+    one timed step a leg,
     ``push_pull_tree`` of
     the gradients (``flat_leaves`` order, averaged) between backward and
     AdamW: staged_raw (``make_gpt_train_step``, the yardstick), eager_raw
@@ -246,7 +252,7 @@ Phases, each printing one JSON line:
     dwell sums (REDUCE's, run in the caller's thread, too) and the tail
     thread's sum (``eager.tail_us``) per step, peak memory;
 14. train_chaos — the DCN tier's robustness, the same two ranks and
-    model, two port server processes a leg (``DMLC_NUM_SERVER=2``), one
+    model (8 layers), two port server processes a leg (``DMLC_NUM_SERVER=2``), one
     warm-up and 2 steps a leg: staged_raw (the yardstick); dcn_chaos
     (``DistributedOptimizer`` under ``BYTEPS_FAULT_SPEC=
     push:timeout@p=0.02;pull:corrupt@p=0.02``, a fixed seed: retries,
@@ -315,6 +321,24 @@ Phases, each printing one JSON line:
     small f32 model's tp2×sp2 and dp2×sp2 zigzag steps, on the CPU
     (plain versions) and on the card (kernels), the losses within 1e-4
     of one rank's and each leaf under the same per-leaf limit.
+17. train_pipeline and train_moe — pipeline and expert parallelism on
+    rank processes that time-slice the card (gloo), one warm-up and one
+    timed step a leg, after the flash kernels at every distinct call the
+    legs make and onebit at the dp2_pp2 stage's tail chunk
+    (``pipeline_kernel_cases``). train_pipeline: GPT-2 medium at full
+    width and depth, B=4 × S=1024, GPipe stages of 12 layers:
+    one_rank (the yardstick), pp2_raw (4 microbatches of one row) and
+    dp2_pp2_onebit_ef (2 of one row); train_moe: the repo's Switch-MoE
+    configuration (vocab 32768, d 512, 8 heads, 8 layers, d_ff 2048, 8
+    experts, capacity factor 1.25, top-1, bf16) at B=8 × S=512:
+    moe_one_rank, moe_dp2 (the control), moe_ep2 (held to it) and
+    moe_pp2_ep2 (2 microbatches; held to moe_ep2). Each leg's losses
+    fall, its limits hold (see ``phase_train_pipeline`` and
+    ``phase_train_moe``), the leaves no pp or ep axis splits are the same
+    on every rank, the launch and collective counts exact; ms a step,
+    peak memory a rank, the aux loss, collectives a step by kind. Then
+    small f32 models' pp2, ep2 and pp2×ep2 steps on the card (capacity
+    not binding, no aux term) within 1e-4 of one rank's.
 
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
@@ -360,7 +384,9 @@ A ``launches`` line gives the counts per path, then a
 three ZeRO legs, train_accum, eval, train_ring's six legs on one rank,
 train_dcn's four legs on one rank, train_hybrid's five legs on one
 rank, train_chaos's nine legs on one rank, aggregate_onebit,
-train_parallel's one_rank and one rank of each leg; the ring rows' times are the
+train_parallel's one_rank and one rank of each leg, train_pipeline's
+one_rank and one rank of each leg, train_moe's moe_one_rank and one
+rank of each leg; the ring rows' times are the
 ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
 leaf alone as ``signs_*``; the flash_fwd row, timed at serve's chunk,
@@ -371,7 +397,9 @@ the flash_decode
 row, timed at generate's step, the long case's as ``long_*``; the
 flash_fwd, flash_bwd_dq and flash_bwd_dkv rows also give each
 train_parallel call's times, bound and error (and the forward's route
-and the paths making the call) as ``ring_cases``; the
+and the paths making the call) as ``ring_cases``, each train_pipeline
+and train_moe call's as ``pipeline_cases``; the onebit rows the
+dp2_pp2 tail chunk's ms as ``pp_tail_ms``; the
 topk rows add ``warm_ms`` and the 4-byte offset's ``offset_ms``, the
 round trip ``tall``: (8, 1000) and (1, 8000), reconstruct the chunk's
 and K = 8's ms as ``chunk_ms`` and ``k8_ms``; the grid unpack-sum row,
@@ -2507,6 +2535,29 @@ def phase_examples(card: str) -> dict:
 # GPT-2 medium's gradient in default partitions: 346 full chunks of
 # 1,024,000 f32 and a tail of 567,296; randomk keeps k = 0.01 of a segment
 GPT2M_PARAMS = 354_871_296
+# The depth of the rank phases that share the card and move whole
+# gradients through servers (GPT-2 medium at full width, its 24 layers
+# cut so the whole smoke stays inside its limit with train_pipeline and
+# train_moe added; each phase names its depth in its output line)
+RANK_PHASE_LAYERS = {"train_dcn": 8, "train_hybrid": 8, "train_chaos": 8}
+
+
+def rank_phase_cfg(phase: str):
+    """GPT-2 medium at ``phase``'s depth (:data:`RANK_PHASE_LAYERS`)."""
+    from byteps_tpu_torch.models import GPTConfig
+
+    cfg = GPTConfig.gpt2_medium()
+    return dataclasses.replace(
+        cfg, n_layers=RANK_PHASE_LAYERS.get(phase, cfg.n_layers))
+
+
+def gpt_param_count(cfg) -> int:
+    """The parameters of a GPT-2-style ``cfg`` (learned positions,
+    layernorm, biases, the gelu MLP, tied readout): 354,871,296 for
+    GPT-2 medium."""
+    d, ff = cfg.d_model, cfg.d_ff
+    block = 4 * d * d + 2 * d * ff + 9 * d + ff
+    return cfg.vocab_size * d + cfg.max_seq * d + 2 * d + cfg.n_layers * block
 CHUNK = 4096000 // 4
 TAIL = GPT2M_PARAMS % CHUNK
 RANDOMK_K = 0.01
@@ -3321,7 +3372,7 @@ def train_dcn_rank(rank, n, B, S, steps, port, ipc_port):
                       DMLC_PS_ROOT_PORT=str(port - 1),
                       DMLC_WORKER_ID=str(rank))
     reset_config()
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_dcn")
     tok, tgt = synthetic_batch(
         torch.Generator(device="cuda").manual_seed(1 + rank), cfg, B, S)
     res = {}
@@ -3378,7 +3429,7 @@ def train_dcn_rank(rank, n, B, S, steps, port, ipc_port):
         out["stage_us_per_step"] = {
             k: sum(d[4 + i] for d in timed) / steps
             for i, k in enumerate(keys)}
-        n_bytes = GPT2M_PARAMS * 4
+        n_bytes = gpt_param_count(cfg) * 4
         want = [wire, wire, n_bytes, n_bytes]
         bad = [d[:4] for d in out["deltas"] if d[:4] != want]
         if bad:
@@ -3433,7 +3484,8 @@ def phase_train_dcn(B=4, S=1024, steps=1) -> dict:
     """The DCN parameter-server tier on the card: one server process of the
     port (``python -m byteps_tpu_torch.server``, two workers) and two rank
     processes that time-slice the card, each training GPT-2 medium at full
-    width, B=4 × S=1024, bf16 over f32 master weights, one warm-up and
+    width and 8 layers (``RANK_PHASE_LAYERS``), B=4 × S=1024, bf16 over
+    f32 master weights, one warm-up and
     ``steps`` timed steps a leg: staged_raw (the all-reduce step, the
     yardstick), dcn_raw and dcn_fp16 (``DistributedOptimizer`` over the
     server), dcn_ipc_raw (over a server in rank 0's process, which rank 0
@@ -3482,7 +3534,7 @@ def phase_train_dcn(B=4, S=1024, steps=1) -> dict:
         if server.poll() is None:
             server.kill()
             server.wait()
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_dcn")
     calls = steps + 1
     legs = (("staged_raw",) + tuple(leg for leg, _ in DCN_LEGS)
             + ("dcn_ipc_raw",))
@@ -3538,7 +3590,8 @@ def phase_train_dcn(B=4, S=1024, steps=1) -> dict:
                for k in ("wire_bytes_per_step", "copy_bytes_per_step",
                          "stage_us_per_step", "ipc", "tcp_conns_opened")
                if k in r[leg]}}
-    emit({"phase": "train_dcn", "ranks": n,
+    emit({"phase": "train_dcn", "ranks": n, "layers": cfg.n_layers,
+          "depth_cut": "24 layers cut to keep the smoke in its limit",
           "server": "one process; dcn_ipc_raw's in rank 0's process",
           "timing": "two ranks time-slice one card", "batch_per_rank": B,
           "seq": S, "steps": steps, "server_build_s": build_s,
@@ -3625,7 +3678,7 @@ def train_hybrid_rank(rank, n, B, S, steps, ports):
     os.environ.update(DMLC_NUM_WORKER="1", DMLC_NUM_SERVER="1",
                       DMLC_PS_ROOT_URI="127.0.0.1", DMLC_WORKER_ID="0")
     reset_config()
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_hybrid")
     tok, tgt = synthetic_batch(
         torch.Generator(device="cuda").manual_seed(1 + rank), cfg, B, S)
     res = {}
@@ -3724,7 +3777,8 @@ def phase_train_hybrid(B=4, S=1024, steps=1) -> dict:
     port server process a hybrid leg (``DMLC_NUM_WORKER=1``, the ranks
     with ``BYTEPS_FORCE_DISTRIBUTED=1``: every hybrid stage runs and the
     pod's sums cross the server). Each rank trains GPT-2 medium at full
-    width, B=4 × S=1024, bf16 over f32 master weights, one warm-up and
+    width and 8 layers (``RANK_PHASE_LAYERS``), B=4 × S=1024, bf16 over
+    f32 master weights, one warm-up and
     ``steps`` timed steps a leg: staged_raw (``make_gpt_train_step``, the
     yardstick), eager_raw (the eager ICI pipeline), hybrid_raw (sharded,
     staged tier, raw wire), hybrid_ring_onebit (the ring's compressed
@@ -3780,7 +3834,7 @@ def phase_train_hybrid(B=4, S=1024, steps=1) -> dict:
             if server.poll() is None:
                 server.kill()
                 server.wait()
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_hybrid")
     calls = steps + 1
     legs = ("staged_raw",) + tuple(leg for leg, _, _, _ in HYBRID_LEGS)
     for leg in legs:
@@ -3806,7 +3860,7 @@ def phase_train_hybrid(B=4, S=1024, steps=1) -> dict:
                     f"train_hybrid: rank {r['rank']}'s {leg} parameters "
                     f"differ from staged_raw's after step(s) {differ} (0: "
                     "warm-up)")
-    n_bytes = GPT2M_PARAMS * 4
+    n_bytes = gpt_param_count(cfg) * 4
     for leg, _, _, server in HYBRID_LEGS:
         for r in per_rank:
             wire = r[leg]["plan"]["wire"]
@@ -3864,7 +3918,9 @@ def phase_train_hybrid(B=4, S=1024, steps=1) -> dict:
             **{k: per_rank[0][leg][k] for k in ("plan", "stages",
                                                 "nic_bytes")
                if k in per_rank[0][leg]}}
-    emit({"phase": "train_hybrid", "ranks": n, "pods": 1,
+    emit({"phase": "train_hybrid", "ranks": n, "layers": cfg.n_layers,
+          "depth_cut": "24 layers cut to keep the smoke in its limit",
+          "pods": 1,
           "servers": "one process a hybrid leg",
           "timing": "two ranks time-slice one card", "batch_per_rank": B,
           "seq": S, "steps": steps, "host_cpus": os.cpu_count(),
@@ -3981,7 +4037,7 @@ def train_chaos_rank(rank, n, B, S, steps, bases, sigdir):
     from byteps_tpu_torch.models.train import adamw
     from byteps_tpu_torch.ops import launches, reset_launches
 
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_chaos")
     tok, tgt = synthetic_batch(
         torch.Generator(device="cuda").manual_seed(1 + rank), cfg, B, S)
     res = {}
@@ -4272,9 +4328,9 @@ def check_elastic_legs(per_rank, steps) -> dict:
     miss, returns what each leg adds to its line."""
     from byteps_tpu_torch.models import GPTConfig
 
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_chaos")
     calls = steps + 1
-    full = [GPT2M_PARAMS * 4] * 4
+    full = [gpt_param_count(cfg) * 4] * 4
     staged = [r["staged_raw"]["digests"] for r in per_rank]
     out = {}
     for r in per_rank:
@@ -4518,9 +4574,9 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
                     server.kill()
                     server.wait()
         shutil.rmtree(sigdir, ignore_errors=True)
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_chaos")
     calls = steps + 1
-    n_bytes = GPT2M_PARAMS * 4
+    n_bytes = gpt_param_count(cfg) * 4
     legs = ("staged_raw",) + tuple(leg for leg, _ in CHAOS_LEGS)
     elastic = check_elastic_legs(per_rank, steps)
     for leg in legs + ("dcn_join", "dcn_straggler_k0"):
@@ -4632,7 +4688,9 @@ def phase_train_chaos(B=4, S=1024, steps=2) -> dict:
                                                                moved]
     for leg, extra in elastic.items():
         legs_out[leg].update(extra)
-    emit({"phase": "train_chaos", "ranks": n, "servers": "two processes a leg",
+    emit({"phase": "train_chaos", "ranks": n, "layers": cfg.n_layers,
+          "depth_cut": "24 layers cut to keep the smoke in its limit",
+          "servers": "two processes a leg",
           "timing": "two ranks time-slice one card", "batch_per_rank": B,
           "seq": S, "steps": steps, "kill_after_step": CHAOS_KILL_STEP,
           "fault_spec": CHAOS_SPEC, "health": CHAOS_HEALTH,
@@ -4734,17 +4792,17 @@ def zigzag_batch(tok, tgt, n):
     return tok[:, perm], tgt[:, perm]
 
 
-def named_leaves(tree) -> list:
+def named_leaves(tree, prefix: str = "") -> list:
     """(name, array) of a nested parameter tree in ``flat_leaves``'
-    order: keys sorted at every level, blocks as ``blocks.<i>.<key>``."""
-    out = []
-    for k in sorted(tree):
-        if k == "blocks":
-            out += [(f"blocks.{i}.{j}", b[j])
-                    for i, b in enumerate(tree["blocks"]) for j in sorted(b)]
-        else:
-            out.append((k, tree[k]))
-    return out
+    order: keys sorted at every level, blocks as ``blocks.<i>.<key>``
+    (an MoE block's experts ``blocks.<i>.moe.<key>``)."""
+    if isinstance(tree, dict):
+        return [nl for k in sorted(tree)
+                for nl in named_leaves(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [nl for i, b in enumerate(tree)
+                for nl in named_leaves(b, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
 
 
 def off_2lr_by_leaf(tree, ref) -> dict:
@@ -5122,6 +5180,638 @@ def phase_train_parallel(B=PARALLEL_BATCH[0], S=PARALLEL_BATCH[1],
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 17: pipeline and expert parallelism, ranks that share the card
+# --------------------------------------------------------------------------
+# (name, ranks, mesh axes, microbatches, compression): GPT-2 medium at
+# full width and depth through GPipe stages, each leg held to one_rank
+# (the same global batch and seeded weights on one rank). dp2_pp2's rank
+# holds 2 rows of the batch of 4, so it takes 2 microbatches of one row,
+# the microbatch pp2_raw's 4 take.
+PIPELINE_LEGS = (("pp2_raw", 2, {"pp": 2}, 4, None),
+                 ("dp2_pp2_onebit_ef", 4, {"pp": 2, "dp": 2}, 2, ONEBIT_EF))
+# the f32 parity case: the small dense model of train_parallel's f32
+# case on pp2, 2 microbatches, against one rank's step on the card
+PIPELINE_F32_LEGS = (("f32_pp2", 2, {"pp": 2}, 2),)
+# The Switch-MoE configuration the repo benchmarks (bench.py's "moe"
+# model: Switch-MoE E8 d512/L8, top-1, capacity factor 1.25, aux 0.01,
+# bf16) at its batch B=8 × S=512. (name, ranks, mesh axes, microbatches):
+# moe_dp2 every rank all 8 experts (the control), moe_ep2 4 experts a
+# rank, moe_pp2_ep2 4 ranks, 4 layers a stage.
+MOE_BATCH = (8, 512)
+MOE_LEGS = (("moe_dp2", 2, {"dp": 2}, None),
+            ("moe_ep2", 2, {"ep": 2}, None),
+            ("moe_pp2_ep2", 4, {"pp": 2, "ep": 2}, 2))
+# moe_ep2 against moe_dp2: each rank routes the same rows at the same
+# capacity in both, so they differ only in where the expert products and
+# their gradients are summed (over both ranks' slots in one bf16 product
+# against two f32-summed per-rank products): bf16 roundoff, held as PR
+# 19's layouts are (the loss each step, each leaf's share past 2·lr, the
+# key bias exempt).
+MOE_EP_LOSS_TOL = PARALLEL_LOSS_TOL
+MOE_EP_OFF_SHARE = PARALLEL_OFF_SHARE
+# moe_pp2_ep2 against moe_ep2: routing per microbatch of 2 rows (the
+# capacity from 1,024 tokens) drops other tokens than routing the rank's
+# 4 rows at once where capacity 1.25 binds, so after the warm-up's
+# update they are different trainings, held as PR 19's onebit leg is:
+# the warm-up's loss (same weights, only the drops differ) within
+# MOE_PP_WARMUP_TOL, later losses within MOE_PP_LOSS_GAP, the whole
+# share past 2·lr under MOE_PP_OFF_SHARE.
+MOE_PP_WARMUP_TOL = 2e-2
+MOE_PP_LOSS_GAP = PARALLEL_ONEBIT_LOSS_GAP
+MOE_PP_OFF_SHARE = PARALLEL_ONEBIT_OFF_SHARE
+# the f32 MoE parity case: a small model at a capacity that does not bind
+# and no aux term (the Switch aux is a product of per-rank means, so its
+# value depends on how tokens split; the nll does not), on ep2 and
+# pp2×ep2, each within PARALLEL_F32_TOL of one rank's step on the card
+MOE_F32_LEGS = (("f32_ep2", 2, {"ep": 2}, None),
+                ("f32_pp2_ep2", 4, {"pp": 2, "ep": 2}, 2))
+
+
+def moe_switch_cfg():
+    from byteps_tpu_torch.models import MoEGPTConfig
+
+    return MoEGPTConfig(vocab_size=32768, max_seq=512, d_model=512,
+                        n_heads=8, n_layers=8, d_ff=2048, n_experts=8,
+                        dtype=torch.bfloat16)
+
+
+def moe_f32_cfg():
+    from byteps_tpu_torch.models import MoEGPTConfig
+
+    return MoEGPTConfig(vocab_size=512, max_seq=256, d_model=256,
+                        n_heads=4, n_layers=2, d_ff=512, n_experts=4,
+                        capacity_factor=4.0, aux_coef=0.0,
+                        dtype=torch.float32)
+
+
+def pipeline_paths() -> list:
+    """(path, dtype, B, S, heads, head dim) of the attention calls each
+    step of train_pipeline and train_moe makes (every call the whole
+    causal sequence of one microbatch, no lse cotangent): one rank's, and
+    each leg's microbatch."""
+    from byteps_tpu_torch.models import GPTConfig
+
+    g, f = GPTConfig.gpt2_medium(), parallel_f32_cfg()
+    m, mf = moe_switch_cfg(), moe_f32_cfg()
+    bf, f32 = torch.bfloat16, torch.float32
+    B, S = PARALLEL_BATCH
+    Bf, Sf = PARALLEL_F32_BATCH
+    Bm, Sm = MOE_BATCH
+
+    def rows(B, axes, micro, batch_axes):
+        for a in batch_axes:
+            B //= axes.get(a, 1)
+        return B // (micro or 1)
+
+    out = [("pipe_one_rank", bf, B, S, g.n_heads, g.head_dim)]
+    out += [(leg, bf, rows(B, axes, M, ("dp",)), S, g.n_heads, g.head_dim)
+            for leg, _, axes, M, _ in PIPELINE_LEGS]
+    out += [(leg, f32, rows(Bf, axes, M, ("dp",)), Sf, f.n_heads,
+             f.head_dim) for leg, _, axes, M in PIPELINE_F32_LEGS]
+    out += [("moe_one_rank", bf, Bm, Sm, m.n_heads, m.head_dim)]
+    out += [(leg, bf, rows(Bm, axes, M, ("dp", "ep")), Sm, m.n_heads,
+             m.head_dim) for leg, _, axes, M in MOE_LEGS]
+    out += [("f32_moe_one_rank", f32, Bf, Sf, mf.n_heads, mf.head_dim)]
+    out += [(leg, f32, rows(Bf, axes, M, ("dp", "ep")), Sf, mf.n_heads,
+             mf.head_dim) for leg, _, axes, M in MOE_F32_LEGS]
+    return out
+
+
+def pipeline_onebit_tail() -> int:
+    """The tail chunk of a dp2_pp2 stage's flat gradient (its 12 layers
+    and the leaves every stage holds)."""
+    from byteps_tpu_torch.models import GPTConfig
+
+    cfg = GPTConfig.gpt2_medium()
+    whole = gpt_param_count(cfg)
+    top = gpt_param_count(dataclasses.replace(cfg, n_layers=0))
+    stage = top + (whole - top) // 2
+    return stage % CHUNK
+
+
+def pipeline_kernel_cases(timer) -> dict:
+    """The forward, dq and dk/dv kernels at every distinct call of
+    :func:`pipeline_paths`, each against its plain version under the
+    cases' tolerances, timed and bounded, and onebit pack and unpack-sum
+    at the dp2_pp2 leg's tail chunk (its full chunks are the "chunk"
+    case's): {case: {"paths", "fwd", "bwd"}}."""
+    calls = {}
+    for path, dt, B, S, H, D in pipeline_paths():
+        calls.setdefault((dt, B, S, H, D), []).append(path)
+    out = {}
+    for i, ((dt, B, S, H, D), paths) in enumerate(calls.items()):
+        name = f"{paths[0]}:{B}x{S}x{H}"
+        out[name] = {
+            "paths": paths,
+            "fwd": fwd_case(timer, name, B, S, S, H, H, D, 0, dt, 600 + i),
+            "bwd": bwd_case(timer, name, B, S, S, H, H, D, 0, 0, dt,
+                            700 + i)}
+    out["onebit_tail"] = onebit_case(timer, "dp2_pp2_tail",
+                                     pipeline_onebit_tail(), 48)
+    return out
+
+
+@contextlib.contextmanager
+def recording_aux(store: list):
+    """A context in which every MoE FFN's aux loss (this rank's, detached)
+    is appended to ``store`` as it is computed."""
+    from byteps_tpu_torch.models import moe_gpt
+
+    inner = moe_gpt.moe_ffn
+
+    def rec(*a, **kw):
+        y, aux = inner(*a, **kw)
+        store.append(aux.detach())
+        return y, aux
+
+    moe_gpt.moe_ffn = rec
+    try:
+        yield
+    finally:
+        moe_gpt.moe_ffn = inner
+
+
+def timed_legs_step(step, opt, tok, tgt, steps, aux=None) -> dict:
+    """:func:`timed_train`, and with ``aux`` (a :func:`recording_aux`
+    store) the mean aux of the last step's MoE layers."""
+    if aux is None:
+        return timed_train(step, opt, tok, tgt, steps)
+    with recording_aux(aux):
+        out = timed_train(step, opt, tok, tgt, steps)
+    per_step = len(aux) // (steps + 1)
+    out["aux"] = float(torch.stack(aux[-per_step:]).mean())
+    return out
+
+
+def mesh_leg(rank, factory, cfg, axes, tok, tgt, steps, ref_path=None,
+             save_path=None, aux=False, **kw) -> dict:
+    """One bf16 leg on this rank: the mesh, ``factory``'s step from the
+    seeded weights, one warm-up and ``steps`` timed steps; losses, times,
+    peak memory, launches and collectives, the digest of the leaves
+    every pp stage and ep rank holds, and on rank 0 each gathered leaf's
+    distance past 2·lr from the flat parameters at ``ref_path``; rank 0
+    saves its gathered parameters to ``save_path``, the next leg's
+    yardstick."""
+    from byteps_tpu_torch.models import params_to_numpy
+    from byteps_tpu_torch.models.convert import flat_specs, param_specs
+    from byteps_tpu_torch.ops import launches, reset_launches
+    from byteps_tpu_torch.parallel.mesh import (MeshAxes, collectives,
+                                                make_mesh,
+                                                reset_collectives)
+    from byteps_tpu_torch.parallel.partitioner import spec_axes
+
+    mesh = make_mesh(MeshAxes(**axes))
+    step, params, opt = factory(
+        cfg, mesh, generator=torch.Generator(device="cuda").manual_seed(0),
+        **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    reset_collectives()
+    out = timed_legs_step(step, opt, tok, tgt, steps, [] if aux else None)
+    out["launches"] = dict(launches)
+    out["collectives"] = dict(collectives)
+    specs = flat_specs(param_specs(cfg, mesh, params.stacked))
+    rep = [p for p, s in zip(opt.params, specs)
+           if not {"pp", "ep"} & set(spec_axes(s))]
+    out["rep_sha1"] = params_digest(rep)
+    out["coords"] = {a: mesh.axis_index(a) for a in mesh.axis_names}
+    out["local_params"] = sum(p.numel() for p in opt.params)
+    tree = params_to_numpy(params, mesh=mesh)
+    if rank == 0 and ref_path is not None:
+        out["off_2lr"] = off_2lr_by_leaf(tree, np.load(ref_path,
+                                                       mmap_mode="r"))
+    if rank == 0 and save_path is not None:
+        np.save(save_path, np.concatenate(
+            [a.ravel() for _, a in named_leaves(tree)]))
+    del step, params, opt, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_leg(rank, factory, cfg, axes, init, batch, ref, steps=3,
+            **kw) -> dict:
+    """One f32 parity leg on the card: losses, launches, (rank 0) each
+    leaf's distance past 2·lr from ``ref``."""
+    from byteps_tpu_torch.models import params_to_numpy
+    from byteps_tpu_torch.ops import launches, reset_launches
+    from byteps_tpu_torch.parallel.mesh import MeshAxes, make_mesh
+
+    mesh = make_mesh(MeshAxes(**axes))
+    step, params, _ = factory(cfg, mesh, init_params=init().to("cuda"),
+                              device="cuda", **kw)
+    tok, tgt = batch
+    reset_launches()
+    out = {"losses": [float(step(tok.cuda(), tgt.cuda()))
+                      for _ in range(steps)],
+           "launches": dict(launches)}
+    tree = params_to_numpy(params, mesh=mesh)
+    if rank == 0:
+        out["off_2lr"] = off_2lr_by_leaf(tree, ref)
+    return out
+
+
+def f32_init(cfg):
+    """The f32 cases' seeded weights (on the CPU, then moved)."""
+    from byteps_tpu_torch.models import gpt_init, moe_gpt_init
+
+    init = moe_gpt_init if hasattr(cfg, "n_experts") else gpt_init
+    return lambda: init(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+def f32_one_rank(factory, cfg, steps=3) -> tuple:
+    """The f32 case's one-rank losses and flat parameters on the card."""
+    step, _, opt = factory(cfg, init_params=f32_init(cfg)().to("cuda"),
+                           device="cuda")
+    tok, tgt = parallel_batch(cfg, *PARALLEL_F32_BATCH, "cpu")
+    losses = [float(step(tok.cuda(), tgt.cuda())) for _ in range(steps)]
+    return losses, flat_params(opt)
+
+
+def train_pipeline_rank(rank, n, B, S, steps, ref_path, f32_ref):
+    """One rank of train_pipeline: each bf16 leg of ``n`` ranks
+    (:func:`mesh_leg`, held to one_rank's parameters at ``ref_path``),
+    then the f32 parity leg at 2."""
+    from byteps_tpu_torch.models import (GPTConfig, make_gpt_pp_train_step,
+                                         synthetic_batch)
+
+    cfg = GPTConfig.gpt2_medium()
+    tok, tgt = parallel_batch(cfg, B, S, "cuda")
+    res = {}
+    for leg, ranks, axes, M, comp in PIPELINE_LEGS:
+        if ranks == n:
+            res[leg] = mesh_leg(rank, make_gpt_pp_train_step, cfg, axes,
+                                tok, tgt, steps, ref_path, n_micro=M,
+                                compression_params=comp)
+    fc = parallel_f32_cfg()
+    for leg, ranks, axes, M in PIPELINE_F32_LEGS:
+        if ranks == n:
+            res[leg] = f32_leg(rank, make_gpt_pp_train_step, fc, axes,
+                               f32_init(fc), parallel_batch(
+                                   fc, *PARALLEL_F32_BATCH, "cpu"),
+                               f32_ref, n_micro=M)
+    return res
+
+
+def train_moe_rank(rank, n, B, S, steps, tmp, f32_ref):
+    """One rank of train_moe: each bf16 leg of ``n`` ranks, held to the
+    leg before it (moe_ep2 to moe_dp2, moe_pp2_ep2 to moe_ep2: rank 0
+    keeps each leg's gathered parameters in ``tmp``), then the f32
+    parity legs, held to one rank's (``f32_ref``)."""
+    import os
+
+    from byteps_tpu_torch.models import (make_gpt_moe_pp_train_step,
+                                         make_gpt_moe_train_step)
+
+    cfg = moe_switch_cfg()
+    tok, tgt = parallel_batch(cfg, B, S, "cuda")
+    res = {}
+    names = [g[0] for g in MOE_LEGS]
+    for i, (leg, ranks, axes, M) in enumerate(MOE_LEGS):
+        if ranks == n:
+            factory, kw = ((make_gpt_moe_pp_train_step, {"n_micro": M})
+                           if M else (make_gpt_moe_train_step, {}))
+            res[leg] = mesh_leg(
+                rank, factory, cfg, axes, tok, tgt, steps,
+                ref_path=(os.path.join(tmp, f"{names[i - 1]}.npy")
+                          if i else None),
+                save_path=(os.path.join(tmp, f"{leg}.npy")
+                           if i + 1 < len(names) else None),
+                aux=True, **kw)
+    mc = moe_f32_cfg()
+    for leg, ranks, axes, M in MOE_F32_LEGS:
+        if ranks == n:
+            factory, kw = ((make_gpt_moe_pp_train_step, {"n_micro": M})
+                           if M else (make_gpt_moe_train_step, {}))
+            res[leg] = f32_leg(rank, factory, mc, axes, f32_init(mc),
+                               parallel_batch(mc, *PARALLEL_F32_BATCH,
+                                              "cpu"), f32_ref, **kw)
+    return res
+
+
+def want_launches(calls, micro, layers, route_call) -> dict:
+    """A rank's flash launches: one a layer and microbatch each way, the
+    forward's split path as the library routes ``route_call``'s
+    (B, S, H, D, dtype)."""
+    from byteps_tpu_torch.ops.flash_attention import fwd_route
+
+    B, S, H, D, dt = route_call
+    q = torch.empty(B, S, H, D, dtype=dt, device="cuda")
+    n = calls * micro * layers
+    want = {k: n for k in TRAIN}
+    want["flash_fwd_split"] = n if fwd_route(q, q, q) == "split" else 0
+    return want
+
+
+def want_collectives(calls, **per_step) -> dict:
+    """Every kind of ``collectives`` at 0 but ``per_step``'s, times
+    ``calls``."""
+    from byteps_tpu_torch.parallel.mesh import collectives
+
+    return {k: calls * per_step.get(k, 0) for k in collectives}
+
+
+def leg_summary(rs, yard_losses, tol, off_limit, whole) -> tuple:
+    """The checks every bf16 leg takes against its yardstick's losses
+    (``tol`` None: the gaps reported, not held) and parameters (rank 0's
+    ``off_2lr``; ``off_limit`` None: none): (summary, checks)."""
+    r0 = rs[0]
+    losses = r0["losses"]
+    gap = [abs(a - b) for a, b in zip(losses, yard_losses)]
+    checks = {
+        "falls": all(falls(r["losses"]) for r in rs),
+        "same_losses": all(r["losses"] == losses for r in rs),
+        "ranks_launch_alike": all(r["launches"] == r0["launches"]
+                                  for r in rs)}
+    if tol is not None:
+        checks["loss_gap"] = all(g <= t for g, t in zip(gap, tol))
+    off = None
+    if off_limit is not None:
+        off = off_summary(r0["off_2lr"])
+        checks["off_2lr"] = ((off["share"] if whole
+                              else off["worst_share"]) < off_limit)
+    return {"losses": losses, "yardstick_losses": yard_losses,
+            "loss_gap": gap, "loss_tol": tol, "off_2lr": off,
+            "off_2lr_bound": (off_limit, "whole" if whole else "each leaf"),
+            "step_ms": max(r["step_ms"] for r in rs),
+            "step_ms_each": [r["step_ms_each"] for r in rs],
+            "warmup_s": max(r["warmup_s"] for r in rs),
+            "max_memory_allocated_gb": [r["max_memory_allocated"] / 1e9
+                                        for r in rs],
+            "local_params": [r["local_params"] for r in rs],
+            "launches": r0["launches"]}, checks
+
+
+def exact(got, want) -> dict:
+    """{kind: (got, want)} where they differ."""
+    return {k: (got.get(k, 0), v) for k, v in want.items()
+            if got.get(k, 0) != v}
+
+
+def phase_train_pipeline(B=PARALLEL_BATCH[0], S=PARALLEL_BATCH[1],
+                         steps=1) -> dict:
+    """GPT-2 medium at full width and depth through GPipe stages on meshes
+    of rank processes that time-slice the card (``spawn``, gloo), bf16
+    over f32 master weights, AdamW(1e-3), the global batch B=4 × S=1024
+    and one_rank's seeded weights (one_rank: the same step on one rank,
+    in this process, the yardstick), one warm-up and ``steps`` timed
+    steps a leg: pp2_raw (12 layers a stage, 4 microbatches of one row)
+    and dp2_pp2_onebit_ef (onebit + EF over dp, 2 microbatches of one
+    row). pp2_raw: each step's loss within PARALLEL_LOSS_TOL of
+    one_rank's, each gathered leaf's share past 2·lr under
+    PARALLEL_OFF_SHARE (the key bias exempt), the leaves both stages
+    hold bit-identical on every rank. dp2_pp2_onebit_ef: PR 19's onebit
+    limits (the warm-up's loss within PARALLEL_LOSS_TOL, then
+    PARALLEL_ONEBIT_LOSS_GAP; the whole share past 2·lr under
+    PARALLEL_ONEBIT_OFF_SHARE), those leaves identical within each
+    stage. Exact launches (the flash kernels once a layer and
+    microbatch each way on a stage's 12 layers; onebit pack 3 and
+    unpack-sum 5 times a chunk and step) and collectives (M + S − 2
+    shifts each way and one pp gradient sum a step). Then the f32 parity
+    case: train_parallel's small model on pp2 (2 microbatches), three
+    steps on the card, within PARALLEL_F32_TOL of one rank's. Returns
+    one rank's launch counts a leg and one_rank's, summed."""
+    import os
+    import shutil
+    import tempfile
+
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.models import GPTConfig, make_gpt_train_step
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    cfg = GPTConfig.gpt2_medium()
+    t0 = time.perf_counter()
+    reset_launches()
+    step, params, opt = make_gpt_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    tok, tgt = parallel_batch(cfg, B, S, "cuda")
+    one = timed_train(step, opt, tok, tgt, steps)
+    one["launches"] = dict(launches)
+    calls = steps + 1
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    ref_path = os.path.join(tmp, "one_rank.npy")
+    np.save(ref_path, flat_params(opt))
+    del step, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_one = f32_one_rank(make_gpt_train_step, parallel_f32_cfg())
+    try:
+        per_n = {n: spawn_ranks(train_pipeline_rank, n, B, S, steps,
+                                ref_path, f32_one[1]) for n in (2, 4)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    per = get_config().partition_bytes // 4
+    legs_out, failed = {}, []
+    total = dict(one["launches"])
+    for leg, n, axes, M, comp in PIPELINE_LEGS:
+        rs = [r[leg] for r in per_n[n]]
+        onebit = comp is not None
+        tol = [PARALLEL_LOSS_TOL] + [PARALLEL_ONEBIT_LOSS_GAP if onebit
+                                     else PARALLEL_LOSS_TOL] * steps
+        out, checks = leg_summary(
+            rs, one["losses"], tol, PARALLEL_ONEBIT_OFF_SHARE if onebit
+            else PARALLEL_OFF_SHARE, onebit)
+        pp = axes["pp"]
+        want = want_launches(calls, M, cfg.n_layers // pp,
+                             (B // axes.get("dp", 1) // M, S, cfg.n_heads,
+                              cfg.head_dim, torch.bfloat16))
+        if onebit:
+            chunks = -(-rs[0]["local_params"] // per)
+            want.update(onebit_pack=calls * chunks * 3,
+                        onebit_unpack_sum=calls * chunks * 5)
+        wcoll = want_collectives(calls, pp_shift_fwd=M + pp - 2,
+                                 pp_shift_bwd=M + pp - 2, pp_grad_sum=1)
+        checks["launches"] = not exact(rs[0]["launches"], want)
+        checks["collectives"] = not exact(rs[0]["collectives"], wcoll)
+        # the leaves every stage holds: the same bits on every rank, or
+        # under onebit within each stage (each stage's chunk scales are
+        # its own)
+        groups = ([list(range(n))] if not onebit else
+                  [[i for i, r in enumerate(rs) if r["coords"]["pp"] == s]
+                   for s in range(pp)])
+        checks["rep_identical"] = all(
+            len({rs[i]["rep_sha1"] for i in g}) == 1 for g in groups)
+        if not all(checks.values()):
+            failed.append((leg, checks, exact(rs[0]["launches"], want),
+                           exact(rs[0]["collectives"], wcoll)))
+        legs_out[leg] = {
+            "ranks": n, "mesh": axes, "n_micro": M, "compression": comp,
+            **out, "vs_one_rank": out["step_ms"] / one["step_ms"],
+            "collectives_per_step": {k: v / calls for k, v in
+                                     rs[0]["collectives"].items() if v},
+            "checks": checks}
+        for k, v in rs[0]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    f32 = {}
+    fc = parallel_f32_cfg()
+    for leg, n, axes, M in PIPELINE_F32_LEGS:
+        got = [r[leg]["losses"] for r in per_n[n]]
+        gap = max(abs(a - b) for g in got for a, b in zip(g, f32_one[0]))
+        off = off_summary(per_n[n][0][leg]["off_2lr"])
+        want = want_launches(3, M, fc.n_layers // axes["pp"],
+                             (PARALLEL_F32_BATCH[0] // M,
+                              PARALLEL_F32_BATCH[1], fc.n_heads,
+                              fc.head_dim, torch.float32))
+        bad = exact(per_n[n][0][leg]["launches"], want)
+        f32[leg] = {"losses": got[0], "one_rank": f32_one[0],
+                    "max_gap": gap, "off_2lr": off, "launches_off": bad}
+        if (gap > PARALLEL_F32_TOL or bad
+                or off["worst_share"] >= PARALLEL_OFF_SHARE):
+            failed.append((leg, gap, off, bad))
+    emit({"phase": "train_pipeline", "card": card_name_and_limit(),
+          "timing": "the ranks time-slice one card", "batch": B, "seq": S,
+          "layers": cfg.n_layers, "steps": steps, "one_rank": {
+              k: one[k] for k in ("losses", "step_ms", "warmup_s",
+                                  "max_memory_allocated")},
+          "wall_s": wall, "legs": legs_out, "f32": f32,
+          "f32_tol": PARALLEL_F32_TOL, "failed": failed})
+    if failed:
+        raise AssertionError(f"train_pipeline failed: {failed}")
+    return total
+
+
+def phase_train_moe(B=MOE_BATCH[0], S=MOE_BATCH[1], steps=1) -> dict:
+    """The repo's Switch-MoE configuration (:func:`moe_switch_cfg`) at
+    B=8 × S=512, bf16 over f32 master weights, AdamW(1e-3), seeded
+    weights, one warm-up and ``steps`` timed steps a leg: moe_one_rank
+    (no mesh, in this process), then on rank processes that time-slice
+    the card moe_dp2 (every rank all 8 experts: the control), moe_ep2
+    (4 experts a rank; held to moe_dp2 within MOE_EP_LOSS_TOL each step
+    and MOE_EP_OFF_SHARE a leaf past 2·lr, the key bias exempt) and
+    moe_pp2_ep2 (4 ranks, 2 microbatches; held to moe_ep2: the warm-up
+    within MOE_PP_WARMUP_TOL, then MOE_PP_LOSS_GAP, the whole share past
+    2·lr under MOE_PP_OFF_SHARE). Every leg: losses finite and falling,
+    the leaves no pp or ep axis splits bit-identical on every rank,
+    exact launches (the flash kernels once a layer and microbatch each
+    way) and collectives (two exchanges over ep a layer and microbatch
+    each way, one ep gradient sum a step; pp: M + S − 2 shifts each way
+    and one pp gradient sum). Each leg reports ms a step (the slower
+    rank), peak memory a rank and the mean aux loss of its last step's
+    MoE layers. Then the f32 parity case (:func:`moe_f32_cfg`: capacity
+    not binding, no aux) on ep2 and pp2×ep2 within PARALLEL_F32_TOL of
+    one rank's step on the card. Returns one rank's launch counts a leg
+    and moe_one_rank's, summed."""
+    import shutil
+    import tempfile
+
+    from byteps_tpu_torch.models import make_gpt_moe_train_step
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    cfg = moe_switch_cfg()
+    t0 = time.perf_counter()
+    reset_launches()
+    step, params, opt = make_gpt_moe_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    tok, tgt = parallel_batch(cfg, B, S, "cuda")
+    one = timed_legs_step(step, opt, tok, tgt, steps, [])
+    one["launches"] = dict(launches)
+    calls = steps + 1
+    del step, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_one = f32_one_rank(make_gpt_moe_train_step, moe_f32_cfg())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        per_n = {n: spawn_ranks(train_moe_rank, n, B, S, steps, tmp,
+                                f32_one[1]) for n in (2, 4)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    legs_out, failed = {}, []
+    total = dict(one["launches"])
+    want_one = want_launches(calls, 1, cfg.n_layers,
+                             (B, S, cfg.n_heads, cfg.head_dim,
+                              torch.bfloat16))
+    if exact(one["launches"], want_one) or not falls(one["losses"]):
+        failed.append(("moe_one_rank", one["losses"],
+                       exact(one["launches"], want_one)))
+    prev = None
+    for leg, n, axes, M in MOE_LEGS:
+        rs = [r[leg] for r in per_n[n]]
+        ep, pp, micro = axes.get("ep", 1), axes.get("pp", 1), M or 1
+        if prev is None:
+            # the control: its rows route at another capacity than
+            # moe_one_rank's, so its gaps to it are reported, not held
+            yard, tol, limit, whole = one["losses"], None, None, False
+        elif pp == 1:
+            yard = legs_out[prev]["losses"]
+            tol, limit, whole = ([MOE_EP_LOSS_TOL] * calls,
+                                 MOE_EP_OFF_SHARE, False)
+        else:
+            yard = legs_out[prev]["losses"]
+            tol, limit, whole = ([MOE_PP_WARMUP_TOL]
+                                 + [MOE_PP_LOSS_GAP] * steps,
+                                 MOE_PP_OFF_SHARE, True)
+        out, checks = leg_summary(rs, yard, tol, limit, whole)
+        rows = B // axes.get("dp", 1) // ep // micro
+        want = want_launches(calls, micro, cfg.n_layers // pp,
+                             (rows, S, cfg.n_heads, cfg.head_dim,
+                              torch.bfloat16))
+        per_step = {}
+        if ep > 1:
+            a2a = 2 * micro * cfg.n_layers // pp
+            per_step.update(ep_all_to_all_fwd=a2a, ep_all_to_all_bwd=a2a,
+                            ep_grad_sum=1)
+        if pp > 1:
+            per_step.update(pp_shift_fwd=micro + pp - 2,
+                            pp_shift_bwd=micro + pp - 2, pp_grad_sum=1)
+        wcoll = want_collectives(calls, **per_step)
+        checks["launches"] = not exact(rs[0]["launches"], want)
+        checks["collectives"] = not exact(rs[0]["collectives"], wcoll)
+        checks["rep_identical"] = len({r["rep_sha1"] for r in rs}) == 1
+        if not all(checks.values()):
+            failed.append((leg, checks, exact(rs[0]["launches"], want),
+                           exact(rs[0]["collectives"], wcoll)))
+        legs_out[leg] = {
+            "ranks": n, "mesh": axes, "n_micro": M, "held_to": prev,
+            **out, "aux": [r["aux"] for r in rs],
+            "vs_one_rank": out["step_ms"] / one["step_ms"],
+            "collectives_per_step": {k: v / calls for k, v in
+                                     rs[0]["collectives"].items() if v},
+            "checks": checks}
+        for k, v in rs[0]["launches"].items():
+            total[k] = total.get(k, 0) + v
+        prev = leg
+    f32 = {}
+    mc = moe_f32_cfg()
+    for leg, n, axes, M in MOE_F32_LEGS:
+        micro, pp = M or 1, axes.get("pp", 1)
+        got = [r[leg]["losses"] for r in per_n[n]]
+        gap = max(abs(a - b) for g in got for a, b in zip(g, f32_one[0]))
+        off = off_summary(per_n[n][0][leg]["off_2lr"])
+        rows = PARALLEL_F32_BATCH[0] // axes.get("ep", 1) // micro
+        want = want_launches(3, micro, mc.n_layers // pp,
+                             (rows, PARALLEL_F32_BATCH[1], mc.n_heads,
+                              mc.head_dim, torch.float32))
+        bad = exact(per_n[n][0][leg]["launches"], want)
+        f32[leg] = {"losses": got[0], "one_rank": f32_one[0],
+                    "max_gap": gap, "off_2lr": off, "launches_off": bad}
+        if (gap > PARALLEL_F32_TOL or bad
+                or off["worst_share"] >= PARALLEL_OFF_SHARE):
+            failed.append((leg, gap, off, bad))
+    emit({"phase": "train_moe", "card": card_name_and_limit(),
+          "timing": "the ranks time-slice one card", "batch": B, "seq": S,
+          "config": {k: getattr(cfg, k) for k in (
+              "vocab_size", "d_model", "n_heads", "n_layers", "d_ff",
+              "n_experts", "capacity_factor", "aux_coef", "router_topk")},
+          "steps": steps, "moe_one_rank": {
+              k: one[k] for k in ("losses", "step_ms", "warmup_s",
+                                  "max_memory_allocated", "aux")},
+          "limits": {"ep_loss": MOE_EP_LOSS_TOL,
+                     "ep_off_2lr_each_leaf": MOE_EP_OFF_SHARE,
+                     "pp_warmup": MOE_PP_WARMUP_TOL,
+                     "pp_loss": MOE_PP_LOSS_GAP,
+                     "pp_off_2lr_whole": MOE_PP_OFF_SHARE},
+          "wall_s": wall, "legs": legs_out, "f32": f32,
+          "f32_tol": PARALLEL_F32_TOL, "failed": failed})
+    if failed:
+        raise AssertionError(f"train_moe failed: {failed}")
+    return total
+
+
 # the kernels each run of the main path must launch
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
@@ -5146,11 +5836,14 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
                                 "topk_select", "topk_reconstruct_sum"),
          "train_accum": TRAIN,
          "eval": ("flash_fwd",),
-         "train_parallel": TRAIN + ("onebit_pack", "onebit_unpack_sum")}
+         "train_parallel": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
+         "train_pipeline": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
+         "train_moe": TRAIN}
 MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
               "train_onebit", "train_topk", "train_ring", "train_dcn",
               "train_hybrid", "train_chaos", "aggregate_onebit",
-              "train_zero", "train_accum", "eval", "train_parallel")
+              "train_zero", "train_accum", "eval", "train_parallel",
+              "train_pipeline", "train_moe")
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
@@ -5212,6 +5905,12 @@ def main() -> int:
                          "calls "
                          "and train_parallel (tensor and sequence "
                          "parallelism); no kernels line, no result line")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="run only the flash kernels and onebit at "
+                         "train_pipeline's and train_moe's calls, and "
+                         "train_pipeline and train_moe (pipeline and "
+                         "expert parallelism); no kernels line, no result "
+                         "line")
     ap.add_argument("--zero", action="store_true",
                     help="run only the training options' phases (the codec "
                          "kernels at ZeRO's shapes, train_raw, train_zero, "
@@ -5274,6 +5973,12 @@ def main() -> int:
         emit({"phase": "launches", "train_parallel": counted_ranks(
             "train_parallel", phase_train_parallel)})
         return 0
+    if args.pipeline:
+        pipeline_kernel_cases(Timer())
+        emit({"phase": "launches", "train_pipeline": counted_ranks(
+            "train_pipeline", phase_train_pipeline), "train_moe":
+            counted_ranks("train_moe", phase_train_moe)})
+        return 0
     if args.zero:
         zero_codec_cases(Timer())
         emit({"phase": "launches", **training_options(),
@@ -5332,6 +6037,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"flash_bwd cases {failed} failed")
     ring_kc = parallel_kernel_cases(timer)
+    pipe_kc = pipeline_kernel_cases(timer)
     twice_case("train", 8, 1024, 16, 16, 64, 38)
     twice_case("d128", 4, 1024, 8, 8, 128, 39)
     chunk = 4096000 // 4           # one default partition of f32
@@ -5431,6 +6137,9 @@ def main() -> int:
     by_path["train_chaos"] = counted_ranks("train_chaos", phase_train_chaos)
     by_path["train_parallel"] = counted_ranks("train_parallel",
                                               phase_train_parallel)
+    by_path["train_pipeline"] = counted_ranks("train_pipeline",
+                                              phase_train_pipeline)
+    by_path["train_moe"] = counted_ranks("train_moe", phase_train_moe)
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()
@@ -5462,7 +6171,14 @@ def main() -> int:
                                                    "library_ms", "bound_ms",
                                                    "bound_by", "max_abs_err",
                                                    "route")}}
-                  for nm, c in ring_kc.items()}}),
+                  for nm, c in ring_kc.items()},
+              "pipeline_cases": {
+                  nm: {"paths": c["paths"],
+                       **{k: c["fwd"][k] for k in ("ms", "plain_ms",
+                                                   "library_ms", "bound_ms",
+                                                   "bound_by", "max_abs_err",
+                                                   "route")}}
+                  for nm, c in pipe_kc.items() if nm != "onebit_tail"}}),
             ("flash_decode", "flash_decode",
              "byteps_tpu/ops/flash_decode.py:77", main_dec),
             ("flash_bwd_dq", "flash_bwd",
@@ -5471,16 +6187,25 @@ def main() -> int:
               "ring_cases": {nm: {**c["bwd"]["dq"],
                                   "plain_ms": c["bwd"]["plain_ms"],
                                   "library_ms": c["bwd"]["library_ms"]}
-                             for nm, c in ring_kc.items()}}),
+                             for nm, c in ring_kc.items()},
+              "pipeline_cases": {
+                  nm: {**c["bwd"]["dq"], "plain_ms": c["bwd"]["plain_ms"],
+                       "library_ms": c["bwd"]["library_ms"]}
+                  for nm, c in pipe_kc.items() if nm != "onebit_tail"}}),
             ("flash_bwd_dkv", "flash_bwd",
              "byteps_tpu/ops/flash_attention.py:399",
              {**main_bwd, **main_bwd["dkv"],
               "ring_cases": {nm: {**c["bwd"]["dkv"],
                                   "plain_ms": c["bwd"]["plain_ms"],
                                   "library_ms": c["bwd"]["library_ms"]}
-                             for nm, c in ring_kc.items()}}),
+                             for nm, c in ring_kc.items()},
+              "pipeline_cases": {
+                  nm: {**c["bwd"]["dkv"], "plain_ms": c["bwd"]["plain_ms"],
+                       "library_ms": c["bwd"]["library_ms"]}
+                  for nm, c in pipe_kc.items() if nm != "onebit_tail"}}),
             ("onebit_pack", "onebit", "byteps_tpu/ops/onebit_kernels.py:81",
              {"case": "chunk", "max_abs_err": main_bits["pack_max_abs_err"],
+              "pp_tail_ms": pipe_kc["onebit_tail"]["pack_ms"],
               "ms": main_bits["pack_ms"],
               "plain_ms": main_bits["pack_plain_ms"],
               "bound_ms": main_bits["pack_bound_ms"],
@@ -5489,6 +6214,7 @@ def main() -> int:
              "byteps_tpu/ops/onebit_kernels.py:124",
              {"case": "chunk K=1",
               "max_abs_err": main_bits["unpack_k1_max_abs_err"],
+              "pp_tail_ms": pipe_kc["onebit_tail"]["unpack_k1_ms"],
               "ms": main_bits["unpack_k1_ms"],
               "plain_ms": main_bits["unpack_k1_plain_ms"],
               "bound_ms": main_bits["unpack_k1_bound_ms"],
@@ -5539,7 +6265,8 @@ def main() -> int:
                                  "ms_spin", "signs_ms",
                                  "signs_ms_time_sliced",
                                  "signs_library_ms", "signs_bound_ms",
-                                 "ring_cases")
+                                 "ring_cases", "pipeline_cases",
+                                 "pp_tail_ms")
             if k in main}}
         for name, src, rep, main in rows]
     print(card, flush=True)

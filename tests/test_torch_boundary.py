@@ -94,7 +94,8 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
               "server.__main__", "server.native", "server.pacer", "torch",
               "eager", "parallel.mesh", "parallel.partitioner",
               "parallel.sharding", "parallel.tp", "parallel.ring_attention",
-              "parallel.remat"):
+              "parallel.remat", "parallel.pipeline", "parallel.moe",
+              "models.moe_gpt"):
         assert f"byteps_tpu_torch.{m}" in res["modules"], m
     assert res["leaked"] == [], res["leaked"]
     # importing every module (the server entry included) built, loaded and
@@ -121,15 +122,18 @@ def test_ring_modules_import_alone_without_jax():
 
 
 def test_parallel_modules_import_alone_without_jax():
-    """The mesh, the partitioner, the sharding specs, tensor parallelism
-    and ring attention, imported on their own, load neither jax nor
-    byteps_tpu."""
+    """The mesh, the partitioner, the sharding specs, tensor parallelism,
+    ring attention, the pipeline, the MoE FFN and the MoE GPT, imported
+    on their own, load neither jax nor byteps_tpu."""
     probe = ("import sys\n"
              "import byteps_tpu_torch.parallel.mesh\n"
              "import byteps_tpu_torch.parallel.partitioner\n"
              "import byteps_tpu_torch.parallel.sharding\n"
              "import byteps_tpu_torch.parallel.tp\n"
              "import byteps_tpu_torch.parallel.ring_attention\n"
+             "import byteps_tpu_torch.parallel.pipeline\n"
+             "import byteps_tpu_torch.parallel.moe\n"
+             "import byteps_tpu_torch.models.moe_gpt\n"
              "print([m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'byteps_tpu')])")
     env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
@@ -137,6 +141,55 @@ def test_parallel_modules_import_alone_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("family,axes,rank", [
+    ("gpt", {"pp": 2}, 1), ("gpt", {"pp": 2, "tp": 2}, 2),
+    ("moe", {"pp": 2, "ep": 2}, 3)])
+def test_stage_leaf_order_is_the_reference_stacked_pytree(family, axes,
+                                                          rank):
+    """A pp stage's slab (``params_from_numpy(..., stacked=True)``) lists
+    its leaves in ``jax.tree.flatten`` order of the reference's stacked
+    tree (``stack_blocks``, the tree its pp factories train), each leaf
+    the reference's stage slice (and tp or ep shard): the order the
+    ``DistributedOptimizer``'s chunks, and so every onebit scale,
+    follow."""
+    import jax
+
+    from byteps_tpu.models.gpt import GPTConfig as JConfig
+    from byteps_tpu.models.gpt import gpt_init as j_init
+    from byteps_tpu.models.moe_gpt import MoEGPTConfig as JMoEConfig
+    from byteps_tpu.models.moe_gpt import moe_gpt_init as j_moe_init
+    from byteps_tpu.parallel.pipeline import stack_blocks as j_stack
+    from byteps_tpu_torch.models import (GPTConfig, MoEGPTConfig,
+                                         flat_leaves, params_from_numpy)
+    from byteps_tpu_torch.models.convert import (flat_specs, param_specs,
+                                                 shard_leaf)
+
+    sys.path.insert(0, str(ROOT / "tests" / "helpers"))
+    from pp_moe_parity import fake_mesh
+
+    if family == "gpt":
+        jcfg = JConfig(**{**JConfig.tiny().__dict__, "n_layers": 4})
+        cfg = GPTConfig(**{**GPTConfig.tiny().__dict__, "n_layers": 4})
+        raw = j_init(jax.random.PRNGKey(0), jcfg)
+    else:
+        jcfg = JMoEConfig(**{**JMoEConfig.tiny().__dict__, "n_layers": 4})
+        cfg = MoEGPTConfig(**{**MoEGPTConfig.tiny().__dict__,
+                              "n_layers": 4})
+        raw = j_moe_init(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree.map(np.asarray, raw)
+    mesh = fake_mesh(axes, rank)
+    got = flat_leaves(params_from_numpy(tree, cfg, device="cpu", mesh=mesh,
+                                        stacked=True))
+    ref = {k: v for k, v in tree.items() if k != "blocks"}
+    ref["blocks"] = j_stack(tree["blocks"])
+    want = [np.asarray(a) for a in jax.tree.leaves(ref)]
+    specs = flat_specs(param_specs(cfg, mesh, stacked=True))
+    assert len(got) == len(want) == len(specs)
+    for t, a, spec in zip(got, want, specs):
+        np.testing.assert_array_equal(t.numpy(), shard_leaf(a, spec, mesh))
+    assert specs[0][0] == "pp"
 
 
 def test_dcn_modules_import_alone_without_jax():

@@ -23,7 +23,8 @@ gather are identities and need no process group.
 
 The bodies the optimizer calls take a ``group``: the process group of a
 mesh's dp axis, so that on a dp×tp×sp mesh each (tp, sp) rank aggregates
-its own leaves over dp alone (``None``: the default group). The ring
+its own leaves over dp alone, or of its ``slice_`` axis or the two joined
+(``None``: the default group). The ring
 tier's transport spans the default group only; over another group the
 staged tier is the one ported (``optimizer.py`` refuses the ring there).
 
@@ -124,14 +125,17 @@ def reduce_scatter_flat(x: torch.Tensor) -> torch.Tensor:
     return reduce_scatter_body(x, n)
 
 
-def reduce_scatter_body(x: torch.Tensor, n: int) -> torch.Tensor:
-    """:func:`reduce_scatter_flat` without the counters: the body ZeRO-1
-    calls, as the reference's optimizer calls ``psum_scatter``."""
+def reduce_scatter_body(x: torch.Tensor, n: int,
+                        group=None) -> torch.Tensor:
+    """:func:`reduce_scatter_flat` without the counters, over ``group``
+    (the default process group when None): the body ZeRO-1 and the
+    hierarchical multi-slice path call, as the reference's optimizer
+    calls ``psum_scatter``."""
     segs, seg = _segment(x, n)
     if n == 1:
         return segs[0].clone()
     out = x.new_empty(seg)
-    dist.reduce_scatter_tensor(out, segs.reshape(-1))
+    dist.reduce_scatter_tensor(out, segs.reshape(-1), group=group)
     return out
 
 
@@ -366,15 +370,17 @@ def compressed_reduce_scatter_local(
     ef_residual: Optional[torch.Tensor] = None,
     rng: Optional[int] = None,
     tier: Optional[str] = None,
+    group=None,
 ):
-    """The first half of the compressed all-reduce: COMPRESS → "PUSH" →
-    the owner's f32 sum, without the pull. Returns this rank's owned
-    ``(ceil(L/n),)`` segment of the aggregate, or ``(segment,
-    new_residual)`` with ``ef_residual`` (error feedback and ``tier`` as
-    in :func:`compressed_allreduce_local`)."""
+    """The first half of the compressed all-reduce over ``group`` (the
+    default group when None): COMPRESS → "PUSH" → the owner's f32 sum,
+    without the pull. Returns this rank's owned ``(ceil(L/n),)`` segment
+    of the aggregate, or ``(segment, new_residual)`` with
+    ``ef_residual`` (error feedback and ``tier`` as in
+    :func:`compressed_allreduce_local`)."""
     tier = _resolve_tier(tier)
     rng = _require_rng(compressor, rng)
-    n, rank = _size_rank(n)
+    n, rank = _size_rank(n, group)
     L = g.shape[0]
     g = g.float()
     if n == 1 and not compressor.stochastic:
@@ -386,7 +392,7 @@ def compressed_reduce_scatter_local(
     if ef_residual is not None:
         g = g + ef_residual
     payload, seg_keys, recv, seg = _compress_push(g, rng, compressor, n,
-                                                  tier)
+                                                  tier, group)
     agg = _owner_sum(payload, recv, compressor, n, seg, tier)
     # a presummable sum is still a payload, of this owner's segment key
     s = (compressor.decompress(agg, seg, torch.float32, fold_in(rng, rank))

@@ -11,12 +11,14 @@ tier, under the same variable names and defaults.
 
 The tier's robustness knobs (fault injection, the health monitor,
 degraded fallback, the handle deadline), the sharded pod wire over
-several controllers (``BYTEPS_POD_CONTROLLERS``, ``BYTEPS_OWNER_SALT``)
-and the in-process IPC path (``BYTEPS_ENABLE_IPC``) are ported. Its
-knobs that are not ported yet (asynchronous or stale rounds, worker
-leases, the auto-tuner, a fault plan's ``join`` rule) are parsed all the
-same, so that :func:`check_ported` can refuse a caller who sets one
-instead of silently running the default.
+several controllers (``BYTEPS_POD_CONTROLLERS``, ``BYTEPS_OWNER_SALT``),
+the in-process IPC path (``BYTEPS_ENABLE_IPC``), asynchronous and
+bounded-stale rounds (``BYTEPS_ENABLE_ASYNC``, ``BYTEPS_STALENESS``),
+worker leases (``BYTEPS_WORKER_LEASE_MS``) and a fault plan's ``join``
+rule are ported. The one knob not ported yet, the auto-tuner
+(``BYTEPS_AUTO_TUNE``), is parsed all the same, so that
+:func:`check_ported` can refuse a caller who sets it instead of
+silently running the default.
 """
 
 from __future__ import annotations

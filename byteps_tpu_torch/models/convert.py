@@ -23,6 +23,11 @@ stage's slab: this rank's pp stage's layers stacked on a leading axis,
 one leaf a key (``parallel.pipeline.stack_blocks``), so
 :func:`flat_leaves` yields the reference's stacked pytree's order;
 ``params_to_numpy`` unstacks the gathered slab back into layers.
+
+ZeRO-3 (``parallel/zero3.py``) holds each rank's f32 segment of every
+parameter group instead: :func:`zero3_segments_from_numpy` cuts the
+reference's whole segment arrays to this rank's, and
+:func:`zero3_segments_to_numpy` gathers a rank's segments back to them.
 """
 
 from __future__ import annotations
@@ -270,3 +275,41 @@ def adapters_to_numpy(adapters: Dict[str, Any]) -> Dict[str, Any]:
         {t: {k: v.detach().cpu().numpy().copy() for k, v in ab.items()}
          for t, ab in blk.items()}
         for blk in adapters["blocks"]]}
+
+
+def zero3_segments_from_numpy(segs: Dict[str, Any], n_shard: int,
+                              index: int, device=None) -> Dict[str, Any]:
+    """The reference's ZeRO-3 segments (``{"rest": (padded,), "blocks":
+    [(padded,), ...]}``, each group's whole zero-padded flat vector, as
+    numpy) → shard ``index`` of ``n_shard`` of each group, f32 tensors on
+    ``device`` (the card unless told otherwise): a rank's ``segs``."""
+    dev = resolve_device(device)
+
+    def cut(a) -> torch.Tensor:
+        a = np.asarray(a, np.float32)
+        seg = -(-a.shape[0] // n_shard)
+        return torch.from_numpy(a[index * seg:(index + 1) * seg].copy()
+                                ).to(dev)
+
+    return {"rest": cut(segs["rest"]),
+            "blocks": [cut(b) for b in segs["blocks"]]}
+
+
+def zero3_segments_to_numpy(segs: Dict[str, Any], mesh=None
+                            ) -> Dict[str, Any]:
+    """A rank's ZeRO-3 ``segs`` → each group's whole zero-padded flat
+    vector as numpy, the reference's segment dict: all-gathered over the
+    shard axis of ``mesh`` (``slice_``, else dp; without a mesh the
+    default group). Collective over that axis."""
+    from byteps_tpu_torch.comm.ici import all_gather_body
+    from byteps_tpu_torch.parallel.zero3 import shard_axis
+
+    shard = shard_axis(mesh)
+
+    def whole(t: torch.Tensor) -> np.ndarray:
+        t = all_gather_body(t.detach().float(), shard.size, None,
+                            shard.group)
+        return t.cpu().numpy().copy()
+
+    return {"rest": whole(segs["rest"]),
+            "blocks": [whole(b) for b in segs["blocks"]]}

@@ -2,7 +2,8 @@
 ``byteps_tpu/models/train.py``'s ``make_gpt_train_step``,
 ``make_gpt_pp_train_step``, ``make_gpt_moe_train_step``,
 ``make_gpt_moe_pp_train_step``, ``make_eval_step`` and
-``evaluate_perplexity``: dp, tp, sp, pp and ep; no ZeRO-3).
+``evaluate_perplexity``: dp, tp, sp, pp, ep and the multi-slice
+``slice_`` axis; ``zero_3=True`` delegates to ``parallel/zero3.py``).
 
 One step runs, in order: the forward, the backward (attention through
 the hand-written flash kernels on the card), the flattening of the
@@ -31,7 +32,11 @@ rank (the reference's VMA contract, ``_make_resymmetrize``); the loss is
 the mean over sp, whose backward leaves each sp rank the share of its
 own tokens, so every leaf's gradient is then summed over sp (the
 reference's ``_manual_axis_sums`` over sp). The ``DistributedOptimizer``
-aggregates over the dp axis alone. A lossy codec's onebit scale (or
+aggregates over the dp axis alone; on a mesh with a ``slice_`` axis over
+dp with ``slice_`` as its DCN tier (raw: one sum over the two joined;
+compressed: the hierarchical path of ``optimizer.py``), or over
+``slice_`` alone where the mesh has no dp axis (the reference's
+``_make_tx``). A lossy codec's onebit scale (or
 top-k selection) spans a chunk that mixes a rank's tp shards with the
 replicated leaves, so the replicated leaves' aggregate would differ
 between tp ranks: the step makes it tp index 0's on every tp rank (one
@@ -54,8 +59,13 @@ ranks' local means, and the experts' gradients already carry their
 peers' part through the exchange's backward). Each of those sums is one
 flat all-reduce over its axis. The ``DistributedOptimizer`` then
 aggregates over dp as above, each stage its own slab with its own EF
-state. The reported loss is summed over pp, then averaged over dp (and
-ep).
+state. The reported loss is summed over pp, then averaged over
+``slice_`` and dp (and ep), one all-reduce over those axes joined.
+
+ZeRO-1 (``zero_1=True``) shards the optimizer state over the dp axis on
+any mesh (each tp shard, pp stage or ep rank its own slab's segment, the
+reference's ``state_leading``); it needs a dp axis and refuses a
+``slice_`` axis, with the reference's messages.
 """
 
 from __future__ import annotations
@@ -77,6 +87,7 @@ from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.optimizer import DistributedOptimizer
 from byteps_tpu_torch.parallel.mesh import Axis, collectives
 from byteps_tpu_torch.parallel.partitioner import Partitioner, spec_axes
+from byteps_tpu_torch.parallel.tp import pmean
 
 
 def adamw(leaves: Sequence[torch.Tensor], lr: float = 1e-3
@@ -86,10 +97,6 @@ def adamw(leaves: Sequence[torch.Tensor], lr: float = 1e-3
     torch's own default decay is 1e-2)."""
     return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=1e-4)
-
-
-# the training options the port leaves to ROADMAP A.6 (parallelism)
-_A6 = "not ported yet (ROADMAP A.6, parallelism)"
 
 
 def _check_seq_layout(seq_layout: str, sp=None) -> None:
@@ -106,9 +113,9 @@ def _check_seq_layout(seq_layout: str, sp=None) -> None:
 
 
 class _Axes:
-    """The (dp, tp, sp, pp, ep) axes of a mesh for ``cfg`` (None where the
-    mesh has no such axis) and its partitioner; all None without a
-    mesh."""
+    """The (slice_, dp, tp, sp, pp, ep) axes of a mesh for ``cfg`` (None
+    where the mesh has no such axis) and its partitioner; all None
+    without a mesh."""
 
     def __init__(self, cfg: GPTConfig, mesh):
         self.mesh = mesh
@@ -124,19 +131,32 @@ class _Axes:
         self.sp = ax(p.sp) if p else None
         self.pp = ax(p.pp) if p else None
         self.ep = ax(p.ep) if p else None
+        self.slice_ = ax(p.slice_) if p else None
 
     def block(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.part is None else self.part.local_batch(x)
 
-    def optimizer_axis(self):
-        """What the ``DistributedOptimizer`` aggregates over: the default
-        group without a mesh, else the dp axis (one rank where the mesh
-        has none)."""
+    def joint(self, names: Sequence[str]):
+        """The mesh axes ``names`` joined (``Mesh.axes``, collective the
+        first time); None without a mesh."""
+        return self.mesh.axes(names) if self.mesh is not None else None
+
+    def optimizer_axes(self) -> Dict[str, Any]:
+        """What the ``DistributedOptimizer`` aggregates over, as its
+        keywords: the default group without a mesh; the dp axis, with
+        ``slice_`` as its DCN tier on a multi-slice mesh; ``slice_``
+        alone where the mesh has no dp axis (it becomes the worker axis,
+        the reference's ``_make_tx``); one rank where it has neither."""
         if self.mesh is None:
-            return None
+            return {}
+        if _live(self.slice_):
+            if not _live(self.dp):
+                return {"axis": self.slice_}
+            return {"axis": self.dp, "dcn_axis": self.slice_,
+                    "joint_axis": self.joint(("slice_", "dp"))}
         if self.dp is not None:
-            return self.dp
-        return Axis("dp", 1, 0, (self.mesh.rank,))
+            return {"axis": self.dp}
+        return {"axis": Axis("dp", 1, 0, (self.mesh.rank,))}
 
 
 def _live(axis) -> bool:
@@ -159,17 +179,33 @@ def _sum_over(leaves: Sequence[torch.Tensor], axis, kind: str) -> None:
 
 def _tp_resymmetrize(leaves: Sequence[torch.Tensor], specs, tp):
     """The aggregate of the tp-replicated leaves made tp index 0's on
-    every tp rank: one broadcast of their ``.grad`` over tp."""
+    every tp rank: one broadcast over tp of their ``.grad``, or under
+    ZeRO-1 (``resym(seg, start)``) of their elements in this rank's
+    aggregated segment, which starts at ``start`` of the flat vector
+    (every tp rank's flat puts those leaves at the same offsets)."""
     rep = [p for p, s in zip(leaves, specs) if "tp" not in spec_axes(s)]
+    spans, off = [], 0
+    for p, s in zip(leaves, specs):
+        if "tp" not in spec_axes(s):
+            spans.append((off, off + p.numel()))
+        off += p.numel()
 
-    def resym() -> None:
-        flat = torch.cat([p.grad.reshape(-1) for p in rep])
+    def resym(seg: Optional[torch.Tensor] = None, start: int = 0) -> None:
+        if seg is None:
+            parts = [p.grad for p in rep]
+        else:
+            end = start + seg.shape[0]
+            parts = [seg[max(a, start) - start:min(b, end) - start]
+                     for a, b in spans if a < end and b > start]
+            if not parts:
+                return
+        flat = torch.cat([t.reshape(-1) for t in parts])
         dist.broadcast(flat, src=tp.ranks[0], group=tp.group)
         collectives["tp_broadcast"] += 1
         off = 0
-        for p in rep:
-            p.grad.copy_(flat[off:off + p.numel()].view_as(p))
-            off += p.numel()
+        for t in parts:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
 
     return resym
 
@@ -208,18 +244,34 @@ def make_gpt_train_step(
     "ef": "vanilla", "selection": "block"}``; ``remat`` recomputes each
     block in the backward; ``chunked_ce`` True (the fused readout + CE),
     ``"vocab_parallel"`` (its vocab split over tp) or False (the dense
-    chain). ``zero_1=True`` is ZeRO-1 (``DistributedOptimizer(zero=True)``;
-    an elementwise ``make_optimizer`` only; on a mesh only where the dp
-    axis is the whole job). ``accum_steps`` > 1 accumulates over that
-    many sequential microbatches of the rank's batch before the one
-    aggregation and update. ``seq_layout="zigzag"`` runs the
-    load-balanced causal ring over sp: feed tokens and targets permuted
-    with ``parallel.ring_attention.zigzag_permutation``; it needs a mesh
-    with an sp axis. ``zero_3`` is not ported (ROADMAP A.6)."""
+    chain). ``zero_1=True`` is ZeRO-1 (``DistributedOptimizer(zero=True)``
+    over the dp axis; an elementwise ``make_optimizer`` only).
+    ``accum_steps`` > 1 accumulates over that many sequential
+    microbatches of the rank's batch before the one aggregation and
+    update. ``seq_layout="zigzag"`` runs the load-balanced causal ring
+    over sp: feed tokens and targets permuted with
+    ``parallel.ring_attention.zigzag_permutation``; it needs a mesh with
+    an sp axis. On a mesh with a ``slice_`` axis the batch splits over
+    ``slice_`` and dp, the gradients aggregate over both (the module
+    docstring) and the loss is their mean.
+
+    ``zero_3=True`` delegates to
+    :func:`~byteps_tpu_torch.parallel.zero3.make_gpt_zero3_train_step`
+    (ZeRO-3 FSDP; ``accum_steps`` must stay 1) and returns what it
+    returns: ``(step, segs, opt)``, ``segs`` this rank's parameter
+    segments in place of ``params``."""
     if zero_3:
         if zero_1:
             raise ValueError("zero_1 and zero_3 are mutually exclusive")
-        raise NotImplementedError(f"zero_3 (ZeRO-3 FSDP) is {_A6}")
+        if accum_steps != 1:
+            raise ValueError("accum_steps does not compose with zero_3")
+        from byteps_tpu_torch.parallel.zero3 import make_gpt_zero3_train_step
+
+        return make_gpt_zero3_train_step(
+            cfg, mesh, make_optimizer, compression_params=compression_params,
+            partition_bytes=partition_bytes, remat=remat,
+            seq_layout=seq_layout, init_params=init_params,
+            generator=generator, chunked_ce=chunked_ce, device=device)
     axes = _Axes(cfg, mesh)
     _check_seq_layout(seq_layout, axes.sp)
     if accum_steps < 1:
@@ -231,6 +283,7 @@ def make_gpt_train_step(
     leaves, _, opt = _mesh_optimizer(cfg, params, mesh, axes,
                                      make_optimizer, compression_params,
                                      partition_bytes, zero_1)
+    mean_axis = axes.joint(("slice_", "dp"))
 
     def step(tokens, targets) -> torch.Tensor:
         opt.zero_grad()
@@ -260,7 +313,7 @@ def make_gpt_train_step(
             # each sp rank holds the share of its own tokens
             _sum_over(leaves, axes.sp, "sp_grad_sum")
         opt.step()
-        return _group_mean(loss, axes)
+        return _group_mean(loss, mean_axis)
 
     return step, params, opt
 
@@ -270,9 +323,22 @@ def _mesh_optimizer(cfg, params: GPT, mesh, axes: _Axes, make_optimizer,
                     stacked: bool = False):
     """``params`` (this rank's shards) made trainable, their leaves in
     the reference's order, the leaves' specs (None without a mesh), and
-    the ``DistributedOptimizer`` over the dp axis around
-    ``make_optimizer(leaves)`` (the tp broadcast of the replicated
-    leaves' aggregate under a lossy codec, as ``make_gpt_train_step``)."""
+    the ``DistributedOptimizer`` over the data axes
+    (:meth:`_Axes.optimizer_axes`) around ``make_optimizer(leaves)``
+    (the tp broadcast of the replicated leaves' aggregate under a lossy
+    codec, as ``make_gpt_train_step``). Raises the reference's errors
+    for ZeRO-1 on a mesh without a dp axis or with a ``slice_`` axis."""
+    if zero_1 and mesh is not None:
+        if axes.dp is None:
+            raise ValueError(
+                "zero_1=True requires a dp mesh axis — ZeRO-1 shards the "
+                "optimizer state over dp and there is nothing to shard over "
+                "on this mesh")
+        if axes.slice_ is not None:
+            raise ValueError(
+                "zero_1=True does not compose with a slice_ mesh axis — the "
+                "ZeRO-1 segment flow owns the dp reduce-scatter; use "
+                "zero_3=True for multi-slice FSDP instead")
     params.requires_grad_(True)
     leaves = flat_leaves(params)
     specs = (flat_specs(param_specs(cfg, mesh, stacked)) if mesh is not None
@@ -283,8 +349,8 @@ def _mesh_optimizer(cfg, params: GPT, mesh, axes: _Axes, make_optimizer,
     opt = DistributedOptimizer(make_optimizer(leaves), leaves,
                                compression_params,
                                partition_bytes=partition_bytes,
-                               zero=zero_1, axis=axes.optimizer_axis(),
-                               resymmetrize=resym)
+                               zero=zero_1, resymmetrize=resym,
+                               **axes.optimizer_axes())
     return leaves, specs, opt
 
 
@@ -339,7 +405,8 @@ def _mesh_step(loss_fn, params, leaves, specs, opt, axes: _Axes, dev,
     """``step(tokens, targets) -> loss`` of the pp and MoE factories: this
     rank's block of the global batch, ``loss_fn(params, tok, tgt)``, its
     backward, :func:`_assemble`, the optimizer's step; the loss summed
-    over pp, then averaged over ``mean_over``."""
+    over pp, then averaged over the axes ``mean_over`` joined."""
+    mean_axis = axes.joint(mean_over)
 
     def step(tokens, targets) -> torch.Tensor:
         opt.zero_grad()
@@ -352,7 +419,7 @@ def _mesh_step(loss_fn, params, leaves, specs, opt, axes: _Axes, dev,
         if _live(axes.pp):
             loss = loss.clone()
             dist.all_reduce(loss, group=axes.pp.group)
-        return _group_mean(loss, axes, mean_over)
+        return _group_mean(loss, mean_axis)
 
     return step
 
@@ -386,9 +453,9 @@ def make_gpt_pp_train_step(
     schedule (``parallel/pipeline.py``); tp and sp compose inside the
     stages as in :func:`make_gpt_train_step`. ``compression_params``
     compresses each stage's aggregation over dp, with its own EF state.
-    ZeRO-1 on a pp mesh is refused by ``DistributedOptimizer`` (its dp
-    axis is not the whole job). Raises the reference's errors for a mesh
-    without a pp axis and for layers that pp does not divide."""
+    ``zero_1`` shards each stage's optimizer state over its dp line.
+    Raises the reference's errors for a mesh without a pp axis and for
+    layers that pp does not divide."""
     axes = _pipeline_axes(cfg, mesh, seq_layout, "make_gpt_train_step")
     dev = resolve_device(device)
     whole = _whole_params(cfg, init_params, generator, dev, gpt_init)
@@ -403,7 +470,7 @@ def make_gpt_pp_train_step(
                            seq_layout=seq_layout, chunked_ce=chunked_ce)
 
     return (_mesh_step(loss_fn, params, leaves, specs, opt, axes, dev,
-                       ("dp",)), params, opt)
+                       ("slice_", "dp")), params, opt)
 
 
 def make_gpt_moe_train_step(
@@ -431,8 +498,9 @@ def make_gpt_moe_train_step(
     and, with a tp axis, their ff dim over tp. ``init_params`` are whole
     (a :class:`GPT` as ``moe_gpt_init`` makes it), or fresh weights from
     ``generator`` (the reference's factory seeds ``PRNGKey(0)``).
-    Gradients as the module docstring assembles them; dp aggregation in
-    ``DistributedOptimizer``; the loss averaged over dp and ep. Raises
+    Gradients as the module docstring assembles them; dp (and ``slice_``)
+    aggregation in ``DistributedOptimizer``; the loss averaged over
+    ``slice_``, dp and ep. Raises
     the reference's errors for experts that ep does not divide and for a
     mesh with a pp axis."""
     from byteps_tpu_torch.models.moe_gpt import moe_gpt_init, moe_gpt_loss
@@ -458,7 +526,7 @@ def make_gpt_moe_train_step(
                             seq_layout=seq_layout, chunked_ce=chunked_ce)
 
     return (_mesh_step(loss_fn, params, leaves, specs, opt, axes, dev,
-                       ("dp", "ep")), params, opt)
+                       ("slice_", "dp", "ep")), params, opt)
 
 
 def make_gpt_moe_pp_train_step(
@@ -483,8 +551,8 @@ def make_gpt_moe_pp_train_step(
     capacity from the microbatch's tokens). ``init_params`` whole and
     unstacked (``moe_gpt_init``'s), or fresh from ``generator``;
     ``params`` this rank's stage slab with its experts. Returns ``(step,
-    params, opt)``; the loss summed over pp, averaged over dp and ep.
-    Raises the reference's errors."""
+    params, opt)``; the loss summed over pp, averaged over ``slice_``, dp
+    and ep. Raises the reference's errors."""
     from byteps_tpu_torch.models.moe_gpt import moe_gpt_init, moe_gpt_pp_loss
 
     axes = _pipeline_axes(cfg, mesh, seq_layout, "make_gpt_moe_train_step")
@@ -503,7 +571,7 @@ def make_gpt_moe_pp_train_step(
                                seq_layout=seq_layout, chunked_ce=chunked_ce)
 
     return (_mesh_step(loss_fn, params, leaves, specs, opt, axes, dev,
-                       ("dp", "ep")), params, opt)
+                       ("slice_", "dp", "ep")), params, opt)
 
 
 def _as_ids(x, dev) -> torch.Tensor:
@@ -512,21 +580,17 @@ def _as_ids(x, dev) -> torch.Tensor:
     return x.to(dev, torch.long)
 
 
-def _group_mean(loss: torch.Tensor, axes: Optional[_Axes] = None,
-                over: Sequence[str] = ("dp",)) -> torch.Tensor:
+def _group_mean(loss: torch.Tensor, axis=None) -> torch.Tensor:
     """The mean of ``loss`` over the data-parallel ranks (the reference's
-    dp ``pmean``), for reporting: the default group without a mesh, the
-    mesh axes ``over`` (those it has) on one."""
-    if axes is not None and axes.mesh is not None:
-        groups = [getattr(axes, a) for a in over if _live(getattr(axes, a))]
-    else:
-        groups = [None] if world()[0] > 1 else []
-    n = 1
-    for g in groups:
-        loss = loss.clone()
-        dist.all_reduce(loss, group=None if g is None else g.group)
-        n *= world()[0] if g is None else g.size
-    return loss / n if n > 1 else loss
+    ``pmean`` over its data axes), for reporting: over ``axis`` (a mesh's
+    data axes joined), or the default group without one."""
+    n, group = (world()[0], None) if axis is None else (axis.size,
+                                                         axis.group)
+    if n == 1:
+        return loss
+    loss = loss.clone()
+    dist.all_reduce(loss, group=group)
+    return loss / n
 
 
 def make_eval_step(cfg: GPTConfig, device=None, chunked_ce=True,
@@ -536,9 +600,9 @@ def make_eval_step(cfg: GPTConfig, device=None, chunked_ce=True,
     step's ``gpt_loss``: of this rank's (B, S) batch, with more than one
     rank the mean over the default group; on a mesh, of the global batch
     (each rank its block, ``params`` its shards), the mean over dp and
-    sp. ``exp`` of the running mean is the perplexity
-    (:func:`evaluate_perplexity`). No optimizer, no gradients: safe on
-    training parameters at any step."""
+    sp, then over ``slice_``, as the reference's. ``exp`` of the running
+    mean is the perplexity (:func:`evaluate_perplexity`). No optimizer,
+    no gradients: safe on training parameters at any step."""
     dev = resolve_device(device)
     axes = _Axes(cfg, mesh)
     _check_seq_layout(seq_layout, axes.sp)
@@ -549,7 +613,9 @@ def make_eval_step(cfg: GPTConfig, device=None, chunked_ce=True,
                         axes.block(_as_ids(targets, dev)), cfg,
                         dp_axis=axes.dp, tp_axis=axes.tp, sp_axis=axes.sp,
                         seq_layout=seq_layout, chunked_ce=chunked_ce)
-        return loss if mesh is not None else _group_mean(loss)
+        if mesh is None:
+            return _group_mean(loss)
+        return pmean(loss, axes.slice_)
 
     return eval_step
 

@@ -1,6 +1,6 @@
 """Gradient aggregation and ``DistributedOptimizer`` (counterpart of
-``byteps_tpu/jax/optimizer.py``: data parallelism, replicated or ZeRO-1;
-no hierarchical multi-slice path).
+``byteps_tpu/jax/optimizer.py``: data parallelism, replicated or ZeRO-1,
+flat or hierarchical over a multi-slice mesh).
 
 The gradients of a step are flattened in the reference's leaf order
 (``models.convert.flat_leaves``), concatenated into one f32 vector,
@@ -35,6 +35,26 @@ values is the same for an elementwise optimizer, and keeps the leaves
 bit-equal to a replicated step's.) The moments (AdamW's ``exp_avg``,
 ``exp_avg_sq``) are ``ceil(L/n)`` f32 each; EF and momentum stay
 full-length per rank, as in the reference.
+
+ZeRO-1 runs over the ranks of ``axis`` (a mesh's dp axis: on a tp, pp or
+ep mesh each tp shard, pp stage or ep rank shards its own slab's state
+over its dp line) or the default group without one.
+
+Multi-slice (``dcn_axis=``, the reference's ``dcn_axis`` path): ``axis``
+is the dp axis inside a slice, ``dcn_axis`` the ``slice_`` axis across
+slices and ``joint_axis`` the two joined (``Mesh.axes``). Uncompressed,
+the gradients aggregate once over the joint axis and are divided by
+``n·n_dcn``, as the reference's one ``psum`` over ``(dcn_axis, axis)``.
+Compressed (the reference's ``_hier_update``): the flat f32 gradient,
+zero-padded to ``n·seg`` (``seg = ceil(L/n)``), is reduce-scattered raw
+over dp; Nesterov momentum runs on this rank's segment; the segment is
+aggregated over ``slice_`` in ``partition_bytes`` chunks with error
+feedback (``_aggregate_flat``, the staged tier); the aggregated segments
+are all-gathered over dp, cut to L and divided by ``n·n_dcn``. Only
+segment-sized compressed payloads cross the slow tier, each once, and
+the EF and momentum buffers are segment-sized (``seg`` f32 a rank).
+``zero=True`` does not compose with it (ZeRO-1's segment flow owns the
+reduce-scatter), as in the reference.
 
 The segment's master copy is transient: each step copies the segment
 out of the leaves (``ceil(L/n)·4`` B, beside the flat gradient's
@@ -78,6 +98,7 @@ from byteps_tpu_torch.compression import (
     from_params,
     momentum_step,
 )
+from byteps_tpu_torch.parallel.mesh import collectives
 
 # BYTEPS_REDUCE_DTYPE's values (common/config.py checks them)
 REDUCE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -109,6 +130,24 @@ def _chunk_bounds(total: int, chunk_elems: int) -> List[Tuple[int, int]]:
     return bounds or [(0, total)]
 
 
+def _check_tier(tier: str, group, n: int) -> None:
+    if group is not None and tier == "ring" and n > 1:
+        raise NotImplementedError(
+            "BYTEPS_ICI_TIER=ring over a mesh's dp or slice_ subgroup is not "
+            "ported yet (ROADMAP A.6): its transport spans the default "
+            "group; use the staged tier")
+
+
+def _group_of(axis):
+    """The process group a collective over ``axis`` runs on: None (the
+    default group) without an axis, at size 1, or where the axis is the
+    whole job rank for rank; else the axis's group."""
+    if axis is None or axis.size == 1:
+        return None
+    return None if tuple(axis.ranks) == tuple(range(world()[0])) \
+        else axis.group
+
+
 def _aggregate_flat(flat: torch.Tensor, n: int, average: bool,
                     spec: CompressionSpec, rng: Optional[int],
                     ef_flat: Optional[torch.Tensor], chunk_elems: int,
@@ -120,11 +159,7 @@ def _aggregate_flat(flat: torch.Tensor, n: int, average: bool,
     ``(agg_flat, new_ef_flat_or_None, num_chunks)``."""
     bounds = _chunk_bounds(flat.shape[0], chunk_elems)
     tier = _resolve_tier(None)
-    if group is not None and tier == "ring" and n > 1:
-        raise NotImplementedError(
-            "BYTEPS_ICI_TIER=ring over a mesh's dp subgroup is not ported "
-            "yet (ROADMAP A.6): its transport spans the default group; use "
-            "the staged tier")
+    _check_tier(tier, group, n)
     if spec.enabled and rng is None:
         if spec.compressor.stochastic:
             raise ValueError(
@@ -238,18 +273,23 @@ class DistributedOptimizer:
 
     ``zero=True`` is ZeRO-1 (the module docstring): ``optimizer`` (built
     over ``params``, one group, not stepped yet) is moved onto this
-    rank's segment of the flat parameters, the world's size fixed at
+    rank's segment of the flat parameters, sharded over the ranks of
+    ``axis`` (the default group without one), their number fixed at
     construction. ``params`` must be f32.
 
     ``axis`` (a mesh's dp :class:`~byteps_tpu_torch.parallel.mesh.Axis`)
     aggregates over that axis's ranks instead of the default group: of
-    size 1 nothing is aggregated. ``resymmetrize``, when given, runs
+    size 1 nothing is aggregated. ``dcn_axis`` (the ``slice_`` axis) with
+    ``joint_axis`` (``axis`` and ``dcn_axis`` joined) is the multi-slice
+    path (the module docstring). ``resymmetrize``, when given, runs
     between the aggregation and the inner step (the mesh step makes the
-    tp-replicated leaves' aggregate the same on every tp rank there).
+    tp-replicated leaves' aggregate the same on every tp rank there);
+    under ZeRO-1 it is called with this rank's aggregated segment and
+    the segment's offset in the flat vector.
 
-    Reference: ``byteps_tpu.jax.DistributedOptimizer`` (the
-    non-hierarchical ``update_fn`` and ``_zero_update``), itself the
-    functional form of ``byteps.torch.DistributedOptimizer``."""
+    Reference: ``byteps_tpu.jax.DistributedOptimizer`` (``update_fn``,
+    ``_zero_update`` and ``_hier_update``), itself the functional form of
+    ``byteps.torch.DistributedOptimizer``."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  params: Sequence[torch.Tensor],
@@ -259,7 +299,17 @@ class DistributedOptimizer:
                  seed: int = 0,
                  zero: bool = False,
                  axis=None,
-                 resymmetrize=None):
+                 resymmetrize=None,
+                 dcn_axis=None,
+                 joint_axis=None):
+        if zero and dcn_axis is not None:
+            raise ValueError(
+                "zero=True and dcn_axis are mutually exclusive — ZeRO-1's "
+                "segment flow already owns the reduce-scatter; shard over "
+                "one axis or use the ZeRO-3 factory for multi-slice FSDP")
+        if dcn_axis is not None and joint_axis is None:
+            raise ValueError("dcn_axis needs joint_axis: the axis and the "
+                             "dcn axis joined (Mesh.axes)")
         self.optimizer = optimizer
         self.params = list(params)
         self.spec = from_params(compression_params)
@@ -269,23 +319,33 @@ class DistributedOptimizer:
         self.count = 0
         self.zero = zero
         self.axis = axis
+        self.dcn_axis = dcn_axis
+        # the axis the flat path aggregates over: the joint one on a
+        # multi-slice mesh
+        self._agg_axis = joint_axis if dcn_axis is not None else axis
         self.resymmetrize = resymmetrize
-        if zero and axis is not None and \
-                tuple(axis.ranks) != tuple(range(world()[0])):
-            raise NotImplementedError(
-                "zero=True over a mesh's dp subgroup (ZeRO-1 on a tp, sp, pp "
-                "or ep mesh) is not ported yet (ROADMAP A.6)")
         total = sum(p.numel() for p in self.params)
         dev = self.params[0].device
+        self._state_len = total
+        if self._hierarchical():
+            # each rank's residuals cover its own dp segment only
+            self._state_len = -(-total // self._dp_size())
 
         def buf(on: bool):
-            return (torch.zeros(total, dtype=torch.float32, device=dev)
+            return (torch.zeros(self._state_len, dtype=torch.float32,
+                                device=dev)
                     if self.spec.enabled and on else None)
 
         self.ef = buf(self.spec.ef)
         self.momentum = buf(self.spec.momentum)
         if zero:
             self._zero_setup(total, dev)
+
+    def _hierarchical(self) -> bool:
+        return self.dcn_axis is not None and self.spec.enabled
+
+    def _dp_size(self) -> int:
+        return 1 if self.axis is None else self.axis.size
 
     def _zero_setup(self, total: int, dev: torch.device) -> None:
         opt = self.optimizer
@@ -300,7 +360,8 @@ class DistributedOptimizer:
         bad = [p.dtype for p in self.params if p.dtype != torch.float32]
         if bad:
             raise ValueError(f"zero=True steps f32 parameters; got {bad[0]}")
-        self.n, self.rank = world()
+        self.n, self.rank = ((self.axis.size, self.axis.index)
+                             if self.axis is not None else world())
         self.total = total
         self.seg = -(-total // self.n)
         # the inner optimizer's one parameter: this rank's segment, holding
@@ -309,17 +370,13 @@ class DistributedOptimizer:
         opt.param_groups[0]["params"] = [self._seg]
 
     def _group(self):
-        """The process group the aggregation runs over: None for the
-        default group (no axis, one of size 1, or a dp axis that is the
-        whole job, rank for rank), else the dp axis's group."""
-        a = self.axis
-        if a is None or a.size == 1:
-            return None
-        n, _ = world()
-        return None if tuple(a.ranks) == tuple(range(n)) else a.group
+        """The process group the flat aggregation runs over (None: the
+        default group)."""
+        return _group_of(self._agg_axis)
 
     def _workers(self) -> int:
-        return world()[0] if self.axis is None else self.axis.size
+        return (world()[0] if self._agg_axis is None
+                else self._agg_axis.size)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -341,15 +398,27 @@ class DistributedOptimizer:
     def _step_key(self) -> int:
         return fold_in(fold_in(self.seed, self.spec.seed), self.count)
 
+    def _check_state(self) -> None:
+        for buf, kind in ((self.ef, "EF"), (self.momentum, "momentum")):
+            if buf is not None and buf.shape[0] != self._state_len:
+                raise ValueError(
+                    f"{kind} state has {buf.shape[0]} elements on this rank "
+                    f"but this rank expects {self._state_len} (the flat "
+                    "gradient's length, or its dp segment's on the "
+                    "hierarchical multi-slice path)")
+
     def aggregate(self) -> None:
         """Replace each parameter's ``.grad`` with the ranks' aggregate."""
         if self.zero:
             raise RuntimeError("under zero=True the aggregate exists only "
                                "as this rank's segment; call step()")
+        self._check_state()
         grads = self._grads()
         spec = self.spec
         rng = self._step_key()
-        if self.momentum is not None:
+        if self._hierarchical():
+            agg = self._hier_aggregate(grads, rng)
+        elif self.momentum is not None:
             # Nesterov momentum before compression, on the flat vector
             # that is then aggregated as it stands
             flat, sizes = _flatten_concat(grads)
@@ -373,18 +442,54 @@ class DistributedOptimizer:
         for p, g in zip(self.params, agg):
             p.grad = g
 
+    def _hier_aggregate(self, grads: List[torch.Tensor],
+                        rng: int) -> List[torch.Tensor]:
+        """The compressed multi-slice aggregation (the reference's
+        ``_hier_update``, the module docstring): raw reduce-scatter over
+        dp, momentum and the chunked compressed exchange with EF over
+        ``slice_`` on this rank's segment, raw all-gather over dp."""
+        spec = self.spec
+        flat, sizes = _flatten_concat(grads)
+        L = flat.shape[0]
+        n, n_dcn = self._dp_size(), self.dcn_axis.size
+        dp_group = _group_of(self.axis)
+        if n > 1:
+            seg = reduce_scatter_body(flat, n, dp_group)
+            collectives["hier_dp_reduce_scatter"] += 1
+        else:
+            seg = flat
+        if self.momentum is not None:
+            seg, self.momentum = momentum_step(seg, self.momentum, spec.mu)
+        pb = self.partition_bytes or get_config().partition_bytes
+        agg, new_e, _ = _aggregate_flat(
+            seg, n_dcn, False, spec, rng, self.ef, max(1, pb // 4),
+            spec.two_way, _group_of(self.dcn_axis))
+        if self.ef is not None:
+            self.ef = new_e
+        if n > 1:
+            full = all_gather_body(agg, n, L, dp_group)
+            collectives["hier_dp_all_gather"] += 1
+        else:
+            full = agg[:L]
+        if self.average:
+            full = full / (n * n_dcn)
+        return _unconcat_unflatten(full, grads, sizes)
+
     def _zero_aggregate(self) -> torch.Tensor:
         """This rank's ``(seg,)`` segment of the aggregated flat gradient:
-        one reduce-scatter of the whole vector, raw or compressed."""
-        spec, n = self.spec, self.n
+        one reduce-scatter of the whole vector over ``axis``, raw or
+        compressed."""
+        spec, n, group = self.spec, self.n, self._group()
         flat, _ = _flatten_concat(self._grads())
         if self.momentum is not None:
             flat, self.momentum = momentum_step(flat, self.momentum, spec.mu)
         if spec.enabled:
+            tier = _resolve_tier(None)
+            _check_tier(tier, group, n)
             res = compressed_reduce_scatter_local(
                 flat, spec.compressor, n, average=self.average,
-                ef_residual=self.ef, rng=self._step_key(),
-                tier=_resolve_tier(None))
+                ef_residual=self.ef, rng=self._step_key(), tier=tier,
+                group=group)
             if self.ef is None:
                 return res
             seg, self.ef = res
@@ -392,7 +497,7 @@ class DistributedOptimizer:
         # BYTEPS_REDUCE_DTYPE sets the dtype of the raw sum, as on the
         # chunked path
         flat = flat.to(REDUCE_DTYPES[get_config().reduce_dtype])
-        s = (reduce_scatter_body(flat, n) if n > 1 else flat).float()
+        s = (reduce_scatter_body(flat, n, group) if n > 1 else flat).float()
         return s / n if self.average and n > 1 else s
 
     def _param_segment(self) -> torch.Tensor:
@@ -414,14 +519,18 @@ class DistributedOptimizer:
 
     @torch.no_grad()
     def _zero_step(self) -> None:
-        if world()[0] != self.n:
+        if self._workers() != self.n:
             raise RuntimeError(f"ZeRO state was sharded over {self.n} ranks; "
-                               f"the group now has {world()[0]}")
+                               f"the group now has {self._workers()}")
+        self._check_state()
         g = self._zero_aggregate()
+        if self.resymmetrize is not None:
+            self.resymmetrize(g, self.rank * self.seg)
         self._seg.data = self._param_segment()
         self._seg.grad = g
         self.optimizer.step()
-        full = all_gather_body(self._seg.detach(), self.n, self.total)
+        full = all_gather_body(self._seg.detach(), self.n, self.total,
+                               self._group())
         off = 0
         for p in self.params:
             p.copy_(full[off:off + p.numel()].view_as(p))

@@ -2,7 +2,7 @@
 (counterpart of ``byteps_tpu/parallel``): the mesh of named axes, the
 partitioner's logical-axis rules, Megatron tensor parallelism over tp,
 ring attention over sp, GPipe pipelining over pp, the MoE FFN with its
-experts over ep, and remat. ZeRO-3 is not ported (ROADMAP A.6)."""
+experts over ep, ZeRO-3 FSDP over the slice_ or dp axis, and remat."""
 
 from byteps_tpu_torch.parallel.mesh import (  # noqa: F401
     Axis,
@@ -43,6 +43,10 @@ from byteps_tpu_torch.parallel.ring_attention import (  # noqa: F401
     zigzag_ring_attention,
 )
 from byteps_tpu_torch.parallel.sharding import opt_state_specs  # noqa: F401
+from byteps_tpu_torch.parallel.zero3 import (  # noqa: F401
+    make_gpt_zero3_train_step,
+    zero3_gather_params,
+)
 from byteps_tpu_torch.parallel.tp import (  # noqa: F401
     col_parallel_matmul,
     copy_to_tp,

@@ -14,11 +14,18 @@ reference's device r sits in its grid (``jax.make_mesh`` over
 ``jax.devices()``): the parity tests rely on it. The line of an axis is
 its ranks in increasing order, which is also their index along the axis
 and their rank in the axis's group.
+
+:meth:`Mesh.axes` joins several axes into one: the ranks that differ
+from this one along those axes only, indexed row-major over them in the
+mesh's order (``("slice_", "dp")``: slice index · n_dp + dp index), the
+counterpart of a ``shard_map`` collective over a tuple of axis names
+(the reference's ``psum(x, (dcn_axis, axis))``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch.distributed as dist
@@ -32,7 +39,12 @@ AXIS_ORDER = ("slice_", "pp", "dp", "sp", "tp", "ep")
 #: readout's combines, the pipeline's stage-to-stage shifts each way,
 #: the MoE dispatch and combine exchanges over ep each way, the train
 #: step's sums of the gradients over sp, pp and ep and its broadcasts
-#: over tp of the replicated leaves' aggregate.
+#: over tp of the replicated leaves' aggregate; the hierarchical
+#: multi-slice aggregation's raw reduce-scatter and all-gather over dp
+#: (``optimizer.py``); ZeRO-3's gathers of a parameter group in the
+#: forward and again in a rematerialized backward, its reduce-scatters
+#: of the gradients, and its one sum of the segment gradients over the
+#: data axis that replicates them (``parallel/zero3.py``).
 collectives: Dict[str, int] = {
     "tp_allreduce_fwd": 0, "tp_allreduce_bwd": 0,
     "sp_rotate_fwd": 0, "sp_rotate_bwd": 0,
@@ -40,7 +52,10 @@ collectives: Dict[str, int] = {
     "pp_shift_fwd": 0, "pp_shift_bwd": 0,
     "ep_all_to_all_fwd": 0, "ep_all_to_all_bwd": 0,
     "sp_grad_sum": 0, "pp_grad_sum": 0, "ep_grad_sum": 0,
-    "tp_broadcast": 0}
+    "tp_broadcast": 0,
+    "hier_dp_reduce_scatter": 0, "hier_dp_all_gather": 0,
+    "zero3_gather_fwd": 0, "zero3_gather_bwd": 0,
+    "zero3_reduce_scatter": 0, "zero3_grad_sum": 0}
 
 
 def reset_collectives() -> None:
@@ -89,14 +104,15 @@ class Axis:
 class Mesh:
     """This rank's place in a named grid of ranks: ``axis_names`` and
     ``shape`` as the reference's ``Mesh``, plus :meth:`axis` (an
-    :class:`Axis`), :meth:`axis_size`, :meth:`axis_index` and
-    :meth:`group`."""
+    :class:`Axis`), :meth:`axes` (several joined), :meth:`axis_size`,
+    :meth:`axis_index` and :meth:`group`."""
 
     def __init__(self, axes: Dict[str, Axis], rank: int):
         self._axes = axes
         self.rank = rank
         self.axis_names: Tuple[str, ...] = tuple(axes)
         self.shape: Dict[str, int] = {n: a.size for n, a in axes.items()}
+        self._joined: Dict[Tuple[str, ...], Axis] = {}
 
     def axis(self, name: str) -> Axis:
         if name not in self._axes:
@@ -112,6 +128,48 @@ class Mesh:
 
     def group(self, name: str):
         return self.axis(name).group
+
+    def axes(self, names: Sequence[str]) -> Axis:
+        """The axes ``names`` (those of them the mesh has) joined into one
+        :class:`Axis`: the ranks that differ from this one along those
+        axes only, indexed row-major over them in the mesh's order
+        (outermost first, as the group ranks them), its name the names
+        joined by ``+``. One named axis is that axis; none
+        (or all of size 1) is this rank alone.
+
+        Collective the first time a tuple is asked for: every rank of the
+        job asks for it (in the same order as every other such tuple),
+        and each creates every line's group, lines in increasing order of
+        their first rank; later calls return the same :class:`Axis`."""
+        live = tuple(n for n in self.axis_names if n in names
+                     and self._axes[n].size > 1)
+        if len(live) <= 1:
+            return (self._axes[live[0]] if live else
+                    Axis("+".join(names), 1, 0, (self.rank,)))
+        if live in self._joined:
+            return self._joined[live]
+        order = list(self.axis_names)
+        sizes = [self._axes[n].size for n in order]
+        pos = [order.index(n) for n in live]
+        inner = [sizes[i] for i in pos]
+        # every line: the coordinates outside ``live`` fixed
+        others = [1 if i in pos else s for i, s in enumerate(sizes)]
+        mine = _unravel(self.rank, sizes)
+        out = None
+        for line in range(math.prod(others)):
+            c = _unravel(line, others)
+            ranks = []
+            for j in range(math.prod(inner)):
+                for i, v in zip(pos, _unravel(j, inner)):
+                    c[i] = v
+                ranks.append(_ravel(c, sizes))
+            group = dist.new_group(ranks)
+            if self.rank in ranks:
+                out = Axis("+".join(live), len(ranks),
+                           _ravel([mine[i] for i in pos], inner),
+                           tuple(ranks), group)
+        self._joined[live] = out
+        return out
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"

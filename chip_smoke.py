@@ -13,6 +13,9 @@
     python3 chip_smoke.py --pipeline # the flash kernels and onebit at
                                      # their calls, train_pipeline and
                                      # train_moe (17) alone
+    python3 chip_smoke.py --multislice  # the flash kernels and onebit at
+                                     # train_multislice's calls and
+                                     # train_multislice (18) alone
 
 Phases, each printing one JSON line:
 
@@ -303,7 +306,9 @@ Phases, each printing one JSON line:
     workers end with equal parameters; the benchmark example prints its
     GB/s, beside the card's name and power limit.
 16. train_parallel — tensor and sequence parallelism: GPT-2 medium at
-    full width and depth (24 layers), bf16 over f32 master weights,
+    full width and 12 of its 24 layers (``RANK_PHASE_LAYERS``: the cut
+    keeps the whole smoke inside its limit with train_multislice), bf16
+    over f32 master weights,
     AdamW(1e-3), the global batch B=4 × S=1024, on meshes of rank
     processes that time-slice the card (gloo), one warm-up and one timed
     step a leg: one_rank (this process, the yardstick, and a roundoff
@@ -339,6 +344,19 @@ Phases, each printing one JSON line:
     peak memory a rank, the aux loss, collectives a step by kind. Then
     small f32 models' pp2, ep2 and pp2×ep2 steps on the card (capacity
     not binding, no aux term) within 1e-4 of one rank's.
+18. train_multislice — the multi-slice tier (the ``slice_`` axis as a
+    hierarchical DCN tier), ZeRO-3 and ZeRO-1 over a dp subgroup: GPT-2
+    medium at full width and depth on four rank processes time-slicing
+    the card, B=8 × S=1024 (2 rows a data worker), one warm-up and one
+    timed step a leg, after the flash kernels at a data worker's and a
+    dp2×tp2 rank's calls and onebit at the hierarchical exchange's
+    segments (``multislice_kernel_cases``): dp4_raw, slice2_dp2_raw
+    (bit-equal to it), slice2_dp2_onebit_ef (EF exactly 177,435,648 f32
+    a rank), slice2_dp2_zero3 (ZeRO-3 over slice_ with remat: 2,129,227,776
+    persistent bytes a rank, peak below slice2_dp2_raw's, exact gathers
+    and reduce-scatters), dp2_tp2_raw and dp2_tp2_zero1 (bit-equal to
+    it); the limits at ``MULTISLICE_LEGS``, exact launches; ms a step,
+    peak memory a rank, collectives a step.
 
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
@@ -386,7 +404,8 @@ train_dcn's four legs on one rank, train_hybrid's five legs on one
 rank, train_chaos's nine legs on one rank, aggregate_onebit,
 train_parallel's one_rank and one rank of each leg, train_pipeline's
 one_rank and one rank of each leg, train_moe's moe_one_rank and one
-rank of each leg; the ring rows' times are the
+rank of each leg, train_multislice's one rank of each leg; the ring
+rows' times are the
 ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
 leaf alone as ``signs_*``; the flash_fwd row, timed at serve's chunk,
@@ -398,8 +417,10 @@ row, timed at generate's step, the long case's as ``long_*``; the
 flash_fwd, flash_bwd_dq and flash_bwd_dkv rows also give each
 train_parallel call's times, bound and error (and the forward's route
 and the paths making the call) as ``ring_cases``, each train_pipeline
-and train_moe call's as ``pipeline_cases``; the onebit rows the
-dp2_pp2 tail chunk's ms as ``pp_tail_ms``; the
+and train_moe call's as ``pipeline_cases``, each train_multislice
+call's as ``multislice_cases``; the onebit rows the dp2_pp2 tail
+chunk's ms as ``pp_tail_ms`` and the hierarchical exchange's segments'
+as ``hier_chunk_half_*`` and ``hier_tail_half_*``; the
 topk rows add ``warm_ms`` and the 4-byte offset's ``offset_ms``, the
 round trip ``tall``: (8, 1000) and (1, 8000), reconstruct the chunk's
 and K = 8's ms as ``chunk_ms`` and ``k8_ms``; the grid unpack-sum row,
@@ -2536,10 +2557,14 @@ def phase_examples(card: str) -> dict:
 # 1,024,000 f32 and a tail of 567,296; randomk keeps k = 0.01 of a segment
 GPT2M_PARAMS = 354_871_296
 # The depth of the rank phases that share the card and move whole
-# gradients through servers (GPT-2 medium at full width, its 24 layers
-# cut so the whole smoke stays inside its limit with train_pipeline and
-# train_moe added; each phase names its depth in its output line)
-RANK_PHASE_LAYERS = {"train_dcn": 8, "train_hybrid": 8, "train_chaos": 8}
+# gradients through servers or over meshes (GPT-2 medium at full width,
+# its 24 layers cut so the whole smoke stays inside its limit with
+# train_pipeline and train_moe added, and train_parallel's with
+# train_multislice; each phase names its depth in its output line.
+# train_parallel's limits hold at 12 layers, and its onebit leg's loss
+# gap does not at 8: 0.115 against 0.1, NVIDIA H100 80GB HBM3, 700 W)
+RANK_PHASE_LAYERS = {"train_dcn": 8, "train_hybrid": 8, "train_chaos": 8,
+                     "train_parallel": 12}
 
 
 def rank_phase_cfg(phase: str):
@@ -4910,8 +4935,7 @@ def train_parallel_rank(rank, n, B, S, steps, ref_path, f32_refs):
     of its tp-replicated leaves and (rank 0) each gathered leaf's count
     of elements further than 2·lr from one_rank's; then the f32 parity
     legs on the CPU and on the card."""
-    from byteps_tpu_torch.models import (GPTConfig, make_gpt_train_step,
-                                         params_to_numpy)
+    from byteps_tpu_torch.models import make_gpt_train_step, params_to_numpy
     from byteps_tpu_torch.models.convert import flat_specs, param_specs
     from byteps_tpu_torch.ops import launches, reset_launches
     from byteps_tpu_torch.parallel.mesh import (MeshAxes, collectives,
@@ -4919,7 +4943,7 @@ def train_parallel_rank(rank, n, B, S, steps, ref_path, f32_refs):
                                                 reset_collectives)
     from byteps_tpu_torch.parallel.partitioner import spec_axes
 
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_parallel")
     ref = np.load(ref_path, mmap_mode="r")
     res = {}
     for leg, ranks, axes, layout, ce, comp in PARALLEL_LEGS + (
@@ -4998,8 +5022,9 @@ def parallel_f32_rank(rank, refs, steps=3) -> dict:
 
 def phase_train_parallel(B=PARALLEL_BATCH[0], S=PARALLEL_BATCH[1],
                          steps=1) -> dict:
-    """GPT-2 medium at full width and depth on meshes of rank processes
-    (``spawn``, one gloo group over a FileStore) that time-slice the card,
+    """GPT-2 medium at full width and 12 of its 24 layers
+    (:data:`RANK_PHASE_LAYERS`) on meshes of rank processes (``spawn``,
+    one gloo group over a FileStore) that time-slice the card,
     bf16 over f32 master weights, AdamW(1e-3), the global batch B=4 ×
     S=1024 and the seeded weights of one_rank (the same step on one rank,
     in this process, the yardstick), one warm-up and ``steps`` timed steps
@@ -5030,11 +5055,10 @@ def phase_train_parallel(B=PARALLEL_BATCH[0], S=PARALLEL_BATCH[1],
     import tempfile
 
     from byteps_tpu_torch.common.config import get_config
-    from byteps_tpu_torch.models import (GPTConfig, make_gpt_train_step,
-                                         params_to_numpy)
+    from byteps_tpu_torch.models import make_gpt_train_step, params_to_numpy
     from byteps_tpu_torch.ops import launches, reset_launches
 
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_parallel")
     t0 = time.perf_counter()
     reset_launches()
     step, params, opt = make_gpt_train_step(
@@ -5167,6 +5191,8 @@ def phase_train_parallel(B=PARALLEL_BATCH[0], S=PARALLEL_BATCH[1],
         if any(kern[k] != v for k, v in want.items()):
             failed.append((f"{leg}_cuda launches", kern, want))
     emit({"phase": "train_parallel", "card": card_name_and_limit(),
+          "layers": cfg.n_layers,
+          "depth_cut": "24 layers cut to keep the smoke in its limit",
           "timing": "the ranks time-slice one card", "batch": B, "seq": S,
           "steps": steps, "one_rank": {
               k: one[k] for k in ("losses", "step_ms", "warmup_s",
@@ -5812,6 +5838,310 @@ def phase_train_moe(B=MOE_BATCH[0], S=MOE_BATCH[1], steps=1) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 18: the multi-slice tier, ZeRO-3 and ZeRO-1 over a dp subgroup
+# --------------------------------------------------------------------------
+# GPT-2 medium at full width and depth, four rank processes time-slicing
+# the card over gloo, bf16 over f32 master weights, AdamW(1e-3), the
+# seeded weights, one global batch of B=8 × S=1024 for every leg (2 rows
+# a worker on the data legs), one warm-up and one timed step a leg.
+# (name, mesh axes, make_gpt_train_step keywords)
+MULTISLICE_BATCH = (8, 1024)
+MULTISLICE_LEGS = (
+    ("dp4_raw", {"dp": 4}, {}),
+    ("slice2_dp2_raw", {"slice_": 2, "dp": 2}, {}),
+    ("slice2_dp2_onebit_ef", {"slice_": 2, "dp": 2},
+     {"compression_params": ONEBIT_EF}),
+    ("slice2_dp2_zero3", {"slice_": 2, "dp": 2},
+     {"zero_3": True, "remat": True}),
+    ("dp2_tp2_raw", {"dp": 2, "tp": 2}, {}),
+    ("dp2_tp2_zero1", {"dp": 2, "tp": 2}, {"zero_1": True}))
+# The limits, stated before the first run. slice2_dp2_raw against dp4_raw
+# and dp2_tp2_zero1 against dp2_tp2_raw: bit-equal (losses and each
+# rank's parameter digest: the joined (slice_, dp) group sums the same
+# four gradients in one all-reduce over the whole job; ZeRO-1's
+# scatter adds the same two dp terms as the all-reduce and AdamW is
+# elementwise). slice2_dp2_onebit_ef against dp4_raw: the warm-up's
+# loss bit-equal (the same weights, nothing aggregated yet), the timed
+# step's within PARALLEL_ONEBIT_LOSS_GAP (train_pipeline's onebit
+# limit). The ZeRO-3 leg against slice2_dp2_raw: the warm-up's loss
+# bit-equal (the same forward on gathered copies of the same f32
+# weights), the timed
+# step's within MULTISLICE_ZERO3_LOSS_TOL: its gradient is the same sum
+# of the same four per-worker gradients in another order (a scatter over
+# slice_, then a sum over dp), f32 roundoff that AdamW's first step
+# turns into a sign flip only where a gradient is near zero.
+MULTISLICE_ZERO3_LOSS_TOL = 1e-3
+# ZeRO-3's persistent bytes a rank at n_shard = 2: the segments and
+# AdamW's two moments, 3 · 4 · (26,280,960 + 24 · 6,298,112)
+MULTISLICE_ZERO3_BYTES = 2_129_227_776
+# the hierarchical leg's EF residual a rank: ceil(354,871,296 / 2) f32
+MULTISLICE_EF = 177_435_648
+
+
+def multislice_onebit_case(timer, name, n, seed) -> dict:
+    """Onebit pack and unpack-sum at K = 1 and 2 (the hierarchical path's
+    exchange over two slices: the owner's sum of two payloads, and each
+    row decoded) at one segment length, bit-equal to the plain versions,
+    timed and bounded."""
+    from byteps_tpu_torch.ops.onebit_kernels import (
+        _pack_torch, _unpack_sum_torch, onebit_pack, onebit_unpack_sum,
+        packed_words)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [torch.randn(n, generator=g, device="cuda") for _ in range(2)]
+    L = packed_words(n)
+    words = torch.stack([onebit_pack(x) for x in xs])
+    if not torch.equal(words, torch.stack([_pack_torch(x) for x in xs])):
+        raise AssertionError(f"onebit pack {name}: words differ from the "
+                             "plain version")
+    res = {"case": name, "n": n, "words": L, "pack_max_abs_err": 0.0,
+           "pack_ms": timer(lambda: onebit_pack(xs[0])),
+           "pack_plain_ms": timer(lambda: _pack_torch(xs[0]))}
+    res["pack_bound_ms"], res["pack_bound_by"] = bound_ms(
+        4 * n + 4 * L, 32 * L, torch.float32)
+    sc = torch.rand(2, generator=g, device="cuda")
+    for K in (1, 2):
+        out = onebit_unpack_sum(words[:K], sc[:K], n)
+        ref = _unpack_sum_torch(words[:K], sc[:K], n)
+        if not bits_equal(out, ref):
+            raise AssertionError(f"onebit unpack_sum {name} K={K}: differs "
+                                 "from the plain version")
+        res[f"unpack_k{K}_max_abs_err"] = float((out - ref).abs().max())
+        res[f"unpack_k{K}_ms"] = timer(
+            lambda: onebit_unpack_sum(words[:K], sc[:K], n))
+        res[f"unpack_k{K}_plain_ms"] = timer(
+            lambda: _unpack_sum_torch(words[:K], sc[:K], n))
+        res[f"unpack_k{K}_bound_ms"], res[f"unpack_k{K}_bound_by"] = \
+            bound_ms(4 * K * L + 4 * K + 4 * n, 2 * K * n, torch.float32)
+    emit({"phase": "onebit", **res})
+    return res
+
+
+def multislice_kernel_cases(timer) -> dict:
+    """The kernels at train_multislice's calls, each against its plain
+    version, timed and bounded: the flash forward, dq and dk/dv at a data
+    worker's 2 rows (16 heads) and at a dp2×tp2 rank's 4 rows (8 heads),
+    and onebit at the hierarchical leg's exchange, per chunk of its dp
+    segment over two slices: the full chunk's half (512,000) and the tail
+    chunk's (141,824)."""
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.models import GPTConfig
+
+    cfg = GPTConfig.gpt2_medium()
+    B, S = MULTISLICE_BATCH
+    out = {}
+    for i, (name, rows, heads) in enumerate((
+            ("worker", B // 4, cfg.n_heads),
+            ("dp2_tp2", B // 2, cfg.n_heads // 2))):
+        nm = f"multislice_{name}:{rows}x{S}x{heads}"
+        out[nm] = {
+            "paths": ["train_multislice"],
+            "fwd": fwd_case(timer, nm, rows, S, S, heads, heads,
+                            cfg.head_dim, 0, torch.bfloat16, 900 + i),
+            "bwd": bwd_case(timer, nm, rows, S, S, heads, heads,
+                            cfg.head_dim, 0, 0, torch.bfloat16, 910 + i)}
+    per = get_config().partition_bytes // 4
+    tail = MULTISLICE_EF % per
+    out["onebit_chunk"] = multislice_onebit_case(
+        timer, "hier_chunk_half", -(-per // 2), 920)
+    out["onebit_tail"] = multislice_onebit_case(
+        timer, "hier_tail_half", -(-tail // 2), 921)
+    return out
+
+
+def train_multislice_rank(rank, n, B, S, steps):
+    """One rank of train_multislice: each leg's mesh and step from the
+    seeded weights, one warm-up and ``steps`` timed steps on the global
+    batch; losses, step times, peak memory, launch and collective
+    counts, a digest of this rank's parameters (its segments under
+    ZeRO-3), its persistent state's bytes and its EF length."""
+    from byteps_tpu_torch.models import GPTConfig, make_gpt_train_step
+    from byteps_tpu_torch.ops import launches, reset_launches
+    from byteps_tpu_torch.parallel.mesh import (MeshAxes, collectives,
+                                                make_mesh,
+                                                reset_collectives)
+    from byteps_tpu_torch.parallel.zero3 import state_bytes
+
+    cfg = GPTConfig.gpt2_medium()
+    tok, tgt = parallel_batch(cfg, B, S, "cuda")
+    res = {}
+    for leg, axes, kw in MULTISLICE_LEGS:
+        mesh = make_mesh(MeshAxes(**axes))
+        step, params, opt = make_gpt_train_step(
+            cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+            mesh=mesh, **kw)
+        zero3 = kw.get("zero_3", False)
+        leaves = [params["rest"], *params["blocks"]] if zero3 else opt.params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        reset_collectives()
+        losses, times = [], []
+        for _ in range(steps + 1):
+            t0 = time.perf_counter()
+            losses.append(float(step(tok, tgt)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out = {"losses": losses, "warmup_s": times[0],
+               "step_ms": sum(times[1:]) / steps * 1e3,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": dict(launches), "collectives": dict(collectives),
+               "params_sha1": params_digest(leaves),
+               "coords": {a: mesh.axis_index(a) for a in mesh.axis_names}}
+        if zero3:
+            out["state_bytes"] = state_bytes(params, opt)
+        else:
+            out["state_bytes"] = opt.moment_bytes() + sum(
+                p.numel() * p.element_size() for p in opt.params)
+            out["ef_numel"] = 0 if opt.ef is None else opt.ef.numel()
+        res[leg] = out
+        del step, params, opt, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_multislice(B=MULTISLICE_BATCH[0], S=MULTISLICE_BATCH[1],
+                           steps=1) -> dict:
+    """The multi-slice tier, ZeRO-3 and ZeRO-1 over a dp subgroup on four
+    rank processes that time-slice the card (:data:`MULTISLICE_LEGS`):
+    dp4_raw; slice2_dp2_raw (the joined (slice_, dp) group, bit-equal to
+    dp4_raw); slice2_dp2_onebit_ef (the hierarchical path: raw
+    reduce-scatter over dp, onebit + EF over slice_ per chunk of the dp
+    segment, all-gather over dp; EF exactly MULTISLICE_EF f32 a rank);
+    slice2_dp2_zero3 (ZeRO-3 over slice_ with remat: persistent state
+    exactly MULTISLICE_ZERO3_BYTES a rank, peak memory below
+    slice2_dp2_raw's); dp2_tp2_raw and dp2_tp2_zero1 (ZeRO-1 over the dp
+    line, bit-equal to it). Every leg: losses finite and falling, the
+    same on every rank, the limits stated at MULTISLICE_LEGS, exact
+    launches (the flash kernels once a layer and step, the forward twice
+    under ZeRO-3's remat; onebit pack 3 and unpack-sum 5 times a chunk of
+    the dp segment and step) and collectives (the hierarchical leg one dp
+    reduce-scatter and one dp all-gather a step; ZeRO-3 25 forward
+    gathers, 24 backward gathers, 25 reduce-scatters over slice_ and one
+    sum over dp a step; the tp legs the same tp sums); ms a step (the
+    slower rank), peak memory a rank. Returns rank 0's launch counts,
+    summed over the legs."""
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.models import GPTConfig
+
+    cfg = GPTConfig.gpt2_medium()
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(train_multislice_rank, 4, B, S, steps)
+    wall = time.perf_counter() - t0
+    calls = steps + 1
+    per = get_config().partition_bytes // 4
+    legs = {leg: [r[leg] for r in ranks] for leg, _, _ in MULTISLICE_LEGS}
+    out, failed, total = {}, [], {}
+    for leg, axes, kw in MULTISLICE_LEGS:
+        rs = legs[leg]
+        r0 = rs[0]
+        rows = B // (axes.get("slice_", 1) * axes.get("dp", 1))
+        heads = cfg.n_heads // axes.get("tp", 1)
+        want = want_launches(calls, 1, L, (rows, S, heads, cfg.head_dim,
+                                           torch.bfloat16))
+        per_step = {}
+        if kw.get("zero_3"):
+            want["flash_fwd"] *= 2
+            want["flash_fwd_split"] *= 2
+            per_step = {"zero3_gather_fwd": L + 1, "zero3_gather_bwd": L,
+                        "zero3_reduce_scatter": L + 1, "zero3_grad_sum": 1}
+        if "compression_params" in kw:
+            chunks = -(-r0["ef_numel"] // per)
+            want.update(onebit_pack=calls * chunks * 3,
+                        onebit_unpack_sum=calls * chunks * 5)
+            per_step = {"hier_dp_reduce_scatter": 1, "hier_dp_all_gather": 1}
+        checks = {
+            "falls": all(falls(r["losses"]) for r in rs),
+            "same_losses": all(r["losses"] == r0["losses"] for r in rs),
+            "ranks_launch_alike": all(r["launches"] == r0["launches"]
+                                      for r in rs),
+            "launches": not exact(r0["launches"], want)}
+        if "tp" not in axes:
+            checks["collectives"] = not exact(
+                r0["collectives"], want_collectives(calls, **per_step))
+        out[leg] = {
+            "mesh": axes, "options": {k: v for k, v in kw.items()
+                                      if k != "compression_params"},
+            "compression": kw.get("compression_params"),
+            "losses": r0["losses"],
+            "step_ms": max(r["step_ms"] for r in rs),
+            "step_ms_each": [r["step_ms"] for r in rs],
+            "warmup_s": max(r["warmup_s"] for r in rs),
+            "max_memory_allocated_gb": [r["max_memory_allocated"] / 1e9
+                                        for r in rs],
+            "state_bytes": [r["state_bytes"] for r in rs],
+            "ef_numel": r0.get("ef_numel"),
+            "collectives_per_step": {k: v / calls for k, v in
+                                     r0["collectives"].items() if v},
+            "launches": r0["launches"], "checks": checks}
+        for k, v in r0["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    def same(a, b, key):
+        return all(x[key] == y[key] for x, y in zip(legs[a], legs[b]))
+
+    dp4, s2, ob, z3 = (legs["dp4_raw"][0], legs["slice2_dp2_raw"][0],
+                       legs["slice2_dp2_onebit_ef"][0],
+                       legs["slice2_dp2_zero3"][0])
+    ob_gap = [abs(a - b) for a, b in zip(ob["losses"], dp4["losses"])]
+    z3_gap = [abs(a - b) for a, b in zip(z3["losses"], s2["losses"])]
+    pairs = {
+        "slice2_dp2_raw": {
+            "bit_equal_to_dp4_raw": (same("slice2_dp2_raw", "dp4_raw",
+                                          "losses")
+                                     and same("slice2_dp2_raw", "dp4_raw",
+                                              "params_sha1"))},
+        "dp2_tp2_zero1": {
+            "bit_equal_to_dp2_tp2_raw": (
+                same("dp2_tp2_zero1", "dp2_tp2_raw", "losses")
+                and same("dp2_tp2_zero1", "dp2_tp2_raw", "params_sha1")),
+            "collectives_of_dp2_tp2_raw": same("dp2_tp2_zero1",
+                                               "dp2_tp2_raw",
+                                               "collectives")},
+        "slice2_dp2_onebit_ef": {
+            "ef_numel": all(r["ef_numel"] == MULTISLICE_EF
+                            for r in legs["slice2_dp2_onebit_ef"]),
+            "warmup_bit_equal_to_dp4_raw": (ob["losses"][0]
+                                            == dp4["losses"][0]),
+            "loss_gap": all(g <= PARALLEL_ONEBIT_LOSS_GAP
+                            for g in ob_gap[1:])},
+        "slice2_dp2_zero3": {
+            "state_bytes": all(r["state_bytes"] == MULTISLICE_ZERO3_BYTES
+                               for r in legs["slice2_dp2_zero3"]),
+            "peak_below_slice2_dp2_raw": (
+                max(r["max_memory_allocated"]
+                    for r in legs["slice2_dp2_zero3"])
+                < min(r["max_memory_allocated"]
+                      for r in legs["slice2_dp2_raw"])),
+            "warmup_bit_equal_to_slice2_dp2_raw": (z3["losses"][0]
+                                                   == s2["losses"][0]),
+            "loss_gap": all(g <= MULTISLICE_ZERO3_LOSS_TOL
+                            for g in z3_gap[1:])}}
+    out["slice2_dp2_onebit_ef"]["loss_gap_to_dp4_raw"] = ob_gap
+    out["slice2_dp2_zero3"]["loss_gap_to_slice2_dp2_raw"] = z3_gap
+    for leg, checks in pairs.items():
+        out[leg]["checks"].update(checks)
+    for leg, o in out.items():
+        if not all(o["checks"].values()):
+            failed.append((leg, o["checks"]))
+    emit({"phase": "train_multislice", "card": card_name_and_limit(),
+          "timing": "four ranks time-slice one card", "batch": B, "seq": S,
+          "layers": L, "steps": steps,
+          "limits": {"onebit_loss_gap": PARALLEL_ONEBIT_LOSS_GAP,
+                     "zero3_loss_gap": MULTISLICE_ZERO3_LOSS_TOL,
+                     "zero3_state_bytes": MULTISLICE_ZERO3_BYTES,
+                     "hier_ef_numel": MULTISLICE_EF},
+          "wall_s": wall, "legs": out, "failed": failed})
+    if failed:
+        raise AssertionError(f"train_multislice failed: {failed}")
+    return total
+
+
 # the kernels each run of the main path must launch
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
@@ -5838,12 +6168,13 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
          "eval": ("flash_fwd",),
          "train_parallel": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
          "train_pipeline": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
-         "train_moe": TRAIN}
+         "train_moe": TRAIN,
+         "train_multislice": TRAIN + ("onebit_pack", "onebit_unpack_sum")}
 MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
               "train_onebit", "train_topk", "train_ring", "train_dcn",
               "train_hybrid", "train_chaos", "aggregate_onebit",
               "train_zero", "train_accum", "eval", "train_parallel",
-              "train_pipeline", "train_moe")
+              "train_pipeline", "train_moe", "train_multislice")
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
@@ -5911,6 +6242,11 @@ def main() -> int:
                          "train_pipeline and train_moe (pipeline and "
                          "expert parallelism); no kernels line, no result "
                          "line")
+    ap.add_argument("--multislice", action="store_true",
+                    help="run only the kernels at train_multislice's calls "
+                         "and train_multislice (the multi-slice tier, "
+                         "ZeRO-3 and ZeRO-1 over a dp subgroup); no kernels "
+                         "line, no result line")
     ap.add_argument("--zero", action="store_true",
                     help="run only the training options' phases (the codec "
                          "kernels at ZeRO's shapes, train_raw, train_zero, "
@@ -5979,6 +6315,11 @@ def main() -> int:
             "train_pipeline", phase_train_pipeline), "train_moe":
             counted_ranks("train_moe", phase_train_moe)})
         return 0
+    if args.multislice:
+        multislice_kernel_cases(Timer())
+        emit({"phase": "launches", "train_multislice": counted_ranks(
+            "train_multislice", phase_train_multislice)})
+        return 0
     if args.zero:
         zero_codec_cases(Timer())
         emit({"phase": "launches", **training_options(),
@@ -6038,6 +6379,7 @@ def main() -> int:
         raise AssertionError(f"flash_bwd cases {failed} failed")
     ring_kc = parallel_kernel_cases(timer)
     pipe_kc = pipeline_kernel_cases(timer)
+    ms_kc = multislice_kernel_cases(timer)
     twice_case("train", 8, 1024, 16, 16, 64, 38)
     twice_case("d128", 4, 1024, 8, 8, 128, 39)
     chunk = 4096000 // 4           # one default partition of f32
@@ -6140,6 +6482,8 @@ def main() -> int:
     by_path["train_pipeline"] = counted_ranks("train_pipeline",
                                               phase_train_pipeline)
     by_path["train_moe"] = counted_ranks("train_moe", phase_train_moe)
+    by_path["train_multislice"] = counted_ranks("train_multislice",
+                                                phase_train_multislice)
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()
@@ -6178,7 +6522,14 @@ def main() -> int:
                                                    "library_ms", "bound_ms",
                                                    "bound_by", "max_abs_err",
                                                    "route")}}
-                  for nm, c in pipe_kc.items() if nm != "onebit_tail"}}),
+                  for nm, c in pipe_kc.items() if nm != "onebit_tail"},
+              "multislice_cases": {
+                  nm: {"paths": c["paths"],
+                       **{k: c["fwd"][k] for k in ("ms", "plain_ms",
+                                                   "library_ms", "bound_ms",
+                                                   "bound_by", "max_abs_err",
+                                                   "route")}}
+                  for nm, c in ms_kc.items() if "fwd" in c}}),
             ("flash_decode", "flash_decode",
              "byteps_tpu/ops/flash_decode.py:77", main_dec),
             ("flash_bwd_dq", "flash_bwd",
@@ -6191,7 +6542,11 @@ def main() -> int:
               "pipeline_cases": {
                   nm: {**c["bwd"]["dq"], "plain_ms": c["bwd"]["plain_ms"],
                        "library_ms": c["bwd"]["library_ms"]}
-                  for nm, c in pipe_kc.items() if nm != "onebit_tail"}}),
+                  for nm, c in pipe_kc.items() if nm != "onebit_tail"},
+              "multislice_cases": {
+                  nm: {**c["bwd"]["dq"], "plain_ms": c["bwd"]["plain_ms"],
+                       "library_ms": c["bwd"]["library_ms"]}
+                  for nm, c in ms_kc.items() if "bwd" in c}}),
             ("flash_bwd_dkv", "flash_bwd",
              "byteps_tpu/ops/flash_attention.py:399",
              {**main_bwd, **main_bwd["dkv"],
@@ -6202,10 +6557,16 @@ def main() -> int:
               "pipeline_cases": {
                   nm: {**c["bwd"]["dkv"], "plain_ms": c["bwd"]["plain_ms"],
                        "library_ms": c["bwd"]["library_ms"]}
-                  for nm, c in pipe_kc.items() if nm != "onebit_tail"}}),
+                  for nm, c in pipe_kc.items() if nm != "onebit_tail"},
+              "multislice_cases": {
+                  nm: {**c["bwd"]["dkv"], "plain_ms": c["bwd"]["plain_ms"],
+                       "library_ms": c["bwd"]["library_ms"]}
+                  for nm, c in ms_kc.items() if "bwd" in c}}),
             ("onebit_pack", "onebit", "byteps_tpu/ops/onebit_kernels.py:81",
              {"case": "chunk", "max_abs_err": main_bits["pack_max_abs_err"],
               "pp_tail_ms": pipe_kc["onebit_tail"]["pack_ms"],
+              "hier_chunk_half_ms": ms_kc["onebit_chunk"]["pack_ms"],
+              "hier_tail_half_ms": ms_kc["onebit_tail"]["pack_ms"],
               "ms": main_bits["pack_ms"],
               "plain_ms": main_bits["pack_plain_ms"],
               "bound_ms": main_bits["pack_bound_ms"],
@@ -6215,6 +6576,8 @@ def main() -> int:
              {"case": "chunk K=1",
               "max_abs_err": main_bits["unpack_k1_max_abs_err"],
               "pp_tail_ms": pipe_kc["onebit_tail"]["unpack_k1_ms"],
+              "hier_chunk_half_k2_ms": ms_kc["onebit_chunk"]["unpack_k2_ms"],
+              "hier_tail_half_k2_ms": ms_kc["onebit_tail"]["unpack_k2_ms"],
               "ms": main_bits["unpack_k1_ms"],
               "plain_ms": main_bits["unpack_k1_plain_ms"],
               "bound_ms": main_bits["unpack_k1_bound_ms"],
@@ -6266,7 +6629,10 @@ def main() -> int:
                                  "signs_ms_time_sliced",
                                  "signs_library_ms", "signs_bound_ms",
                                  "ring_cases", "pipeline_cases",
-                                 "pp_tail_ms")
+                                 "multislice_cases", "pp_tail_ms",
+                                 "hier_chunk_half_ms", "hier_tail_half_ms",
+                                 "hier_chunk_half_k2_ms",
+                                 "hier_tail_half_k2_ms")
             if k in main}}
         for name, src, rep, main in rows]
     print(card, flush=True)

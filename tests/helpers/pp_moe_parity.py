@@ -59,10 +59,11 @@ def _locked(path: Path):
 
 
 def port_groups(tag: str, legs_by_n: dict, arrays: dict,
-                tmp_path_factory) -> dict:
-    """{n: [each rank's outputs]} of ``legs_by_n[n]`` on n gloo ranks,
-    computed once a test session across xdist workers (the first worker
-    to need a group runs it under a file lock and leaves its outputs)."""
+                tmp_path_factory, script: str = "pp_moe_rank.py") -> dict:
+    """{n: [each rank's outputs]} of ``legs_by_n[n]`` on n gloo ranks
+    running ``script`` (a rank script of this directory), computed once a
+    test session across xdist workers (the first worker to need a group
+    runs it under a file lock and leaves its outputs)."""
     from test_torch_ring import run_group
 
     base = tmp_path_factory.getbasetemp()
@@ -75,8 +76,7 @@ def port_groups(tag: str, legs_by_n: dict, arrays: dict,
                 done.mkdir(exist_ok=True)
                 np.savez(done / "in.npz", **arrays)
                 (done / "legs.json").write_text(json.dumps(legs))
-                outs = run_group(done, n,
-                                 (HELPERS / "pp_moe_rank.py").read_text())
+                outs = run_group(done, n, (HELPERS / script).read_text())
                 for r, o in enumerate(outs):
                     np.savez(done / f"res{r}.npz", **o)
                 (done / "ok").write_text("")

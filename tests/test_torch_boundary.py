@@ -40,6 +40,7 @@ from byteps_tpu_torch.models import (GPTConfig, gpt_init, make_eval_step,
                                      make_generate_fn, make_gpt_train_step,
                                      params_from_numpy)
 from byteps_tpu_torch.models.generate import init_cache
+from byteps_tpu_torch.parallel.zero3 import make_gpt_zero3_train_step
 from byteps_tpu_torch.serve import AdapterPool, PagedKVCache, Scheduler
 from byteps_tpu_torch.models import adapters_from_numpy
 from byteps_tpu_torch.models.lora import lora_init
@@ -58,6 +59,7 @@ calls = {
     "Scheduler": lambda: Scheduler(cpu, cfg),
     "make_gpt_train_step": lambda: make_gpt_train_step(cfg),
     "make_eval_step": lambda: make_eval_step(cfg),
+    "make_gpt_zero3_train_step": lambda: make_gpt_zero3_train_step(cfg),
     "AdapterPool": lambda: AdapterPool(cfg, n_slots=2, rank_bucket=2),
     "lora_init": lambda: lora_init(cfg, 2),
     "adapters_from_numpy": lambda: adapters_from_numpy(
@@ -95,7 +97,7 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
               "eager", "parallel.mesh", "parallel.partitioner",
               "parallel.sharding", "parallel.tp", "parallel.ring_attention",
               "parallel.remat", "parallel.pipeline", "parallel.moe",
-              "models.moe_gpt"):
+              "parallel.zero3", "models.moe_gpt"):
         assert f"byteps_tpu_torch.{m}" in res["modules"], m
     assert res["leaked"] == [], res["leaked"]
     # importing every module (the server entry included) built, loaded and
@@ -123,8 +125,8 @@ def test_ring_modules_import_alone_without_jax():
 
 def test_parallel_modules_import_alone_without_jax():
     """The mesh, the partitioner, the sharding specs, tensor parallelism,
-    ring attention, the pipeline, the MoE FFN and the MoE GPT, imported
-    on their own, load neither jax nor byteps_tpu."""
+    ring attention, the pipeline, the MoE FFN, ZeRO-3 and the MoE GPT,
+    imported on their own, load neither jax nor byteps_tpu."""
     probe = ("import sys\n"
              "import byteps_tpu_torch.parallel.mesh\n"
              "import byteps_tpu_torch.parallel.partitioner\n"
@@ -133,6 +135,7 @@ def test_parallel_modules_import_alone_without_jax():
              "import byteps_tpu_torch.parallel.ring_attention\n"
              "import byteps_tpu_torch.parallel.pipeline\n"
              "import byteps_tpu_torch.parallel.moe\n"
+             "import byteps_tpu_torch.parallel.zero3\n"
              "import byteps_tpu_torch.models.moe_gpt\n"
              "print([m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'byteps_tpu')])")

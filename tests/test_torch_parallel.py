@@ -16,6 +16,8 @@ AdamW (``optax.adamw(1e-3)`` and the port's ``adamw``):
   (``chunked_ce=False``): losses and the gathered parameters within 1e-5
   of the reference's; remat on and off equal bit for bit; AdamW's first
   moments gathered over tp equal a one-rank run's within 1e-5;
+* dp2×tp2×sp2 ZeRO-1 over each (tp, sp) rank's dp line: within 1e-5 of
+  the reference's ``zero_1=True`` step and bit-equal to the raw leg;
 * dp2×tp2×sp2 onebit + EF: losses within 1e-4 of the reference's and
   the parameters further than 1e-5 from its below a share of 1e-3 (the
   onebit training bounds). A chunk's onebit scale spans a rank's tp
@@ -84,7 +86,8 @@ LEGS = {
         {"name": "onebit_ef", "mesh": AXES8,
          "kw": {"compression_params": ONEBIT_EF}},
         {"name": "accum", "mesh": AXES8, "kw": {"accum_steps": 2}},
-        {"name": "dense_ce", "mesh": AXES8, "kw": {"chunked_ce": False}}],
+        {"name": "dense_ce", "mesh": AXES8, "kw": {"chunked_ce": False}},
+        {"name": "zero1", "mesh": AXES8, "kw": {"zero_1": True}}],
     4: [{"name": "zigzag", "mesh": {"dp": 2, "sp": 2}, "zigzag": True,
          "steps": ZIGZAG_STEPS, "kw": {"seq_layout": "zigzag"}},
         {"name": "llama", "mesh": {"tp": 2, "sp": 2}, "tree": "llama",
@@ -100,6 +103,7 @@ LEGS = {
 }
 # the legs' reference runs: (mesh axes, cfg, options)
 REF = {"raw": (AXES8, {}), "accum": (AXES8, {"accum_steps": 2}),
+       "zero1": (AXES8, {"zero_1": True}),
        "dense_ce": (AXES8, {"chunked_ce": False}),
        "onebit_ef": (AXES8,
                                          {"compression_params": ONEBIT_EF}),
@@ -385,10 +389,27 @@ def test_vocab_parallel_ce_matches_dense_golden(port, V):
                                    rtol=CE_RTOL, atol=CE_ATOL)
 
 
+def test_zero1_over_dp_subgroup_matches_reference(port, data):
+    """ZeRO-1 on dp2×tp2×sp2 shards each (tp, sp) rank's optimizer state
+    over its dp line: within 1e-5 of the reference's ``zero_1=True``
+    step, and bit-equal to the port's replicated step on the same mesh
+    (the scatter and the all-reduce add the same two dp terms; AdamW is
+    elementwise)."""
+    losses, params = _ref(data, "zero1")
+    for o in _ranks(port, "zero1"):
+        np.testing.assert_allclose(o["zero1_loss"], losses, rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(o["zero1_params"], params, rtol=TOL,
+                                   atol=TOL)
+    for o, q in zip(_ranks(port, "zero1"), _ranks(port, "raw")):
+        np.testing.assert_array_equal(o["zero1_loss"], q["raw_loss"])
+        np.testing.assert_array_equal(o["zero1_params"], q["raw_params"])
+
+
 def test_mesh_refusals(monkeypatch):
     """What the port refuses on a mesh, by name: zigzag without an sp
     axis (the reference's ValueError), a mesh that is not the job's
-    size, ZeRO-1 and the ring tier over a dp subgroup (ROADMAP A.6)."""
+    size, and the ring tier over a dp subgroup (ROADMAP A.6)."""
     from byteps_tpu_torch import optimizer as topt
     from byteps_tpu_torch.common.config import reset_config
     from byteps_tpu_torch.models import make_gpt_train_step
@@ -407,9 +428,6 @@ def test_mesh_refusals(monkeypatch):
     monkeypatch.setattr(topt, "world", lambda group=None: (4, 0))
     sub = Axis("dp", 2, 0, (0, 2), group=object())
     p = torch.zeros(8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        topt.DistributedOptimizer(torch.optim.AdamW([p]), [p], zero=True,
-                                  axis=sub)
     opt = topt.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), [p],
                                     axis=sub)
     p.grad = torch.ones(8)

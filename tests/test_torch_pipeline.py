@@ -20,6 +20,9 @@ pp_moe_rank.py``, each group once a test session):
   shows; AdamW's ``g / (|g| + 1e-8)`` would turn each library's
   summation order into up to 1e-5 at a near-zero gradient); remat on
   and off bit-equal;
+* ZeRO-1 over each stage's dp line on pp2×dp2 (SGD): within 1e-5 of the
+  reference's ``zero_1=True`` step and bit-equal to the port's
+  replicated pp2×dp2 step;
 * dp2×pp2 onebit + EF (AdamW): losses within 1e-4 of the reference's and
   a share under 1e-3 of the parameters further than 1e-5 from its (PR
   19's onebit bounds) on every leaf but the key bias, whose exact
@@ -89,12 +92,15 @@ LEGS = {
          "cfg": llama_cfg(), "kw": {"n_micro": 2}},
         {"name": "dp2_pp2_onebit_ef", "kind": "pp_train",
          "mesh": {"pp": 2, "dp": 2}, "tree": "tiny",
-         "kw": {"n_micro": 2, "compression_params": ONEBIT_EF}}],
+         "kw": {"n_micro": 2, "compression_params": ONEBIT_EF}},
+        {"name": "pp2_dp2_zero1", "kind": "pp_train",
+         "mesh": {"pp": 2, "dp": 2}, "tree": "tiny",
+         "kw": {"n_micro": 2, "zero_1": True}}],
 }
 RAW = ["pp2_dp2", "pp2_4layer", "pp2_tp2", "pp2_sp2", "pp2_sp2_zigzag",
        "pp2_dp2_llama"]
 for _g in LEGS[2] + LEGS[4]:
-    if _g["name"] in RAW + ["pp2_dp2_remat"]:
+    if _g["name"] in RAW + ["pp2_dp2_remat", "pp2_dp2_zero1"]:
         _g.update(opt="sgd", lr=SGD_LR)
 
 
@@ -243,6 +249,25 @@ def test_pp_step_matches_reference(port, data, leg):
                                    atol=TOL)
 
 
+def test_pp_zero1_over_dp_matches_reference(port, data):
+    """ZeRO-1 over each stage's dp line (each stage shards its own slab's
+    state): within 1e-5 of the reference's ``zero_1=True`` step (its
+    explicit gradient assembly), and bit-equal to the port's replicated
+    pp2×dp2 step (the scatter and the all-reduce add the same two dp
+    terms; SGD is elementwise)."""
+    leg = "pp2_dp2_zero1"
+    losses, views = _ref_pp(data, leg)
+    for r, (o, q) in enumerate(zip(_ranks(port, leg),
+                                   _ranks(port, "pp2_dp2"))):
+        np.testing.assert_allclose(o[f"{leg}_loss"], losses, rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(o[f"{leg}_params"], views[r], rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_array_equal(o[f"{leg}_loss"], q["pp2_dp2_loss"])
+        np.testing.assert_array_equal(o[f"{leg}_params"],
+                                      q["pp2_dp2_params"])
+
+
 def test_pp_onebit_ef_matches_reference(port, data):
     leg = "dp2_pp2_onebit_ef"
     losses, views = _ref_pp(data, leg)
@@ -321,12 +346,9 @@ def test_pp_collectives_follow_the_schedule(port, leg, ticks):
 # --------------------------------------------------------------------------
 # refusals
 # --------------------------------------------------------------------------
-def test_pp_refusals(monkeypatch):
+def test_pp_refusals():
     """The reference's errors: no pp axis, layers that pp does not
-    divide, a batch that the microbatches do not divide; ZeRO-1 on a pp
-    mesh is refused by the optimizer (its dp axis is not the whole
-    job)."""
-    from byteps_tpu_torch import optimizer as topt
+    divide, a batch that the microbatches do not divide."""
     from byteps_tpu_torch.models import make_gpt_pp_train_step
 
     cfg = GPTConfig.tiny()
@@ -341,10 +363,6 @@ def test_pp_refusals(monkeypatch):
     with pytest.raises(ValueError, match="requires a mesh with an sp axis"):
         make_gpt_pp_train_step(cfg, fake_mesh({"pp": 2}, 0), device="cpu",
                                seq_layout="zigzag")
-    monkeypatch.setattr(topt, "world", lambda group=None: (4, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        make_gpt_pp_train_step(cfg, fake_mesh({"pp": 2, "dp": 2}, 0),
-                               device="cpu", zero_1=True)
     step, _, _ = make_gpt_pp_train_step(cfg, fake_mesh({"pp": 2}, 1),
                                         device="cpu", n_micro=3)
     tok = np.zeros((4, 8), np.int64)

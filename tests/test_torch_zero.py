@@ -25,9 +25,13 @@ three steps of AdamW (``optax.adamw(1e-3)`` and the port's ``adamw``).
   gradients differ by f32 roundoff, so a few elements round to the other
   bf16 neighbour (2 of 87,552 here);
 * the moments are ceil(L/n) f32 each on every rank;
-* the refusals: ``zero_1`` with ``zero_3``, ``zero_3`` alone, the zigzag
-  layout without a mesh with an sp axis (the reference's ValueError), an
-  unknown layout, and a non-elementwise inner optimizer."""
+* ZeRO-3 (``zero_3=True``) on one rank without a mesh, remat off and
+  on, against the reference's ZeRO-3 step on a one-device dp mesh:
+  losses and the rebuilt parameters within 1e-5
+  (``tests/test_torch_zero3.py`` holds it on several ranks);
+* the refusals: ``zero_1`` with ``zero_3``, the zigzag layout without a
+  mesh with an sp axis (the reference's ValueError), an unknown layout,
+  and a non-elementwise inner optimizer."""
 
 import sys
 from pathlib import Path
@@ -37,9 +41,9 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
-from train_parity import (ONEBIT_EF, ONEBIT_LOSS_TOL,  # noqa: E402
-                          ONEBIT_OFF_SHARE, TOL, inputs, off_share,
-                          port_run, ref_run)
+from train_parity import (B, JCFG, ONEBIT_EF,  # noqa: E402
+                          ONEBIT_LOSS_TOL, ONEBIT_OFF_SHARE, TOL, inputs,
+                          mesh, off_share, port_run, ref_run)
 
 from byteps_tpu_torch.models import GPTConfig, make_gpt_train_step  # noqa: E402,E501
 
@@ -174,15 +178,49 @@ def test_zero_moments_are_one_segment_per_rank(port, n):
             assert int(o["replicated_moment_bytes"]) == 2 * total * 4
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_zero3_matches_reference_at_one_rank(data, remat):
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from byteps_tpu.models.train import make_gpt_train_step as j_step
+    from byteps_tpu.parallel.zero3 import zero3_gather_params as j_gather
+    from byteps_tpu_torch.models import flat_leaves, params_from_numpy
+    from byteps_tpu_torch.parallel.zero3 import zero3_gather_params
+
+    tree, tok, tgt = data[:3]
+    step, segs, opt_state, bsh = j_step(
+        JCFG, mesh(1, zero_1=True), optax.adamw(1e-3), zero_3=True,
+        remat=remat, init_params=jax.tree.map(jnp.array, tree))
+    a, b = jax.device_put(tok[:B], bsh), jax.device_put(tgt[:B], bsh)
+    jl = []
+    for _ in range(3):
+        loss, segs, opt_state = step(segs, opt_state, a, b)
+        jl.append(float(loss))
+    jp = np.concatenate([np.asarray(x).ravel() for x in jax.tree.leaves(
+        j_gather(jax.tree.map(np.asarray, segs), JCFG))])
+    cfg = GPTConfig.tiny()
+    z, tsegs, _ = make_gpt_train_step(
+        cfg, init_params=params_from_numpy(tree, cfg, device="cpu"),
+        device="cpu", zero_3=True, remat=remat)
+    losses = [float(z(tok[:B], tgt[:B])) for _ in range(3)]
+    whole = {"rest": tsegs["rest"].detach(),
+             "blocks": [t.detach() for t in tsegs["blocks"]]}
+    got = np.concatenate([t.numpy().ravel() for t in flat_leaves(
+        zero3_gather_params(whole, cfg))])
+    np.testing.assert_allclose(losses, jl, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, jp, rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("kw,exc,match", [
     ({"zero_1": True, "zero_3": True}, ValueError, "mutually exclusive"),
-    ({"zero_3": True}, NotImplementedError, "ROADMAP A.6"),
     ({"seq_layout": "zigzag"}, ValueError,
      "requires a mesh with an sp axis"),
     ({"seq_layout": "spiral"}, ValueError, "unknown seq_layout"),
     ({"zero_1": True, "make_optimizer": lambda l: torch.optim.LBFGS(l)},
      ValueError, "elementwise"),
-], ids=["zero1-zero3", "zero3", "zigzag", "unknown-layout", "lbfgs"])
+], ids=["zero1-zero3", "zigzag", "unknown-layout", "lbfgs"])
 def test_refusals(kw, exc, match):
     with pytest.raises(exc, match=match):
         make_gpt_train_step(GPTConfig.tiny(), device="cpu", **kw)

@@ -24,9 +24,9 @@ gather are identities and need no process group.
 The bodies the optimizer calls take a ``group``: the process group of a
 mesh's dp axis, so that on a dp×tp×sp mesh each (tp, sp) rank aggregates
 its own leaves over dp alone, or of its ``slice_`` axis or the two joined
-(``None``: the default group). The ring
-tier's transport spans the default group only; over another group the
-staged tier is the one ported (``optimizer.py`` refuses the ring there).
+(``None``: the default group). Both wire tiers run over that group: the
+ring's transport keeps one workspace a group, so the two dp lines of a
+dp×tp job ring at once, each over its own members.
 
 Keys (``compression.base.fold_in``): the caller's ``rng`` (a chunk's
 key) gives segment j the key ``fold_in(rng, j)``, the same on every
@@ -211,7 +211,7 @@ def _exchange(payload: Payload, n: int, tier: str, group=None) -> Payload:
     if n == 1:
         return payload
     if tier == "ring":
-        return ring_collect_tree(payload, n)
+        return ring_collect_tree(payload, n, group)
     out = {}
     for k, a in payload.items():
         a = _as_wire(a)
@@ -226,7 +226,7 @@ def _gather(out_payload: Payload, n: int, tier: str, group=None) -> Payload:
     if n == 1:
         return {k: a[None] for k, a in out_payload.items()}
     if tier == "ring":
-        return ring_allgather_tree(out_payload, n)
+        return ring_allgather_tree(out_payload, n, group)
     out = {}
     for k, a in out_payload.items():
         w = _as_wire(a)
@@ -298,13 +298,13 @@ def _require_rng(compressor: Compressor, rng: Optional[int]) -> int:
 
 def _owner_sum(payload: Payload, recv: Optional[Payload],
                compressor: Compressor, n: int, seg: int,
-               tier: str) -> Payload:
+               tier: str, group=None) -> Payload:
     """The owner's aggregate of the received segments: the positional
     payload sum of a presummable codec (still compressed; on the presum
     route the ring chain over this rank's own ``payload``), else the f32
     sum of the decompressed segments as ``{"dense": ...}``."""
     if _presum_route(compressor, n, tier):
-        return {k: ring_presum(a, n) for k, a in payload.items()}
+        return {k: ring_presum(a, n, group) for k, a in payload.items()}
     if compressor.presummable:
         return _payload_sum(recv, n)
     return {"dense": compressor.decompress_sum(recv, seg, torch.float32)}
@@ -345,7 +345,7 @@ def compressed_allreduce_local(
         g = g + ef_residual
     payload, seg_keys, recv, seg = _compress_push(g, rng, compressor, n,
                                                   tier, group)
-    out_payload = _owner_sum(payload, recv, compressor, n, seg, tier)
+    out_payload = _owner_sum(payload, recv, compressor, n, seg, tier, group)
     if two_way and not compressor.presummable:
         # recompress the owner's sum for the pull, with the owner's key
         out_payload = compressor.compress(out_payload["dense"],
@@ -393,7 +393,7 @@ def compressed_reduce_scatter_local(
         g = g + ef_residual
     payload, seg_keys, recv, seg = _compress_push(g, rng, compressor, n,
                                                   tier, group)
-    agg = _owner_sum(payload, recv, compressor, n, seg, tier)
+    agg = _owner_sum(payload, recv, compressor, n, seg, tier, group)
     # a presummable sum is still a payload, of this owner's segment key
     s = (compressor.decompress(agg, seg, torch.float32, fold_in(rng, rank))
          if compressor.presummable else agg["dense"])

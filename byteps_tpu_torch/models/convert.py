@@ -258,23 +258,52 @@ def _unstack(slab: Dict[str, Any], i: int) -> Dict[str, Any]:
             for k, v in slab.items()}
 
 
-def adapters_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+def _adapter_specs(tree: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """The specs of ``tree``'s targets over ``mesh``'s tp axis."""
+    from byteps_tpu_torch.models.lora import adapter_specs
+
+    return adapter_specs(tree, "tp" if "tp" in mesh.axis_names else None)
+
+
+def adapters_from_numpy(tree: Dict[str, Any], device=None,
+                        mesh=None) -> Dict[str, Any]:
     """The reference's adapter tree ``{"blocks": [{target: {"a": (d_in,
     r), "b": (r, d_out)}}]}`` of numpy arrays → the same tree of tensors
-    on ``device`` (the card unless told otherwise), dtypes kept."""
+    on ``device`` (the card unless told otherwise), dtypes kept. With a
+    ``mesh``, each leaf is cut to this rank's shard by its spec over the
+    mesh's tp axis (``models.lora.lora_param_specs``'s)."""
     dev = resolve_device(device)
+    specs = None if mesh is None else _adapter_specs(tree, mesh)
+
+    def conv(v, spec):
+        if mesh is not None:
+            v = shard_leaf(np.asarray(v), spec, mesh)
+        return torch.from_numpy(np.array(v, copy=True)).to(dev)
+
     return {"blocks": [
-        {t: {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+        {t: {k: conv(v, specs and specs["blocks"][i][t][k])
              for k, v in ab.items()} for t, ab in blk.items()}
-        for blk in tree["blocks"]]}
+        for i, blk in enumerate(tree["blocks"])]}
 
 
-def adapters_to_numpy(adapters: Dict[str, Any]) -> Dict[str, Any]:
-    """An adapter tree of tensors → the reference's tree of numpy arrays."""
+def adapters_to_numpy(adapters: Dict[str, Any],
+                      mesh=None) -> Dict[str, Any]:
+    """An adapter tree of tensors → the reference's tree of numpy arrays;
+    with a ``mesh``, each shard gathered back to the whole leaf over the
+    axes of its spec (as :func:`adapters_from_numpy` cut it; collective
+    over them)."""
+    specs = None if mesh is None else _adapter_specs(adapters, mesh)
+
+    def conv(v, spec):
+        v = v.detach()
+        if mesh is not None and spec:
+            v = gather_leaf(v, spec, mesh)
+        return v.cpu().numpy().copy()
+
     return {"blocks": [
-        {t: {k: v.detach().cpu().numpy().copy() for k, v in ab.items()}
-         for t, ab in blk.items()}
-        for blk in adapters["blocks"]]}
+        {t: {k: conv(v, specs and specs["blocks"][i][t][k])
+             for k, v in ab.items()} for t, ab in blk.items()}
+        for i, blk in enumerate(adapters["blocks"])]}
 
 
 def zero3_segments_from_numpy(segs: Dict[str, Any], n_shard: int,

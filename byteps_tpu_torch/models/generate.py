@@ -10,6 +10,18 @@ Python; ``KVCache.length`` is a host integer.
 Dispatch follows the reference: a prefill (T > 1) goes through
 ``attention_lse`` with a scalar offset (the forward kernel on CUDA), a
 single-token step through ``flash_decode`` (the decode kernel on CUDA).
+
+Sharded decode takes the port's mesh :class:`~byteps_tpu_torch.parallel
+.mesh.Axis` objects where the reference takes axis names, as the train
+factories do: under ``tp_axis`` each rank holds its Megatron shard (its
+heads of q/k/v, its rows of ``wo`` and ``w2``, its ff columns), the cache
+holds its kv heads (sized from the local ``wk`` shard), and the
+row-parallel products (``wo``, the MLP's ``w2``, a grafted ``wo``/``w2``
+delta's thin intermediate) are summed over tp; under ``ep_axis`` an MoE
+block's experts are this rank's, and its tokens reach them through the
+no-drop exchange over ep (``parallel/moe.moe_ffn(no_drop=True)``). Every
+rank of the job runs the whole batch, so every rank computes the same
+logits and picks the same tokens.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from byteps_tpu_torch.models.gpt import (
 from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.ops.flash_attention import attention_lse, supported
 from byteps_tpu_torch.ops.flash_decode import flash_decode
+from byteps_tpu_torch.parallel.moe import moe_ffn
 from byteps_tpu_torch.parallel.tp import (
     col_parallel_matmul,
     row_parallel_matmul,
@@ -121,11 +134,13 @@ def _cached_attention(q, k_cache, v_cache, q_pos0: int):
 
 
 def _attn_cached_half(x, p, cache_k, cache_v, pos0: int, head_dim: int,
-                      rope_base: float = 0.0, norm_fn=_layernorm,
-                      norm_eps: float = 1e-5, use_bias: bool = True):
+                      tp_axis=None, rope_base: float = 0.0,
+                      norm_fn=_layernorm, norm_eps: float = 1e-5,
+                      use_bias: bool = True):
     """The attention residual branch over T new tokens with cache
     append; returns (x_out, cache_k, cache_v). Keys are cached after
-    rotation."""
+    rotation. Under ``tp_axis`` the heads and the cache are this rank's
+    and the output projection is summed over tp."""
     B, T = x.shape[:2]
     h = norm_fn(x, p["ln1_g"], p.get("ln1_b"), norm_eps)
     q = col_parallel_matmul(h, p["wq"].to(x.dtype), _bias(p, "bq", x, use_bias))
@@ -157,36 +172,43 @@ def _attn_cached_half(x, p, cache_k, cache_v, pos0: int, head_dim: int,
         o = _cached_attention(q, _cache_read(cache_k, x.dtype),
                               _cache_read(cache_v, x.dtype), pos0)
     o = o.reshape(B, T, h_loc * head_dim)
-    attn_out = row_parallel_matmul(o, p["wo"].to(x.dtype), None,
+    attn_out = row_parallel_matmul(o, p["wo"].to(x.dtype), tp_axis,
                                    _bias(p, "bo", x, use_bias))
-    attn_out = with_lora(attn_out, o, p, "wo")
+    attn_out = with_lora(attn_out, o, p, "wo", tp_axis=tp_axis)
     return x + attn_out, cache_k, cache_v
 
 
 def _block_step(x, p, cache_k, cache_v, pos0: int, cfg: GPTConfig,
-                norm_fn=_layernorm, norm_eps: float = 1e-5):
-    """One dense-MLP transformer block over T new tokens with cache
-    append."""
-    if "moe" in p:
-        raise NotImplementedError(
-            "MoE blocks in the generate step are not ported yet "
-            "(ROADMAP A.7; models/moe_gpt.py trains them)")
+                tp_axis=None, ep_axis=None, norm_fn=_layernorm,
+                norm_eps: float = 1e-5):
+    """One transformer block (dense MLP, or MoE by its parameters) over T
+    new tokens with cache append. An MoE block routes with no-drop
+    capacity, as the reference's decode does: a token dropped at decode
+    time would corrupt the sample."""
     x, cache_k, cache_v = _attn_cached_half(
-        x, p, cache_k, cache_v, pos0, cfg.head_dim,
+        x, p, cache_k, cache_v, pos0, cfg.head_dim, tp_axis,
         rope_base=(cfg.rope_base if cfg.pos_embedding == "rope" else 0.0),
         norm_fn=norm_fn, norm_eps=norm_eps, use_bias=cfg.use_bias)
     h = norm_fn(x, p["ln2_g"], p.get("ln2_b"), norm_eps)
-    return x + _mlp(h, p, use_bias=cfg.use_bias), cache_k, cache_v
+    if "moe" in p:
+        m, _aux = moe_ffn(h, p["moe"], ep_axis=ep_axis,
+                          router_topk=cfg.router_topk, tp_axis=tp_axis,
+                          no_drop=True)
+        return x + m, cache_k, cache_v
+    return x + _mlp(h, p, tp_axis, use_bias=cfg.use_bias), cache_k, cache_v
 
 
 @torch.no_grad()
 def gpt_apply_cached(params, tokens: torch.Tensor, cache: KVCache,
-                     cfg: GPTConfig, readout: bool = True
+                     cfg: GPTConfig, tp_axis=None, ep_axis=None,
+                     readout: bool = True
                      ) -> Tuple[Optional[torch.Tensor], KVCache]:
     """Run T new tokens (B, T), continuing at ``cache.length``, through
     the model, writing their keys/values into ``cache`` in place.
     Returns (f32 logits (B, T, vocab) or None when ``readout=False``,
-    the cache at its new length)."""
+    the cache at its new length). Dense and MoE GPT families (the block
+    type from its parameters); ``tp_axis``/``ep_axis`` as in the module
+    docstring."""
     resolve_rope(cfg)
     norm_fn, norm_eps = resolve_norm(cfg)
     T = tokens.shape[1]
@@ -196,8 +218,8 @@ def gpt_apply_cached(params, tokens: torch.Tensor, cache: KVCache,
     for li, p in enumerate(params["blocks"]):
         ck = _QuantSlot(cache.k[li], cache.k_scale[li]) if quant else cache.k[li]
         cv = _QuantSlot(cache.v[li], cache.v_scale[li]) if quant else cache.v[li]
-        x, _, _ = _block_step(x, p, ck, cv, pos0, cfg, norm_fn=norm_fn,
-                              norm_eps=norm_eps)
+        x, _, _ = _block_step(x, p, ck, cv, pos0, cfg, tp_axis, ep_axis,
+                              norm_fn=norm_fn, norm_eps=norm_eps)
     logits = _readout(params, x, norm_fn, norm_eps) if readout else None
     return logits, cache._replace(length=pos0 + T)
 
@@ -251,8 +273,8 @@ def make_pick(truncate):
     return pick
 
 
-def make_generate_fn(cfg: GPTConfig, max_new: int,
-                     top_k: Optional[int] = None,
+def make_generate_fn(cfg: GPTConfig, max_new: int, tp_axis=None,
+                     ep_axis=None, top_k: Optional[int] = None,
                      top_p: Optional[float] = None,
                      quant_cache: bool = False, device=None):
     """Build ``gen(params, prompt, generator=None, temperature=0.0)``:
@@ -261,7 +283,16 @@ def make_generate_fn(cfg: GPTConfig, max_new: int,
     else sampled (optionally top-k / top-p truncated) with
     ``generator``'s bits. One cached prefill, then one single-token step
     per generated token. ``quant_cache=True`` stores k/v as int8 with
-    per-(position, head) scales."""
+    per-(position, head) scales.
+
+    ``tp_axis``/``ep_axis`` (mesh ``Axis`` objects) shard the model as
+    the module docstring says; ``params`` are then this rank's shards
+    (``convert.params_from_numpy(..., mesh=)``) and the whole prompt is
+    every rank's. Sampling under a live axis needs one thing of the
+    caller: every rank draws the same bits, so each passes a generator
+    of the same seed (the default, seed 0, is the same on every rank);
+    the ranks then hold the same logits and pick the same tokens, and
+    the collectives of the next step stay in step."""
     dev = resolve_device(device)
     _pick = make_pick(make_truncate(top_k, top_p, cfg.vocab_size))
 
@@ -282,14 +313,16 @@ def make_generate_fn(cfg: GPTConfig, max_new: int,
         kv_loc = params["blocks"][0]["wk"].shape[-1] // cfg.head_dim
         cache = init_cache(cfg, B, h_loc=kv_loc, quant=quant_cache,
                            device=dev)
-        logits, cache = gpt_apply_cached(params, prompt, cache, cfg)
+        logits, cache = gpt_apply_cached(params, prompt, cache, cfg,
+                                         tp_axis, ep_axis)
         toks = []
         for i in range(max_new):
             tok = _pick(logits[:, -1], generator, temperature)    # (B,)
             toks.append(tok)
             if i + 1 < max_new:
                 logits, cache = gpt_apply_cached(params, tok[:, None],
-                                                 cache, cfg)
+                                                 cache, cfg, tp_axis,
+                                                 ep_axis)
         return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
 
     return gen

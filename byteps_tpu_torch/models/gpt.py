@@ -399,13 +399,14 @@ def _bias(p, name: str, x: torch.Tensor, use_bias: bool):
     return p[name].to(x.dtype) if use_bias else None
 
 
-def with_lora(y, x, p, name: str, seg=None):
+def with_lora(y, x, p, name: str, seg=None, tp_axis=None):
     """``y`` (the frozen ``x @ w`` of target ``name``) plus its LoRA
     addends: the grafted block's own (``p["lora"]``, through
-    :func:`~byteps_tpu_torch.models.lora.lora_delta`) and, in the serve
-    tier's packed decode, each row's pooled adapter (``seg(name, x)``,
-    None for a target the pool does not carry)."""
-    d = lora_delta(x, p, name)
+    :func:`~byteps_tpu_torch.models.lora.lora_delta`, whose row-parallel
+    targets sum their thin intermediate over ``tp_axis``) and, in the
+    serve tier's packed decode, each row's pooled adapter (``seg(name,
+    x)``, None for a target the pool does not carry)."""
+    d = lora_delta(x, p, name, tp_axis)
     if d is not None:
         y = y + d
     if seg is not None:
@@ -424,10 +425,6 @@ def _attention(x, p, head_dim: int, tp_axis=None, sp_axis=None,
     zigzag) or one rank's attention, and the row-parallel output summed
     over tp before its bias."""
     B, S = x.shape[:2]
-    tp_live = tp_axis is not None and tp_axis.size > 1
-    if tp_live and "lora" in p:
-        raise NotImplementedError(
-            "LoRA on a tensor-parallel mesh is not ported yet (ROADMAP A.6)")
     x = copy_to_tp(x, tp_axis)
     q = col_parallel_matmul(x, p["wq"].to(x.dtype), _bias(p, "bq", x, use_bias))
     k = col_parallel_matmul(x, p["wk"].to(x.dtype), _bias(p, "bk", x, use_bias))
@@ -462,7 +459,7 @@ def _attention(x, p, head_dim: int, tp_axis=None, sp_axis=None,
     o = o.reshape(B, S, h_loc * head_dim)
     out = row_parallel_matmul(o, p["wo"].to(x.dtype), tp_axis,
                               _bias(p, "bo", x, use_bias))
-    return with_lora(out, o, p, "wo")
+    return with_lora(out, o, p, "wo", tp_axis=tp_axis)
 
 
 def _mlp(x, p, tp_axis=None, use_bias: bool = True, seg=None):
@@ -483,7 +480,7 @@ def _mlp(x, p, tp_axis=None, use_bias: bool = True, seg=None):
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
     out = row_parallel_matmul(h, p["w2"].to(x.dtype), tp_axis,
                               _bias(p, "b2", x, use_bias))
-    return with_lora(out, h, p, "w2", seg)
+    return with_lora(out, h, p, "w2", seg, tp_axis)
 
 
 def transformer_block(x, p, head_dim: int, tp_axis=None, sp_axis=None,

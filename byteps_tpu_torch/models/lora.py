@@ -18,8 +18,14 @@ keeps a pooled tenant's tokens equal to a solo run on its grafted tree.
 The reference fences its dots with ``optimization_barrier`` (``_fence``)
 to pin XLA's fusion; PyTorch runs eagerly, so nothing here needs one.
 LoRA training is a later slice: on the card :func:`lora_delta` refuses a
-gradient rather than return a wrong one. ``lora_param_specs`` waits for
-tensor parallelism.
+gradient rather than return a wrong one.
+
+On a tensor-parallel mesh (:func:`lora_param_specs`, the reference's) a
+column-parallel target's ``b`` is split on its output dim, like its
+frozen weight, and needs no collective; a row-parallel target's (``wo``,
+``w2``) ``a`` is split on its input dim, and its thin ``(..., r)``
+intermediate is summed over tp between the two products: the segmented
+kernel's row-parallel arm (``lora_delta(..., tp_axis)``).
 """
 
 from __future__ import annotations
@@ -139,11 +145,16 @@ def _zero_slots(rows: int, device: torch.device) -> torch.Tensor:
     return slots
 
 
-def lora_delta(x: torch.Tensor, p, name: str) -> Optional[torch.Tensor]:
+def lora_delta(x: torch.Tensor, p, name: str,
+               tp_axis=None) -> Optional[torch.Tensor]:
     """``(x @ a) @ b`` of target ``name`` of the grafted block ``p``
     (scale already in ``b``), in x's dtype; None when the block carries
     no adapter for it. ``x`` is ``(B, T, d_in)``: each of the B rows is a
-    row of the segmented product on the one slot."""
+    row of the segmented product on the one slot. For a row-parallel
+    target (``wo``, ``w2``) with a live ``tp_axis`` (a mesh ``Axis``),
+    ``x`` and ``a`` are this rank's share of ``d_in`` and the thin
+    intermediate is summed over tp (the reference's ``:176``); the base
+    matmul's own sum runs apart from it."""
     lr = p.get("lora")
     if lr is None or name not in lr:
         return None
@@ -155,8 +166,45 @@ def lora_delta(x: torch.Tensor, p, name: str) -> Optional[torch.Tensor]:
             "no backward yet (LoRA training is a later slice)")
     x3 = x.reshape(-1, x.shape[-2], x.shape[-1])
     out = segmented_lora_delta(x3, a.float()[None], b.float()[None],
-                               _zero_slots(x3.shape[0], x.device))
+                               _zero_slots(x3.shape[0], x.device),
+                               row_parallel=name in _ROW_TARGETS,
+                               tp_axis=tp_axis)
     return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def lora_logical_specs(target: str) -> Dict[str, Tuple]:
+    """The logical axes of one target's ``a`` and ``b``: a column target
+    splits ``b``'s output dim, a row target ``a``'s input dim (the
+    reference's ``lora_param_specs``)."""
+    if target in _COL_TARGETS:
+        return {"a": ("embed", None), "b": (None, "heads")}
+    return {"a": ("heads", None), "b": (None, "embed")}
+
+
+def lora_param_specs(cfg: "GPTConfig", tp_axis: Optional[str], rank: int,
+                     targets: Sequence[str] = ("wq", "wv")
+                     ) -> Dict[str, Any]:
+    """Specs mirroring :func:`lora_init`'s tree over a mesh's ``tp_axis``
+    (an axis name, as the other ``*_param_specs`` take): column-parallel
+    targets split ``b``'s output dim (no extra collective), row-parallel
+    targets ``a``'s input dim (the ``(B, S, r)`` intermediate is summed
+    in the forward). ``rank`` is the reference's argument; no spec
+    depends on it."""
+    targets = _check_targets(cfg, targets)
+    return adapter_specs({"blocks": [dict.fromkeys(targets)]
+                          * cfg.n_layers}, tp_axis)
+
+
+def adapter_specs(adapters: Dict[str, Any], tp_axis: Optional[str]
+                  ) -> Dict[str, Any]:
+    """The specs of an adapter tree's own layers and targets over
+    ``tp_axis`` (:func:`lora_param_specs`'s, target by target)."""
+    from byteps_tpu_torch.parallel.partitioner import (resolve_specs,
+                                                       rules_from_axes)
+
+    tree = {"blocks": [{t: lora_logical_specs(t) for t in blk}
+                       for blk in adapters["blocks"]]}
+    return resolve_specs(tree, rules_from_axes(tp_axis=tp_axis))
 
 
 def lora_rank(adapters: Dict[str, Any]) -> int:

@@ -14,7 +14,9 @@ Entry points (``gpt_init``, ``params_from_numpy``, ``make_generate_fn``,
 the wrapper launches its kernel and nowhere else, so a run can show
 that its main path went through the kernels. ``flash_fwd_split`` counts
 the forward's launches that took its split path (every ``flash_fwd``
-launch is one or the other).
+launch is one or the other). ``segmented_lora_down`` and
+``segmented_lora_up`` count the segmented LoRA kernel's two halves (the
+row-parallel arm), ``segmented_lora`` its fused launches.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ launches: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_split": 0,
                              "onebit_unpack_sum_grid": 0,
                              "topk_select": 0, "topk_reconstruct_sum": 0,
                              "topk_roundtrip": 0, "segmented_lora": 0,
+                             "segmented_lora_down": 0,
+                             "segmented_lora_up": 0,
                              "ring_rotate": 0, "ring_presum": 0}
 
 

@@ -44,6 +44,15 @@
 //     fmaf(u[j], B[j, n], acc) over j = 0 .. rb-1 in order from +0.0, with
 //     B read as 16-byte vectors from shared memory, and stores the 4
 //     results at once (8 bytes in bf16).
+// The row-parallel arm (a tensor-parallel wo or w2, whose d_in is split
+// over tp ranks) needs a seam between the two products, where u is summed
+// over the ranks: the same kernel runs as two launches there. The *down*
+// launch (mode 1) runs phase 1 on the plan of (d_in, rank bucket, d_out)
+// and block 0 of each cluster stores u as f32 (R, S, rb); the *up* launch
+// (mode 2) reads that (summed) u instead of phase 1 and runs phase 2, with
+// no cluster (its blocks share nothing). Each u is summed in the fused
+// launch's order and each output chains over u in the same order, so at
+// one rank down + up equals the fused launch bit for bit.
 // No atomics, no second kernel; one block-wide barrier per stage. f32
 // FMAs throughout: the work is tiny (4.2 MFLOP at rank 64, R = 16), and
 // mma.sync or wgmma would round A and B to bf16 or TF32.
@@ -157,9 +166,10 @@ __global__ void __launch_bounds__(kThreads)
 segmented_lora_kernel(const T* __restrict__ x, const float* __restrict__ a,
                       const float* __restrict__ b,
                       const int* __restrict__ slots, T* __restrict__ out,
-                      int S, int d_in, int rb, int d_out, int n_slots,
-                      long long a_stride, long long b_stride, int part,
-                      int cols, int staged) {
+                      float* __restrict__ u_io, int S, int d_in, int rb,
+                      int d_out, int n_slots, long long a_stride,
+                      long long b_stride, int part, int cols, int staged,
+                      int mode) {
   constexpr int kGroups = RB / 4;       // 4-rank groups a d_in row
   constexpr int kLanesK = 32 / kGroups; // d_in rows a warp step covers
   __shared__ float warp_u[kWarps][RB];
@@ -177,20 +187,26 @@ segmented_lora_kernel(const T* __restrict__ x, const float* __restrict__ a,
   const int nstage = min(ncol, staged);
   T* o = out + ((long long)r * S + s) * d_out + col0;
   const bool vec_out = (d_out & 3) == 0;
+  float* ur = u_io + ((long long)r * S + s) * rb;   // modes 1 and 2
   const int slot = slots[r];
   if (slot < 0 || slot >= n_slots) {    // the whole cluster leaves here
-    for (int i = tid; i < ncol; i += kThreads) o[i] = from_f32<T>(nanf(""));
+    if (mode == 1) {
+      if (c == 0 && tid < rb) ur[tid] = nanf("");
+    } else {
+      for (int i = tid; i < ncol; i += kThreads) o[i] = from_f32<T>(nanf(""));
+    }
     return;
   }
   const float* A = a + slot * a_stride;
   const float* B = b + slot * b_stride;
   // no block stores into another's shared memory before every block of
   // the cluster has started: this phase of the barrier says so
-  const int nc = gridDim.x;             // 1: no cluster, nothing to share
+  // (1: no cluster, nothing to share; the up launch has none)
+  const int nc = mode == 2 ? 1 : gridDim.x;
   if (nc > 1) cluster_arrive_relaxed();
 
-  // B's staged columns start landing now
-  {
+  // B's staged columns start landing now (not in the down launch)
+  if (mode != 1) {
     const float* src = B + col0;
     const bool v16 = vec_out && (((uintptr_t)src & 15) == 0) &&
                      (nstage & 3) == 0;
@@ -208,8 +224,10 @@ segmented_lora_kernel(const T* __restrict__ x, const float* __restrict__ a,
     }
   }
 
-  // phase 1: this warp's share of d_in
-  {
+  // phase 1: this warp's share of d_in (the up launch reads u instead)
+  if (mode == 2) {
+    if (tid < rb) u[tid] = ur[tid];
+  } else {
     const int jg = lane % kGroups, kl = lane / kGroups;
     const int j0 = 4 * jg;
     const int kbeg = (c * kWarps + warp) * part;
@@ -259,7 +277,7 @@ segmented_lora_kernel(const T* __restrict__ x, const float* __restrict__ a,
   __syncthreads();
   // the block's partial, pushed into slot c of every block of the cluster
   if (nc > 1) cluster_wait();
-  if (tid < rb) {
+  if (mode != 2 && tid < rb) {
     float v = warp_u[0][tid];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) v += warp_u[w][tid];
@@ -276,6 +294,10 @@ segmented_lora_kernel(const T* __restrict__ x, const float* __restrict__ a,
       for (int q = 1; q < nc; ++q) v += parts[q][tid];
       u[tid] = v;
     }
+  }
+  if (mode == 1) {                      // down: u out, every block has it
+    if (c == 0 && tid < rb) ur[tid] = u[tid];
+    return;
   }
   cp_async_wait_all();
   __syncthreads();
@@ -366,15 +388,16 @@ int set_attributes() {
 
 template <typename T, int RB>
 int launch(const void* x, const void* a, const void* b, const void* slots,
-           void* out, int R, int S, int d_in, int rb, int d_out, int n_slots,
-           long long a_stride, long long b_stride, cudaStream_t stream) {
+           void* out, void* u_io, int R, int S, int d_in, int rb, int d_out,
+           int n_slots, long long a_stride, long long b_stride, int mode,
+           cudaStream_t stream) {
   const int err = set_attributes<T, RB>();
   if (err != 0) return err;
   const Plan p = plan<RB>(d_in, rb, d_out);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.cluster, S, R);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = (size_t)rb * p.staged * sizeof(float);
+  cfg.dynamicSmemBytes = mode == 1 ? 0 : (size_t)rb * p.staged * sizeof(float);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -382,52 +405,61 @@ int launch(const void* x, const void* a, const void* b, const void* slots,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = p.cluster > 1 ? 1 : 0;  // one block a row: no cluster
+  // one block a row, or the up launch: no cluster
+  cfg.numAttrs = p.cluster > 1 && mode != 2 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, segmented_lora_kernel<T, RB>, static_cast<const T*>(x),
       static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const int*>(slots), static_cast<T*>(out), S, d_in, rb,
-      d_out, n_slots, a_stride, b_stride, p.part, p.cols, p.staged);
+      static_cast<const int*>(slots), static_cast<T*>(out),
+      static_cast<float*>(u_io), S, d_in, rb, d_out, n_slots, a_stride,
+      b_stride, p.part, p.cols, p.staged, mode);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* x, const void* a, const void* b, const void* slots,
-             void* out, int R, int S, int d_in, int rb, int d_out,
-             int n_slots, long long a_stride, long long b_stride,
+             void* out, void* u_io, int R, int S, int d_in, int rb, int d_out,
+             int n_slots, long long a_stride, long long b_stride, int mode,
              cudaStream_t stream) {
   if (rb <= 8)
-    return launch<T, 8>(x, a, b, slots, out, R, S, d_in, rb, d_out, n_slots,
-                        a_stride, b_stride, stream);
+    return launch<T, 8>(x, a, b, slots, out, u_io, R, S, d_in, rb, d_out,
+                        n_slots, a_stride, b_stride, mode, stream);
   if (rb <= 16)
-    return launch<T, 16>(x, a, b, slots, out, R, S, d_in, rb, d_out, n_slots,
-                         a_stride, b_stride, stream);
+    return launch<T, 16>(x, a, b, slots, out, u_io, R, S, d_in, rb, d_out,
+                         n_slots, a_stride, b_stride, mode, stream);
   if (rb <= 32)
-    return launch<T, 32>(x, a, b, slots, out, R, S, d_in, rb, d_out, n_slots,
-                         a_stride, b_stride, stream);
-  return launch<T, 64>(x, a, b, slots, out, R, S, d_in, rb, d_out, n_slots,
-                       a_stride, b_stride, stream);
+    return launch<T, 32>(x, a, b, slots, out, u_io, R, S, d_in, rb, d_out,
+                         n_slots, a_stride, b_stride, mode, stream);
+  return launch<T, 64>(x, a, b, slots, out, u_io, R, S, d_in, rb, d_out,
+                       n_slots, a_stride, b_stride, mode, stream);
 }
 
 }  // namespace
 
 // x (R, S, d_in) bf16 (is_bf16 = 1) or f32; a, b: the slabs' slot-0
 // pointers, a_stride / b_stride their slot strides in floats; slots (R,)
-// int32; out (R, S, d_out) in x's dtype; 1 <= rb <= 64. All on the card.
-// Returns a cudaError_t (0 = success; cudaErrorInvalidValue for rb > 64).
+// int32; out (R, S, d_out) in x's dtype; u (R, S, rb) f32; 1 <= rb <= 64.
+// mode 0: the fused launch (u unused); 1: the down half, x and A -> u (out
+// and B unused, d_out still sets the plan); 2: the up half, u and B -> out
+// (x and A unused, d_in still sets the plan). All on the card. Returns a
+// cudaError_t (0 = success; cudaErrorInvalidValue for rb > 64 or a mode
+// outside 0..2).
 extern "C" int bps_segmented_lora(const void* x, const void* a, const void* b,
-                                  const void* slots, void* out, int R, int S,
-                                  int d_in, int rb, int d_out, int n_slots,
-                                  long long a_stride, long long b_stride,
-                                  int is_bf16, void* stream) {
-  if (rb < 1 || rb > 64) return (int)cudaErrorInvalidValue;
+                                  const void* slots, void* out, void* u,
+                                  int R, int S, int d_in, int rb, int d_out,
+                                  int n_slots, long long a_stride,
+                                  long long b_stride, int is_bf16, int mode,
+                                  void* stream) {
+  if (rb < 1 || rb > 64 || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
   if (R == 0 || S == 0 || d_out == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(x, a, b, slots, out, R, S, d_in, rb,
-                                   d_out, n_slots, a_stride, b_stride, st);
-  return dispatch<float>(x, a, b, slots, out, R, S, d_in, rb, d_out, n_slots,
-                         a_stride, b_stride, st);
+    return dispatch<__nv_bfloat16>(x, a, b, slots, out, u, R, S, d_in, rb,
+                                   d_out, n_slots, a_stride, b_stride, mode,
+                                   st);
+  return dispatch<float>(x, a, b, slots, out, u, R, S, d_in, rb, d_out,
+                         n_slots, a_stride, b_stride, mode, st);
 }
 
 extern "C" const char* bps_error_string(int code) {

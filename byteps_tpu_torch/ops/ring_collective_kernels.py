@@ -4,7 +4,10 @@ CUDA tensors to the hand-written kernels (``csrc/ring.cu``).
 
 Counterpart of ``byteps_tpu/ops/ring_collective_kernels.py``. The
 reference runs inside ``shard_map`` and names a mesh axis; here each rank
-is a process of the default process group and passes its own block:
+is a process and passes its own block, and the ring spans a process group:
+the default group, or ``group=`` (a mesh axis's line, such as one dp line
+of a dp×tp job, or the ``slice_`` line of the hierarchical path), whose
+members are indexed by their rank in it:
 
 * :func:`ring_collect`: ``(n, ...)`` rows, row j bound for rank j →
   ``(n, ...)`` rows, row w rank w's row for this rank (``all_to_all``
@@ -75,11 +78,17 @@ Payload = Dict[str, torch.Tensor]
 # --------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path and the kernels' golden)
 # --------------------------------------------------------------------------
-def _hop(send: torch.Tensor, dst: int, recv: torch.Tensor, src: int) -> None:
-    """One ring hop: ``send`` to rank ``dst`` while ``recv`` fills from
-    rank ``src``, as one batched point-to-point round."""
-    ops = [dist.P2POp(dist.isend, send, dst),
-           dist.P2POp(dist.irecv, recv, src)]
+def _hop(send: torch.Tensor, dst: int, recv: torch.Tensor, src: int,
+         group=None) -> None:
+    """One ring hop: ``send`` to index ``dst`` of ``group`` (the default
+    group when None) while ``recv`` fills from index ``src``, as one
+    batched point-to-point round; a group index goes out as its global
+    rank."""
+    if group is not None:
+        dst = dist.get_global_rank(group, dst)
+        src = dist.get_global_rank(group, src)
+    ops = [dist.P2POp(dist.isend, send, dst, group),
+           dist.P2POp(dist.irecv, recv, src, group)]
     for w in dist.batch_isend_irecv(ops):
         w.wait()
 
@@ -89,36 +98,39 @@ def _bytes(x: torch.Tensor, rows: int) -> torch.Tensor:
     return x.contiguous().reshape(rows, -1).view(torch.uint8)
 
 
-def _collect_torch(x: torch.Tensor, n: int, my: int) -> torch.Tensor:
+def _collect_torch(x: torch.Tensor, n: int, my: int,
+                   group=None) -> torch.Tensor:
     xb = _bytes(x, n)
     out = torch.empty_like(xb)
     out[my] = xb[my]
     for t in range(1, n):
         dest, src = (my + t) % n, (my - t) % n
         recv = torch.empty_like(xb[0])
-        _hop(xb[dest], dest, recv, src)
+        _hop(xb[dest], dest, recv, src, group)
         out[src] = recv
     return out.view(x.dtype).reshape(x.shape)
 
 
-def _allgather_torch(x: torch.Tensor, n: int, my: int) -> torch.Tensor:
+def _allgather_torch(x: torch.Tensor, n: int, my: int,
+                     group=None) -> torch.Tensor:
     xb = _bytes(x, 1)[0]
     out = xb.new_empty((n, xb.shape[0]))
     out[my] = xb
     for t in range(1, n):
         dest, src = (my + t) % n, (my - t) % n
         recv = torch.empty_like(xb)
-        _hop(xb, dest, recv, src)
+        _hop(xb, dest, recv, src, group)
         out[src] = recv
     return out.view(x.dtype).reshape((n,) + tuple(x.shape))
 
 
-def _presum_torch(x: torch.Tensor, n: int, my: int) -> torch.Tensor:
+def _presum_torch(x: torch.Tensor, n: int, my: int,
+                  group=None) -> torch.Tensor:
     cur = x[(my - 1) % n].clone()
     right, left = (my + 1) % n, (my - 1) % n
     for t in range(1, n):
         recv = torch.empty_like(cur)
-        _hop(cur, right, recv, left)
+        _hop(cur, right, recv, left, group)
         cur = recv + x[(my - 1 - t) % n]
     return cur
 
@@ -209,7 +221,9 @@ def plan(layout: str) -> str:
 
 class RingWorkspace:
     """This rank's flags and landing slots, mapped into every other rank
-    of the default process group, for the ring kernels on ``device``.
+    of ``group`` (the default process group when None), for the ring
+    kernels on ``device``. ``n`` and ``rank`` are the group's size and
+    this rank's index in it; the peer table is in group order.
 
     Layout (``csrc/ring.cu``): uint32 flags ``[2][n]`` and counters at 0,
     then ``[2][n][cap]`` landing slots at ``slots_off``. ``epoch`` counts
@@ -222,10 +236,12 @@ class RingWorkspace:
     # seconds a call's stream waits may stay pending before check raises
     wait_bound_s = 30.0
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, group=None):
         lib = _lib()
         self.device = device
-        self.n, self.rank = dist.get_world_size(), dist.get_rank()
+        self.group = group
+        self.n = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
         self.cap = 0
         self.epoch = 0
         self.base: Optional[int] = None
@@ -238,7 +254,8 @@ class RingWorkspace:
         self._error: Optional[str] = None
         cards = [None] * self.n
         dist.all_gather_object(
-            cards, str(torch.cuda.get_device_properties(device).uuid))
+            cards, str(torch.cuda.get_device_properties(device).uuid),
+            group=group)
         self.layout = ("same_card" if cards.count(cards[self.rank]) > 1
                        else "other_cards")
         self.protocol = plan(self.layout)
@@ -261,9 +278,11 @@ class RingWorkspace:
         with torch.cuda.device(self.device):
             if self.base is not None:
                 torch.cuda.synchronize(self.device)
-                dist.barrier()            # every peer's kernels are done
+                # every peer's kernels are done
+                dist.barrier(group=self.group)
                 self._close_peers()
-                dist.barrier()            # every peer let go of our buffer
+                # every peer let go of our buffer
+                dist.barrier(group=self.group)
                 _check(lib.bps_ring_free(self.base), "free")
                 self.base = None
             ptr = ctypes.c_void_p()
@@ -273,7 +292,7 @@ class RingWorkspace:
             handle = ctypes.create_string_buffer(lib.bps_ring_handle_size())
             _check(lib.bps_ring_get_handle(self.base, handle), "IPC handle")
             handles = [None] * self.n
-            dist.all_gather_object(handles, handle.raw)
+            dist.all_gather_object(handles, handle.raw, group=self.group)
             bases = []
             for r, h in enumerate(handles):
                 if r == self.rank:
@@ -346,9 +365,9 @@ class RingWorkspace:
         lib = _lib()
         with torch.cuda.device(self.device):
             torch.cuda.synchronize(self.device)
-            dist.barrier()
+            dist.barrier(group=self.group)
             self._close_peers()
-            dist.barrier()
+            dist.barrier(group=self.group)
             if self.base is not None:
                 _check(lib.bps_ring_free(self.base), "free")
                 self.base = None
@@ -360,21 +379,25 @@ class RingWorkspace:
 _workspaces: Dict[Tuple[int, int], Tuple[object, RingWorkspace]] = {}
 
 
-def workspace(device: torch.device) -> RingWorkspace:
-    """This process's workspace on ``device`` for the current default
-    process group, made (collectively) at its first use."""
-    pg = dist.group.WORLD
+def workspace(device: torch.device, group=None) -> RingWorkspace:
+    """This process's workspace on ``device`` for ``group`` (the current
+    default process group when None), made (collectively, over the
+    group) at its first use. Each group has its own: two rings of one
+    job (each dp line of a dp×tp mesh) never share flags, slots or
+    epochs."""
+    pg = dist.group.WORLD if group is None else group
     key = (id(pg), device.index)
     hit = _workspaces.get(key)
     if hit is None or hit[0] is not pg:
-        hit = _workspaces[key] = (pg, RingWorkspace(device))
+        hit = _workspaces[key] = (pg, RingWorkspace(device, group))
     return hit[1]
 
 
-def close_workspaces() -> None:
-    """Free every workspace of the current default process group
-    (collective: every rank calls it before the group goes)."""
-    pg = dist.group.WORLD
+def close_workspaces(group=None) -> None:
+    """Free every workspace of ``group`` (the current default process
+    group when None); collective over the group: every member calls it
+    before the group goes."""
+    pg = dist.group.WORLD if group is None else group
     for key in [k for k, (g, _) in _workspaces.items() if g is pg]:
         _workspaces.pop(key)[1].close()
 
@@ -592,7 +615,7 @@ def _check_input(x: torch.Tensor, dtypes=None) -> None:
 
 
 def _rotate_cuda(payload: Payload, n: int, my: int,
-                 gather: bool) -> Payload:
+                 gather: bool, group=None) -> Payload:
     """One rotate call for every leaf of ``payload`` (CUDA, contiguous,
     one card): returns the leaves' (n, ...) outputs under the same
     keys."""
@@ -615,7 +638,7 @@ def _rotate_cuda(payload: Payload, n: int, my: int,
         return outs
     layout, span = slot_layout({k: (o.shape[1:], o.dtype)
                                 for k, o in live.items()})
-    ws = workspace(dev)
+    ws = workspace(dev, group)
     epoch = ws.prepare(span)
     launch_rotate(ws, [(payload[k], o, layout[k][0])
                        for k, o in live.items()], n, my, gather, epoch)
@@ -625,12 +648,13 @@ def _rotate_cuda(payload: Payload, n: int, my: int,
     return outs
 
 
-def _presum_cuda(x: torch.Tensor, n: int, my: int) -> torch.Tensor:
+def _presum_cuda(x: torch.Tensor, n: int, my: int,
+                 group=None) -> torch.Tensor:
     _check_input(x, (torch.float32,))
     out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    ws = workspace(x.device)
+    ws = workspace(x.device, group)
     epoch = ws.prepare(out.numel() * 4)
     launch_presum(ws, x, out, n, my, epoch)
     ws.watch(epoch, "presum", presum_flags(n, epoch))
@@ -639,11 +663,12 @@ def _presum_cuda(x: torch.Tensor, n: int, my: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# public API (over the default process group)
+# public API (over the default process group, or ``group``)
 # --------------------------------------------------------------------------
-def _size_rank(n: Optional[int]) -> Tuple[int, int]:
-    """(n, this rank): the default group's when n is None; n == 1 needs
-    no group, any other n must be the group's size."""
+def _size_rank(n: Optional[int], group=None) -> Tuple[int, int]:
+    """(n, this rank's index): ``group``'s (the default group's when
+    None) when n is None; n == 1 needs no group, any other n must be the
+    group's size."""
     if n == 1:
         return 1, 0
     if not (dist.is_available() and dist.is_initialized()):
@@ -651,10 +676,10 @@ def _size_rank(n: Optional[int]) -> Tuple[int, int]:
             return 1, 0
         raise RuntimeError(f"a ring over {n} ranks needs an initialized "
                            "process group")
-    size = dist.get_world_size()
+    size = dist.get_world_size(group)
     if n is not None and n != size:
         raise ValueError(f"ring over {n} ranks in a group of {size}")
-    return size, dist.get_rank()
+    return size, dist.get_rank(group)
 
 
 def _check_rows(x: torch.Tensor, n: int) -> None:
@@ -671,57 +696,61 @@ def _on_card(payload: Payload) -> bool:
     return cuda == {True}
 
 
-def ring_collect_tree(payload: Payload, n: Optional[int] = None) -> Payload:
+def ring_collect_tree(payload: Payload, n: Optional[int] = None,
+                      group=None) -> Payload:
     """:func:`ring_collect` of every leaf of ``payload`` (a dict of (n, ...)
     rows), in one call on the card: the same keys, the same bits."""
-    n, my = _size_rank(n)
+    n, my = _size_rank(n, group)
     if n == 1:
         return dict(payload)
     for x in payload.values():
         _check_rows(x, n)
     if _on_card(payload):
         return _rotate_cuda({k: x.contiguous() for k, x in payload.items()},
-                            n, my, gather=False)
-    return {k: _collect_torch(x, n, my) for k, x in payload.items()}
+                            n, my, gather=False, group=group)
+    return {k: _collect_torch(x, n, my, group) for k, x in payload.items()}
 
 
-def ring_allgather_tree(payload: Payload,
-                        n: Optional[int] = None) -> Payload:
+def ring_allgather_tree(payload: Payload, n: Optional[int] = None,
+                        group=None) -> Payload:
     """:func:`ring_allgather` of every leaf of ``payload``, in one call on
     the card: the same keys, the same bits."""
-    n, my = _size_rank(n)
+    n, my = _size_rank(n, group)
     if n == 1:
         return {k: x[None] for k, x in payload.items()}
     if _on_card(payload):
         return _rotate_cuda({k: x.contiguous() for k, x in payload.items()},
-                            n, my, gather=True)
-    return {k: _allgather_torch(x, n, my) for k, x in payload.items()}
+                            n, my, gather=True, group=group)
+    return {k: _allgather_torch(x, n, my, group) for k, x in payload.items()}
 
 
-def ring_collect(x: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+def ring_collect(x: torch.Tensor, n: Optional[int] = None,
+                 group=None) -> torch.Tensor:
     """(n, ...) rows, row j bound for rank j → (n, ...) rows, row w rank
     w's row for this rank (``all_to_all`` semantics): exact, moves bits
     only."""
-    return ring_collect_tree({"x": x}, n)["x"]
+    return ring_collect_tree({"x": x}, n, group)["x"]
 
 
-def ring_allgather(x: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+def ring_allgather(x: torch.Tensor, n: Optional[int] = None,
+                   group=None) -> torch.Tensor:
     """This rank's block → the (n, ...) rank-ordered stack of every
     rank's block (``all_gather`` semantics): exact, moves bits only."""
-    return ring_allgather_tree({"x": x}, n)["x"]
+    return ring_allgather_tree({"x": x}, n, group)["x"]
 
 
-def ring_presum(x: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+def ring_presum(x: torch.Tensor, n: Optional[int] = None,
+                group=None) -> torch.Tensor:
     """(n, ...) f32 rows → this rank's summed row, ring reduce-scatter
     order (rank d: p_{d+1} + p_{d+2} + … + p_d). Chain-ordered adds:
     exact positionally for presummable payloads, not bitwise the staged
     worker-order fold, so callers route stochastic codecs only."""
-    n, my = _size_rank(n)
+    n, my = _size_rank(n, group)
     if n == 1:
         return x[0]
     _check_rows(x, n)
     if x.dtype != torch.float32:
         raise TypeError(f"ring_presum adds f32 rows; got {x.dtype}")
     if x.is_cuda:
-        return _presum_cuda(x.contiguous(), n, my)
-    return _presum_torch(x, n, my)
+        return _presum_cuda(x.contiguous(), n, my, group)
+    return _presum_torch(x, n, my, group)

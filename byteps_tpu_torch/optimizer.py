@@ -49,7 +49,8 @@ Compressed (the reference's ``_hier_update``): the flat f32 gradient,
 zero-padded to ``n·seg`` (``seg = ceil(L/n)``), is reduce-scattered raw
 over dp; Nesterov momentum runs on this rank's segment; the segment is
 aggregated over ``slice_`` in ``partition_bytes`` chunks with error
-feedback (``_aggregate_flat``, the staged tier); the aggregated segments
+feedback (``_aggregate_flat``, on the wire tier of ``BYTEPS_ICI_TIER``,
+the ring over the ``slice_`` line's group); the aggregated segments
 are all-gathered over dp, cut to L and divided by ``n·n_dcn``. Only
 segment-sized compressed payloads cross the slow tier, each once, and
 the EF and momentum buffers are segment-sized (``seg`` f32 a rank).
@@ -130,14 +131,6 @@ def _chunk_bounds(total: int, chunk_elems: int) -> List[Tuple[int, int]]:
     return bounds or [(0, total)]
 
 
-def _check_tier(tier: str, group, n: int) -> None:
-    if group is not None and tier == "ring" and n > 1:
-        raise NotImplementedError(
-            "BYTEPS_ICI_TIER=ring over a mesh's dp or slice_ subgroup is not "
-            "ported yet (ROADMAP A.6): its transport spans the default "
-            "group; use the staged tier")
-
-
 def _group_of(axis):
     """The process group a collective over ``axis`` runs on: None (the
     default group) without an axis, at size 1, or where the axis is the
@@ -159,7 +152,6 @@ def _aggregate_flat(flat: torch.Tensor, n: int, average: bool,
     ``(agg_flat, new_ef_flat_or_None, num_chunks)``."""
     bounds = _chunk_bounds(flat.shape[0], chunk_elems)
     tier = _resolve_tier(None)
-    _check_tier(tier, group, n)
     if spec.enabled and rng is None:
         if spec.compressor.stochastic:
             raise ValueError(
@@ -485,7 +477,6 @@ class DistributedOptimizer:
             flat, self.momentum = momentum_step(flat, self.momentum, spec.mu)
         if spec.enabled:
             tier = _resolve_tier(None)
-            _check_tier(tier, group, n)
             res = compressed_reduce_scatter_local(
                 flat, spec.compressor, n, average=self.average,
                 ef_residual=self.ef, rng=self._step_key(), tier=tier,

@@ -46,6 +46,14 @@ Three layers:
   gather its blocks into a dense :class:`KVCache` view, run the stock
   ``gpt_apply_cached`` (the forward kernel on CUDA), scatter the newly
   written rows back.
+
+Both factories take ``tp_axis`` (a mesh ``Axis``): the parameters are
+then this rank's Megatron shards, the pool holds this rank's kv heads
+(``PagedKVCache(h_loc=)``), and the attention output, the MLP's ``w2``
+and a grafted ``wo``/``w2`` delta are summed over tp, as the reference's
+steps under ``shard_map`` do. Every tp rank runs the same rows, so the
+host that drives them must make the same decisions on each
+(``serve/scheduler.py``).
 """
 
 from __future__ import annotations
@@ -536,7 +544,7 @@ def _gather_view(pool_l: torch.Tensor, scale_l: Optional[torch.Tensor],
     return torch.where(keep[..., None, None], g, 0.0)
 
 
-def make_paged_decode_fn(cfg: GPTConfig, block_size: int):
+def make_paged_decode_fn(cfg: GPTConfig, block_size: int, tp_axis=None):
     """Build the packed decode step.
 
     ``step(params, pool, toks, pos, tables, slabs=None, slots=None) ->
@@ -548,7 +556,8 @@ def make_paged_decode_fn(cfg: GPTConfig, block_size: int):
     table row and their logits are ignored. Table rows may alias shared
     prefix pages: the scheduler CoWs the write-target block first, so the
     scatter only lands in a private block (or scratch). Dense-MLP
-    families only.
+    families only, as the reference's step. ``tp_axis`` as in the module
+    docstring.
 
     Multi-tenant arm: ``slabs`` is an ``AdapterPool``'s ``{target: {"a":
     (n_slots, L, d_in, rb), "b": (n_slots, L, rb, d_out)}}`` and
@@ -603,16 +612,17 @@ def make_paged_decode_fn(cfg: GPTConfig, block_size: int):
                           else pool.v_scale[li], tables, length, x.dtype)
         o, _ = attention_lse(q, kk, vv, pos, 0, causal=True)
         o = o.reshape(R, 1, h_loc * head_dim)
-        attn_out = row_parallel_matmul(o, p["wo"].to(x.dtype), None,
+        attn_out = row_parallel_matmul(o, p["wo"].to(x.dtype), tp_axis,
                                        _bias(p, "bo", x, use_bias))
-        x = x + with_lora(attn_out, o, p, "wo", seg)
+        x = x + with_lora(attn_out, o, p, "wo", seg, tp_axis)
         if "moe" in p:
             raise NotImplementedError(
                 "the paged decode step serves dense-MLP GPT families "
-                "only — MoE blocks in serving are not ported yet "
-                "(ROADMAP A.7)")
+                "only, as the reference's does "
+                "(byteps_tpu/serve/paged_cache.py:844): MoE routing is not "
+                "paged there either")
         h2 = norm_fn(x, p["ln2_g"], p.get("ln2_b"), norm_eps)
-        return x + _mlp(h2, p, use_bias=use_bias, seg=seg)
+        return x + _mlp(h2, p, tp_axis, use_bias=use_bias, seg=seg)
 
     def _seg_for(slabs, slots, li):
         """Layer ``li``'s per-row delta of the pooled adapters: the
@@ -642,7 +652,7 @@ def make_paged_decode_fn(cfg: GPTConfig, block_size: int):
     return step
 
 
-def make_paged_prefill_fn(cfg: GPTConfig, block_size: int):
+def make_paged_prefill_fn(cfg: GPTConfig, block_size: int, tp_axis=None):
     """Build the per-request prefill chunk.
 
     ``chunk(params, pool, tokens (1, C), pos0, table (W,), readout=True)
@@ -653,7 +663,8 @@ def make_paged_prefill_fn(cfg: GPTConfig, block_size: int):
     and scatter the C newly written rows into ``pool`` in place. The
     table may alias shared prefix pages below ``pos0`` (read only);
     the written rows land in blocks the scheduler made private first.
-    ``readout=False`` skips the vocab projection (intermediate chunks)."""
+    ``readout=False`` skips the vocab projection (intermediate chunks).
+    ``tp_axis`` as in the module docstring."""
     L = cfg.n_layers
 
     @torch.no_grad()
@@ -675,7 +686,7 @@ def make_paged_prefill_fn(cfg: GPTConfig, block_size: int):
                         k_scale=view(pool.k_scale) if quant else None,
                         v_scale=view(pool.v_scale) if quant else None)
         logits, cache = gpt_apply_cached(params, tokens, cache, cfg,
-                                         readout=readout)
+                                         tp_axis, readout=readout)
         positions = torch.arange(pos0, pos0 + C, device=table.device)
         blk = table[positions // block_size]
         off = positions % block_size

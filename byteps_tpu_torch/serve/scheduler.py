@@ -46,10 +46,25 @@ the batch composition, admission order, chunking or preemption.
 Sampled requests draw from a per-row generator seeded from
 (seed, position), independent of batch packing.
 
+**Tensor parallelism** — ``tp_axis`` (a mesh ``Axis``) makes one
+replica span the ranks of a tp line: each holds its shards of the model
+and its kv heads of the pool, and the packed decode step and the prefill
+chunks sum their row-parallel products over tp. The ranks then issue
+collectives in step only while every host decision is the same on each:
+admission, chunking, preemption and prefix hits follow from the requests
+and the pool alone. The one input that could differ is the clock that
+admission holds arrivals against: each iteration reads it once, on the
+line's first rank, and broadcasts it to the others (:meth:`Scheduler.
+_now`). The timestamps of the metrics decide nothing and stay each
+rank's own. Logits come out of the tp sum the same on every
+rank, so the picks agree. An ``AdapterPool`` under a live tp axis is
+refused (ROADMAP A.7): its slabs hold whole adapters, as the
+reference's do.
+
 Not ported yet (later slices): the speculative lane, disaggregation and
 migration, fault plans (and with them the tenant-scoped
-``tenant<T>:slow|hang`` rules), the multi-replica ``Router``, MoE
-blocks and tensor parallelism.
+``tenant<T>:slow|hang`` rules), the multi-replica ``Router``. The packed
+decode step serves dense-MLP families, as the reference's does.
 """
 
 from __future__ import annotations
@@ -172,9 +187,12 @@ class Scheduler:
     unless told otherwise), where the pool is allocated too; so does the
     optional ``adapter_pool``. ``tenant_quota_blocks`` and
     ``fair_queue`` default from the config; ``tenant_weights`` scale a
-    tenant's DWFQ share (default 1)."""
+    tenant's DWFQ share (default 1). ``tp_axis``: the replica spans a tp
+    line (the module docstring); ``params`` are this rank's shards, and
+    every rank of the line serves the same requests."""
 
     def __init__(self, params, cfg: GPTConfig, *,
+                 tp_axis=None,
                  max_batch: Optional[int] = None,
                  block_size: Optional[int] = None,
                  pool_blocks: Optional[int] = None,
@@ -196,8 +214,17 @@ class Scheduler:
             raise ValueError(f"the adapter pool lives on "
                              f"{adapter_pool.device}, the scheduler on "
                              f"{self.device}")
+        tp_live = tp_axis is not None and tp_axis.size > 1
+        if tp_live and adapter_pool is not None:
+            raise NotImplementedError(
+                "an AdapterPool under a live tp axis is not ported yet "
+                "(ROADMAP A.7): the pool's slabs hold whole adapters, as "
+                "the reference's AdapterPool does, so its multi-tenant "
+                "step cannot run sharded")
         self.params = params
         self.cfg = cfg
+        self.tp_axis = tp_axis
+        self._tp_live = tp_live
         self.adapter_pool = adapter_pool
         self._quota = tenant_quota_blocks if tenant_quota_blocks \
             is not None else c.serve_tenant_quota_blocks
@@ -236,12 +263,13 @@ class Scheduler:
                 "serve: block_size %d does not divide max_seq %d — the "
                 "gathered views carry a zero tail past max_seq (correct, "
                 "slightly wasteful)", bs, cfg.max_seq)
+        # under tp the pool holds this rank's kv heads (its wk shard)
         kv_loc = params["blocks"][0]["wk"].shape[-1] // cfg.head_dim
         self.cache = PagedKVCache(cfg, block_size=bs, pool_blocks=nb,
                                   max_batch=self.max_batch, h_loc=kv_loc,
                                   quant=quant, device=self.device)
-        self._decode = make_paged_decode_fn(cfg, bs)
-        self._prefill = make_paged_prefill_fn(cfg, bs)
+        self._decode = make_paged_decode_fn(cfg, bs, tp_axis)
+        self._prefill = make_paged_prefill_fn(cfg, bs, tp_axis)
         self._pick = _make_pick_fn(cfg.vocab_size)
         self._clock = clock
         self._waiting: deque = deque()
@@ -704,11 +732,23 @@ class Scheduler:
         self._m["batch_occupancy"].observe(len(packed))
         return True
 
+    def _now(self) -> float:
+        """The clock reading that admission decides on: under a live tp
+        axis the line's first rank's, broadcast over the line (one
+        collective, which every rank issues once an iteration)."""
+        if not self._tp_live:
+            return self._clock()
+        ax = self.tp_axis
+        t = torch.tensor([self._clock() if ax.index == 0 else 0.0],
+                         dtype=torch.float64)
+        torch.distributed.broadcast(t, src=ax.ranks[0], group=ax.group)
+        return float(t[0])
+
     def step(self) -> bool:
         """One scheduler iteration; True when any request made progress
         (an admission, a prefill chunk, or a decoded token)."""
         self._m["iterations"].inc()
-        progress = self._admit(self._clock())
+        progress = self._admit(self._now())
         progress |= self._prefill_one()
         progress |= self._decode_packed()
         return progress
@@ -724,7 +764,8 @@ class Scheduler:
                 idle = 0
                 continue
             idle += 1
-            if self._waiting and all(r.req.arrival_s > self._clock()
+            now = self._now()
+            if self._waiting and all(r.req.arrival_s > now
                                      for r in self._waiting):
                 time.sleep(1e-4)
             elif idle > max_idle_iters:

@@ -16,6 +16,9 @@
     python3 chip_smoke.py --multislice  # the flash kernels and onebit at
                                      # train_multislice's calls and
                                      # train_multislice (18) alone
+    python3 chip_smoke.py --sharded_decode  # the segmented LoRA kernel's
+                                     # halves and sharded_decode (19)
+                                     # alone
 
 Phases, each printing one JSON line:
 
@@ -98,7 +101,13 @@ Phases, each printing one JSON line:
    slot-0 rows exactly 0, two launches
    bit-equal, and a row alone, in R=16 and on a one-slot view bit-equal
    at the decode, w2 and rank-64 shapes (batch invariance); library
-   yardstick: index_select + two bmm;
+   yardstick: index_select + two bmm; segmented_lora_halves — the
+   row-parallel arm's down and up launches against ``down_torch`` and
+   ``up_torch`` at generate's grafted wo and w2 under tp2 (512 and 2,048
+   local input rows, rank 8, decode and prefill, bf16 and f32), timed,
+   bounded, beside one index_select and one bmm each; and at one rank
+   down + up bit-equal to the fused launch (the whole wo and w2, f32 and
+   bf16);
 4. generate — ``make_generate_fn`` at the full width of GPT-2 medium in
    bf16 (random weights from a seed): B=4, T0=128, 64 new tokens;
 5. serve — ``Scheduler.serve`` at the same width, bf16: 8 requests with
@@ -155,7 +164,9 @@ Phases, each printing one JSON line:
 9. train_tiny — a tiny f32 model trains 3 raw steps on the CPU (plain
    versions) and on the card (kernels) to losses within 1e-4; on the
    card ``accum_steps=2`` equals the full-batch step to 1e-5;
-10. ring — the ring kernels with 2, 3 and 4 rank processes (``spawn``)
+10. ring — the ring kernels with 2, 3 and 4 rank processes (``spawn``;
+    ring, train_ring and the mesh phases run on four kept processes,
+    ``RankPool``, each body in a new group; the DCN phases on fresh ones)
     on the card, in one gloo group over a ``FileStore``, mapping each
     other's workspaces through CUDA IPC; the card's compute mode. At the
     training step's payload rows (onebit words of a full 1,024,000 and
@@ -191,22 +202,24 @@ Phases, each printing one JSON line:
     two processes 200 times, half a round being the card's cost of one
     switch between their contexts;
 11. train_ring — two rank processes on the card run
-    ``make_gpt_train_step`` at GPT-2 medium's full width and depth,
-    B=4 × S=1024 each (the single-card legs' global batch), one warm-up
+    ``make_gpt_train_step`` at GPT-2 medium's full width and 8 of its 24
+    layers (``RANK_PHASE_LAYERS``), B=4 × S=1024 each (the single-card
+    legs' global batch), one warm-up
     and 2 steps a leg: staged onebit + EF, ``BYTEPS_ICI_TIER=ring``
     onebit + EF, ring randomk (k = 0.01) + EF, then ZeRO-1: staged raw,
     staged onebit + EF, ring onebit + EF. Each ring onebit leg's
     losses and each rank's parameter digest equal its staged leg's;
     every leg ends with the ranks' parameters equal and finite losses;
-    each rank's moments 1,419,485,184 B under ZeRO-1, 2,838,970,368
-    replicated; step ms, tokens/s (time-sliced) and each rank's peak
-    memory;
+    each rank's moments 2·ceil(L/2)·4 B under ZeRO-1, 2·L·4 replicated
+    (L = 153,331,712 parameters at 8 layers); step ms, tokens/s
+    (time-sliced) and each rank's peak memory;
 12. train_dcn — the DCN parameter-server tier: one server process of the
     port (``python -m byteps_tpu_torch.server``, two workers, a free
     port; built with g++ first) and two rank processes on the card, each
     training GPT-2 medium at full width and the depth of
-    ``RANK_PHASE_LAYERS`` (8 layers: the cut keeps the whole smoke inside
-    its limit, as in phases 13 and 14), B=4 × S=1024, one warm-up and
+    ``RANK_PHASE_LAYERS`` (4 layers, as in phases 13 and 14: the cuts
+    keep the whole smoke inside its limit), B=4 × S=1024, one
+    warm-up and
     one timed step a leg: staged_raw (``make_gpt_train_step`` at n = 2, the
     yardstick), dcn_raw and dcn_fp16 (``byteps_tpu_torch.torch``'s
     ``DistributedOptimizer`` over the server, ``Compression.fp16`` on the
@@ -219,8 +232,8 @@ Phases, each printing one JSON line:
     opening no TCP connection, its server stopped by the two goodbyes),
     dcn_fp16's losses lie within 1e-2 of
     dcn_raw's, the bytes pushed and pulled per step are the partitions'
-    codec bytes (raw 1,419,485,184 each way), the bytes copied D2H and
-    H2D per step 1,419,485,184 each, and the flash kernels launch once
+    codec bytes (raw 411,787,264 each way at 4 layers), the bytes copied
+    D2H and H2D per step 411,787,264 each, and the flash kernels launch once
     per layer and step on every leg; the server exits 0 after both
     ranks' goodbyes and is killed on any other way out. Step ms (the
     slower rank), tokens/s, wire and copy bytes, the scheduler's stage
@@ -228,7 +241,7 @@ Phases, each printing one JSON line:
 13. train_hybrid — the eager surface (``byteps_tpu_torch.eager``) over
     one pod of two rank processes on the card, with one port server
     process (``DMLC_NUM_WORKER=1``) for each hybrid leg, the ranks under
-    ``BYTEPS_FORCE_DISTRIBUTED=1``: GPT-2 medium at full width and 8
+    ``BYTEPS_FORCE_DISTRIBUTED=1``: GPT-2 medium at full width and 4
     layers (``RANK_PHASE_LAYERS``), B=4 × S=1024 a rank, one warm-up and
     one timed step a leg,
     ``push_pull_tree`` of
@@ -249,13 +262,13 @@ Phases, each printing one JSON line:
     host codec and EF) from the same raw gradients: every sign equal,
     every value within 1e-5 of its leaf's largest magnitude, the
     controller's bytes pushed and
-    pulled per step the plans' (raw 1,419,485,184 each way), D2H and H2D
-    1,419,485,184, the other rank's none; step ms (the slower rank),
+    pulled per step the plans' (raw 411,787,264 each way at 4 layers), D2H
+    and H2D 411,787,264, the other rank's none; step ms (the slower rank),
     tokens/s, bytes and ``ici.wire_bytes`` per step, the stage run and
     dwell sums (REDUCE's, run in the caller's thread, too) and the tail
     thread's sum (``eager.tail_us``) per step, peak memory;
 14. train_chaos — the DCN tier's robustness, the same two ranks and
-    model (8 layers), two port server processes a leg (``DMLC_NUM_SERVER=2``), one
+    model (4 layers), two port server processes a leg (``DMLC_NUM_SERVER=2``), one
     warm-up and 2 steps a leg: staged_raw (the yardstick); dcn_chaos
     (``DistributedOptimizer`` under ``BYTEPS_FAULT_SPEC=
     push:timeout@p=0.02;pull:corrupt@p=0.02``, a fixed seed: retries,
@@ -314,7 +327,10 @@ Phases, each printing one JSON line:
     step a leg: one_rank (this process, the yardstick, and a roundoff
     control: tp = 2's row-parallel arithmetic on one rank), tp2_raw, sp2_raw (the contiguous ring),
     sp2_zigzag, tp2_sp2_vocab (the readout's vocab split over tp),
-    dp2_tp2_onebit_ef (onebit + EF over the dp axis), and a planted
+    dp2_tp2_onebit_ef (onebit + EF over the dp axis),
+    dp2_tp2_onebit_ring (the same on the ring tier over each dp line,
+    two rings at once: losses and each rank's parameter digest bit-equal
+    to dp2_tp2_onebit_ef's, two rotate calls a chunk), and a planted
     fault (sp2 with the sp sum of wte and wpe dropped). Each leg's losses
     fall and lie within 1e-2 of one_rank's (the onebit leg: its warm-up;
     then within 0.1), each gathered leaf further than 2·lr from
@@ -346,17 +362,34 @@ Phases, each printing one JSON line:
     not binding, no aux term) within 1e-4 of one rank's.
 18. train_multislice — the multi-slice tier (the ``slice_`` axis as a
     hierarchical DCN tier), ZeRO-3 and ZeRO-1 over a dp subgroup: GPT-2
-    medium at full width and depth on four rank processes time-slicing
-    the card, B=8 × S=1024 (2 rows a data worker), one warm-up and one
-    timed step a leg, after the flash kernels at a data worker's and a
-    dp2×tp2 rank's calls and onebit at the hierarchical exchange's
-    segments (``multislice_kernel_cases``): dp4_raw, slice2_dp2_raw
-    (bit-equal to it), slice2_dp2_onebit_ef (EF exactly 177,435,648 f32
-    a rank), slice2_dp2_zero3 (ZeRO-3 over slice_ with remat: 2,129,227,776
-    persistent bytes a rank, peak below slice2_dp2_raw's, exact gathers
-    and reduce-scatters), dp2_tp2_raw and dp2_tp2_zero1 (bit-equal to
-    it); the limits at ``MULTISLICE_LEGS``, exact launches; ms a step,
-    peak memory a rank, collectives a step.
+    medium at full width and 12 of its 24 layers (``RANK_PHASE_LAYERS``)
+    on four rank processes time-slicing the card, B=8 × S=1024 (2 rows a
+    data worker), one warm-up and one timed step a leg, after the flash
+    kernels at a data worker's and a dp2×tp2 rank's calls and onebit at
+    the hierarchical exchange's segments (``multislice_kernel_cases``):
+    dp4_raw, slice2_dp2_raw (bit-equal to it), slice2_dp2_onebit_ef (EF
+    exactly ceil(P / 2) f32 a rank), slice2_dp2_onebit_ef_ring (its
+    exchange over the slice_ line on the ring tier, bit-equal to it),
+    slice2_dp2_zero3 (ZeRO-3 over slice_ with remat: exact persistent
+    bytes a rank, peak below slice2_dp2_raw's, exact gathers and
+    reduce-scatters), dp2_tp2_raw and dp2_tp2_zero1 (bit-equal to it);
+    the limits at ``MULTISLICE_LEGS``, exact launches; ms a step, peak
+    memory a rank, collectives a step.
+19. sharded_decode — tp and ep in generate and serve, on four rank
+    processes time-slicing the card (one spawn, gloo), after the rotate
+    and presum kernels over each dp line of the job (two rings at once)
+    bit-equal to the plain hops over the same group: generate over tp2
+    (GPT-2 medium at full width and depth, bf16, B=4, T0=128, 32 new
+    tokens), over ep2 and ep2×tp2 (bench.py's "moe" model, uncut), the
+    tiny f32 configs over tp2 (dense, an int8 cache, a grafted rank-8
+    LoRA on wq, wv, wo and w2) and ep2×tp2 (the tiny MoE), and the
+    Scheduler over tp2 (GPT-2 medium bf16, 8 requests; the tiny f32
+    model on a pool that preempts). One rank's run of each model (this
+    process) is the yardstick, and the MoE model's one-rank run a leg of
+    its own (moe_one_rank): bf16 first-step logits within TOL of it,
+    every rank of a tp line the same tokens, f32 tokens equal to it
+    exactly, the LoRA leg's fused launches and each half's exactly
+    2 × layers × forward calls; tokens/s, TTFT, peak memory a rank.
 
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
@@ -404,7 +437,15 @@ train_dcn's four legs on one rank, train_hybrid's five legs on one
 rank, train_chaos's nine legs on one rank, aggregate_onebit,
 train_parallel's one_rank and one rank of each leg, train_pipeline's
 one_rank and one rank of each leg, train_moe's moe_one_rank and one
-rank of each leg, train_multislice's one rank of each leg; the ring
+rank of each leg, train_multislice's one rank of each leg,
+sharded_decode's moe_one_rank and rank 0 of each leg; the segmented
+LoRA row's launches count its fused launches and both halves (apart as
+``fused_launches``, ``down_launches`` and ``up_launches``, and the
+halves by path), and it gives the halves' times, bounds and library
+times at the wo decode case as ``down_*`` and ``up_*``, every half case
+as ``halves`` and the one-rank split's as ``split_tp1_bit_equal``; the
+ring rows add sharded_decode's cases over a dp line as
+``dp_line_cases``; the ring
 rows' times are the
 ring phase's
 n = 2 cases, rotate's the onebit payload's tree collect with the signs
@@ -434,6 +475,7 @@ result; so it does without a CUDA card or without the package beside it.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -1706,6 +1748,119 @@ def lora_cases(timer) -> dict:
     return res[0]
 
 
+# The row-parallel arm's halves (``lora_down``, ``lora_up``) at generate's
+# calls of a grafted wo and w2 under tp2 on GPT-2 medium, rank 8, one slot
+# (as ``lora_delta`` calls them): wo's 512 local input rows, w2's 2,048, a
+# decode step (R = B = 4, S = 1) and the prefill (S = 128).
+# (name, R, S, d_in, d_out, dtype, seed)
+LORA_HALF_CASES = (
+    ("wo_decode", 4, 1, 512, 1024, torch.bfloat16, 80),
+    ("wo_decode", 4, 1, 512, 1024, torch.float32, 81),
+    ("w2_decode", 4, 1, 2048, 1024, torch.bfloat16, 82),
+    ("w2_decode", 4, 1, 2048, 1024, torch.float32, 83),
+    ("wo_prefill", 4, 128, 512, 1024, torch.bfloat16, 84),
+    ("w2_prefill", 4, 128, 2048, 1024, torch.float32, 85))
+# down + up at one rank against the fused launch, the whole wo and w2:
+# (name, R, S, d_in, d_out, seed)
+LORA_SPLIT_TP1 = (("wo_decode", 4, 1, 1024, 1024, 86),
+                  ("w2_decode", 4, 1, 4096, 1024, 87),
+                  ("wo_prefill", 4, 128, 1024, 1024, 88),
+                  ("w2_prefill", 4, 128, 4096, 1024, 89))
+LORA_TP_RANK = 8
+
+
+def lora_half_case(timer, name, R, S, d_in, d_out, dtype, seed,
+                   rb=LORA_TP_RANK) -> dict:
+    """The down and the up launch against ``down_torch`` and ``up_torch``
+    on the same inputs (the up half from the kernel's own ``u``), under
+    the segmented kernel's tolerances (f32 LORA_F32_TOL of max; bf16 one
+    ulp of the plain f32 result plus that), timed, bounded, and beside
+    one ``index_select`` and one ``bmm`` (f32) each: the library's
+    gather-and-multiply of the same half."""
+    from byteps_tpu_torch.ops.segmented_lora import (down_torch, lora_down,
+                                                     lora_up, up_torch)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(1, d_in, rb, generator=g, device="cuda")
+    b = 0.02 * torch.randn(1, rb, d_out, generator=g, device="cuda")
+    slots = torch.zeros(R, dtype=torch.int32, device="cuda")
+    x = torch.randn(R, S, d_in, generator=g, device="cuda").to(dtype)
+    u = lora_down(x, a, b, slots)
+    u_plain = down_torch(x, a, slots)
+    out = lora_up(u, a, b, slots, dtype)
+    plain32 = up_torch(u, b, slots, torch.float32)
+    torch.cuda.synchronize()
+    down_err = float((u - u_plain).abs().max())
+    down_tol = LORA_F32_TOL * float(u_plain.abs().max())
+    up_err = float((out.float() - plain32).abs().max())
+    f32_tol = LORA_F32_TOL * float(plain32.abs().max())
+    if dtype == torch.float32:
+        up_ok, up_tol = up_err <= f32_tol, f32_tol
+    else:
+        up_ok = bool(((out.float() - plain32).abs()
+                      <= bf16_ulp(plain32) + f32_tol).all())
+        up_tol = f"1 bf16 ulp of the plain f32 result + {f32_tol:.3g}"
+    if down_err > down_tol or not up_ok:
+        raise AssertionError(f"segmented_lora halves {name} {dtype}: down "
+                             f"err {down_err} (tolerance {down_tol}), up err "
+                             f"{up_err} (tolerance {up_tol})")
+    idx = slots.long()
+    es = x.element_size()
+    res = {"case": name, "dtype": str(dtype).split(".")[-1],
+           "shape": [R, S, d_in, rb, d_out], "down_max_abs_err": down_err,
+           "down_tolerance": down_tol, "up_max_abs_err": up_err,
+           "up_tolerance": up_tol,
+           "down_ms": timer(lambda: lora_down(x, a, b, slots)),
+           "down_plain_ms": timer(lambda: down_torch(x, a, slots)),
+           "down_library_ms": timer(lambda: torch.bmm(
+               x.float(), a.index_select(0, idx))),
+           "up_ms": timer(lambda: lora_up(u, a, b, slots, dtype)),
+           "up_plain_ms": timer(lambda: up_torch(u, b, slots, dtype)),
+           "up_library_ms": timer(lambda: torch.bmm(
+               u, b.index_select(0, idx)).to(dtype))}
+    res["down_bound_ms"], res["down_bound_by"] = bound_ms(
+        R * S * d_in * es + 4 * R + 4 * d_in * rb + 4 * R * S * rb,
+        2 * R * S * d_in * rb, torch.float32)
+    res["up_bound_ms"], res["up_bound_by"] = bound_ms(
+        4 * R * S * rb + 4 * R + 4 * rb * d_out + R * S * d_out * es,
+        2 * R * S * rb * d_out, torch.float32)
+    emit({"phase": "segmented_lora_halves", **res})
+    return res
+
+
+def lora_split_tp1_case(name, R, S, d_in, d_out, seed,
+                        rb=LORA_TP_RANK) -> dict:
+    """At one rank the down launch, then the up launch on its ``u``, give
+    the fused launch's bits (f32 and bf16): the same products summed in
+    the same order."""
+    from byteps_tpu_torch.ops.segmented_lora import (lora_down, lora_up,
+                                                     segmented_lora_delta)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(1, d_in, rb, generator=g, device="cuda")
+    b = 0.02 * torch.randn(1, rb, d_out, generator=g, device="cuda")
+    slots = torch.zeros(R, dtype=torch.int32, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(R, S, d_in, generator=g, device="cuda").to(dtype)
+        fused = segmented_lora_delta(x, a, b, slots)
+        split = lora_up(lora_down(x, a, b, slots), a, b, slots, dtype)
+        if not torch.equal(fused.view(torch.uint8), split.view(torch.uint8)):
+            raise AssertionError(
+                f"segmented_lora {name} {dtype}: down + up at one rank "
+                "differs from the fused launch")
+    res = {"case": name, "shape": [R, S, d_in, rb, d_out],
+           "dtypes": ["bfloat16", "float32"], "bit_equal_to_fused": True}
+    emit({"phase": "segmented_lora_split_tp1", **res})
+    return res
+
+
+def lora_half_cases(timer) -> dict:
+    """The halves' cases and the one-rank split's: {"halves": [...],
+    "split_tp1": [...]}; the first half case is the kernels line's."""
+    return {"halves": [lora_half_case(timer, *c) for c in LORA_HALF_CASES],
+            "split_tp1": [lora_split_tp1_case(*c) for c in LORA_SPLIT_TP1]}
+
+
 # --------------------------------------------------------------------------
 # phases 4-9: the main path
 # --------------------------------------------------------------------------
@@ -2559,12 +2714,52 @@ GPT2M_PARAMS = 354_871_296
 # The depth of the rank phases that share the card and move whole
 # gradients through servers or over meshes (GPT-2 medium at full width,
 # its 24 layers cut so the whole smoke stays inside its limit with
-# train_pipeline and train_moe added, and train_parallel's with
-# train_multislice; each phase names its depth in its output line.
+# train_pipeline and train_moe added, train_parallel's with
+# train_multislice, train_multislice's, train_dcn's and train_chaos's
+# with sharded_decode, and train_ring's and train_hybrid's to keep it
+# inside on slower hosts: every check of those two is a bit-equality,
+# which holds at any depth; each phase names its depth in its output line.
 # train_parallel's limits hold at 12 layers, and its onebit leg's loss
 # gap does not at 8: 0.115 against 0.1, NVIDIA H100 80GB HBM3, 700 W)
-RANK_PHASE_LAYERS = {"train_dcn": 8, "train_hybrid": 8, "train_chaos": 8,
-                     "train_parallel": 12}
+RANK_PHASE_LAYERS = {"train_ring": 8, "train_dcn": 4, "train_hybrid": 4,
+                     "train_chaos": 4, "train_parallel": 12,
+                     "train_multislice": 12}
+# the legs that run the ring tier over a mesh subgroup (a dp line, the
+# slice_ line), each held bit-equal to its staged twin
+RING_TIER_TWIN = {"dp2_tp2_onebit_ring": "dp2_tp2_onebit_ef",
+                  "slice2_dp2_onebit_ef_ring": "slice2_dp2_onebit_ef"}
+
+
+@contextlib.contextmanager
+def ici_tier(tier):
+    """``BYTEPS_ICI_TIER`` set to ``tier`` (None: left as it is) while the
+    block runs; the port's config re-read on the way in and out."""
+    import os
+
+    from byteps_tpu_torch.common.config import reset_config
+
+    old = os.environ.get("BYTEPS_ICI_TIER")
+    if tier is not None:
+        os.environ["BYTEPS_ICI_TIER"] = tier
+    reset_config()
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("BYTEPS_ICI_TIER", None)
+        else:
+            os.environ["BYTEPS_ICI_TIER"] = old
+        reset_config()
+
+
+def close_rings(mesh, axes=("dp", "slice_")) -> None:
+    """Free the ring workspaces of this rank's lines of ``axes`` on
+    ``mesh`` (collective over each line), before its groups go."""
+    from byteps_tpu_torch.ops import ring_collective_kernels as rk
+
+    for name in axes:
+        if name in mesh.axis_names and mesh.axis_size(name) > 1:
+            rk.close_workspaces(mesh.group(name))
 
 
 def rank_phase_cfg(phase: str):
@@ -2595,52 +2790,83 @@ RING_CALLS = 2000            # back-to-back calls of the race check
 RING_TOL = 1e-5
 
 
+# the rank bodies that run on the kept rank processes (:class:`RankPool`);
+# the DCN phases' bodies (their servers, the torch adapter's worker state,
+# their DMLC_* settings) keep fresh processes
+POOLED_BODIES = ("ring_rank", "train_ring_rank", "train_parallel_rank",
+                 "train_pipeline_rank", "train_moe_rank",
+                 "train_multislice_rank", "sharded_decode_rank")
+POOL_RANKS = 4
+_POOL: list = []             # the live RankPool, if any
+
+
 def spawn_ranks(body, n, *args, timeout=900):
-    """Run ``body(rank, n, *args)`` in ``n`` fresh processes (``spawn``:
-    the parent already holds a CUDA context) that share a gloo group over
-    a FileStore on card 0; return each rank's result, raising if any rank
-    failed. Every process is gone on return."""
+    """Run ``body(rank, n, *args)`` on ``n`` rank processes that share a
+    gloo group over a FileStore on card 0; return each rank's result,
+    raising if any rank failed. A body of POOLED_BODIES runs on ranks 0 to
+    n - 1 of the kept :class:`RankPool` (started at its first use), any
+    other on ``n`` fresh processes (``spawn``: the parent already holds a
+    CUDA context), all gone on return."""
     import shutil
     import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ring_")
+    try:
+        if body.__name__ in POOLED_BODIES:
+            return rank_pool().run(body.__name__, n, f"{tmp}/store", args,
+                                   timeout)
+        return fresh_ranks(body.__name__, n, f"{tmp}/store", args, timeout)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def collect_results(name, q, procs, n, timeout) -> list:
+    """Each of ranks 0 to n - 1's result from ``q``, in rank order;
+    raise if a rank reported a failure, died (``procs``: its process)
+    or gave nothing in ``timeout`` seconds."""
+    res = {}
+    deadline = time.monotonic() + timeout
+    while len(res) < n:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise AssertionError(f"{name}: ranks "
+                                 f"{sorted(set(range(n)) - set(res))} "
+                                 f"gave no result in {timeout} s")
+        try:
+            r = q.get(timeout=min(left, 5.0))
+        except Exception:          # queue.Empty: is every rank alive?
+            dead = [i for i, p in enumerate(procs)
+                    if p.exitcode not in (None, 0) and i not in res]
+            if dead:
+                raise AssertionError(
+                    f"{name}: rank(s) {dead} died "
+                    f"(exit {[procs[i].exitcode for i in dead]})")
+            continue
+        res[r["rank"]] = r
+    failed = {k: v["failed"] for k, v in res.items() if "failed" in v}
+    if failed:
+        raise AssertionError(f"{name} failed:\n"
+                             + "\n".join(f"rank {k}: {v}"
+                                         for k, v in failed.items()))
+    return [res[r] for r in range(n)]
+
+
+def fresh_ranks(name, n, store, args, timeout) -> list:
+    """The body named ``name`` on ``n`` new processes, joined (or killed)
+    before this returns."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ring_")
-    procs = [ctx.Process(target=rank_entry,
-                         args=(body.__name__, r, n, f"{tmp}/store", q)
-                         + args)
-             for r in range(n)]
+    procs = [ctx.Process(target=rank_entry, args=(name, r, n, store, q)
+                         + tuple(args)) for r in range(n)]
     done = False
     try:
         for p in procs:
             p.start()
-        res = {}
-        deadline = time.monotonic() + timeout
-        while len(res) < n:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise AssertionError(f"{body.__name__}: ranks "
-                                     f"{sorted(set(range(n)) - set(res))} "
-                                     f"gave no result in {timeout} s")
-            try:
-                r = q.get(timeout=min(left, 5.0))
-            except Exception:          # queue.Empty: is every rank alive?
-                dead = [i for i, p in enumerate(procs)
-                        if p.exitcode not in (None, 0) and i not in res]
-                if dead:
-                    raise AssertionError(
-                        f"{body.__name__}: rank(s) {dead} died "
-                        f"(exit {[procs[i].exitcode for i in dead]})")
-                continue
-            res[r["rank"]] = r
-        failed = {k: v["failed"] for k, v in res.items() if "failed" in v}
-        if failed:
-            raise AssertionError(f"{body.__name__} failed:\n"
-                                 + "\n".join(f"rank {k}: {v}"
-                                             for k, v in failed.items()))
+        out = collect_results(name, q, procs, n, timeout)
         done = True
-        return [res[r] for r in range(n)]
+        return out
     finally:
         for p in procs:
             if p.pid is None:              # never started
@@ -2649,13 +2875,113 @@ def spawn_ranks(body, n, *args, timeout=900):
             if p.is_alive():
                 p.kill()
                 p.join()
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class RankPool:
+    """POOL_RANKS rank processes (``spawn``) kept from one rank phase to
+    the next. A fresh process takes ~8-10 s to reach the card (its
+    imports and CUDA context), which every spawn of a phase paid; a kept
+    one runs each body handed to it as a rank of a new gloo group
+    (:func:`pool_entry`). A failed or late body closes the pool, and the
+    next use starts another."""
+
+    def __init__(self, size=POOL_RANKS):
+        import torch.multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.results = ctx.Queue()
+        self.tasks = [ctx.Queue() for _ in range(size)]
+        self.procs = [ctx.Process(target=pool_entry,
+                                  args=(r, self.tasks[r], self.results),
+                                  daemon=True) for r in range(size)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, name, n, store, args, timeout) -> list:
+        if n > len(self.procs):
+            raise ValueError(f"{name}: {n} ranks, the pool has "
+                             f"{len(self.procs)}")
+        for r in range(n):
+            self.tasks[r].put((name, n, store, tuple(args)))
+        done = False
+        try:
+            out = collect_results(name, self.results, self.procs[:n], n,
+                                  timeout)
+            done = True
+            return out
+        finally:
+            if not done:
+                close_pool(kill=True)
+
+    def close(self, kill=False) -> None:
+        """Stop every process: told to (their bodies done), or killed."""
+        if not kill:
+            for q, p in zip(self.tasks, self.procs):
+                if p.is_alive():
+                    q.put(None)
+        for p in self.procs:
+            p.join(timeout=0 if kill else 60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def rank_pool() -> RankPool:
+    if not _POOL:
+        _POOL.append(RankPool())
+    return _POOL[0]
+
+
+def close_pool(kill=False) -> None:
+    """Stop the kept rank processes, if any."""
+    if _POOL:
+        _POOL.pop().close(kill)
+
+
+def pool_entry(rank, tasks, q):
+    """A kept rank process: run each body handed to it as ``rank``
+    (:func:`run_rank_body`) until it is handed None, each from a fresh
+    process's state: the launch, collective and metric counts at 0, torch's
+    default generators at their first seed; and after each restore its
+    environment (bodies set BYTEPS_* settings), the port's config, torch's
+    thread count and the card memory it cached; stop after a failed
+    body."""
+    import os
+
+    from byteps_tpu_torch.common.config import reset_config
+    from byteps_tpu_torch.common.metrics import reset_registry
+    from byteps_tpu_torch.ops import reset_launches
+    from byteps_tpu_torch.parallel.mesh import reset_collectives
+
+    seed = torch.initial_seed()
+    while (task := tasks.get()) is not None:
+        name, n, store, args = task
+        env, threads = dict(os.environ), torch.get_num_threads()
+        reset_launches()
+        reset_collectives()
+        reset_registry()
+        torch.manual_seed(seed)
+        ok = run_rank_body(name, rank, n, store, q, args)
+        os.environ.clear()
+        os.environ.update(env)
+        reset_config()
+        torch.set_num_threads(threads)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not ok:
+            return
 
 
 def rank_entry(body_name, rank, n, store, q, *args):
-    """A rank process: join the gloo group on card 0, run the body named
-    ``body_name``, and report its result or its failure (with any ring
-    wait that ran past its bound) on the queue."""
+    """A fresh rank process: one body (:func:`run_rank_body`)."""
+    run_rank_body(body_name, rank, n, store, q, args)
+
+
+def run_rank_body(body_name, rank, n, store, q, args) -> bool:
+    """Join the gloo group on card 0 as ``rank`` of ``n``, run the body
+    named ``body_name``, leave the group, and report its result or its
+    failure (with any ring wait that ran past its bound) on the queue;
+    True if the body succeeded."""
     import datetime
     import traceback
 
@@ -2673,9 +2999,11 @@ def rank_entry(body_name, rank, n, store, q, *args):
         rk.close_workspaces()
         dist.destroy_process_group()
         q.put({"rank": rank, **res})
+        return True
     except Exception:               # reported to the parent, which fails
         q.put({"rank": rank, "failed": traceback.format_exc()
                + "".join(f"\n{e}" for e in rk.ring_errors())})
+        return False
 
 
 def ring_cases(n: int) -> list:
@@ -2729,17 +3057,18 @@ def ring_input(i, op, leaves, n, rank) -> dict:
     return out
 
 
-def ring_call(rk, op, payload) -> dict:
-    """The public call of ``op`` on ``payload``: a leaf alone through
+def ring_call(rk, op, payload, group=None) -> dict:
+    """The public call of ``op`` on ``payload`` over ``group`` (the
+    default group when None): a leaf alone through
     ``ring_collect``/``ring_allgather``/``ring_presum``, several through
     the tree calls."""
     if op == "presum":
-        return {"x": rk.ring_presum(payload["x"])}
+        return {"x": rk.ring_presum(payload["x"], group=group)}
     if len(payload) == 1:
         fn = rk.ring_collect if op == "collect" else rk.ring_allgather
-        return {"x": fn(payload["x"])}
+        return {"x": fn(payload["x"], group=group)}
     fn = rk.ring_collect_tree if op == "collect" else rk.ring_allgather_tree
-    return fn(payload)
+    return fn(payload, group=group)
 
 
 def ring_outputs(rk, op, payload, n):
@@ -3157,11 +3486,10 @@ def train_ring_rank(rank, n, B, S, steps):
     import os
 
     from byteps_tpu_torch.common.config import reset_config
-    from byteps_tpu_torch.models import (GPTConfig, make_gpt_train_step,
-                                         synthetic_batch)
+    from byteps_tpu_torch.models import make_gpt_train_step, synthetic_batch
     from byteps_tpu_torch.ops import launches, reset_launches
 
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_ring")
     res = {}
     for leg, tier, comp, zero in TRAIN_RING_LEGS:
         os.environ["BYTEPS_ICI_TIER"] = tier
@@ -3195,7 +3523,8 @@ def train_ring_rank(rank, n, B, S, steps):
 
 
 def phase_train_ring(B=4, S=1024, steps=2) -> dict:
-    """Two ranks on the card train GPT-2 medium at full width, B=4 × S=1024
+    """Two ranks on the card train GPT-2 medium at full width and 8 of its
+    24 layers (``RANK_PHASE_LAYERS``), B=4 × S=1024
     each (the single-card legs' global batch of 8), bf16 over f32 master
     weights, AdamW(1e-3), one warm-up and ``steps`` timed steps a leg:
     staged onebit + EF, ring onebit + EF and ring randomk + EF, then
@@ -3206,19 +3535,18 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
     are 2·ceil(L/2)·4 B under ZeRO-1, half the replicated legs' 2·L·4;
     the launch counts are exact. Returns rank 0's counts summed over the
     legs (both ranks' are checked equal)."""
-    from byteps_tpu_torch.models import GPTConfig
-
     n = 2
     t0 = time.perf_counter()
     per_rank = spawn_ranks(train_ring_rank, n, B, S, steps)
     wall = time.perf_counter() - t0
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_ring")
+    L = gpt_param_count(cfg)
     calls = steps + 1
-    chunks = -(-GPT2M_PARAMS // CHUNK)
-    seg = -(-GPT2M_PARAMS // n)
+    chunks = -(-L // CHUNK)
+    seg = -(-L // n)
     for leg, _, _, zero in TRAIN_RING_LEGS:
         legs = [r[leg] for r in per_rank]
-        moments = 2 * (seg if zero else GPT2M_PARAMS) * 4
+        moments = 2 * (seg if zero else L) * 4
         if any(lg["moment_bytes"] != moments for lg in legs):
             raise AssertionError(f"train_ring {leg}: moments "
                                  f"{[lg['moment_bytes'] for lg in legs]} B,"
@@ -3295,7 +3623,8 @@ def phase_train_ring(B=4, S=1024, steps=2) -> dict:
             "max_memory_allocated_gb": [r[leg]["max_memory_allocated_gb"]
                                         for r in per_rank],
             "launches": per_rank[0][leg]["launches"]}
-    emit({"phase": "train_ring", "ranks": n,
+    emit({"phase": "train_ring", "ranks": n, "layers": cfg.n_layers,
+          "depth_cut": "24 layers cut to keep the smoke in its limit",
           "timing": "two ranks time-slice one card", "batch_per_rank": B,
           "seq": S, "steps": steps, "chunks_per_step": chunks,
           "ring_equals_staged": True, "wall_s": wall, "legs": legs_out})
@@ -3509,7 +3838,7 @@ def phase_train_dcn(B=4, S=1024, steps=1) -> dict:
     """The DCN parameter-server tier on the card: one server process of the
     port (``python -m byteps_tpu_torch.server``, two workers) and two rank
     processes that time-slice the card, each training GPT-2 medium at full
-    width and 8 layers (``RANK_PHASE_LAYERS``), B=4 × S=1024, bf16 over
+    width and 4 layers (``RANK_PHASE_LAYERS``), B=4 × S=1024, bf16 over
     f32 master weights, one warm-up and
     ``steps`` timed steps a leg: staged_raw (the all-reduce step, the
     yardstick), dcn_raw and dcn_fp16 (``DistributedOptimizer`` over the
@@ -3802,7 +4131,7 @@ def phase_train_hybrid(B=4, S=1024, steps=1) -> dict:
     port server process a hybrid leg (``DMLC_NUM_WORKER=1``, the ranks
     with ``BYTEPS_FORCE_DISTRIBUTED=1``: every hybrid stage runs and the
     pod's sums cross the server). Each rank trains GPT-2 medium at full
-    width and 8 layers (``RANK_PHASE_LAYERS``), B=4 × S=1024, bf16 over
+    width and 4 layers (``RANK_PHASE_LAYERS``), B=4 × S=1024, bf16 over
     f32 master weights, one warm-up and
     ``steps`` timed steps a leg: staged_raw (``make_gpt_train_step``, the
     yardstick), eager_raw (the eager ICI pipeline), hybrid_raw (sharded,
@@ -4743,6 +5072,9 @@ PARALLEL_LEGS = (
     ("tp2_sp2_vocab", 4, {"tp": 2, "sp": 2}, "contiguous", "vocab_parallel",
      None),
     ("dp2_tp2_onebit_ef", 4, {"dp": 2, "tp": 2}, "contiguous", True,
+     ONEBIT_EF),
+    # the same leg on the ring tier over each dp line (two rings at once)
+    ("dp2_tp2_onebit_ring", 4, {"dp": 2, "tp": 2}, "contiguous", True,
      ONEBIT_EF))
 # the global batch (B, S) of every leg and of one_rank
 PARALLEL_BATCH = (4, 1024)
@@ -4964,13 +5296,16 @@ def train_parallel_rank(rank, n, B, S, steps, ref_path, f32_refs):
         torch.cuda.empty_cache()
         reset_launches()
         reset_collectives()
-        out = timed_train(step, opt, tok, tgt, steps)
+        with ici_tier("ring" if leg in RING_TIER_TWIN else None):
+            out = timed_train(step, opt, tok, tgt, steps)
+        close_rings(mesh)
         out["launches"] = dict(launches)
         out["collectives"] = dict(collectives)
         specs = flat_specs(param_specs(cfg, mesh))
         rep = [p for p, s in zip(opt.params, specs)
                if "tp" not in spec_axes(s)]
         out["rep_sha1"] = params_digest(rep)
+        out["params_sha1"] = params_digest(opt.params)
         out["coords"] = {a: mesh.axis_index(a) for a in mesh.axis_names}
         out["local_params"] = sum(p.numel() for p in opt.params)
         tree = params_to_numpy(params, mesh=mesh)
@@ -5122,6 +5457,9 @@ def phase_train_parallel(B=PARALLEL_BATCH[0], S=PARALLEL_BATCH[1],
             chunks = -(-r0["local_params"] // per)
             want.update(onebit_pack=calls * chunks * 3,
                         onebit_unpack_sum=calls * chunks * 5)
+        if leg in RING_TIER_TWIN:
+            # a collect and an all-gather a chunk over the dp line
+            want["ring_rotate"] = calls * chunks * 2
         bad_launch = {k: (r0["launches"][k], v) for k, v in want.items()
                       if r0["launches"][k] != v}
         checks = {
@@ -5133,6 +5471,14 @@ def phase_train_parallel(B=PARALLEL_BATCH[0], S=PARALLEL_BATCH[1],
             "launches": not bad_launch,
             "ranks_launch_alike": all(r["launches"] == r0["launches"]
                                       for r in rs)}
+        if leg in RING_TIER_TWIN:
+            # losses and each rank's parameter digest: the ring moves the
+            # staged tier's bits
+            twin = [r[RING_TIER_TWIN[leg]] for r in per_n[n]]
+            checks["bit_equal_to_staged"] = all(
+                r["losses"] == t["losses"]
+                and r["params_sha1"] == t["params_sha1"]
+                for r, t in zip(rs, twin))
         if not all(checks.values()):
             failed.append((leg, checks, bad_launch))
         legs_out[leg] = {
@@ -5841,8 +6187,8 @@ def phase_train_moe(B=MOE_BATCH[0], S=MOE_BATCH[1], steps=1) -> dict:
 # --------------------------------------------------------------------------
 # phase 18: the multi-slice tier, ZeRO-3 and ZeRO-1 over a dp subgroup
 # --------------------------------------------------------------------------
-# GPT-2 medium at full width and depth, four rank processes time-slicing
-# the card over gloo, bf16 over f32 master weights, AdamW(1e-3), the
+# GPT-2 medium at full width and 12 layers, four rank processes
+# time-slicing the card over gloo, bf16 over f32 master weights, AdamW(1e-3), the
 # seeded weights, one global batch of B=8 × S=1024 for every leg (2 rows
 # a worker on the data legs), one warm-up and one timed step a leg.
 # (name, mesh axes, make_gpt_train_step keywords)
@@ -5851,6 +6197,9 @@ MULTISLICE_LEGS = (
     ("dp4_raw", {"dp": 4}, {}),
     ("slice2_dp2_raw", {"slice_": 2, "dp": 2}, {}),
     ("slice2_dp2_onebit_ef", {"slice_": 2, "dp": 2},
+     {"compression_params": ONEBIT_EF}),
+    # the hierarchical leg's onebit exchange on the ring tier over slice_
+    ("slice2_dp2_onebit_ef_ring", {"slice_": 2, "dp": 2},
      {"compression_params": ONEBIT_EF}),
     ("slice2_dp2_zero3", {"slice_": 2, "dp": 2},
      {"zero_3": True, "remat": True}),
@@ -5872,11 +6221,26 @@ MULTISLICE_LEGS = (
 # slice_, then a sum over dp), f32 roundoff that AdamW's first step
 # turns into a sign flip only where a gradient is near zero.
 MULTISLICE_ZERO3_LOSS_TOL = 1e-3
-# ZeRO-3's persistent bytes a rank at n_shard = 2: the segments and
-# AdamW's two moments, 3 · 4 · (26,280,960 + 24 · 6,298,112)
-MULTISLICE_ZERO3_BYTES = 2_129_227_776
-# the hierarchical leg's EF residual a rank: ceil(354,871,296 / 2) f32
-MULTISLICE_EF = 177_435_648
+# slice2_dp2_onebit_ef_ring against slice2_dp2_onebit_ef: bit-equal (losses
+# and each rank's parameter digest): the ring moves the staged tier's
+# payload bits over the slice_ line, and onebit's owner sum decodes them
+# in the same order.
+
+
+def multislice_zero3_bytes(cfg) -> int:
+    """ZeRO-3's persistent bytes a rank at n_shard = 2: the segments and
+    AdamW's two moments, 3 · 4 · (ceil(rest / 2) + L · ceil(block / 2));
+    2,129,227,776 at GPT-2 medium's 24 layers."""
+    d, ff = cfg.d_model, cfg.d_ff
+    rest = cfg.vocab_size * d + cfg.max_seq * d + 2 * d
+    block = 4 * d * d + 2 * d * ff + 9 * d + ff
+    return 3 * 4 * (-(-rest // 2) + cfg.n_layers * -(-block // 2))
+
+
+def multislice_ef(cfg) -> int:
+    """The hierarchical leg's EF residual a rank, f32: ceil(P / 2) of the
+    model's P parameters (177,435,648 at 24 layers)."""
+    return -(-gpt_param_count(cfg) // 2)
 
 
 def multislice_onebit_case(timer, name, n, seed) -> dict:
@@ -5926,9 +6290,8 @@ def multislice_kernel_cases(timer) -> dict:
     segment over two slices: the full chunk's half (512,000) and the tail
     chunk's (141,824)."""
     from byteps_tpu_torch.common.config import get_config
-    from byteps_tpu_torch.models import GPTConfig
 
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_multislice")
     B, S = MULTISLICE_BATCH
     out = {}
     for i, (name, rows, heads) in enumerate((
@@ -5942,7 +6305,7 @@ def multislice_kernel_cases(timer) -> dict:
             "bwd": bwd_case(timer, nm, rows, S, S, heads, heads,
                             cfg.head_dim, 0, 0, torch.bfloat16, 910 + i)}
     per = get_config().partition_bytes // 4
-    tail = MULTISLICE_EF % per
+    tail = multislice_ef(cfg) % per
     out["onebit_chunk"] = multislice_onebit_case(
         timer, "hier_chunk_half", -(-per // 2), 920)
     out["onebit_tail"] = multislice_onebit_case(
@@ -5956,14 +6319,14 @@ def train_multislice_rank(rank, n, B, S, steps):
     batch; losses, step times, peak memory, launch and collective
     counts, a digest of this rank's parameters (its segments under
     ZeRO-3), its persistent state's bytes and its EF length."""
-    from byteps_tpu_torch.models import GPTConfig, make_gpt_train_step
+    from byteps_tpu_torch.models import make_gpt_train_step
     from byteps_tpu_torch.ops import launches, reset_launches
     from byteps_tpu_torch.parallel.mesh import (MeshAxes, collectives,
                                                 make_mesh,
                                                 reset_collectives)
     from byteps_tpu_torch.parallel.zero3 import state_bytes
 
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_multislice")
     tok, tgt = parallel_batch(cfg, B, S, "cuda")
     res = {}
     for leg, axes, kw in MULTISLICE_LEGS:
@@ -5980,11 +6343,13 @@ def train_multislice_rank(rank, n, B, S, steps):
         reset_launches()
         reset_collectives()
         losses, times = [], []
-        for _ in range(steps + 1):
-            t0 = time.perf_counter()
-            losses.append(float(step(tok, tgt)))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        with ici_tier("ring" if leg in RING_TIER_TWIN else None):
+            for _ in range(steps + 1):
+                t0 = time.perf_counter()
+                losses.append(float(step(tok, tgt)))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        close_rings(mesh)
         out = {"losses": losses, "warmup_s": times[0],
                "step_ms": sum(times[1:]) / steps * 1e3,
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -6007,15 +6372,18 @@ def train_multislice_rank(rank, n, B, S, steps):
 def phase_train_multislice(B=MULTISLICE_BATCH[0], S=MULTISLICE_BATCH[1],
                            steps=1) -> dict:
     """The multi-slice tier, ZeRO-3 and ZeRO-1 over a dp subgroup on four
-    rank processes that time-slice the card (:data:`MULTISLICE_LEGS`):
-    dp4_raw; slice2_dp2_raw (the joined (slice_, dp) group, bit-equal to
-    dp4_raw); slice2_dp2_onebit_ef (the hierarchical path: raw
-    reduce-scatter over dp, onebit + EF over slice_ per chunk of the dp
-    segment, all-gather over dp; EF exactly MULTISLICE_EF f32 a rank);
-    slice2_dp2_zero3 (ZeRO-3 over slice_ with remat: persistent state
-    exactly MULTISLICE_ZERO3_BYTES a rank, peak memory below
-    slice2_dp2_raw's); dp2_tp2_raw and dp2_tp2_zero1 (ZeRO-1 over the dp
-    line, bit-equal to it). Every leg: losses finite and falling, the
+    rank processes that time-slice the card (:data:`MULTISLICE_LEGS`),
+    GPT-2 medium at full width and 12 of its 24 layers
+    (:data:`RANK_PHASE_LAYERS`): dp4_raw; slice2_dp2_raw (the joined
+    (slice_, dp) group, bit-equal to dp4_raw); slice2_dp2_onebit_ef (the
+    hierarchical path: raw reduce-scatter over dp, onebit + EF over
+    slice_ per chunk of the dp segment, all-gather over dp; EF exactly
+    :func:`multislice_ef` f32 a rank); slice2_dp2_onebit_ef_ring (the same
+    on the ring tier over the slice_ line: two rotate calls a chunk,
+    bit-equal to it); slice2_dp2_zero3 (ZeRO-3 over slice_ with remat:
+    persistent state exactly :func:`multislice_zero3_bytes` a rank, peak
+    memory below slice2_dp2_raw's); dp2_tp2_raw and dp2_tp2_zero1 (ZeRO-1
+    over the dp line, bit-equal to it). Every leg: losses finite and falling, the
     same on every rank, the limits stated at MULTISLICE_LEGS, exact
     launches (the flash kernels once a layer and step, the forward twice
     under ZeRO-3's remat; onebit pack 3 and unpack-sum 5 times a chunk of
@@ -6026,10 +6394,10 @@ def phase_train_multislice(B=MULTISLICE_BATCH[0], S=MULTISLICE_BATCH[1],
     slower rank), peak memory a rank. Returns rank 0's launch counts,
     summed over the legs."""
     from byteps_tpu_torch.common.config import get_config
-    from byteps_tpu_torch.models import GPTConfig
 
-    cfg = GPTConfig.gpt2_medium()
+    cfg = rank_phase_cfg("train_multislice")
     L = cfg.n_layers
+    ms_ef, ms_z3 = multislice_ef(cfg), multislice_zero3_bytes(cfg)
     t0 = time.perf_counter()
     ranks = spawn_ranks(train_multislice_rank, 4, B, S, steps)
     wall = time.perf_counter() - t0
@@ -6054,6 +6422,9 @@ def phase_train_multislice(B=MULTISLICE_BATCH[0], S=MULTISLICE_BATCH[1],
             chunks = -(-r0["ef_numel"] // per)
             want.update(onebit_pack=calls * chunks * 3,
                         onebit_unpack_sum=calls * chunks * 5)
+            if leg in RING_TIER_TWIN:
+                # a collect and an all-gather a chunk over slice_
+                want["ring_rotate"] = calls * chunks * 2
             per_step = {"hier_dp_reduce_scatter": 1, "hier_dp_all_gather": 1}
         checks = {
             "falls": all(falls(r["losses"]) for r in rs),
@@ -6103,15 +6474,21 @@ def phase_train_multislice(B=MULTISLICE_BATCH[0], S=MULTISLICE_BATCH[1],
             "collectives_of_dp2_tp2_raw": same("dp2_tp2_zero1",
                                                "dp2_tp2_raw",
                                                "collectives")},
+        "slice2_dp2_onebit_ef_ring": {
+            "bit_equal_to_slice2_dp2_onebit_ef": (
+                same("slice2_dp2_onebit_ef_ring", "slice2_dp2_onebit_ef",
+                     "losses")
+                and same("slice2_dp2_onebit_ef_ring", "slice2_dp2_onebit_ef",
+                         "params_sha1"))},
         "slice2_dp2_onebit_ef": {
-            "ef_numel": all(r["ef_numel"] == MULTISLICE_EF
+            "ef_numel": all(r["ef_numel"] == ms_ef
                             for r in legs["slice2_dp2_onebit_ef"]),
             "warmup_bit_equal_to_dp4_raw": (ob["losses"][0]
                                             == dp4["losses"][0]),
             "loss_gap": all(g <= PARALLEL_ONEBIT_LOSS_GAP
                             for g in ob_gap[1:])},
         "slice2_dp2_zero3": {
-            "state_bytes": all(r["state_bytes"] == MULTISLICE_ZERO3_BYTES
+            "state_bytes": all(r["state_bytes"] == ms_z3
                                for r in legs["slice2_dp2_zero3"]),
             "peak_below_slice2_dp2_raw": (
                 max(r["max_memory_allocated"]
@@ -6131,14 +6508,507 @@ def phase_train_multislice(B=MULTISLICE_BATCH[0], S=MULTISLICE_BATCH[1],
             failed.append((leg, o["checks"]))
     emit({"phase": "train_multislice", "card": card_name_and_limit(),
           "timing": "four ranks time-slice one card", "batch": B, "seq": S,
-          "layers": L, "steps": steps,
+          "layers": L, "depth_cut": "24 layers cut to 12 to keep the smoke "
+                                    "in its limit",
+          "steps": steps,
           "limits": {"onebit_loss_gap": PARALLEL_ONEBIT_LOSS_GAP,
                      "zero3_loss_gap": MULTISLICE_ZERO3_LOSS_TOL,
-                     "zero3_state_bytes": MULTISLICE_ZERO3_BYTES,
-                     "hier_ef_numel": MULTISLICE_EF},
+                     "zero3_state_bytes": ms_z3,
+                     "hier_ef_numel": ms_ef},
           "wall_s": wall, "legs": out, "failed": failed})
     if failed:
         raise AssertionError(f"train_multislice failed: {failed}")
+    return total
+
+
+# --------------------------------------------------------------------------
+# phase 19: sharded decode (tp and ep in generate and serve), ranks that
+# share the card
+# --------------------------------------------------------------------------
+# the bf16 generate legs' (B, T0, max_new): GPT-2 medium at full width and
+# all 24 layers, and the MoE model of bench.py's "moe" (uncut)
+SHARDED_GEN = (4, 128, 32)
+# the f32 legs' on the repo's tiny configs (64 positions)
+SHARDED_TINY = (4, 24, 24)
+# (leg, mesh, model, options), every leg on the one 4-rank job: beside a
+# tp2 or an ep2 axis the mesh has a dp axis, whose two lines each run the
+# leg ("one_line": GPT-2 medium's, only the first line runs it, the other
+# waits, so the pair has the card to itself). bf16 legs: the first step's logits within TOL of one rank's (this
+# process, the same seeded weights), and the ranks of a tp line emit the
+# same tokens; f32 legs (the tiny configs): every rank's greedy tokens
+# equal one rank's exactly; serve legs: the Scheduler over tp, every
+# request's tokens the same on the ranks of a tp line (bf16) or equal to
+# one rank's Scheduler (f32), no block leaked.
+SHARDED_LEGS = (
+    ("gpt2m_tp2", {"dp": 2, "tp": 2}, "gpt2m", {"one_line": True}),
+    ("moe_ep2", {"dp": 2, "ep": 2}, "moe", {}),
+    ("moe_ep2_tp2", {"ep": 2, "tp": 2}, "moe", {}),
+    ("tiny_tp2", {"dp": 2, "tp": 2}, "tiny", {}),
+    ("tiny_tp2_quant", {"dp": 2, "tp": 2}, "tiny", {"quant_cache": True}),
+    ("tiny_tp2_lora", {"dp": 2, "tp": 2}, "tiny", {"lora": True}),
+    ("moe_tiny_ep2_tp2", {"ep": 2, "tp": 2}, "moe_tiny", {}),
+    ("gpt2m_serve_tp2", {"dp": 2, "tp": 2}, "gpt2m",
+     {"serve": True, "one_line": True}),
+    ("tiny_serve_tp2", {"dp": 2, "tp": 2}, "tiny", {"serve": True}))
+# the grafted adapter of the LoRA leg (rank LORA_TP_RANK, b nonzero)
+SHARDED_LORA_TARGETS = ("wq", "wv", "wo", "w2")
+# the tiny serve leg's pool: 3 rows, blocks of 8, 8 usable blocks, chunks
+# of 8, so chunked prefill and preemption both happen
+SHARDED_TINY_SCHED = {"max_batch": 3, "block_size": 8, "pool_blocks": 9,
+                      "prefill_chunk": 8}
+SHARDED_SERVE_NEW = 8
+# filled by phase_sharded_decode: rank 0's rotate and presum cases over
+# its dp line, for the kernels line
+SHARDED_RING = {}
+
+
+def sharded_model(kind):
+    """(cfg, whole seeded parameters on the card) of a sharded_decode
+    model: the same weights in every process."""
+    from byteps_tpu_torch.models import (GPTConfig, MoEGPTConfig, gpt_init,
+                                         moe_gpt_init)
+
+    cfg = {"gpt2m": GPTConfig.gpt2_medium, "moe": moe_switch_cfg,
+           "tiny": GPTConfig.tiny, "moe_tiny": MoEGPTConfig.tiny}[kind]()
+    init = moe_gpt_init if kind.startswith("moe") else gpt_init
+    return cfg, init(cfg, torch.Generator(device="cuda").manual_seed(0))
+
+
+def sharded_adapters(cfg) -> dict:
+    """The LoRA leg's adapter tree (numpy, whole): ``lora_init``'s a and
+    a nonzero b, from a seeded generator on the card."""
+    from byteps_tpu_torch.models.convert import adapters_to_numpy
+    from byteps_tpu_torch.models.lora import lora_init
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    ad = lora_init(cfg, LORA_TP_RANK, SHARDED_LORA_TARGETS, generator=g)
+    for blk in ad["blocks"]:
+        for ab in blk.values():
+            ab["b"] = 0.1 * torch.randn(ab["b"].shape, generator=g,
+                                        device="cuda")
+    return adapters_to_numpy(ad)
+
+
+def sharded_params(kind, opts, mesh=None):
+    """(cfg, this rank's parameters): the whole seeded model cut to its
+    shards on ``mesh`` (None: whole), the LoRA leg's adapter grafted
+    (its shards cut by ``lora_param_specs``)."""
+    from byteps_tpu_torch.models.convert import (adapters_from_numpy,
+                                                 shard_params)
+    from byteps_tpu_torch.models.lora import graft_lora
+
+    cfg, params = sharded_model(kind)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    if opts.get("lora"):
+        params = graft_lora(params, adapters_from_numpy(
+            sharded_adapters(cfg), mesh=mesh), 1.0)
+    return cfg, params
+
+
+def sharded_prompt(cfg) -> np.ndarray:
+    """The generate legs' prompt: (B, T0) of SHARDED_TINY (f32) or
+    SHARDED_GEN (bf16), seeded."""
+    B, T0, _ = SHARDED_TINY if cfg.dtype == torch.float32 else SHARDED_GEN
+    return np.random.default_rng(T0).integers(
+        0, cfg.vocab_size, (B, T0)).astype(np.int32)
+
+
+def first_logits(cfg, params, tp=None, ep=None) -> np.ndarray:
+    """The first step's logits (the prefill's last position) of
+    :func:`sharded_prompt`, f32 (B, vocab)."""
+    from byteps_tpu_torch.models.generate import gpt_apply_cached, init_cache
+
+    prompt = torch.as_tensor(sharded_prompt(cfg), device="cuda")
+    kv = params["blocks"][0]["wk"].shape[-1] // cfg.head_dim
+    logits, _ = gpt_apply_cached(params, prompt,
+                                 init_cache(cfg, prompt.shape[0], h_loc=kv),
+                                 cfg, tp, ep)
+    return logits[:, -1].cpu().numpy()
+
+
+@contextlib.contextmanager
+def tp2_arithmetic():
+    """A context in which one rank's cached forward computes as each rank
+    of tp = 2 does, on contiguous halves: the column-parallel products
+    (q, k, v, the MLP's up projection) as two products of half the
+    output columns, attention over each half of the heads, and every
+    row-parallel product as two bf16 partial products over the halves of
+    the contraction, summed in f32 and rounded, the bias after the sum:
+    attention's output projection and the dense MLP's down projection
+    (``row_parallel_matmul``) and each expert's down projection (the
+    MoE's ``ecf,efd->ecd`` product, whose ff dim tp splits)."""
+    from byteps_tpu_torch.models import generate, gpt
+
+    saved = (gpt.col_parallel_matmul, gpt.row_parallel_matmul,
+             generate._cached_attention, torch.einsum)
+    einsum = torch.einsum
+
+    def halves(t, dim):
+        h = t.shape[dim] // 2
+        return (t.narrow(dim, 0, h).contiguous(),
+                t.narrow(dim, h, t.shape[dim] - h).contiguous())
+
+    def col(x, w, b=None):
+        y = torch.cat([x @ wh for wh in halves(w, 1)], -1)
+        return y if b is None else y + b
+
+    def row(x, w, axis, b=None):
+        (x0, x1), (w0, w1) = halves(x, -1), halves(w, 0)
+        y = ((x0 @ w0).float() + (x1 @ w1).float()).to(x.dtype)
+        return y if b is None else y + b
+
+    def attention(q, k, v, q_pos0):
+        return torch.cat([saved[2](qh, kh, vh, q_pos0) for qh, kh, vh in
+                          zip(halves(q, 2), halves(k, 2), halves(v, 2))], 2)
+
+    def split_einsum(eq, *ops):
+        if eq != "ecf,efd->ecd":
+            return einsum(eq, *ops)
+        (h0, h1), (w0, w1) = halves(ops[0], 2), halves(ops[1], 1)
+        return (einsum(eq, h0, w0).float()
+                + einsum(eq, h1, w1).float()).to(h0.dtype)
+
+    gpt.col_parallel_matmul = generate.col_parallel_matmul = col
+    gpt.row_parallel_matmul = generate.row_parallel_matmul = row
+    generate._cached_attention = attention
+    torch.einsum = split_einsum
+    try:
+        yield
+    finally:
+        gpt.col_parallel_matmul = generate.col_parallel_matmul = saved[0]
+        gpt.row_parallel_matmul = generate.row_parallel_matmul = saved[1]
+        generate._cached_attention = saved[2]
+        torch.einsum = saved[3]
+
+
+def sharded_requests(cfg) -> list:
+    """The serve legs' 8 greedy requests: tiny's prompt lengths of the
+    tier's parity tests, GPT-2 medium's 32 to 128 tokens."""
+    from byteps_tpu_torch.serve import Request
+
+    rng = np.random.default_rng(5)
+    if cfg.dtype == torch.float32:
+        lens, new = [4, 13, 9, 21, 6, 17, 11, 5], 8
+    else:
+        lens = np.linspace(32, 128, 8).astype(int).tolist()
+        new = SHARDED_SERVE_NEW
+    return [Request(rid=f"r{i}", prompt=rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32), max_new=new)
+        for i, n in enumerate(lens)]
+
+
+def sharded_serve(cfg, params, tp) -> dict:
+    """The Scheduler over ``tp`` serving :func:`sharded_requests`: every
+    request's tokens (concatenated), wall, tokens/s, TTFT, preemptions,
+    leaked blocks."""
+    from byteps_tpu_torch.common.metrics import get_registry, reset_registry
+    from byteps_tpu_torch.serve import Scheduler
+
+    reset_registry()
+    reqs = sharded_requests(cfg)
+    kw = SHARDED_TINY_SCHED if cfg.dtype == torch.float32 else {}
+    sched = Scheduler(params, cfg, tp_axis=tp, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sched.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = get_registry().snapshot("serve.")
+    out = {"tokens": np.concatenate([res[r.rid]["tokens"] for r in reqs]),
+           "requests": len(reqs), "wall_s": wall,
+           "new_tokens_per_s": sum(r.max_new for r in reqs) / wall,
+           "ttft_ms": snap["histograms"]["serve.ttft_ms"],
+           "preempted": snap["counters"].get("serve.preempted", 0),
+           "leaked_blocks": sched.cache.leaked_blocks()}
+    del sched
+    return out
+
+
+def sharded_leg(leg, mesh, kind, opts) -> dict:
+    """One sharded_decode leg on this rank over ``mesh``'s tp and ep axes
+    (``mesh`` None: one rank, whole weights): generate's tokens, wall and
+    tokens/s (bf16: also the first step's logits, the prefill's last
+    position), or the serve leg's; launches, peak memory, coordinates."""
+    from byteps_tpu_torch.models import make_generate_fn
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    names = () if mesh is None else mesh.axis_names
+    if opts.get("one_line") and "dp" in names and mesh.axis_index("dp"):
+        return {"coords": {a: mesh.axis_index(a) for a in names},
+                "idle": True}
+    tp = mesh.axis("tp") if "tp" in names else None
+    ep = mesh.axis("ep") if "ep" in names else None
+    cfg, params = sharded_params(kind, opts, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = {"coords": {a: mesh.axis_index(a) for a in names}}
+    if opts.get("serve"):
+        out.update(sharded_serve(cfg, params, tp))
+    else:
+        B, T0, new = (SHARDED_TINY if cfg.dtype == torch.float32
+                      else SHARDED_GEN)
+        prompt = sharded_prompt(cfg)
+        if cfg.dtype == torch.bfloat16:
+            out["first_logits"] = first_logits(cfg, params, tp, ep)
+        gen = make_generate_fn(cfg, new, tp_axis=tp, ep_axis=ep,
+                               quant_cache=opts.get("quant_cache", False))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = gen(params, prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out.update(tokens=toks.cpu().numpy(), wall_s=wall, batch=B,
+                   prompt=T0, max_new=new, new_tokens_per_s=B * new / wall)
+    out["launches"] = dict(launches)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["layers"] = cfg.n_layers
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_line_ring_cases(rank, mesh) -> dict:
+    """The rotate and presum kernels over this rank's dp line of the
+    4-rank job (both lines' rings run at once on the card), each public
+    call on the card against the same call's plain hops over the same
+    group on CPU tensors, bit for bit: onebit's tree payload (the signs
+    of a full chunk's segment and the scale) collected and gathered,
+    randomk's values presummed. Medians of CUDA events around 10 calls
+    (the line's ranks meet before each), of the plain hops' host time
+    over 5, and (rotate) of gloo's own all-to-all or all-gather of the
+    same bytes over the same group; the bound of the call's bytes."""
+    import statistics
+
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.compression.topk import resolve_k
+    from byteps_tpu_torch.ops import ring_collective_kernels as rk
+    from byteps_tpu_torch.ops.onebit_kernels import packed_words
+
+    dp = mesh.axis("dp")
+    n, group = dp.size, dp.group
+    seg = -(-CHUNK // n)
+    tree = (("signs", torch.int32, (packed_words(seg),)),
+            ("scale", torch.float32, (1,)))
+    values = (("x", torch.float32, (resolve_k(RANDOMK_K, seg),)),)
+    out = {}
+    for i, (name, op, leaves) in enumerate((
+            ("onebit_tree", "collect", tree), ("onebit_tree", "gather", tree),
+            ("randomk_values", "presum", values))):
+        payload = ring_input(700 + i, op, leaves, n, rank)
+        got = ring_call(rk, op, payload, group)
+        want = ring_call(rk, op, {k: v.cpu() for k, v in payload.items()},
+                         group)
+        if not all(bits_equal(got[k].cpu(), want[k]) for k in got):
+            raise AssertionError(f"ring {op} of {name} over the dp line "
+                                 f"{dp.ranks}: the kernel's bits differ "
+                                 "from the plain hops'")
+
+        def events(fn, iters=10):
+            evs = []
+            for _ in range(iters):
+                torch.cuda.current_stream().synchronize()
+                dist.barrier(group=group)
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                fn()
+                ev[1].record()
+                evs.append(ev)
+            torch.cuda.synchronize()
+            return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+        cpu = {k: v.cpu() for k, v in payload.items()}
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ring_call(rk, op, cpu, group)
+            host.append((time.perf_counter() - t0) * 1e3)
+        row = sum(int(np.prod(r)) * dt.itemsize for _, dt, r in leaves)
+        rd, wr = ring_bytes(op, n, row)
+        bms, by = bound_ms(rd + wr, 0, torch.float32)
+        lib = None
+        if op != "presum":
+            flat = torch.cat([v.reshape(v.shape[0] if op == "collect"
+                                        else 1, -1).view(torch.uint8)
+                              for v in payload.values()], 1).reshape(-1)
+            if op == "collect":
+                dst = torch.empty_like(flat)
+                lib = events(lambda: dist.all_to_all_single(
+                    dst, flat, group=group))
+            else:
+                dst = flat.new_empty(n * flat.numel())
+                lib = events(lambda: dist.all_gather_into_tensor(
+                    dst, flat, group=group))
+        out[f"{name}_{op}"] = {
+            "dp_line": list(dp.ranks), "row_bytes": row, "bit_equal": True,
+            "ms": events(lambda: ring_call(rk, op, payload, group)),
+            "plain_ms": statistics.median(host), "bound_ms": bms,
+            "bound_by": by, "library_ms": lib}
+    return out
+
+
+def sharded_decode_rank(rank, n):
+    """One rank of sharded_decode: the ring cases over its dp line, then
+    every leg of :data:`SHARDED_LEGS` on a mesh of its own."""
+    from byteps_tpu_torch.parallel.mesh import MeshAxes, make_mesh
+
+    mesh = make_mesh(MeshAxes(dp=2, tp=2))
+    res = {"ring": dp_line_ring_cases(rank, mesh)}
+    close_rings(mesh)
+    for leg, axes, kind, opts in SHARDED_LEGS:
+        res[leg] = sharded_leg(leg, make_mesh(MeshAxes(**axes)), kind, opts)
+    return res
+
+
+def lines_of(rs, axis) -> list:
+    """The ranks' results grouped by their line of ``axis`` (every other
+    coordinate equal)."""
+    lines = {}
+    for r in rs:
+        key = tuple(sorted((a, i) for a, i in r["coords"].items()
+                           if a != axis))
+        lines.setdefault(key, []).append(r)
+    return list(lines.values())
+
+
+def phase_sharded_decode() -> dict:
+    """Sharded decode on four rank processes that time-slice the card
+    (one spawn, gloo, :data:`SHARDED_LEGS`): generate over tp2 (GPT-2
+    medium, full width and depth, bf16, B4 T0 128 and 32 new tokens), over
+    ep2 and ep2×tp2 (bench.py's "moe" model, uncut), the f32 tiny configs
+    over tp2 (dense, an int8 cache, a grafted rank-8 LoRA on wq, wv, wo
+    and w2: the fused kernel for the column targets, the down and up
+    halves around the tp sum for the row ones) and ep2×tp2 (the tiny
+    MoE), and the Scheduler over tp2 (GPT-2 medium bf16, 8 requests; the
+    tiny f32 model on a pool that preempts). Before them, on each dp line
+    of the job (two rings at once), the rotate and presum kernels against
+    the plain hops over the same group. One rank's runs of each model in
+    this process are the yardstick; the MoE model's is also a leg of its
+    own, moe_one_rank. Checks: bf16 first-step logits within
+    TOL of one rank's (a tp leg's within TOL of one rank computing as tp
+    = 2 does, :func:`tp2_arithmetic`: tp's own rounding of two partial
+    sums moves a 24-layer bf16 model's logits by more than TOL, and flips
+    MoE routes; the distance to the plain one rank is reported beside
+    it); a tp line's ranks emit identical tokens; f32
+    tokens equal one rank's; the LoRA leg launches the fused kernel and
+    each half exactly 2 × layers × calls times; no block leaked; the ring
+    cases bit-equal. Returns the path's launch counts: moe_one_rank's
+    and rank 0's of each leg, summed (the other one-rank runs, the
+    roundoff control and the ring cases count with no path)."""
+    t0 = time.perf_counter()
+    one = {}
+    for leg, axes, kind, opts in SHARDED_LEGS:
+        key = (kind, tuple(sorted(opts)))
+        if key not in one:
+            one[key] = sharded_leg(leg, None, kind, opts)
+    moe_one = one[("moe", ())]
+    total = dict(moe_one["launches"])
+    # the roundoff control of the bf16 tp legs: one rank summing every
+    # row-parallel product as tp = 2 does
+    control = {}
+    with tp2_arithmetic():
+        for kind in ("gpt2m", "moe"):
+            cfg, params = sharded_params(kind, {})
+            control[kind] = first_logits(cfg, params)
+            del params
+    one_s = time.perf_counter() - t0
+    ranks = spawn_ranks(sharded_decode_rank, 4)
+    wall = time.perf_counter() - t0
+    SHARDED_RING.update(ranks[0]["ring"])
+    failed = []
+    legs = {"moe_one_rank": {
+        "mesh": {}, "model": "moe", "options": {},
+        "layers": moe_one["layers"],
+        "new_tokens_per_s": moe_one["new_tokens_per_s"],
+        "wall_s": moe_one["wall_s"],
+        "max_memory_allocated_gb": [moe_one["max_memory_allocated"] / 1e9],
+        "launches": moe_one["launches"]}}
+    bf = torch.bfloat16
+    for leg, axes, kind, opts in SHARDED_LEGS:
+        rs = [r[leg] for r in ranks if not r[leg].get("idle")]
+        ref = one[(kind, tuple(sorted(opts)))]
+        checks = {}
+        if "tp" in axes:
+            checks["tp_ranks_identical"] = all(
+                all(np.array_equal(r["tokens"], ln[0]["tokens"])
+                    for r in ln) for ln in lines_of(rs, "tp"))
+        errs = plain_errs = None
+        if "first_logits" in ref:
+            # a tp leg against one rank with tp's partial sums, any other
+            # against one rank; the distance to the plain one rank beside
+            want = torch.from_numpy(control[kind] if "tp" in axes
+                                    else ref["first_logits"])
+            errs = [max_err(torch.from_numpy(r["first_logits"]), want,
+                            TOL[bf]) for r in rs]
+            plain_errs = [max_err(torch.from_numpy(r["first_logits"]),
+                                  torch.from_numpy(ref["first_logits"]),
+                                  TOL[bf])[0] for r in rs]
+            checks["first_logits"] = all(ok for _, ok in errs)
+        elif kind not in ("gpt2m", "moe"):       # the f32 legs
+            checks["tokens_equal_one_rank"] = all(
+                np.array_equal(r["tokens"], ref["tokens"]) for r in rs)
+        if opts.get("serve"):
+            checks["no_leak"] = all(r["leaked_blocks"] == 0 for r in rs)
+        else:
+            B, T0 = rs[0]["batch"], rs[0]["prompt"]
+            checks["tokens"] = all(
+                r["tokens"].shape == (B, T0 + r["max_new"])
+                and r["tokens"].min() >= 0 for r in rs)
+        want = {}
+        if opts.get("lora"):
+            # each forward call (the prefill and max_new - 1 decode steps)
+            # a layer: wq and wv fused, wo and w2 down and up
+            calls = rs[0]["max_new"]
+            per = len(SHARDED_LORA_TARGETS) // 2 * rs[0]["layers"] * calls
+            want = {"segmented_lora": per, "segmented_lora_down": per,
+                    "segmented_lora_up": per}
+            checks["lora_launches"] = all(
+                r["launches"][k] == v for r in rs for k, v in want.items())
+        if not all(checks.values()):
+            failed.append((leg, checks))
+        legs[leg] = {
+            "mesh": axes, "model": kind, "options": opts,
+            "layers": rs[0]["layers"], "checks": checks,
+            "first_logits_held_to": None if errs is None
+            else "tp2_arithmetic" if "tp" in axes else "one_rank",
+            "first_logits_max_err": None if errs is None
+            else max(e for e, _ in errs),
+            "first_logits_max_err_to_one_rank": None if plain_errs is None
+            else max(plain_errs),
+            "control_max_err_to_one_rank": max_err(
+                torch.from_numpy(control[kind]),
+                torch.from_numpy(ref["first_logits"]), TOL[bf])[0]
+            if errs is not None and "tp" in axes else None,
+            "new_tokens_per_s": min(r["new_tokens_per_s"] for r in rs),
+            "wall_s": max(r["wall_s"] for r in rs),
+            "one_rank_new_tokens_per_s": ref["new_tokens_per_s"],
+            "max_memory_allocated_gb": [r["max_memory_allocated"] / 1e9
+                                        for r in rs],
+            "one_rank_max_memory_allocated_gb":
+                ref["max_memory_allocated"] / 1e9,
+            "launches": rs[0]["launches"], "want_launches": want,
+            **({"ttft_ms": [r["ttft_ms"] for r in rs],
+                "preempted": [r["preempted"] for r in rs],
+                "one_rank_ttft_ms": ref["ttft_ms"]}
+               if opts.get("serve") else {})}
+        for k, v in ranks[0][leg]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    ring = {}
+    for case in ranks[0]["ring"]:
+        ring[case] = {**ranks[0]["ring"][case],
+                      "ms_each_rank": [r["ring"][case]["ms"] for r in ranks]}
+    emit({"phase": "sharded_decode", "card": card_name_and_limit(),
+          "timing": "four ranks time-slice one card", "one_rank_s": one_s,
+          "wall_s": wall, "legs": legs, "ring_over_dp_lines": ring,
+          "failed": failed})
+    if failed:
+        raise AssertionError(f"sharded_decode failed: {failed}")
     return total
 
 
@@ -6166,15 +7036,25 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
                                 "topk_select", "topk_reconstruct_sum"),
          "train_accum": TRAIN,
          "eval": ("flash_fwd",),
-         "train_parallel": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
+         "train_parallel": TRAIN + ("onebit_pack", "onebit_unpack_sum",
+                                    "ring_rotate"),
          "train_pipeline": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
          "train_moe": TRAIN,
-         "train_multislice": TRAIN + ("onebit_pack", "onebit_unpack_sum")}
+         "train_multislice": TRAIN + ("onebit_pack", "onebit_unpack_sum",
+                                      "ring_rotate"),
+         "sharded_decode": SPLIT + ("flash_decode", "segmented_lora",
+                                    "segmented_lora_down",
+                                    "segmented_lora_up")}
 MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
               "train_onebit", "train_topk", "train_ring", "train_dcn",
               "train_hybrid", "train_chaos", "aggregate_onebit",
               "train_zero", "train_accum", "eval", "train_parallel",
-              "train_pipeline", "train_moe", "train_multislice")
+              "train_pipeline", "train_moe", "train_multislice",
+              "sharded_decode")
+# the launch counters of a kernels-line row: the segmented LoRA kernel's
+# fused launches and its two halves'
+ROW_COUNTS = {"segmented_lora": ("segmented_lora", "segmented_lora_down",
+                                 "segmented_lora_up")}
 TOPK_BLOCK_EF = {"compressor": "topk", "k": 0.01, "ef": "vanilla",
                  "selection": "block"}
 
@@ -6247,6 +7127,11 @@ def main() -> int:
                          "and train_multislice (the multi-slice tier, "
                          "ZeRO-3 and ZeRO-1 over a dp subgroup); no kernels "
                          "line, no result line")
+    ap.add_argument("--sharded_decode", action="store_true",
+                    help="run only the segmented LoRA kernel's halves and "
+                         "sharded_decode (tp and ep in generate and serve, "
+                         "the ring kernels over each dp line); no kernels "
+                         "line, no result line")
     ap.add_argument("--zero", action="store_true",
                     help="run only the training options' phases (the codec "
                          "kernels at ZeRO's shapes, train_raw, train_zero, "
@@ -6269,10 +7154,12 @@ def main() -> int:
     ptxas = {n: [ln.strip() for ln in p.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln]
              for n, p in libs.items()}
-    sass = {**{n: sass_counts(libs[n]) for n in ("flash_fwd", "flash_bwd",
-                                                  "flash_decode")},
-            **{n: sass_counts(libs[n], FMA_SASS)
-               for n in ("segmented_lora", "onebit")}}
+    # one cuobjdump a library, all at once
+    with concurrent.futures.ThreadPoolExecutor(5) as ex:
+        sass = {n: ex.submit(sass_counts, libs[n], *ops) for n, ops in (
+            ("flash_fwd", ()), ("flash_bwd", ()), ("flash_decode", ()),
+            ("segmented_lora", (FMA_SASS,)), ("onebit", (FMA_SASS,)))}
+        sass = {n: f.result() for n, f in sass.items()}
     emit({"phase": "card", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
           "sass": sass})
@@ -6319,6 +7206,11 @@ def main() -> int:
         multislice_kernel_cases(Timer())
         emit({"phase": "launches", "train_multislice": counted_ranks(
             "train_multislice", phase_train_multislice)})
+        return 0
+    if args.sharded_decode:
+        lora_half_cases(Timer())
+        emit({"phase": "launches", "sharded_decode": counted_ranks(
+            "sharded_decode", phase_sharded_decode)})
         return 0
     if args.zero:
         zero_codec_cases(Timer())
@@ -6392,6 +7284,7 @@ def main() -> int:
     unpack_nonfinite_cases()
     topk = topk_cases(timer)
     lora = lora_cases(timer)
+    halves = lora_half_cases(timer)
     zero_codec_cases(timer)
     del timer
 
@@ -6484,6 +7377,8 @@ def main() -> int:
     by_path["train_moe"] = counted_ranks("train_moe", phase_train_moe)
     by_path["train_multislice"] = counted_ranks("train_multislice",
                                                 phase_train_multislice)
+    by_path["sharded_decode"] = counted_ranks("sharded_decode",
+                                              phase_sharded_decode)
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()
@@ -6603,18 +7498,35 @@ def main() -> int:
             ("topk_roundtrip", "topk", "byteps_tpu/ops/topk_kernels.py:139",
              topk["topk_roundtrip"]),
             ("segmented_lora", "segmented_lora",
-             "byteps_tpu/ops/segmented_lora.py:87", lora),
+             "byteps_tpu/ops/segmented_lora.py:87",
+             {**lora, **{k: halves["halves"][0][k] for k in (
+                 "down_ms", "down_bound_ms", "down_library_ms", "up_ms",
+                 "up_bound_ms", "up_library_ms")},
+              "halves": halves["halves"],
+              "split_tp1_bit_equal": halves["split_tp1"],
+              **{f"{h}_launches": sum(by_path[p][f"segmented_lora_{h}"]
+                                      for p in MAIN_PATHS)
+                 for h in ("down", "up")},
+              "fused_launches": sum(by_path[p]["segmented_lora"]
+                                    for p in MAIN_PATHS),
+              **{f"{h}_launches_by_path": {
+                  p: c[f"segmented_lora_{h}"] for p, c in by_path.items()}
+                 for h in ("down", "up")}}),
             ("ring_rotate", "ring",
              "byteps_tpu/ops/ring_collective_kernels.py:138",
-             ring["ring_rotate"]),
+             {**ring["ring_rotate"], "dp_line_cases": {
+                 k: v for k, v in SHARDED_RING.items() if "presum" not in k}}),
             ("ring_presum", "ring",
              "byteps_tpu/ops/ring_collective_kernels.py:189",
-             ring["ring_presum"])]
+             {**ring["ring_presum"], "dp_line_cases": {
+                 k: v for k, v in SHARDED_RING.items() if "presum" in k}})]
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"byteps_tpu_torch/ops/csrc/{src}.cu", "replaces": rep,
-         "launches": sum(by_path[p][name] for p in MAIN_PATHS),
-         "launches_by_path": {p: c[name] for p, c in by_path.items()},
+         "launches": sum(by_path[p][k] for p in MAIN_PATHS
+                         for k in ROW_COUNTS.get(name, (name,))),
+         "launches_by_path": {p: sum(c[k] for k in ROW_COUNTS.get(
+             name, (name,))) for p, c in by_path.items()},
          "case": main["case"], **{k: main[k] for k in common},
          **{k: main[k] for k in ("warm_ms", "offset_ms", "tall",
                                  "chunk_ms", "k8_ms", "k256_ms",
@@ -6632,7 +7544,13 @@ def main() -> int:
                                  "multislice_cases", "pp_tail_ms",
                                  "hier_chunk_half_ms", "hier_tail_half_ms",
                                  "hier_chunk_half_k2_ms",
-                                 "hier_tail_half_k2_ms")
+                                 "hier_tail_half_k2_ms", "down_ms",
+                                 "down_bound_ms", "down_library_ms",
+                                 "up_ms", "up_bound_ms", "up_library_ms",
+                                 "halves", "split_tp1_bit_equal",
+                                 "fused_launches", "down_launches",
+                                 "up_launches", "down_launches_by_path",
+                                 "up_launches_by_path", "dp_line_cases")
             if k in main}}
         for name, src, rep, main in rows]
     print(card, flush=True)
@@ -6644,4 +7562,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        close_pool()
+    sys.exit(rc)

@@ -134,6 +134,3 @@ def test_guards(model):
     with pytest.raises(ValueError, match="max_seq"):
         tgen.make_generate_fn(tcfg, tcfg.max_seq, device="cpu")(
             tp, _tokens((1, 4), seed=6))
-    x = torch.zeros(1, 1, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tgen._block_step(x, {"moe": {}}, None, None, 0, tcfg)

@@ -46,8 +46,7 @@ session under a file lock):
   ``tests/test_torch_parallel.py``'s. Under onebit + EF on dp2×tp2 the
   tp-replicated leaves stay bit-identical on every rank.
 * the refusals: ZeRO-1 on a ``slice_`` mesh or one without a dp axis
-  (the reference's messages), ``zero=True`` with ``dcn_axis``, and the
-  ring tier over a slice subgroup.
+  (the reference's messages) and ``zero=True`` with ``dcn_axis``.
 """
 
 import sys
@@ -429,13 +428,12 @@ def test_zero1_onebit_keeps_tp_replicas_identical(port):
 # --------------------------------------------------------------------------
 # refusals
 # --------------------------------------------------------------------------
-def test_multislice_refusals(monkeypatch):
+def test_multislice_refusals():
     """ZeRO-1 on a slice_ mesh and on a mesh without a dp axis (the
     reference's messages), ``zero=True`` with ``dcn_axis`` (the
-    reference's), ``dcn_axis`` without the joined axis, and the ring tier
-    over a slice subgroup (ROADMAP A.6)."""
+    reference's) and ``dcn_axis`` without the joined axis. (The ring tier
+    over a slice subgroup runs: ``tests/test_torch_ring_subgroup.py``.)"""
     from byteps_tpu_torch import optimizer as topt
-    from byteps_tpu_torch.common.config import reset_config
 
     cfg = GPTConfig.tiny()
     with pytest.raises(ValueError, match="zero_3=True for multi-slice"):
@@ -455,18 +453,3 @@ def test_multislice_refusals(monkeypatch):
     with pytest.raises(ValueError, match="joint_axis"):
         topt.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), [p],
                                   axis=dp, dcn_axis=slc)
-    monkeypatch.setattr(topt, "world", lambda group=None: (4, 0))
-    monkeypatch.setattr(topt, "reduce_scatter_body",
-                        lambda x, n, group=None: x[:-(-x.shape[0] // n)])
-    opt = topt.DistributedOptimizer(
-        torch.optim.SGD([p], lr=0.1), [p], ONEBIT_EF, axis=dp,
-        dcn_axis=slc, joint_axis=joint)
-    p.grad = torch.ones(8)
-    monkeypatch.setenv("BYTEPS_ICI_TIER", "ring")
-    reset_config()
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-            opt.step()
-    finally:
-        monkeypatch.delenv("BYTEPS_ICI_TIER")
-        reset_config()

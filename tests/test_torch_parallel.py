@@ -406,12 +406,11 @@ def test_zero1_over_dp_subgroup_matches_reference(port, data):
         np.testing.assert_array_equal(o["zero1_params"], q["raw_params"])
 
 
-def test_mesh_refusals(monkeypatch):
+def test_mesh_refusals():
     """What the port refuses on a mesh, by name: zigzag without an sp
-    axis (the reference's ValueError), a mesh that is not the job's
-    size, and the ring tier over a dp subgroup (ROADMAP A.6)."""
-    from byteps_tpu_torch import optimizer as topt
-    from byteps_tpu_torch.common.config import reset_config
+    axis (the reference's ValueError) and a mesh that is not the job's
+    size. (The ring tier over a dp subgroup runs:
+    ``tests/test_torch_ring_subgroup.py``.)"""
     from byteps_tpu_torch.models import make_gpt_train_step
     from byteps_tpu_torch.parallel.mesh import make_mesh
 
@@ -424,18 +423,3 @@ def test_mesh_refusals(monkeypatch):
     one = make_mesh(MeshAxes())           # every axis at size 1
     assert one.axis_names == ("slice_", "pp", "dp", "sp", "tp", "ep")
     assert all(one.axis_size(a) == 1 for a in one.axis_names)
-    # a dp axis of ranks 0 and 2 in a job of 4: a subgroup
-    monkeypatch.setattr(topt, "world", lambda group=None: (4, 0))
-    sub = Axis("dp", 2, 0, (0, 2), group=object())
-    p = torch.zeros(8, requires_grad=True)
-    opt = topt.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), [p],
-                                    axis=sub)
-    p.grad = torch.ones(8)
-    monkeypatch.setenv("BYTEPS_ICI_TIER", "ring")
-    reset_config()
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-            opt.step()
-    finally:
-        monkeypatch.delenv("BYTEPS_ICI_TIER")
-        reset_config()

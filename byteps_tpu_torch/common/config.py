@@ -3,7 +3,9 @@
 A lean copy of ``byteps_tpu/common/config.py`` holding only what the
 ported slices read: the log level, the metrics switch, the ``serve_*``
 knobs of the continuous-batching tier (adapter pool, tenant quotas and
-fair queuing included), the gradient-aggregation
+fair queuing, speculation, the router's replica lease and
+disaggregation included), the autoscaler's dynamics and the flight
+recorder's event ring, the gradient-aggregation
 knobs of the data-parallel training step (partition size, reduce dtype,
 the onebit codec's scaling default, the ICI wire tier), and the
 ``DMLC_*`` topology and ``BYTEPS_*`` knobs of the DCN parameter-server
@@ -176,6 +178,34 @@ class Config:
     # Deficit-weighted fair queuing across tenants at admission;
     # single-tenant traffic is plain FIFO either way.
     serve_fair_queue: bool = True
+    # Default spec_len of a per-request speculative policy.
+    serve_spec_len: int = 4
+    # Replica lease of the serve router: a replica silent this many ms (no
+    # completed scheduler step) is evicted — epoch bump, and its unfinished
+    # requests re-queue on the survivors.
+    serve_replica_lease_ms: int = 1000
+    # Disaggregated prefill/decode: the KV-migration wire's pacing rate in
+    # megabits/s (0 = unpaced); the prompt length (tokens) from which the
+    # router sends a request to the prefill tier (a quarter of it under
+    # decode-pool pressure); migrate-don't-evict (a preemption victim's
+    # blocks move to a sibling replica instead of being recomputed); and
+    # the KVCOMPRESS -> KVPUSH credits of one wire.
+    serve_disagg_mbps: float = 0.0
+    serve_disagg_prompt_threshold: int = 64
+    serve_disagg_migrate: bool = True
+    serve_disagg_credit: int = 4
+
+    # --- autoscaling (common/autoscaler.py) --------------------------------
+    # The dynamics of ScalingPolicy: the relative dead band around each
+    # load threshold, the policy steps held after an admit or evict, the
+    # out-of-band samples needed to act, and the unit-count bounds.
+    autoscale_hysteresis: float = 0.1
+    autoscale_cooldown: int = 3
+    autoscale_sustain: int = 2
+    autoscale_min: int = 1
+    autoscale_max: int = 16
+    # Recent FAULT-class events the flight recorder keeps (0 = none).
+    flight_recorder_events: int = 128
 
     # --- gradient aggregation (data-parallel training) ---------------------
     # Bytes per aggregation chunk: the flat gradient is cut into chunks of
@@ -258,6 +288,23 @@ class Config:
             serve_tenant_quota_blocks=_env_int(
                 "BYTEPS_SERVE_TENANT_QUOTA_BLOCKS", 0),
             serve_fair_queue=_env_bool("BYTEPS_SERVE_FAIR_QUEUE", True),
+            serve_spec_len=_env_int("BYTEPS_SERVE_SPEC_LEN", 4),
+            serve_replica_lease_ms=_env_int(
+                "BYTEPS_SERVE_REPLICA_LEASE_MS", 1000),
+            serve_disagg_mbps=_env_float("BYTEPS_SERVE_DISAGG_MBPS", 0.0),
+            serve_disagg_prompt_threshold=_env_int(
+                "BYTEPS_SERVE_DISAGG_PROMPT_THRESHOLD", 64),
+            serve_disagg_migrate=_env_bool("BYTEPS_SERVE_DISAGG_MIGRATE",
+                                           True),
+            serve_disagg_credit=_env_int("BYTEPS_SERVE_DISAGG_CREDIT", 4),
+            autoscale_hysteresis=_env_float("BYTEPS_AUTOSCALE_HYSTERESIS",
+                                            0.1),
+            autoscale_cooldown=_env_int("BYTEPS_AUTOSCALE_COOLDOWN", 3),
+            autoscale_sustain=_env_int("BYTEPS_AUTOSCALE_SUSTAIN", 2),
+            autoscale_min=_env_int("BYTEPS_AUTOSCALE_MIN", 1),
+            autoscale_max=_env_int("BYTEPS_AUTOSCALE_MAX", 16),
+            flight_recorder_events=_env_int("BYTEPS_FLIGHT_RECORDER_EVENTS",
+                                            128),
             partition_bytes=_env_int("BYTEPS_PARTITION_BYTES",
                                      DEFAULT_PARTITION_BYTES),
             reduce_dtype=os.environ.get("BYTEPS_REDUCE_DTYPE") or "float32",

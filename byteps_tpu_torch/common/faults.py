@@ -12,9 +12,13 @@ reproducible from a seed. Every scope and kind parses, renders and plans
 exactly as the reference's; the port's PSWorker consumes the wire scopes
 (push, pull, all, init, server<N>) and the worker scopes' kill, hang,
 slow, join (the mid-stream admission, once, when the plan's step first
-enters the window: ``PSWorker.join``) and the loss kinds. The replica,
-tenant and proc scopes only parse here: nothing in the port ticks their
-ops yet.
+enters the window: ``PSWorker.join``) and the loss kinds. The serve
+tier consumes the replica and tenant scopes: ``serve.Scheduler`` ticks
+its plan once an iteration (op ``serve``; ``kill`` kills the replica,
+``hang`` stalls it) and, with tenant rules, once per waiting tenant
+(``slow`` delays the tenant's admission, ``hang`` defers it); the KV
+wire's pushes tick op ``push``. The proc scope only parses here: its
+consumer, the launcher's supervisor, waits for the process tier.
 
 Spec grammar (semicolon-separated rules)::
 

@@ -1,5 +1,5 @@
 """Model families of the port: the GPT family and its MoE sibling, their
-generation, LoRA adapters, training steps (data, tensor, sequence,
+generation (greedy speculative decoding included), LoRA adapters, training steps (data, tensor, sequence,
 pipeline and expert parallel) and the eval step."""
 
 from byteps_tpu_torch.models.convert import (  # noqa: F401
@@ -23,6 +23,10 @@ from byteps_tpu_torch.models.moe_gpt import (  # noqa: F401
     moe_gpt_init,
     moe_gpt_loss,
     moe_gpt_pp_loss,
+)
+from byteps_tpu_torch.models.speculative import (  # noqa: F401
+    make_lookup_generate_fn,
+    make_speculative_generate_fn,
 )
 from byteps_tpu_torch.models.train import (  # noqa: F401
     evaluate_perplexity,

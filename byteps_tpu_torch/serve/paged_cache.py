@@ -190,6 +190,8 @@ class PagedKVCache:
         # bumped on every commit_prefix insert: the scheduler's
         # mid-prefill re-match skips the walk when nothing new committed
         self.index_version = 0
+        # blocks adopted from a KV migration (write_payloads)
+        self.migrated_in_blocks = 0
         _reg = get_registry()
         seq = next(_POOL_SEQ)
         self._g_in_use = _reg.gauge(f"serve.pool{seq}.kv_blocks_in_use")
@@ -493,6 +495,42 @@ class PagedKVCache:
         row[:len(t)] = t
         return row
 
+    # -- migration payloads (serve/kv_wire.py) -------------------------------
+    def snapshot_blocks(self, rid, lo: int, hi: int):
+        """Host copies of ``rid``'s table blocks ``[lo, hi)`` as
+        ``{block_idx: BlockPayload}``: one device gather and one copy to
+        the host per pool array, whatever the block count. The bytes are
+        the pool's own (a bf16 pool's as raw 16-bit words), copied
+        verbatim; rows at or past the fill level carry whatever the block
+        held, which the receiving side's gather masks, as it does here."""
+        from byteps_tpu_torch.serve.kv_wire import BlockPayload
+
+        if hi <= lo:
+            return {}
+        blocks = self._tables[rid][lo:hi]
+        idx = torch.as_tensor(blocks, dtype=torch.int64, device=self.device)
+        host = [None if t is None else _to_host(t[:, idx])
+                for t in self.state]                    # (L, n, bs, h[, D])
+        return {lo + i: BlockPayload(*(None if a is None else a[:, i]
+                                       for a in host))
+                for i in range(len(blocks))}
+
+    def write_payloads(self, block_ids, payloads) -> None:
+        """Scatter migrated block contents into physical ``block_ids``:
+        one copy to the device and one scatter per pool array, whatever
+        the block count. The payloads hold the pool's own bytes (the wire
+        round-trips bytes, never values), so the write is bit-exact."""
+        if not block_ids:
+            return
+        idx = torch.as_tensor(list(block_ids), dtype=torch.int64,
+                              device=self.device)
+        for i, t in enumerate(self.state):
+            if t is None:
+                continue
+            rows = np.stack([np.asarray(p[i]) for p in payloads], axis=1)
+            t[:, idx] = _to_device(rows, t.dtype, self.device)
+        self.migrated_in_blocks += len(block_ids)
+
     def defrag(self) -> int:
         """Compact live blocks to the lowest physical ids, rewriting
         every table, the prefix index and the refcounts (a shared page
@@ -523,6 +561,21 @@ class PagedKVCache:
             node.block = new
         self._free = list(range(self.pool_blocks - 1, len(live), -1))
         return moved
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A pool slice's bytes as a numpy array: a bf16 slice as its raw
+    16-bit words (numpy has no bfloat16), never a cast."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.uint16)
+    return t.cpu().numpy()
+
+
+def _to_device(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """Inverse of :func:`_to_host`: the same bytes as a ``dtype`` tensor
+    on ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t.view(torch.bfloat16) if dtype == torch.bfloat16 else t.to(dtype)
 
 
 def _gather_view(pool_l: torch.Tensor, scale_l: Optional[torch.Tensor],

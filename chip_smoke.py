@@ -19,6 +19,9 @@
     python3 chip_smoke.py --sharded_decode  # the segmented LoRA kernel's
                                      # halves and sharded_decode (19)
                                      # alone
+    python3 chip_smoke.py --serve_router  # the verify chunk's flash cases,
+                                     # speculative and serve_router (6b)
+                                     # alone
 
 Phases, each printing one JSON line:
 
@@ -125,6 +128,42 @@ Phases, each printing one JSON line:
    and how many tenants' tokens agree; no KV block or slot leaks;
    multitenant_exact — f32 at full width, 4 adapter tenants (one scaled
    1.5) and a base tenant pooled: each equals its solo grafted run;
+6b. speculative — the speculative samplers at GPT-2 medium width with a
+   4-layer draft of its width (its own seed), K = 4 (bench.py's
+   spec_len): bf16, B=4, T0=128, 64 new tokens through prompt lookup,
+   the draft and the self-draft probe (after a pass of each at 5 new
+   tokens) and through plain greedy: new tokens/s on the same call, verify rounds, committed tokens a round, and each row's
+   first position off plain greedy's tokens (reported, no limit); a
+   Scheduler serving 8 requests of 32 new tokens (4 lookup on a random
+   16-token base tiled to 128, 4 draft on random 128-token prompts):
+   tokens/s, the lane's counters, ``serve.decode_tokens`` 0; f32 at
+   B=4, 32 new: both samplers and the self-draft equal plain greedy, the
+   self-draft within ceil(31 / 4) + 1 rounds; a lookup, a draft and a
+   plain request through one Scheduler equal solo runs. Each leg's flash
+   launches are held exactly to the prediction from its rounds, chunks
+   and draft steps: a (B, T > 1) forward launches the forward kernel once
+   a layer (its route held as a known constant: wgmma for the B=4 bf16
+   prefills of 128 tokens, split for the rest), a (B, 1) step the decode
+   kernel; the plain and solo runs each path is compared with run after
+   its launch counts are read, so they stay out of them; the verify chunk's own shapes (4 rows at pos0 128 and 160 in
+   a dense B=4 cache of 1,024 positions, a paged request's 4 rows at 160
+   against 256 keys; bf16, f32) are kernel cases of phase 2;
+   serve_router — failover (f32): two replicas (explicit pools),
+   ``worker:kill@op=4`` on replica 1, 6 requests of 32..128 prompt tokens
+   and 16 new: tokens equal solo runs, epoch 1, one eviction, requeued
+   >= 1, no leaked block, the lease 3 × the slowest step of a warm
+   replica (at least 200 ms), the ms from the kill to the eviction; the
+   disaggregated race (bf16, bench.py's: 3 prompts of 224 tokens, 12 of
+   16, 8 new, max_batch 16, chunk 64) through 1 prefill + 1 decode
+   replica (prompt threshold 120) and through 2 colocated replicas after
+   a warm pass: TTFT p50/p99 by class, makespan, migrated requests,
+   blocks and bytes, streams equal between the layouts (reported); its
+   f32 cut (1 long, 4 short) equal to colocated and solo;
+   migrate-don't-evict (f32, bench.py's: block 16, replica A's pool 1 + 9,
+   4 prompts of 48, 32 new, max_batch 2): recompute > 0 with migration
+   off, fewer with it on, migrated > 0, streams equal; every leg's flash
+   launches held to the prediction from its prefill chunks, the solo
+   runs' after the path's counts are read;
 7. tiny — a tiny model run on the CPU (plain versions) and on the card
    (kernels) emits the same tokens;
    train_bf16 — one bf16 training step of a small model at head dim 64,
@@ -431,7 +470,8 @@ n and unpack-sum 1 + n times a step, the ring leg the rotate call once
 (the collect).
 A ``launches`` line gives the counts per path, then a
 ``{"kernels": [...]}`` line whose ``launches`` sums the main paths
-(generate, serve, multitenant, the three train legs, train_zero's
+(generate, serve, multitenant, speculative, serve_router, the three
+train legs, train_zero's
 three ZeRO legs, train_accum, eval, train_ring's six legs on one rank,
 train_dcn's four legs on one rank, train_hybrid's five legs on one
 rank, train_chaos's nine legs on one rank, aggregate_onebit,
@@ -455,6 +495,7 @@ the split path's at serve's chunk as ``split_*`` and its launches, in
 all and by path, as ``split_launches`` and ``split_launches_by_path``,
 the flash_decode
 row, timed at generate's step, the long case's as ``long_*``; the
+flash_fwd row the verify chunk's cases as ``verify_cases``; the
 flash_fwd, flash_bwd_dq and flash_bwd_dkv rows also give each
 train_parallel call's times, bound and error (and the forward's route
 and the paths making the call) as ``ring_cases``, each train_pipeline
@@ -2112,6 +2153,551 @@ def phase_multitenant_exact(params, cfg32):
     emit({"phase": "multitenant_exact", "f32_pooled_equals_solo": True,
           "tenants": len(reqs), "adapters_changing_tokens": changed,
           "prompt_lens": [len(r.prompt) for r in reqs]})
+
+
+# --------------------------------------------------------------------------
+# speculative decoding and the rest of serving
+# --------------------------------------------------------------------------
+SPEC_K = 4                 # bench.py:894's spec_len
+SPEC_DRAFT_LAYERS = 4
+# the verify chunk's shapes: K rows at pos0 in a dense B=4 cache of 1,024
+# positions (the samplers), and a paged request's K rows at pos0 160
+# against its table's 16 blocks of 16 keys (the scheduler's lane)
+VERIFY_CASES = (("verify_dense_128", 4, SPEC_K, 1024, 128, 60),
+                ("verify_dense_160", 4, SPEC_K, 1024, 160, 61),
+                ("verify_paged_160", 1, SPEC_K, 256, 160, 62))
+FLASH_KEYS = ("flash_fwd", "flash_fwd_split", "flash_decode")
+
+
+def verify_cases(timer) -> list:
+    return [fwd_case(timer, name, B, Sq, Sk, 16, 16, 64, pos0, dt, seed)
+            for name, B, Sq, Sk, pos0, seed in VERIFY_CASES
+            for dt in (torch.bfloat16, torch.float32)]
+
+
+def fwd_is_split(B, Sq, cfg) -> bool:
+    """The route a (B, Sq) forward of these serving paths is known to
+    take at GPT-2 medium width, held as constants rather than asked of
+    the library: the B=4 bf16 prefills of 128 tokens fill the card and
+    take wgmma; a verify round (B=4, ``SPEC_K`` rows), a one-request
+    paged chunk or draft prefill of up to 128 rows, and every f32
+    forward take the split path. Any other shape fails."""
+    if cfg.dtype == torch.float32:
+        return True
+    if (B, Sq) == (4, 128):
+        return False
+    if (B, Sq) == (4, SPEC_K) or (B == 1 and Sq <= 128):
+        return True
+    raise AssertionError(f"no known forward route for ({B}, {Sq}) in "
+                         f"{cfg.dtype}")
+
+
+def forwards(cfg, layers, calls) -> dict:
+    """The flash launches of ``calls`` cached forwards ``(B, T)`` of a
+    ``layers``-deep model: a T > 1 forward launches the forward kernel
+    once a layer (split-path or not by its route), a T = 1 step the decode
+    kernel."""
+    want = dict.fromkeys(FLASH_KEYS, 0)
+    for B, T in calls:
+        if T == 1:
+            want["flash_decode"] += layers
+        else:
+            want["flash_fwd"] += layers
+            want["flash_fwd_split"] += layers * fwd_is_split(B, T, cfg)
+    return want
+
+
+def add_counts(*dicts) -> dict:
+    return {k: sum(d.get(k, 0) for d in dicts) for k in FLASH_KEYS}
+
+
+class LaunchLeg:
+    """The flash launches between construction and :meth:`held`, which
+    fails unless they are the prediction."""
+
+    def __init__(self, name: str):
+        from byteps_tpu_torch.ops import launches
+
+        self.name, self.launches = name, launches
+        self.t0 = {k: launches[k] for k in FLASH_KEYS}
+
+    def held(self, want: dict) -> dict:
+        got = {k: self.launches[k] - self.t0[k] for k in FLASH_KEYS}
+        if got != want:
+            raise AssertionError(f"{self.name} launched {got}, predicted "
+                                 f"{want}")
+        return got
+
+
+def chunk_log(sched, log: list):
+    """Record the rows of every paged prefill chunk (and verify round) a
+    scheduler runs: ``log`` gets one ``(1, C)`` a call."""
+    fn = sched._prefill
+
+    def wrapped(params, pool, tokens, *args, **kw):
+        log.append((1, int(tokens.shape[1])))
+        return fn(params, pool, tokens, *args, **kw)
+    sched._prefill = wrapped
+    return sched
+
+
+def first_diff(a: np.ndarray, b: np.ndarray, T0: int) -> list:
+    """Per row, the first new-token position where ``a`` and ``b`` differ
+    (None where equal)."""
+    return [None if np.array_equal(x, y) else
+            int(np.flatnonzero(x != y)[0]) - T0 for x, y in zip(a, b)]
+
+
+def solo_check(name, params, res, reqs, c) -> list:
+    """Each request's tokens in ``res`` must equal a solo
+    ``make_generate_fn`` run of ``c``; returns the solo runs' forward
+    calls for their launch prediction."""
+    from byteps_tpu_torch.models import make_generate_fn
+
+    calls = []
+    for r in reqs:
+        solo = make_generate_fn(c, r.max_new)(
+            params, r.prompt[None]).cpu().numpy()[0]
+        if not np.array_equal(res[r.rid]["tokens"], solo):
+            raise AssertionError(f"{name}: tokens of {r.rid} differ from "
+                                 f"its solo run")
+        calls += [(1, len(r.prompt))] + [(1, 1)] * (r.max_new - 1)
+    return calls
+
+
+def timed(fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def spec_prompt(cfg, B, T0, seed) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, T0)).astype(np.int32)
+
+
+def plain_leg(params, cfg, B, T0, max_new, seed) -> dict:
+    """Plain greedy on :func:`sampler_legs`' prompts, the samplers'
+    yardstick: tokens, wall and its flash launches held to the
+    prediction."""
+    from byteps_tpu_torch.models import make_generate_fn
+
+    leg = LaunchLeg(f"plain_{cfg.dtype}")
+    toks, wall = timed(make_generate_fn(cfg, max_new), params,
+                       spec_prompt(cfg, B, T0, seed))
+    return {"tokens": toks.cpu().numpy(), "wall_s": wall,
+            "launches": leg.held(forwards(
+                cfg, cfg.n_layers, [(B, T0)] + [(B, 1)] * (max_new - 1)))}
+
+
+def sampler_legs(params, draft, cfg, dcfg, B, T0, max_new, seed) -> dict:
+    """Prompt lookup, the draft model and the self-draft probe on one
+    prompt batch: tokens, rounds, wall, and each leg's flash launches held
+    to the prediction from its rounds."""
+    from byteps_tpu_torch.models import (make_lookup_generate_fn,
+                                         make_speculative_generate_fn)
+
+    K, L = SPEC_K, cfg.n_layers
+    prompt = spec_prompt(cfg, B, T0, seed)
+    legs = {}
+    runs = (("lookup", None, None),
+            ("draft", draft, dcfg),
+            ("self_draft", params, cfg))
+    for name, dp, dc in runs:
+        leg = LaunchLeg(f"{name}_{cfg.dtype}")
+        if dp is None:
+            gen = make_lookup_generate_fn(cfg, max_new, spec_len=K)
+            (toks, rounds), wall = timed(gen, params, prompt)
+            want = forwards(cfg, L, [(B, T0)] + [(B, K)] * rounds)
+        else:
+            gen = make_speculative_generate_fn(cfg, dc, max_new, spec_len=K)
+            (toks, rounds), wall = timed(gen, params, dp, prompt)
+            want = add_counts(
+                forwards(cfg, L, [(B, T0)] + [(B, K)] * rounds),
+                forwards(dc, dc.n_layers, [(B, T0)] + [(B, 1)] * K * rounds))
+        legs[name] = {"tokens": toks.cpu().numpy(), "rounds": rounds,
+                      "wall_s": wall, "launches": leg.held(want)}
+    for name, r in legs.items():
+        if r["tokens"].shape != (B, T0 + max_new) or not (
+                r["tokens"][:, :T0] == prompt).all():
+            raise AssertionError(f"{name} returned {r['tokens'].shape} or "
+                                 "changed the prompt")
+    return legs
+
+
+def spec_sched_leg(params, cfg, draft, dcfg, seed, n_each, plain, max_new,
+                   T0=128):
+    """One Scheduler serving ``n_each`` lookup requests (a random 16-token
+    base tiled to ``T0``), ``n_each`` draft requests (random prompts) and
+    ``plain`` plain ones: results, wall, counters, and the flash launches
+    held to the prediction from its chunks, rounds and draft steps."""
+    from byteps_tpu_torch.common.metrics import get_registry
+    from byteps_tpu_torch.serve import Request, Scheduler, SpecPolicy
+
+    rng = np.random.default_rng(seed)
+    lookup = SpecPolicy("lookup", SPEC_K)
+    draftp = SpecPolicy("draft", SPEC_K, draft_params=draft, draft_cfg=dcfg)
+    reqs = []
+    for i in range(n_each):
+        base = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+        reqs.append(Request(rid=f"lookup{i}", prompt=np.tile(base, T0 // 16),
+                            max_new=max_new, spec=lookup))
+    for kind, pol, n in (("draft", draftp, n_each), ("plain", None, plain)):
+        reqs += [Request(rid=f"{kind}{i}", prompt=rng.integers(
+                     0, cfg.vocab_size, T0).astype(np.int32),
+                     max_new=max_new, spec=pol) for i in range(n)]
+    c0 = dict(get_registry().snapshot()["counters"])
+    chunks = []
+    sched = chunk_log(Scheduler(params, cfg, pool_blocks=1 + 12 * len(reqs)),
+                      chunks)
+    leg = LaunchLeg(f"spec_sched_{cfg.dtype}")
+    res, wall = timed(sched.serve, reqs)
+    c1 = get_registry().snapshot()["counters"]
+    c = {k: c1.get(k, 0) - c0.get(k, 0) for k in (
+        "serve.spec_rounds", "serve.spec_tokens", "serve.decode_tokens",
+        "serve.iterations", "serve.prefill_tokens",
+        "serve.prefix_saved_tokens")}
+    draft_rounds = sum(res[r.rid]["spec_rounds"] for r in reqs
+                       if r.rid.startswith("draft"))
+    launches = leg.held(add_counts(
+        forwards(cfg, cfg.n_layers, chunks),
+        forwards(dcfg, dcfg.n_layers,
+                 [(1, T0)] * n_each + [(1, 1)] * SPEC_K * draft_rounds)))
+    if sched.cache.leaked_blocks():
+        raise AssertionError(f"spec scheduler leaked "
+                             f"{sched.cache.leaked_blocks()} KV blocks")
+    return reqs, res, wall, c, launches, chunks
+
+
+def phase_speculative(params, cfg):
+    """The speculative samplers and the scheduler's speculative lane at
+    GPT-2 medium width (``SPEC_K`` = 4, a ``SPEC_DRAFT_LAYERS``-layer
+    draft of the same width and its own seed). bf16: B=4, T0=128, 64 new
+    through prompt lookup, the draft and the self-draft probe, after a
+    pass of each at ``SPEC_K`` + 1 new tokens; then 8
+    requests of 32 new through one Scheduler, 4 lookup on tiled prompts
+    and 4 draft, with ``serve.decode_tokens`` 0. f32: both samplers and
+    the self-draft at 32 new, the self-draft within ceil(31 / 4) + 1
+    rounds; a lookup, a draft and a plain request through one Scheduler.
+    Every leg's flash launches held to the prediction.
+
+    Returns the phase's record and its comparison, run after the path's
+    launches are read: plain greedy on the same prompts (new tokens/s
+    against plain, committed tokens a round, the first position each
+    bf16 row leaves plain greedy's tokens, no limit; f32 tokens equal)
+    and solo runs of the f32 scheduler's requests."""
+    from byteps_tpu_torch.models import gpt_init
+
+    dcfg = dataclasses.replace(cfg, n_layers=SPEC_DRAFT_LAYERS)
+    draft = gpt_init(dcfg, torch.Generator(device="cuda").manual_seed(1))
+    B, T0 = 4, 128
+    # a short pass first, so no timed leg pays the first calls' costs
+    warm = sampler_legs(params, draft, cfg, dcfg, B, T0, SPEC_K + 1, 40)
+    bf = sampler_legs(params, draft, cfg, dcfg, B, T0, 64, 40)
+    # the scheduler's lane, bf16: no request takes a packed decode step
+    reqs, res, wall, counters, launches, chunks = spec_sched_leg(
+        params, cfg, draft, dcfg, 41, 4, 0, 32)
+    if counters["serve.decode_tokens"] != 0:
+        raise AssertionError(f"spec requests took packed decode steps: "
+                             f"{counters}")
+    lane = {"requests": len(reqs), "max_new": 32, "wall_s": wall,
+            "new_tokens_per_s": len(reqs) * 32 / wall,
+            "spec_rounds_by_request": {r.rid: res[r.rid]["spec_rounds"]
+                                       for r in reqs},
+            "counters": counters, "prefill_chunks": len(chunks),
+            "launches": launches}
+    # f32: the round ceiling here, token equality in the comparison
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    dcfg32 = dataclasses.replace(dcfg, dtype=torch.float32)
+    f32 = sampler_legs(params, draft, cfg32, dcfg32, B, T0, 32, 42)
+    ceiling = -(-(32 - 1) // SPEC_K) + 1
+    if f32["self_draft"]["rounds"] > ceiling:
+        raise AssertionError(f"f32 self-draft took "
+                             f"{f32['self_draft']['rounds']} rounds, over "
+                             f"the ceiling {ceiling}")
+    reqs32, res32, _, c32, launches32, _ = spec_sched_leg(
+        params, cfg32, draft, dcfg32, 43, 1, 1, 16)
+    if c32["serve.decode_tokens"] != 15:
+        raise AssertionError(f"f32 lane: the plain request alone decodes "
+                             f"packed, {c32}")
+    record = {"phase": "speculative", "card": card_name_and_limit(),
+              "spec_len": SPEC_K, "draft_layers": SPEC_DRAFT_LAYERS,
+              "batch": B, "prompt": T0, "max_new": 64,
+              "warm_pass": {name: {"max_new": SPEC_K + 1,
+                                   "rounds": r["rounds"],
+                                   "launches": r["launches"]}
+                            for name, r in warm.items()},
+              "scheduler_lane_bf16": lane,
+              "f32": {name: {"rounds": r["rounds"], "wall_s": r["wall_s"],
+                             "launches": r["launches"]}
+                      for name, r in f32.items()},
+              "f32_self_draft_ceiling": ceiling,
+              "f32_scheduler_rounds": {r.rid: res32[r.rid]["spec_rounds"]
+                                       for r in reqs32},
+              "f32_scheduler_launches": launches32}
+
+    def compare() -> dict:
+        plain = plain_leg(params, cfg, B, T0, 64, 40)
+        samplers = {
+            name: {"rounds": r["rounds"], "wall_s": r["wall_s"],
+                   "new_tokens_per_s": B * 64 / r["wall_s"],
+                   "speedup_vs_plain": plain["wall_s"] / r["wall_s"],
+                   "committed_per_round": (64 - 1) / r["rounds"],
+                   "first_diff_vs_plain": first_diff(
+                       r["tokens"], plain["tokens"], T0),
+                   "launches": r["launches"]}
+            for name, r in bf.items()}
+        plain32 = plain_leg(params, cfg32, B, T0, 32, 42)
+        for name, r in f32.items():
+            if not np.array_equal(r["tokens"], plain32["tokens"]):
+                raise AssertionError(
+                    f"f32 {name} tokens differ from plain greedy at "
+                    f"{first_diff(r['tokens'], plain32['tokens'], T0)}")
+        leg = LaunchLeg("spec_solo_f32")
+        leg.held(forwards(cfg32, cfg.n_layers, solo_check(
+            "f32 scheduler", params, res32, reqs32, cfg32)))
+        return {"plain_new_tokens_per_s": B * 64 / plain["wall_s"],
+                "plain_launches": plain["launches"],
+                "plain_f32_launches": plain32["launches"],
+                "bf16": samplers, "f32_equal_plain": True,
+                "f32_scheduler_equals_solo": True}
+
+    return record, [compare]
+
+
+def percentiles(xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))}
+
+
+def phase_serve_router(params, cfg):
+    """Failover, the disaggregated race and migrate-don't-evict at GPT-2
+    medium width, every replica's pool sized explicitly.
+
+    failover (f32): two replicas, ``worker:kill@op=4`` on replica 1, 6
+    requests of 32..128 prompt tokens and 16 new: tokens equal to solo
+    runs, epoch 1, one eviction, requeued >= 1, no leaked block; the lease
+    above the slowest step of a warm replica; the ms from the kill to the
+    eviction. race (bf16, bench.py's serve race): 3 prompts of 224 tokens
+    and 12 of 16, 8 new, max_batch 16, chunk 64, through 1 prefill + 1
+    decode replica (prompt threshold 120) and through 2 colocated
+    replicas, after a warm pass: TTFT p50/p99 of each class, makespan,
+    the migrated requests, blocks and bytes, and how many streams the
+    two layouts share; then an f32 cut (1 long, 4 short) whose streams
+    equal colocated and solo. migrate (f32, bench.py's migrate race):
+    block 16, replica A's pool 1 + 9, 4 prompts of 48, 32 new,
+    max_batch 2: recompute > 0 with migration off, fewer with it on,
+    migrated > 0, the streams equal. Every leg's flash launches are
+    held to the prediction from its prefill chunks.
+
+    Returns the phase's record and its comparison, run after the path's
+    launches are read: the failover's and the f32 race's streams equal
+    solo runs."""
+    from byteps_tpu_torch.common.faults import (FaultPlan, WorkerKilledError,
+                                                parse_fault_spec)
+    from byteps_tpu_torch.common.metrics import get_registry
+    from byteps_tpu_torch.serve import Request, Router, Scheduler
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    L = cfg.n_layers
+
+    def counters():
+        return dict(get_registry().snapshot()["counters"])
+
+    def delta(c0, c1, *keys):
+        return {k: c1.get(k, 0) - c0.get(k, 0) for k in keys}
+
+    def leak_free(name, scheds):
+        leaked = [s.cache.leaked_blocks() for s in scheds]
+        if any(leaked):
+            raise AssertionError(f"{name} leaked KV blocks {leaked}")
+
+    out = {"phase": "serve_router", "card": card_name_and_limit()}
+    solo = []                     # (name, results, requests) to hold
+    # -- failover, f32 ----------------------------------------------------
+    pool = 1 + 64
+    kw = dict(max_batch=3, pool_blocks=pool)
+    chunks = []
+    warm = chunk_log(Scheduler(params, cfg32, replica_id=9, **kw), chunks)
+    leg = LaunchLeg("failover_warm")
+    rng = np.random.default_rng(50)
+    warm_reqs = [Request(rid=f"w{i}", prompt=rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32), max_new=4)
+        for i, n in enumerate((64, 128))]
+    for r in warm_reqs:
+        warm.submit(r)
+    steps = []
+    while not warm.finished:
+        _, s = timed(warm.step)
+        steps.append(s)
+    leg.held(forwards(cfg32, L, chunks))
+    slowest_ms = max(steps) * 1e3
+    lease_ms = max(200, int(3 * slowest_ms))
+    del warm
+    chunks = []
+    r0 = chunk_log(Scheduler(params, cfg32, replica_id=0, **kw), chunks)
+    r1 = chunk_log(Scheduler(
+        params, cfg32, replica_id=1,
+        fault_plan=FaultPlan(parse_fault_spec("worker:kill@op=4"), seed=0,
+                             worker_id=1), **kw), chunks)
+    router = Router([r0, r1], lease_ms=lease_ms)
+    stamp = {}
+    step1, sweep = r1.step, router.sweep
+
+    def r1_step():
+        try:
+            return step1()
+        except WorkerKilledError:
+            stamp.setdefault("kill", time.perf_counter())
+            raise
+
+    def timed_sweep():
+        sweep()
+        if 1 not in router.live_replicas():
+            stamp.setdefault("evict", time.perf_counter())
+    r1.step, router.sweep = r1_step, timed_sweep
+    reqs = [Request(rid=f"f{i}", prompt=rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32), max_new=16)
+        for i, n in enumerate(np.linspace(32, 128, 6).astype(int))]
+    c0 = counters()
+    leg = LaunchLeg("failover")
+    res, wall = timed(router.run, reqs)
+    leg.held(forwards(cfg32, L, chunks))
+    c = delta(c0, counters(), "serve.router.evictions",
+              "serve.router.requeued", "serve.resumed")
+    solo.append(("failover", res, reqs))
+    leak_free("failover", (r0, r1))
+    if not (router.epoch == 1 and c["serve.router.evictions"] == 1
+            and c["serve.router.requeued"] >= 1 and r1.dead):
+        raise AssertionError(f"failover: epoch {router.epoch}, {c}")
+    out["failover_f32"] = {
+        "requests": len(reqs), "prompt_lens": [len(r.prompt) for r in reqs],
+        "max_new": 16, "slowest_warm_step_ms": slowest_ms,
+        "lease_ms": lease_ms, "wall_s": wall, "epoch": router.epoch,
+        "kill_to_evict_ms": (stamp["evict"] - stamp["kill"]) * 1e3,
+        "moved_to_survivor": sum(res[r.rid]["epoch"] == 1 for r in reqs),
+        **c}
+    router.close()
+    del router, r0, r1
+    gc.collect()
+
+    # -- the disaggregated race, bf16 ---------------------------------------
+    def race(c, n_long, n_short, seed, disagg, max_new=8):
+        rng = np.random.default_rng(seed)
+        trace = []
+        for _ in range(n_long):
+            trace.append(rng.integers(0, c.vocab_size, 224).astype(np.int32))
+            trace += [rng.integers(0, c.vocab_size, 16).astype(np.int32)
+                      for _ in range(n_short // n_long)]
+        kw = dict(max_batch=16, prefill_chunk=64, pool_blocks=1 + 96)
+        chunks = []
+        if disagg:
+            reps = [chunk_log(Scheduler(params, c, role="decode",
+                                        replica_id=0, **kw), chunks),
+                    chunk_log(Scheduler(params, c, role="prefill",
+                                        replica_id=1, **kw), chunks)]
+            router = Router(reps[:1], prefill_replicas=reps[1:],
+                            lease_ms=600000, prompt_threshold=120,
+                            migrate_preempt=False)
+        else:
+            reps = [chunk_log(Scheduler(params, c, replica_id=i, **kw),
+                              chunks) for i in range(2)]
+            router = Router(reps, lease_ms=600000, migrate_preempt=False)
+        reqs = [Request(rid=i, prompt=p, max_new=max_new)
+                for i, p in enumerate(trace)]
+        c0 = counters()
+        leg = LaunchLeg(f"race_{'disagg' if disagg else 'colocated'}")
+        res, wall = timed(router.run, reqs)
+        router.close()
+        launches = leg.held(forwards(c, L, chunks))
+        leak_free("race", reps)
+        mig = delta(c0, counters(), "serve.migration.adopted",
+                    "serve.migration.blocks", "serve.migration.bytes",
+                    "serve.migration.recompute_tokens")
+        stats = {"makespan_s": wall, "launches": launches, **mig}
+        for cls, n in (("short", 16), ("long", 224)):
+            stats[f"ttft_ms_{cls}"] = percentiles(
+                [res[r.rid]["ttft_s"] * 1e3 for r in reqs
+                 if len(r.prompt) == n])
+        if disagg and mig["serve.migration.adopted"] != n_long:
+            raise AssertionError(f"race: {mig} with {n_long} long prompts")
+        return reqs, res, stats
+
+    race(cfg, 3, 12, 51, True)                    # warm both roles
+    reqs, dis_res, dis = race(cfg, 3, 12, 51, True)
+    _, col_res, col = race(cfg, 3, 12, 51, False)
+    same = sum(np.array_equal(dis_res[r.rid]["tokens"],
+                              col_res[r.rid]["tokens"]) for r in reqs)
+    out["race_bf16"] = {
+        "n_long": 3, "long_tokens": 224, "n_short": 12, "short_tokens": 16,
+        "max_new": 8, "prompt_threshold": 120, "max_batch": 16,
+        "prefill_chunk": 64, "disagg": dis, "colocated": col,
+        "streams_equal": same, "streams": len(reqs),
+        "short_ttft_p99_colocated_over_disagg":
+            col["ttft_ms_short"]["p99"] / dis["ttft_ms_short"]["p99"]}
+    reqs, dis_res, _ = race(cfg32, 1, 4, 52, True)
+    _, col_res, _ = race(cfg32, 1, 4, 52, False)
+    solo.append(("race_f32", dis_res, reqs))
+    for r in reqs:
+        if not np.array_equal(col_res[r.rid]["tokens"],
+                              dis_res[r.rid]["tokens"]):
+            raise AssertionError(f"f32 race: colocated {r.rid} differs")
+    out["race_f32_equal"] = True
+
+    # -- migrate-don't-evict, f32 ------------------------------------------
+    rng = np.random.default_rng(53)
+    trace = [rng.integers(0, cfg.vocab_size, 48).astype(np.int32)
+             for _ in range(4)]
+
+    def migrate(on):
+        kw = dict(max_batch=2, block_size=16, prefill_chunk=64)
+        chunks = []
+        a = chunk_log(Scheduler(params, cfg32, pool_blocks=1 + 9,
+                                replica_id=0, **kw), chunks)
+        b = chunk_log(Scheduler(params, cfg32, pool_blocks=1 + 32,
+                                replica_id=1, **kw), chunks)
+        router = Router([a, b], lease_ms=600000, migrate_preempt=on)
+        reqs = [Request(rid=i, prompt=p, max_new=32)
+                for i, p in enumerate(trace)]
+        c0 = counters()
+        leg = LaunchLeg(f"migrate_{'on' if on else 'off'}")
+        res, wall = timed(router.run, reqs)
+        router.close()
+        launches = leg.held(forwards(cfg32, L, chunks))
+        leak_free("migrate", (a, b))
+        return reqs, res, {"wall_s": wall, "launches": launches, **delta(
+            c0, counters(), "serve.migration.recompute_tokens",
+            "serve.migration.out_requests", "serve.migration.adopted",
+            "serve.migration.blocks", "serve.preempted")}
+
+    reqs, off_res, off = migrate(False)
+    _, on_res, on = migrate(True)
+    rec = "serve.migration.recompute_tokens"
+    if off[rec] <= 0:
+        raise AssertionError(f"migrate: no recompute with migration off, "
+                             f"{off}")
+    if not (on[rec] < off[rec] and on["serve.migration.out_requests"] > 0):
+        raise AssertionError(f"migrate: on {on}, off {off}")
+    for r in reqs:
+        if not np.array_equal(on_res[r.rid]["tokens"],
+                              off_res[r.rid]["tokens"]):
+            raise AssertionError(f"migrate: request {r.rid} differs on/off")
+    out["migrate_f32"] = {"block_size": 16, "pool_a": 1 + 9,
+                          "pool_b": 1 + 32, "prompt": 48, "max_new": 32,
+                          "requests": 4, "max_batch": 2, "on": on,
+                          "off": off, "streams_equal": True}
+
+    def compare() -> dict:
+        for name, res, reqs in solo:
+            leg = LaunchLeg(f"{name}_solo")
+            leg.held(forwards(cfg32, L, solo_check(name, params, res, reqs,
+                                                   cfg32)))
+        return {"failover_f32_equals_solo": True,
+                "race_f32_equals_solo": True}
+
+    return out, [compare]
 
 
 def phase_tiny():
@@ -7021,6 +7607,8 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
          "exact": SPLIT + ("flash_decode",),
          "multitenant": SPLIT + ("segmented_lora",),
          "multitenant_exact": SPLIT + ("segmented_lora",),
+         "speculative": SPLIT + ("flash_decode",),
+         "serve_router": SPLIT,
          "train_bf16": TRAIN,
          "train_raw": TRAIN,
          "train_onebit": TRAIN + ("onebit_pack", "onebit_unpack_sum"),
@@ -7045,7 +7633,8 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
          "sharded_decode": SPLIT + ("flash_decode", "segmented_lora",
                                     "segmented_lora_down",
                                     "segmented_lora_up")}
-MAIN_PATHS = ("generate", "serve", "multitenant", "train_raw",
+MAIN_PATHS = ("generate", "serve", "multitenant", "speculative",
+              "serve_router", "train_raw",
               "train_onebit", "train_topk", "train_ring", "train_dcn",
               "train_hybrid", "train_chaos", "aggregate_onebit",
               "train_zero", "train_accum", "eval", "train_parallel",
@@ -7079,11 +7668,39 @@ def counted(name, fn, *args) -> dict:
     return check_path(name, dict(launches))
 
 
+def counted_compared(name, fn, *args) -> dict:
+    """Run one path of the main path counted as :func:`counted` does,
+    where ``fn`` returns its record and its comparisons (plain or solo
+    runs the path is held against): they run after the counts are read,
+    so their launches stay out of the path's, and each adds its entries
+    to the record, which is then printed."""
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    reset_launches()
+    record, comparisons = fn(*args)
+    counts = check_path(name, dict(launches))
+    for compare in comparisons:
+        record.update(compare())
+    emit(record)
+    return counts
+
+
 def counted_ranks(name, fn, *args) -> dict:
     """Run one path of the main path that runs in rank processes: each
     starts with every count at 0, and ``fn`` returns the counts they
     report."""
     return check_path(name, fn(*args))
+
+
+def serving_rest(params, cfg) -> dict:
+    """speculative and serve_router, each counted without its
+    comparison runs: their launch counts by path (each leg's held exactly
+    inside)."""
+    return {"speculative": counted_compared("speculative",
+                                            phase_speculative, params, cfg),
+            "serve_router": counted_compared("serve_router",
+                                             phase_serve_router, params,
+                                             cfg)}
 
 
 def training_options() -> dict:
@@ -7138,6 +7755,11 @@ def main() -> int:
                          "train_accum, eval, train_tiny, train_ring with "
                          "its ZeRO legs) and examples; no kernels line, no "
                          "result line")
+    ap.add_argument("--serve_router", action="store_true",
+                    help="run only the verify chunk's flash cases, "
+                         "speculative and serve_router (speculative "
+                         "decoding, failover, disaggregation and "
+                         "migration); no kernels line, no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7212,6 +7834,12 @@ def main() -> int:
         emit({"phase": "launches", "sharded_decode": counted_ranks(
             "sharded_decode", phase_sharded_decode)})
         return 0
+    if args.serve_router:
+        verify_cases(Timer())
+        cfg = GPTConfig.gpt2_medium()
+        params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+        emit({"phase": "launches", **serving_rest(params, cfg)})
+        return 0
     if args.zero:
         zero_codec_cases(Timer())
         emit({"phase": "launches", **training_options(),
@@ -7234,6 +7862,7 @@ def main() -> int:
         fwd.append(fwd_case(timer, "long_prefill", 1, 700, 1024, 16, 16, 64,
                             0, dt, 14))
     fwd += split_cases(timer)
+    verify = verify_cases(timer)
     for case in INVARIANCE:
         fwd_invariance(*case)
     dec = [decode_case(timer, *case) for case in DECODE_CASES]
@@ -7299,6 +7928,7 @@ def main() -> int:
         "multitenant_exact": counted(
             "multitenant_exact", phase_multitenant_exact, params,
             dataclasses.replace(cfg, dtype=torch.float32)),
+        **serving_rest(params, cfg),
     }
     del params
     # 2 pooled targets x 24 layers, once for each packed decode step and
@@ -7400,6 +8030,13 @@ def main() -> int:
                              for k in ("ms", "bound_ms", "library_ms")},
               **{f"split_{k}": main_fwd[k]
                  for k in ("ms", "bound_ms", "library_ms")},
+              "verify_cases": {
+                  f"{c['case']}_{c['dtype']}": {
+                      k: c[k] for k in ("shape", "q_off", "route", "ms",
+                                        "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by",
+                                        "max_abs_err")}
+                  for c in verify},
               "split_launches": sum(by_path[p]["flash_fwd_split"]
                                     for p in MAIN_PATHS),
               "split_launches_by_path": {
@@ -7540,7 +8177,8 @@ def main() -> int:
                                  "ms_spin", "signs_ms",
                                  "signs_ms_time_sliced",
                                  "signs_library_ms", "signs_bound_ms",
-                                 "ring_cases", "pipeline_cases",
+                                 "verify_cases", "ring_cases",
+                                 "pipeline_cases",
                                  "multislice_cases", "pp_tail_ms",
                                  "hier_chunk_half_ms", "hier_tail_half_ms",
                                  "hier_chunk_half_k2_ms",

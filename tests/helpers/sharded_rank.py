@@ -1,7 +1,8 @@
 """One rank of the ring-subgroup, sharded-decode and sharded-serve parity
 tests (``tests/test_torch_ring_subgroup.py``,
 ``tests/test_torch_generate_parallel.py``,
-``tests/test_torch_serve_parallel.py``).
+``tests/test_torch_serve_parallel.py``,
+``tests/test_torch_speculative.py``).
 
 ``run_legs(io, rank, world)`` reads ``io/in.npz`` and ``io/legs.json`` (a
 list of legs, each ``{"name", "kind", "mesh", ...}``, the mesh's product
@@ -36,6 +37,11 @@ the world size) and runs each leg on ``make_mesh`` of its mesh:
   axis, a fixed schedule (two prompts, then ``"steps"`` packed decode
   steps of fixed tokens): ``<leg>_logits`` (every step's logits, in
   order, flat).
+* ``"spec"``: ``make_speculative_generate_fn(tp_axis=)`` with the
+  target tree ``<tree>`` and the draft tree ``<draft>`` (both GPT tiny),
+  each cut to this rank's shards, ``"max_new"`` tokens at
+  ``"spec_len"`` from ``<leg>_prompt``: ``<leg>_tokens`` and
+  ``<leg>_rounds``.
 * ``"sched"``: ``Scheduler(tp_axis=)`` serving ``"n"`` requests
   ``sched_prompt_<i>`` (``"max_new"`` each): ``<leg>_tokens`` (each
   request's tokens, concatenated) and ``<leg>_clock`` (the shared clock
@@ -181,6 +187,23 @@ def _generate(d, leg, mesh) -> dict:
     return out
 
 
+def _spec(d, leg, mesh) -> dict:
+    from byteps_tpu_torch.models import make_speculative_generate_fn
+    from byteps_tpu_torch.models.convert import shard_params
+
+    name = leg["name"]
+    cfg, target = _model(d, leg)
+    _, draft = _model(d, {**leg, "tree": leg["draft"]})
+    gen = make_speculative_generate_fn(cfg, cfg, leg["max_new"],
+                                       spec_len=leg["spec_len"],
+                                       tp_axis=_axis(mesh, "tp"),
+                                       device="cpu")
+    toks, rounds = gen(shard_params(target, mesh), shard_params(draft, mesh),
+                       torch.from_numpy(d[f"{name}_prompt"]))
+    return {f"{name}_tokens": toks.numpy(),
+            f"{name}_rounds": np.array(rounds)}
+
+
 def _seg_rowpar(d, leg, mesh) -> dict:
     from byteps_tpu_torch.ops.segmented_lora import segmented_lora_delta
     from byteps_tpu_torch.parallel.mesh import collectives, reset_collectives
@@ -293,7 +316,7 @@ def run_legs(io: str, rank: int, world: int) -> dict:
             continue
         fn = {"ring_ops": _ring_ops, "generate": _generate,
               "seg_rowpar": _seg_rowpar, "paged": _paged,
-              "sched": _sched}[kind]
+              "sched": _sched, "spec": _spec}[kind]
         out.update(fn(d, leg, mesh))
     return out
 

@@ -24,6 +24,14 @@ one leaf a key (``parallel.pipeline.stack_blocks``), so
 :func:`flat_leaves` yields the reference's stacked pytree's order;
 ``params_to_numpy`` unstacks the gathered slab back into layers.
 
+The other families (BERT, ViT, T5, ResNet) hold their reference trees
+in a :class:`~byteps_tpu_torch.models.gpt.ParamTree`:
+:func:`tree_from_numpy`, :func:`shard_tree` and :func:`tree_to_numpy`
+do for them what the functions above do for GPT (the spec tree is the
+family's, through the partitioner; ResNet's leaves are all replicated),
+and ResNet's batch-norm running statistics, replicated everywhere, go
+through :func:`resnet_state_from_numpy` and :func:`tree_to_numpy`.
+
 ZeRO-3 (``parallel/zero3.py``) holds each rank's f32 segment of every
 parameter group instead: :func:`zero3_segments_from_numpy` cuts the
 reference's whole segment arrays to this rank's, and
@@ -38,7 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from byteps_tpu_torch.models.gpt import GPT, Block, GPTConfig
+from byteps_tpu_torch.models.gpt import GPT, Block, GPTConfig, ParamTree
 from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.parallel.partitioner import Partitioner, block_of
 from byteps_tpu_torch.parallel.pipeline import stack_blocks
@@ -115,18 +123,17 @@ def _shard_tree(tree: Dict[str, Any], specs: Dict[str, Any], mesh, conv,
     return leaves, blocks
 
 
-def _module_tree(module) -> Dict[str, Any]:
-    """A :class:`GPT` or :class:`Block` as a nested dict of its leaves
-    (``"blocks"`` a list of per-layer dicts, or the slab's dict)."""
+def _module_tree(module) -> Any:
+    """A :class:`GPT`, :class:`ParamTree` or :class:`Block` as a nested
+    dict of its leaves (``"blocks"`` a list of per-layer dicts, or the
+    slab's dict; lists of lists kept nested)."""
+    if isinstance(module, torch.nn.ModuleList):
+        return [_module_tree(b) for b in module]
     out = {}
     for k in module.keys():
         v = module[k]
-        if isinstance(v, torch.nn.ModuleList):
-            out[k] = [_module_tree(b) for b in v]
-        elif isinstance(v, Block):
-            out[k] = _module_tree(v)
-        else:
-            out[k] = v
+        out[k] = (_module_tree(v) if isinstance(v, (torch.nn.ModuleList,
+                                                     Block)) else v)
     return out
 
 
@@ -342,3 +349,100 @@ def zero3_segments_to_numpy(segs: Dict[str, Any], mesh=None
 
     return {"rest": whole(segs["rest"]),
             "blocks": [whole(b) for b in segs["blocks"]]}
+
+
+# --------------------------------------------------------------------------
+# the other families: BERT, ViT, T5, ResNet
+# --------------------------------------------------------------------------
+def _map_nested(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of dicts and lists and its specs
+    (``specs`` None: every spec None)."""
+    if isinstance(tree, dict):
+        return {k: _map_nested(fn, v, None if specs is None else specs[k])
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_nested(fn, v, None if specs is None else specs[i])
+                for i, v in enumerate(tree)]
+    return fn(tree, specs)
+
+
+def _check_structure(tree, logical, path: str = "") -> None:
+    """Raise unless ``tree`` has the dict keys and list lengths of the
+    config's logical-spec tree ``logical``."""
+    if isinstance(logical, dict):
+        if not isinstance(tree, dict) or set(tree) != set(logical):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"tree{path}: the config expects keys "
+                             f"{sorted(logical)}, got {got}")
+        for k in logical:
+            _check_structure(tree[k], logical[k], f"{path}[{k!r}]")
+    elif isinstance(logical, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(logical):
+            n = len(tree) if isinstance(tree, (list, tuple)) else type(tree)
+            raise ValueError(f"tree{path}: the config expects a list of "
+                             f"{len(logical)}, got {n}")
+        for i, (t, s) in enumerate(zip(tree, logical)):
+            _check_structure(t, s, f"{path}[{i}]")
+
+
+def _family_specs(cfg, mesh):
+    return Partitioner.for_config(cfg, mesh).param_specs(cfg)
+
+
+def tree_from_numpy(tree: Dict[str, Any], cfg, device=None) -> ParamTree:
+    """The reference's parameter tree of a BERT, ViT, T5 or ResNet config
+    (nested dicts and lists of numpy arrays, leaf names and layouts as
+    its ``*_init`` makes them; ResNet's convolutions HWIO) → a
+    :class:`ParamTree` of whole leaves on ``device`` (the card unless
+    told otherwise), dtypes kept. Raises where the tree's structure is
+    not the config's. On a mesh, :func:`shard_tree` cuts the result to
+    this rank's shards."""
+    from byteps_tpu_torch.parallel.partitioner import _logical_specs_for
+
+    _check_structure(tree, _logical_specs_for(cfg))
+    dev = resolve_device(device)
+    return ParamTree(cfg, _map_nested(
+        lambda a, _: torch.from_numpy(np.array(a, copy=True)).to(dev),
+        tree, None))
+
+
+def resnet_state_from_numpy(tree: Dict[str, Any], cfg, device=None
+                            ) -> ParamTree:
+    """The reference's ResNet ``bn_state`` (``{"stem": {"mean", "var"},
+    "stages": [[{conv: {"mean", "var"}}]]}`` of numpy arrays) → a
+    :class:`ParamTree` on ``device`` (the card unless told otherwise);
+    replicated on every rank of a mesh."""
+    from byteps_tpu_torch.models.resnet import resnet_layout
+
+    _check_structure(tree, resnet_layout(cfg)[1])
+    dev = resolve_device(device)
+    return ParamTree(cfg, _map_nested(
+        lambda a, _: torch.from_numpy(np.array(a, copy=True)).to(dev),
+        tree, None))
+
+
+def shard_tree(params: ParamTree, mesh) -> ParamTree:
+    """This rank's shards of whole family parameters ``params`` as a
+    :class:`ParamTree` on the same device: each leaf cut to its block by
+    its spec on ``mesh``, copied."""
+    return ParamTree(params.cfg, _map_nested(
+        lambda t, spec: shard_leaf(t, spec, mesh).detach().contiguous()
+        .clone(), _module_tree(params), _family_specs(params.cfg, mesh)))
+
+
+def tree_to_numpy(params: ParamTree, mesh=None) -> Dict[str, Any]:
+    """A :class:`ParamTree` → the reference's nested tree of numpy
+    arrays. With ``mesh``, ``params`` is this rank's shards and each leaf
+    is gathered whole over the axes its spec splits it on (collective
+    over those axes). ResNet's running statistics take no mesh: they
+    are replicated."""
+    specs = (_family_specs(params.cfg, mesh) if mesh is not None
+             else None)
+
+    def conv(t: torch.Tensor, spec) -> np.ndarray:
+        t = t.detach()
+        if spec:
+            t = gather_leaf(t, spec, mesh)
+        return t.cpu().numpy().copy()
+
+    return _map_nested(conv, _module_tree(params), specs)

@@ -112,16 +112,26 @@ class GPTConfig:
         return cls(**defaults)
 
 
+def _node(t):
+    """A nested dict of leaves as a :class:`Block`, a list of them as an
+    ``nn.ModuleList`` (of lists too: ResNet's stages of blocks)."""
+    if isinstance(t, dict):
+        return Block(t)
+    if isinstance(t, (list, tuple)):
+        return nn.ModuleList(_node(x) for x in t)
+    raise TypeError(f"not a parameter tree node: {type(t).__name__}")
+
+
 class _Leaves(nn.Module):
     """A module whose parameters are addressed by the reference's leaf
     names: ``p["wq"]``, ``"w3" in p``, ``p.get("ln1_b")``; a nested dict
     of leaves (an MoE block's ``"moe"``) becomes a :class:`Block` under
-    its key."""
+    its key, a list of them an ``nn.ModuleList``."""
 
     def _add_leaves(self, leaves: Dict[str, Any]) -> None:
         for name, t in leaves.items():
-            if isinstance(t, dict):
-                self.add_module(name, Block(t))
+            if isinstance(t, (dict, list, tuple)):
+                self.add_module(name, _node(t))
             else:
                 self.register_parameter(
                     name, nn.Parameter(t, requires_grad=False))
@@ -172,6 +182,20 @@ class GPT(_Leaves):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return gpt_forward(self, tokens, self.cfg)
+
+
+class ParamTree(_Leaves):
+    """The parameters of a model family other than GPT's (BERT, ViT, T5,
+    ResNet, and ResNet's batch-norm running statistics): the reference's
+    nested tree, leaf names and layouts, its dicts as :class:`Block`
+    and its lists as ``nn.ModuleList``, and the config in ``cfg``. Built
+    frozen, as :class:`GPT` is; ``models/convert.py`` carries it to and
+    from numpy."""
+
+    def __init__(self, cfg, tree: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self._add_leaves(tree)
 
 
 def block_init(generator: torch.Generator, d: int, ff: int, hd: int,
@@ -418,12 +442,14 @@ def with_lora(y, x, p, name: str, seg=None, tp_axis=None):
 
 def _attention(x, p, head_dim: int, tp_axis=None, sp_axis=None,
                seq_layout: str = "contiguous", rope_base: float = 0.0,
-               use_bias: bool = True, pos: Optional[torch.Tensor] = None):
+               use_bias: bool = True, pos: Optional[torch.Tensor] = None,
+               causal: bool = True):
     """The attention branch on this rank's tp-local heads: q/k/v
     column-parallel from the tp copy of ``x``, RoPE at the global
     positions ``pos`` (default ``arange(S)``), the sp ring (contiguous or
-    zigzag) or one rank's attention, and the row-parallel output summed
-    over tp before its bias."""
+    zigzag) or one rank's attention, causal or not (the encoders'
+    bidirectional blocks), and the row-parallel output summed over tp
+    before its bias."""
     B, S = x.shape[:2]
     x = copy_to_tp(x, tp_axis)
     q = col_parallel_matmul(x, p["wq"].to(x.dtype), _bias(p, "bq", x, use_bias))
@@ -450,9 +476,9 @@ def _attention(x, p, head_dim: int, tp_axis=None, sp_axis=None,
     # GQA: k/v stay narrow; the kernels map query heads to kv heads and
     # the ring rotates the narrow blocks
     if seq_layout == "zigzag":
-        o = zigzag_ring_attention(q, k, v, sp_axis, causal=True)
+        o = zigzag_ring_attention(q, k, v, sp_axis, causal)
     elif seq_layout == "contiguous":
-        o = ring_attention(q, k, v, sp_axis, causal=True)
+        o = ring_attention(q, k, v, sp_axis, causal)
     else:
         raise ValueError(f"unknown seq_layout {seq_layout!r} — expected "
                          "'contiguous' or 'zigzag'")
@@ -487,13 +513,15 @@ def transformer_block(x, p, head_dim: int, tp_axis=None, sp_axis=None,
                       seq_layout: str = "contiguous", rope_base: float = 0.0,
                       norm_fn=_layernorm, norm_eps: float = 1e-5,
                       use_bias: bool = True,
-                      pos: Optional[torch.Tensor] = None):
-    """Pre-norm causal block: attention + MLP, each a residual branch,
-    tp col/row-parallel, the sp ring, RoPE at the global positions
-    ``pos``."""
+                      pos: Optional[torch.Tensor] = None,
+                      causal: bool = True):
+    """Pre-norm block: attention (causal, or bidirectional for the
+    encoders) + MLP, each a residual branch, tp col/row-parallel, the sp
+    ring, RoPE at the global positions ``pos``."""
     x = x + _attention(norm_fn(x, p["ln1_g"], p.get("ln1_b"), norm_eps), p,
                        head_dim, tp_axis, sp_axis, seq_layout=seq_layout,
-                       rope_base=rope_base, use_bias=use_bias, pos=pos)
+                       rope_base=rope_base, use_bias=use_bias, pos=pos,
+                       causal=causal)
     return x + _mlp(norm_fn(x, p["ln2_g"], p.get("ln2_b"), norm_eps), p,
                     tp_axis, use_bias=use_bias)
 

@@ -20,7 +20,9 @@ the rank's batch into that many microbatches and runs forward and
 backward one microbatch at a time (only one microbatch's activations
 live), summing the unscaled gradients and losses and dividing once by
 their count before the one aggregation of the step, as the reference's
-``_accumulating_value_and_grad`` does.
+``_accumulating_value_and_grad`` does (:func:`accumulate`, which also
+takes its ``weight_fn``: BERT's microbatches are weighted by their mask
+counts).
 
 On a mesh (``mesh=``, ``parallel/mesh.py``) every rank takes the global
 batch and keeps its block (:meth:`Partitioner.local_batch`: its dp rows,
@@ -79,15 +81,21 @@ import torch.distributed as dist
 
 from byteps_tpu_torch.comm.ici import world
 from byteps_tpu_torch.compression import from_params
+from byteps_tpu_torch.models.bert import BertConfig, bert_init, bert_mlm_loss
 from byteps_tpu_torch.models.convert import (flat_leaves, flat_specs,
-                                             param_specs, shard_params)
-from byteps_tpu_torch.models.gpt import (GPT, GPTConfig, gpt_init, gpt_loss,
-                                         gpt_pp_loss)
+                                             param_specs, shard_params,
+                                             shard_tree)
+from byteps_tpu_torch.models.gpt import (GPT, GPTConfig, ParamTree, gpt_init,
+                                         gpt_loss, gpt_pp_loss)
+from byteps_tpu_torch.models.resnet import (ResNetConfig, resnet_init,
+                                            resnet_loss)
+from byteps_tpu_torch.models.t5 import T5Config, t5_init, t5_loss
+from byteps_tpu_torch.models.vit import ViTConfig, vit_init, vit_loss
 from byteps_tpu_torch.ops.backend import resolve_device
 from byteps_tpu_torch.optimizer import DistributedOptimizer
 from byteps_tpu_torch.parallel.mesh import Axis, collectives
 from byteps_tpu_torch.parallel.partitioner import Partitioner, spec_axes
-from byteps_tpu_torch.parallel.tp import pmean
+from byteps_tpu_torch.parallel.tp import maybe_psum, pmean
 
 
 def adamw(leaves: Sequence[torch.Tensor], lr: float = 1e-3
@@ -289,26 +297,12 @@ def make_gpt_train_step(
         opt.zero_grad()
         tok = axes.block(_as_ids(tokens, dev))
         tgt = axes.block(_as_ids(targets, dev))
-        B = tok.shape[0]
-        if B % accum_steps:
-            raise ValueError(f"per-device batch {B} not divisible by "
-                             f"accum_steps={accum_steps}")
-        mb = B // accum_steps
-        loss = None
-        for i in range(accum_steps):
-            part = gpt_loss(params, tok[i * mb:(i + 1) * mb],
-                            tgt[i * mb:(i + 1) * mb], cfg,
-                            tp_axis=axes.tp, sp_axis=axes.sp, remat=remat,
-                            seq_layout=seq_layout, chunked_ce=chunked_ce)
-            part.backward()                # into .grad, summed
-            part = part.detach()
-            loss = part if loss is None else loss + part
-        if accum_steps > 1:
-            # the sums of the unscaled gradients and losses, divided once
-            for p in leaves:
-                if p.grad is not None:
-                    p.grad.div_(accum_steps)
-            loss = loss / accum_steps
+        loss = accumulate(
+            lambda a, b: gpt_loss(params, a, b, cfg, tp_axis=axes.tp,
+                                  sp_axis=axes.sp, remat=remat,
+                                  seq_layout=seq_layout,
+                                  chunked_ce=chunked_ce),
+            (tok, tgt), accum_steps, leaves)
         if _live(axes.sp):
             # each sp rank holds the share of its own tokens
             _sum_over(leaves, axes.sp, "sp_grad_sum")
@@ -316,6 +310,51 @@ def make_gpt_train_step(
         return _group_mean(loss, mean_axis)
 
     return step, params, opt
+
+
+def accumulate(loss_fn, batch: Sequence[torch.Tensor], accum_steps: int,
+               leaves: Sequence[torch.Tensor], weight_fn=None
+               ) -> torch.Tensor:
+    """Forward and backward of ``loss_fn(*batch)`` into the leaves'
+    ``.grad``, over ``accum_steps`` sequential microbatches of the rank's
+    batch (rows ``[i·B/n, (i+1)·B/n)`` of every element of ``batch``,
+    one microbatch's activations alive at a time): the reference's
+    ``_accumulating_value_and_grad``. Returns the detached loss.
+
+    Each microbatch's loss and gradients are summed with weight
+    ``weight_fn(*microbatch)`` (1 without one), then divided once by the
+    weights' sum (guarded: where it is not positive, by 1). Losses that
+    normalize by a data-dependent count (BERT's masked mean) need the
+    weights: the mean of the microbatches' means weights unequal counts
+    wrongly, the count-weighted mean is the full batch's. At
+    ``accum_steps`` 1 the batch runs whole and ``weight_fn`` is unused,
+    as in the reference."""
+    B = batch[0].shape[0]
+    if B % accum_steps:
+        raise ValueError(f"per-device batch {B} not divisible by "
+                         f"accum_steps={accum_steps}")
+    mb = B // accum_steps
+    weighted = weight_fn is not None and accum_steps > 1
+    loss = w_sum = None
+    for i in range(accum_steps):
+        part_b = tuple(b[i * mb:(i + 1) * mb] for b in batch)
+        part = loss_fn(*part_b)
+        if weighted:
+            w = weight_fn(*part_b).float()
+            part = part * w
+            w_sum = w if w_sum is None else w_sum + w
+        part.backward()                    # into .grad, summed
+        part = part.detach()
+        loss = part if loss is None else loss + part
+    if accum_steps > 1:
+        # the sums of the (weighted) gradients and losses, divided once
+        div = (torch.where(w_sum > 0.0, w_sum, torch.ones_like(w_sum))
+               if weighted else accum_steps)
+        for p in leaves:
+            if p.grad is not None:
+                p.grad.div_(div)
+        loss = loss / div
+    return loss
 
 
 def _mesh_optimizer(cfg, params: GPT, mesh, axes: _Axes, make_optimizer,
@@ -580,6 +619,12 @@ def _as_ids(x, dev) -> torch.Tensor:
     return x.to(dev, torch.long)
 
 
+def _as_f32(x, dev) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    return x.to(dev, torch.float32)
+
+
 def _group_mean(loss: torch.Tensor, axis=None) -> torch.Tensor:
     """The mean of ``loss`` over the data-parallel ranks (the reference's
     ``pmean`` over its data axes), for reporting: over ``axis`` (a mesh's
@@ -640,3 +685,251 @@ def synthetic_batch(generator: torch.Generator, cfg: GPTConfig, batch: int,
     toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
                          generator=generator, device=generator.device)
     return toks[:, :-1], toks[:, 1:]
+
+
+# --------------------------------------------------------------------------
+# the model families: BERT, T5, ViT, ResNet
+# --------------------------------------------------------------------------
+def _family_params(cfg, init_params, generator, dev, init_fn, mesh
+                   ) -> ParamTree:
+    """``init_params`` (whole, on ``dev``) or fresh ``init_fn`` weights
+    from ``generator``; on a mesh, this rank's shards of them."""
+    params = (init_params if init_params is not None
+              else init_fn(cfg, generator, device=dev))
+    leaf = next(iter(params.parameters()))
+    if leaf.device != dev:
+        raise ValueError(f"init_params live on {leaf.device}, the step on "
+                         f"{dev}")
+    return shard_tree(params, mesh) if mesh is not None else params
+
+
+def _family_step(loss_fn, convs, params, leaves, opt, axes: _Axes, dev,
+                 accum_steps: int = 1, weight_fn=None, sp_sum: bool = True):
+    """``step(*batch) -> loss`` of the family factories: each element of
+    the global batch (``convs``: ids or f32) cut to this rank's block,
+    forward and backward of ``loss_fn(params, *block)`` over
+    ``accum_steps`` microbatches (:func:`accumulate`, ``weight_fn``),
+    the gradients summed over sp where the loss is the mean over sp
+    (``sp_sum``), the optimizer's step; the loss averaged over
+    ``slice_`` and dp."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps={accum_steps} must be at least 1")
+    mean_axis = axes.joint(("slice_", "dp"))
+
+    def step(*batch) -> torch.Tensor:
+        opt.zero_grad()
+        block = tuple(axes.block(c(x, dev)) for c, x in zip(convs, batch))
+        loss = accumulate(lambda *mb: loss_fn(params, *mb), block,
+                          accum_steps, leaves, weight_fn)
+        if sp_sum and _live(axes.sp):
+            _sum_over(leaves, axes.sp, "sp_grad_sum")
+        opt.step()
+        return _group_mean(loss, mean_axis)
+
+    return step
+
+
+def make_bert_train_step(
+    cfg: BertConfig,
+    make_optimizer: Callable[[Sequence[torch.Tensor]],
+                             torch.optim.Optimizer] = adamw,
+    compression_params: Optional[Dict[str, Any]] = None,
+    partition_bytes: Optional[int] = None,
+    remat: bool = False,
+    zero_1: bool = False,
+    accum_steps: int = 1,
+    chunked_ce=True,
+    init_params: Optional[ParamTree] = None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+    mesh=None,
+):
+    """MLM pretraining step (BASELINE config 3's shape). Returns ``(step,
+    params, opt)`` as :func:`make_gpt_train_step`, over the same mesh
+    surface (dp, tp, sp, ``slice_``) and options.
+
+    ``step(tokens, targets, mask) -> loss``: (B, S) corrupted ids, the
+    original ids and the {0, 1} mask of predicted positions (the global
+    batch on a mesh). ``params`` is ``init_params`` (whole: a
+    :class:`ParamTree` as ``bert_init`` or ``convert.tree_from_numpy``
+    makes it) or fresh ``bert_init`` weights from ``generator``. Under
+    ``accum_steps`` > 1 each microbatch is weighted by its mask count,
+    summed over sp (the reference's ``weight_fn``), so the accumulated
+    step equals the full batch's masked mean."""
+    axes = _Axes(cfg, mesh)
+    dev = resolve_device(device)
+    params = _family_params(cfg, init_params, generator, dev, bert_init,
+                            mesh)
+    leaves, _, opt = _mesh_optimizer(cfg, params, mesh, axes,
+                                     make_optimizer, compression_params,
+                                     partition_bytes, zero_1)
+
+    def loss_fn(p, tok, tgt, mask):
+        return bert_mlm_loss(p, tok, tgt, mask, cfg, tp_axis=axes.tp,
+                             sp_axis=axes.sp, remat=remat,
+                             chunked_ce=chunked_ce)
+
+    def mask_count(tok, tgt, mask):
+        # the sp-global count: the loss divides by it after its sp sum
+        return maybe_psum(mask.sum().float(), axes.sp)
+
+    return (_family_step(loss_fn, (_as_ids, _as_ids, _as_ids), params,
+                         leaves, opt, axes, dev, accum_steps,
+                         weight_fn=mask_count), params, opt)
+
+
+def make_t5_train_step(
+    cfg: T5Config,
+    make_optimizer: Callable[[Sequence[torch.Tensor]],
+                             torch.optim.Optimizer] = adamw,
+    compression_params: Optional[Dict[str, Any]] = None,
+    partition_bytes: Optional[int] = None,
+    remat: bool = False,
+    zero_1: bool = False,
+    accum_steps: int = 1,
+    chunked_ce=True,
+    init_params: Optional[ParamTree] = None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+    mesh=None,
+):
+    """Encoder–decoder seq2seq step. Returns ``(step, params, opt)``;
+    ``step(src, tgt_in, tgt_out) -> loss`` on (B, S_src) and (B, S_tgt)
+    ids. Over an sp axis both sides shard their sequence (the
+    non-causal encoder ring, the causal decoder ring, the rectangular
+    cross-attention ring; each length must divide by sp); dp, tp,
+    ``slice_`` and the options as :func:`make_gpt_train_step`."""
+    axes = _Axes(cfg, mesh)
+    dev = resolve_device(device)
+    params = _family_params(cfg, init_params, generator, dev, t5_init, mesh)
+    leaves, _, opt = _mesh_optimizer(cfg, params, mesh, axes,
+                                     make_optimizer, compression_params,
+                                     partition_bytes, zero_1)
+
+    def loss_fn(p, src, tgt_in, tgt_out):
+        return t5_loss(p, src, tgt_in, tgt_out, cfg, tp_axis=axes.tp,
+                       sp_axis=axes.sp, remat=remat, chunked_ce=chunked_ce)
+
+    return (_family_step(loss_fn, (_as_ids,) * 3, params, leaves, opt, axes,
+                         dev, accum_steps), params, opt)
+
+
+def make_vit_train_step(
+    cfg: ViTConfig,
+    make_optimizer: Callable[[Sequence[torch.Tensor]],
+                             torch.optim.Optimizer] = adamw,
+    compression_params: Optional[Dict[str, Any]] = None,
+    partition_bytes: Optional[int] = None,
+    remat: bool = False,
+    zero_1: bool = False,
+    accum_steps: int = 1,
+    init_params: Optional[ParamTree] = None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+    mesh=None,
+):
+    """ViT classification step over dp, tp and ``slice_``. Returns
+    ``(step, params, opt)``; ``step(images, labels) -> loss`` on (B, H,
+    W, C) f32 images and (B,) labels. As in the reference, sequence
+    parallelism is not plumbed: on a mesh with an sp axis the batch is
+    not split over it and every sp rank computes the same step."""
+    axes = _Axes(cfg, mesh)
+    dev = resolve_device(device)
+    params = _family_params(cfg, init_params, generator, dev, vit_init,
+                            mesh)
+    leaves, _, opt = _mesh_optimizer(cfg, params, mesh, axes,
+                                     make_optimizer, compression_params,
+                                     partition_bytes, zero_1)
+
+    def loss_fn(p, images, labels):
+        return vit_loss(p, images, labels, cfg, tp_axis=axes.tp,
+                        remat=remat)
+
+    return (_family_step(loss_fn, (_as_f32, _as_ids), params, leaves, opt,
+                         axes, dev, accum_steps, sp_sum=False), params, opt)
+
+
+def make_resnet_train_step(
+    cfg: ResNetConfig,
+    make_optimizer: Callable[[Sequence[torch.Tensor]],
+                             torch.optim.Optimizer] = adamw,
+    compression_params: Optional[Dict[str, Any]] = None,
+    partition_bytes: Optional[int] = None,
+    zero_1: bool = False,
+    init_params: Optional[ParamTree] = None,
+    init_state: Optional[ParamTree] = None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+    mesh=None,
+):
+    """Data-parallel ResNet step (BASELINE config 2's shape) with SyncBN.
+    Returns ``(step, params, opt, bn_state)``; ``step(images, labels) ->
+    loss`` on (B, H, W, 3) f32 NHWC images and (B,) labels updates
+    ``params`` and the running statistics ``bn_state`` in place.
+
+    The batch statistics synchronize over the data axes (``slice_`` and
+    dp joined on a mesh; the default group without one), so
+    ``bn_state`` stays the same on every rank. ``init_params`` and
+    ``init_state`` are whole (``resnet_init``'s, or converted from the
+    reference's), else fresh ``resnet_init`` weights from
+    ``generator``. The loss is the rank's own mean, averaged over the
+    data axes for reporting."""
+    axes = _Axes(cfg, mesh)
+    dev = resolve_device(device)
+    if init_params is None:
+        init_params, fresh_state = resnet_init(cfg, generator, device=dev)
+        init_state = init_state if init_state is not None else fresh_state
+    elif init_state is None:
+        raise ValueError("init_params needs its init_state (bn_state)")
+    params = _family_params(cfg, init_params, generator, dev, None, mesh)
+    bn_state = init_state
+    leaves, _, opt = _mesh_optimizer(cfg, params, mesh, axes,
+                                     make_optimizer, compression_params,
+                                     partition_bytes, zero_1)
+    if mesh is not None:
+        data_axis = axes.joint(("slice_", "dp"))
+    else:
+        n, rank = world()
+        data_axis = Axis("dp", n, rank, tuple(range(n)))
+
+    def step(images, labels) -> torch.Tensor:
+        opt.zero_grad()
+        loss, new = resnet_loss(params, bn_state,
+                                axes.block(_as_f32(images, dev)),
+                                axes.block(_as_ids(labels, dev)), cfg,
+                                dp_axis=data_axis, train=True)
+        loss.backward()
+        opt.step()
+        with torch.no_grad():
+            _copy_tree(bn_state, new)
+        return _group_mean(loss.detach(),
+                           data_axis if mesh is not None else None)
+
+    return step, params, opt, bn_state
+
+
+def _copy_tree(dst, src) -> None:
+    """Copy the nested dict of tensors ``src`` into the leaves of the
+    module tree ``dst`` of the same structure, in place."""
+    if isinstance(src, dict):
+        for k, v in src.items():
+            _copy_tree(dst[k], v)
+    elif isinstance(src, list):
+        for d, s in zip(dst, src):
+            _copy_tree(d, s)
+    else:
+        dst.copy_(src)
+
+
+def synthetic_mlm_batch(generator: torch.Generator, cfg: BertConfig,
+                        batch: int, seq: int, mask_rate: float = 0.15):
+    """``(corrupted tokens, targets, mask)`` for MLM pretraining, (batch,
+    seq) each, drawn from ``generator`` on its device: random targets, a
+    Bernoulli(``mask_rate``) mask, the last id standing in for [MASK]."""
+    dev = generator.device
+    targets = torch.randint(0, cfg.vocab_size, (batch, seq),
+                            generator=generator, device=dev)
+    mask = torch.rand((batch, seq), generator=generator,
+                      device=dev) < mask_rate
+    tokens = torch.where(mask, cfg.vocab_size - 1, targets)
+    return tokens, targets, mask.to(torch.int32)

@@ -44,7 +44,9 @@ AXIS_ORDER = ("slice_", "pp", "dp", "sp", "tp", "ep")
 #: (``optimizer.py``); ZeRO-3's gathers of a parameter group in the
 #: forward and again in a rematerialized backward, its reduce-scatters
 #: of the gradients, and its one sum of the segment gradients over the
-#: data axis that replicates them (``parallel/zero3.py``).
+#: data axis that replicates them (``parallel/zero3.py``); SyncBN's
+#: all-reduce of a layer's batch statistics over the data axes forward
+#: and of their gradients backward (``models/resnet.py``).
 collectives: Dict[str, int] = {
     "tp_allreduce_fwd": 0, "tp_allreduce_bwd": 0,
     "sp_rotate_fwd": 0, "sp_rotate_bwd": 0,
@@ -55,7 +57,8 @@ collectives: Dict[str, int] = {
     "tp_broadcast": 0,
     "hier_dp_reduce_scatter": 0, "hier_dp_all_gather": 0,
     "zero3_gather_fwd": 0, "zero3_gather_bwd": 0,
-    "zero3_reduce_scatter": 0, "zero3_grad_sum": 0}
+    "zero3_reduce_scatter": 0, "zero3_grad_sum": 0,
+    "syncbn_allreduce_fwd": 0, "syncbn_allreduce_bwd": 0}
 
 
 def reset_collectives() -> None:

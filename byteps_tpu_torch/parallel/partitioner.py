@@ -45,8 +45,7 @@ _BASE_RULES: Dict[str, AxisTarget] = {
     "stage": "pp",               # pipeline stage dim (stacked blocks)
 }
 
-#: Per-family rule tables, the reference's (the GPT and MoE GPT families
-#: are ported; the others stay as data).
+#: Per-family rule tables, the reference's.
 FAMILY_RULES: Dict[str, Dict[str, AxisTarget]] = {
     "gpt": dict(_BASE_RULES),
     "bert": dict(_BASE_RULES),
@@ -155,19 +154,31 @@ def stacked_logical_specs(logical_tree: Any) -> Any:
     return _map_tree(lambda leaf: ("stage",) + leaf, logical_tree)
 
 
+#: Each config type's logical-spec table: (module, function).
+_LOGICAL_SPECS = {
+    "GPTConfig": ("gpt", "gpt_logical_specs"),
+    "MoEGPTConfig": ("moe_gpt", "moe_gpt_logical_specs"),
+    "BertConfig": ("bert", "bert_logical_specs"),
+    "T5Config": ("t5", "t5_logical_specs"),
+    "ViTConfig": ("vit", "vit_logical_specs"),
+    "ResNetConfig": ("resnet", "resnet_logical_specs"),
+}
+
+
 def _logical_specs_for(cfg: Any) -> Any:
+    import importlib
+
     name = type(cfg).__name__
-    if name == "GPTConfig":
-        from byteps_tpu_torch.models.gpt import gpt_logical_specs
-        return gpt_logical_specs(cfg)
-    if name == "MoEGPTConfig":
-        from byteps_tpu_torch.models.moe_gpt import moe_gpt_logical_specs
-        return moe_gpt_logical_specs(cfg)
-    raise TypeError(f"no logical-spec table for config type {name} (the "
-                    "port carries the GPT and MoE GPT families only)")
+    if name not in _LOGICAL_SPECS:
+        raise TypeError(f"no logical-spec table for config type {name}")
+    mod, fn = _LOGICAL_SPECS[name]
+    return getattr(importlib.import_module(f"byteps_tpu_torch.models.{mod}"),
+                   fn)(cfg)
 
 
-_FAMILY_BY_CONFIG = {"GPTConfig": "gpt", "MoEGPTConfig": "moe_gpt"}
+_FAMILY_BY_CONFIG = {"GPTConfig": "gpt", "MoEGPTConfig": "moe_gpt",
+                     "BertConfig": "bert", "T5Config": "t5",
+                     "ViTConfig": "vit", "ResNetConfig": "resnet"}
 
 
 def spec_axes(spec: Spec) -> Tuple[str, ...]:

@@ -22,6 +22,9 @@
     python3 chip_smoke.py --serve_router  # the verify chunk's flash cases,
                                      # speculative and serve_router (6b)
                                      # alone
+    python3 chip_smoke.py --families  # the flash kernels at the families'
+                                     # calls, families and families_tiny
+                                     # (20) alone
 
 Phases, each printing one JSON line:
 
@@ -430,6 +433,28 @@ Phases, each printing one JSON line:
     exactly, the LoRA leg's fused launches and each half's exactly
     2 × layers × forward calls; tokens/s, TTFT, peak memory a rank.
 
+20. families — the model families at full width and depth (bench.py's
+    shapes), bf16 over f32 master weights, AdamW(1e-3), one warm-up and
+    2 timed steps a leg on a repeated seeded batch, after the forward,
+    dq and dk/dv kernels at their non-causal calls (BERT-base B=8 × 512
+    and ViT-B/16 B=32 × 196, 12 heads of 64; T5's cross-attention at
+    512/512 and 128 rows over 512 keys; a ring block of BERT over sp2 at
+    keys 256 with an lse cotangent), generate's non-causal encoder prefill
+    (B=4 × 128), its one-row cross-attention over those 128 keys and its
+    decode step (``family_kernel_cases``):
+    bert_onebit_ef (BERT-base, B=8 × S=512, mask rate 0.15, onebit + EF),
+    vit_b16 (B=32 at 224²), t5_base (12 + 12 layers, B=8, 512 + 512
+    tokens), t5_generate (B=4, 128 source tokens, 32 new, greedy, from
+    t5_base's weights) and resnet50 (B=32 at 224²): losses fall, ResNet's
+    running statistics move; step ms, items/s, peak memory, new tokens/s;
+    families_tiny — each family's tiny f32 step on the CPU and on the
+    card from the same weights within 1e-4 (loss and every leaf; ResNet
+    with TF32 off), BERT's ``accum_steps=2`` on microbatches of unequal mask counts
+    against its full-batch step, and T5's cached greedy generation on
+    weights scaled by 20: the card's tokens equal the CPU's, not
+    constant, each cached step's logits within 1e-4 of teacher-forced
+    ``t5_decode``.
+
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
 exact and the
@@ -447,7 +472,11 @@ pack and unpack-sum kernels once per gradient chunk and step, and the
 top-k leg the round trip once per full chunk and step (346) and select
 and reconstruct-sum once per step (the ragged tail chunk),
 aggregate_onebit the pack once a worker (296) and the grid unpack-sum
-once a sum (2). train_zero (its ZeRO legs, each counted from 0) the
+once a sum (2). families (each leg counted from 0) the flash kernels
+12 a step for BERT and ViT and 36 for T5, onebit pack and unpack-sum
+once a gradient chunk a step for BERT, t5_generate's forward 12 + 12·N
+and decode 12·N a call of N new tokens, and nothing for ResNet-50.
+train_zero (its ZeRO legs, each counted from 0) the
 flash kernels once per layer and step, onebit pack and unpack-sum once
 a step, top-k select and reconstruct-sum once a step and the round trip
 never; train_accum the flash kernels accum × 24 a step; eval (each of
@@ -478,7 +507,8 @@ rank, train_chaos's nine legs on one rank, aggregate_onebit,
 train_parallel's one_rank and one rank of each leg, train_pipeline's
 one_rank and one rank of each leg, train_moe's moe_one_rank and one
 rank of each leg, train_multislice's one rank of each leg,
-sharded_decode's moe_one_rank and rank 0 of each leg; the segmented
+sharded_decode's moe_one_rank and rank 0 of each leg, families' legs;
+the segmented
 LoRA row's launches count its fused launches and both halves (apart as
 ``fused_launches``, ``down_launches`` and ``up_launches``, and the
 halves by path), and it gives the halves' times, bounds and library
@@ -500,7 +530,8 @@ flash_fwd, flash_bwd_dq and flash_bwd_dkv rows also give each
 train_parallel call's times, bound and error (and the forward's route
 and the paths making the call) as ``ring_cases``, each train_pipeline
 and train_moe call's as ``pipeline_cases``, each train_multislice
-call's as ``multislice_cases``; the onebit rows the dp2_pp2 tail
+call's as ``multislice_cases``, each families call's as
+``family_cases`` (the decode row: t5_generate's step); the onebit rows the dp2_pp2 tail
 chunk's ms as ``pp_tail_ms`` and the hierarchical exchange's segments'
 as ``hier_chunk_half_*`` and ``hier_tail_half_*``; the
 topk rows add ``warm_ms`` and the 4-byte offset's ``offset_ms``, the
@@ -7598,6 +7629,391 @@ def phase_sharded_decode() -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 20: families — BERT, ViT, T5 (training and cached generation) and
+# ResNet-50 at full width and depth, and their tiny f32 legs
+# --------------------------------------------------------------------------
+FAMILY_STEPS = 2             # timed steps a leg, after one warm-up
+# (B, source length, new tokens) of t5_generate: bench.py's T5-base
+T5_GEN = (4, 128, 32)
+# the tiny f32 legs, card against CPU from the same weights and batch:
+# losses and leaves after one step, and the cached decoder's logits
+FAMILY_TINY_TOL = 1e-4
+# at PRNG-scale weights T5's tied readout returns its input, so greedy
+# decoding emits BOS forever; the tiny generation leg scales every matrix
+# of its weights by this, where the stream varies
+T5_TINY_GEN_SCALE = 20.0
+# (case, B, Sq, Sk, heads, q_off, k_off, lse cotangent, seed): the
+# non-causal calls of the families' training steps (BERT-base and
+# ViT-B/16 self-attention, T5's cross-attention square and, as a
+# generation prefix's length gives it, rectangular) and one non-causal
+# ring block of BERT over sp2 at the second block's keys
+FAMILY_CASES = (("bert_base", 8, 512, 512, 12, 0, 0, False, 310),
+                ("vit_b16", 32, 196, 196, 12, 0, 0, False, 311),
+                ("t5_cross_512", 8, 512, 512, 12, 0, 0, False, 312),
+                ("t5_cross_128x512", 8, 128, 512, 12, 0, 0, False, 313),
+                ("bert_sp2_ring_block", 8, 256, 256, 12, 0, 256, True, 314))
+
+
+def family_kernel_cases(timer) -> dict:
+    """The forward, dq and dk/dv kernels at :data:`FAMILY_CASES` (bf16,
+    head dim 64, no mask), t5_generate's non-causal encoder prefill (B=4
+    × 128 tokens: several 64-row query tiles) and its one-row
+    cross-attention against those 128 keys (forward only: generation has
+    no backward), and
+    its self-attention decode step (B=4, a 512-position cache at position
+    31), each against its plain version under the cases' tolerances, timed
+    and bounded; each forward's route among its fields."""
+    bf = torch.bfloat16
+    out = {}
+    for name, B, Sq, Sk, H, q_off, k_off, dlse, seed in FAMILY_CASES:
+        out[name] = {
+            "fwd": fwd_case(timer, name, B, Sq, Sk, H, H, 64, q_off, bf,
+                            seed, causal=False, k_off=k_off),
+            "bwd": bwd_case(timer, name, B, Sq, Sk, H, H, 64, q_off, k_off,
+                            bf, seed + 100, dlse, False)}
+    B, S_src, _ = T5_GEN
+    out["t5_gen_encoder"] = {"fwd": fwd_case(
+        timer, "t5_gen_encoder", B, S_src, S_src, 12, 12, 64, 0, bf, 317,
+        causal=False)}
+    out["t5_gen_cross_row"] = {"fwd": fwd_case(
+        timer, "t5_gen_cross_row", B, 1, S_src, 12, 12, 64, 0, bf, 315,
+        causal=False)}
+    out["t5_gen_self_decode"] = {"dec": decode_case(
+        timer, "t5_gen_self_decode", B, 512, 12, 12, 64, 31, bf, False,
+        316)}
+    return out
+
+
+def hold_launches(leg, got, want) -> None:
+    """Raise unless every kernel of ``want`` launched exactly its count
+    in ``got``."""
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"families {leg}: launches (got, want) {bad}")
+
+
+def family_bf16_leg(name, factory, cfg, batch, want_of, per_item, **kw):
+    """One full-width leg: ``factory(cfg, generator=seed 0, **kw)``, one
+    warm-up and FAMILY_STEPS timed steps on the seeded ``batch``, its
+    launches counted from 0 and held to ``want_of(params)`` (kernel:
+    count, predicted from the model before it trains), its losses to
+    :func:`falls`. Returns (record, the factory's outputs)."""
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    reset_launches()
+    out = factory(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                  **kw)
+    step = out[0]
+    want = want_of(out[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(FAMILY_STEPS + 1):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    got = dict(launches)
+    hold_launches(name, got, want)
+    if not falls(losses):
+        raise AssertionError(f"families {name}: losses {losses}")
+    step_s = sum(times[1:]) / FAMILY_STEPS
+    n_params = sum(p.numel() for p in out[1].parameters())
+    rec = {"leg": name, "params": n_params, "losses": losses,
+           "warmup_s": times[0], "step_ms": step_s * 1e3,
+           "step_ms_each": [t * 1e3 for t in times[1:]],
+           "items_per_s": per_item / step_s,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": got}
+    return rec, out
+
+
+def phase_families() -> dict:
+    """The families at full width and depth on the card, bf16 over f32
+    master weights, AdamW(1e-3), one warm-up and FAMILY_STEPS timed steps
+    a leg on a repeated seeded batch (bench.py's shapes):
+    bert_onebit_ef (BERT-base, B=8 × S=512, mask rate 0.15, onebit + EF:
+    BASELINE config 3), vit_b16 (B=32 at 224²), t5_base (12 + 12 layers,
+    B=8, 512 source and 512 target tokens), t5_generate (T5-base from
+    t5_base's trained weights, B=4, 128 source tokens, 32 new, greedy,
+    after a pass at 2 new) and resnet50 (B=32 at 224², BASELINE config
+    2). Each leg's losses fall, ResNet's running statistics move, and
+    each leg's launches are held exactly to the prediction from its layer
+    and chunk counts: the forward, dq and dk/dv kernels 12 a step for
+    BERT and ViT and 36 for T5 (12 encoder, 12 decoder and 12 cross
+    attentions), onebit pack and unpack-sum once a gradient chunk a step
+    for BERT (ceil(P / 1,024,000) chunks, counted from the model before
+    it trains), t5_generate's forward 12 + 12·N and decode 12·N for N new
+    tokens (the BOS step included), no kernel of the port for ResNet
+    (its convolutions are cuDNN's, as the reference's are XLA's). Returns
+    the summed launch counts."""
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.models import (BertConfig, ResNetConfig, T5Config,
+                                         ViTConfig, make_bert_train_step,
+                                         make_resnet_train_step,
+                                         make_t5_generate_fn,
+                                         make_t5_train_step,
+                                         make_vit_train_step,
+                                         synthetic_mlm_batch,
+                                         synthetic_seq2seq_batch,
+                                         synthetic_vit_batch)
+    from byteps_tpu_torch.ops import launches, reset_launches
+
+    calls = FAMILY_STEPS + 1
+    per = get_config().partition_bytes // 4
+    zero = {k: 0 for k in ("flash_decode", "onebit_pack",
+                           "onebit_unpack_sum", "onebit_unpack_sum_grid",
+                           "topk_select", "topk_reconstruct_sum",
+                           "topk_roundtrip", "segmented_lora",
+                           "ring_rotate", "ring_presum")}
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    legs, total = {}, {}
+
+    def add(rec):
+        legs[rec["leg"]] = rec
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    def attn(n):
+        # every training forward takes the wgmma path (bf16, B·H·ceil(Sq /
+        # 64) >= 128 tiles)
+        return {**{k: n * calls for k in TRAIN}, "flash_fwd_split": 0}
+
+    def chunks(params):
+        return -(-sum(p.numel() for p in params.parameters()) // per)
+
+    # BERT-base, onebit + EF: a pack and an unpack-sum a gradient chunk
+    bert = BertConfig.base()
+    rec, out = family_bf16_leg(
+        "bert_onebit_ef", make_bert_train_step, bert,
+        synthetic_mlm_batch(gen(1), bert, 8, 512),
+        lambda p: {**attn(bert.n_layers), **zero,
+                   "onebit_pack": chunks(p) * calls,
+                   "onebit_unpack_sum": chunks(p) * calls}, 8 * 512,
+        compression_params=ONEBIT_EF)
+    add({**rec, "batch": [8, 512], "mask_rate": 0.15,
+         "chunks_per_step": chunks(out[1]), "items": "tokens"})
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vit = ViTConfig.base()
+    rec, out = family_bf16_leg(
+        "vit_b16", make_vit_train_step, vit,
+        synthetic_vit_batch(gen(1), vit, 32),
+        lambda p: {**attn(vit.n_layers), **zero}, 32)
+    add({**rec, "batch": [32, 224, 224, 3], "items": "images"})
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t5 = T5Config.base()
+    rec, out = family_bf16_leg(
+        "t5_base", make_t5_train_step, t5,
+        synthetic_seq2seq_batch(gen(1), t5, 8, 512, 512),
+        lambda p: {**attn(t5.n_enc_layers + 2 * t5.n_dec_layers), **zero},
+        8 * 512)
+    add({**rec, "batch": [8, 512, 512], "items": "target tokens"})
+    params = out[1]
+    del out
+    B, S_src, N = T5_GEN
+    src = torch.randint(0, t5.vocab_size, (B, S_src), generator=gen(2),
+                        device="cuda")
+    reset_launches()
+    make_t5_generate_fn(t5, 2)(params, src)            # the warm pass
+    g = make_t5_generate_fn(t5, N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = g(params, src)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(launches)
+    L = t5.n_dec_layers
+    fwd = (t5.n_enc_layers + L * 2) + (t5.n_enc_layers + L * N)
+    # every forward of generation takes the split path: the B=4 × 128
+    # encoder is 96 tiles of 64 rows, the one-row cross-attention 48
+    want = {"flash_fwd": fwd, "flash_fwd_split": fwd,
+            "flash_decode": L * 2 + L * N, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    hold_launches("t5_generate", got, want)
+    if toks.shape != (B, N) or not bool(((toks >= 0)
+                                         & (toks < t5.vocab_size)).all()):
+        raise AssertionError(f"families t5_generate: tokens {toks.shape}")
+    add({"leg": "t5_generate", "batch": B, "source": S_src, "new": N,
+         "wall_s": wall, "new_tokens_per_s": B * N / wall,
+         "distinct_tokens": int(torch.unique(toks).numel()),
+         "launches": got})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rn = ResNetConfig(dtype=torch.bfloat16)
+    images = torch.randn((32, 224, 224, 3), generator=gen(1), device="cuda")
+    labels = torch.randint(0, rn.num_classes, (32,), generator=gen(1),
+                           device="cuda")
+    rec, out = family_bf16_leg(
+        "resnet50", make_resnet_train_step, rn, (images, labels),
+        lambda p: {**attn(0), **zero}, 32)
+    bn = out[3]
+    # from running means 0 and variances 1
+    moved = max(float((t - float(name.endswith("var"))).abs().max())
+                for name, t in bn.named_parameters())
+    if not moved > 0:
+        raise AssertionError("families resnet50: bn_state never moved")
+    add({**rec, "batch": [32, 224, 224, 3], "items": "images",
+         "bn_state_max_move": moved})
+    del out, bn
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "families", "steps": FAMILY_STEPS, "legs": legs})
+    return total
+
+
+def tiny_family(fam, seed):
+    """(config, factory, CPU weights (and ResNet's statistics), batch as
+    numpy) of a family's tiny f32 leg."""
+    from byteps_tpu_torch.models import (BertConfig, ResNetConfig, T5Config,
+                                         ViTConfig, bert_init,
+                                         make_bert_train_step,
+                                         make_resnet_train_step,
+                                         make_t5_train_step,
+                                         make_vit_train_step, resnet_init,
+                                         t5_init, vit_init)
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    if fam == "bert":
+        cfg = BertConfig.tiny()
+        tgt = rng.integers(0, cfg.vocab_size, (4, 32))
+        mask = np.zeros((4, 32), np.int64)
+        # microbatches of two rows with 10 and 7 masked positions
+        for r, n in enumerate((2, 8, 4, 3)):
+            mask[r, rng.choice(32, n, replace=False)] = 1
+        batch = (np.where(mask == 1, cfg.vocab_size - 1, tgt), tgt, mask)
+        return cfg, make_bert_train_step, (bert_init(cfg, g, "cpu"),), batch
+    if fam == "vit":
+        cfg = ViTConfig.tiny()
+        batch = (rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
+                 rng.integers(0, cfg.n_classes, (4,)))
+        return cfg, make_vit_train_step, (vit_init(cfg, g, "cpu"),), batch
+    if fam == "t5":
+        cfg = T5Config.tiny()
+        tg = rng.integers(0, cfg.vocab_size, (4, 17))
+        tg[:, 0] = 0
+        batch = (rng.integers(0, cfg.vocab_size, (4, 24)), tg[:, :-1],
+                 tg[:, 1:])
+        return cfg, make_t5_train_step, (t5_init(cfg, g, "cpu"),), batch
+    cfg = ResNetConfig.tiny()
+    batch = (rng.standard_normal((4, 33, 33, 3)).astype(np.float32),
+             rng.integers(0, cfg.num_classes, (4,)))
+    return cfg, make_resnet_train_step, resnet_init(cfg, g, "cpu"), batch
+
+
+def leaf_diffs(a, b) -> dict:
+    """Each leaf's max |a - b| by its path, ``b`` on the card."""
+    return {n: float((x.detach().cpu() - y.detach().cpu()).abs().max())
+            for (n, x), (_, y) in zip(a.named_parameters(),
+                                      b.named_parameters())}
+
+
+def phase_families_tiny() -> dict:
+    """Each family's tiny f32 config on the CPU (plain versions) and on
+    the card (kernels) from the same weights and batch: the loss and every
+    leaf after one step within FAMILY_TINY_TOL. ResNet runs
+    with cuDNN's TF32 off (``main`` turns it off for the whole smoke, and
+    this leg asserts it). BERT also runs ``accum_steps=2`` on the card on
+    microbatches of 10 and 7 masked positions, held to the full batch's
+    step within the same tolerance. Then T5's cached generation: a tiny
+    f32 model with every matrix scaled by T5_TINY_GEN_SCALE (greedy
+    emits BOS forever at PRNG scale) decodes 12 tokens greedily on both
+    devices: the tokens equal, the stream not constant, and the card's
+    logits at each cached step equal to teacher-forced ``t5_decode``
+    over the same tokens within FAMILY_TINY_TOL."""
+    from byteps_tpu_torch.models import (make_t5_generate_fn, t5_decode,
+                                         t5_decode_cached, t5_encode,
+                                         t5_init)
+    from byteps_tpu_torch.models.t5 import t5_cross_kv, t5_init_cache
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("families_tiny runs with TF32 off")
+    tol = FAMILY_TINY_TOL
+    res = {}
+    for i, fam in enumerate(("bert", "vit", "t5", "resnet")):
+        cfg, factory, init, batch = tiny_family(fam, 50 + i)
+        pristine = copy.deepcopy(init)
+
+        def on_card():
+            w = copy.deepcopy(pristine)
+            return ({"init_params": w[0].to("cuda")}
+                    | ({"init_state": w[1].to("cuda")} if fam == "resnet"
+                       else {}))
+
+        kw = ({"init_state": init[1]} if fam == "resnet" else {})
+        cpu = factory(cfg, init_params=init[0], device="cpu", **kw)
+        card = factory(cfg, **on_card())
+        lc, lg = float(cpu[0](*batch)), float(card[0](*batch))
+        diffs = leaf_diffs(cpu[1], card[1])
+        worst = max(diffs, key=diffs.get)
+        r = {"cpu_loss": lc, "card_loss": lg, "loss_diff": abs(lc - lg),
+             "worst_leaf": worst, "worst_leaf_diff": diffs[worst]}
+        ok = abs(lc - lg) <= tol and diffs[worst] <= tol
+        if fam == "resnet":
+            r["bn_state_max_diff"] = max(leaf_diffs(cpu[3], card[3])
+                                         .values())
+            r["tf32"] = False
+            ok = ok and r["bn_state_max_diff"] <= tol
+        if fam == "bert":
+            acc = factory(cfg, accum_steps=2, **on_card())
+            la = float(acc[0](*batch))
+            ad = leaf_diffs(card[1], acc[1])
+            r.update(accum2_loss=la, accum2_loss_diff=abs(la - lg),
+                     accum2_params_max_diff=max(ad.values()),
+                     mask_counts=batch[2].sum(1).tolist())
+            ok = ok and abs(la - lg) <= tol and max(ad.values()) <= tol
+        res[fam] = r
+        if not ok:
+            raise AssertionError(f"families_tiny {fam}: {r} beyond {tol}")
+    # cached generation, T5 tiny at scaled weights
+    cfg = tiny_family("t5", 52)[0]
+    p_cpu = t5_init(cfg, torch.Generator().manual_seed(7), device="cpu")
+    with torch.no_grad():
+        for t in p_cpu.parameters():
+            if t.ndim == 2:
+                t.mul_(T5_TINY_GEN_SCALE)
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    src = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 16))
+    n = 12
+    t_cpu = make_t5_generate_fn(cfg, n, device="cpu")(p_cpu, src)
+    t_gpu = make_t5_generate_fn(cfg, n)(p_gpu, src)
+    src_t = torch.as_tensor(src, device="cuda")
+    with torch.no_grad():
+        mem = t5_encode(p_gpu, src_t, cfg)
+        ck, cv = t5_cross_kv(p_gpu, mem, cfg)
+        cache = t5_init_cache(cfg, 2)
+        fed = torch.cat([torch.zeros((2, 1), dtype=torch.long,
+                                     device="cuda"), t_gpu[:, :-1].long()], 1)
+        steps = []
+        for j in range(n):
+            lg_, cache = t5_decode_cached(p_gpu, fed[:, j:j + 1], cache, ck,
+                                          cv, cfg)
+            steps.append(lg_)
+        teacher = t5_decode(p_gpu, mem, fed, cfg)
+    step_diff = float((torch.cat(steps, 1) - teacher).abs().max())
+    distinct = int(torch.unique(t_gpu).numel())
+    gen = {"tokens_equal": bool(torch.equal(t_cpu, t_gpu.cpu())),
+           "distinct_tokens": distinct, "step_logits_max_diff": step_diff,
+           "weight_scale": T5_TINY_GEN_SCALE, "new": n}
+    res["t5_generate"] = gen
+    if not (gen["tokens_equal"] and distinct > 2 and step_diff <= tol):
+        raise AssertionError(f"families_tiny t5_generate: {gen}")
+    emit({"phase": "families_tiny", "tolerance": tol, **res})
+    return res
+
+
 # the kernels each run of the main path must launch
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
@@ -7632,14 +8048,16 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
                                       "ring_rotate"),
          "sharded_decode": SPLIT + ("flash_decode", "segmented_lora",
                                     "segmented_lora_down",
-                                    "segmented_lora_up")}
+                                    "segmented_lora_up"),
+         "families": TRAIN + ("onebit_pack", "onebit_unpack_sum",
+                              "flash_decode")}
 MAIN_PATHS = ("generate", "serve", "multitenant", "speculative",
               "serve_router", "train_raw",
               "train_onebit", "train_topk", "train_ring", "train_dcn",
               "train_hybrid", "train_chaos", "aggregate_onebit",
               "train_zero", "train_accum", "eval", "train_parallel",
               "train_pipeline", "train_moe", "train_multislice",
-              "sharded_decode")
+              "sharded_decode", "families")
 # the launch counters of a kernels-line row: the segmented LoRA kernel's
 # fused launches and its two halves'
 ROW_COUNTS = {"segmented_lora": ("segmented_lora", "segmented_lora_down",
@@ -7755,6 +8173,12 @@ def main() -> int:
                          "train_accum, eval, train_tiny, train_ring with "
                          "its ZeRO legs) and examples; no kernels line, no "
                          "result line")
+    ap.add_argument("--families", action="store_true",
+                    help="run only the flash kernels at the families' calls, "
+                         "families (BERT-base onebit + EF, ViT-B/16, "
+                         "T5-base training and generation, ResNet-50) and "
+                         "their tiny f32 legs; no kernels line, no result "
+                         "line")
     ap.add_argument("--serve_router", action="store_true",
                     help="run only the verify chunk's flash cases, "
                          "speculative and serve_router (speculative "
@@ -7834,6 +8258,12 @@ def main() -> int:
         emit({"phase": "launches", "sharded_decode": counted_ranks(
             "sharded_decode", phase_sharded_decode)})
         return 0
+    if args.families:
+        family_kernel_cases(Timer())
+        emit({"phase": "launches", "families": check_path(
+            "families", phase_families())})
+        phase_families_tiny()
+        return 0
     if args.serve_router:
         verify_cases(Timer())
         cfg = GPTConfig.gpt2_medium()
@@ -7901,6 +8331,7 @@ def main() -> int:
     ring_kc = parallel_kernel_cases(timer)
     pipe_kc = pipeline_kernel_cases(timer)
     ms_kc = multislice_kernel_cases(timer)
+    fam_kc = family_kernel_cases(timer)
     twice_case("train", 8, 1024, 16, 16, 64, 38)
     twice_case("d128", 4, 1024, 8, 8, 128, 39)
     chunk = 4096000 // 4           # one default partition of f32
@@ -8009,9 +8440,11 @@ def main() -> int:
                                                 phase_train_multislice)
     by_path["sharded_decode"] = counted_ranks("sharded_decode",
                                               phase_sharded_decode)
+    by_path["families"] = check_path("families", phase_families())
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()
+    phase_families_tiny()
     phase_examples(card)
 
     # the shapes the main path launches most: serve's prefill chunks,
@@ -8061,9 +8494,19 @@ def main() -> int:
                                                    "library_ms", "bound_ms",
                                                    "bound_by", "max_abs_err",
                                                    "route")}}
-                  for nm, c in ms_kc.items() if "fwd" in c}}),
+                  for nm, c in ms_kc.items() if "fwd" in c},
+              "family_cases": {
+                  nm: {k: c["fwd"][k] for k in ("shape", "q_off", "k_off",
+                                                "ms", "plain_ms",
+                                                "library_ms", "bound_ms",
+                                                "bound_by", "max_abs_err",
+                                                "route")}
+                  for nm, c in fam_kc.items() if "fwd" in c}}),
             ("flash_decode", "flash_decode",
-             "byteps_tpu/ops/flash_decode.py:77", main_dec),
+             "byteps_tpu/ops/flash_decode.py:77",
+             {**main_dec, "family_cases": {
+                 nm: {k: c["dec"][k] for k in common}
+                 for nm, c in fam_kc.items() if "dec" in c}}),
             ("flash_bwd_dq", "flash_bwd",
              "byteps_tpu/ops/flash_attention.py:340",
              {**main_bwd, **main_bwd["dq"],
@@ -8078,7 +8521,11 @@ def main() -> int:
               "multislice_cases": {
                   nm: {**c["bwd"]["dq"], "plain_ms": c["bwd"]["plain_ms"],
                        "library_ms": c["bwd"]["library_ms"]}
-                  for nm, c in ms_kc.items() if "bwd" in c}}),
+                  for nm, c in ms_kc.items() if "bwd" in c},
+              "family_cases": {
+                  nm: {**c["bwd"]["dq"], "plain_ms": c["bwd"]["plain_ms"],
+                       "library_ms": c["bwd"]["library_ms"]}
+                  for nm, c in fam_kc.items() if "bwd" in c}}),
             ("flash_bwd_dkv", "flash_bwd",
              "byteps_tpu/ops/flash_attention.py:399",
              {**main_bwd, **main_bwd["dkv"],
@@ -8093,7 +8540,11 @@ def main() -> int:
               "multislice_cases": {
                   nm: {**c["bwd"]["dkv"], "plain_ms": c["bwd"]["plain_ms"],
                        "library_ms": c["bwd"]["library_ms"]}
-                  for nm, c in ms_kc.items() if "bwd" in c}}),
+                  for nm, c in ms_kc.items() if "bwd" in c},
+              "family_cases": {
+                  nm: {**c["bwd"]["dkv"], "plain_ms": c["bwd"]["plain_ms"],
+                       "library_ms": c["bwd"]["library_ms"]}
+                  for nm, c in fam_kc.items() if "bwd" in c}}),
             ("onebit_pack", "onebit", "byteps_tpu/ops/onebit_kernels.py:81",
              {"case": "chunk", "max_abs_err": main_bits["pack_max_abs_err"],
               "pp_tail_ms": pipe_kc["onebit_tail"]["pack_ms"],
@@ -8179,7 +8630,8 @@ def main() -> int:
                                  "signs_library_ms", "signs_bound_ms",
                                  "verify_cases", "ring_cases",
                                  "pipeline_cases",
-                                 "multislice_cases", "pp_tail_ms",
+                                 "multislice_cases", "family_cases",
+                                 "pp_tail_ms",
                                  "hier_chunk_half_ms", "hier_tail_half_ms",
                                  "hier_chunk_half_k2_ms",
                                  "hier_tail_half_k2_ms", "down_ms",

@@ -1,7 +1,7 @@
-"""The port's boundary and plumbing: ``byteps_tpu_torch`` imports no JAX
-and nothing of ``byteps_tpu``; its entry points run on CUDA unless told
-otherwise; CPU tensors never reach the kernel build; the lean config and
-metrics copies behave like the reference's."""
+"""The port's boundary and plumbing: ``byteps_tpu_torch`` imports no
+JAX, nothing of ``byteps_tpu`` and no ``transformers``; its entry points
+run on CUDA unless told otherwise; CPU tensors never reach the kernel
+build; the lean config and metrics copies behave like the reference's."""
 
 import json
 import os
@@ -34,8 +34,7 @@ for m in mods:
 subprocess.Popen = popen
 from byteps_tpu_torch.server import native
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.") or m == "byteps_tpu"
-                or m.startswith("byteps_tpu."))
+                if m.split(".")[0] in ("jax", "byteps_tpu", "transformers"))
 from byteps_tpu_torch.models import (GPTConfig, gpt_init, make_eval_step,
                                      make_generate_fn, make_gpt_train_step,
                                      params_from_numpy)
@@ -44,7 +43,17 @@ from byteps_tpu_torch.parallel.zero3 import make_gpt_zero3_train_step
 from byteps_tpu_torch.serve import AdapterPool, PagedKVCache, Scheduler
 from byteps_tpu_torch.models import adapters_from_numpy
 from byteps_tpu_torch.models.lora import lora_init
+from byteps_tpu_torch.models import (BertConfig, ResNetConfig, T5Config,
+                                     ViTConfig, bert_init,
+                                     make_bert_train_step,
+                                     make_resnet_train_step,
+                                     make_t5_generate_fn, make_t5_train_step,
+                                     make_vit_train_step, resnet_init, t5_init,
+                                     tree_from_numpy, vit_init)
+from byteps_tpu_torch.models.t5 import t5_init_cache
+from byteps_tpu_torch.models.convert import tree_to_numpy
 cfg = GPTConfig.tiny()
+bert_tree = tree_to_numpy(bert_init(BertConfig.tiny(), device="cpu"))
 cpu = gpt_init(cfg, device="cpu")
 tree = {k: v.numpy() for k, v in cpu.named_parameters() if "." not in k}
 tree["blocks"] = [{k: v.numpy() for k, v in b.named_parameters()}
@@ -65,6 +74,18 @@ calls = {
     "adapters_from_numpy": lambda: adapters_from_numpy(
         {"blocks": [{"wq": {"a": np.zeros((64, 2), np.float32),
                             "b": np.zeros((2, 64), np.float32)}}]}),
+    "bert_init": lambda: bert_init(BertConfig.tiny()),
+    "vit_init": lambda: vit_init(ViTConfig.tiny()),
+    "t5_init": lambda: t5_init(T5Config.tiny()),
+    "resnet_init": lambda: resnet_init(ResNetConfig.tiny()),
+    "tree_from_numpy": lambda: tree_from_numpy(bert_tree, BertConfig.tiny()),
+    "make_bert_train_step": lambda: make_bert_train_step(BertConfig.tiny()),
+    "make_vit_train_step": lambda: make_vit_train_step(ViTConfig.tiny()),
+    "make_t5_train_step": lambda: make_t5_train_step(T5Config.tiny()),
+    "make_resnet_train_step": lambda: make_resnet_train_step(
+        ResNetConfig.tiny()),
+    "make_t5_generate_fn": lambda: make_t5_generate_fn(T5Config.tiny(), 4),
+    "t5_init_cache": lambda: t5_init_cache(T5Config.tiny(), 1),
 }
 raised = {}
 for name, fn in calls.items():
@@ -97,7 +118,9 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
               "eager", "parallel.mesh", "parallel.partitioner",
               "parallel.sharding", "parallel.tp", "parallel.ring_attention",
               "parallel.remat", "parallel.pipeline", "parallel.moe",
-              "parallel.zero3", "models.moe_gpt"):
+              "parallel.zero3", "models.moe_gpt", "models.bert",
+              "models.vit", "models.t5", "models.resnet",
+              "models.import_hf"):
         assert f"byteps_tpu_torch.{m}" in res["modules"], m
     assert res["leaked"] == [], res["leaked"]
     # importing every module (the server entry included) built, loaded and
@@ -116,6 +139,26 @@ def test_ring_modules_import_alone_without_jax():
              "import byteps_tpu_torch.comm.ici\n"
              "print([m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'byteps_tpu')])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_family_modules_import_alone_without_jax():
+    """The model families, their train factories and the HuggingFace
+    bridge, imported on their own, load neither jax, nor byteps_tpu, nor
+    transformers."""
+    probe = ("import sys\n"
+             "import byteps_tpu_torch.models.bert\n"
+             "import byteps_tpu_torch.models.vit\n"
+             "import byteps_tpu_torch.models.t5\n"
+             "import byteps_tpu_torch.models.resnet\n"
+             "import byteps_tpu_torch.models.import_hf\n"
+             "import byteps_tpu_torch.models.train\n"
+             "print([m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'byteps_tpu', 'transformers')])")
     env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

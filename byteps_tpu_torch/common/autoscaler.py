@@ -1,11 +1,14 @@
-"""Telemetry-driven autoscaling policy — the port's copy of the parts of
-``byteps_tpu/common/autoscaler.py`` the serve router uses.
+"""Telemetry-driven autoscaling policy — the port's copy of
+``byteps_tpu/common/autoscaler.py``.
 
 :class:`ScalingPolicy` reads a domain-agnostic :class:`Sample` and emits
 ``admit``/``evict``/``hold`` with hysteresis, a sustain requirement and a
 cooldown; the serve router (``serve/router.py``) feeds it per-replica
 queue depth and TTFT-SLO pressure (:func:`serve_sample`) and spawns or
-drains replicas on its decisions. Every consequential decision — the
+drains replicas on its decisions; :func:`train_sample` distills the
+train domain's sample from ``metrics_snapshot()``, and the launcher's
+``Supervisor.execute`` carries a ``domain="proc"`` decision out against
+real processes. Every consequential decision — the
 policy's, or the router's lease eviction — goes through
 :func:`record_decision`: the ``autoscaler.decisions`` and
 ``autoscaler.<domain>.<action>`` counters and a flight-recorder event,
@@ -22,10 +25,9 @@ Decision semantics, as the reference's:
 * **hold** — inside the band, during the post-decision cooldown, or at a
   bound.
 
-Not ported yet (ROADMAP A.8): ``train_sample`` (the train domain's
-sampler reads the per-NIC rounds-ahead gauges of the process tier) and
-``record_decision``'s chrome-trace FAULT instant, which waits for the
-port's ``common/tracing.py``, as its other FAULT instants do.
+Not ported yet (ROADMAP A.8): ``record_decision``'s chrome-trace FAULT
+instant, which waits for the port's ``common/tracing.py``, as its other
+FAULT instants do.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from byteps_tpu_torch.common.metrics import get_registry
 log = get_logger("autoscaler")
 
 __all__ = ["Sample", "Decision", "ScalingPolicy", "record_decision",
-           "serve_sample"]
+           "serve_sample", "train_sample"]
 
 
 def record_decision(domain: str, action: str, reason: str,
@@ -229,6 +231,32 @@ class ScalingPolicy:
                 "target": target,
                 "pays_off": ((tgt - cur) > self.hysteresis * per_unit
                              if target > live else tgt >= 0.0)}
+
+
+def train_sample(snapshot: Dict[str, Any], live: int,
+                 goodput_per_worker: float,
+                 baseline_per_worker: float) -> Sample:
+    """The TRAIN-domain :class:`Sample` from a ``metrics_snapshot()``
+    dict plus the caller's goodput trend: ``load`` = per-worker goodput
+    as a fraction of the clean per-worker baseline (≈1.0 means adding
+    capacity still pays linearly); ``straggler`` = the spread of the
+    per-NIC ``psworker.*.rounds_ahead`` gauges with the
+    ``server.staleness`` p99 folded in — both zero on a healthy
+    strict-sync tier."""
+    m = snapshot.get("metrics", snapshot)
+    gauges = m.get("gauges", {})
+    ahead = [
+        float(v["value"] if isinstance(v, dict) else v)
+        for k, v in gauges.items()
+        if k.startswith("psworker.") and k.endswith(".rounds_ahead")
+    ]
+    spread = (max(ahead) - min(ahead)) if len(ahead) > 1 else 0.0
+    hist = m.get("histograms", {}).get("server.staleness", {})
+    stale_p99 = float(hist.get("p99", 0.0) or 0.0)
+    load = (goodput_per_worker / baseline_per_worker
+            if baseline_per_worker > 0 else 0.0)
+    return Sample(live=int(live), load=load,
+                  straggler=max(spread, stale_p99))
 
 
 def serve_sample(live: int, queue_depth: float,

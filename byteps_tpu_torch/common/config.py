@@ -4,8 +4,9 @@ A lean copy of ``byteps_tpu/common/config.py`` holding only what the
 ported slices read: the log level, the metrics switch, the ``serve_*``
 knobs of the continuous-batching tier (adapter pool, tenant quotas and
 fair queuing, speculation, the router's replica lease and
-disaggregation included), the autoscaler's dynamics and the flight
-recorder's event ring, the gradient-aggregation
+disaggregation included), the autoscaler's dynamics, the flight recorder's step and
+event rings and its dump directory, the launcher's supervisor, the socket
+NIC, the global ``torch.distributed`` group, the gradient-aggregation
 knobs of the data-parallel training step (partition size, reduce dtype,
 the onebit codec's scaling default, the ICI wire tier), and the
 ``DMLC_*`` topology and ``BYTEPS_*`` knobs of the DCN parameter-server
@@ -204,8 +205,39 @@ class Config:
     autoscale_sustain: int = 2
     autoscale_min: int = 1
     autoscale_max: int = 16
-    # Recent FAULT-class events the flight recorder keeps (0 = none).
+    # --- launcher supervisor (launcher.py Supervisor) ----------------------
+    # Automatic respawns of one flapping child before the supervisor gives
+    # up on it; the base respawn delay (doubled a consecutive restart); the
+    # SIGTERM -> SIGKILL grace of retire and shutdown; the poll cadence.
+    supervisor_restart_limit: int = 3
+    supervisor_backoff_ms: int = 200
+    supervisor_grace_ms: int = 2000
+    supervisor_poll_ms: int = 50
+    # --- socket NIC (common/socknic.py) ------------------------------------
+    # Recv deadline of a SocketNicClient request; payload pacing in
+    # megabits/s (0 = unshaped).
+    socket_timeout_ms: int = 10000
+    socket_mbps: float = 0.0
+
+    # --- flight recorder (common/flight_recorder.py) -----------------------
+    # Per-step metric snapshots kept for the post-mortem (0 = no step ring,
+    # events are still recorded); recent FAULT-class events (0 = none);
+    # when set, post-mortems are also written as JSON files here, one a
+    # distinct failure reason a run.
+    flight_recorder_steps: int = 64
     flight_recorder_events: int = 128
+    flight_recorder_dir: str = ""
+
+    # --- the global torch.distributed group (comm/distributed.py) ----------
+    # BYTEPS_JAX_DISTRIBUTED=1: the DMLC_NUM_WORKER worker processes join
+    # one torch.distributed group (the reference's one jax.distributed
+    # group) and aggregate over its collectives; the PS tier is bypassed.
+    # Its TCP store is hosted by worker 0 at global_coord_uri:port
+    # (BYTEPS_JAX_COORD_URI / _PORT, default DMLC_PS_ROOT_URI / _PORT:
+    # the summation servers bind port + 1 + i, so no clash).
+    global_group: bool = False
+    global_coord_uri: str = "127.0.0.1"
+    global_coord_port: int = 9000
 
     # --- gradient aggregation (data-parallel training) ---------------------
     # Bytes per aggregation chunk: the flat gradient is cut into chunks of
@@ -229,8 +261,17 @@ class Config:
     def is_distributed(self) -> bool:
         """The hybrid pipeline over the summation servers (several pods,
         or one pod forced onto them) rather than the pod's collectives
-        alone."""
+        alone. In the global group (``BYTEPS_JAX_DISTRIBUTED``) the
+        workers are one pod, so only ``BYTEPS_FORCE_DISTRIBUTED`` asks
+        for the servers."""
+        if self.global_group:
+            return self.force_distributed
         return self.num_worker > 1 or self.force_distributed
+
+    def snapshot(self) -> dict:
+        """Every resolved knob as a JSON-safe dict (rides each flight
+        recorder post-mortem)."""
+        return dataclasses.asdict(self)
 
     def __post_init__(self):
         if self.reduce_dtype not in REDUCE_DTYPES:
@@ -303,8 +344,27 @@ class Config:
             autoscale_sustain=_env_int("BYTEPS_AUTOSCALE_SUSTAIN", 2),
             autoscale_min=_env_int("BYTEPS_AUTOSCALE_MIN", 1),
             autoscale_max=_env_int("BYTEPS_AUTOSCALE_MAX", 16),
+            supervisor_restart_limit=_env_int(
+                "BYTEPS_SUPERVISOR_RESTART_LIMIT", 3),
+            supervisor_backoff_ms=_env_int(
+                "BYTEPS_SUPERVISOR_BACKOFF_MS", 200),
+            supervisor_grace_ms=_env_int(
+                "BYTEPS_SUPERVISOR_GRACE_MS", 2000),
+            supervisor_poll_ms=_env_int("BYTEPS_SUPERVISOR_POLL_MS", 50),
+            socket_timeout_ms=_env_int("BYTEPS_SOCKET_TIMEOUT_MS", 10000),
+            socket_mbps=_env_float("BYTEPS_SOCKET_MBPS", 0.0),
+            flight_recorder_steps=_env_int("BYTEPS_FLIGHT_RECORDER_STEPS",
+                                           64),
             flight_recorder_events=_env_int("BYTEPS_FLIGHT_RECORDER_EVENTS",
                                             128),
+            flight_recorder_dir=os.environ.get("BYTEPS_FLIGHT_RECORDER_DIR",
+                                               ""),
+            global_group=_env_bool("BYTEPS_JAX_DISTRIBUTED"),
+            global_coord_uri=os.environ.get(
+                "BYTEPS_JAX_COORD_URI",
+                os.environ.get("DMLC_PS_ROOT_URI", "127.0.0.1")),
+            global_coord_port=_env_int(
+                "BYTEPS_JAX_COORD_PORT", _env_int("DMLC_PS_ROOT_PORT", 9000)),
             partition_bytes=_env_int("BYTEPS_PARTITION_BYTES",
                                      DEFAULT_PARTITION_BYTES),
             reduce_dtype=os.environ.get("BYTEPS_REDUCE_DTYPE") or "float32",

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from byteps_tpu_torch.common.config import check_ported, get_config
+from byteps_tpu_torch.common.flight_recorder import get_flight_recorder
 from byteps_tpu_torch.common.faults import (
     FaultPlan,
     ServerDownError,
@@ -597,6 +598,10 @@ class DcnCore:
         with self._key_lock:
             version = self._versions.get(name, 0)
             self._versions[name] = version + 1
+        # the highest round any tensor reached is the training step: the
+        # flight recorder's step ring advances here, where the reference
+        # advances its tracer
+        get_flight_recorder().on_step(version + 1)
         plans = [
             None
             if codec is None or p.length * 4 < self.cfg.min_compress_bytes

@@ -17,8 +17,10 @@ tier consumes the replica and tenant scopes: ``serve.Scheduler`` ticks
 its plan once an iteration (op ``serve``; ``kill`` kills the replica,
 ``hang`` stalls it) and, with tenant rules, once per waiting tenant
 (``slow`` delays the tenant's admission, ``hang`` defers it); the KV
-wire's pushes tick op ``push``. The proc scope only parses here: its
-consumer, the launcher's supervisor, waits for the process tier.
+wire's pushes tick op ``push``, as do the socket NIC's requests
+(``common/socknic.py``). The proc scope is the launcher's: its
+``Supervisor`` ticks a child's plan once a poll (op ``proc``; ``kill``
+and ``restart`` become a real SIGKILL, ``restart`` also respawns).
 
 Spec grammar (semicolon-separated rules)::
 

@@ -231,6 +231,20 @@ class MetricsRegistry:
             out["dropped_series"] = self.dropped_series
         return out
 
+    def snapshot_scalars(self, prefix: str = "") -> Dict[str, Any]:
+        """Counters and gauges only: the flight recorder's per-step view,
+        whose cost must not grow with the process's histograms."""
+        with self._lock:
+            counters = {k: v for k, v in self._counters.items()
+                        if k.startswith(prefix)}
+            gauges = {k: v for k, v in self._gauges.items()
+                      if k.startswith(prefix)}
+        return {
+            "counters": {k: c.value() for k, c in sorted(counters.items())},
+            "gauges": {k: {"value": g.value(), "max": g.max()}
+                       for k, g in sorted(gauges.items())},
+        }
+
 
 _registry: Optional[MetricsRegistry] = None
 _registry_lock = threading.Lock()

@@ -20,9 +20,10 @@ fast (SURVEY §3.2 — "the single most important behavior to preserve"):
 The scheduler is stage-generic: a pipeline is a list of named stages,
 each with a function run on the stage's own thread pool. Each stage's
 run and queue-dwell times land in the metrics registry as
-``scheduler.stage.<NAME>.run_us`` / ``dwell_us``. The per-partition
-chrome trace and the flight recorder of the reference are not ported
-yet.
+``scheduler.stage.<NAME>.run_us`` / ``dwell_us``, and every
+``StallError`` / ``PartitionFailure`` carries the flight recorder's
+post-mortem (``common/flight_recorder.py``). The per-partition chrome
+trace of the reference waits for the port's tracer.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from byteps_tpu_torch.common.flight_recorder import get_flight_recorder
 from byteps_tpu_torch.common.logging import get_logger
 from byteps_tpu_torch.common.metrics import get_registry
 from byteps_tpu_torch.common.partition import Partition
@@ -117,6 +119,9 @@ class StallError(TimeoutError):
         self.total_parts = total_parts
         self.diag = diag
         self.deadline_capped = deadline_capped
+        # the flight recorder's post-mortem (the per-step ring and recent
+        # FAULT events), attached at raise time by Handle.wait()
+        self.post_mortem: Optional[Dict[str, Any]] = None
 
 
 def capped_timeout(timeout: Optional[float]) -> Tuple[Optional[float], bool]:
@@ -153,6 +158,9 @@ class PartitionFailure(RuntimeError):
         self.cause = cause
         self.partial_results = partial_results
         self.__cause__ = cause
+        # the flight recorder's post-mortem, attached by
+        # Handle._partition_failed
+        self.post_mortem: Optional[Dict[str, Any]] = None
 
 
 class Handle:
@@ -180,6 +188,7 @@ class Handle:
         # pipeline: () -> dict of counters, folded into the StallError a
         # timed-out wait() raises.
         self.diag: Optional[Callable[[], Dict[str, Any]]] = None
+        self._stall_recorded = False  # one FAULT-ring event per handle
 
     def _partition_done(self, part_idx: int, result: Any) -> None:
         with self._lock:
@@ -195,9 +204,29 @@ class Handle:
         with self._lock:
             if self._error is not None:
                 return  # already failed and signalled
-            self._error = PartitionFailure(
+            err = self._error = PartitionFailure(
                 self.name, part_idx, exc, dict(self.results))
-        self._event.set()
+        # the post-mortem rides the first failure: built outside the
+        # handle lock, attached before the waiters wake, and its file
+        # written after they did (a slow disk must not hold a waiter long
+        # enough to misread the failure as a stall)
+        fr = pm = None
+        try:
+            fr = get_flight_recorder()
+            fr.record_event("partition_failure", {
+                "handle": self.name, "part": part_idx,
+                "error": type(exc).__name__})
+            pm = fr.post_mortem(reason="partition_failure", dump=False)
+            err.post_mortem = pm
+        except Exception:  # noqa: BLE001 - telemetry must never mask
+            pass           # the original failure
+        finally:
+            self._event.set()
+        if fr is not None and pm is not None:
+            try:
+                fr.maybe_dump("partition_failure", pm)
+            except Exception:  # noqa: BLE001
+                pass
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -222,9 +251,26 @@ class Handle:
                     diag = {"diag_error": f"{type(e).__name__}: {e}"}
             with self._lock:
                 done = sorted(self.results)
-            raise StallError(self.name, effective, done,
+            err = StallError(self.name, effective, done,
                              self._num_partitions, diag,
                              deadline_capped=capped)
+            # the post-mortem rides every stall; its FAULT event is
+            # recorded once a handle (poll-style waiters re-raise this
+            # every slice and would evict the ring's real history)
+            try:
+                fr = get_flight_recorder()
+                with self._lock:
+                    first = not self._stall_recorded
+                    self._stall_recorded = True
+                if first:
+                    fr.record_event("stall", {
+                        "handle": self.name, "done": len(done),
+                        "total": self._num_partitions,
+                        "deadline_capped": capped})
+                err.post_mortem = fr.post_mortem(reason="stall")
+            except Exception:  # noqa: BLE001 - telemetry must never
+                pass           # mask the stall itself
+            raise err
         if self._error is not None:
             raise self._error
         return self.results

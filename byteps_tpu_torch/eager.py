@@ -236,6 +236,11 @@ def init(compression_params: Optional[Dict[str, Any]] = None,
         return
     cfg = get_config()
     check_ported(cfg)
+    # the global group (BYTEPS_JAX_DISTRIBUTED): join it here when the
+    # launcher's bootstrap did not (a no-op once joined)
+    from byteps_tpu_torch.comm.distributed import maybe_init_distributed
+
+    maybe_init_distributed(cfg)
     _state.cfg = cfg
     _state.registry = TensorRegistry()
     _state.spec = from_params(compression_params)

@@ -309,7 +309,21 @@ def make_gpt_train_step(
         opt.step()
         return _group_mean(loss, mean_axis)
 
-    return step, params, opt
+    return ticking(step), params, opt
+
+
+def ticking(step):
+    """``step`` with one flight-recorder tick a dispatched step (the
+    reference's factories do the same): a relative tick, since the
+    recorder may already be ahead (DCN rounds, an earlier model)."""
+    from byteps_tpu_torch.common.flight_recorder import get_flight_recorder
+
+    def ticked(*a, **k):
+        out = step(*a, **k)
+        get_flight_recorder().tick()
+        return out
+
+    return ticked
 
 
 def accumulate(loss_fn, batch: Sequence[torch.Tensor], accum_steps: int,
@@ -460,7 +474,7 @@ def _mesh_step(loss_fn, params, leaves, specs, opt, axes: _Axes, dev,
             dist.all_reduce(loss, group=axes.pp.group)
         return _group_mean(loss, mean_axis)
 
-    return step
+    return ticking(step)
 
 
 def make_gpt_pp_train_step(
@@ -726,7 +740,7 @@ def _family_step(loss_fn, convs, params, leaves, opt, axes: _Axes, dev,
         opt.step()
         return _group_mean(loss, mean_axis)
 
-    return step
+    return ticking(step)
 
 
 def make_bert_train_step(
@@ -905,7 +919,7 @@ def make_resnet_train_step(
         return _group_mean(loss.detach(),
                            data_axis if mesh is not None else None)
 
-    return step, params, opt, bn_state
+    return ticking(step), params, opt, bn_state
 
 
 def _copy_tree(dst, src) -> None:

@@ -251,6 +251,26 @@ _NOT_ELEMENTWISE = tuple(c for c in (getattr(torch.optim, "LBFGS", None),
                          if c is not None)
 
 
+def _first_state(optimizer: torch.optim.Optimizer,
+                 p: torch.Tensor) -> Dict[str, Any]:
+    """The state ``optimizer``'s first step would create for ``p``, at
+    zero: a throwaway optimizer of its class and hyperparameters steps a
+    one-element parameter once, which names the keys; a per-element one
+    becomes zeros like ``p``, a scalar one (AdamW's ``step``) zeros like
+    the probe's."""
+    probe = torch.zeros(1, requires_grad=True)
+    o = type(optimizer)([probe])
+    o.param_groups[0].update({k: v for k, v in
+                              optimizer.param_groups[0].items()
+                              if k != "params"})
+    probe.grad = torch.zeros(1)
+    o.step()
+    return {k: (torch.zeros_like(p) if torch.is_tensor(v) and v.ndim > 0
+                and v.shape == probe.shape else
+                torch.zeros_like(v) if torch.is_tensor(v) else v)
+            for k, v in o.state[probe].items()}
+
+
 class DistributedOptimizer:
     """Wrap a ``torch.optim`` optimizer with BytePS gradient aggregation:
     :meth:`step` aggregates the ``.grad`` of ``params`` (compressed when
@@ -528,6 +548,54 @@ class DistributedOptimizer:
             off += p.numel()
         self._seg.grad = None
         self._seg.data = self._seg.new_empty(0)
+
+    def state_tree(self) -> Dict[str, Any]:
+        """This rank's whole optimizer state, what a bit-exact resume
+        needs (``checkpoint.train_state``'s ``opt``): the step ``count``
+        and ``seed`` (with the codec's seed they make each step's codec
+        key), the EF residual and the momentum (None when off), and the
+        inner optimizer's state a parameter in ``params`` order. A
+        parameter the inner optimizer has not stepped yet gets the state
+        its first step would create, zero, so a fresh optimizer's tree
+        is a restore's ``like``. The tensors are the live ones."""
+        if self.zero:
+            raise NotImplementedError(
+                "state_tree under zero=True (ZeRO-1's segment state) is "
+                "not ported yet")
+        inner = []
+        for p in self.params:
+            st = self.optimizer.state.get(p)
+            inner.append(dict(st) if st else _first_state(self.optimizer, p))
+        return {"count": self.count, "seed": self.seed, "ef": self.ef,
+                "momentum": self.momentum, "inner": inner}
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: Dict[str, Any]) -> None:
+        """Adopt a :meth:`state_tree` (a restored one, laid out as this
+        optimizer's own): the count, the EF and momentum buffers, and
+        the inner optimizer's state a parameter."""
+        if self.zero:
+            raise NotImplementedError(
+                "load_state_tree under zero=True is not ported yet")
+        if int(tree["seed"]) != self.seed:
+            raise ValueError(f"state of seed {tree['seed']}, this optimizer "
+                             f"has seed {self.seed}")
+        for name in ("ef", "momentum"):
+            cur, new = getattr(self, name), tree[name]
+            if (cur is None) != (new is None) or (
+                    cur is not None and new.shape != cur.shape):
+                raise ValueError(f"{name} state does not match this "
+                                 "optimizer's (codec or layout differs)")
+            if cur is not None:
+                setattr(self, name, new.to(cur.device, cur.dtype).clone())
+        if len(tree["inner"]) != len(self.params):
+            raise ValueError(f"{len(tree['inner'])} parameter states for "
+                             f"{len(self.params)} parameters")
+        for p, st in zip(self.params, tree["inner"]):
+            self.optimizer.state[p] = {
+                k: v.clone() if torch.is_tensor(v) else v
+                for k, v in st.items()}
+        self.count = int(tree["count"])
 
     def step(self) -> None:
         if self.zero:

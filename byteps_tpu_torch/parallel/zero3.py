@@ -265,7 +265,7 @@ def make_gpt_zero3_train_step(
                                              transformer_block)
     from byteps_tpu_torch.models.train import (_as_ids, _check_seq_layout,
                                                _group_mean, _whole_params,
-                                               adamw)
+                                               adamw, ticking)
     from byteps_tpu_torch.ops.backend import resolve_device
 
     del partition_bytes
@@ -347,4 +347,4 @@ def make_gpt_zero3_train_step(
         opt.step()
         return _group_mean(loss.detach(), joint)
 
-    return step, segs, opt
+    return ticking(step), segs, opt

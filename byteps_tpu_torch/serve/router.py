@@ -28,9 +28,8 @@ With ``prefill_replicas`` it disaggregates: long prompts run on
 dedicated ``role="prefill"`` replicas whose KV blocks stream over a
 :class:`~byteps_tpu_torch.serve.kv_wire.KVWire` to a decode target, and
 ``migrate_preempt`` turns pool-pressure preemption into
-migrate-don't-evict. The reference's ``kv_target_wrap`` (delivering the
-wire's blocks over a socket, ``serve/kv_socket.py``) waits for the
-port's socket NIC (ROADMAP A.8).
+migrate-don't-evict. ``kv_target_wrap`` moves the wire's delivery onto
+another surface, e.g. a real TCP link (``serve/kv_socket.py``).
 """
 
 from __future__ import annotations
@@ -79,7 +78,16 @@ class Router:
     prefill in place on a decode replica. ``migrate_preempt``: wherever
     two or more decode replicas live, a pool-pressure preemption victim's
     blocks move to the roomiest sibling instead of being freed and
-    recomputed."""
+    recomputed.
+
+    ``kv_target_wrap`` swaps the migration wire's delivery surface: it
+    maps a resolved decode Scheduler to whatever should receive its
+    ``ingest_block`` calls — e.g. a
+    :class:`~byteps_tpu_torch.serve.kv_socket.SocketKVTarget`, so the
+    block bytes cross a real TCP link. Only the resolve callback handed
+    to the ``KVWire`` is wrapped; the router's own adoption bookkeeping
+    (``staged_blocks``/``pop_staged``/``submit_migrated``) still talks to
+    the local scheduler object."""
 
     def __init__(self, replicas: List[Scheduler],
                  lease_ms: Optional[int] = None,
@@ -91,7 +99,9 @@ class Router:
                  wire_mbps: Optional[float] = None,
                  wire_credit: Optional[int] = None,
                  prompt_threshold: Optional[int] = None,
-                 migrate_preempt: Optional[bool] = None):
+                 migrate_preempt: Optional[bool] = None,
+                 kv_target_wrap: Optional[Callable[[Scheduler], Any]]
+                 = None):
         if not replicas:
             raise ValueError("router needs at least one replica")
         if policy is not None:
@@ -130,6 +140,7 @@ class Router:
             else c.serve_disagg_prompt_threshold
         self._migrate_preempt = migrate_preempt \
             if migrate_preempt is not None else c.serve_disagg_migrate
+        self._kv_target_wrap = kv_target_wrap
         # rid -> decode-target index, remapped when the target dies; read
         # by KVWire push threads, hence the lock
         self._mig_lock = threading.Lock()
@@ -417,7 +428,17 @@ class Router:
         if w is None:
             from byteps_tpu_torch.serve.kv_wire import KVWire
 
-            w = KVWire(self.replicas[i].kv_codec, self._resolve_target,
+            resolve = self._resolve_target
+            if self._kv_target_wrap is not None:
+                # wrap ONLY the wire's delivery surface: the adoption
+                # bookkeeping elsewhere still needs the local object
+                wrap = self._kv_target_wrap
+
+                def resolve(rid, _r=self._resolve_target, _w=wrap):
+                    t = _r(rid)
+                    return None if t is None else _w(t)
+
+            w = KVWire(self.replicas[i].kv_codec, resolve,
                        mbps=self._wire_mbps, credit=self._wire_credit)
             self._wires[i] = w
         return w

@@ -25,6 +25,9 @@
     python3 chip_smoke.py --families  # the flash kernels at the families'
                                      # calls, families and families_tiny
                                      # (20) alone
+    python3 chip_smoke.py --process_tier  # process_tier (21) and
+                                     # examples (15, with launch_global)
+                                     # alone
 
 Phases, each printing one JSON line:
 
@@ -164,7 +167,15 @@ Phases, each printing one JSON line:
    f32 cut (1 long, 4 short) equal to colocated and solo;
    migrate-don't-evict (f32, bench.py's: block 16, replica A's pool 1 + 9,
    4 prompts of 48, 32 new, max_batch 2): recompute > 0 with migration
-   off, fewer with it on, migrated > 0, streams equal; every leg's flash
+   off, fewer with it on, migrated > 0, streams equal; kv_socket: the f32
+   cut's disaggregated run again with every KV block crossing a real TCP
+   socket (``Router(kv_target_wrap=...)``: ``SocketKVTarget`` →
+   ``KVSocketEndpoint`` in front of the decode replica) under a
+   ``push:corrupt@op=1`` rule on the socket client: every stream
+   bit-equal to the in-process wire's, the corruption rejected by the
+   listener's CRC and healed by the KVPUSH stage retry, every migrated
+   block ingested once, ms a block over the socket beside the in-process
+   delivery's; every leg's flash
    launches held to the prediction from its prefill chunks, the solo
    runs' after the path's counts are read;
 7. tiny — a tiny model run on the CPU (plain versions) and on the card
@@ -310,7 +321,7 @@ Phases, each printing one JSON line:
     dwell sums (REDUCE's, run in the caller's thread, too) and the tail
     thread's sum (``eager.tail_us``) per step, peak memory;
 14. train_chaos — the DCN tier's robustness, the same two ranks and
-    model (4 layers), two port server processes a leg (``DMLC_NUM_SERVER=2``), one
+    model at 2 layers, two port server processes a leg (``DMLC_NUM_SERVER=2``), one
     warm-up and 2 steps a leg: staged_raw (the yardstick); dcn_chaos
     (``DistributedOptimizer`` under ``BYTEPS_FAULT_SPEC=
     push:timeout@p=0.02;pull:corrupt@p=0.02``, a fixed seed: retries,
@@ -356,10 +367,20 @@ Phases, each printing one JSON line:
     pull at most one round stale; stale and served-ahead pulls, and
     both ranks' ms a step against dcn_straggler_k0's).
 15. examples — the port's ``examples/torch_port/`` as their docstrings
-    run them, one port server process and two worker processes on the
-    card: the MNIST example's loss falls from epoch to epoch and both
-    workers end with equal parameters; the benchmark example prints its
-    GB/s, beside the card's name and power limit.
+    run them, each job's server and workers started through the
+    launcher's roles (``python -m byteps_tpu_torch.launcher``:
+    ``DMLC_ROLE=server``, and ``DMLC_ROLE=worker`` spawning both workers
+    on the card): the MNIST example's loss falls from epoch to epoch and
+    both workers end with equal parameters; the benchmark example prints
+    its GB/s, beside the card's name and power limit; and, at once,
+    launch_global: ``BYTEPS_JAX_DISTRIBUTED=1`` through the launcher's
+    worker role spawns two copies of ``checkpoint_resume.py`` (GPT-2
+    medium at full width and ``LAUNCH_GLOBAL_LAYERS`` layers, B=4 ×
+    S=512 a rank) whose bootstrap forms a gloo world of 2 before the
+    script runs: both report the restored checkpoint matching their
+    live parameters and equal digests, and each rank's flash launches
+    (reported by the rank) are the forward (wgmma), dq and dk/dv once a
+    layer and step.
 16. train_parallel — tensor and sequence parallelism: GPT-2 medium at
     full width and 12 of its 24 layers (``RANK_PHASE_LAYERS``: the cut
     keeps the whole smoke inside its limit with train_multislice), bf16
@@ -454,6 +475,24 @@ Phases, each printing one JSON line:
     weights scaled by 20: the card's tokens equal the CPU's, not
     constant, each cached step's logits within 1e-4 of teacher-forced
     ``t5_decode``.
+21. process_tier — resume_exact: GPT-2 medium at full width and
+    ``PROCESS_TIER_LAYERS`` layers, B=8 × S=1024, the onebit + EF leg
+    fed through ``data.PrefetchLoader`` in ``data.ElasticShardMap``
+    order: 2 steps, an asynchronous ``Checkpointer.save`` of
+    ``checkpoint.train_state`` (parameters, AdamW moments and step
+    count, EF residual, codec seed and count, the shard map's cursor),
+    2 more steps; a freshly built step restored from it trains the same
+    2 steps: losses, parameters, moments and EF bit-equal to the
+    continuation; the checkpoint's bytes, the save's device-to-host ms
+    and writer ms, the restore ms; the flight recorder's step ring
+    advanced once a step. supervised_resume: a port server in this
+    process and the launcher's ``Supervisor`` running ``--child-worker``
+    children (``BYTEPS_CHILD_PIN=1``, a checkpoint directory, no card):
+    one clean run, one whose child is SIGKILLed after its round-2
+    progress line, respawned, restored and rejoined: ``state_crc`` and
+    ``state_sum`` equal, exit reasons ``signal:SIGKILL`` … ``clean``,
+    restarts and ``resumed_from`` at least 1; the ms from the kill to the
+    respawned child's first round.
 
 Each of phases 4-6, each train leg and aggregate_onebit runs with the
 launch counters set to 0 just before it and read just after: serve,
@@ -472,7 +511,9 @@ pack and unpack-sum kernels once per gradient chunk and step, and the
 top-k leg the round trip once per full chunk and step (346) and select
 and reconstruct-sum once per step (the ragged tail chunk),
 aggregate_onebit the pack once a worker (296) and the grid unpack-sum
-once a sum (2). families (each leg counted from 0) the flash kernels
+once a sum (2); process_tier the forward (wgmma), dq and dk/dv once a
+layer and step and onebit pack and unpack-sum once a gradient chunk
+and step over its 6 steps. families (each leg counted from 0) the flash kernels
 12 a step for BERT and ViT and 36 for T5, onebit pack and unpack-sum
 once a gradient chunk a step for BERT, t5_generate's forward 12 + 12·N
 and decode 12·N a call of N new tokens, and nothing for ResNet-50.
@@ -507,7 +548,8 @@ rank, train_chaos's nine legs on one rank, aggregate_onebit,
 train_parallel's one_rank and one rank of each leg, train_pipeline's
 one_rank and one rank of each leg, train_moe's moe_one_rank and one
 rank of each leg, train_multislice's one rank of each leg,
-sharded_decode's moe_one_rank and rank 0 of each leg, families' legs;
+sharded_decode's moe_one_rank and rank 0 of each leg, families' legs,
+process_tier's resume_exact;
 the segmented
 LoRA row's launches count its fused launches and both halves (apart as
 ``fused_launches``, ``down_launches`` and ``up_launches``, and the
@@ -2615,7 +2657,8 @@ def phase_serve_router(params, cfg):
     gc.collect()
 
     # -- the disaggregated race, bf16 ---------------------------------------
-    def race(c, n_long, n_short, seed, disagg, max_new=8):
+    def race(c, n_long, n_short, seed, disagg, max_new=8, wrap=None,
+             tag="", rid=int):
         rng = np.random.default_rng(seed)
         trace = []
         for _ in range(n_long):
@@ -2631,15 +2674,15 @@ def phase_serve_router(params, cfg):
                                         replica_id=1, **kw), chunks)]
             router = Router(reps[:1], prefill_replicas=reps[1:],
                             lease_ms=600000, prompt_threshold=120,
-                            migrate_preempt=False)
+                            migrate_preempt=False, kv_target_wrap=wrap)
         else:
             reps = [chunk_log(Scheduler(params, c, replica_id=i, **kw),
                               chunks) for i in range(2)]
             router = Router(reps, lease_ms=600000, migrate_preempt=False)
-        reqs = [Request(rid=i, prompt=p, max_new=max_new)
+        reqs = [Request(rid=rid(i), prompt=p, max_new=max_new)
                 for i, p in enumerate(trace)]
         c0 = counters()
-        leg = LaunchLeg(f"race_{'disagg' if disagg else 'colocated'}")
+        leg = LaunchLeg(f"race_{'disagg' if disagg else 'colocated'}{tag}")
         res, wall = timed(router.run, reqs)
         router.close()
         launches = leg.held(forwards(c, L, chunks))
@@ -2668,7 +2711,9 @@ def phase_serve_router(params, cfg):
         "streams_equal": same, "streams": len(reqs),
         "short_ttft_p99_colocated_over_disagg":
             col["ttft_ms_short"]["p99"] / dis["ttft_ms_short"]["p99"]}
-    reqs, dis_res, _ = race(cfg32, 1, 4, 52, True)
+    inproc_ms = []
+    reqs, dis_res, _ = race(cfg32, 1, 4, 52, True,
+                            wrap=lambda t: TimedTarget(t, inproc_ms))
     _, col_res, _ = race(cfg32, 1, 4, 52, False)
     solo.append(("race_f32", dis_res, reqs))
     for r in reqs:
@@ -2676,6 +2721,8 @@ def phase_serve_router(params, cfg):
                               dis_res[r.rid]["tokens"]):
             raise AssertionError(f"f32 race: colocated {r.rid} differs")
     out["race_f32_equal"] = True
+    out["kv_socket_f32"] = kv_socket_leg(race, cfg32, dis_res, inproc_ms,
+                                         counters, delta)
 
     # -- migrate-don't-evict, f32 ------------------------------------------
     rng = np.random.default_rng(53)
@@ -2729,6 +2776,90 @@ def phase_serve_router(params, cfg):
                 "race_f32_equals_solo": True}
 
     return out, [compare]
+
+
+class TimedTarget:
+    """A KV wire target that times each ``ingest_block`` into ``log``
+    (ms) and forwards it, liveness included, to ``target``."""
+
+    def __init__(self, target, log: list):
+        self._t, self._log = target, log
+
+    @property
+    def dead(self):
+        return getattr(self._t, "dead", False)
+
+    def ingest_block(self, rid, block_idx, frame):
+        t0 = time.perf_counter()
+        self._t.ingest_block(rid, block_idx, frame)
+        self._log.append((time.perf_counter() - t0) * 1e3)
+
+
+def kv_socket_leg(race, cfg32, inproc_res, inproc_ms, counters, delta):
+    """serve_router's f32 race cut again with every migrated KV block
+    crossing a real TCP socket: the Router's ``kv_target_wrap`` maps the
+    decode replica to a ``SocketKVTarget`` whose client carries a
+    ``push:corrupt@op=1`` rule, in front of a ``KVSocketEndpoint`` on
+    that replica. Every stream bit-equal to the in-process wire's run
+    (``inproc_res``); the corrupted frame rejected by the listener's CRC
+    and healed by the KVPUSH stage retry; every migrated block ingested
+    over the socket once; ms a delivered block (the request and its
+    reply, the far end's decode and staging included; the rejected one
+    not counted) beside the in-process delivery's."""
+    from byteps_tpu_torch.common.faults import FaultPlan, parse_fault_spec
+    from byteps_tpu_torch.serve.kv_socket import (KVSocketEndpoint,
+                                                  SocketKVTarget)
+
+    import threading
+
+    plan = FaultPlan(parse_fault_spec("push:corrupt@op=1"), seed=0)
+    ends, socket_ms, lock = {}, [], threading.Lock()
+
+    def wrap(sched):
+        with lock:                 # the wire's push threads resolve at once
+            if id(sched) not in ends:
+                ep = KVSocketEndpoint(sched, port=free_port_pair())
+                ends[id(sched)] = (ep, SocketKVTarget(
+                    ep.host, ep.port, timeout_ms=10000, fault_plan=plan))
+            return TimedTarget(ends[id(sched)][1], socket_ms)
+
+    c0 = counters()
+    try:
+        # request ids cross the socket as strings (kv_socket's frame)
+        reqs, res, stats = race(cfg32, 1, 4, 52, True, wrap=wrap,
+                                tag="_socket", rid=str)
+    finally:
+        for ep, proxy in ends.values():
+            proxy.close()
+            ep.close()
+    c = counters()
+    d = delta(c0, c, "serve.kv_socket.blocks_ingested",
+              "serve.migration.blocks", "scheduler.stage_retries")
+    crc = sum(c.get(k, 0) - c0.get(k, 0) for k in c
+              if k.startswith("socknic.l") and k.endswith(".crc_rejects"))
+    for r in reqs:
+        if not np.array_equal(res[r.rid]["tokens"],
+                              inproc_res[int(r.rid)]["tokens"]):
+            raise AssertionError(f"kv_socket: stream {r.rid} differs from "
+                                 "the in-process wire's")
+    if len(ends) != 1:
+        raise AssertionError(f"kv_socket: {len(ends)} decode endpoints")
+    blocks = d["serve.migration.blocks"]
+    if not (blocks > 0 and d["serve.kv_socket.blocks_ingested"] == blocks
+            and plan.counters().get("corrupt") == 1 and crc == 1
+            and d["scheduler.stage_retries"] >= 1
+            and len(socket_ms) == blocks):
+        raise AssertionError(f"kv_socket: {d}, CRC rejects {crc}, plan "
+                             f"{plan.counters()}, {len(socket_ms)} "
+                             "deliveries")
+    return {"requests": len(reqs), "blocks": blocks,
+            "block_bytes": stats["serve.migration.bytes"] // blocks,
+            "corrupt_injected": 1,
+            "crc_rejects": crc,
+            "stage_retries": d["scheduler.stage_retries"],
+            "socket_ms_per_block": percentiles(socket_ms),
+            "inproc_ms_per_block": percentiles(inproc_ms),
+            "launches": stats["launches"], "streams_equal": True}
 
 
 def phase_tiny():
@@ -3230,94 +3361,179 @@ def phase_eval(B=8, S=1024, steps=2) -> dict:
 
 
 EXAMPLES = "examples/torch_port"
+# launch_global's depth (GPT-2 medium at full width): two processes on
+# the card, each saving its parameters every step
+LAUNCH_GLOBAL_LAYERS = 2
+LAUNCH_GLOBAL_STEPS = 2
+LAUNCH_GLOBAL_BATCH = (4, 512)
+
+
+def launcher_env(root, **kv) -> dict:
+    """This environment without a job's DMLC_* and launcher knobs, plus
+    ``kv``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(root))
+    for k in ("DMLC_ROLE", "DMLC_WORKER_ID", "DMLC_NUM_WORKER",
+              "BYTEPS_LOCAL_SIZE", "BYTEPS_JAX_DISTRIBUTED"):
+        env.pop(k, None)
+    env.update({k: str(v) for k, v in kv.items()})
+    return env
+
+
+def by_worker(pattern: str, out: str, n: int = 2) -> list:
+    """Each worker's matches of ``pattern`` (after its ``[worker i]``
+    tag) in the launcher's merged output: the children share one pipe,
+    and ``print`` writes a line and its newline apart, so two workers'
+    lines may run together."""
+    found = [[] for _ in range(n)]
+    for w, m in re.findall(r"\[worker (\d+)\] " + pattern, out):
+        found[int(w)].append(m)
+    return found
 
 
 def phase_examples(card: str) -> dict:
-    """The port's examples as their docstrings run them, the two jobs at
-    once: each one port server process (``python -m
-    byteps_tpu_torch.server``) and two worker processes configured by
-    ``DMLC_*``, on the card. The MNIST example
-    (2 epochs of 2,048 samples, ``--print-digest``): every worker's loss
-    falls from epoch to epoch and both end with the same parameters. The
-    benchmark example (25 MB in 8 tensors, 5 iterations): its GB/s line,
-    beside the card's name and power limit. Each server exits 0 after
-    the workers' goodbyes and is killed on any other way out."""
-    import os
-    import re
+    """The port's examples as their docstrings run them, started through
+    the launcher's roles (``python -m byteps_tpu_torch.launcher``), three
+    jobs at once. MNIST and the benchmark: each one server
+    (``DMLC_ROLE=server``) and one worker launcher (``DMLC_ROLE=worker``,
+    ``BYTEPS_LOCAL_SIZE=2``: two workers on the card, the single-host
+    simulation's ``DMLC_WORKER_ID`` a child). The MNIST example (2 epochs
+    of 2,048 samples, ``--print-digest``): every worker's loss falls from
+    epoch to epoch and both end with the same parameters. The benchmark
+    example (25 MB in 8 tensors, 5 iterations): its GB/s line, beside the
+    card's name and power limit. Each server exits 0 after the workers'
+    goodbyes, and every process is killed on any other way out.
+    launch_global: ``BYTEPS_JAX_DISTRIBUTED=1`` through the worker role,
+    whose bootstrap forms a gloo world of 2 before
+    ``checkpoint_resume.py`` runs (GPT-2 medium, ``LAUNCH_GLOBAL_*``):
+    both ranks report the restored checkpoint matching and equal
+    digests, and their flash launches are the forward (wgmma), dq and
+    dk/dv once a layer and step."""
+    import shutil
+    import tempfile
     from pathlib import Path
 
     from byteps_tpu_torch.server import native
 
     root = Path(__file__).resolve().parent
     native.build()
+    launcher = [sys.executable, "-m", "byteps_tpu_torch.launcher"]
+
+    def run(env, cmd):
+        """The worker launcher's merged output and wall seconds."""
+        t0 = time.perf_counter()
+        p = subprocess.Popen(launcher + cmd, env=env, cwd=root,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+        try:
+            out, err = p.communicate(timeout=300)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if p.returncode != 0:
+            raise AssertionError(f"examples {cmd[-1]}: the worker launcher "
+                                 f"exited {p.returncode}: {err[-2000:]}")
+        return out, time.perf_counter() - t0
 
     def job(script, args, port, n=2):
-        env = dict(os.environ, PYTHONPATH=str(root),
-                   DMLC_NUM_WORKER=str(n), DMLC_NUM_SERVER="1",
-                   DMLC_PS_ROOT_URI="127.0.0.1",
-                   DMLC_PS_ROOT_PORT=str(port - 1))
+        env = launcher_env(root, DMLC_NUM_WORKER=n, DMLC_NUM_SERVER=1,
+                           DMLC_PS_ROOT_URI="127.0.0.1",
+                           DMLC_PS_ROOT_PORT=port - 1)
         server = subprocess.Popen(
-            [sys.executable, "-m", "byteps_tpu_torch.server"],
-            env={**env, "DMLC_ROLE": "server", "DMLC_SERVER_ID": "0"},
+            launcher, env={**env, "DMLC_ROLE": "server",
+                           "DMLC_SERVER_ID": "0"},
             cwd=root, stdout=sys.stderr)
-        procs = []
         try:
-            t0 = time.perf_counter()
-            procs = [subprocess.Popen(
-                [sys.executable, str(root / EXAMPLES / script), *args],
-                env={**env, "DMLC_WORKER_ID": str(w)}, cwd=root,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                for w in range(n)]
-            outs = [p.communicate(timeout=300) for p in procs]
-            wall = time.perf_counter() - t0
-            for p, (_, err) in zip(procs, outs):
-                if p.returncode != 0:
-                    raise AssertionError(f"examples {script}: a worker "
-                                         f"exited {p.returncode}: "
-                                         f"{err[-2000:]}")
+            out, wall = run({**env, "DMLC_ROLE": "worker",
+                             "DMLC_WORKER_ID": "0",
+                             "BYTEPS_LOCAL_SIZE": str(n)},
+                            [sys.executable, str(root / EXAMPLES / script),
+                             *args])
             if server.wait(timeout=60) != 0:
                 raise AssertionError(f"examples {script}: the server exited "
                                      f"{server.returncode}")
-            return [o for o, _ in outs], wall
+            return out, wall
         finally:
-            for p in procs + [server]:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+            if server.poll() is None:
+                server.kill()
+                server.wait()
+
+    def launch_global(port):
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        B, S = LAUNCH_GLOBAL_BATCH
+        env = launcher_env(root, DMLC_ROLE="worker", DMLC_NUM_WORKER=2,
+                           DMLC_WORKER_ID=0, BYTEPS_LOCAL_SIZE=2,
+                           BYTEPS_JAX_DISTRIBUTED=1,
+                           DMLC_PS_ROOT_URI="127.0.0.1",
+                           DMLC_PS_ROOT_PORT=port)
+        try:
+            return run(env, [
+                sys.executable, str(root / EXAMPLES / "checkpoint_resume.py"),
+                "--config", "gpt2_medium",
+                "--layers", str(LAUNCH_GLOBAL_LAYERS),
+                "--batch", str(B), "--seq", str(S),
+                "--steps", str(LAUNCH_GLOBAL_STEPS), "--ckpt-dir", ckpt,
+                "--print-digest", "--print-launches"])
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
 
     from concurrent.futures import ThreadPoolExecutor
 
-    # the two jobs at once, each with its server and port
-    ports = [free_port_pair()]
-    while len(ports) < 2:
+    ports = []                   # three jobs, each its own port pair
+    while len(ports) < 3:
         p = free_port_pair()
-        if abs(p - ports[0]) > 1:
+        if all(abs(p - q) > 1 for q in ports):
             ports.append(p)
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         mnist = ex.submit(job, "train_mnist_byteps.py",
                           ["--samples", "2048", "--print-digest"], ports[0])
         bench = ex.submit(job, "benchmark_byteps.py", ["--num-iters", "5"],
                           ports[1])
-        (outs, mnist_s), (bench_outs, bench_s) = (mnist.result(),
-                                                  bench.result())
-    losses, digests = [], []
-    for out in outs:
-        ls = [float(v) for v in re.findall(r"epoch \d+: loss=(\S+)", out)]
-        if not (len(ls) == 2 and ls[1] < ls[0]):
-            raise AssertionError(f"examples mnist: losses {ls} not falling")
-        losses.append(ls)
-        digests.append(re.findall(r"params sha1=([0-9a-f]{40})", out))
+        glob = ex.submit(launch_global, ports[2])
+        (mnist_out, mnist_s), (bench_out, bench_s), (g_out, g_s) = (
+            mnist.result(), bench.result(), glob.result())
+    losses = [[float(v) for v in ls] for ls in by_worker(
+        r"epoch \d+: loss=(\d+\.\d{4})", mnist_out)]
+    if not all(len(ls) == 2 and ls[1] < ls[0] for ls in losses):
+        raise AssertionError(f"examples mnist: losses {losses} not falling")
+    sha1 = r"params sha1=([0-9a-f]{40})"
+    digests = by_worker(sha1, mnist_out)
     if len(digests[0]) != 1 or digests[0] != digests[1]:
         raise AssertionError(f"examples mnist: the workers' parameters "
                              f"differ: {digests}")
-    line = [ln for ln in bench_outs[0].splitlines()
-            if ln.startswith("push_pull:")]
+    line = re.findall(r"push_pull: [^\n\[]*workers\)", bench_out)
     if len(line) != 1:
         raise AssertionError(f"examples benchmark: no rate line: "
-                             f"{bench_outs[0]}")
+                             f"{bench_out}")
+    g_digests, g_launches = by_worker(sha1, g_out), []
+    want = {k: LAUNCH_GLOBAL_STEPS * LAUNCH_GLOBAL_LAYERS for k in TRAIN}
+    matches = by_worker(r"restored checkpoint matches live params: (\w+)",
+                        g_out)
+    launch_lines = by_worker(r"launches (\{[^}]*\})", g_out)
+    for rank in range(2):
+        if matches[rank] != ["True"] or len(launch_lines[rank]) != 1:
+            raise AssertionError(f"launch_global: rank {rank}: {g_out}")
+        counts = json.loads(launch_lines[rank][0])
+        got = {k: counts.get(k, 0) for k in TRAIN + ("flash_fwd_split",)}
+        if got != {**want, "flash_fwd_split": 0}:
+            raise AssertionError(f"launch_global: rank {rank} launched "
+                                 f"{got}, predicted {want} (wgmma)")
+        g_launches.append(got)
+    if len(g_digests[0]) != 1 or g_digests[0] != g_digests[1]:
+        raise AssertionError(f"launch_global: the ranks' parameters "
+                             f"differ: {g_digests}")
     res = {"phase": "examples", "mnist_losses": losses,
            "mnist_params_sha1": digests[0][0], "mnist_wall_s": mnist_s,
-           "benchmark": line[0], "benchmark_wall_s": bench_s, "card": card}
+           "benchmark": line[0],
+           "benchmark_wall_s": bench_s,
+           "launch_global": {
+               "layers": LAUNCH_GLOBAL_LAYERS, "steps": LAUNCH_GLOBAL_STEPS,
+               "batch_per_rank": list(LAUNCH_GLOBAL_BATCH), "world": 2,
+               "matches": [True, True], "params_sha1": g_digests[0][0],
+               "launches_by_rank": g_launches, "wall_s": g_s},
+           "card": card}
     emit(res)
     return res
 
@@ -3337,9 +3553,11 @@ GPT2M_PARAMS = 354_871_296
 # inside on slower hosts: every check of those two is a bit-equality,
 # which holds at any depth; each phase names its depth in its output line.
 # train_parallel's limits hold at 12 layers, and its onebit leg's loss
-# gap does not at 8: 0.115 against 0.1, NVIDIA H100 80GB HBM3, 700 W)
+# gap does not at 8: 0.115 against 0.1, NVIDIA H100 80GB HBM3, 700 W;
+# train_chaos, the longest rank phase, at 2 since process_tier came in:
+# its checks are bit-equalities and exact counts, which hold at any depth)
 RANK_PHASE_LAYERS = {"train_ring": 8, "train_dcn": 4, "train_hybrid": 4,
-                     "train_chaos": 4, "train_parallel": 12,
+                     "train_chaos": 2, "train_parallel": 12,
                      "train_multislice": 12}
 # the legs that run the ring tier over a mesh subgroup (a dp line, the
 # slice_ line), each held bit-equal to its staged twin
@@ -8015,6 +8233,277 @@ def phase_families_tiny() -> dict:
 
 
 # the kernels each run of the main path must launch
+# --------------------------------------------------------------------------
+# phase 21: the process tier
+# --------------------------------------------------------------------------
+# resume_exact's depth (GPT-2 medium at full width): its checkpoint holds
+# the parameters, two AdamW moments and the EF residual, 16 bytes a
+# parameter, most of them the embedding's
+PROCESS_TIER_LAYERS = 2
+PROCESS_TIER_BATCH = (8, 1024)
+# the supervised children: rounds, floats a round, the pause a round, and
+# the server's lease (a checkpointing child's interpreter and torch
+# import take seconds before its first round)
+CHILD_ROUNDS = 6
+CHILD_ELEMS = 1 << 16
+CHILD_DELAY_MS = 150
+CHILD_LEASE_MS = 10000
+
+
+def resume_exact(B, S) -> dict:
+    """The onebit + EF leg of GPT-2 medium at ``PROCESS_TIER_LAYERS``
+    layers, its batches read in ``ElasticShardMap`` order through
+    ``PrefetchLoader``: 2 steps, an asynchronous save of the whole train
+    state (the shard map's cursor with it), 2 more steps; a freshly
+    built step, restored, trains the same 2 steps. Losses, parameters,
+    AdamW moments and step count, EF residual and the codec's count
+    must be bit-equal to the continuation."""
+    import shutil
+    import tempfile
+
+    from byteps_tpu_torch.checkpoint import (Checkpointer, load_train_state,
+                                             train_state)
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.common.flight_recorder import get_flight_recorder
+    from byteps_tpu_torch.common.metrics import get_registry
+    from byteps_tpu_torch.data import ElasticShardMap, PrefetchLoader
+    from byteps_tpu_torch.models import GPTConfig, make_gpt_train_step
+    from byteps_tpu_torch.models.convert import flat_leaves
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_medium(),
+                              n_layers=PROCESS_TIER_LAYERS)
+    steps = (2, 2, 2)              # before the save, after it, resumed
+    rows = np.random.default_rng(60).integers(
+        0, cfg.vocab_size, (B * sum(steps), S + 1))
+
+    def batches(smap, n):
+        """``n`` batches of the epoch's order from the map's cursor."""
+        order = smap.shard_for(0, [0])
+        for i in range(n):
+            r = rows[order[i * B:(i + 1) * B]]
+            yield torch.from_numpy(r[:, :-1]), torch.from_numpy(r[:, 1:])
+
+    def run(step, smap, n):
+        losses = []
+        with PrefetchLoader(batches(smap, n), depth=2) as loader:
+            for tok, tgt in loader:
+                losses.append(float(step(tok, tgt)))
+        smap.advance(n * B)
+        return losses
+
+    def factory(seed):
+        return make_gpt_train_step(
+            cfg, compression_params=ONEBIT_EF,
+            generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    fr = get_flight_recorder()
+    hist = get_registry().histogram("train.step_ms")
+    fr0, h0, warm = fr.summary()["step"], hist.count(), fr.summary()["step"] > 0
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        step, params, opt = factory(0)
+        smap = ElasticShardMap(len(rows), seed=61)
+        first = run(step, smap, steps[0])
+        ck = Checkpointer(ckdir, max_to_keep=2, async_save=True)
+        state, specs = train_state(steps[0], params, opt)
+        state["data"] = {"epoch": smap.epoch, "cursor": smap.n_examples
+                         - smap.remaining}
+        torch.cuda.synchronize()
+        ck.save(steps[0], state, specs=specs)
+        del state
+        cont = run(step, smap, steps[1])
+        ck.wait()
+        saved = dict(ck.last_save)
+        step2, params2, opt2 = factory(1)          # other weights
+        like, specs2 = train_state(0, params2, opt2)
+        like["data"] = {"epoch": 0, "cursor": 0}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ck.restore(like, specs=specs2)
+        got_step = load_train_state(params2, opt2, restored)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        smap2 = ElasticShardMap(len(rows), seed=61)
+        smap2.advance(restored["data"]["cursor"])
+        del restored, like
+        resumed = run(step2, smap2, steps[2])
+        same = {
+            "loss": cont == resumed,
+            "params": all(torch.equal(a, b) for a, b in zip(
+                flat_leaves(params), flat_leaves(params2))),
+            "moments": all(
+                set(opt.optimizer.state[a]) == set(opt2.optimizer.state[b])
+                and all(torch.equal(opt.optimizer.state[a][k],
+                                    opt2.optimizer.state[b][k])
+                        for k in opt.optimizer.state[a])
+                for a, b in zip(opt.params, opt2.params)),
+            "ef": torch.equal(opt.ef, opt2.ef),
+            "count": opt.count == opt2.count == sum(steps[:2])}
+        if got_step != steps[0] or not all(same.values()):
+            raise AssertionError(f"resume_exact: restored step {got_step}, "
+                                 f"bit-equal {same}; continuation {cont}, "
+                                 f"resumed {resumed}")
+        n_params = sum(p.numel() for p in opt.params)
+        chunks = -(-n_params // (get_config().partition_bytes // 4))
+        taken = sum(steps)
+        ring = fr.summary()
+        timed_steps = hist.count() - h0
+        if ring["step"] - fr0 != taken or timed_steps != taken - (not warm):
+            raise AssertionError(f"resume_exact: the flight recorder moved "
+                                 f"{ring['step'] - fr0} steps and timed "
+                                 f"{timed_steps} for {taken} steps taken")
+        del step, params, opt, step2, params2, opt2
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return {"layers": cfg.n_layers, "batch": B, "seq": S,
+            "params": n_params, "chunks_per_step": chunks,
+            "steps": list(steps), "losses": first + cont,
+            "resumed_losses": resumed, "bit_equal": same,
+            "checkpoint_bytes": saved["bytes"],
+            "save_d2h_ms": saved["d2h_ms"],
+            "save_write_ms": saved["write_ms"], "restore_ms": restore_ms,
+            "flight_recorder": {"ring_steps": ring["ring_steps"],
+                                "steps_advanced": ring["step"] - fr0,
+                                "train_step_ms_count": timed_steps}}
+
+
+def supervised_resume() -> dict:
+    """The launcher's ``Supervisor`` running ``--child-worker`` children
+    against a port server in this process: one clean run, one whose
+    child is SIGKILLed after its round-2 progress line, respawned,
+    restored from its checkpoint and rejoined. The children are host
+    processes that never touch the card."""
+    import json as js
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from byteps_tpu_torch.launcher import Supervisor
+    from byteps_tpu_torch.server import (native, start_server_any_port,
+                                         stop_server)
+
+    root = Path(__file__).resolve().parent
+    native.build()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_supervised_"))
+
+    def one(name, kill_after=None):
+        port = start_server_any_port(free_port_pair(), num_workers=1,
+                                     engine_threads=2, async_mode=False,
+                                     lease_ms=CHILD_LEASE_MS)
+        out = tmp / f"{name}.json"
+        sup = Supervisor(backoff_ms=50, base_env={
+            "PYTHONPATH": str(root), "CUDA_VISIBLE_DEVICES": "",
+            "BYTEPS_CHILD_SERVERS": f"127.0.0.1:{port}",
+            "BYTEPS_CHILD_ROUNDS": str(CHILD_ROUNDS),
+            "BYTEPS_CHILD_ELEMS": str(CHILD_ELEMS),
+            "BYTEPS_CHILD_PIN": "1", "BYTEPS_CHILD_CKPT": str(tmp / name),
+            "BYTEPS_CHILD_OUT": str(out),
+            "BYTEPS_CHILD_ROUND_DELAY_MS": str(CHILD_DELAY_MS)})
+        progress = Path(str(out) + ".progress")
+
+        def lines():
+            return (progress.read_text().splitlines()
+                    if progress.exists() else [])
+
+        t_start = time.perf_counter()
+        sup.spawn(auto_restart=True)
+        kill_ms = None
+        try:
+            if kill_after is not None:
+                deadline = time.monotonic() + 120
+                while len(lines()) <= kill_after:
+                    if time.monotonic() > deadline or not sup.live():
+                        raise AssertionError(f"supervised_resume: the child "
+                                             f"never passed round "
+                                             f"{kill_after}")
+                    sup.poll()
+                    time.sleep(0.01)
+                t_kill = time.perf_counter()
+                victim = sup.child(0)
+                sup.kill(0, signal.SIGKILL)
+                victim.wait(timeout=30)
+                n_dead = len(lines())
+                deadline = time.monotonic() + 120
+                while len(lines()) <= n_dead:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("supervised_resume: the "
+                                             "respawned child never "
+                                             "finished a round")
+                    sup.poll()
+                    time.sleep(0.01)
+                kill_ms = (time.perf_counter() - t_kill) * 1e3
+            if not sup.wait_all(timeout_s=120, poll_ms=20):
+                raise AssertionError("supervised_resume: children still "
+                                     f"running: {sup.live()}")
+        finally:
+            sup.shutdown()
+            stop_server()
+        return (js.loads(out.read_text()), sup.exit_reasons.get(0, []),
+                kill_ms, time.perf_counter() - t_start)
+
+    try:
+        clean, clean_reasons, _, clean_s = one("clean")
+        crashed, reasons, kill_ms, crash_s = one("crash", kill_after=2)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok = (clean_reasons == ["clean"] and len(reasons) >= 2
+          and reasons[0] == "signal:SIGKILL" and reasons[-1] == "clean"
+          and crashed["restarts"] >= 1 and crashed["resumed_from"] >= 1
+          and len(clean["rounds"]) == CHILD_ROUNDS
+          and crashed["state_crc"] == clean["state_crc"]
+          and crashed["state_sum"] == clean["state_sum"])
+    if not ok:
+        raise AssertionError(f"supervised_resume: clean {clean_reasons} "
+                             f"{clean}, crashed {reasons} {crashed}")
+    return {"rounds": CHILD_ROUNDS, "elems": CHILD_ELEMS,
+            "round_delay_ms": CHILD_DELAY_MS, "lease_ms": CHILD_LEASE_MS,
+            "exit_reasons": reasons, "restarts": crashed["restarts"],
+            "resumed_from": crashed["resumed_from"],
+            "state_crc": crashed["state_crc"],
+            "state_crc_equal": True, "state_sum": crashed["state_sum"],
+            "kill_to_first_respawned_round_ms": kill_ms,
+            "clean_wall_s": clean_s, "crash_wall_s": crash_s}
+
+
+PROCESS_TIER = {}
+
+
+def phase_process_tier() -> dict:
+    """Phase 21 (the module docstring): resume_exact, then
+    supervised_resume; one line naming the depth."""
+    t0 = time.perf_counter()
+    B, S = PROCESS_TIER_BATCH
+    rec = {"phase": "process_tier", "card": card_name_and_limit(),
+           "layers": PROCESS_TIER_LAYERS,
+           "resume_exact": resume_exact(B, S)}
+    rec["supervised_resume"] = supervised_resume()
+    rec["elapsed_s"] = time.perf_counter() - t0
+    emit(rec)
+    PROCESS_TIER.update(rec)
+    return rec
+
+
+def process_tier_path() -> dict:
+    """process_tier counted, its launches held: resume_exact's steps
+    launch the forward (wgmma, never the split path), dq and dk/dv once
+    a layer and step, onebit pack and unpack-sum once a chunk and step;
+    the supervised children launch nothing here."""
+    counts = counted("process_tier", phase_process_tier)
+    rx = PROCESS_TIER["resume_exact"]
+    steps = sum(rx["steps"])
+    want = {**{k: steps * rx["layers"] for k in TRAIN},
+            "flash_fwd_split": 0, "flash_decode": 0,
+            "onebit_pack": steps * rx["chunks_per_step"],
+            "onebit_unpack_sum": steps * rx["chunks_per_step"]}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"process_tier launched {got}, predicted "
+                             f"{want}")
+    return counts
+
+
 TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOPK = ("topk_select", "topk_reconstruct_sum", "topk_roundtrip")
 # (serving chunks take the forward's split path: flash_fwd_split)
@@ -8050,14 +8539,15 @@ PATHS = {"generate": ("flash_fwd", "flash_decode"), "serve": SPLIT,
                                     "segmented_lora_down",
                                     "segmented_lora_up"),
          "families": TRAIN + ("onebit_pack", "onebit_unpack_sum",
-                              "flash_decode")}
+                              "flash_decode"),
+         "process_tier": TRAIN + ("onebit_pack", "onebit_unpack_sum")}
 MAIN_PATHS = ("generate", "serve", "multitenant", "speculative",
               "serve_router", "train_raw",
               "train_onebit", "train_topk", "train_ring", "train_dcn",
               "train_hybrid", "train_chaos", "aggregate_onebit",
               "train_zero", "train_accum", "eval", "train_parallel",
               "train_pipeline", "train_moe", "train_multislice",
-              "sharded_decode", "families")
+              "sharded_decode", "families", "process_tier")
 # the launch counters of a kernels-line row: the segmented LoRA kernel's
 # fused launches and its two halves'
 ROW_COUNTS = {"segmented_lora": ("segmented_lora", "segmented_lora_down",
@@ -8179,6 +8669,10 @@ def main() -> int:
                          "T5-base training and generation, ResNet-50) and "
                          "their tiny f32 legs; no kernels line, no result "
                          "line")
+    ap.add_argument("--process_tier", action="store_true",
+                    help="run only process_tier (resume_exact, "
+                         "supervised_resume) and examples (with "
+                         "launch_global); no kernels line, no result line")
     ap.add_argument("--serve_router", action="store_true",
                     help="run only the verify chunk's flash cases, "
                          "speculative and serve_router (speculative "
@@ -8269,6 +8763,10 @@ def main() -> int:
         cfg = GPTConfig.gpt2_medium()
         params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
         emit({"phase": "launches", **serving_rest(params, cfg)})
+        return 0
+    if args.process_tier:
+        emit({"phase": "launches", "process_tier": process_tier_path()})
+        phase_examples(card)
         return 0
     if args.zero:
         zero_codec_cases(Timer())
@@ -8441,6 +8939,7 @@ def main() -> int:
     by_path["sharded_decode"] = counted_ranks("sharded_decode",
                                               phase_sharded_decode)
     by_path["families"] = check_path("families", phase_families())
+    by_path["process_tier"] = process_tier_path()
     emit({"phase": "launches", **by_path})
     phase_tiny()
     phase_train_tiny()

@@ -6,15 +6,16 @@ adapter (``byteps_tpu_torch.torch``): a copy of
 by default, whose tensors go through pinned host memory) and prints
 worker 0's GB/s.
 
-The port has no launcher yet: start one summation server and one process
-a worker, each configured by the ``DMLC_*`` environment (from the
-repository's root):
+Start one summation server and the workers through the launcher, each
+configured by the ``DMLC_*`` environment (from the repository's root):
 
     export PYTHONPATH=. DMLC_NUM_WORKER=2 DMLC_NUM_SERVER=1 \\
            DMLC_PS_ROOT_URI=127.0.0.1 DMLC_PS_ROOT_PORT=9000
-    python -m byteps_tpu_torch.server &
-    DMLC_WORKER_ID=0 python examples/torch_port/benchmark_byteps.py &
-    DMLC_WORKER_ID=1 python examples/torch_port/benchmark_byteps.py
+    DMLC_ROLE=server python -m byteps_tpu_torch.launcher &
+    # (or, the server alone: python -m byteps_tpu_torch.server &)
+    DMLC_ROLE=worker DMLC_WORKER_ID=0 BYTEPS_LOCAL_SIZE=2 \\
+        python -m byteps_tpu_torch.launcher \\
+        python examples/torch_port/benchmark_byteps.py
 """
 
 import argparse

@@ -8,16 +8,19 @@ worker training loop. ``--device`` puts the model and each batch on the
 card (``cuda``, the default) or the CPU; on the CPU every epoch's line
 is the reference example's, character for character.
 
-The port has no launcher yet: start one summation server and one process
-a worker, each configured by the ``DMLC_*`` environment (server 0
-listens on ``DMLC_PS_ROOT_PORT`` + 1; it exits once every worker shut
-down). Two workers on one host, from the repository's root:
+Start one summation server and the workers through the launcher, each
+configured by the ``DMLC_*`` environment (server 0 listens on
+``DMLC_PS_ROOT_PORT`` + 1 and exits once every worker shut down; the
+worker role spawns ``BYTEPS_LOCAL_SIZE`` workers, each its own
+``DMLC_WORKER_ID`` on one host). Two workers, from the repository's root:
 
     export PYTHONPATH=. DMLC_NUM_WORKER=2 DMLC_NUM_SERVER=1 \\
            DMLC_PS_ROOT_URI=127.0.0.1 DMLC_PS_ROOT_PORT=9000
-    python -m byteps_tpu_torch.server &
-    DMLC_WORKER_ID=0 python examples/torch_port/train_mnist_byteps.py &
-    DMLC_WORKER_ID=1 python examples/torch_port/train_mnist_byteps.py
+    DMLC_ROLE=server python -m byteps_tpu_torch.launcher &
+    # (or, the server alone: python -m byteps_tpu_torch.server &)
+    DMLC_ROLE=worker DMLC_WORKER_ID=0 BYTEPS_LOCAL_SIZE=2 \\
+        python -m byteps_tpu_torch.launcher \\
+        python examples/torch_port/train_mnist_byteps.py
 """
 
 import argparse

@@ -120,7 +120,10 @@ def test_port_imports_no_jax_and_entry_points_default_to_cuda():
               "parallel.remat", "parallel.pipeline", "parallel.moe",
               "parallel.zero3", "models.moe_gpt", "models.bert",
               "models.vit", "models.t5", "models.resnet",
-              "models.import_hf"):
+              "models.import_hf", "launcher", "_boot", "checkpoint",
+              "comm.distributed", "comm.mesh", "data", "data.loader",
+              "data.elastic", "common.socknic", "serve.kv_socket",
+              "common.flight_recorder", "common.autoscaler"):
         assert f"byteps_tpu_torch.{m}" in res["modules"], m
     assert res["leaked"] == [], res["leaked"]
     # importing every module (the server entry included) built, loaded and
@@ -164,6 +167,38 @@ def test_family_modules_import_alone_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_process_tier_modules_import_alone_without_jax():
+    """The launcher, the bootstrap, the global group, the mesh helpers,
+    the checkpointer, the input pipeline, the socket NIC and the KV
+    socket, imported on their own, load neither jax nor byteps_tpu; the
+    launcher, the socket NIC and the checkpointer load no torch either,
+    nor does a checkpoint of numpy state (a supervised child starts
+    and checkpoints without it)."""
+    probe = ("import sys, tempfile\n"
+             "import numpy as np\n"
+             "import byteps_tpu_torch.launcher, byteps_tpu_torch._boot\n"
+             "import byteps_tpu_torch.common.socknic\n"
+             "from byteps_tpu_torch.checkpoint import Checkpointer\n"
+             "ck = Checkpointer(tempfile.mkdtemp(), async_save=False)\n"
+             "ck.save(0, {'state': np.ones(3, np.float32), 'round': 0})\n"
+             "r = ck.restore({'state': np.zeros(3, np.float32), "
+             "'round': 1})\n"
+             "assert r['round'] == 0 and r['state'].sum() == 3\n"
+             "torch_free = 'torch' not in sys.modules\n"
+             "import byteps_tpu_torch.comm.distributed\n"
+             "import byteps_tpu_torch.comm.mesh\n"
+             "import byteps_tpu_torch.checkpoint\n"
+             "import byteps_tpu_torch.data\n"
+             "import byteps_tpu_torch.serve.kv_socket\n"
+             "print(torch_free, [m for m in sys.modules if m.split('.')[0] "
+             "in ('jax', 'byteps_tpu')])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True []", out.stdout
 
 
 def test_parallel_modules_import_alone_without_jax():

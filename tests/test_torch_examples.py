@@ -1,6 +1,7 @@
 """The port's copies of the PyTorch examples (``examples/torch_port/``)
-run as their docstrings say, with no launcher: one summation server and
-one process a worker, configured by ``DMLC_*``, on the CPU.
+run over one summation server and one process a worker (the processes
+the launcher's server and worker roles start), configured by
+``DMLC_*``, on the CPU.
 
 * The MNIST example, two workers over the port's server (``python -m
   byteps_tpu_torch.server``), one epoch over 256 samples: each worker's
